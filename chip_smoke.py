@@ -9,10 +9,14 @@ port's entry points: the one-shot k-FED round (Session.run) at the
 largest setting of the paper's Table 1 (d=300, k=100, k'=10, m0=5,
 40 points per component per device: 50 devices x 400 points), and the
 Theorem 3.2 serve path (Session.from_round + serve_versioned) for 32
-late devices of 1024 points with a sync refresh every 16 folds. It
-checks the launch counts of every kernel on both paths, the clustering
-accuracy, and agreement with the CPU run of the plain versions on a
-small input.
+late devices of 1024 points with a sync refresh every 16 folds, and
+the cluster-routed personalization serve path (Session.serve_predict
+through per-cluster transformer heads) at the repository's routed
+serving configuration (benchmarks/bench_route_serve.py: k=16, d=128,
+k'=4, batches of 64 requests). It checks the launch counts of every
+kernel on each path, the clustering accuracy, that the routed labels
+equal a heads-off session's, and agreement with the CPU run of the
+plain versions on small inputs.
 
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -45,6 +49,13 @@ SERVE_N, SERVE_REQUESTS = 1024, 32
 SERVE_PLAN = dict(bucket_sizes=(64, 256, 1024), batch_size=8,
                   refresh_every=16)
 MIN_ACCURACY = 0.93
+
+# The routed serving configuration of benchmarks/bench_route_serve.py
+# (its _session_leg): the round, the plan and the traffic.
+R_K, R_KP, R_D, R_M0, R_NPER, R_SEP = 16, 4, 128, 4, 25, 60.0
+R_PLAN = dict(capacity=256, batch_size=64, bucket_sizes=(64,),
+              heads="qwen1.5-0.5b", head_arch="transformer")
+R_WAVES, R_N_RANGE = 5, (20, 60)
 
 
 class SmokeFailure(RuntimeError):
@@ -287,6 +298,126 @@ def kernel_phase(fm, dev, rounds: int):
         out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                           bound_ms=bms, bound_by=by, library_ms=None)
     rows["solve_attach"] = out["f32"]
+    rows.update(routing_kernels(dev, rounds))
+    return rows
+
+
+def routing_inputs(rng, B: int, k: int, C: int):
+    """The routed step's routing of B requests voting at random among k
+    clusters with C queue slots each: (src (k*C,) int32, valid (k*C,)
+    bool, slot (B,) int32, gates (B,) f32), as fed/plane.py builds
+    them."""
+    cluster = rng.integers(0, k, size=B)
+    pos = np.zeros(B, np.int64)
+    seen = np.zeros(k, np.int64)
+    for i, c in enumerate(cluster):
+        pos[i] = seen[c]
+        seen[c] += 1
+    kept = pos < C
+    slot = cluster * C + pos
+    src = np.zeros(k * C, np.int32)
+    valid = np.zeros(k * C, bool)
+    src[slot[kept]] = np.nonzero(kept)[0]
+    valid[slot[kept]] = True
+    return (src, valid, np.where(kept, slot, 0).astype(np.int32),
+            kept.astype(np.float32))
+
+
+def routing_kernels(dev, rounds: int):
+    """moe_dispatch and moe_combine at the shapes of the routed leg's
+    step (64 requests of 64 points x 128 features, k=16 queues of C=5):
+    the data dispatch (64, 8192) -> (80, 8192), the mask dispatch
+    (64, 64) -> (80, 64), the combine (80, 128) -> (64, 128) at top_k=1;
+    plus a top_k=2 and a bf16 check. The library call is one
+    F.embedding_bag (a weighted row gather-sum), timed only."""
+    import torch.nn.functional as F
+
+    from repro_torch.fed.plane import route_capacity
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_combine import moe_combine
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
+    rng = np.random.default_rng(3)
+    B, n, k = R_PLAN["batch_size"], R_PLAN["bucket_sizes"][0], R_K
+    C = route_capacity(B, k, 1.25)
+    S = k * C
+    src, valid, slot, gates = (torch.as_tensor(a, device=dev)
+                               for a in routing_inputs(rng, B, k, C))
+    x = torch.as_tensor(rng.normal(size=(B, n * R_D)).astype(np.float32),
+                        device=dev)
+    pm = torch.as_tensor(rng.random((B, n)) < 0.7, device=dev).float()
+    rows = {}
+
+    derr = 0.0
+    for label, xx in (("data f32", x), ("mask f32", pm),
+                      ("data bf16", x.to(torch.bfloat16))):
+        got, want = moe_dispatch(xx, src, valid), ref.moe_dispatch(xx, src,
+                                                                   valid)
+        sync()
+        require(torch.equal(got, want), f"moe_dispatch {label}: differs "
+                                        f"from the plain version")
+        derr = max(derr, float((got.float() - want.float()).abs().max()))
+    ms = time_ms(lambda: moe_dispatch(x, src, valid), rounds)
+    plain = time_ms(lambda: ref.moe_dispatch(x, src, valid), rounds)
+    idx = torch.clamp(src, 0, B - 1).long().view(-1, 1)
+    w = valid.float().view(-1, 1)
+    lib = time_ms(lambda: F.embedding_bag(idx, x, per_sample_weights=w,
+                                          mode="sum"), rounds)
+    ms_mask = time_ms(lambda: moe_dispatch(pm, src, valid), rounds)
+    rows_read = int(torch.unique(src[valid]).numel())
+    d = x.shape[1]
+    nbytes = 4 * (rows_read * d + S * d) + 5 * S
+    bms, by = bound(nbytes, 0)
+    print(f"kernel moe_dispatch: data {tuple(x.shape)} -> ({S}, {d}) f32, "
+          f"{int(valid.sum())} valid slots; mask {tuple(pm.shape)}; data "
+          f"bf16; max_abs_err={derr:.1e} (bitwise) match=True | data "
+          f"ms={ms:.4f} "
+          f"plain_ms={plain:.4f} embedding_bag_ms={lib:.4f} "
+          f"bound_ms={bms:.5f} ({by}, {nbytes} bytes) | mask "
+          f"ms={ms_mask:.4f}", flush=True)
+    rows["moe_dispatch"] = dict(max_abs_err=derr, ms=ms, plain_ms=plain,
+                                bound_ms=bms, bound_by=by, library_ms=lib)
+
+    ybuf = torch.as_tensor(rng.normal(size=(S, R_D)).astype(np.float32),
+                           device=dev)
+    err = 0.0
+    for label, yy, sl, g, top_k in (
+            ("f32 top_k=1", ybuf, slot, gates, 1),
+            ("bf16 top_k=1", ybuf.to(torch.bfloat16), slot, gates, 1),
+            ("f32 top_k=2", ybuf,
+             torch.as_tensor(rng.integers(0, S, 2 * B), dtype=torch.int32,
+                             device=dev),
+             torch.as_tensor(rng.random(2 * B), dtype=torch.float32,
+                             device=dev), 2)):
+        got = moe_combine(yy, sl, g, top_k)
+        want = ref.moe_combine(yy, sl, g, top_k)
+        sync()
+        e = (got - want).abs()
+        if top_k == 1:
+            require(bool((e == 0).all()),
+                    f"moe_combine {label}: differs from the plain version")
+        else:
+            # One rounding of a product may be skipped (FMA): the bound
+            # is relative to the sum of the absolute products.
+            terms = ref.moe_combine(yy.abs(), sl, g.abs(), top_k)
+            require(bool((e <= 1e-6 * terms).all()),
+                    f"moe_combine {label}: error {float(e.max())}")
+        err = max(err, float(e.max()))
+    ms = time_ms(lambda: moe_combine(ybuf, slot, gates, 1), rounds)
+    plain = time_ms(lambda: ref.moe_combine(ybuf, slot, gates, 1), rounds)
+    cidx = torch.clamp(slot, 0, S - 1).long().view(-1, 1)
+    lib = time_ms(lambda: F.embedding_bag(cidx, ybuf,
+                                          per_sample_weights=gates.view(-1, 1),
+                                          mode="sum"), rounds)
+    rows_read = int(torch.unique(cidx).numel())
+    nbytes = 4 * (rows_read * R_D + B * R_D) + 8 * B
+    bms, by = bound(nbytes, 2 * B * R_D)
+    print(f"kernel moe_combine: ybuf {tuple(ybuf.shape)} -> ({B}, {R_D}) "
+          f"top_k=1 f32 and bf16 (bitwise), top_k=2 f32; "
+          f"max_abs_err={err:.3e} match=True | ms={ms:.4f} "
+          f"plain_ms={plain:.4f} embedding_bag_ms={lib:.4f} "
+          f"bound_ms={bms:.6f} ({by}, {nbytes} bytes)", flush=True)
+    rows["moe_combine"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               bound_ms=bms, bound_by=by, library_ms=lib)
     return rows
 
 
@@ -323,6 +454,40 @@ def small_agreement(device):
     require(float((u1 - u0).abs().max()) <= 1e-4 * float(u0.abs().max()),
             "small serve: refreshed tau differs from the CPU")
     return len(s1)
+
+
+def small_routed_agreement(device):
+    """A small routed serve on ``device`` against the CPU run of the
+    plain versions: labels, clusters and routing exact, predictions
+    within 1e-5 of their largest magnitude."""
+    from repro_torch.data.gaussian import late_device_stream, structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    fm = structured_devices(6, k=12, d=24, k_prime=3, m0=2,
+                            n_per_comp_dev=12, sep=30.0)
+    reqs = late_device_stream(fm.means, 3, 10, 8, n_range=(10, 60))
+    outs = []
+    for dev in (device, "cpu"):
+        plan = FederationPlan(k=12, k_prime=3, d=24, device=str(dev),
+                              batch_size=4, bucket_sizes=(32, 64),
+                              refresh_every=4, heads="granite-3-2b",
+                              head_arch="transformer")
+        sess = Session(plan, seed=2)
+        sess.run(7, fm.data)
+        outs.append(sess.serve_predict([r[0] for r in reqs],
+                                       [r[2] for r in reqs]))
+    got, want = outs
+    for g, w in zip(got, want):
+        require(np.array_equal(g.labels, w.labels)
+                and (g.tau_version, g.cluster, g.routed)
+                == (w.tau_version, w.cluster, w.routed),
+                "small routed serve: labels, versions, clusters or routing "
+                "differ from the CPU")
+    gp = np.stack([g.prediction for g in got])
+    wp = np.stack([w.prediction for w in want])
+    err = float(np.abs(gp - wp).max())
+    require(err <= 1e-5 * float(np.abs(wp).max()),
+            f"small routed serve: predictions differ by {err}")
+    return len(got), sum(g.routed for g in got), err
 
 
 def main_path(fm, device):
@@ -393,6 +558,82 @@ def main_path(fm, device):
     return run_counts, serve_counts
 
 
+def route_path(device):
+    """The routed personalization serve path at the routed serving
+    configuration of benchmarks/bench_route_serve.py: one warm-up wave,
+    then R_WAVES waves of 64 late devices through Session.serve_predict,
+    between a reset and a read of the launch counts. The labels must
+    equal a heads-off session's on the same requests."""
+    from repro_torch.data.gaussian import late_device_stream, structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    from repro_torch.kernels import ops
+    from repro_torch.utils.metrics import clustering_accuracy
+
+    fm = structured_devices(0, k=R_K, d=R_D, k_prime=R_KP, m0=R_M0,
+                            n_per_comp_dev=R_NPER, sep=R_SEP)
+    base = FederationPlan(k=R_K, k_prime=R_KP, d=R_D, device=str(device))
+    rr = Session(base).run(1, fm.data).detail
+    plan = base.with_options(**R_PLAN)
+    B = plan.batch_size
+    stream = late_device_stream(fm.means, R_KP, (R_WAVES + 1) * B, 3,
+                                n_range=R_N_RANGE)
+    reqs, kvs = [r[0] for r in stream], [r[2] for r in stream]
+    waves = [(reqs[lo:lo + B], kvs[lo:lo + B])
+             for lo in range(B, (R_WAVES + 1) * B, B)]
+
+    def warm_session(p):
+        sess = Session.from_round(p, rr, seed=0)
+        sess.serve(reqs[:B], kvs[:B])            # warm-up wave
+        sync()
+        return sess
+
+    sess = warm_session(plan)
+    steps0 = sess.service.plane.steps
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = [p for w in waves for p in sess.serve_predict(*w)]
+    sync()
+    route_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    batches = sess.service.plane.steps - steps0
+    st = sess.stats()["heads"]
+    npts = sum(p.labels.shape[0] for p in served)
+    routed = sum(p.routed for p in served)
+    require(len(served) == R_WAVES * B, "route: count")
+    require(all(p.prediction.shape == (R_D,)
+                and bool(np.isfinite(p.prediction).all()) for p in served),
+            "route: predictions of the wrong shape or not finite")
+    require(all(p.routed or not p.prediction.any() for p in served),
+            "route: an overflowed request has a non-zero prediction")
+    require(routed > 0, "route: no request was routed")
+    require(counts["moe_dispatch"] >= 2 * batches
+            and counts["moe_combine"] >= batches and batches >= R_WAVES,
+            f"route: {batches} routed batches launched {counts}")
+    off = warm_session(base.with_options(**{**R_PLAN, "heads": "off"}))
+    off_labels = [lbl for w in waves for lbl in off.serve(*w)]
+    require(all(np.array_equal(p.labels, lbl)
+                for p, lbl in zip(served, off_labels)),
+            "route: labels differ from the heads-off session's")
+    acc = clustering_accuracy(
+        np.concatenate([p.labels for p in served]),
+        np.concatenate([r[1] for r in stream[B:]]), R_K)
+    require(acc >= MIN_ACCURACY, f"route: accuracy {acc}")
+    print(f"route: Session.serve_predict k={R_K} k'={R_KP} d={R_D} heads="
+          f"{plan.heads}/{plan.head_arch} batch={B} queue C="
+          f"{st['queue_capacity']} x {R_K}: {R_WAVES} waves of {B} late "
+          f"devices n in [{R_N_RANGE[0]}, {R_N_RANGE[1]}) in "
+          f"{route_s:.3f} s, {len(served) / route_s:.2f} requests/s, "
+          f"{npts / route_s:.1f} points/s; routed {routed}, overflowed "
+          f"{len(served) - routed} (stats: {st['routed_served']} / "
+          f"{st['overflowed']} incl. warm-up); label accuracy {acc:.4f}, "
+          f"labels equal the heads-off session's; {batches} batches, "
+          f"launches {counts}", flush=True)
+    prof = warm_session(plan)
+    profile("route", lambda: [prof.serve_predict(*w) for w in waves],
+            route_s)
+    return counts
+
+
 def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -413,9 +654,13 @@ def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
               f"(not measured)", flush=True)
         return
     tops = "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for k, ms, n in rows[:top])
+    # The port's own kernels, wherever they rank: device time per launch.
+    ours = "; ".join(f"{k.split('::')[-1].partition('(')[0]} {ms:.4f} ms "
+                     f"x{n} ({1e3 * ms / n:.2f} us each)"
+                     for k, ms, n in rows if "repro_torch" in k)
     print(f"profile {label}: device time {dev_ms:.2f} ms of {wall_s * 1e3:.1f}"
           f" ms unprofiled wall (busy {100 * dev_ms / (wall_s * 1e3):.1f}%); "
-          f"top by device time: {tops}", flush=True)
+          f"top by device time: {tops} | port kernels: {ours}", flush=True)
 
 
 def main() -> int:
@@ -458,17 +703,28 @@ def main() -> int:
           f"devices on the card equal the CPU run of the plain versions "
           f"(labels, tau versions; tau within 1e-4)", flush=True)
     run_counts, serve_counts = main_path(fm, torch.device("cuda"))
-    for name in _build.KERNELS:
+    nreq, nrouted, perr = small_routed_agreement(torch.device("cuda"))
+    print(f"reference: a small routed serve (k=12, d=24, granite-3-2b "
+          f"transformer heads, {nreq} requests, {nrouted} routed) on the "
+          f"card equals the CPU run (labels, versions, clusters, routing "
+          f"exact; predictions within 1e-5 relative, max error "
+          f"{perr:.3e})", flush=True)
+    route_counts = route_path(torch.device("cuda"))
+    for name in ("pdist_argmin", "kmeans_update", "solve_attach"):
         require(run_counts[name] + serve_counts[name] > 0,
-                f"{name} was not launched on the main path")
-    require(serve_counts["solve_attach"] > 0 and serve_counts[
-        "pdist_argmin"] > 0 and serve_counts["kmeans_update"] > 0,
-        "the serve path did not launch every kernel")
+                f"{name} was not launched on the round and serve paths")
+        require(serve_counts[name] > 0 and route_counts[name] > 0,
+                f"{name} was not launched on every serve path")
+    for name in ("moe_dispatch", "moe_combine"):
+        require(route_counts[name] > 0,
+                f"{name} was not launched on the routed serve path")
 
     replaces = {
         "pdist_argmin": "src/repro/kernels/pdist_argmin.py:101",
         "kmeans_update": "src/repro/kernels/kmeans_update.py:90",
         "solve_attach": "src/repro/kernels/solve_attach.py:155",
+        "moe_dispatch": "src/repro/kernels/moe_dispatch.py:57",
+        "moe_combine": "src/repro/kernels/moe_dispatch.py:146",
     }
     kernels = []
     for name in _build.KERNELS:
@@ -477,13 +733,14 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": run_counts[name] + serve_counts[name],
+            "launches": (run_counts[name] + serve_counts[name]
+                         + route_counts[name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print("launches: run " + json.dumps(run_counts) + " serve "
-          + json.dumps(serve_counts) + "; every kernel matched its plain "
-          "version", flush=True)
+          + json.dumps(serve_counts) + " route " + json.dumps(route_counts)
+          + "; every kernel matched its plain version", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,8 @@ and every device's report), its tau centers, or its incremental server
 state. Given as numpy arrays (``np.asarray`` of each JAX leaf), these
 functions build the port's counterparts on a device, so that
 ``Session.from_round(plan, convert.round_result(np_round))`` serves from
-a round the JAX package computed.
+a round the JAX package computed, and ``heads=convert.heads(np_heads)``
+with the JAX package's per-cluster head parameters.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.core import server
 from repro_torch.fed import engine as E
+from repro_torch.models.heads import tree_map
 
 _INT = torch.int32
 
@@ -61,3 +63,11 @@ def server_state(state, device="cuda") -> server.ServerState:
         _t(state.weights, device, torch.float32),
         _t(state.received, device, torch.bool),
         _t(state.epoch, device, _INT))
+
+
+def heads(np_tree, device="cuda"):
+    """Per-cluster head parameters: the JAX package's ``init_heads``
+    pytree (nested dicts of ``(k, ...)`` arrays) as the port's nested
+    dicts of f32 tensors. The head casts to its storage dtype itself."""
+    return tree_map(lambda a: _t(np.asarray(a, np.float32), device,
+                                 torch.float32), np_tree)

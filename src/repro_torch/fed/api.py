@@ -7,7 +7,9 @@ have yet is refused with a ``PlanError`` naming the field; that is
 validation, not a fallback. ``Session`` owns one lifecycle: ``run`` (the
 one-shot round), ``begin``/``fold``/``finalize`` (asynchronous cohort
 arrival) and ``attach``/``serve``/``submit``/``flush``/``refresh``
-(streaming Theorem 3.2 attachment with incremental folding).
+(streaming Theorem 3.2 attachment with incremental folding), and with
+``heads`` on, ``serve_predict``/``flush_predict`` (the same serving
+through per-cluster heads, DESIGN.md §16).
 
 A Session runs on its device: CUDA unless the caller passes
 ``device="cpu"``. Without a card it refuses to start rather than run on
@@ -171,11 +173,6 @@ class FederationPlan:
                 or self.drift_max_moves < 1):
             _bad("drift_max_moves", self.drift_max_moves,
                  "must be an int >= 1 (split/retire moves per boundary)")
-        if not (isinstance(self.head_capacity, (int, float))
-                and float(self.head_capacity) > 0.0):
-            _bad("head_capacity", self.head_capacity, "must be a float > 0")
-        if self.heads != "off":
-            _not_ported("heads", self.heads, "'off'")
         if self.encode_dtype not in ENCODE_DTYPES:
             _bad("encode_dtype", self.encode_dtype,
                  f"accepted values are {list(ENCODE_DTYPES)}")
@@ -197,7 +194,8 @@ class FederationPlan:
             fold_reports=self.fold_reports,
             weight_by_core_counts=self.weight_by_core_counts,
             fold_policy=self.fold_policy, serve_dtype=self.serve_dtype,
-            local_kw=dict(self.local_kw))
+            heads=self.heads, head_capacity=self.head_capacity,
+            head_arch=self.head_arch, local_kw=dict(self.local_kw))
 
     def with_options(self, **kw) -> "FederationPlan":
         """A copy of the plan with fields replaced (re-validated)."""
@@ -222,11 +220,15 @@ class Session:
     ``run``'s first argument keys the round's k-means++ draws: an int
     seed, or a ``utils.prng.GumbelSource``. ``seed`` (or ``gumbel``)
     keys the serving requests' draws by request id. ``device`` overrides
-    the plan's device.
+    the plan's device. With ``plan.heads`` on, ``heads`` are the
+    per-cluster head parameters the serving layer starts with (see
+    ``convert.heads`` for the JAX package's); by default they are drawn
+    from ``seed``.
     """
 
     def __init__(self, plan: FederationPlan, *, seed: int = 0,
-                 device=None, gumbel: Optional[GumbelSource] = None):
+                 device=None, gumbel: Optional[GumbelSource] = None,
+                 heads=None):
         if not isinstance(plan, FederationPlan):
             raise PlanError(f"Session needs a FederationPlan, got "
                             f"{type(plan).__name__}")
@@ -235,6 +237,7 @@ class Session:
                                      else device)
         self._seed = int(seed)
         self._gumbel = gumbel
+        self._heads = heads
         self._round: Optional[E.RoundResult] = None
         self._tau: Optional[torch.Tensor] = None
         self._svc: Optional[AttachService] = None
@@ -334,7 +337,7 @@ class Session:
         if self._svc is None:
             cfg = self.plan.stream_config()
             kw = dict(seed=self._seed, gumbel=self._gumbel,
-                      device=self.device)
+                      heads=self._heads, device=self.device)
             if self._round is not None:
                 self._svc = AttachService._from_round(self._round, cfg, **kw)
             elif self._tau is not None:
@@ -378,6 +381,14 @@ class Session:
         """Like :meth:`serve`, returning (labels, tau_version) pairs."""
         return self.service.serve_versioned(datas, k_valid)
 
+    def serve_predict(self, datas, k_valid=None):
+        """Serve a batch through the plan's per-cluster heads
+        (``plan.heads != "off"``): one ``stream.ServedPrediction`` per
+        input, the :meth:`serve_versioned` labels and version plus the
+        routed head's pooled prediction, the majority-vote cluster, and
+        whether the request was routed (or overflowed its queue)."""
+        return self.service.serve_predict(datas, k_valid)
+
     def submit(self, data, k_valid: Optional[int] = None) -> int:
         return self.service.submit(data, k_valid)
 
@@ -387,6 +398,11 @@ class Session:
     def flush_versioned(self):
         """{request_id: (labels, tau_version)} for every pending request."""
         return self.service.flush_versioned()
+
+    def flush_predict(self):
+        """{request_id: ``stream.ServedPrediction``} for every pending
+        request (``plan.heads != "off"``)."""
+        return self.service.flush_predict()
 
     def refresh(self):
         """Re-finalize Algorithm 2 over all folded reports and swap in

@@ -1,13 +1,15 @@
 """The single-host serve plane (counterpart of ``repro/fed/plane.py``
-without its mesh, routed-head and encoder parts).
+without its mesh and encoder parts).
 
-It owns the two device computations of the serving hot path — the serve
-step and the fold scatter — and the double-buffered, versioned tau the
-step reads. Queues, buckets, policies and refresh cadence live in
+It owns the device computations of the serving hot path — the serve
+step, the routed personalization step (DESIGN.md §16, ``heads !=
+"off"``) and the fold scatter — and the double-buffered, versioned tau
+the steps read. Queues, buckets, policies and refresh cadence live in
 ``fed/stream.py``.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -15,8 +17,11 @@ import torch
 from repro_torch.core import server
 from repro_torch.core.lloyd import lloyd_attach
 from repro_torch.core.local_kmeans import local_prepare, split_local_kw
+from repro_torch.fed.personalize import majority_vote
+from repro_torch.kernels import ops
+from repro_torch.models.heads import apply_heads
 
-__all__ = ["ServePlane", "TauBuffer"]
+__all__ = ["ServePlane", "TauBuffer", "route_capacity"]
 
 
 class TauBuffer(NamedTuple):
@@ -75,13 +80,89 @@ def _make_step(cfg):
     return step
 
 
+def route_capacity(batch: int, k: int, factor: float) -> int:
+    """Per-cluster dispatch queue depth for a ``batch``-request step:
+    ``ceil(batch * factor / k)`` slots (>= 1). ``factor`` is the plan's
+    ``head_capacity``; requests past a cluster's queue still get labels,
+    just no prediction."""
+    return max(1, int(math.ceil(batch * float(factor) / k)))
+
+
+def _make_routed_step(cfg):
+    """The routed personalization step: the label body of
+    :func:`_make_step` (labels, centers and fold reports equal the
+    heads-off step's), then a per-request majority vote, the
+    ``moe_dispatch`` gather of whole requests into per-cluster head
+    queues (clusters are the experts), every queue through its own head
+    (``models/heads.py``) and the ``moe_combine`` back to request order.
+    The routing scatters are int/bool overwrites onto unique slots."""
+    spec = cfg.head_spec()
+    base = _make_step(cfg)
+    k = cfg.k
+
+    def routed(tau, head_params, gumbel, data, point_mask, k_valid):
+        labels, centers, cmask, weights = base(tau, gumbel, data,
+                                               point_mask, k_valid)
+        B, n_pad, d = data.shape
+        dev = data.device
+        C = route_capacity(B, k, cfg.head_capacity)
+        S = k * C
+        # One cluster per request, by first-max vote. A row with no
+        # valid point takes the out-of-range class k: it matches no
+        # cluster, so it never takes a queue slot. (The service's
+        # repeat-padding rows hold real points, so they vote and route.)
+        cluster = majority_vote(
+            torch.where(point_mask, labels, torch.full_like(labels, -1)), k)
+        req = point_mask.any(dim=1)
+        eff = torch.where(req, cluster, torch.full_like(cluster, k))
+        col = torch.clamp_max(eff, k - 1).long()
+        rows = torch.arange(B, device=dev)
+        # Queue position = exclusive running count of earlier requests
+        # of the same cluster, in row order; the first C are kept.
+        oh = (eff.unsqueeze(1) == torch.arange(k, device=dev,
+                                               dtype=eff.dtype)).int()
+        cum = torch.cumsum(oh, dim=0) - oh
+        kept = (cum[rows, col] < C) & req
+        ohl = oh * kept.int().unsqueeze(1)
+        lpos = (torch.cumsum(ohl, dim=0) - ohl)[rows, col]
+        slot = cluster * C + lpos.int()
+        # Invert request -> slot into the dispatch kernel's slot ->
+        # request vector. Kept slots are unique; an overflowed request
+        # writes to the sentinel slot S, which is sliced off (the
+        # reference's out-of-range drop).
+        slot_s = torch.where(kept, slot, torch.full_like(slot, S)).long()
+        src = torch.zeros((S + 1,), dtype=torch.int32, device=dev)
+        src[slot_s] = rows.int()
+        valid = torch.zeros((S + 1,), dtype=torch.bool, device=dev)
+        valid[slot_s] = True
+        src, valid = src[:S], valid[:S]
+        # Whole requests gather into queue order (points and validity).
+        qdata = ops.moe_dispatch(data.reshape(B, n_pad * d), src,
+                                 valid).reshape(k, C, n_pad, d)
+        qmask = ops.moe_dispatch(point_mask.float(), src,
+                                 valid).reshape(k, C, n_pad) > 0.5
+        ybuf = apply_heads(head_params, qdata, qmask, spec,
+                           serve_dtype=cfg.serve_dtype)
+        # top_k=1 with the keep mask as gates: an overflowed request
+        # combines to exactly zero.
+        preds = ops.moe_combine(ybuf.reshape(S, d),
+                                torch.where(kept, slot,
+                                            torch.zeros_like(slot)),
+                                kept.float(), top_k=1)
+        return labels, centers, cmask, weights, preds, cluster, kept
+
+    return routed
+
+
 class ServePlane:
-    """Serve step + fold scatter on one device."""
+    """Serve step, routed step and fold scatter on one device."""
 
     def __init__(self, cfg, device):
         self.cfg = cfg
         self.device = torch.device(device)
         self._step = _make_step(cfg)
+        self._routed = (_make_routed_step(cfg)
+                        if cfg.head_spec() is not None else None)
         self.steps = 0
         self.folds = 0
 
@@ -92,6 +173,16 @@ class ServePlane:
         weights (B, k'))."""
         self.steps += 1
         return self._step(tau, gumbel, data, point_mask, k_valid)
+
+    def routed_step(self, tau, head_params, gumbel, data, point_mask,
+                    k_valid):
+        """Serve one (B, n_pad, d) batch through the per-cluster heads.
+        Returns the :meth:`step` quadruple plus (preds (B, d) f32,
+        cluster (B,) int32, kept (B,) bool); preds are zero and kept is
+        False where the request overflowed its cluster's queue."""
+        self.steps += 1
+        return self._routed(tau, head_params, gumbel, data, point_mask,
+                            k_valid)
 
     def localize(self, x) -> torch.Tensor:
         """A tensor on the plane's device."""

@@ -11,24 +11,30 @@ population. tau is double-buffered and versioned, and every served
 label carries the version that produced it. A request's k-means++ draws
 depend on its own request id only, so batching never changes labels.
 
+With ``heads`` on (DESIGN.md §16), every batch goes through the plane's
+routed step instead: the same labels, plus one prediction per request
+from the head of its majority-vote cluster (``flush_predict`` /
+``serve_predict``).
+
 Not in the port yet: autoscaling, the async refresh, the ``lru`` and
-``weighted_reservoir`` admission policies, drift, routed heads, the
-encoder and checkpoints; ``fed.api.FederationPlan`` refuses a plan that
-asks for one of them.
+``weighted_reservoir`` admission policies, drift (and with it the head
+re-map on split/retire), the encoder and checkpoints;
+``fed.api.FederationPlan`` refuses a plan that asks for one of them.
 """
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import server
-from repro_torch.fed.plane import ServePlane, TauBuffer
+from repro_torch.fed.plane import ServePlane, TauBuffer, route_capacity
 from repro_torch.fed.policy import POLICIES, FoldPolicy, make_policy
 from repro_torch.kernels.ref import SOLVE_ATTACH_DTYPES
+from repro_torch.models import heads as heads_mod
 from repro_torch.utils.prng import GumbelSource
 
 
@@ -40,6 +46,25 @@ class ReproPerfWarning(UserWarning):
 class StreamConfigError(ValueError):
     """A StreamConfig field failed validation (named, with accepted
     values), raised at construction."""
+
+
+class ServedPrediction(NamedTuple):
+    """One request's routed-serving result: its labels and the tau
+    version that produced them (the pair :meth:`AttachService.
+    flush_versioned` gives), plus its cluster head's pooled prediction.
+    ``routed=False`` marks a request that overflowed its cluster's
+    dispatch queue: it has labels and a ``cluster``, and a zero
+    ``prediction``."""
+    labels: np.ndarray        # (n,) int32 per-point labels
+    tau_version: int
+    prediction: np.ndarray    # (d,) f32 pooled head output
+    cluster: int              # majority-vote cluster (the head index)
+    routed: bool              # False = dispatch-queue overflow
+
+
+# Salt of the head-init stream, apart from the per-request draws (which
+# are keyed by request id).
+_HEADS_SALT = 0x48454144  # "HEAD"
 
 
 def _bad(fieldname: str, got, accepted: str) -> None:
@@ -73,6 +98,9 @@ class StreamConfig:
     weight_by_core_counts: bool = False
     fold_policy: str = "drop"
     serve_dtype: str = "f32"    # fused-step storage: f32 | bf16
+    heads: str = "off"          # per-cluster serving heads: off|linear|<config>
+    head_capacity: float = 1.25  # dispatch queue slots per cluster, x B/k
+    head_arch: str = "ffn"      # head architecture: ffn | transformer
     local_kw: dict = field(default_factory=dict)  # Algorithm 1 options
 
     def __post_init__(self):
@@ -105,6 +133,29 @@ class StreamConfig:
             _bad("serve_dtype", self.serve_dtype,
                  f"accepted values are {list(SOLVE_ATTACH_DTYPES)} (f32, "
                  "or bfloat16 storage with f32 accumulation)")
+        if not (isinstance(self.head_capacity, (int, float))
+                and float(self.head_capacity) > 0.0):
+            _bad("head_capacity", self.head_capacity,
+                 "must be a float > 0 (per-cluster dispatch queue slots "
+                 "as a multiple of batch_size / k; requests past a "
+                 "cluster's queue are served labels without a "
+                 "prediction)")
+        if self.heads != "off":
+            if self.head_arch not in heads_mod.HEAD_ARCHS:
+                _bad("head_arch", self.head_arch,
+                     f"accepted values are {list(heads_mod.HEAD_ARCHS)}")
+            try:
+                heads_mod.resolve_head_spec(self.heads, self.head_arch,
+                                            self.d)
+            except heads_mod.HeadConfigError as e:
+                _bad("heads", self.heads, str(e))
+
+    def head_spec(self) -> Optional[heads_mod.HeadSpec]:
+        """The resolved head spec (None when heads are off)."""
+        if self.heads == "off":
+            return None
+        return heads_mod.resolve_head_spec(self.heads, self.head_arch,
+                                           self.d)
 
 
 class AttachService:
@@ -113,13 +164,16 @@ class AttachService:
     Construct with :meth:`_from_round` (seeds the fold state with the
     round's own reports) or directly from tau centers. ``gumbel`` keys
     each request's k-means++ draws by its request id (default: a
-    ``GumbelSource`` of ``seed``)."""
+    ``GumbelSource`` of ``seed``). With ``cfg.heads`` on, ``heads`` are
+    the per-cluster head parameters (``models.heads.init_heads``
+    layout); by default they are drawn from ``seed`` on a salted
+    stream."""
 
     def __init__(self, cfg: StreamConfig, tau_centers, *,
                  state: Optional[server.ServerState] = None,
                  policy: Optional[FoldPolicy] = None, seed: int = 0,
                  gumbel: Optional[GumbelSource] = None, next_id: int = 0,
-                 device="cuda"):
+                 heads=None, device="cuda"):
         self.cfg = cfg
         self.plane = ServePlane(cfg, device)
         self._taubuf = TauBuffer.fresh(self.plane.localize(tau_centers))
@@ -137,13 +191,27 @@ class AttachService:
         self._served_devices = 0
         self._served_points = 0
         self._pending: List[Tuple[int, np.ndarray, int]] = []
-        # served, not yet delivered: rid -> (labels, tau version)
+        # served, not yet delivered: rid -> (labels, tau version,
+        # (prediction, cluster, routed) | None with heads off)
         self._done: Dict[int, tuple] = {}
         self._oversized_warned: set = set()
+        self._head_spec = cfg.head_spec()
+        self._routed_served = 0
+        self._overflowed = 0
+        if self._head_spec is None:
+            self.heads = None
+        elif heads is not None:
+            self.heads = heads_mod.tree_map(self.plane.localize, heads)
+        else:
+            head_seed = np.random.SeedSequence(
+                [int(seed), _HEADS_SALT]).generate_state(1, np.uint64)[0]
+            gen = torch.Generator(device="cpu").manual_seed(int(head_seed))
+            self.heads = heads_mod.init_heads(gen, cfg.k, self._head_spec,
+                                              device=self.plane.device)
 
     @classmethod
     def _from_round(cls, rr, cfg: StreamConfig, *, seed: int = 0,
-                    gumbel: Optional[GumbelSource] = None,
+                    gumbel: Optional[GumbelSource] = None, heads=None,
                     device="cuda") -> "AttachService":
         """Seed the service from a finished round: cache its tau centers
         and fold the participating devices' reports, so a later refresh
@@ -155,7 +223,7 @@ class AttachService:
                 f"drop policy needs a slot for each of the round's "
                 f"{Z} devices")
         svc = cls(cfg, rr.agg.tau_centers, seed=seed, gumbel=gumbel,
-                  next_id=Z, device=device)
+                  next_id=Z, heads=heads, device=device)
         if cfg.fold_reports:
             ids = torch.nonzero(rr.participated.cpu()).reshape(-1)
             if ids.numel():
@@ -212,19 +280,37 @@ class AttachService:
 
     def flush(self) -> Dict[int, np.ndarray]:
         """Serve every pending request; returns {request_id: (n,) labels}."""
-        return {rid: lbl for rid, (lbl, _) in self._flush_all().items()}
+        return {rid: lbl for rid, (lbl, _, _) in self._flush_all().items()}
 
     def flush_versioned(self) -> Dict[int, Tuple[np.ndarray, int]]:
         """Serve every pending request; returns
         {request_id: ((n,) labels, tau_version)}."""
-        return self._flush_all()
+        return {rid: (lbl, ver)
+                for rid, (lbl, ver, _) in self._flush_all().items()}
+
+    def _require_heads(self, method: str) -> None:
+        if self._head_spec is None:
+            raise StreamConfigError(
+                f"{method}() needs per-cluster serving heads: set "
+                f"StreamConfig.heads to 'linear' or a registered model "
+                f"config (it is 'off')")
+
+    def flush_predict(self) -> Dict[int, ServedPrediction]:
+        """Serve every pending request through the routed step; returns
+        {request_id: :class:`ServedPrediction`}. Labels and tau versions
+        are the ones :meth:`flush_versioned` would have returned."""
+        self._require_heads("flush_predict")
+        return {rid: ServedPrediction(lbl, ver, *pred)
+                for rid, (lbl, ver, pred) in self._flush_all().items()}
 
     def _flush_all(self) -> Dict[int, tuple]:
-        """Serve every pending request, grouped by pad bucket in fixed
-        (batch_size, n_pad, d) shapes; a short batch pads by repeating
-        its last real request (discarded). Two phases: first every batch
-        is launched (serve step, fold, cadence refresh), then the labels
-        are brought to the host."""
+        """Serve every pending request; returns {request_id: (labels,
+        tau_version, pred)}, ``pred`` = (prediction, cluster, routed)
+        with heads on, else None. Requests are grouped by pad bucket in
+        fixed (batch_size, n_pad, d) shapes; a short batch pads by
+        repeating its last real request (discarded). Two phases: first
+        every batch is launched (serve or routed step, fold, cadence
+        refresh), then the results are brought to the host."""
         pending, self._pending = self._pending, []
         buckets: Dict[int, list] = {}
         for item in pending:
@@ -257,21 +343,41 @@ class AttachService:
         return out
 
     def _deliver(self, staged, out) -> None:
-        for batch, labels_dev, version in staged:
+        """Phase 2 of a flush: bring each launched batch's labels (and,
+        with heads on, predictions) to the host."""
+        for batch, labels_dev, version, routed_dev in staged:
             labels = labels_dev.cpu().numpy()
+            if routed_dev is not None:
+                preds, cl, kept = (t.cpu().numpy() for t in routed_dev)
             for i, (rid, arr, _) in enumerate(batch):
-                out[rid] = (labels[i, :arr.shape[0]], version)
+                pred = None
+                if routed_dev is not None:
+                    pred = (preds[i].copy(), int(cl[i]), bool(kept[i]))
+                    self._routed_served += int(kept[i])
+                    self._overflowed += int(not kept[i])
+                out[rid] = (labels[i, :arr.shape[0]], version, pred)
                 self._served_devices += 1
                 self._served_points += arr.shape[0]
 
     def serve(self, datas, k_valid=None) -> List[np.ndarray]:
         """Submit + flush: one labels array per input. Other requests
         already pending stay queued for the next :meth:`flush`."""
-        return [lbl for lbl, _ in self.serve_versioned(datas, k_valid)]
+        return [lbl for lbl, _, _ in self._serve_all(datas, k_valid)]
 
     def serve_versioned(self, datas,
                         k_valid=None) -> List[Tuple[np.ndarray, int]]:
         """Like :meth:`serve`, returning (labels, tau_version) pairs."""
+        return [(lbl, ver) for lbl, ver, _ in self._serve_all(datas, k_valid)]
+
+    def serve_predict(self, datas, k_valid=None) -> List[ServedPrediction]:
+        """Submit + flush through the per-cluster heads: one
+        :class:`ServedPrediction` per input (the labels and versions of
+        :meth:`serve_versioned`)."""
+        self._require_heads("serve_predict")
+        return [ServedPrediction(lbl, ver, *pred)
+                for lbl, ver, pred in self._serve_all(datas, k_valid)]
+
+    def _serve_all(self, datas, k_valid) -> List[tuple]:
         kvs = [None] * len(datas) if k_valid is None else list(k_valid)
         if len(kvs) != len(datas):
             raise StreamConfigError(
@@ -301,12 +407,19 @@ class AttachService:
         dev = self.plane.device
         gumbel = self._gumbel.draw(rids.tolist(), cfg.k_prime, n_pad, dev)
         version = self._taubuf.version
-        labels, centers, cmask, weights = self.plane.step(
-            self.tau, gumbel, torch.from_numpy(data).to(dev),
-            torch.from_numpy(pmask).to(dev), torch.from_numpy(kv).to(dev))
+        args = (gumbel, torch.from_numpy(data).to(dev),
+                torch.from_numpy(pmask).to(dev), torch.from_numpy(kv).to(dev))
+        routed = None
+        if self._head_spec is None:
+            labels, centers, cmask, weights = self.plane.step(self.tau,
+                                                              *args)
+        else:
+            (labels, centers, cmask, weights, preds, cluster,
+             kept) = self.plane.routed_step(self.tau, self.heads, *args)
+            routed = (preds, cluster, kept)
         if cfg.fold_reports:
             self._fold(batch, rids, centers, cmask, weights)
-        staged.append((batch, labels, version))
+        staged.append((batch, labels, version, routed))
 
     # -------------------------------------------------------------- fold --
 
@@ -354,6 +467,23 @@ class AttachService:
 
     # ------------------------------------------------------------- stats --
 
+    def _heads_stats(self) -> dict:
+        if self._head_spec is None:
+            return {"mode": "off"}
+        return {
+            "mode": self.cfg.heads,
+            "arch": self.cfg.head_arch,
+            "capacity_factor": float(self.cfg.head_capacity),
+            "queue_capacity": route_capacity(
+                self.cfg.batch_size, self.cfg.k, self.cfg.head_capacity),
+            "params_per_head": heads_mod.head_param_count(self._head_spec),
+            "routed_served": self._routed_served,
+            "overflowed": self._overflowed,
+            # No split/retire re-map without drift, which the port
+            # does not have yet.
+            "remap_pending": False,
+        }
+
     def stats(self) -> dict:
         return {
             "served_devices": self._served_devices,
@@ -366,5 +496,6 @@ class AttachService:
             "since_refresh": self._since_refresh,
             "tau_version": self._taubuf.version,
             "refresh_pending": self._taubuf.pending,
+            "heads": self._heads_stats(),
             **self.plane.describe(),
         }

@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-KERNELS = ("pdist_argmin", "kmeans_update", "solve_attach")
+KERNELS = ("pdist_argmin", "kmeans_update", "solve_attach", "moe_dispatch",
+           "moe_combine")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

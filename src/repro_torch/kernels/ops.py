@@ -15,6 +15,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import kmeans_update as _ku
+from repro_torch.kernels import moe_combine as _mc
+from repro_torch.kernels import moe_dispatch as _md
 from repro_torch.kernels import pdist_argmin as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import solve_attach as _sa
@@ -23,7 +25,7 @@ from repro_torch.kernels import solve_attach as _sa
 # the kernel instead of one monolithic call (repro/kernels/ops.py).
 CHUNK_ROWS = 1 << 18
 
-_WRAPPERS = (_pa, _ku, _sa)
+_WRAPPERS = (_pa, _ku, _sa, _md, _mc)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -98,3 +100,25 @@ def solve_attach(x: torch.Tensor, centers0: torch.Tensor, tau: torch.Tensor,
         x.to(store).contiguous(), centers0.to(store).contiguous(),
         tau.to(store).contiguous(), cm.contiguous(), pm.contiguous(),
         max_iters=max_iters)
+
+
+def moe_dispatch(x: torch.Tensor, src: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """Queue-order row gather (the routed step's dispatch of whole
+    requests into per-cluster head queues): (S, d) in x's dtype, slot s
+    holding row ``clip(src[s])`` of x, or zeros where not ``valid``."""
+    if x.device.type == "cpu":
+        return _ref.moe_dispatch(x, src, valid)
+    return _md.moe_dispatch(x.contiguous(), src.contiguous(),
+                            valid.contiguous())
+
+
+def moe_combine(ybuf: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
+                top_k: int) -> torch.Tensor:
+    """Weighted slot -> token re-assembly: (T, d) f32. The routed step
+    uses top_k=1 with the keep mask as gates, so an overflowed request
+    combines to exactly zero."""
+    if ybuf.device.type == "cpu":
+        return _ref.moe_combine(ybuf, slot, gates, top_k)
+    return _mc.moe_combine(ybuf.contiguous(), slot.contiguous(),
+                           gates.contiguous(), top_k)

@@ -118,3 +118,24 @@ def solve_attach(x: torch.Tensor, centers0: torch.Tensor,
     lbl = torch.gather(ctr, 1, safe)
     lbl = torch.where(a >= 0, lbl, torch.full_like(lbl, -1))
     return lbl, mind, centers.float(), ctr
+
+
+def moe_dispatch(x: torch.Tensor, src: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """Queue-order row gather: slot s takes row ``clip(src[s], 0, T-1)``
+    of x, or exact zeros where ``valid[s]`` is False. x: (T, d);
+    src: (S,) int; valid: (S,) bool. Returns (S, d) in x's dtype."""
+    rows = x[torch.clamp(src.long(), 0, x.shape[0] - 1)]
+    return torch.where(valid.bool()[:, None], rows,
+                       torch.zeros_like(rows)).to(x.dtype)
+
+
+def moe_combine(ybuf: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
+                top_k: int) -> torch.Tensor:
+    """Weighted re-assembly: ``y[t] = sum_{j < top_k} gates[t*top_k+j]
+    * ybuf[clip(slot[t*top_k+j])]`` in f32, j in order. ybuf: (S, d);
+    slot / gates: (T*top_k,). Returns (T, d) f32."""
+    rows = ybuf[torch.clamp(slot.long(), 0, ybuf.shape[0] - 1)].float()
+    w = gates.float()[:, None]
+    T = slot.shape[0] // top_k
+    return torch.sum((rows * w).reshape(T, top_k, -1), dim=1)

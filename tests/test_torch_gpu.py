@@ -8,6 +8,12 @@ jax nor the JAX package, so it runs where only the port is installed:
 Integer outputs exactly; sums and centers within rtol=1e-5, atol=1e-4;
 min squared distances within the cancellation bound of the expanded form
 ||x||^2 - 2x.c + ||c||^2, 1e-6 * (||x_i||^2 + ||c_{a_i}||^2) + 1e-6.
+The moe_dispatch gather bit for bit; moe_combine exactly for top_k=1 and,
+above, within 1e-6 of the sum of the absolute products (where a compiler
+contracts a product and a sum into one FMA, one product's rounding is
+skipped, which matters where the terms cancel); the routed step's labels,
+votes and keep mask exactly, its predictions within 1e-5 of their
+largest magnitude (f32 products summed in another order).
 The helpers here are shared with test_torch_kernels.py.
 """
 import numpy as np
@@ -21,6 +27,9 @@ T = torch.as_tensor
 
 SOLVE_SHAPES = [(1, 16, 3, 2, 4, 100), (4, 33, 7, 3, 7, 9),
                 (3, 40, 37, 5, 9, 7), (2, 64, 48, 4, 12, 50)]
+
+# (T, d, S) of the routing kernels; d=7 is not a multiple of 4.
+MOE_SHAPES = [(32, 8, 24), (100, 130, 48), (64, 7, 80)]
 
 
 def assert_min_dist(got, want, x, c, idx):
@@ -48,6 +57,37 @@ def request_batch(seed, B, n, d, kp, k):
     cm[:, 0] = True
     pm = rng.random((B, n)) < 0.9
     return tau, x, c0, cm, pm
+
+
+def moe_inputs(seed, T, d, S, top_k=1):
+    """(x (T, d) f32, src (S,) int32, valid (S,) bool, ybuf (S, d) f32,
+    (slot (T*top_k,) int32, gates (T*top_k,) f32)); a few routing
+    indices lie out of range (they are clipped) and a few gates are 0."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(T, d)) * 2).astype(np.float32)
+    src = rng.integers(0, T, size=S).astype(np.int32)
+    src[::7] = rng.choice([-3, T, T + 5], size=src[::7].shape)
+    valid = rng.random(S) < 0.8
+    ybuf = (rng.normal(size=(S, d)) * 2).astype(np.float32)
+    slot = rng.integers(0, S, size=T * top_k).astype(np.int32)
+    slot[::5] = rng.choice([-1, S, S + 2], size=slot[::5].shape)
+    gates = rng.random(T * top_k).astype(np.float32)
+    gates[::3] = 0.0
+    return x, src, valid, ybuf, (slot, gates)
+
+
+def assert_combine_close(got, want, ybuf, slot, gates, top_k):
+    """Exact for top_k=1; else |got - want| <= 1e-6 sum_j |g_j y_j|."""
+    got, want = (a.cpu() if isinstance(a, torch.Tensor)
+                 else torch.as_tensor(np.array(a)) for a in (got, want))
+    if top_k == 1:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        return
+    terms = ref.moe_combine(torch.as_tensor(ybuf).float().abs().cpu(),
+                            torch.as_tensor(slot).cpu(),
+                            torch.as_tensor(gates).abs().cpu(), top_k)
+    excess = (got - want).abs() - 1e-6 * terms
+    assert bool((excess <= 0).all()), float(excess.max())
 
 
 @pytest.fixture
@@ -129,3 +169,91 @@ def test_gpu_solve_attach_matches_plain(cuda_device, B, n, d, kp, k, iters,
     assert_min_dist(got[1].cpu().numpy(), want[1].cpu().numpy(),
                     xs.cpu().numpy(), want[2].cpu().numpy(),
                     a.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,d,S", MOE_SHAPES + [
+    (64, 8192, 80), (64, 64, 80), (3, 40001, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["mixed", "all_invalid", "unaligned"])
+def test_gpu_moe_dispatch_matches_plain(cuda_device, T, d, S, dtype, case):
+    """Bit for bit: 16-byte copies, the ragged tail, rows longer than
+    one block's chunk, and x starting off a 16-byte boundary."""
+    from repro_torch.kernels import moe_dispatch as md
+    x, src, valid, _, _ = moe_inputs(T + d, T, d, S)
+    if case == "all_invalid":
+        valid[:] = False
+    tx = torch.as_tensor(x).to(cuda_device, dtype)
+    if case == "unaligned":
+        buf = torch.zeros(T * d + 1, dtype=dtype, device=cuda_device)
+        buf[1:] = tx.reshape(-1)
+        tx = buf[1:].view(T, d)
+    ts, tv = torch.as_tensor(src).to(cuda_device), torch.as_tensor(valid).to(cuda_device)
+    before = md.LAUNCHES
+    got = md.moe_dispatch(tx, ts, tv)
+    assert md.LAUNCHES == before + 1
+    want = ref.moe_dispatch(tx, ts, tv)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,d,S", MOE_SHAPES + [(64, 128, 80)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k", [1, 2, 4])
+def test_gpu_moe_combine_matches_plain(cuda_device, T, d, S, dtype, top_k):
+    from repro_torch.kernels import moe_combine as mc
+    _, _, _, ybuf, (slot, gates) = moe_inputs(T * top_k + d, T, d, S,
+                                              top_k=top_k)
+    ty = torch.as_tensor(ybuf).to(cuda_device, dtype)
+    tsl, tg = torch.as_tensor(slot).to(cuda_device), torch.as_tensor(gates).to(cuda_device)
+    got = mc.moe_combine(ty, tsl, tg, top_k)
+    want = ref.moe_combine(ty, tsl, tg, top_k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert_combine_close(got, want, ty, tsl, tg, top_k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,arch", [("qwen1.5-0.5b", "transformer"),
+                                        ("nemotron-4-15b", "ffn")])
+def test_gpu_routed_step_matches_cpu(cuda_device, heads, arch):
+    """One routed step on the card (both routing kernels) against the
+    CPU run of the plain versions on the same inputs, heads and draws;
+    the all-to-one half of the batch overflows its queue."""
+    from repro_torch.fed.plane import _make_routed_step
+    from repro_torch.fed.stream import StreamConfig
+    from repro_torch.models.heads import init_heads, tree_map
+    from repro_torch.utils.prng import GumbelSource
+    k, d, B, n = 8, 32, 16, 48
+    cfg = StreamConfig(k=k, k_prime=2, d=d, capacity=64, batch_size=B,
+                       bucket_sizes=(n,), heads=heads, head_arch=arch)
+    rng = np.random.default_rng(0)
+    tau = (rng.normal(size=(k, d)) * 20).astype(np.float32)
+    owner = np.where(np.arange(B) < B // 2, np.arange(B) % k, 0)
+    data = (rng.normal(size=(B, n, d)) + tau[owner][:, None]).astype(
+        np.float32)
+    pmask = np.ones((B, n), bool)
+    pmask[3, n // 2:] = False
+    kv = np.full((B,), 2, np.int32)
+    params = init_heads(torch.Generator().manual_seed(1), k,
+                        cfg.head_spec())
+    g = GumbelSource(3).draw(range(B), 2, n, "cpu")
+    step = _make_routed_step(cfg)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        args = [torch.as_tensor(a).to(dev) for a in (tau, g, data, pmask, kv)]
+        p = tree_map(lambda a: a.to(dev), params)
+        ops.reset_launch_counts()
+        out = step(args[0], p, *args[1:])
+        outs.append([o.cpu() for o in out])
+        if dev.type == "cuda":
+            counts = ops.launch_counts()
+            assert counts["moe_dispatch"] == 2 and counts["moe_combine"] == 1
+    got, want = outs
+    for i in (0, 2, 5, 6):      # labels, center mask, cluster, kept
+        assert torch.equal(got[i], want[i]), i
+    assert not bool(want[6].all())   # the one-cluster half overflowed
+    scale = float(want[4].abs().max())
+    torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-5 * scale)
+    assert bool((got[4][~want[6]] == 0).all())

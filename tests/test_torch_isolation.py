@@ -16,6 +16,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.fed.api import FederationPlan, Session  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.kmeans_update import kmeans_update  # noqa: E402
+from repro_torch.kernels.moe_combine import moe_combine  # noqa: E402
+from repro_torch.kernels.moe_dispatch import moe_dispatch  # noqa: E402
 from repro_torch.kernels.pdist_argmin import pdist_argmin  # noqa: E402
 from repro_torch.kernels.solve_attach import solve_attach  # noqa: E402
 
@@ -71,6 +73,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         solve_attach(x, c, torch.zeros((6, 3)),
                      torch.ones((2, 4), dtype=torch.bool),
                      torch.ones((2, 5), dtype=torch.bool), max_iters=3)
+    idx = torch.zeros((4,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        moe_dispatch(x[0], idx, torch.ones((4,), dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        moe_combine(x[0], idx, torch.ones((4,)), 1)
 
 
 def test_cpu_dispatch_launches_no_kernel():
@@ -81,5 +88,9 @@ def test_cpu_dispatch_launches_no_kernel():
     ops.assign_argmin(x, c)
     ops.kmeans_update(x, torch.zeros((2, 16), dtype=torch.int32), 3)
     ops.solve_attach(x, c, c[0], max_iters=5)
+    idx = torch.zeros((4,), dtype=torch.int32)
+    ops.moe_dispatch(x[0], idx, torch.ones((4,), dtype=torch.bool))
+    ops.moe_combine(x[0], idx, torch.ones((4,)), 1)
     assert ops.launch_counts() == {"pdist_argmin": 0, "kmeans_update": 0,
-                                   "solve_attach": 0}
+                                   "solve_attach": 0, "moe_dispatch": 0,
+                                   "moe_combine": 0}

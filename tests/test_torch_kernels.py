@@ -7,6 +7,10 @@ within rtol=atol=1e-5, and min squared distances within the
 cancellation bound of the expanded form ||x||^2 - 2x.c + ||c||^2,
 1e-6 * (||x_i||^2 + ||c_{a_i}||^2) + 1e-6 (not a flat atol). The CUDA
 kernels are held against the plain versions by test_torch_gpu.py.
+The routed step's gather (moe_dispatch) is a copy and must match
+exactly; its combine (moe_combine) exactly for top_k=1 and, for top_k=2,
+within 1e-6 of the sum of the absolute products (two products summed,
+which a compiler may contract into one FMA).
 """
 import numpy as np
 import pytest
@@ -16,10 +20,14 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.kmeans_update import kmeans_update as pallas_update  # noqa: E402
+from repro.kernels.moe_dispatch import moe_combine as pallas_combine  # noqa: E402
+from repro.kernels.moe_dispatch import moe_dispatch as pallas_dispatch  # noqa: E402
 from repro.kernels.pdist_argmin import pairwise_argmin as pallas_argmin  # noqa: E402
 from repro.kernels.solve_attach import solve_attach_fused as pallas_solve  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from test_torch_gpu import SOLVE_SHAPES, assert_min_dist, request_batch  # noqa: E402
+from test_torch_gpu import (MOE_SHAPES, SOLVE_SHAPES,  # noqa: E402
+                            assert_combine_close, assert_min_dist,
+                            moe_inputs, request_batch)
 
 T = torch.as_tensor
 
@@ -224,3 +232,62 @@ def test_solve_attach_freezes_converged_requests():
                                T(cm[b:b + 1]), T(pm[b:b + 1]), max_iters=30)
         for o, w in zip(one, whole):
             torch.testing.assert_close(o[0], w[b], rtol=0, atol=0)
+
+
+# ---------------------------------------------------- moe dispatch/combine --
+
+def _pair(x, dtype):
+    """The same values as a torch and a jax array of ``dtype``."""
+    tx = torch.as_tensor(x)
+    jx = jnp.asarray(x)
+    if dtype == "bf16":
+        return tx.to(torch.bfloat16), jx.astype(jnp.bfloat16)
+    return tx, jx
+
+
+def _np(a):
+    return (a.float().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(jnp.asarray(a, jnp.float32)))
+
+
+@pytest.mark.parametrize("T,d,S", MOE_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("all_invalid", [False, True])
+def test_moe_dispatch_matches_jax(T, d, S, dtype, all_invalid):
+    """Port ref == JAX ref == Pallas (interpret), bit for bit, with
+    out-of-range routing indices (clipped) and d not a multiple of 4."""
+    x, src, valid, _, _ = moe_inputs(T * 7 + d, T, d, S)
+    if all_invalid:
+        valid[:] = False
+    tx, jx = _pair(x, dtype)
+    got = ops.moe_dispatch(tx, torch.as_tensor(src), torch.as_tensor(valid))
+    assert got.dtype == tx.dtype and got.shape == (S, d)
+    want = jref.moe_dispatch(jx, jnp.asarray(src), jnp.asarray(valid))
+    pal = pallas_dispatch(jx, jnp.asarray(src), jnp.asarray(valid), bd=128,
+                          interpret=True)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    np.testing.assert_array_equal(_np(got), _np(pal))
+    assert np.all(_np(got)[~valid] == 0.0)
+
+
+@pytest.mark.parametrize("T,d,S", MOE_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_combine_matches_jax(T, d, S, dtype, top_k):
+    """Port ref == JAX ref == Pallas (interpret): exact for top_k=1,
+    within 1e-6 of sum |g y| for top_k=2; zero gates drop their slot, and slots out of
+    range are clipped (by the port and the JAX reference; the Pallas
+    kernel is given them clipped)."""
+    _, _, _, ybuf, _ = moe_inputs(S * 3 + d, T, d, S)
+    _, _, _, _, (slot, gates) = moe_inputs(T + top_k, T, d, S, top_k=top_k)
+    ty, jy = _pair(ybuf, dtype)
+    got = ops.moe_combine(ty, torch.as_tensor(slot), torch.as_tensor(gates),
+                          top_k)
+    assert got.dtype == torch.float32 and got.shape == (T, d)
+    want = jref.moe_combine(jy, jnp.asarray(slot), jnp.asarray(gates), top_k)
+    # The Pallas kernel takes slots already clipped (its contract).
+    pal = pallas_combine(jy, jnp.asarray(np.clip(slot, 0, S - 1)),
+                         jnp.asarray(gates), top_k=top_k, bd=128,
+                         interpret=True)
+    for other in (want, pal):
+        assert_combine_close(got, other, ty, slot, gates, top_k)

@@ -168,7 +168,7 @@ def test_from_tau_and_lifecycle_errors(mixture):
     ("topology", "sharded"), ("serve_axes", ("data",)),
     ("autoscale", "latency"), ("refresh", "async"), ("fold_policy", "lru"),
     ("fold_policy", "weighted_reservoir"), ("drift", "decay"),
-    ("heads", "linear"), ("encoder", "granite_3_2b")])
+    ("encoder", "granite_3_2b")])
 def test_plan_refuses_what_is_not_ported(field, value):
     """A value whose code the port does not have is refused, naming the
     field; it never falls back to something else."""
