@@ -13,10 +13,15 @@ late devices of 1024 points with a sync refresh every 16 folds, and
 the cluster-routed personalization serve path (Session.serve_predict
 through per-cluster transformer heads) at the repository's routed
 serving configuration (benchmarks/bench_route_serve.py: k=16, d=128,
-k'=4, batches of 64 requests). It checks the launch counts of every
-kernel on each path, the clustering accuracy, that the routed labels
-equal a heads-off session's, and agreement with the CPU run of the
-plain versions on small inputs.
+k'=4, batches of 64 requests), and LM serving through
+repro_torch.launch.serve.generate at Mixtral-8x7B's full width (d=4096,
+32 heads over 8 KV heads of 128, 8 experts top-2 of 14336, vocab 32000,
+sliding window 4096, bf16) cut to 8 of its 32 layers: 4 prompts of 4096
+tokens, then 32 greedy steps over the ring cache, each through the
+swa_decode kernel. It checks the launch counts of every kernel on each
+path, the clustering accuracy, that the routed labels equal a heads-off
+session's, that the decode leg's logits are finite, and agreement with
+the CPU run of the plain versions on small inputs.
 
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -40,6 +45,7 @@ HERE = Path(__file__).resolve().parent
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
 # f32 outside the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # The paper's Table 1 at its largest setting
@@ -56,6 +62,12 @@ R_K, R_KP, R_D, R_M0, R_NPER, R_SEP = 16, 4, 128, 4, 25, 60.0
 R_PLAN = dict(capacity=256, batch_size=64, bucket_sizes=(64,),
               heads="qwen1.5-0.5b", head_arch="transformer")
 R_WAVES, R_N_RANGE = 5, (20, 60)
+
+# The LM decode leg: Mixtral-8x7B as published (configs/mixtral_8x7b.py,
+# arXiv:2401.04088) cut to 8 of its 32 layers (32 layers are about 93 GB
+# in bf16, more than the card's 80 GB); 4 prompts of its own window,
+# 4096 tokens, then 32 greedy steps: every step decodes over the ring.
+MX_LAYERS, MX_BATCH, MX_PROMPT, MX_STEPS, MX_SEED = 8, 4, 4096, 32, 0
 
 
 class SmokeFailure(RuntimeError):
@@ -299,6 +311,8 @@ def kernel_phase(fm, dev, rounds: int):
                           bound_ms=bms, bound_by=by, library_ms=None)
     rows["solve_attach"] = out["f32"]
     rows.update(routing_kernels(dev, rounds))
+    moe_prefill_kernels(dev, rounds)
+    rows["swa_decode"] = swa_kernel(dev, rounds)
     return rows
 
 
@@ -419,6 +433,144 @@ def routing_kernels(dev, rounds: int):
     rows["moe_combine"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                bound_ms=bms, bound_by=by, library_ms=lib)
     return rows
+
+
+def moe_prefill_kernels(dev, rounds: int) -> None:
+    """moe_dispatch and moe_combine at the decode leg's prefill shape:
+    16384 tokens (4 x 4096) of d=4096 bf16 routed top-2 among Mixtral's
+    8 experts into queues of C=5120 slots (capacity factor 1.25), by the
+    model's own routing (models/moe.py _route and _plan)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_combine import moe_combine
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
+    from repro_torch.models import moe
+    cfg = get_config("mixtral-8x7b")
+    m, d = cfg.moe, cfg.d_model
+    T = MX_BATCH * MX_PROMPT
+    C = moe._capacity(T, m)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(T, d, generator=g, device=dev).to(torch.bfloat16)
+    router = (torch.randn(d, m.n_experts, generator=g, device=dev)
+              * 0.006).to(torch.bfloat16)
+    ids, gates, _ = moe._route(router, x, m)
+    src, valid, flat_e, pos_c, keep = moe._plan(ids, m, C)
+    S = src.shape[0]
+    got, want = moe_dispatch(x, src, valid), ref.moe_dispatch(x, src, valid)
+    sync()
+    require(torch.equal(got, want), "moe_dispatch prefill: differs from the "
+                                    "plain version")
+    ms = time_ms(lambda: moe_dispatch(x, src, valid), rounds)
+    plain = time_ms(lambda: ref.moe_dispatch(x, src, valid), rounds)
+    idx = torch.clamp(src, 0, T - 1).long().view(-1, 1)
+    w = valid.to(x.dtype).view(-1, 1)
+    lib = time_ms(lambda: F.embedding_bag(idx, x, per_sample_weights=w,
+                                          mode="sum"), rounds)
+    nbytes = 2 * (int(torch.unique(src[valid]).numel()) * d + S * d) + 5 * S
+    bms, by = bound(nbytes, 0)
+    print(f"kernel moe_dispatch mixtral prefill: x {tuple(x.shape)} bf16 -> "
+          f"({S}, {d}) = {m.n_experts} experts x C={C}, "
+          f"{int(valid.sum())} valid slots; bitwise match=True | "
+          f"ms={ms:.4f} plain_ms={plain:.4f} embedding_bag_ms={lib:.4f} "
+          f"bound_ms={bms:.5f} ({by}, {nbytes} bytes)", flush=True)
+
+    ybuf = torch.randn(S, d, generator=g, device=dev).to(torch.bfloat16)
+    slot = (flat_e * C + pos_c).to(torch.int32)
+    wk = torch.where(keep, gates.reshape(-1), 0.0).float()
+    got = moe_combine(ybuf, slot, wk, m.top_k)
+    want = ref.moe_combine(ybuf, slot, wk, m.top_k)
+    sync()
+    terms = ref.moe_combine(ybuf.abs(), slot, wk.abs(), m.top_k)
+    err = (got - want).abs()
+    require(bool((err <= 1e-6 * terms).all()),
+            f"moe_combine prefill: error {float(err.max())}")
+    ms = time_ms(lambda: moe_combine(ybuf, slot, wk, m.top_k), rounds)
+    plain = time_ms(lambda: ref.moe_combine(ybuf, slot, wk, m.top_k), rounds)
+    cidx = torch.clamp(slot, 0, S - 1).long().view(T, m.top_k)
+    cw = wk.to(ybuf.dtype).view(T, m.top_k)
+    lib = time_ms(lambda: F.embedding_bag(cidx, ybuf, per_sample_weights=cw,
+                                          mode="sum"), rounds)
+    rows_read = int(torch.unique(slot[keep]).numel())
+    nbytes = 2 * rows_read * d + 4 * T * d + 8 * T * m.top_k
+    bms, by = bound(nbytes, 2 * T * m.top_k * d)
+    print(f"kernel moe_combine mixtral prefill: ybuf {tuple(ybuf.shape)} bf16 "
+          f"-> ({T}, {d}) f32, top_k={m.top_k}, {int(keep.sum())} of "
+          f"{T * m.top_k} choices kept; max_abs_err={float(err.max()):.3e} "
+          f"(within 1e-6 of sum |g y|) match=True | ms={ms:.4f} "
+          f"plain_ms={plain:.4f} embedding_bag_ms={lib:.4f} (bf16 out) "
+          f"bound_ms={bms:.5f} ({by}, {nbytes} bytes)", flush=True)
+
+
+def swa_inputs(g, dev, b, h, kvh, dh, W, dtype):
+    """q, kw, vw drawn on the card, and a ring's bias: about a quarter of
+    the slots empty, scattered, and row 0's first 64 slots all empty."""
+    q = torch.randn(b, h, dh, generator=g, device=dev).to(dtype)
+    kw = torch.randn(b, W, kvh, dh, generator=g, device=dev).to(dtype)
+    vw = torch.randn(b, W, kvh, dh, generator=g, device=dev).to(dtype)
+    valid = torch.rand(b, W, generator=g, device=dev) < 0.75
+    valid[0, :min(W - 1, 64)] = False
+    valid[:, -1] = True
+    bias = torch.where(valid, 0.0, -1e30).float()
+    return q, kw, vw, bias
+
+
+def swa_kernel(dev, rounds: int):
+    """swa_decode at the decode leg's shape: q (4, 32, 128) against the
+    ring of one layer, kw / vw (4, 4096, 8, 128), in bf16 and in f32,
+    plus a ragged window (W=200, g=1). The library call is
+    F.scaled_dot_product_attention on the (b, kvh, W, dh) views with
+    enable_gqa and the bias as its mask, timed only."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.swa_decode import swa_decode_attention as swa
+    g = torch.Generator(device=dev).manual_seed(5)
+    cases = [("leg bf16", (MX_BATCH, 32, 8, 128, 4096), torch.bfloat16),
+             ("leg f32", (MX_BATCH, 32, 8, 128, 4096), torch.float32),
+             ("ragged bf16", (MX_BATCH, 8, 8, 128, 200), torch.bfloat16),
+             ("ragged f32", (MX_BATCH, 8, 8, 128, 200), torch.float32)]
+    errs, rels = [], []
+    for label, (b, h, kvh, dh, W), dtype in cases:
+        q, kw, vw, bias = swa_inputs(g, dev, b, h, kvh, dh, W, dtype)
+        scale = 1.0 / math.sqrt(dh)
+        got = swa(q, kw, vw, bias, scale)
+        want = ref.swa_decode_attention(q, kw, vw, bias, scale)
+        sync()
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        require(rel <= tol, f"swa_decode {label}: error {err} is {rel:.2e} of "
+                            f"the largest output (tolerance {tol})")
+        errs.append(err)
+        rels.append(f"{label} {err:.3e} ({rel:.1e} rel)")
+    q, kw, vw, bias = swa_inputs(g, dev, MX_BATCH, 32, 8, 128, 4096,
+                                 torch.bfloat16)
+    scale = 1.0 / math.sqrt(128)
+    ms = time_ms(lambda: swa(q, kw, vw, bias, scale), rounds)
+    plain = time_ms(lambda: ref.swa_decode_attention(q, kw, vw, bias, scale),
+                    rounds)
+    qs, ks, vs = q[:, :, None, :], kw.transpose(1, 2), vw.transpose(1, 2)
+    mask = bias[:, None, None, :].to(q.dtype)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True), rounds)
+    b, h, dh = q.shape
+    W, kvh = kw.shape[1], kw.shape[2]
+    nbytes = 2 * (2 * q.numel() + kw.numel() + vw.numel()) + 4 * bias.numel()
+    flops = 4 * b * h * W * dh
+    bms, by = bound(nbytes, flops)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"kernel swa_decode: q {tuple(q.shape)} kw/vw {tuple(kw.shape)} "
+          f"bf16, scattered ring; errors {'; '.join(rels)} match=True | "
+          f"leg bf16 ms={ms:.4f} plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
+          f"bound_ms={bms:.5f} ({by}, {nbytes} bytes, {flops} flops) | "
+          f"{b * kvh} blocks (one per sequence and kv head) on {sms} SMs",
+          flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
 
 
 # ------------------------------------------------------------ main path --
@@ -634,6 +786,165 @@ def route_path(device):
     return counts
 
 
+def small_lm_agreement(device):
+    """Reduced Mixtral (f32; 2 layers, d=256, W=64) through
+    launch.serve.generate on ``device`` and on the CPU from the same
+    parameters: 2 prompts of 64 tokens, 8 greedy steps over the ring.
+    Tokens exact, logits within 1e-4 of their largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, init_params
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    cfg = get_config("mixtral-8x7b", reduced=True).replace(dtype="float32")
+    model = build_model(cfg)
+    params = init_params(model, seed=0, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 64)), dtype=torch.int32)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        stats = {}
+        out = generate(model, tree_map(lambda a: a.to(dev), params),
+                       {"tokens": toks}, steps=8, stats=stats)
+        runs.append((out.cpu(), torch.stack([lg.float().cpu()
+                                             for lg in stats["logits"]])))
+    (t1, l1), (t0, l0) = runs
+    require(torch.equal(t1, t0), "small LM: tokens differ from the CPU")
+    err = float((l1 - l0).abs().max())
+    require(err <= 1e-4 * float(l0.abs().max()),
+            f"small LM: logits differ from the CPU by {err}")
+    return err
+
+
+def decode_leg(device):
+    """LM serving at Mixtral-8x7B's full width, 8 of 32 layers: a
+    warm-up, then 4 prompts of 4096 tokens and 32 greedy steps through
+    launch.serve.generate between a reset and a read of the launch
+    counts. Every step takes the ring branch (4096 + 33 > W = 4096), so
+    each layer launches swa_decode once a step; each MoE layer launches
+    moe_dispatch and moe_combine once in the prefill and once a step.
+    Then swa_decode is held against its plain version on the leg's own
+    layer-0 ring and last query, and 8 more steps run under the
+    profiler."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.swa_decode import swa_decode_attention as swa
+    from repro_torch.launch.serve import (generate, init_params,
+                                          make_serve_step)
+    from repro_torch.models.common import apply_norm, apply_rope, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import layer_params
+    t_leg = time.perf_counter()
+    full = get_config("mixtral-8x7b")
+    cfg = full.replace(n_layers=MX_LAYERS)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model, seed=MX_SEED, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    leaves = []
+    tree_map(leaves.append, params)
+    pbytes = sum(a.numel() * a.element_size() for a in leaves)
+    prompts = torch.as_tensor(np.random.default_rng(MX_SEED).integers(
+        0, cfg.vocab_size, size=(MX_BATCH, MX_PROMPT)), dtype=torch.int32)
+    batch = {"tokens": prompts}
+    generate(model, params, batch, steps=2)           # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    stats = {}
+    toks = generate(model, params, batch, steps=MX_STEPS, stats=stats)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    cache = stats["cache"]
+    B, V = MX_BATCH, cfg.vocab_size
+    require(tuple(toks.shape) == (B, MX_STEPS)
+            and bool(((toks >= 0) & (toks < V)).all()), "decode: tokens")
+    require(all(tuple(lg.shape) == (B, V) and bool(torch.isfinite(lg).all())
+                for lg in stats["logits"]), "decode: logits not finite")
+    require(all("pos" in seg for seg in cache["segments"]),
+            "decode: the cache is not a ring")
+    want = {"swa_decode": MX_LAYERS * MX_STEPS,
+            "moe_dispatch": MX_LAYERS * (MX_STEPS + 1),
+            "moe_combine": MX_LAYERS * (MX_STEPS + 1)}
+    require(all(counts[k] == n for k, n in want.items()),
+            f"decode: launches {counts}, expected {want}")
+
+    # swa_decode on the leg's own layer-0 ring and the last step's query.
+    seg, lp = cache["segments"][0], layer_params(params["segments"][0], 0)
+    pos = cache["len"].long() - 1
+    require(bool((seg["pos"][0].amax(dim=-1) == pos).all()),
+            "decode: the ring does not hold the last position")
+    h = apply_norm(cfg.norm, lp["ln1"], params["embed"][toks[:, -1].long()])
+    q = (h @ lp["attn"]["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)[:, 0].contiguous()
+    bias = torch.where(seg["pos"][0] >= 0, 0.0, -1e30).float()
+    scale = 1.0 / math.sqrt(cfg.hd)
+    got = swa(q, seg["k"][0], seg["v"][0], bias, scale)
+    ref_out = ref.swa_decode_attention(q, seg["k"][0], seg["v"][0], bias,
+                                       scale)
+    sync()
+    serr = float((got.float() - ref_out.float()).abs().max())
+    require(serr <= 2e-2 * float(ref_out.float().abs().max()),
+            f"decode: swa_decode on the leg's ring differs by {serr}")
+
+    # Bounds. Decode: every parameter but the embedding table is read
+    # each step (every expert's queue has C >= 1 slots), plus B embedding
+    # rows and the rings' keys and values. Prefill: the products the
+    # model needs (bf16 on the tensor cores; attention scores and
+    # weighted sums in f32), counting only the routed (token, expert)
+    # pairs.
+    emb = params["embed"]
+    kv_bytes = sum(seg[n].numel() * seg[n].element_size()
+                   for seg in cache["segments"] for n in ("k", "v"))
+    step_bytes = (pbytes - emb.numel() * emb.element_size()
+                  + B * cfg.d_model * emb.element_size() + kv_bytes)
+    step_bound_ms = step_bytes / PEAK_HBM_BYTES * 1e3
+    T, d, H, KVH, hd = B * MX_PROMPT, cfg.d_model, cfg.n_heads, \
+        cfg.n_kv_heads, cfg.hd
+    m = cfg.moe
+    pairs = sum(min(i + 1, cfg.sliding_window) for i in range(MX_PROMPT))
+    bf16_flops = MX_LAYERS * (2 * T * d * (2 * H + 2 * KVH) * hd
+                              + 2 * T * d * m.n_experts
+                              + 2 * T * m.top_k * 3 * d * m.d_expert) \
+        + 2 * B * d * V
+    f32_flops = MX_LAYERS * 4 * B * H * hd * pairs
+    prefill_bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    prefill_s, decode_s = stats["prefill_s"], stats["decode_s"]
+    step_ms = decode_s / MX_STEPS * 1e3
+    print(f"decode: Mixtral-8x7B (d={d}, {H} heads / {KVH} kv heads of {hd}, "
+          f"{m.n_experts} experts top-{m.top_k} of {m.d_expert}, vocab {V}, "
+          f"W={cfg.sliding_window}, bf16) cut to {MX_LAYERS} of "
+          f"{full.n_layers} layers ({full.n_layers} layers are about "
+          f"{pbytes / MX_LAYERS * full.n_layers / 1e9:.0f} GB in bf16, more "
+          f"than the card's 80 GB; {MX_LAYERS} are {pbytes / 1e9:.2f} GB, "
+          f"drawn on the card in {init_s:.2f} s): {B} prompts of {MX_PROMPT} "
+          f"tokens, {MX_STEPS} greedy steps through launch.serve.generate "
+          f"over the ring cache | prefill {prefill_s:.3f} s, "
+          f"{T / prefill_s:.1f} tokens/s (bound {prefill_bound_s:.3f} s, "
+          f"operations: {bf16_flops:.3e} bf16 + {f32_flops:.3e} f32 flops) | "
+          f"decode {decode_s:.3f} s, {B * MX_STEPS / decode_s:.1f} tokens/s, "
+          f"{step_ms:.3f} ms per step (bound {step_bound_ms:.3f} ms, bytes: "
+          f"{step_bytes / 1e9:.2f} GB per step) | peak memory "
+          f"{peak_gb:.2f} GB | logits finite, swa_decode on the leg's layer-0 "
+          f"ring max_abs_err={serr:.3e} | launches {counts} | leg wall "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+
+    step = make_serve_step(model)
+    tok = toks[:, -1].to(device)
+
+    def eight_steps():
+        c = cache
+        for _ in range(8):
+            _, c = step(params, c, tok)
+
+    profile("decode", eight_steps, decode_s * 8 / MX_STEPS)
+    del params, cache, stats
+    torch.cuda.empty_cache()
+    return counts
+
+
 def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -674,6 +985,7 @@ def main() -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    t_all = time.perf_counter()
     from repro_torch.data.gaussian import structured_devices
     from repro_torch.kernels import _build, ops
 
@@ -710,14 +1022,23 @@ def main() -> int:
           f"exact; predictions within 1e-5 relative, max error "
           f"{perr:.3e})", flush=True)
     route_counts = route_path(torch.device("cuda"))
+    lerr = small_lm_agreement(torch.device("cuda"))
+    print(f"reference: reduced Mixtral (f32, 2 layers, d=256, W=64) through "
+          f"generate, 2 prompts of 64 tokens and 8 steps over the ring, on "
+          f"the card equals the CPU run (tokens exact; logits within 1e-4 "
+          f"relative, max error {lerr:.3e})", flush=True)
+    decode_counts = decode_leg(torch.device("cuda"))
     for name in ("pdist_argmin", "kmeans_update", "solve_attach"):
         require(run_counts[name] + serve_counts[name] > 0,
                 f"{name} was not launched on the round and serve paths")
         require(serve_counts[name] > 0 and route_counts[name] > 0,
                 f"{name} was not launched on every serve path")
     for name in ("moe_dispatch", "moe_combine"):
-        require(route_counts[name] > 0,
-                f"{name} was not launched on the routed serve path")
+        require(route_counts[name] > 0 and decode_counts[name] > 0,
+                f"{name} was not launched on the routed serve path and the "
+                f"decode leg")
+    require(decode_counts["swa_decode"] > 0,
+            "swa_decode was not launched on the decode leg")
 
     replaces = {
         "pdist_argmin": "src/repro/kernels/pdist_argmin.py:101",
@@ -725,6 +1046,7 @@ def main() -> int:
         "solve_attach": "src/repro/kernels/solve_attach.py:155",
         "moe_dispatch": "src/repro/kernels/moe_dispatch.py:57",
         "moe_combine": "src/repro/kernels/moe_dispatch.py:146",
+        "swa_decode": "src/repro/kernels/swa_decode.py:65",
     }
     kernels = []
     for name in _build.KERNELS:
@@ -734,14 +1056,16 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": (run_counts[name] + serve_counts[name]
-                         + route_counts[name]),
+                         + route_counts[name] + decode_counts[name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print("launches: run " + json.dumps(run_counts) + " serve "
           + json.dumps(serve_counts) + " route " + json.dumps(route_counts)
+          + " decode " + json.dumps(decode_counts)
           + "; every kernel matched its plain version", flush=True)
-    print(f"card: {smi}", flush=True)
+    print(f"card: {smi}; chip_smoke wall {time.perf_counter() - t_all:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

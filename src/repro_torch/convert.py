@@ -6,7 +6,9 @@ state. Given as numpy arrays (``np.asarray`` of each JAX leaf), these
 functions build the port's counterparts on a device, so that
 ``Session.from_round(plan, convert.round_result(np_round))`` serves from
 a round the JAX package computed, and ``heads=convert.heads(np_heads)``
-with the JAX package's per-cluster head parameters.
+with the JAX package's per-cluster head parameters; and
+``model_params`` carries a JAX ``Model.init`` pytree across for the
+port's ``models.model.Model``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from repro_torch.core import server
 from repro_torch.fed import engine as E
-from repro_torch.models.heads import tree_map
+from repro_torch.models.common import tree_map
 
 _INT = torch.int32
 
@@ -71,3 +73,20 @@ def heads(np_tree, device="cuda"):
     dicts of f32 tensors. The head casts to its storage dtype itself."""
     return tree_map(lambda a: _t(np.asarray(a, np.float32), device,
                                  torch.float32), np_tree)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype; bfloat16 (numpy's
+    extension type from ``np.asarray`` of a JAX bf16 array) by its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return _t(a.view(np.int16), device).view(torch.bfloat16)
+    return _t(a, device)
+
+
+def model_params(np_tree, device="cuda"):
+    """A JAX ``Model.init`` pytree (dicts, with ``segments`` a tuple of
+    dicts of layer-stacked arrays; leaves as numpy) as the port's
+    parameters: the same nesting, every leaf a tensor of its own dtype
+    on ``device``."""
+    return tree_map(lambda a: _tensor(a, device), np_tree)

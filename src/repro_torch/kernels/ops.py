@@ -20,12 +20,13 @@ from repro_torch.kernels import moe_dispatch as _md
 from repro_torch.kernels import pdist_argmin as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import solve_attach as _sa
+from repro_torch.kernels import swa_decode as _sw
 
 # Row count above which assign_argmin streams fixed-size chunks through
 # the kernel instead of one monolithic call (repro/kernels/ops.py).
 CHUNK_ROWS = 1 << 18
 
-_WRAPPERS = (_pa, _ku, _sa, _md, _mc)
+_WRAPPERS = (_pa, _ku, _sa, _md, _mc, _sw)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -122,3 +123,16 @@ def moe_combine(ybuf: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
         return _ref.moe_combine(ybuf, slot, gates, top_k)
     return _mc.moe_combine(ybuf.contiguous(), slot.contiguous(),
                            gates.contiguous(), top_k)
+
+
+def swa_decode_attention(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
+                         bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """One-token attention over a window of cached keys (the ring-cache
+    decode of a sliding-window model): (b, h, dh) in q's dtype. bias
+    (b, W) is added to the scaled scores: 0 where a slot holds a key,
+    -1e30 where it does not."""
+    if q.device.type == "cpu":
+        return _ref.swa_decode_attention(q, kw, vw, bias, scale)
+    return _sw.swa_decode_attention(q.contiguous(), kw.contiguous(),
+                                    vw.contiguous(),
+                                    bias.float().contiguous(), float(scale))

@@ -139,3 +139,19 @@ def moe_combine(ybuf: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
     w = gates.float()[:, None]
     T = slot.shape[0] // top_k
     return torch.sum((rows * w).reshape(T, top_k, -1), dim=1)
+
+
+def swa_decode_attention(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
+                         bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """One-token attention over a window of cached keys, with GQA head
+    groups. q: (b, h, dh); kw / vw: (b, W, kvh, dh); bias: (b, W) added
+    to the scaled scores (0 valid, -1e30 not). Scores, softmax and the
+    weighted sum in f32; returns (b, h, dh) in q's dtype."""
+    b, h, dh = q.shape
+    kvh = kw.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, dh).float()
+    s = torch.einsum("bkgd,bwkd->bkgw", qg, kw.float()) * scale
+    s = s + bias.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgw,bwkd->bkgd", p, vw.float())
+    return o.reshape(b, h, dh).to(q.dtype)

@@ -1,0 +1,103 @@
+"""Serving entry points (counterpart of ``repro/launch/serve.py``):
+batched prefill, the decode step, and ``generate``, a prefill followed
+by a decode loop.
+
+    model = build_model(get_config("mixtral-8x7b", reduced=True))
+    params = init_params(model, seed=0)            # on the card
+    tokens = generate(model, params, {"tokens": prompts}, steps=32)
+
+``init_params`` draws on ``cuda`` unless it is given ``device="cpu"``,
+and refuses to start without a card; ``generate`` runs where the
+parameters are. A sliding-window model whose prompt plus steps exceed
+its window decodes over a ring cache, through the ``swa_decode``
+kernel.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.models.common import DistCtx
+from repro_torch.models.model import Model
+
+
+def init_params(model: Model, seed: int = 0, device="cuda"):
+    """The model's parameters drawn from a generator seeded with
+    ``seed`` on ``device``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "init_params runs on CUDA, but torch.cuda.is_available() is "
+            "False: run it on a machine with an NVIDIA GPU, or pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU")
+    return model.init(torch.Generator(device=dev).manual_seed(seed))
+
+
+def make_serve_step(model: Model, ctx: Optional[DistCtx] = None):
+    ctx = ctx or DistCtx.local()
+
+    def serve_step(params, cache, tokens):
+        return model.serve_step(params, cache, tokens, ctx)
+    return serve_step
+
+
+def make_prefill(model: Model, ctx: Optional[DistCtx] = None):
+    ctx = ctx or DistCtx.local()
+
+    def prefill(params, batch):
+        return model.prefill(params, batch, ctx)
+    return prefill
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.no_grad()
+def generate(model: Model, params, batch, *, steps: int,
+             ctx: Optional[DistCtx] = None, greedy: bool = True,
+             generator: Optional[torch.Generator] = None,
+             stats: Optional[dict] = None) -> torch.Tensor:
+    """Prefill ``batch["tokens"]`` (B, S), then decode ``steps`` tokens.
+    Returns (B, steps) int32: the prefill's next token, then each step's.
+
+    Greedy decoding takes the argmax; sampled decoding
+    (``greedy=False``) draws from the softmax of the logits with
+    ``generator``. If ``stats`` is a dict, it receives the wall seconds
+    of the prefill (``prefill_s``) and of the decode loop
+    (``decode_s``), each ending in a device sync, the logits of the
+    prefill and of every step (``logits``) and the final ``cache``."""
+    ctx = ctx or DistCtx.local()
+    device = params["embed"].device
+    model.decode_room = steps + 1
+    prefill = make_prefill(model, ctx)
+    step = make_serve_step(model, ctx)
+    tokens = torch.as_tensor(batch["tokens"]).to(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {**batch, "tokens": tokens})
+    if stats is not None:
+        _sync(device)
+        stats["prefill_s"] = time.perf_counter() - t0
+        stats["logits"] = [logits]
+        t0 = time.perf_counter()
+    toks = []
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for _ in range(steps):
+        toks.append(tok)
+        logits, cache = step(params, cache, tok)
+        if stats is not None:
+            stats["logits"].append(logits)
+        if greedy:
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            probs = torch.softmax(logits.float(), dim=-1)
+            tok = torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+                torch.int32)
+    if stats is not None:
+        _sync(device)
+        stats["decode_s"] = time.perf_counter() - t0
+        stats["cache"] = cache
+    return torch.stack(toks, dim=1)

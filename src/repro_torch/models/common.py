@@ -1,18 +1,45 @@
-"""Shared model building blocks (counterpart of the parts of
-``repro/models/common.py`` the serving heads use): the normal
-initializer, RMS norm and the norm parameters."""
+"""Shared model building blocks (counterpart of
+``repro/models/common.py``): the normal initializer, norms, rotary
+embeddings, and the distribution context every layer takes."""
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 
+@dataclass(frozen=True)
+class DistCtx:
+    """The distribution context of the reference's signatures. The port
+    runs on one device (``mesh`` None); a context with a mesh is refused
+    where a layer would shard (ROADMAP item 5)."""
+    mesh: Optional[object] = None
+
+    @staticmethod
+    def local() -> "DistCtx":
+        return DistCtx()
+
+
+def tree_map(fn: Callable, *trees):
+    """``fn`` over the leaves of nested dicts, tuples and lists of
+    tensors (a model's parameters or its cache), in the same nesting."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (tuple, list)):
+        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
                scale: float = 0.02) -> torch.Tensor:
-    """Normal(0, 1) * ``scale`` drawn in f32 on the CPU from ``gen``,
-    stored in ``dtype``."""
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+    """Normal(0, 1) * ``scale`` drawn in f32 from ``gen`` on the
+    generator's device, stored in ``dtype``: a CPU generator draws on
+    the CPU, a CUDA generator on the card (the full-width models have
+    billions of parameters)."""
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
     return (w * scale).to(dtype)
 
 
@@ -25,8 +52,47 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def init_norm(kind: str, d: int, dtype) -> Dict[str, torch.Tensor]:
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Normalized in f32 (population variance), cast back, then
+    ``* w + b`` in x's dtype: the reference's cast order."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * w + b
+
+
+def apply_norm(kind: str, params, x: torch.Tensor) -> torch.Tensor:
     if kind == "layernorm":
-        return {"w": torch.ones((d,), dtype=dtype),
-                "b": torch.zeros((d,), dtype=dtype)}
-    return {"w": torch.ones((d,), dtype=dtype)}
+        return layer_norm(x, params["w"], params["b"])
+    return rms_norm(x, params["w"])
+
+
+def init_norm(kind: str, d: int, dtype,
+              device=None) -> Dict[str, torch.Tensor]:
+    if kind == "layernorm":
+        return {"w": torch.ones((d,), dtype=dtype, device=device),
+                "b": torch.zeros((d,), dtype=dtype, device=device)}
+    return {"w": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    """(hd / 2,) f32 inverse frequencies ``1 / theta^(2i / hd)``."""
+    i = torch.arange(0, hd, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (i / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) rotated in halves (the first D/2 features
+    against the last); positions broadcastable to x.shape[:-2] + (S,).
+    In f32, cast back to x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., None].float() * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

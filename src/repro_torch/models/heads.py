@@ -29,14 +29,15 @@ over the request's point set, then the FFN block).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.models.attention import init_gqa, plain_attention
-from repro_torch.models.common import dense_init, init_norm, rms_norm
+from repro_torch.models.common import (dense_init, init_norm, rms_norm,
+                                       tree_map)
 from repro_torch.models.ffn import init_ffn
 
 __all__ = ["HEAD_ARCHS", "HeadConfigError", "HeadSpec", "apply_heads",
@@ -109,13 +110,6 @@ def resolve_head_spec(name: str, arch: str, d: int) -> HeadSpec:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-
-
-def tree_map(fn: Callable, tree):
-    """``fn`` applied to every tensor of a nested dict of parameters."""
-    if isinstance(tree, dict):
-        return {key: tree_map(fn, v) for key, v in tree.items()}
-    return fn(tree)
 
 
 def _init_one(gen: torch.Generator, spec: HeadSpec, dtype) -> Params:

@@ -1,0 +1,169 @@
+"""Model assembly and the serving API (counterpart of
+``repro/models/model.py``): ``build_model(cfg)`` -> ``Model`` with
+``init``, ``prefill``, ``init_cache`` and ``serve_step``, for the dense
+and moe families with GQA attention.
+
+Parameters are the reference's pytree as nested dicts of tensors
+(``embed``, ``final_norm``, ``segments`` (a tuple, one dict of stacked
+layers per segment) and ``unembed`` unless the embeddings are tied), so
+``convert.model_params`` carries the JAX package's parameters across
+one to one. The decode cache is ``{"len": (B,) int32, "segments": [...]}``
+with one dict of layer-stacked k / v (and ring ``pos``) per segment;
+``serve_step`` updates it in place and returns it with ``len + 1``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models.common import (DistCtx, apply_norm, dense_init,
+                                       init_norm)
+from repro_torch.models.transformer import (init_segment, plan_segments,
+                                            run_segment, run_segment_decode)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+PORTED_FAMILIES = ("dense", "moe")
+
+
+class Model:
+    def __init__(self, cfg):
+        if cfg.family not in PORTED_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: family {cfg.family!r} is not ported yet "
+                f"(ROADMAP item 9); the port serves {list(PORTED_FAMILIES)}")
+        if cfg.attn != "gqa":
+            raise NotImplementedError(
+                f"{cfg.name}: attention {cfg.attn!r} is not ported yet "
+                f"(ROADMAP item 9); the port has GQA")
+        if cfg.mtp:
+            raise NotImplementedError(
+                f"{cfg.name}: the multi-token-prediction head is not ported "
+                f"yet (ROADMAP item 9)")
+        self.cfg = cfg
+        self.segments = plan_segments(cfg)
+        self.dtype = _DTYPES[cfg.dtype]
+        # Decode steps the prefill cache makes room for (generate sets it).
+        self.decode_room = 1
+
+    # ------------------------------------------------------------- init --
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Parameters drawn from ``gen`` on its device (a CUDA generator
+        draws a full-width model on the card)."""
+        cfg, dtype = self.cfg, self.dtype
+        p: Dict[str, Any] = {
+            "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
+            "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
+            "segments": tuple(init_segment(gen, cfg, spec, dtype)
+                              for spec in self.segments),
+        }
+        if not cfg.tie_embeddings:
+            p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                      dtype)
+        return p
+
+    # ------------------------------------------------------- common bits --
+    def _unembed(self, p, x: torch.Tensor, ctx: DistCtx = None):
+        w = p["embed"].T if self.cfg.tie_embeddings else p["unembed"]
+        return x @ w
+
+    def _backbone(self, p, x: torch.Tensor, ctx: DistCtx, *,
+                  want_cache: bool = False):
+        """All segments, then the final norm. Returns (x, aux, caches)."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        caches = []
+        for i, spec in enumerate(self.segments):
+            x, a, cache = run_segment(p["segments"][i], x, cfg, ctx, spec,
+                                      want_cache=want_cache)
+            aux = aux + a
+            caches.append(cache)
+        return apply_norm(cfg.norm, p["final_norm"], x), aux, caches
+
+    def _embed_inputs(self, p, batch, ctx: DistCtx = None):
+        """Token embedding. Returns (x, label_offset)."""
+        return p["embed"][batch["tokens"].long()], 0
+
+    # ----------------------------------------------------------- prefill --
+    def prefill(self, p, batch, ctx: DistCtx = None):
+        """Full forward over ``batch["tokens"]`` (B, S), building the
+        decode cache. Returns (last-token logits (B, V), cache)."""
+        ctx = ctx or DistCtx.local()
+        x, _ = self._embed_inputs(p, batch, ctx)
+        h, _, caches = self._backbone(p, x, ctx, want_cache=True)
+        logits = self._unembed(p, h[:, -1, :], ctx)
+        return logits, self._pack_cache(caches, x.shape[0], x.shape[1])
+
+    def _pack_cache(self, caches: List[Dict[str, torch.Tensor]], B: int,
+                    S: int):
+        """Prefill caches -> the decode layout. A sliding-window model
+        whose room exceeds its window gets a ring of W slots holding the
+        last W positions at ring indices 0..W-1, as the reference lays
+        it out (``repro/models/model.py`` ``_pack_cache``); otherwise the
+        full cache is padded to the room."""
+        cfg = self.cfg
+        dev = caches[0]["k"].device
+        out = {"len": torch.full((B,), S, dtype=torch.int32, device=dev),
+               "segments": []}
+        room = S + self.decode_room
+        for cache in caches:
+            if cfg.sliding_window and room > cfg.sliding_window:
+                W = cfg.sliding_window
+                k = cache["k"][:, :, -W:].contiguous()
+                v = cache["v"][:, :, -W:].contiguous()
+                pos = torch.arange(S - W, S, dtype=torch.int32, device=dev)
+                entry = {"k": k, "v": v,
+                         "pos": torch.broadcast_to(
+                             pos[None, None, :],
+                             (k.shape[0], B, W)).contiguous()}
+            else:
+                pad = room - S
+                entry = {name: torch.nn.functional.pad(
+                    cache[name], (0, 0, 0, 0, 0, pad)) for name in ("k", "v")}
+            out["segments"].append(entry)
+        return out
+
+    # -------------------------------------------------------- init_cache --
+    def init_cache(self, B: int, S: int, device=None):
+        """Zeroed decode cache with room for S (+1) tokens."""
+        cfg, dtype = self.cfg, self.dtype
+        room = S + 1
+        out = {"len": torch.zeros((B,), dtype=torch.int32, device=device),
+               "segments": []}
+        for spec in self.segments:
+            L = spec.n_layers
+            if cfg.sliding_window and room > cfg.sliding_window:
+                c = A.init_ring_cache(B, cfg.sliding_window, cfg.n_kv_heads,
+                                      cfg.hd, dtype, L, device)
+            else:
+                c = A.init_full_cache(B, room, cfg.n_kv_heads, cfg.hd, dtype,
+                                      L, device)
+            c.pop("len")
+            out["segments"].append(c)
+        return out
+
+    # --------------------------------------------------------- serve_step --
+    def serve_step(self, p, cache, tokens: torch.Tensor,
+                   ctx: DistCtx = None):
+        """One decode step. tokens: (B,). Returns (logits (B, V), cache),
+        the cache updated in place with ``len`` advanced by one."""
+        ctx = ctx or DistCtx.local()
+        cfg = self.cfg
+        lengths = cache["len"]
+        x1 = p["embed"][tokens.long()]
+        segments = []
+        for i, spec in enumerate(self.segments):
+            x1, ns = run_segment_decode(p["segments"][i], x1, cfg, ctx, spec,
+                                        cache=cache["segments"][i],
+                                        lengths=lengths)
+            segments.append(ns)
+        x1 = apply_norm(cfg.norm, p["final_norm"], x1)
+        logits = self._unembed(p, x1, ctx)
+        return logits, {"len": lengths + 1, "segments": segments}
+
+
+def build_model(cfg) -> Model:
+    return Model(cfg)

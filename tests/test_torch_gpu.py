@@ -14,6 +14,9 @@ contracts a product and a sum into one FMA, one product's rounding is
 skipped, which matters where the terms cancel); the routed step's labels,
 votes and keep mask exactly, its predictions within 1e-5 of their
 largest magnitude (f32 products summed in another order).
+swa_decode within 2e-5 (f32) or 2e-2 (bf16, one rounding of the output)
+of the plain version's largest magnitude: an online softmax over tiles
+sums in another order than one softmax over the window.
 The helpers here are shared with test_torch_kernels.py.
 """
 import numpy as np
@@ -74,6 +77,38 @@ def moe_inputs(seed, T, d, S, top_k=1):
     gates = rng.random(T * top_k).astype(np.float32)
     gates[::3] = 0.0
     return x, src, valid, ybuf, (slot, gates)
+
+
+def swa_inputs(seed, b, h, kvh, dh, W, ring):
+    """(q (b, h, dh), kw, vw (b, W, kvh, dh), bias (b, W)) as f32 numpy.
+    ``ring="scattered"``: valid slots anywhere in the window, the first
+    row's first tile all masked, and (b >= 3) the last row all masked;
+    ``"prefix"``: row i holds min(W, 17 i + 30) keys from slot 0."""
+    rng = np.random.default_rng(seed)
+    q = (rng.normal(size=(b, h, dh)) * 0.5).astype(np.float32)
+    kw = (rng.normal(size=(b, W, kvh, dh)) * 0.5).astype(np.float32)
+    vw = (rng.normal(size=(b, W, kvh, dh)) * 0.5).astype(np.float32)
+    if ring == "scattered":
+        valid = rng.random((b, W)) < 0.6
+        valid[0, :min(W - 1, 64)] = False
+        valid[:, -1] = True
+        if b >= 3:
+            valid[-1] = False
+    else:
+        lens = np.minimum(W, 17 * np.arange(b) + 30)
+        valid = np.arange(W)[None, :] < lens[:, None]
+    bias = np.where(valid, 0.0, -1e30).astype(np.float32)
+    return q, kw, vw, bias
+
+
+def assert_swa_close(got, want, dtype):
+    """|got - want| <= tol * max|want|: 2e-5 in f32, 2e-2 in bf16."""
+    got, want = (torch.as_tensor(np.asarray(a, np.float32))
+                 if not isinstance(a, torch.Tensor) else a.float().cpu()
+                 for a in (got, want))
+    tol = 2e-2 if dtype in (torch.bfloat16, "bfloat16") else 2e-5
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
 
 
 def assert_combine_close(got, want, ybuf, slot, gates, top_k):
@@ -257,3 +292,138 @@ def test_gpu_routed_step_matches_cpu(cuda_device, heads, arch):
     scale = float(want[4].abs().max())
     torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-5 * scale)
     assert bool((got[4][~want[6]] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [64, 200, 4096])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ring", ["scattered", "prefix"])
+def test_gpu_swa_decode_matches_plain(cuda_device, W, g, dh, dtype, ring):
+    from repro_torch.kernels import swa_decode as sw
+    kvh = 2
+    arrays = swa_inputs(W + g + dh, 3, g * kvh, kvh, dh, W, ring)
+    q, kw, vw = (torch.as_tensor(a).to(cuda_device, dtype)
+                 for a in arrays[:3])
+    bias = torch.as_tensor(arrays[3]).to(cuda_device)
+    before = sw.LAUNCHES
+    got = sw.swa_decode_attention(q, kw, vw, bias, 1.0 / np.sqrt(dh))
+    assert sw.LAUNCHES == before + 1
+    want = ref.swa_decode_attention(q, kw, vw, bias, 1.0 / np.sqrt(dh))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert_swa_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_gpu_swa_decode_leg_shape_and_refusals(cuda_device):
+    """The decode leg's shape (4 sequences, 32 heads over 8 kv heads of
+    128, W=4096, bf16), an odd head width (the scalar load path), and
+    the operands the kernel refuses."""
+    from repro_torch.kernels import swa_decode as sw
+    for (b, h, kvh, dh, W) in ((4, 32, 8, 128, 4096), (2, 6, 3, 33, 77)):
+        arrays = swa_inputs(b * W, b, h, kvh, dh, W, "scattered")
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kw, vw = (torch.as_tensor(a).to(cuda_device, dtype)
+                         for a in arrays[:3])
+            bias = torch.as_tensor(arrays[3]).to(cuda_device)
+            got = sw.swa_decode_attention(q, kw, vw, bias, 0.125)
+            want = ref.swa_decode_attention(q, kw, vw, bias, 0.125)
+            torch.cuda.synchronize()
+            assert_swa_close(got, want, dtype)
+    with pytest.raises(ValueError, match="do not match"):
+        sw.swa_decode_attention(q, kw.to(torch.bfloat16), vw, bias, 1.0)
+    with pytest.raises(ValueError, match="beyond the kernel"):
+        big = torch.zeros((1, 2, 512), device=cuda_device)
+        sw.swa_decode_attention(big, torch.zeros((1, 4, 1, 512),
+                                                 device=cuda_device),
+                                torch.zeros((1, 4, 1, 512),
+                                            device=cuda_device),
+                                torch.zeros((1, 4), device=cuda_device), 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,cf", [(16, 1.5), (512, 1.5), (512, 0.5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_local_moe_matches_cpu(cuda_device, T, cf, dtype):
+    """The MoE layer of reduced Mixtral on the card (both routing
+    kernels) against its CPU run. In f32 the routing (experts, their
+    order and the capacity drops) is exact and the output within 1e-5
+    of its largest magnitude. In bf16 the router's logits are rounded
+    to bf16 after products summed in another order (cuBLAS may also
+    reduce in bf16), so tokens whose logits are tied within that
+    difference may route the other way: each token's expert set is
+    exact wherever its k-th and (k+1)-th logits lie more than twice the
+    largest logit difference apart, and the output is within 2e-2 on
+    every token routed and kept alike on both devices."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("mixtral-8x7b", reduced=True)
+    m = dataclasses.replace(cfg.moe, capacity_factor=cf)
+    gen = torch.Generator().manual_seed(T)
+    p = moe.init_moe(gen, cfg, dtype)
+    x = torch.randn(T, cfg.d_model, generator=gen).to(dtype)
+    C = moe._capacity(T, m)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        pd, xd = {k: v.to(dev) for k, v in p.items()}, x.to(dev)
+        ops.reset_launch_counts()
+        y, aux = moe._local_moe(pd, xd, m)
+        if dev.type == "cuda":
+            counts = ops.launch_counts()
+            assert counts["moe_dispatch"] == 1 and counts["moe_combine"] == 1
+        ids = moe._route(pd["router"], xd, m)[0]
+        keep = moe._plan(ids, m, C)[4].view(T, m.top_k)
+        outs.append((y.float().cpu(), float(aux), ids.cpu(), keep.cpu(),
+                     (xd @ pd["router"]).float().cpu()))
+    (y1, a1, i1, k1, l1), (y0, a0, i0, k0, l0) = outs
+    if dtype == torch.float32:
+        assert torch.equal(i1, i0) and torch.equal(k1, k0)
+        same = torch.ones(T, dtype=torch.bool)
+        tol, tol_aux = 1e-5, 1e-5
+    else:
+        # The same expert set, its keep flags in expert order.
+        o1, o0 = i1.argsort(-1), i0.argsort(-1)
+        same_set = (i1.gather(-1, o1) == i0.gather(-1, o0)).all(-1)
+        same = same_set & (k1.gather(-1, o1) == k0.gather(-1, o0)).all(-1)
+        top = torch.sort(l0, dim=-1, descending=True).values
+        clear = (top[:, m.top_k - 1] - top[:, m.top_k]
+                 > 2 * float((l1 - l0).abs().max()))
+        assert bool(same_set[clear].all())
+        assert float(same.float().mean()) > 0.75
+        tol, tol_aux = 2e-2, 1e-2
+    assert float((y1 - y0)[same].abs().max()) <= tol * float(y0.abs().max())
+    assert abs(a1 - a0) <= tol_aux * abs(a0)
+
+
+@pytest.mark.gpu
+def test_gpu_generate_matches_cpu(cuda_device):
+    """Reduced Mixtral (f32, W=64) through launch.serve.generate on the
+    card and on the CPU from the same parameters: 64-token prompts, 8
+    steps over the ring cache; tokens exact, logits within 1e-4 of their
+    largest magnitude, one swa_decode launch per layer and step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    cfg = get_config("mixtral-8x7b", reduced=True).replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 64)), dtype=torch.int32)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ops.reset_launch_counts()
+        stats = {}
+        p = tree_map(lambda a: a.to(dev), params)
+        out = generate(model, p, {"tokens": toks}, steps=8, stats=stats)
+        runs.append((out.cpu(), torch.stack([lg.float().cpu()
+                                             for lg in stats["logits"]])))
+        if dev.type == "cuda":
+            assert ops.launch_counts()["swa_decode"] == 8 * cfg.n_layers
+    (t1, l1), (t0, l0) = runs
+    assert torch.equal(t1, t0)
+    assert float((l1 - l0).abs().max()) <= 1e-4 * float(l0.abs().max())

@@ -20,6 +20,7 @@ from repro_torch.kernels.moe_combine import moe_combine  # noqa: E402
 from repro_torch.kernels.moe_dispatch import moe_dispatch  # noqa: E402
 from repro_torch.kernels.pdist_argmin import pdist_argmin  # noqa: E402
 from repro_torch.kernels.solve_attach import solve_attach  # noqa: E402
+from repro_torch.kernels.swa_decode import swa_decode_attention  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -78,6 +79,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         moe_dispatch(x[0], idx, torch.ones((4,), dtype=torch.bool))
     with pytest.raises(ValueError, match="CUDA tensor"):
         moe_combine(x[0], idx, torch.ones((4,)), 1)
+    kv = torch.zeros((2, 6, 1, 3))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        swa_decode_attention(x[:, :2], kv, kv, torch.zeros((2, 6)), 1.0)
 
 
 def test_cpu_dispatch_launches_no_kernel():
@@ -91,6 +95,36 @@ def test_cpu_dispatch_launches_no_kernel():
     idx = torch.zeros((4,), dtype=torch.int32)
     ops.moe_dispatch(x[0], idx, torch.ones((4,), dtype=torch.bool))
     ops.moe_combine(x[0], idx, torch.ones((4,)), 1)
+    kv = torch.zeros((2, 6, 1, 4))
+    ops.swa_decode_attention(x[:, :2], kv, kv, torch.zeros((2, 6)), 0.5)
     assert ops.launch_counts() == {"pdist_argmin": 0, "kmeans_update": 0,
                                    "solve_attach": 0, "moe_dispatch": 0,
-                                   "moe_combine": 0}
+                                   "moe_combine": 0, "swa_decode": 0}
+
+
+def test_serve_path_imports_no_jax():
+    """Importing the LM serve path loads neither jax nor the JAX
+    package (checked in a fresh interpreter), and init_params refuses
+    to start without a card unless asked for the CPU."""
+    import os
+    import subprocess
+    import sys
+    code = ("import sys; import repro_torch.models.model, "
+            "repro_torch.launch.serve; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; assert not bad, bad")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def test_init_params_without_card_refuses_to_start(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models.model import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_config("mixtral-8x7b", reduced=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(model)
+    p = init_params(model, device="cpu")
+    assert p["embed"].device.type == "cpu"

@@ -7,6 +7,8 @@ within rtol=atol=1e-5, and min squared distances within the
 cancellation bound of the expanded form ||x||^2 - 2x.c + ||c||^2,
 1e-6 * (||x_i||^2 + ||c_{a_i}||^2) + 1e-6 (not a flat atol). The CUDA
 kernels are held against the plain versions by test_torch_gpu.py.
+The ring-cache decode attention (swa_decode) within 2e-6 in f32 and
+2e-2 in bf16 (the output rounded to bf16 once on each side).
 The routed step's gather (moe_dispatch) is a copy and must match
 exactly; its combine (moe_combine) exactly for top_k=1 and, for top_k=2,
 within 1e-6 of the sum of the absolute products (two products summed,
@@ -24,10 +26,11 @@ from repro.kernels.moe_dispatch import moe_combine as pallas_combine  # noqa: E4
 from repro.kernels.moe_dispatch import moe_dispatch as pallas_dispatch  # noqa: E402
 from repro.kernels.pdist_argmin import pairwise_argmin as pallas_argmin  # noqa: E402
 from repro.kernels.solve_attach import solve_attach_fused as pallas_solve  # noqa: E402
+from repro.kernels.swa_decode import swa_decode_attention as pallas_swa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from test_torch_gpu import (MOE_SHAPES, SOLVE_SHAPES,  # noqa: E402
                             assert_combine_close, assert_min_dist,
-                            moe_inputs, request_batch)
+                            moe_inputs, request_batch, swa_inputs)
 
 T = torch.as_tensor
 
@@ -291,3 +294,31 @@ def test_moe_combine_matches_jax(T, d, S, dtype, top_k):
                          interpret=True)
     for other in (want, pal):
         assert_combine_close(got, other, ty, slot, gates, top_k)
+
+
+# ---------------------------------------------------------- swa_decode --
+
+# The shapes of tests/test_kernels.py (b, h, kvh, dh, W) with rows of
+# min(W, 17 i + 30) valid keys from slot 0, and a ring whose valid slots
+# are scattered, the first tile of the first row all masked.
+SWA_CASES = [(2, 8, 2, 64, 128, "prefix"), (1, 4, 4, 32, 200, "prefix"),
+             (3, 8, 1, 128, 384, "prefix"), (2, 8, 2, 64, 200, "scattered")]
+
+
+@pytest.mark.parametrize("b,h,kvh,dh,W,ring", SWA_CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_swa_decode_matches_jax(b, h, kvh, dh, W, ring, dtype):
+    """Port ref == JAX ref == Pallas (interpret, 64-key window blocks)."""
+    q, kw, vw, bias = swa_inputs(b + W, b, h, kvh, dh, W, ring)
+    tq, jq = _pair(q, dtype)
+    tk, jk = _pair(kw, dtype)
+    tv, jv = _pair(vw, dtype)
+    scale = 1.0 / np.sqrt(dh)
+    got = ops.swa_decode_attention(tq, tk, tv, torch.as_tensor(bias), scale)
+    assert got.dtype == tq.dtype and got.shape == (b, h, dh)
+    want = jref.swa_decode_attention(jq, jk, jv, jnp.asarray(bias), scale)
+    pal = pallas_swa(jq, jk, jv, jnp.asarray(bias), scale, bw=64,
+                     interpret=True)
+    tol = 2e-2 if dtype == "bf16" else 2e-6
+    for other in (want, pal):
+        np.testing.assert_allclose(_np(got), _np(other), rtol=0, atol=tol)
