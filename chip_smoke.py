@@ -95,6 +95,33 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one call: CUDA events around the replay of a CUDA
+    graph of ``n`` calls, the median of ``reps`` replays. Unlike
+    time_ms, the host's enqueue of each call is not in the way."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return sorted(times)[reps // 2]
+
+
 def sync() -> None:
     torch.cuda.synchronize()
 
@@ -519,7 +546,9 @@ def swa_inputs(g, dev, b, h, kvh, dh, W, dtype):
 def swa_kernel(dev, rounds: int):
     """swa_decode at the decode leg's shape: q (4, 32, 128) against the
     ring of one layer, kw / vw (4, 4096, 8, 128), in bf16 and in f32,
-    plus a ragged window (W=200, g=1). The library call is
+    plus a ragged window (W=200, g=1), a window of 8192 keys, and a
+    window short enough for one chunk (S = 1, the split kernel writes
+    the output itself). The library call is
     F.scaled_dot_product_attention on the (b, kvh, W, dh) views with
     enable_gqa and the bias as its mask, timed only."""
     import math
@@ -527,13 +556,16 @@ def swa_kernel(dev, rounds: int):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
+    from repro_torch.kernels.swa_decode import splits
     from repro_torch.kernels.swa_decode import swa_decode_attention as swa
     g = torch.Generator(device=dev).manual_seed(5)
     cases = [("leg bf16", (MX_BATCH, 32, 8, 128, 4096), torch.bfloat16),
              ("leg f32", (MX_BATCH, 32, 8, 128, 4096), torch.float32),
              ("ragged bf16", (MX_BATCH, 8, 8, 128, 200), torch.bfloat16),
-             ("ragged f32", (MX_BATCH, 8, 8, 128, 200), torch.float32)]
-    errs, rels = [], []
+             ("ragged f32", (MX_BATCH, 8, 8, 128, 200), torch.float32),
+             ("W=8192 bf16", (MX_BATCH, 32, 8, 128, 8192), torch.bfloat16),
+             ("S=1 bf16", (MX_BATCH, 32, 8, 128, 100), torch.bfloat16)]
+    errs, rels, plans = [], [], []
     for label, (b, h, kvh, dh, W), dtype in cases:
         q, kw, vw, bias = swa_inputs(g, dev, b, h, kvh, dh, W, dtype)
         scale = 1.0 / math.sqrt(dh)
@@ -545,8 +577,16 @@ def swa_kernel(dev, rounds: int):
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
         require(rel <= tol, f"swa_decode {label}: error {err} is {rel:.2e} of "
                             f"the largest output (tolerance {tol})")
+        S = splits(b, h, W, kvh, dev)
+        require((S == 1) == label.startswith("S=1"),
+                f"swa_decode {label}: {S} chunks")
         errs.append(err)
         rels.append(f"{label} {err:.3e} ({rel:.1e} rel)")
+        plans.append(f"{label} S={S}")
+    q, kw, vw, bias = swa_inputs(g, dev, MX_BATCH, 32, 8, 128, 8192,
+                                 torch.bfloat16)
+    ms_8k = time_ms(lambda: swa(q, kw, vw, bias, 1.0 / math.sqrt(128)),
+                    rounds)
     q, kw, vw, bias = swa_inputs(g, dev, MX_BATCH, 32, 8, 128, 4096,
                                  torch.bfloat16)
     scale = 1.0 / math.sqrt(128)
@@ -557,18 +597,26 @@ def swa_kernel(dev, rounds: int):
     mask = bias[:, None, None, :].to(q.dtype)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask, enable_gqa=True), rounds)
+    dev_ms = graph_ms(lambda: swa(q, kw, vw, bias, scale))
+    dev_lib = graph_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True))
     b, h, dh = q.shape
     W, kvh = kw.shape[1], kw.shape[2]
     nbytes = 2 * (2 * q.numel() + kw.numel() + vw.numel()) + 4 * bias.numel()
     flops = 4 * b * h * W * dh
     bms, by = bound(nbytes, flops)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    S = splits(b, h, W, kvh, dev)
     print(f"kernel swa_decode: q {tuple(q.shape)} kw/vw {tuple(kw.shape)} "
           f"bf16, scattered ring; errors {'; '.join(rels)} match=True | "
           f"leg bf16 ms={ms:.4f} plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
           f"bound_ms={bms:.5f} ({by}, {nbytes} bytes, {flops} flops) | "
-          f"{b * kvh} blocks (one per sequence and kv head) on {sms} SMs",
-          flush=True)
+          f"device time by CUDA graph replay: ms={dev_ms:.4f} "
+          f"sdpa_ms={dev_lib:.4f} | "
+          f"W=8192 bf16 ms={ms_8k:.4f} | split: S={S} chunks of "
+          f"{W // S} keys, {b * kvh * S} split blocks (one per sequence, "
+          f"kv head and chunk) + {b * h} combine blocks "
+          f"on {sms} SMs ({'; '.join(plans)})", flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib)
 

@@ -1,16 +1,24 @@
-"""Wrapper of the sliding-window decode attention CUDA kernel
+"""Wrapper of the sliding-window decode attention CUDA kernels
 (``csrc/swa_decode.cu``; counterpart of ``swa_decode_attention`` in
 ``repro/kernels/swa_decode.py``).
 
 Replaces the Pallas online-softmax kernel over window blocks. Bound by
-bytes: every key and value of the window is read once. Design: one
-block per (batch, kv head) walking the window in tiles of 64 keys
-through shared memory, the g query rows of the group sharing each tile,
-f32 softmax state in shared memory and the accumulator in registers; a
-ragged last tile is cut inside the kernel, so W needs no padding."""
+bytes: every key and value of the window is read once. Design: a
+split-window decode. The window of each (batch, kv head) is cut into S
+chunks of at least 64 keys, S chosen by the launcher from b * kvh, W and
+the card's SM count so that about twice as many blocks as SMs run (16
+chunks of 256 keys at the Mixtral decode shape). Each block streams its
+chunk with 16-byte loads straight into registers, several key steps in
+flight per warp and no block barrier in the key loop, keeps the f32
+softmax state in registers, and writes its partial (m, l, acc) to a
+scratch buffer that this wrapper allocates; a second kernel merges the
+chunks of each query row in chunk order (no float atomics, so two calls
+give the same bits). With S = 1 the first kernel writes the output
+itself. One call launches both kernels and counts one launch."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,18 +30,39 @@ LAUNCHES = 0  # launches of the kernel in this process
 _DTYPES = {torch.float32: "swa_decode_f32",
            torch.bfloat16: "swa_decode_bf16"}
 
-# The kernel's limits: head width, and query rows x width per kv head
-# (its per-thread accumulators).
+# The kernel's limits: head width (a lane holds at most 8 pieces of a
+# row), and query rows x width per kv head.
 MAX_HEAD_DIM = 256
 MAX_GROUP_WIDTH = 8192
 
 
+@functools.lru_cache(maxsize=None)
 def _fn(dtype):
     fn = getattr(_build.load(NAME), _DTYPES[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def splits(b: int, h: int, W: int, kvh: int, device) -> int:
+    """The number of window chunks S a launch of this shape takes on
+    CUDA ``device``, as the kernel's launcher chooses it."""
+    index = torch.device(device).index
+    return _splits(b, h, W, kvh,
+                   torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=256)
+def _splits(b: int, h: int, W: int, kvh: int, index: int) -> int:
+    fn = _build.load(NAME).swa_decode_splits
+    fn.argtypes = [ctypes.c_int64] * 4 + [ctypes.c_int]
+    fn.restype = ctypes.c_int64
+    n = fn(b, h, W, kvh, index)
+    if n < 1:
+        raise RuntimeError(f"{NAME}: choosing the window split failed with "
+                           f"cudaError_t {-n}")
+    return n
 
 
 def swa_decode_attention(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
@@ -71,9 +100,13 @@ def swa_decode_attention(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    S = splits(b, h, W, kvh, q.device)
+    # Each chunk's state of each query row: m, l and acc (dh), in f32.
+    part = torch.empty((b * h * S * (dh + 2) if S > 1 else 0,),
+                       dtype=torch.float32, device=q.device)
     err = _fn(q.dtype)(q.data_ptr(), kw.data_ptr(), vw.data_ptr(),
-                       bias.data_ptr(), out.data_ptr(), b, h, W, kvh, dh,
-                       float(scale),
+                       bias.data_ptr(), part.data_ptr(), out.data_ptr(), b,
+                       h, W, kvh, dh, S, float(scale),
                        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(NAME, err)
     LAUNCHES += 1

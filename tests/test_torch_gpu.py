@@ -343,6 +343,81 @@ def test_gpu_swa_decode_leg_shape_and_refusals(cuda_device):
                                 torch.zeros((1, 4), device=cuda_device), 1.0)
 
 
+def swa_chunk_bias(seed, b, W, S):
+    """A ring's bias for the split kernel's chunks [s W / S, (s+1) W / S):
+    row 0 scattered with its middle chunk (s = S // 2) all masked and
+    keys in the chunks either side; the middle rows scattered; the last
+    row (b >= 3) all masked."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random((b, W)) < 0.6
+    valid[:, 0] = True
+    if S > 1:
+        lo, hi = (S // 2) * W // S, (S // 2 + 1) * W // S
+        valid[0, lo:hi] = False
+        valid[0, lo - 1] = True
+        if hi < W:
+            valid[0, hi] = True
+    if b >= 3:
+        valid[-1] = False
+    return np.where(valid, 0.0, -1e30).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 63, 65, 257, 4095, 4097, 8192])
+@pytest.mark.parametrize("g", [4, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_swa_decode_split_windows(cuda_device, W, g, dtype):
+    """Windows that make the chunks ragged or single (S = 1 below 128
+    keys, S > 1 above), a row whose middle chunk is all masked between
+    chunks that hold keys, and an all-masked row; g=12 takes two blocks
+    of query rows. Two calls give the same bits, and each counts one
+    launch."""
+    from repro_torch.kernels import swa_decode as sw
+    b, kvh, dh = 3, 2, 128
+    S = sw.splits(b, g * kvh, W, kvh, cuda_device)
+    assert (S == 1) == (W < 128)
+    assert all(W * (s + 1) // S - W * s // S >= min(W, 64)
+               for s in range(S))
+    q, kw, vw, _ = swa_inputs(W + g, b, g * kvh, kvh, dh, W, "prefix")
+    q, kw, vw = (torch.as_tensor(a).to(cuda_device, dtype)
+                 for a in (q, kw, vw))
+    bias = torch.as_tensor(swa_chunk_bias(W, b, W, S)).to(cuda_device)
+    before = sw.LAUNCHES
+    got = sw.swa_decode_attention(q, kw, vw, bias, 1.0 / np.sqrt(dh))
+    again = sw.swa_decode_attention(q, kw, vw, bias, 1.0 / np.sqrt(dh))
+    assert sw.LAUNCHES == before + 2
+    want = ref.swa_decode_attention(q, kw, vw, bias, 1.0 / np.sqrt(dh))
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       again.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32))
+    assert_swa_close(got, want, dtype)
+    # The all-masked row is the plain average of V over the window.
+    mean = vw[-1].float().mean(dim=0).repeat_interleave(g, dim=0)
+    assert_swa_close(got[-1], mean, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kvh,dh,W", [
+    (2, 6, 2, 24, 300),     # g=3 in a block of 4 rows; idle lanes
+    (2, 24, 2, 64, 700),    # g=12: two blocks of rows
+    (1, 4, 2, 256, 1000),   # f32: two 16-byte pieces per lane
+    (2, 3, 1, 7, 130),      # scalar path
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_swa_decode_split_shapes(cuda_device, b, h, kvh, dh, W, dtype):
+    from repro_torch.kernels import swa_decode as sw
+    q, kw, vw, bias = swa_inputs(dh + W, b, h, kvh, dh, W, "scattered")
+    q, kw, vw = (torch.as_tensor(a).to(cuda_device, dtype)
+                 for a in (q, kw, vw))
+    bias = torch.as_tensor(bias).to(cuda_device)
+    got = sw.swa_decode_attention(q, kw, vw, bias, 0.3)
+    want = ref.swa_decode_attention(q, kw, vw, bias, 0.3)
+    torch.cuda.synchronize()
+    assert_swa_close(got, want, dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("T,cf", [(16, 1.5), (512, 1.5), (512, 0.5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -30,7 +30,8 @@ from repro.kernels.swa_decode import swa_decode_attention as pallas_swa  # noqa:
 from repro_torch.kernels import ops, ref  # noqa: E402
 from test_torch_gpu import (MOE_SHAPES, SOLVE_SHAPES,  # noqa: E402
                             assert_combine_close, assert_min_dist,
-                            moe_inputs, request_batch, swa_inputs)
+                            moe_inputs, request_batch, swa_chunk_bias,
+                            swa_inputs)
 
 T = torch.as_tensor
 
@@ -322,3 +323,89 @@ def test_swa_decode_matches_jax(b, h, kvh, dh, W, ring, dtype):
     tol = 2e-2 if dtype == "bf16" else 2e-6
     for other in (want, pal):
         np.testing.assert_allclose(_np(got), _np(other), rtol=0, atol=tol)
+
+
+def split_combine(q, kw, vw, bias, scale, S, tile=4):
+    """The CUDA kernel's split-window algorithm in plain PyTorch: the
+    window cut into S chunks [s W / S, (s+1) W / S), each walked as an
+    online softmax over tiles of ``tile`` keys from m = -1e30 (the TPU
+    kernel's order: p = exp(s - m_new), l = l corr + sum p, acc = acc
+    corr + p V), then the chunks' (m, l, acc) merged in chunk order:
+    M = max m_s, w_s = exp(m_s - M), out = sum w_s acc_s / max(sum w_s
+    l_s, 1e-30). f32 throughout; returns q's dtype."""
+    b, h, dh = q.shape
+    W, kvh = kw.shape[1], kw.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, dh).float()
+    kf, vf = kw.float(), vw.float()
+    states = []
+    for s in range(S):
+        m = torch.full((b, kvh, g), -1e30)
+        l = torch.zeros((b, kvh, g))
+        acc = torch.zeros((b, kvh, g, dh))
+        for j0 in range(s * W // S, (s + 1) * W // S, tile):
+            j1 = min(j0 + tile, (s + 1) * W // S)
+            sc = torch.einsum("bkgd,bwkd->bkgw", qg, kf[:, j0:j1]) * scale
+            sc = sc + bias[:, None, None, j0:j1]
+            m_new = torch.maximum(m, sc.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgw,bwkd->bkgd", p, vf[:, j0:j1])
+            m = m_new
+        states.append((m, l, acc))
+    M = torch.stack([st[0] for st in states]).amax(0)
+    lsum, out = torch.zeros_like(M), torch.zeros((b, kvh, g, dh))
+    for m, l, acc in states:
+        w = torch.exp(m - M)
+        lsum = lsum + w * l
+        out = out + w[..., None] * acc
+    out = out / torch.clamp(lsum, min=1e-30)[..., None]
+    return out.reshape(b, h, dh).to(q.dtype)
+
+
+# SWA_CASES, a row whose middle chunk is all masked between chunks that
+# hold keys (and an all-masked last row), and an all-masked row among
+# scattered ones.
+SPLIT_CASES = SWA_CASES + [(3, 8, 2, 64, 192, "middle"),
+                           (3, 4, 2, 32, 150, "scattered")]
+
+
+@pytest.mark.parametrize("b,h,kvh,dh,W,ring", SPLIT_CASES)
+@pytest.mark.parametrize("S", [1, 3, 7])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_swa_split_combine_matches_jax(b, h, kvh, dh, W, ring, S, dtype):
+    """The split-and-combine rule of csrc/swa_decode.cu == port ref ==
+    Pallas (interpret), within 2e-6 in f32 (2e-2 in bf16): the -1e30
+    semantics of masked chunks and all-masked rows on this machine,
+    where the kernel cannot run. The Pallas kernel pads the window to its
+    block with -1e30 and zero values, so an all-masked row of a window
+    that is not a multiple of the block averages over the padded window
+    (a JAX package fault, ROADMAP.md section 3): there it is held on the
+    rows that hold a key, and the "middle" case (W = 192) holds it on an
+    all-masked row too."""
+    q, kw, vw, bias = swa_inputs(b + W, b, h, kvh, dh, W,
+                                 "scattered" if ring == "middle" else ring)
+    if ring == "middle":
+        bias = swa_chunk_bias(W, b, W, S)
+        if S == 3:
+            assert (bias[0, 64:128] < 0).all() and (bias[0, 63] == 0)
+    tq, jq = _pair(q, dtype)
+    tk, jk = _pair(kw, dtype)
+    tv, jv = _pair(vw, dtype)
+    scale = 1.0 / np.sqrt(dh)
+    got = split_combine(tq, tk, tv, torch.as_tensor(bias), scale, S)
+    assert got.dtype == tq.dtype and got.shape == (b, h, dh)
+    port = ref.swa_decode_attention(tq, tk, tv, torch.as_tensor(bias), scale)
+    pal = pallas_swa(jq, jk, jv, jnp.asarray(bias), scale, bw=64,
+                     interpret=True)
+    tol = 2e-2 if dtype == "bf16" else 2e-6
+    np.testing.assert_allclose(_np(got), _np(port), rtol=0, atol=tol)
+    rows = (bias == 0).any(-1) | (W % 64 == 0)
+    np.testing.assert_allclose(_np(got)[rows], _np(pal)[rows], rtol=0,
+                               atol=tol)
+    if (bias[-1] < 0).all():   # the all-masked row: V's mean over W
+        mean = tv[-1].float().mean(0).repeat_interleave(h // kvh, 0)
+        np.testing.assert_allclose(_np(got[-1]), mean.numpy(), rtol=0,
+                                   atol=tol)
