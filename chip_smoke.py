@@ -20,8 +20,10 @@ sliding window 4096, bf16) cut to 8 of its 32 layers: 4 prompts of 4096
 tokens, then 32 greedy steps over the ring cache, each through the
 swa_decode kernel. It checks the launch counts of every kernel on each
 path, the clustering accuracy, that the routed labels equal a heads-off
-session's, that the decode leg's logits are finite, and agreement with
-the CPU run of the plain versions on small inputs.
+session's, that the decode leg's logits are finite, that solve_attach
+gives each request alone the bits it gives it inside the batch and two
+calls the same bits, and agreement with the CPU run of the plain
+versions on small inputs.
 
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -32,6 +34,7 @@ file, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -218,18 +221,123 @@ def check_solve(x, c0, tau, cm, pm, dtype, max_iters):
     return max(err, cerr)
 
 
-def kernel_phase(fm, dev, rounds: int):
-    """Each kernel against its plain version on the card at the main
-    path's shapes, then its time, the plain version's, one library
-    call's, and its bound. Returns the rows of the kernels line."""
+def same_bits(got, want) -> bool:
+    """All outputs of two solve_attach calls equal bit for bit."""
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+def solve_kernel(fm, dev, rounds: int):
+    """solve_attach at the serve shape (8 late devices of 1024 points,
+    started from their Algorithm 1 steps 1-3 core-set means, against
+    the round's k = 100 tau) in f32 and bf16, and at the routed shape (64
+    requests of 64 points, d = 128, k' = 4, k = 16): each against its
+    plain version; at the serve shape also each request alone against
+    the batch and two calls against each other, bit for bit. Times: CUDA
+    events over back-to-back wrapper calls, and the device time. Returns
+    the f32 serve-shape row."""
     from repro_torch.core.lloyd import lloyd
     from repro_torch.core.local_kmeans import local_prepare
     from repro_torch.data.gaussian import late_device_stream
     from repro_torch.kernels import ref
+    from repro_torch.kernels.solve_attach import plan, solve_attach
+    from repro_torch.utils.prng import GumbelSource
+    reqs = late_device_stream(fm.means, KP, 8, 99,
+                              n_range=(SERVE_N, SERVE_N + 1))
+    sx = torch.as_tensor(np.stack([r[0] for r in reqs]), device=dev)
+    skv = torch.as_tensor([r[2] for r in reqs], dtype=torch.int32,
+                          device=dev)
+    spm = torch.ones(sx.shape[:2], dtype=torch.bool, device=dev)
+    g = GumbelSource(0).draw(range(8), KP, SERVE_N, dev)
+    prep = local_prepare(g, sx, k_max=KP, k_valid=skv, point_mask=spm)
+    c0, scm = prep.theta.contiguous(), prep.center_mask.contiguous()
+    stau = torch.as_tensor(fm.means, device=dev)
+    out = {}
+    for dtype in ("f32", "bf16"):
+        err = check_solve(sx, c0, stau, scm, spm, dtype, 100)
+        store = ref.store_dtype(dtype)
+        args = (sx.to(store), c0.to(store), stau.to(store), scm, spm)
+
+        def call(lo=0, hi=8):
+            return solve_attach(args[0][lo:hi], args[1][lo:hi], args[2],
+                                args[3][lo:hi], args[4][lo:hi],
+                                max_iters=100)
+
+        whole, again = call(), call()
+        sync()
+        require(same_bits(whole, again),
+                f"solve_attach {dtype}: two calls differ")
+        for b in range(8):
+            require(same_bits(call(b, b + 1), [w[b:b + 1] for w in whole]),
+                    f"solve_attach {dtype}: request {b} alone differs from "
+                    f"the batch")
+        ms = time_ms(call, rounds)
+        dev_ms = graph_ms(call)
+        plain = time_ms(lambda: ref.solve_attach(
+            sx, c0, stau, scm, spm, max_iters=100, dtype=dtype),
+            max(2, rounds // 4))
+        # The work this batch needs: each request's own iteration count.
+        iters = lloyd(args[0], args[1], center_mask=scm, point_mask=spm,
+                      max_iters=100).iters
+        it = int(iters.sum())
+        esz = 4 if dtype == "f32" else 2
+        sb, sn = sx.shape[:2]
+        nbytes = (esz * (sb * sn * D + sb * KP * D + K * D) + sb * (KP + sn)
+                  + 4 * (2 * sb * sn + sb * KP * D + sb * KP))
+        flops = ((it + sb) * 2 * sn * KP * D + it * sn * D
+                 + sb * 2 * sn * D + sb * 2 * KP * K * D)
+        bms, by = bound(nbytes, flops)
+        pl = plan(sn, KP, D, store, dev)
+        groups = min(sb, pl.groups)
+        print(f"kernel solve_attach {dtype}: {tuple(sx.shape)} k'={KP} k={K} "
+              f"iterations={iters.tolist()} max_abs_err={err:.3e} "
+              f"match=True; each request alone equals the batch and two "
+              f"calls are equal, bit for bit | ms={ms:.4f} "
+              f"plain_ms={plain:.4f} bound_ms={bms:.5f} ({by}) | device "
+              f"time by CUDA graph replay {dev_ms:.4f} ms | P={pl.slices} "
+              f"slices of "
+              f"R={pl.rows} rows, mode "
+              f"{'resident' if pl.resident else 'streaming'}, "
+              f"{pl.smem_bytes} bytes of shared memory a block, "
+              f"{pl.per_sm} blocks an SM: {groups} groups of {pl.slices} "
+              f"({pl.groups} fit at once), {groups * pl.slices} blocks on "
+              f"{pl.sms} SMs", flush=True)
+        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bms, bound_by=by, library_ms=None)
+
+    # The routed shape: one batch of the routed leg's plan.
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, n = R_PLAN["batch_size"], R_PLAN["bucket_sizes"][0]
+    rtau = torch.randn(R_K, R_D, generator=gen, device=dev) * 20
+    lab = torch.randint(0, R_K, (B, n), generator=gen, device=dev)
+    rx = rtau[lab] + torch.randn(B, n, R_D, generator=gen, device=dev)
+    rc0 = rx[:, :R_KP].contiguous()
+    rcm = torch.ones((B, R_KP), dtype=torch.bool, device=dev)
+    rpm = torch.rand(B, n, generator=gen, device=dev) < 0.7
+    err = check_solve(rx, rc0, rtau, rcm, rpm, "f32", 100)
+    ms = time_ms(lambda: solve_attach(rx, rc0, rtau, rcm, rpm,
+                                      max_iters=100), rounds)
+    dev_ms = graph_ms(lambda: solve_attach(rx, rc0, rtau, rcm, rpm,
+                                           max_iters=100))
+    plain = time_ms(lambda: ref.solve_attach(rx, rc0, rtau, rcm, rpm,
+                                             max_iters=100), rounds)
+    pl = plan(n, R_KP, R_D, torch.float32, dev)
+    print(f"kernel solve_attach routed f32: {tuple(rx.shape)} k'={R_KP} "
+          f"k={R_K} max_abs_err={err:.3e} match=True | ms={ms:.4f} "
+          f"plain_ms={plain:.4f} | device time by CUDA graph replay "
+          f"{dev_ms:.4f} ms | "
+          f"P={pl.slices}, {min(B, pl.groups)} groups, "
+          f"{min(B, pl.groups) * pl.slices} blocks", flush=True)
+    return out["f32"]
+
+
+def kernel_phase(fm, dev, rounds: int):
+    """Each kernel against its plain version on the card at the main
+    path's shapes, then its time, the plain version's, one library
+    call's, and its bound. Returns the rows of the kernels line."""
+    from repro_torch.kernels import ref
     from repro_torch.kernels.kmeans_update import kmeans_update
     from repro_torch.kernels.pdist_argmin import pdist_argmin
-    from repro_torch.kernels.solve_attach import solve_attach
-    from repro_torch.utils.prng import GumbelSource
     rows = {}
 
     # pdist_argmin: Algorithm 1's assignment (50 devices x 400 points
@@ -296,47 +404,7 @@ def kernel_phase(fm, dev, rounds: int):
         max_abs_err=max(e1, e2), ms=ms, plain_ms=plain, bound_ms=bms,
         bound_by=by, library_ms=lib)
 
-    # solve_attach: one serve batch of 8 late devices of 1024 points,
-    # started from their Algorithm 1 steps 1-3 core-set means.
-    reqs = late_device_stream(fm.means, KP, 8, 99,
-                              n_range=(SERVE_N, SERVE_N + 1))
-    sx = torch.as_tensor(np.stack([r[0] for r in reqs]), device=dev)
-    skv = torch.as_tensor([r[2] for r in reqs], dtype=torch.int32,
-                          device=dev)
-    spm = torch.ones(sx.shape[:2], dtype=torch.bool, device=dev)
-    g = GumbelSource(0).draw(range(8), KP, SERVE_N, dev)
-    prep = local_prepare(g, sx, k_max=KP, k_valid=skv, point_mask=spm)
-    c0, scm = prep.theta.contiguous(), prep.center_mask.contiguous()
-    stau = means
-    out = {}
-    for dtype in ("f32", "bf16"):
-        err = check_solve(sx, c0, stau, scm, spm, dtype, 100)
-        store = ref.store_dtype(dtype)
-        args = (sx.to(store), c0.to(store), stau.to(store), scm, spm)
-        ms = time_ms(lambda: solve_attach(*args, max_iters=100), rounds)
-        plain = time_ms(lambda: ref.solve_attach(
-            sx, c0, stau, scm, spm, max_iters=100, dtype=dtype),
-            max(2, rounds // 4))
-        # The work this batch needs: each request's own iteration count.
-        iters = lloyd(args[0], args[1], center_mask=scm, point_mask=spm,
-                      max_iters=100).iters
-        it = int(iters.sum())
-        esz = 4 if dtype == "f32" else 2
-        sb, sn = sx.shape[:2]
-        nbytes = (esz * (sb * sn * D + sb * KP * D + K * D) + sb * (KP + sn)
-                  + 4 * (2 * sb * sn + sb * KP * D + sb * KP))
-        flops = ((it + sb) * 2 * sn * KP * D + it * sn * D
-                 + sb * 2 * sn * D + sb * 2 * KP * K * D)
-        bms, by = bound(nbytes, flops)
-        print(f"kernel solve_attach {dtype}: {tuple(sx.shape)} k'={KP} k={K} "
-              f"iterations={iters.tolist()} max_abs_err={err:.3e} "
-              f"match=True | ms={ms:.4f} plain_ms={plain:.4f} "
-              f"bound_ms={bms:.5f} ({by}) | {sb} blocks (one per request) "
-              f"on {torch.cuda.get_device_properties(dev).multi_processor_count}"
-              f" SMs", flush=True)
-        out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                          bound_ms=bms, bound_by=by, library_ms=None)
-    rows["solve_attach"] = out["f32"]
+    rows["solve_attach"] = solve_kernel(fm, dev, rounds)
     rows.update(routing_kernels(dev, rounds))
     moe_prefill_kernels(dev, rounds)
     rows["swa_decode"] = swa_kernel(dev, rounds)
@@ -1014,8 +1082,8 @@ def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
         return
     tops = "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for k, ms, n in rows[:top])
     # The port's own kernels, wherever they rank: device time per launch.
-    ours = "; ".join(f"{k.split('::')[-1].partition('(')[0]} {ms:.4f} ms "
-                     f"x{n} ({1e3 * ms / n:.2f} us each)"
+    ours = "; ".join(f"{re.search(r'\w+_kernel(<[^()]*>)?', k).group(0)} "
+                     f"{ms:.4f} ms x{n} ({1e3 * ms / n:.2f} us each)"
                      for k, ms, n in rows if "repro_torch" in k)
     print(f"profile {label}: device time {dev_ms:.2f} ms of {wall_s * 1e3:.1f}"
           f" ms unprofiled wall (busy {100 * dev_ms / (wall_s * 1e3):.1f}%); "

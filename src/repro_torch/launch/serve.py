@@ -15,12 +15,13 @@ kernel.
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.models.common import DistCtx
 from repro_torch.models.model import Model
+from repro_torch.utils.prng import StepGumbel
 
 
 def init_params(model: Model, seed: int = 0, device="cuda"):
@@ -59,19 +60,27 @@ def _sync(device: torch.device) -> None:
 @torch.no_grad()
 def generate(model: Model, params, batch, *, steps: int,
              ctx: Optional[DistCtx] = None, greedy: bool = True,
-             generator: Optional[torch.Generator] = None,
+             key: Union[int, StepGumbel, None] = None,
              stats: Optional[dict] = None) -> torch.Tensor:
     """Prefill ``batch["tokens"]`` (B, S), then decode ``steps`` tokens.
     Returns (B, steps) int32: the prefill's next token, then each step's.
 
-    Greedy decoding takes the argmax; sampled decoding
-    (``greedy=False``) draws from the softmax of the logits with
-    ``generator``. If ``stats`` is a dict, it receives the wall seconds
-    of the prefill (``prefill_s``) and of the decode loop
+    Greedy decoding takes the argmax. Sampled decoding (``greedy=False``)
+    draws each step's token from the softmax of its logits as
+    ``jax.random.categorical`` does, ``argmax(gumbel + logits)`` in the
+    logits' dtype, with the noise of step i from ``key``: an int seeds a
+    ``utils.prng.StepGumbel``, and any object with its ``draw(step,
+    shape, dtype, device)`` may stand in for it (the counterpart of the
+    JAX package's ``key``). If ``stats`` is a dict, it receives the wall
+    seconds of the prefill (``prefill_s``) and of the decode loop
     (``decode_s``), each ending in a device sync, the logits of the
     prefill and of every step (``logits``) and the final ``cache``."""
     ctx = ctx or DistCtx.local()
     device = params["embed"].device
+    if not greedy and key is None:
+        raise ValueError("generate: sampled decoding (greedy=False) needs "
+                         "a key: an int seed or a noise source")
+    noise = StepGumbel(key) if isinstance(key, int) else key
     model.decode_room = steps + 1
     prefill = make_prefill(model, ctx)
     step = make_serve_step(model, ctx)
@@ -85,17 +94,15 @@ def generate(model: Model, params, batch, *, steps: int,
         t0 = time.perf_counter()
     toks = []
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    for _ in range(steps):
+    for i in range(steps):
         toks.append(tok)
         logits, cache = step(params, cache, tok)
         if stats is not None:
             stats["logits"].append(logits)
-        if greedy:
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        else:
-            probs = torch.softmax(logits.float(), dim=-1)
-            tok = torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-                torch.int32)
+        if not greedy:
+            logits = noise.draw(i, logits.shape, logits.dtype,
+                                device) + logits
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
     if stats is not None:
         _sync(device)
         stats["decode_s"] = time.perf_counter() - t0

@@ -170,14 +170,20 @@ def test_gpu_kmeans_update_matches_plain(cuda_device, B, n, d, k):
         torch.testing.assert_close(c, rc, rtol=1e-5, atol=1e-4)
 
 
-def _clustered_batch(seed, B, n, d, kp, k):
+def _clustered_batch(seed, B, n, d, kp, k, distinct=False):
     """Requests drawn around tau centers (the serve path's data), so no
-    point sits on a Voronoi boundary at float precision."""
+    point sits on a Voronoi boundary at float precision. Centers start at
+    the first kp points, or with ``distinct`` at the first point of kp
+    different clusters, so that no two centers split one cluster."""
     rng = np.random.default_rng(seed)
     tau = (rng.normal(size=(k, d)) * 10).astype(np.float32)
     lab = rng.integers(0, k, size=(B, n))
     x = (tau[lab] + rng.normal(size=(B, n, d))).astype(np.float32)
     c0 = np.ascontiguousarray(x[:, :kp])
+    if distinct:
+        for b in range(B):
+            _, first = np.unique(lab[b], return_index=True)
+            c0[b] = x[b, np.sort(first)[:kp]]
     cm = np.ones((B, kp), bool)
     cm[-1, -1] = False
     pm = np.ones((B, n), bool)
@@ -185,15 +191,43 @@ def _clustered_batch(seed, B, n, d, kp, k):
     return tau, x, c0, cm, pm
 
 
+# Shapes of the split kernel (64 rows a slice):
+# - P = 4 with a ragged last slice of 8 rows, request 0's third slice
+#   all masked; P = 8 stopped by max_iters;
+# - the serve shape, and 64 of its requests: more groups than the card
+#   holds at once;
+# - k' = 668 at d = 64: the centers and a slice do not fit in shared
+#   memory together (the streaming mode, 42 register groups of
+#   centers). The centers start in 668 of 1000 clusters, because where
+#   two centers split one cluster the points near their boundary take
+#   either side under the two versions' rounding; and d stays at 64,
+#   because at this data's norms an f32 product summed over 300 columns
+#   already rounds the expanded distance by about the whole tolerance;
+# - n = 10000: more slices of 64 rows than the card holds at once, so
+#   the plan takes slices of 128 rows (streamed).
+SPLIT_SHAPES = [(3, 200, 37, 5, 9, 30), (4, 500, 64, 6, 12, 2),
+                (8, 1024, 300, 10, 100, 100), (64, 1024, 300, 10, 100, 100),
+                (2, 4096, 64, 668, 1000, 100), (2, 10000, 16, 4, 8, 30)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,n,d,kp,k,iters", SOLVE_SHAPES
-                         + [(8, 1024, 300, 10, 100, 100)])
+@pytest.mark.parametrize("B,n,d,kp,k,iters", SOLVE_SHAPES + SPLIT_SHAPES)
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_gpu_solve_attach_matches_plain(cuda_device, B, n, d, kp, k, iters,
                                         dtype):
-    make = _clustered_batch if n >= 1024 else request_batch
-    tau, x, c0, cm, pm = make(n * 13 + k, B, n, d, kp, k)
+    from repro_torch.kernels.solve_attach import plan
+    if n < 200:
+        tau, x, c0, cm, pm = request_batch(n * 13 + k, B, n, d, kp, k)
+    else:
+        tau, x, c0, cm, pm = _clustered_batch(n * 13 + k, B, n, d, kp, k,
+                                              distinct=kp > 100)
     args = [T(v).to(cuda_device) for v in (x, c0, tau, cm, pm)]
+    pl = plan(n, kp, d, ref.store_dtype(dtype), cuda_device)
+    assert pl.rows == (128 if n == 10000 else 64)
+    assert pl.resident == (pl.rows == 64 and kp * d < 20000)
+    assert pl.slices == -(-n // pl.rows) <= pl.per_sm * pl.sms
+    if B == 64:
+        assert pl.groups < B   # a group serves several requests in turn
     got = ops.solve_attach(*args, max_iters=iters, dtype=dtype)
     want = ref.solve_attach(*args, max_iters=iters, dtype=dtype)
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
@@ -204,6 +238,45 @@ def test_gpu_solve_attach_matches_plain(cuda_device, B, n, d, kp, k, iters,
     assert_min_dist(got[1].cpu().numpy(), want[1].cpu().numpy(),
                     xs.cpu().numpy(), want[2].cpu().numpy(),
                     a.cpu().numpy())
+
+
+def _solve_outputs_equal(got, want):
+    """Bit for bit: labels, min-dists, centers and center labels."""
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gpu_solve_attach_batch_independent(cuda_device, dtype):
+    """Each request of a serve batch (8 x 1024 x 300, k'=10, k=100)
+    alone gives the bits it gives inside the batch: its P = 16 blocks
+    and their order of summation depend on its shape only."""
+    tau, x, c0, cm, pm = _clustered_batch(7, 8, 1024, 300, 10, 100)
+    args = [T(v).to(cuda_device) for v in (x, c0, tau, cm, pm)]
+    whole = ops.solve_attach(*args, max_iters=100, dtype=dtype)
+    for b in range(8):
+        one = ops.solve_attach(*(a[b:b + 1] for a in args[:2]), args[2],
+                               *(a[b:b + 1] for a in args[3:]),
+                               max_iters=100, dtype=dtype)
+        assert _solve_outputs_equal(one, [w[b:b + 1] for w in whole]), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,d", [(8, 1024, 300), (64, 64, 128),
+                                   (2, 300, 2048)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gpu_solve_attach_runs_twice_alike(cuda_device, B, n, d, dtype):
+    """Two calls give the same bits (no float atomics; the slices'
+    partials summed in slice order), and each counts one launch."""
+    from repro_torch.kernels import solve_attach as sa
+    tau, x, c0, cm, pm = _clustered_batch(n + d, B, n, d, 10, 40)
+    args = [T(v).to(cuda_device) for v in (x, c0, tau, cm, pm)]
+    before = sa.LAUNCHES
+    first = ops.solve_attach(*args, max_iters=100, dtype=dtype)
+    second = ops.solve_attach(*args, max_iters=100, dtype=dtype)
+    assert sa.LAUNCHES == before + 2
+    assert _solve_outputs_equal(first, second)
 
 
 @pytest.mark.gpu

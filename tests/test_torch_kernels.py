@@ -238,6 +238,137 @@ def test_solve_attach_freezes_converged_requests():
             torch.testing.assert_close(o[0], w[b], rtol=0, atol=0)
 
 
+def split_solve(x, c0, tau, cm, pm, *, max_iters, dtype, R=64):
+    """The CUDA kernel's split algorithm in plain PyTorch, one request at
+    a time: the points cut into P = ceil(n / R) slices of R rows; each
+    dot of a row with a center summed over 4 parts of d (of width
+    round4(ceil(d / 4))) in part order; each step's partial sums and
+    counts taken per slice, the rows of a slice added in row order, and
+    the P partials summed in slice order; the loop stops at the first
+    step where no row of any slice changed (its centers would equal the
+    last step's) or at max_iters, and the final assignment is taken again
+    only if the last step moved the centers. Returns the four outputs of
+    ``ref.solve_attach`` and, per request, (steps run, converged)."""
+    store = ref.store_dtype(dtype)
+    xs, taus = x.to(store).float(), tau.to(store).float()
+    B, n, d = xs.shape
+    kp = c0.shape[1]
+    P = max(1, -(-n // R))
+    dq = 4 * -(-(-(-d // 4)) // 4)
+    parts = [(min(d, q * dq), min(d, q * dq + dq)) for q in range(4)]
+
+    def dots(rows, cen):
+        out = torch.zeros((rows.shape[0], cen.shape[0]))
+        for j0, j1 in parts:
+            out = out + rows[:, j0:j1] @ cen[:, j0:j1].T
+        return out
+
+    outs, trace = [], []
+    for b in range(B):
+        xb, cen = xs[b], c0[b].to(store).float()
+        xn = torch.sum(xb * xb, -1)
+
+        def assign(cen):
+            cn = torch.sum(cen * cen, -1)
+            dist = torch.clamp_min(xn[:, None] - 2.0 * dots(xb, cen)
+                                   + cn[None], 0.0)
+            dist = torch.where(cm[b][None], dist, ref.MASKED_DIST)
+            idx = torch.argmin(dist, -1).to(torch.int32)
+            return (torch.where(pm[b], idx, -1),
+                    torch.where(pm[b], dist.amin(-1), 0.0))
+
+        prev = torch.full((n,), -2, dtype=torch.int32)
+        fresh, steps, converged = False, 0, False
+        for _ in range(max_iters):
+            a, mind = assign(cen)
+            fresh, steps = True, steps + 1
+            sums, cnts, changed = [], [], False
+            for p in range(P):
+                lo, hi = p * R, min(n, (p + 1) * R)
+                acc = torch.zeros((kp, d))
+                cnt = torch.zeros((kp,), dtype=torch.int64)
+                for i in range(lo, hi):
+                    if a[i] >= 0:
+                        acc[a[i]] += xb[i]
+                        cnt[a[i]] += 1
+                sums.append(acc)
+                cnts.append(cnt)
+                changed |= bool((a[lo:hi] != prev[lo:hi]).any())
+            prev = a
+            if not changed:
+                converged = True
+                break
+            total = sums[0]
+            for s in sums[1:]:
+                total = total + s
+            cnt = sum(cnts).float()
+            new = (total / torch.clamp_min(cnt, 1.0)[:, None]).to(store)
+            cen = torch.where(cnt[:, None] > 0, new.float(), cen)
+            fresh = False
+        if not fresh:
+            a, mind = assign(cen)
+        cn, tn = torch.sum(cen * cen, -1), torch.sum(taus * taus, -1)
+        dt = torch.clamp_min(cn[:, None] - 2.0 * dots(taus, cen).T
+                             + tn[None], 0.0)
+        ctr = torch.where(cm[b], torch.argmin(dt, -1).to(torch.int32), -1)
+        lbl = torch.where(a >= 0, ctr[torch.clamp(a, 0).long()], -1)
+        outs.append((lbl, mind, cen, ctr))
+        trace.append((steps, converged))
+    return tuple(torch.stack(o) for o in zip(*outs)), trace
+
+
+def split_batch(seed, B, n, d, kp, k):
+    """Request 0: kp separated clusters started next to their means, so
+    its assignment is stable at the second step; the others random, with
+    request 1's second slice of 64 rows all masked (n > 64) and its last
+    center masked."""
+    rng = np.random.default_rng(seed)
+    tau = (rng.normal(size=(k, d)) * 4).astype(np.float32)
+    x = (rng.normal(size=(B, n, d)) * 3).astype(np.float32)
+    c0 = (rng.normal(size=(B, kp, d)) * 3).astype(np.float32)
+    mu = rng.normal(size=(kp, d)) * 30
+    x[0] = mu[rng.integers(0, kp, size=n)] + rng.normal(size=(n, d))
+    c0[0] = mu + 0.5
+    cm = np.ones((B, kp), bool)
+    cm[1, -1] = False
+    pm = rng.random((B, n)) < 0.9
+    pm[1, 64:128] = False
+    return tau, x, c0, cm, pm
+
+
+@pytest.mark.parametrize("B,n,d,kp,k", [(2, 40, 12, 4, 7),
+                                        (3, 150, 20, 5, 9),
+                                        (2, 1000, 12, 4, 7)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_solve_attach_split_mirror_matches_jax(B, n, d, kp, k, dtype):
+    """The split rule of csrc/solve_attach.cu (P = 1, 3 and 16 slices of
+    64 rows, the last one ragged; an all-masked slice and a masked
+    center in request 1) == JAX ref == Pallas (interpret): labels and
+    center labels exact, centers within 1e-5 of their largest entry,
+    min-dists within the cancellation bound. Request 0 stops at its
+    second step, the others run to max_iters."""
+    iters = 3
+    tau, x, c0, cm, pm = split_batch(n + kp, B, n, d, kp, k)
+    got, trace = split_solve(T(x), T(c0), T(tau), T(cm), T(pm),
+                             max_iters=iters, dtype=dtype)
+    assert trace[0] == (2, True)
+    assert all(t == (iters, False) for t in trace[1:]), trace
+    assert -(-n // 64) in (1, 3, 16)
+    args = [jnp.asarray(v) for v in (x, c0, tau, cm, pm)]
+    want = jref.solve_attach(*args, max_iters=iters, dtype=dtype)
+    pal = pallas_solve(*args, max_iters=iters, dtype=dtype, interpret=True)
+    xs = torch.as_tensor(x).to(ref.store_dtype(dtype)).float().numpy()
+    a, _ = ref.assign_argmin(T(xs), got[2], T(cm))
+    for other in (want, pal):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(other[0]))
+        np.testing.assert_array_equal(got[3].numpy(), np.asarray(other[3]))
+        scale = float(np.abs(np.asarray(other[2])).max())
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(other[2]),
+                                   rtol=0, atol=1e-5 * scale)
+        assert_min_dist(got[1].numpy(), np.asarray(other[1]), xs,
+                        got[2].numpy(), a.numpy())
+
+
 # ---------------------------------------------------- moe dispatch/combine --
 
 def _pair(x, dtype):

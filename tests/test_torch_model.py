@@ -39,6 +39,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model, build_model  # noqa: E402
+from repro_torch.utils.prng import StepGumbel  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -169,16 +170,57 @@ def test_generate_matches_jax(name, window):
 
 
 def test_sampled_generate_follows_its_generator():
-    """Sampled decoding draws from the logits' softmax with the caller's
-    generator: the same seed gives the same tokens, and every token is
-    a vocabulary id."""
+    """Sampled decoding takes its Gumbel noise from a StepGumbel keyed by
+    (seed, step): the same seed gives the same tokens, a seed or its
+    source alike; another seed other tokens; every token is a vocabulary
+    id; and greedy decoding ignores the key."""
     pr = pair("mixtral-8x7b", "float32")
     batch = {"tokens": torch.as_tensor(pr.prompts(64, seed=6))}
-    runs = [generate(pr.m, pr.p, batch, steps=6, greedy=False,
-                     generator=torch.Generator().manual_seed(seed))
-            for seed in (3, 3)]
-    assert torch.equal(runs[0], runs[1])
+    runs = [generate(pr.m, pr.p, batch, steps=6, greedy=False, key=key)
+            for key in (3, 3, StepGumbel(3), 4)]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    assert not torch.equal(runs[0], runs[3])
     assert bool(((runs[0] >= 0) & (runs[0] < pr.cfg.vocab_size)).all())
+    assert torch.equal(generate(pr.m, pr.p, batch, steps=6, key=3),
+                       generate(pr.m, pr.p, batch, steps=6))
+    with pytest.raises(ValueError, match="needs a key"):
+        generate(pr.m, pr.p, batch, steps=2, greedy=False)
+
+
+class JaxKeySchedule:
+    """The JAX package's sampled-decoding noise: step i splits the key
+    (``key, k = jax.random.split(key)``) and draws
+    ``jax.random.gumbel(k, logits.shape, logits.dtype)``."""
+
+    def __init__(self, key):
+        self.key, self.noise = key, []
+
+    def draw(self, step, shape, dtype, device):
+        while len(self.noise) <= step:
+            self.key, k = jax.random.split(self.key)
+            self.noise.append(np.array(jax.random.gumbel(
+                k, tuple(shape), jnp.float32)))
+        assert dtype == torch.float32
+        return torch.as_tensor(self.noise[step]).to(device)
+
+
+@pytest.mark.parametrize("name,window", [("mixtral-8x7b", None),
+                                         ("mistral-nemo-12b", 64)])
+def test_sampled_generate_matches_jax(name, window):
+    """Fed the Gumbel noise of the JAX key schedule, sampled decoding in
+    the port gives the JAX package's tokens exactly (f32, 64-token
+    prompts, 8 steps; Mistral-NeMo over a window of 64)."""
+    pr = pair(name, "float32", window)
+    toks = pr.prompts(64, seed=2)
+    key = jax.random.PRNGKey(11)
+    want = jax_generate(pr.jm, pr.jp, {"tokens": jnp.asarray(toks)},
+                        steps=8, greedy=False, key=key)
+    got = generate(pr.m, pr.p, {"tokens": torch.as_tensor(toks)}, steps=8,
+                   greedy=False, key=JaxKeySchedule(key))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    greedy = jax_generate(pr.jm, pr.jp, {"tokens": jnp.asarray(toks)},
+                          steps=8)
+    assert not np.array_equal(np.asarray(want), np.asarray(greedy))
 
 
 @pytest.mark.parametrize("name,window", [("mixtral-8x7b", None),
