@@ -23,10 +23,16 @@ path, the clustering accuracy, that the routed labels equal a heads-off
 session's, that the decode leg's logits are finite, that solve_attach
 gives each request alone the bits it gives it inside the batch and two
 calls the same bits, and agreement with the CPU run of the plain
-versions on small inputs.
+versions on small inputs. pdist_argmin is also timed at every shape
+the round, serve and routed paths launch it at, on the paths' own inputs
+(tallied in one more pass over each path), and at the Theorem 3.2
+attach of the round's devices, and there held against the exact (f64)
+distances: within the tolerance, and no farther from them than the f32
+plain version.
 
 The second to last line is one JSON object with each kernel's launches,
-error against its plain version, times and bound; the last line is
+error against its plain version, times (device_ms by CUDA graph replay)
+and bound; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 Without a CUDA device, or without the repository's src/ next to this
 file, it exits non-zero at once.
@@ -154,6 +160,124 @@ def cancellation_err(got, want, x, c, idx):
 
 # --------------------------------------------------------------- kernels --
 
+def cdist_min(x, c):
+    """The library yardstick of pdist_argmin: torch.cdist squared, then
+    the minimum over the centers (index and value)."""
+    if c.dim() < x.dim():
+        c = c.expand(x.shape[0], *c.shape)
+    return torch.min(torch.cdist(x, c) ** 2, dim=-1)
+
+
+def pdist_work(x, c, cm):
+    """(bytes, flops) of one pdist_argmin call: each input read once
+    (x, the centers, the mask), each output written once (idx and the
+    distance), and the products, norms and distances."""
+    esz = x.element_size()
+    B = x.shape[0] if x.dim() == 3 else 1
+    n, d = x.shape[-2:]
+    k = c.shape[-2]
+    bc = c.shape[0] if c.dim() == 3 else 1
+    nbytes = (esz * (B * n * d + bc * k * d)
+              + (0 if cm is None else cm.numel()) + 8 * B * n)
+    flops = 2 * B * n * k * d + 2 * B * n * d + 2 * bc * k * d
+    return nbytes, flops
+
+
+class PdistTally:
+    """Counts the pdist_argmin launches of one pass over a path by
+    (B, n, d, k, shared, masked, dtype), by wrapping the kernel's wrapper
+    function for the length of a ``with`` block, and keeps the first
+    inputs of each shape, so that they can be checked and timed."""
+
+    def __init__(self):
+        self.shapes = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import pdist_argmin as pa
+        self._module, self._fn = pa, pa.pdist_argmin
+
+        def counted(x, c, c_mask=None):
+            key = (x.shape[0] if x.dim() == 3 else 1, x.shape[-2],
+                   x.shape[-1], c.shape[-2], c.dim() == 2,
+                   c_mask is not None, str(x.dtype).replace("torch.", ""))
+            if key not in self.shapes:
+                self.shapes[key] = [0, (x.clone(), c.clone(),
+                                        None if c_mask is None
+                                        else c_mask.clone())]
+            self.shapes[key][0] += 1
+            return self._fn(x, c, c_mask)
+
+        pa.pdist_argmin = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._module.pdist_argmin = self._fn
+        return False
+
+    def counts(self):
+        return {shape_name(key): v[0] for key, v in self.shapes.items()}
+
+
+def shape_name(key) -> str:
+    B, n, d, k, shared, masked, dtype = key
+    x = f"({n},{d})" if B == 1 and shared else f"({B},{n},{d})"
+    c = f"({k},{d}) shared" if shared else f"({B},{k},{d})"
+    return f"{x}x{c}{' +mask' if masked else ''} {dtype}"
+
+
+def pdist_shapes(tallies, attach) -> None:
+    """pdist_argmin at every shape that the round, serve and routed
+    paths launched, on the first inputs the path gave it at that shape,
+    and at the Theorem 3.2 attach of a round's devices (``attach``: the
+    round's device centers (Z, k', d) against its tau (k, d); no path
+    here drops a device): the device time by graph replay of the kernel
+    and of cdist**2 + min beside the bound, and the kernel held against
+    the exact (f64) distances (check_pdist_exact). Every shape is timed
+    and printed before any check is required; the kernel's plans come
+    last."""
+    from repro_torch.kernels.pdist_argmin import pdist_argmin
+    shapes = {}
+    for path, tally in tallies.items():
+        for key, (count, inputs) in tally.shapes.items():
+            entry = shapes.setdefault(key, {"launches": {}, "inputs": inputs})
+            entry["launches"][path] = count
+    x, c = attach
+    key = (x.shape[0], x.shape[1], x.shape[2], c.shape[0], True, False,
+           str(x.dtype).replace("torch.", ""))
+    shapes.setdefault(key, {"launches": {}, "inputs": (x, c, None)})
+    print("pdist tally: " + "; ".join(
+        f"{path} {json.dumps(t.counts())}" for path, t in tallies.items()),
+        flush=True)
+    order = sorted(shapes, key=lambda k: -sum(shapes[k]["launches"].values()))
+    faults = []
+    for key in order:
+        launches = shapes[key]["launches"]
+        x, c, cm = shapes[key]["inputs"]
+        err, ratio, plain_ratio, vs_plain, ties, fault = check_pdist_exact(
+            x, c, cm, shape_name(key))
+        faults += fault
+        bms, by = bound(*pdist_work(x, c, cm))
+        dev_ms = graph_ms(lambda: pdist_argmin(x, c, cm))
+        lib_ms = graph_ms(lambda: cdist_min(x, c))
+        print(f"pdist {shape_name(key)}: launches {json.dumps(launches)}; "
+              f"against the exact (f64) distances max_abs_err={err:.3e} "
+              f"(x{ratio:.3f} of tol, {ties} ties) match={not fault}; the "
+              f"f32 plain version x{plain_ratio:.3f} of tol from them, the "
+              f"kernel x{vs_plain:.3f} from it | device ms={dev_ms:.4f} "
+              f"cdist_min device ms={lib_ms:.4f} bound_ms={bms:.5f} ({by})",
+              flush=True)
+    from repro_torch.kernels.pdist_argmin import plan
+    for key in order:
+        B, n, d, k, shared = key[:5]
+        x = shapes[key]["inputs"][0]
+        p = plan(B, n, k, d, shared, x.dtype, x.device)
+        print(f"pdist plan {shape_name(key)}: TK={p.tk} R={p.rows} "
+              f"S={p.slices} F={p.parts} groups={p.groups}: {p.blocks} "
+              f"blocks of {p.threads} threads, {p.smem_bytes} bytes of "
+              f"shared memory, {p.per_sm} blocks an SM", flush=True)
+    require(not faults, "; ".join(faults))
+
+
 def check_pdist(x, c, cm, label):
     """The kernel against the plain version on the same inputs: indices
     exact except where the kernel's pick ties the plain minimum within
@@ -175,6 +299,63 @@ def check_pdist(x, c, cm, label):
     require(ratio <= 1.0, f"pdist_argmin {label}: distance error {err} "
                           f"above the tolerance (x{ratio:.2f})")
     return err, ratio, ties
+
+
+def exact_sq_dists(x, c, cm):
+    """The plain version's distances (ref.pairwise_sq_dists and the
+    mask) evaluated in float64: exact up to f64 rounding."""
+    from repro_torch.kernels import ref
+    xd, cd = x.double(), c.double()
+    d = (torch.sum(xd * xd, -1, keepdim=True)
+         - 2.0 * (xd @ cd.transpose(-1, -2))
+         + torch.sum(cd * cd, -1).unsqueeze(-2)).clamp_min(0.0)
+    if cm is not None:
+        d = torch.where(cm.unsqueeze(-2), d,
+                        torch.full_like(d, ref.MASKED_DIST))
+    return d
+
+
+def check_pdist_exact(x, c, cm, label):
+    """The kernel against the plain version's formula in float64 on the
+    same inputs: indices exact except where the kernel's pick is within
+    the distance tolerance of the exact minimum; distances within the
+    tolerance of the exact ones, and no farther from them than the f32
+    plain version's. At the paths' own inputs the f32 plain version is
+    itself off by more than the tolerance on a few rows (its own
+    rounding of 300-term products at these norms), so the exact
+    distances are the yardstick there. Returns (max |kernel - exact|,
+    its worst ratio to the tolerance, the f32 plain version's worst
+    ratio, the kernel's worst ratio to the f32 plain version, ties, the
+    list of faults found)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pdist_argmin import pdist_argmin
+    idx, val = pdist_argmin(x, c, cm)
+    ridx, rval = ref.assign_argmin(x, c, cm)
+    sync()
+    d = exact_sq_dists(x, c, cm)
+    emin, eidx = torch.min(d, dim=-1)
+    diff = idx.long() != eidx
+    ties = int(diff.sum())
+    tol = dist_tol(x, c, eidx)
+    faults = []
+    if ties:
+        at_k = torch.gather(d, -1, idx.long().unsqueeze(-1)).squeeze(-1)
+        if not bool(((at_k - emin).abs() <= tol)[diff].all()):
+            faults.append(f"pdist_argmin {label}: {ties} indices differ "
+                          f"beyond a tie")
+    err = (val.double() - emin).abs()
+    ratio = float((err / tol).max())
+    plain_ratio = float(((rval.double() - emin).abs() / tol).max())
+    if ratio > 1.0:
+        faults.append(f"pdist_argmin {label}: distance error "
+                      f"{float(err.max())} from the exact distance above "
+                      f"the tolerance (x{ratio:.2f})")
+    if ratio > plain_ratio:
+        faults.append(f"pdist_argmin {label}: x{ratio:.3f} of the "
+                      f"tolerance from the exact distances, farther than "
+                      f"the f32 plain version's x{plain_ratio:.3f}")
+    _, vs_plain = cancellation_err(val, rval, x, c, ridx)
+    return float(err.max()), ratio, plain_ratio, vs_plain, ties, faults
 
 
 def check_update(x, a, k, w, label):
@@ -303,7 +484,8 @@ def solve_kernel(fm, dev, rounds: int):
               f"({pl.groups} fit at once), {groups * pl.slices} blocks on "
               f"{pl.sms} SMs", flush=True)
         out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                          bound_ms=bms, bound_by=by, library_ms=None)
+                          bound_ms=bms, bound_by=by, library_ms=None,
+                          device_ms=dev_ms)
 
     # The routed shape: one batch of the routed leg's plan.
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -354,21 +536,22 @@ def kernel_phase(fm, dev, rounds: int):
     e2, r2, t2 = check_pdist(xs, means, None, "server")
     ms = time_ms(lambda: pdist_argmin(x, c, cm), rounds)
     plain = time_ms(lambda: ref.assign_argmin(x, c, cm), rounds)
-    lib = time_ms(lambda: torch.min(torch.cdist(x, c) ** 2, dim=-1), rounds)
+    lib = time_ms(lambda: cdist_min(x, c), rounds)
+    dev_ms = graph_ms(lambda: pdist_argmin(x, c, cm))
     ms_s = time_ms(lambda: pdist_argmin(xs, means), rounds)
-    nbytes = 4 * (B * n * d + B * KP * d) + B * KP + 8 * B * n
-    flops = 2 * B * n * KP * d + 2 * B * n * d + 2 * B * KP * d
-    bms, by = bound(nbytes, flops)
+    bms, by = bound(*pdist_work(x, c, cm))
     print(f"kernel pdist_argmin: local {tuple(x.shape)}x{tuple(c.shape)} "
           f"max_abs_err={e1:.3e} (x{r1:.3f} of tol, {t1} ties) "
           f"server {tuple(xs.shape)}x{tuple(means.shape)} "
           f"max_abs_err={e2:.3e} "
           f"(x{r2:.3f}, {t2} ties) match=True | local ms={ms:.4f} "
           f"plain_ms={plain:.4f} cdist_min_ms={lib:.4f} bound_ms={bms:.5f} "
-          f"({by}) | server ms={ms_s:.4f}", flush=True)
+          f"({by}) | device time by CUDA graph replay {dev_ms:.4f} ms | "
+          f"server ms={ms_s:.4f}; every path shape: the pdist line",
+          flush=True)
     rows["pdist_argmin"] = dict(
         max_abs_err=max(e1, e2), ms=ms, plain_ms=plain, bound_ms=bms,
-        bound_by=by, library_ms=lib)
+        bound_by=by, library_ms=lib, device_ms=dev_ms)
 
     # kmeans_update: the local update (assignments of the check above)
     # and the server's weighted one-round update.
@@ -391,7 +574,10 @@ def kernel_phase(fm, dev, rounds: int):
         return s, cnt
 
     lib = time_ms(library_update, rounds)
+    dev_ms = graph_ms(lambda: kmeans_update(x, a, KP))
+    dev_lib = graph_ms(library_update)
     ms_s = time_ms(lambda: kmeans_update(xs, sa, K, w), rounds)
+    dev_s = graph_ms(lambda: kmeans_update(xs, sa, K, w))
     nbytes = 4 * (B * n * d + B * n + B * KP * d + B * KP)
     flops = 2 * B * n * d
     bms, by = bound(nbytes, flops)
@@ -399,10 +585,12 @@ def kernel_phase(fm, dev, rounds: int):
           f"max_abs_err={e1:.3e} server {tuple(xs.shape)} k={K} weighted "
           f"max_abs_err={e2:.3e} match=True | local ms={ms:.4f} "
           f"plain_ms={plain:.4f} index_add_ms={lib:.4f} "
-          f"bound_ms={bms:.5f} ({by}) | server ms={ms_s:.4f}", flush=True)
+          f"bound_ms={bms:.5f} ({by}) | server ms={ms_s:.4f} | device time "
+          f"by CUDA graph replay: local ms={dev_ms:.4f} "
+          f"index_add_ms={dev_lib:.4f} server ms={dev_s:.4f}", flush=True)
     rows["kmeans_update"] = dict(
         max_abs_err=max(e1, e2), ms=ms, plain_ms=plain, bound_ms=bms,
-        bound_by=by, library_ms=lib)
+        bound_by=by, library_ms=lib, device_ms=dev_ms)
 
     rows["solve_attach"] = solve_kernel(fm, dev, rounds)
     rows.update(routing_kernels(dev, rounds))
@@ -472,6 +660,9 @@ def routing_kernels(dev, rounds: int):
     lib = time_ms(lambda: F.embedding_bag(idx, x, per_sample_weights=w,
                                           mode="sum"), rounds)
     ms_mask = time_ms(lambda: moe_dispatch(pm, src, valid), rounds)
+    dev_ms = graph_ms(lambda: moe_dispatch(x, src, valid))
+    dev_lib = graph_ms(lambda: F.embedding_bag(idx, x, per_sample_weights=w,
+                                               mode="sum"))
     rows_read = int(torch.unique(src[valid]).numel())
     d = x.shape[1]
     nbytes = 4 * (rows_read * d + S * d) + 5 * S
@@ -482,9 +673,11 @@ def routing_kernels(dev, rounds: int):
           f"ms={ms:.4f} "
           f"plain_ms={plain:.4f} embedding_bag_ms={lib:.4f} "
           f"bound_ms={bms:.5f} ({by}, {nbytes} bytes) | mask "
-          f"ms={ms_mask:.4f}", flush=True)
+          f"ms={ms_mask:.4f} | device time by CUDA graph replay: data "
+          f"ms={dev_ms:.4f} embedding_bag_ms={dev_lib:.4f}", flush=True)
     rows["moe_dispatch"] = dict(max_abs_err=derr, ms=ms, plain_ms=plain,
-                                bound_ms=bms, bound_by=by, library_ms=lib)
+                                bound_ms=bms, bound_by=by, library_ms=lib,
+                                device_ms=dev_ms)
 
     ybuf = torch.as_tensor(rng.normal(size=(S, R_D)).astype(np.float32),
                            device=dev)
@@ -517,6 +710,9 @@ def routing_kernels(dev, rounds: int):
     lib = time_ms(lambda: F.embedding_bag(cidx, ybuf,
                                           per_sample_weights=gates.view(-1, 1),
                                           mode="sum"), rounds)
+    dev_ms = graph_ms(lambda: moe_combine(ybuf, slot, gates, 1))
+    dev_lib = graph_ms(lambda: F.embedding_bag(
+        cidx, ybuf, per_sample_weights=gates.view(-1, 1), mode="sum"))
     rows_read = int(torch.unique(cidx).numel())
     nbytes = 4 * (rows_read * R_D + B * R_D) + 8 * B
     bms, by = bound(nbytes, 2 * B * R_D)
@@ -524,9 +720,12 @@ def routing_kernels(dev, rounds: int):
           f"top_k=1 f32 and bf16 (bitwise), top_k=2 f32; "
           f"max_abs_err={err:.3e} match=True | ms={ms:.4f} "
           f"plain_ms={plain:.4f} embedding_bag_ms={lib:.4f} "
-          f"bound_ms={bms:.6f} ({by}, {nbytes} bytes)", flush=True)
+          f"bound_ms={bms:.6f} ({by}, {nbytes} bytes) | device time by CUDA "
+          f"graph replay: ms={dev_ms:.4f} embedding_bag_ms={dev_lib:.4f}",
+          flush=True)
     rows["moe_combine"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                               bound_ms=bms, bound_by=by, library_ms=lib)
+                               bound_ms=bms, bound_by=by, library_ms=lib,
+                               device_ms=dev_ms)
     return rows
 
 
@@ -563,13 +762,18 @@ def moe_prefill_kernels(dev, rounds: int) -> None:
     w = valid.to(x.dtype).view(-1, 1)
     lib = time_ms(lambda: F.embedding_bag(idx, x, per_sample_weights=w,
                                           mode="sum"), rounds)
+    dev_ms = graph_ms(lambda: moe_dispatch(x, src, valid))
+    dev_lib = graph_ms(lambda: F.embedding_bag(idx, x, per_sample_weights=w,
+                                               mode="sum"))
     nbytes = 2 * (int(torch.unique(src[valid]).numel()) * d + S * d) + 5 * S
     bms, by = bound(nbytes, 0)
     print(f"kernel moe_dispatch mixtral prefill: x {tuple(x.shape)} bf16 -> "
           f"({S}, {d}) = {m.n_experts} experts x C={C}, "
           f"{int(valid.sum())} valid slots; bitwise match=True | "
           f"ms={ms:.4f} plain_ms={plain:.4f} embedding_bag_ms={lib:.4f} "
-          f"bound_ms={bms:.5f} ({by}, {nbytes} bytes)", flush=True)
+          f"bound_ms={bms:.5f} ({by}, {nbytes} bytes) | device time by CUDA "
+          f"graph replay: ms={dev_ms:.4f} embedding_bag_ms={dev_lib:.4f}",
+          flush=True)
 
     ybuf = torch.randn(S, d, generator=g, device=dev).to(torch.bfloat16)
     slot = (flat_e * C + pos_c).to(torch.int32)
@@ -587,6 +791,10 @@ def moe_prefill_kernels(dev, rounds: int) -> None:
     cw = wk.to(ybuf.dtype).view(T, m.top_k)
     lib = time_ms(lambda: F.embedding_bag(cidx, ybuf, per_sample_weights=cw,
                                           mode="sum"), rounds)
+    dev_ms = graph_ms(lambda: moe_combine(ybuf, slot, wk, m.top_k))
+    dev_lib = graph_ms(lambda: F.embedding_bag(cidx, ybuf,
+                                               per_sample_weights=cw,
+                                               mode="sum"))
     rows_read = int(torch.unique(slot[keep]).numel())
     nbytes = 2 * rows_read * d + 4 * T * d + 8 * T * m.top_k
     bms, by = bound(nbytes, 2 * T * m.top_k * d)
@@ -595,7 +803,9 @@ def moe_prefill_kernels(dev, rounds: int) -> None:
           f"{T * m.top_k} choices kept; max_abs_err={float(err.max()):.3e} "
           f"(within 1e-6 of sum |g y|) match=True | ms={ms:.4f} "
           f"plain_ms={plain:.4f} embedding_bag_ms={lib:.4f} (bf16 out) "
-          f"bound_ms={bms:.5f} ({by}, {nbytes} bytes)", flush=True)
+          f"bound_ms={bms:.5f} ({by}, {nbytes} bytes) | device time by CUDA "
+          f"graph replay: ms={dev_ms:.4f} embedding_bag_ms={dev_lib:.4f}",
+          flush=True)
 
 
 def swa_inputs(g, dev, b, h, kvh, dh, W, dtype):
@@ -686,7 +896,7 @@ def swa_kernel(dev, rounds: int):
           f"kv head and chunk) + {b * h} combine blocks "
           f"on {sms} SMs ({'; '.join(plans)})", flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib)
+                bound_by=by, library_ms=lib, device_ms=dev_ms)
 
 
 # ------------------------------------------------------------ main path --
@@ -817,13 +1027,23 @@ def main_path(fm, device):
           f"version {sess.tau_version}, launches {serve_counts}", flush=True)
     require(sacc >= MIN_ACCURACY, f"serve: accuracy {sacc}")
 
+    # One more pass over each path, the shapes of pdist_argmin tallied.
+    with PdistTally() as run_tally:
+        Session(plan).run(0, fm.data)
+    with PdistTally() as serve_tally:
+        Session.from_round(plan, out.detail, seed=0).serve_versioned(datas,
+                                                                     kvs)
+    sync()
+
     # Where the time goes: the same two calls under torch.profiler.
     # Device time is the sum of the kernels' own times; the busy share is
     # taken against the unprofiled wall time above.
     profile("run", lambda: Session(plan).run(0, fm.data), run_s)
     profile("serve", lambda: Session.from_round(plan, out.detail, seed=0)
             .serve_versioned(datas, kvs), serve_s)
-    return run_counts, serve_counts
+    attach = (out.detail.device_centers, out.detail.agg.tau_centers)
+    return (run_counts, serve_counts, {"run": run_tally, "serve": serve_tally},
+            attach)
 
 
 def route_path(device):
@@ -896,10 +1116,14 @@ def route_path(device):
           f"{st['overflowed']} incl. warm-up); label accuracy {acc:.4f}, "
           f"labels equal the heads-off session's; {batches} batches, "
           f"launches {counts}", flush=True)
+    tallied = warm_session(plan)
+    with PdistTally() as tally:
+        [tallied.serve_predict(*w) for w in waves]
+    sync()
     prof = warm_session(plan)
     profile("route", lambda: [prof.serve_predict(*w) for w in waves],
             route_s)
-    return counts
+    return counts, tally
 
 
 def small_lm_agreement(device):
@@ -1130,14 +1354,16 @@ def main() -> int:
     print(f"reference: a small round (Z=8, d=24, k=12) and {nsmall} served "
           f"devices on the card equal the CPU run of the plain versions "
           f"(labels, tau versions; tau within 1e-4)", flush=True)
-    run_counts, serve_counts = main_path(fm, torch.device("cuda"))
+    run_counts, serve_counts, tallies, attach = main_path(
+        fm, torch.device("cuda"))
     nreq, nrouted, perr = small_routed_agreement(torch.device("cuda"))
     print(f"reference: a small routed serve (k=12, d=24, granite-3-2b "
           f"transformer heads, {nreq} requests, {nrouted} routed) on the "
           f"card equals the CPU run (labels, versions, clusters, routing "
           f"exact; predictions within 1e-5 relative, max error "
           f"{perr:.3e})", flush=True)
-    route_counts = route_path(torch.device("cuda"))
+    route_counts, tallies["route"] = route_path(torch.device("cuda"))
+    pdist_shapes(tallies, attach)
     lerr = small_lm_agreement(torch.device("cuda"))
     print(f"reference: reduced Mixtral (f32, 2 layers, d=256, W=64) through "
           f"generate, 2 prompts of 64 tokens and 8 steps over the ring, on "
@@ -1175,7 +1401,8 @@ def main() -> int:
                          + route_counts[name] + decode_counts[name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"]})
     print("launches: run " + json.dumps(run_counts) + " serve "
           + json.dumps(serve_counts) + " route " + json.dumps(route_counts)
           + " decode " + json.dumps(decode_counts)

@@ -1,10 +1,20 @@
 """Wrapper of the fused distance + argmin CUDA kernel
 (``csrc/pdist_argmin.cu``; counterpart of
-``repro/kernels/pdist_argmin.py``)."""
+``repro/kernels/pdist_argmin.py``).
+
+The CUDA source plans each launch from the shape and the card
+(``make_plan`` there; :func:`plan` reports it): a block takes R
+consecutive rows (the rows of all batch entries as one axis when the
+centers are shared), copies them and its centers into shared memory
+once, and splits its work over S slices of TK centers and F parts of the
+features, with one more thread a center for the center norms. The
+slices are merged in index order with a strict ``<``, so ties go to the
+smallest center index. One call counts one launch."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -12,17 +22,59 @@ from repro_torch.kernels import _build
 
 NAME = "pdist_argmin"
 LAUNCHES = 0  # launches of the kernel in this process
+ROWS = 0      # rows a block takes; 0 lets the plan choose
 
 _DTYPES = {torch.float32: "pdist_argmin_f32",
            torch.bfloat16: "pdist_argmin_bf16"}
 
 
+class Plan(NamedTuple):
+    """How the kernel lays out one call on one card."""
+    tk: int          # centers in a thread's register tile
+    rows: int        # R, rows a block takes
+    slices: int      # S, slices of tk centers a block takes at once
+    parts: int       # F, parts the features of a dot product are cut into
+    groups: int      # center groups a block stages one after another
+    blocks: int      # blocks of the launch
+    threads: int     # threads of a block
+    smem_bytes: int  # dynamic shared memory of a block
+    per_sm: int      # blocks co-resident on one SM
+    sms: int
+
+
+@functools.lru_cache(maxsize=None)
 def _fn(dtype):
     fn = getattr(_build.load(NAME), _DTYPES[dtype])
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def plan(B: int, n: int, k: int, d: int, shared: bool,
+         dtype: torch.dtype, device) -> Plan:
+    """The launch that the kernel makes for x (B, n, d) against k
+    centers of d features, shared by every batch entry or not, stored in
+    ``dtype`` on CUDA ``device``."""
+    index = torch.device(device).index
+    return _plan(B, n, k, d, bool(shared), dtype, ROWS,
+                 torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B, n, k, d, shared, dtype, rows, index) -> Plan:
+    fn = _build.load(NAME).pdist_argmin_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 10)()
+    with torch.cuda.device(index):
+        err = fn(B, n, k, d, int(shared), int(dtype == torch.bfloat16), rows,
+                 out)
+    if err != 0:
+        raise RuntimeError(f"{NAME}: planning the launch failed with "
+                           f"cudaError_t {err}")
+    return Plan(*out)
 
 
 def pdist_argmin(x: torch.Tensor, c: torch.Tensor,
@@ -59,11 +111,14 @@ def pdist_argmin(x: torch.Tensor, c: torch.Tensor,
     val = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     if idx.numel() == 0:
         return idx, val
+    align = 4 * x.element_size()
+    vec = (d % 4 == 0 and x.data_ptr() % align == 0
+           and c.data_ptr() % align == 0)
     err = _fn(x.dtype)(
         x.data_ptr(), c.data_ptr(),
         None if c_mask is None else c_mask.data_ptr(),
         idx.data_ptr(), val.data_ptr(), B, n, k, d,
-        k * d if c.dim() == 3 else 0, m_bstride,
+        0 if c.dim() == 2 else k * d, m_bstride, int(vec), ROWS,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(NAME, err)
     LAUNCHES += 1

@@ -134,9 +134,15 @@ def _stack(trees):
 
 
 def init_heads(gen: torch.Generator, k: int, spec: HeadSpec,
-               dtype=torch.float32, device="cpu") -> Params:
+               dtype=torch.float32, device="cuda") -> Params:
     """``k`` independent heads drawn in turn from ``gen`` (a CPU
-    generator), stacked on a leading cluster axis, on ``device``."""
+    generator), stacked on a leading cluster axis, on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "init_heads places the heads on CUDA, but "
+            "torch.cuda.is_available() is False: pass device='cpu' to "
+            "keep them on the CPU")
     params = _stack([_init_one(gen, spec, dtype) for _ in range(k)])
     return tree_map(lambda a: a.to(device), params)
 

@@ -154,6 +154,218 @@ def test_gpu_pdist_argmin_matches_plain(cuda_device, B, n, d, k, dtype):
                     ridx.cpu().numpy())
 
 
+# (B, n, d, k, shared, masked): the shapes the k-FED paths launch
+# pdist_argmin at: the round's local Lloyd steps, a serve batch's
+# local_prepare, the server's Lloyd round (2-D x), the Theorem 3.2 attach
+# of (Z, k', d) device centers, the routed leg's local_prepare, and the
+# serve path's refresh.
+PDIST_PATH_SHAPES = [(50, 400, 300, 10, False, True),
+                     (8, 1024, 300, 10, False, True),
+                     (1, 500, 300, 100, True, False),
+                     (50, 10, 300, 100, True, False),
+                     (64, 64, 128, 4, False, True),
+                     (1, 10240, 300, 100, True, False)]
+
+# The plan (TK, R, S, F, center groups) of each path shape in f32 on a
+# card of 132 SMs (an H100 SXM), as PERF.md gives them.
+PDIST_PATH_PLANS = [(10, 32, 1, 8, 1), (10, 32, 1, 8, 1), (10, 8, 10, 3, 1),
+                    (10, 8, 10, 3, 1), (4, 32, 1, 4, 1), (10, 32, 10, 1, 1)]
+
+
+def pdist_inputs(seed, B, n, d, k, shared, masked, device, dtype,
+                 offset=0):
+    """x (B, n, d) (or (n, d) for B = 1 with shared centers), c (k, d)
+    shared or (B, k, d), a (B, k) mask (center 0 kept) or None, drawn
+    from a seeded generator, stored in ``dtype``. With ``offset`` > 0,
+    x and c start ``offset`` elements into their storage (a base that
+    is not 16-byte aligned)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(*shape):
+        flat = torch.randn(offset + int(np.prod(shape)), generator=g) * 3
+        return flat.to(device, dtype)[offset:].view(*shape)
+
+    x = draw(n, d) if shared and B == 1 else draw(B, n, d)
+    c = draw(k, d) if shared else draw(B, k, d)
+    cm = None
+    if masked:
+        cm = (torch.rand(B, k, generator=g) < 0.8).to(device)
+        cm[:, 0] = True
+    return x, c, cm
+
+
+def assert_argmin_close(x, c, cm, idx, val):
+    """The kernel's (idx, val) against the plain version on the same
+    inputs: indices exact except where the kernel's pick is within the
+    distance tolerance of the plain minimum (a tie at f32 precision);
+    distances within the tolerance."""
+    ridx, rval = ref.assign_argmin(x, c, cm)
+    xf, cf = x.float().cpu(), c.float().cpu()
+    idx, val, ridx, rval = (a.cpu() for a in (idx, val, ridx, rval))
+    diff = idx != ridx
+    if bool(diff.any()):
+        dist = ref.pairwise_sq_dists(xf, cf)
+        if cm is not None:
+            dist = torch.where(cm.cpu().unsqueeze(-2), dist, ref.MASKED_DIST)
+        at = torch.gather(dist, -1, idx.long().unsqueeze(-1)).squeeze(-1)
+        assert_min_dist(at[diff].numpy(), rval[diff].numpy(),
+                        xf.numpy(), cf.numpy(), ridx.numpy())
+    assert_min_dist(val.numpy(), rval.numpy(), xf.numpy(), cf.numpy(),
+                    ridx.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,d,k,shared,masked", PDIST_PATH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_pdist_argmin_path_shapes(cuda_device, B, n, d, k, shared,
+                                      masked, dtype):
+    """Every shape the paths launch, shared (k, d) centers with a 2-D x
+    and with a batched x included, in f32 and bf16."""
+    from repro_torch.kernels.pdist_argmin import pdist_argmin
+    x, c, cm = pdist_inputs(B * n + k, B, n, d, k, shared, masked,
+                            cuda_device, dtype)
+    idx, val = pdist_argmin(x, c, cm)
+    assert idx.shape == x.shape[:-1] and idx.dtype == torch.int32
+    assert_argmin_close(x, c, cm, idx, val)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,want", zip(PDIST_PATH_SHAPES,
+                                           PDIST_PATH_PLANS))
+def test_gpu_pdist_argmin_path_plans(cuda_device, shape, want):
+    """The plan of every path shape gives a block to at least a third of
+    the SMs (rows of shared centers as one axis), and on a card of 132
+    SMs is the one that PERF.md gives."""
+    from repro_torch.kernels.pdist_argmin import plan
+    B, n, d, k, shared, _ = shape
+    p = plan(B, n, k, d, shared, torch.float32, cuda_device)
+    assert 3 * p.blocks >= p.sms
+    assert p.blocks == (1 if shared else B) * -(-(B * n if shared else n)
+                                                // p.rows)
+    assert p.threads <= 512 and p.per_sm >= 1
+    if p.sms == 132:
+        assert (p.tk, p.rows, p.slices, p.parts, p.groups) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 17, 100, 257])
+@pytest.mark.parametrize("B,n,d,shared,offset", [
+    (3, 70, 33, False, 0),      # ragged n, d not a multiple of 4
+    (5, 37, 33, True, 0),       # flat rows of 5 entries, d ragged
+    (3, 70, 36, False, 1),      # d a multiple of 4, unaligned bases
+    (1, 301, 64, True, 0)])     # 2-D x, the 16-byte copies
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_pdist_argmin_k_and_layouts(cuda_device, k, B, n, d, shared,
+                                        offset, dtype):
+    """k of one, part of one, two and many center slices (k = 257 at
+    d = 300, more than a block takes at once, below); the copies by 4
+    elements and the element-wise ones."""
+    from repro_torch.kernels.pdist_argmin import pdist_argmin
+    x, c, cm = pdist_inputs(k * 7 + n, B, n, d, k, shared, True, cuda_device,
+                            dtype, offset)
+    if offset:
+        assert x.data_ptr() % 16 and c.data_ptr() % 16
+    for mask in (None, cm[0] if shared else cm):
+        idx, val = pdist_argmin(x, c, mask)
+        assert_argmin_close(x, c, mask, idx, val)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [False, True])
+def test_gpu_pdist_argmin_center_groups(cuda_device, shared):
+    """k = 257 centers of d = 300 are more than a block takes at once:
+    they are staged and merged in three groups."""
+    from repro_torch.kernels.pdist_argmin import pdist_argmin, plan
+    B, n, d, k = 2, 90, 300, 257
+    x, c, cm = pdist_inputs(11, B, n, d, k, shared, True, cuda_device,
+                            torch.float32)
+    assert plan(B, n, k, d, shared, x.dtype, cuda_device).groups == 3
+    idx, val = pdist_argmin(x, c, cm)
+    assert_argmin_close(x, c, cm, idx, val)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 16, 32])
+def test_gpu_pdist_argmin_every_row_count(cuda_device, monkeypatch, rows):
+    """Every row count a plan may take gives the plain version's answer
+    (the server's shape, masked; the plan restricted to one count)."""
+    from repro_torch.kernels import pdist_argmin as pa
+    x, c, cm = pdist_inputs(5, 1, 500, 300, 100, True, True, cuda_device,
+                            torch.float32)
+    monkeypatch.setattr(pa, "ROWS", rows)
+    assert pa.plan(1, 500, 100, 300, True, x.dtype, cuda_device).rows == rows
+    idx, val = pa.pdist_argmin(x, c, cm[0])
+    assert_argmin_close(x, c, cm[0], idx, val)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,d,k,shared", [(4, 100, 300, 10, False),
+                                            (1, 500, 300, 100, True),
+                                            (6, 50, 33, 257, True),
+                                            (64, 64, 128, 4, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_pdist_argmin_duplicates_pick_smallest(cuda_device, B, n, d, k,
+                                                   shared, dtype):
+    """Copies of a center give bit-identical distances, so the smallest
+    index is required exactly: every row lies next to a center that has
+    a later copy, and must pick the first one."""
+    from repro_torch.kernels.pdist_argmin import pdist_argmin
+    x, c, _ = pdist_inputs(k + n, B, n, d, k, shared, False, cuda_device,
+                           dtype)
+    cb = c if shared else c.view(B, k, d)
+    half = max(1, k // 2)
+    src = torch.arange(k, device=cuda_device) % half
+    cb.copy_(cb[..., src, :].clone())          # center j copies j % half
+    g = torch.Generator().manual_seed(n)
+    pick = torch.randint(0, k, x.shape[:-1], generator=g).to(cuda_device)
+    near = cb[pick] if shared else torch.gather(
+        cb, 1, pick.unsqueeze(-1).expand(-1, -1, d))
+    x.copy_(near + 0.01 * torch.randn(x.shape, generator=g).to(
+        cuda_device, dtype))
+    idx, val = pdist_argmin(x, c, None)
+    assert torch.equal(idx, (pick % half).int())
+    assert_argmin_close(x, c, None, idx, val)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,d", [(10, 300), (100, 300), (257, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_pdist_argmin_all_masked_rows(cuda_device, k, d, dtype):
+    """Rows whose every center is masked get idx 0 and exactly
+    MASKED_DIST: a batch entry with an all-False mask row, and a shared
+    center set with an all-False mask."""
+    from repro_torch.kernels.pdist_argmin import pdist_argmin
+    x, c, cm = pdist_inputs(k + d, 3, 40, d, k, False, True, cuda_device,
+                            dtype)
+    cm[1] = False
+    idx, val = pdist_argmin(x, c, cm)
+    assert bool((idx[1] == 0).all())
+    assert bool((val[1] == np.float32(ref.MASKED_DIST)).all())
+    assert_argmin_close(x, c, cm, idx, val)
+    none = torch.zeros(k, dtype=torch.bool, device=cuda_device)
+    idx, val = pdist_argmin(x, c[0].contiguous(), none)
+    assert bool((idx == 0).all())
+    assert bool((val == np.float32(ref.MASKED_DIST)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,d,k,shared,masked", PDIST_PATH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_pdist_argmin_runs_twice_alike(cuda_device, B, n, d, k, shared,
+                                           masked, dtype):
+    """Two calls give the same bits (no atomics: every sum and merge in
+    a fixed order), and each counts one launch."""
+    from repro_torch.kernels import pdist_argmin as pa
+    x, c, cm = pdist_inputs(B + n + k, B, n, d, k, shared, masked,
+                            cuda_device, dtype)
+    before = pa.LAUNCHES
+    first = pa.pdist_argmin(x, c, cm)
+    second = pa.pdist_argmin(x, c, cm)
+    assert pa.LAUNCHES == before + 2
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1].view(torch.int32), second[1].view(torch.int32))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,n,d,k", [(1, 5, 3, 2), (3, 70, 33, 7),
                                      (50, 400, 300, 10), (2, 3000, 129, 5)])
@@ -345,7 +557,7 @@ def test_gpu_routed_step_matches_cpu(cuda_device, heads, arch):
     pmask[3, n // 2:] = False
     kv = np.full((B,), 2, np.int32)
     params = init_heads(torch.Generator().manual_seed(1), k,
-                        cfg.head_spec())
+                        cfg.head_spec(), device="cpu")
     g = GumbelSource(3).draw(range(B), 2, n, "cpu")
     step = _make_routed_step(cfg)
     outs = []

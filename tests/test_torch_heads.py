@@ -63,7 +63,8 @@ def test_init_heads_layout_and_param_count(name, arch):
     (k, ...) stacked, and head_param_count parameters per head."""
     k, d = 3, 16
     spec = heads.resolve_head_spec(name, arch, d)
-    p = heads.init_heads(torch.Generator().manual_seed(0), k, spec)
+    p = heads.init_heads(torch.Generator().manual_seed(0), k, spec,
+                         device="cpu")
     jp = jheads.init_heads(jax.random.PRNGKey(0), k,
                            jheads.resolve_head_spec(name, arch, d))
     assert dict(_shapes(p)) == dict(_shapes(jp))
@@ -71,7 +72,8 @@ def test_init_heads_layout_and_param_count(name, arch):
     assert n == heads.head_param_count(spec)
     assert all(a.shape[0] == k for a in _leaves(p))
     # Another generator state gives other weights; zeros/ones stay.
-    q = heads.init_heads(torch.Generator().manual_seed(1), k, spec)
+    q = heads.init_heads(torch.Generator().manual_seed(1), k, spec,
+                         device="cpu")
     assert not all(torch.equal(a, b) for a, b in zip(_leaves(p),
                                                      _leaves(q)))
 

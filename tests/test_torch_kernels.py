@@ -14,6 +14,8 @@ exactly; its combine (moe_combine) exactly for top_k=1 and, for top_k=2,
 within 1e-6 of the sum of the absolute products (two products summed,
 which a compiler may contract into one FMA).
 """
+from typing import NamedTuple
+
 import numpy as np
 import pytest
 
@@ -128,6 +130,149 @@ def test_assign_argmin_chunks_rows(monkeypatch):
     torch.testing.assert_close(chunked[0], whole[0], rtol=0, atol=0)
     assert_min_dist(chunked[1].numpy(), whole[1].numpy(), x, c,
                     whole[0].numpy())
+
+
+class Split(NamedTuple):
+    """The part of a launch plan of csrc/pdist_argmin.cu (``make_plan``)
+    that sets the order of the kernel's sums and merges."""
+    tk: int           # centers of a slice
+    rows: int         # rows of a block
+    slices: int       # slices of a center group
+    parts: int        # parts of the features
+    groups: int       # center groups
+    part_groups: int  # 4-feature groups of a part
+    tiles: int        # blocks along one row axis
+    blocks: int
+
+
+def make_split(B, n, d, k, shared, tk, rows, slices, parts, groups):
+    """The Split of x (B, n, d) against k centers for the plan's choice
+    of (tk, rows, slices, parts, groups)."""
+    d4 = -(-d // 4)
+    tiles = -(-(B * n if shared else n) // rows)
+    return Split(tk, rows, slices, parts, groups, -(-d4 // parts), tiles,
+                 (1 if shared else B) * tiles)
+
+
+def split_argmin(x, c, cm, p):
+    """The CUDA kernel's split and merge in plain PyTorch, for a Split
+    ``p``: blocks of p.rows consecutive rows
+    (the rows of every batch entry as one axis when c is shared (k, d),
+    else within one entry), each dot product summed over p.parts parts
+    of 4 p.part_groups features in part order, and the candidates taken
+    in index order (the tk centers of a slice, the slices of a group,
+    then the groups) with a strict ``<``. x: (B, n, d); c: (B, k, d) or
+    (k, d); cm: (B, k), (k,) or None. The row and center norms are
+    summed in the same parts. Returns (idx (B, n) int32, val (B, n)
+    f32)."""
+    B, n, d = x.shape
+    k = c.shape[-2]
+    shared = c.dim() == 2
+    rows = x.reshape(B * n, d)
+    per = B * n if shared else n
+    parts = [(min(d, 4 * f * p.part_groups),
+              min(d, 4 * (f + 1) * p.part_groups)) for f in range(p.parts)]
+    idx = torch.zeros(B * n, dtype=torch.int32)
+    val = torch.zeros(B * n)
+    for blk in range(p.blocks):
+        e, tile = divmod(blk, p.tiles)
+        lo = e * per + tile * p.rows
+        hi = min(lo + p.rows, e * per + per)
+        xt = rows[lo:hi]
+        cen = c if shared else c[e]
+        fr = torch.arange(lo, hi)
+        if cm is None:
+            keep = torch.ones((hi - lo, k), dtype=torch.bool)
+        else:
+            keep = cm.expand(B, k)[fr // n]
+        xn = sum(torch.sum(xt[:, j0:j1] ** 2, -1) for j0, j1 in parts)
+        best = torch.full((hi - lo,), float("inf"))
+        besti = torch.zeros(hi - lo, dtype=torch.int32)
+        for grp in range(p.groups):
+            for s in range(p.slices):
+                bv = torch.full((hi - lo,), float("inf"))
+                bi = torch.zeros(hi - lo, dtype=torch.int32)
+                for t in range(p.tk):
+                    g = (grp * p.slices + s) * p.tk + t
+                    if g >= k:
+                        continue
+                    dot = sum(xt[:, j0:j1] @ cen[g, j0:j1] for j0, j1 in parts)
+                    cn = sum(torch.sum(cen[g, j0:j1] ** 2) for j0, j1 in parts)
+                    dist = torch.clamp_min(xn - 2.0 * dot + cn, 0.0)
+                    dist = torch.where(keep[:, g], dist, ref.MASKED_DIST)
+                    better = dist < bv
+                    bv = torch.where(better, dist, bv)
+                    bi = torch.where(better, g, bi)
+                better = bv < best
+                best = torch.where(better, bv, best)
+                besti = torch.where(better, bi, besti)
+        idx[lo:hi], val[lo:hi] = besti, best
+    return idx.reshape(B, n), val.reshape(B, n)
+
+
+# (B, n, d, k, shared, mask, plan (TK, R, S, F, groups)): small inputs
+# under the plans the path shapes take on a full card (R = 32 with a
+# ragged last tile, S = 10 slices of flat rows, F > 1 parts, k = 257 in
+# center groups, TK = 4 at k' = 4). The card tests hold make_plan to
+# these plans at the path shapes.
+MIRROR_CASES = [
+    (3, 70, 70, 10, False, "batch", (10, 32, 1, 2, 1)),
+    (5, 10, 12, 100, True, "shared", (10, 8, 10, 1, 1)),
+    (4, 23, 33, 17, False, "all_masked_entry", (10, 32, 2, 1, 1)),
+    (1, 20, 300, 257, True, None, (10, 16, 9, 1, 3)),
+    (2, 9, 8, 4, False, None, (4, 1, 1, 1, 1)),
+    (3, 6, 5, 1, True, "all_masked", (4, 1, 1, 1, 1))]
+
+
+@pytest.mark.parametrize("B,n,d,k,shared,mask,split", MIRROR_CASES)
+def test_pdist_split_mirror_matches_jax(B, n, d, k, shared, mask, split):
+    """The split and merge of csrc/pdist_argmin.cu (row tiles, center
+    slices and groups, flat rows for shared c, the ordered strict ``<``
+    merge) == JAX ref == Pallas (interpret) == the port's plain version,
+    exactly, on integer-valued inputs (every sum exact) with duplicated
+    centers (exact ties: the smallest index), masked centers and
+    all-masked rows (idx 0, MASKED_DIST)."""
+    rng = np.random.default_rng(B * 1000 + k)
+    x = rng.integers(-4, 5, size=(B, n, d)).astype(np.float32)
+    c = rng.integers(-4, 5, size=(k, d) if shared else (B, k, d)).astype(
+        np.float32)
+    if k > 1:
+        c[..., 1::3, :] = c[..., 0:1, :]     # duplicates of center 0
+        x[:, ::4] = c[0] if shared else c[:, :1]   # rows on center 0
+    cm = None
+    if mask is not None:
+        cm = rng.random(k if mask in ("shared", "all_masked") else (B, k)
+                        ) < 0.7
+        cm[..., 0] = True
+        if mask == "all_masked":
+            cm[:] = False
+        if mask == "all_masked_entry":
+            cm[1] = False
+    p = make_split(B, n, d, k, shared, *split)
+    assert p.slices * p.groups * p.tk >= k
+    got = split_argmin(T(x), T(c), None if cm is None else T(cm), p)
+    plain = ref.assign_argmin(T(x), T(c), None if cm is None else T(cm))
+    torch.testing.assert_close(got[0], plain[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], plain[1], rtol=0, atol=0)
+    xs = x.reshape(B * n, d) if shared else x
+    jm = None if cm is None else jnp.asarray(cm)
+    for e in range(1 if shared else B):
+        xe, ce = (xs, c) if shared else (xs[e], c[e])
+        me = jm if (jm is None or shared or jm.ndim == 1) else jm[e]
+        gi = got[0].reshape(-1) if shared else got[0][e]
+        gv = got[1].reshape(-1) if shared else got[1][e]
+        for jidx, jval in (
+                jref.assign_argmin(jnp.asarray(xe), jnp.asarray(ce), me),
+                pallas_argmin(jnp.asarray(xe), jnp.asarray(ce), me, bn=32,
+                              bd=128, interpret=True)):
+            np.testing.assert_array_equal(gi.numpy(), np.asarray(jidx))
+            np.testing.assert_array_equal(gv.numpy(), np.asarray(jval))
+    if k > 1:   # rows on center 0 pick 0, not one of its copies
+        assert bool((got[0][:, ::4][got[1][:, ::4] < ref.MASKED_DIST]
+                     == 0).all())
+    if mask == "all_masked":
+        assert bool((got[0] == 0).all())
+        assert bool((got[1] == np.float32(ref.MASKED_DIST)).all())
 
 
 # ------------------------------------------------------- kmeans_update --

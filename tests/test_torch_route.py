@@ -126,7 +126,8 @@ def test_routed_step_labels_equal_plain_step():
     args = (torch.as_tensor(tau), None, torch.as_tensor(data),
             torch.as_tensor(pmask), torch.as_tensor(kv))
     from repro_torch.models.heads import init_heads
-    p = init_heads(torch.Generator().manual_seed(0), 8, cfg.head_spec())
+    p = init_heads(torch.Generator().manual_seed(0), 8, cfg.head_spec(),
+                   device="cpu")
     g = JaxServeGumbel(0).draw(rids.tolist(), 2, 32, "cpu")
     plain = plane._make_step(cfg)(args[0], g, *args[2:])
     routed = plane._make_routed_step(cfg)(args[0], p, g, *args[2:])
