@@ -28,7 +28,12 @@ the round, serve and routed paths launch it at, on the paths' own inputs
 (tallied in one more pass over each path), and at the Theorem 3.2
 attach of the round's devices, and there held against the exact (f64)
 distances: within the tolerance, and no farther from them than the f32
-plain version.
+plain version. kmeans_update likewise, at every shape those paths launch
+it at (tallied in the same pass): its rows at -1 and longest list, its
+device time beside one index_add_ call's and two bounds (the rows whose
+assignment is valid, and all of x), and its sums held against the sums
+taken in f64 and against the f32 plain version within check_update's
+tolerance, two calls bit for bit.
 
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
@@ -183,39 +188,78 @@ def pdist_work(x, c, cm):
     return nbytes, flops
 
 
-class PdistTally:
-    """Counts the pdist_argmin launches of one pass over a path by
-    (B, n, d, k, shared, masked, dtype), by wrapping the kernel's wrapper
-    function for the length of a ``with`` block, and keeps the first
-    inputs of each shape, so that they can be checked and timed."""
+class Tally:
+    """Counts the launches of one kernel's wrapper function
+    (``repro_torch.kernels.<name>.<name>``) over one pass of a path by
+    the shape key that ``key`` gives its arguments, by wrapping the
+    function for the length of a ``with`` block, and keeps a copy of the
+    first inputs of each shape, so that they can be checked and timed."""
 
-    def __init__(self):
+    def __init__(self, name: str, key):
+        self.name, self.key = name, key
         self.shapes = {}
 
     def __enter__(self):
-        from repro_torch.kernels import pdist_argmin as pa
-        self._module, self._fn = pa, pa.pdist_argmin
+        import importlib
+        self._module = importlib.import_module(
+            f"repro_torch.kernels.{self.name}")
+        self._fn = getattr(self._module, self.name)
 
-        def counted(x, c, c_mask=None):
-            key = (x.shape[0] if x.dim() == 3 else 1, x.shape[-2],
-                   x.shape[-1], c.shape[-2], c.dim() == 2,
-                   c_mask is not None, str(x.dtype).replace("torch.", ""))
+        def counted(*args):
+            key = self.key(*args)
             if key not in self.shapes:
-                self.shapes[key] = [0, (x.clone(), c.clone(),
-                                        None if c_mask is None
-                                        else c_mask.clone())]
+                self.shapes[key] = [0, tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args)]
             self.shapes[key][0] += 1
-            return self._fn(x, c, c_mask)
+            return self._fn(*args)
 
-        pa.pdist_argmin = counted
+        setattr(self._module, self.name, counted)
         return self
 
     def __exit__(self, *exc):
-        self._module.pdist_argmin = self._fn
+        setattr(self._module, self.name, self._fn)
         return False
 
-    def counts(self):
-        return {shape_name(key): v[0] for key, v in self.shapes.items()}
+
+def pdist_key(x, c, c_mask=None):
+    return (x.shape[0] if x.dim() == 3 else 1, x.shape[-2], x.shape[-1],
+            c.shape[-2], c.dim() == 2, c_mask is not None,
+            str(x.dtype).replace("torch.", ""))
+
+
+def kmeans_key(x, assign, k, weights=None):
+    return (tuple(x.shape), int(k), weights is not None,
+            str(x.dtype).replace("torch.", ""))
+
+
+def tallied(fn):
+    """Run ``fn`` once with the launches of pdist_argmin and
+    kmeans_update tallied by shape: {kernel name: Tally}."""
+    with Tally("pdist_argmin", pdist_key) as pd, \
+            Tally("kmeans_update", kmeans_key) as km:
+        fn()
+        sync()
+    return {"pdist_argmin": pd, "kmeans_update": km}
+
+
+def merged(tallies, name):
+    """{shape key: {"launches": {path: count}, "inputs": first inputs}}
+    of kernel ``name`` over the paths' tallies, the most launched
+    first."""
+    shapes = {}
+    for path, by_kernel in tallies.items():
+        for key, (count, inputs) in by_kernel[name].shapes.items():
+            entry = shapes.setdefault(key, {"launches": {}, "inputs": inputs})
+            entry["launches"][path] = count
+    return dict(sorted(shapes.items(),
+                       key=lambda kv: -sum(kv[1]["launches"].values())))
+
+
+def tally_line(tallies, name, shape_name) -> str:
+    return "; ".join(
+        f"{path} " + json.dumps({shape_name(key): v[0] for key, v
+                                 in by_kernel[name].shapes.items()})
+        for path, by_kernel in tallies.items())
 
 
 def shape_name(key) -> str:
@@ -236,19 +280,14 @@ def pdist_shapes(tallies, attach) -> None:
     and printed before any check is required; the kernel's plans come
     last."""
     from repro_torch.kernels.pdist_argmin import pdist_argmin
-    shapes = {}
-    for path, tally in tallies.items():
-        for key, (count, inputs) in tally.shapes.items():
-            entry = shapes.setdefault(key, {"launches": {}, "inputs": inputs})
-            entry["launches"][path] = count
+    shapes = merged(tallies, "pdist_argmin")
     x, c = attach
     key = (x.shape[0], x.shape[1], x.shape[2], c.shape[0], True, False,
            str(x.dtype).replace("torch.", ""))
     shapes.setdefault(key, {"launches": {}, "inputs": (x, c, None)})
-    print("pdist tally: " + "; ".join(
-        f"{path} {json.dumps(t.counts())}" for path, t in tallies.items()),
-        flush=True)
-    order = sorted(shapes, key=lambda k: -sum(shapes[k]["launches"].values()))
+    print("pdist tally: " + tally_line(tallies, "pdist_argmin", shape_name),
+          flush=True)
+    order = list(shapes)
     faults = []
     for key in order:
         launches = shapes[key]["launches"]
@@ -358,24 +397,172 @@ def check_pdist_exact(x, c, cm, label):
     return float(err.max()), ratio, plain_ratio, vs_plain, ties, faults
 
 
+def update_tol(x, w, sums):
+    """check_update's tolerance of sums against ``sums``: 1e-5 relative
+    + n * 1e-7 * max|x| * max w absolute (f32 summation of n terms in
+    another order)."""
+    n = x.shape[-2]
+    scale = float(x.float().abs().max()) * (1.0 if w is None
+                                            else float(w.max()))
+    return 1e-5 * sums.abs() + n * 1e-7 * scale
+
+
+def count_tol(x, counts) -> float:
+    return 1e-5 * float(counts.abs().max()) + x.shape[-2] * 1e-7
+
+
 def check_update(x, a, k, w, label):
-    """Sums within 1e-5 relative + n * 1e-7 * max|x| absolute (f32
-    summation of n terms in another order), counts likewise."""
+    """Sums within update_tol of the plain version's, counts likewise."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.kmeans_update import kmeans_update
     s, cnt = kmeans_update(x, a, k, w)
     rs, rc = ref.kmeans_update(x, a, k, w)
     sync()
-    n = x.shape[-2]
-    scale = float(x.abs().max()) * (1.0 if w is None else float(w.max()))
-    tol = 1e-5 * rs.abs() + n * 1e-7 * scale
     err = float((s - rs).abs().max())
-    require(bool(((s - rs).abs() <= tol).all()),
+    require(bool(((s - rs).abs() <= update_tol(x, w, rs)).all()),
             f"kmeans_update {label}: sums differ by {err}")
     cerr = float((cnt - rc).abs().max())
-    require(cerr <= 1e-5 * float(rc.abs().max()) + n * 1e-7,
+    require(cerr <= count_tol(x, rc),
             f"kmeans_update {label}: counts differ by {cerr}")
     return max(err, cerr)
+
+
+def exact_update(x, a, k, w):
+    """The plain version's one-hot product evaluated in float64."""
+    cols = torch.arange(k, device=a.device, dtype=a.dtype)
+    oh = (a.unsqueeze(-1) == cols).double()
+    if w is not None:
+        oh = oh * w.double().unsqueeze(-1)
+    return oh.transpose(-1, -2) @ x.double(), torch.sum(oh, dim=-2)
+
+
+def check_update_exact(x, a, k, w, label):
+    """The kernel against the sums and counts taken in float64 and
+    against the f32 plain version, each within check_update's tolerance,
+    and two calls bit for bit. Returns {err: max |sums - f64|, ratio:
+    its worst ratio to the tolerance, plain_ratio: the f32 plain
+    version's, vs_plain: the kernel's worst ratio to the f32 plain
+    version, cerr: max |counts - f64|, same: two calls equal bit for
+    bit, faults: the list of faults found}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kmeans_update import kmeans_update
+    s, cnt = kmeans_update(x, a, k, w)
+    s2, cnt2 = kmeans_update(x, a, k, w)
+    rs, rc = ref.kmeans_update(x, a, k, w)
+    es, ec = exact_update(x, a, k, w)
+    sync()
+    err = (s.double() - es).abs()
+    ratio = float((err / update_tol(x, w, es)).max())
+    plain_ratio = float(((rs.double() - es).abs()
+                         / update_tol(x, w, es)).max())
+    vs_plain = float(((s - rs).abs() / update_tol(x, w, rs)).max())
+    cerr = float((cnt.double() - ec).abs().max())
+    same = (torch.equal(s.view(torch.int32), s2.view(torch.int32))
+            and torch.equal(cnt.view(torch.int32), cnt2.view(torch.int32)))
+    faults = []
+    if ratio > 1.0:
+        faults.append(f"kmeans_update {label}: sums x{ratio:.3f} of the "
+                      f"tolerance from the f64 sums")
+    if vs_plain > 1.0:
+        faults.append(f"kmeans_update {label}: sums x{vs_plain:.3f} of the "
+                      f"tolerance from the f32 plain version")
+    if cerr > count_tol(x, ec) or float((cnt - rc).abs().max()) > count_tol(
+            x, rc):
+        faults.append(f"kmeans_update {label}: counts differ by {cerr}")
+    if not same:
+        faults.append(f"kmeans_update {label}: two calls differ")
+    return dict(err=float(err.max()), ratio=ratio, plain_ratio=plain_ratio,
+                vs_plain=vs_plain, cerr=cerr, same=same, faults=faults)
+
+
+def index_add_update(x, a, k, w):
+    """The library yardstick of kmeans_update: a call computing the same
+    sums and counts with index_add_ (a weighted x first where there are
+    weights); rows at -1 go to a spare row. The index is made here,
+    outside the timed call."""
+    B = x.shape[0] if x.dim() == 3 else 1
+    d = x.shape[-1]
+    base = (torch.arange(B, device=a.device, dtype=a.dtype) * k).view(
+        *a.shape[:-1], 1) if x.dim() == 3 else 0
+    idx = torch.where(a >= 0, a + base, B * k).reshape(-1)
+    flat = x.reshape(-1, d)
+    ww = (torch.ones(idx.shape, device=x.device) if w is None
+          else w.reshape(-1))
+
+    def call():
+        rows = flat if w is None else flat * ww.unsqueeze(-1)
+        s = torch.zeros((B * k + 1, d), device=x.device,
+                        dtype=rows.dtype).index_add_(0, idx, rows)
+        c = torch.zeros((B * k + 1,), device=x.device).index_add_(0, idx, ww)
+        return s, c
+
+    return call
+
+
+def update_work(x, a, k, w, valid_only: bool):
+    """(bytes, flops) of one kmeans_update call: the assignment and the
+    weights read once, the rows of x (only those whose assignment is
+    valid with ``valid_only``, else all of x) read once, the sums and
+    counts written once; one add (an FMA with weights) an element."""
+    B = x.shape[0] if x.dim() == 3 else 1
+    n, d = x.shape[-2:]
+    rows = int(((a >= 0) & (a < k)).sum()) if valid_only else B * n
+    nbytes = (4 * B * n * (1 if w is None else 2)
+              + x.element_size() * rows * d + 4 * B * k * (d + 1))
+    return nbytes, rows * d * (1 if w is None else 2)
+
+
+def kmeans_name(key) -> str:
+    shape, k, weighted, dtype = key
+    return (f"({','.join(map(str, shape))}) k={k}"
+            f"{' weighted' if weighted else ''} {dtype}")
+
+
+def kmeans_shapes(tallies) -> None:
+    """kmeans_update at every shape that the round, serve and routed
+    paths launched, on the first inputs the path gave it there: the
+    rows at -1, the device time by graph replay of the kernel and of the
+    index_add_ call beside two bounds (the rows whose assignment is
+    valid, and all of x), and the kernel held against the f64 sums and
+    the f32 plain version (check_update_exact). Every shape is timed and
+    printed before any check is required; the kernel's plans come
+    last."""
+    from repro_torch.kernels.kmeans_update import kmeans_update
+    shapes = merged(tallies, "kmeans_update")
+    print("kmeans tally: " + tally_line(tallies, "kmeans_update",
+                                        kmeans_name), flush=True)
+    faults = []
+    for key, entry in shapes.items():
+        x, a, k, w = entry["inputs"]
+        invalid = int((a < 0).sum())
+        flat = (a + k * torch.arange(a.numel() // a.shape[-1], device=a.device
+                                     ).view(*a.shape[:-1], 1))[a >= 0]
+        longest = int(torch.bincount(flat).max()) if flat.numel() else 0
+        r = check_update_exact(x, a, k, w, kmeans_name(key))
+        faults += r["faults"]
+        bms, by = bound(*update_work(x, a, k, w, True))
+        bms_all, _ = bound(*update_work(x, a, k, w, False))
+        dev_ms = graph_ms(lambda: kmeans_update(x, a, k, w))
+        lib_ms = graph_ms(index_add_update(x, a, k, w))
+        print(f"kmeans {kmeans_name(key)}: launches "
+              f"{json.dumps(entry['launches'])}; {invalid} of {a.numel()} "
+              f"rows at -1, the longest list {longest} rows; against the f64 sums max_abs_err="
+              f"{r['err']:.3e} (x{r['ratio']:.3f} of tol), counts "
+              f"max_abs_err={r['cerr']:.3e}, two calls bitwise equal="
+              f"{r['same']}, match={not r['faults']}; the f32 plain version "
+              f"x{r['plain_ratio']:.3f} of tol from them, the kernel "
+              f"x{r['vs_plain']:.3f} from it | device ms={dev_ms:.4f} "
+              f"index_add "
+              f"device ms={lib_ms:.4f} bound_ms={bms:.5f} ({by}, valid rows)"
+              f" bound_ms all of x={bms_all:.5f}", flush=True)
+    from repro_torch.kernels.kmeans_update import plan
+    for key, entry in shapes.items():
+        x, a, k, w = entry["inputs"]
+        B = x.shape[0] if x.dim() == 3 else 1
+        n, d = x.shape[-2:]
+        p = plan(B, n, k, d, w is not None, x.device)
+        print(f"kmeans plan {kmeans_name(key)}: {p.describe()}", flush=True)
+    require(not faults, "; ".join(faults))
 
 
 def check_solve(x, c0, tau, cm, pm, dtype, max_iters):
@@ -1027,13 +1214,11 @@ def main_path(fm, device):
           f"version {sess.tau_version}, launches {serve_counts}", flush=True)
     require(sacc >= MIN_ACCURACY, f"serve: accuracy {sacc}")
 
-    # One more pass over each path, the shapes of pdist_argmin tallied.
-    with PdistTally() as run_tally:
-        Session(plan).run(0, fm.data)
-    with PdistTally() as serve_tally:
-        Session.from_round(plan, out.detail, seed=0).serve_versioned(datas,
-                                                                     kvs)
-    sync()
+    # One more pass over each path, the shapes of pdist_argmin and
+    # kmeans_update tallied.
+    run_tally = tallied(lambda: Session(plan).run(0, fm.data))
+    serve_tally = tallied(lambda: Session.from_round(
+        plan, out.detail, seed=0).serve_versioned(datas, kvs))
 
     # Where the time goes: the same two calls under torch.profiler.
     # Device time is the sum of the kernels' own times; the busy share is
@@ -1116,10 +1301,8 @@ def route_path(device):
           f"{st['overflowed']} incl. warm-up); label accuracy {acc:.4f}, "
           f"labels equal the heads-off session's; {batches} batches, "
           f"launches {counts}", flush=True)
-    tallied = warm_session(plan)
-    with PdistTally() as tally:
-        [tallied.serve_predict(*w) for w in waves]
-    sync()
+    again = warm_session(plan)
+    tally = tallied(lambda: [again.serve_predict(*w) for w in waves])
     prof = warm_session(plan)
     profile("route", lambda: [prof.serve_predict(*w) for w in waves],
             route_s)
@@ -1364,6 +1547,7 @@ def main() -> int:
           f"{perr:.3e})", flush=True)
     route_counts, tallies["route"] = route_path(torch.device("cuda"))
     pdist_shapes(tallies, attach)
+    kmeans_shapes(tallies)
     lerr = small_lm_agreement(torch.device("cuda"))
     print(f"reference: reduced Mixtral (f32, 2 layers, d=256, W=64) through "
           f"generate, 2 prompts of 64 tokens and 8 steps over the ring, on "

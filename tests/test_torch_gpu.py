@@ -5,7 +5,11 @@ jax nor the JAX package, so it runs where only the port is installed:
     PYTHONPATH=src python -m pytest -q -p no:warnings --noconftest \\
         -m gpu tests/test_torch_gpu.py
 
-Integer outputs exactly; sums and centers within rtol=1e-5, atol=1e-4;
+Integer outputs exactly; sums and centers within rtol=1e-5, atol=1e-4
+(kmeans_update with one cluster holding most of the rows: one f32 sum of
+hundreds of terms, in another order than the plain version's product,
+within chip_smoke.py's update tolerance of the f64 sums and of the plain
+version; see assert_update_close);
 min squared distances within the cancellation bound of the expanded form
 ||x||^2 - 2x.c + ||c||^2, 1e-6 * (||x_i||^2 + ||c_{a_i}||^2) + 1e-6.
 The moe_dispatch gather bit for bit; moe_combine exactly for top_k=1 and,
@@ -366,20 +370,232 @@ def test_gpu_pdist_argmin_runs_twice_alike(cuda_device, B, n, d, k, shared,
     assert torch.equal(first[1].view(torch.int32), second[1].view(torch.int32))
 
 
+# (x shape, k, weighted): the shapes the k-FED paths launch kmeans_update
+# at: the round's local Lloyd steps, the server's Lloyd round (2-D x), a
+# serve batch's local_prepare, the serve path's refresh over 1024 fold
+# slots x k' = 10, and the routed leg's local_prepare; the server's
+# weighted form.
+KMEANS_PATH_SHAPES = [((50, 400, 300), 10, False), ((500, 300), 100, False),
+                      ((8, 1024, 300), 10, False), ((10240, 300), 100, False),
+                      ((64, 64, 128), 4, False), ((500, 300), 100, True)]
+
+# The plan (L, column groups, summing threads, bucketing warps) of each
+# path shape on a card of 132 SMs (an H100 SXM), as PERF.md gives them.
+KMEANS_PATH_PLANS = [(32, 1, 96, 13), (16, 1, 96, 16), (16, 1, 96, 32),
+                     (16, 1, 96, 32), (16, 1, 32, 2), (16, 1, 96, 16)]
+
+
+def update_inputs(seed, shape, k, case, device, dtype=torch.float32,
+                  offset=0):
+    """x of ``shape`` (stored in ``dtype``, ``offset`` elements into its
+    storage), an assignment in [-1, k) and weights, from a seeded
+    generator. ``case``: "mixed" (uniform, with -1); "dominant" (95% of
+    the rows in one cluster); "mostly_invalid" (92% at -1); or
+    "invalid_entry" (mixed, with batch entry 1, or the only one, all at
+    -1)."""
+    g = torch.Generator().manual_seed(seed)
+    n = shape[-2]
+    flat = torch.randn(offset + int(np.prod(shape)), generator=g) * 3
+    x = flat.to(device, dtype)[offset:].view(*shape)
+    a = torch.randint(-1, k, shape[:-1], generator=g)
+    u = torch.rand(shape[:-1], generator=g)
+    if case == "dominant":
+        a = torch.where(u < 0.95, k // 2, a)
+    elif case == "mostly_invalid":
+        a = torch.where(u < 0.92, -1, a)
+    elif case == "invalid_entry":
+        a.view(-1, n)[min(1, a.numel() // n - 1)] = -1
+    w = torch.rand(shape[:-1], generator=g) * 3 + 0.5
+    return x, a.int().to(device), w.to(device)
+
+
+def assert_update_close(x, a, k, w, s, c):
+    """Sums and counts within chip_smoke.py's update tolerance, 1e-5
+    relative + n * 1e-7 * max|x| * max w absolute, of the sums taken in
+    float64 and of the plain version's. For one cluster of most of the n
+    rows: one f32 sum of hundreds of terms, which the plain version's
+    product takes in another order (they differ by about sqrt(n) f32
+    roundings of the running sum)."""
+    n = x.shape[-2]
+    scale = float(x.float().abs().max()) * (1.0 if w is None
+                                            else float(w.max()))
+    oh = (a.unsqueeze(-1) == torch.arange(k, device=a.device)).double()
+    if w is not None:
+        oh = oh * w.double().unsqueeze(-1)
+    exact = (oh.transpose(-1, -2) @ x.double(), oh.sum(-2))
+    for want in (exact, ref.kmeans_update(x, a, k, w)):
+        ws, wc = (t.double() for t in want)
+        assert bool(((s.double() - ws).abs()
+                     <= 1e-5 * ws.abs() + n * 1e-7 * scale).all())
+        assert float((c.double() - wc).abs().max()) <= (
+            1e-5 * float(wc.abs().max()) + n * 1e-7)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,n,d,k", [(1, 5, 3, 2), (3, 70, 33, 7),
-                                     (50, 400, 300, 10), (2, 3000, 129, 5)])
-def test_gpu_kmeans_update_matches_plain(cuda_device, B, n, d, k):
+@pytest.mark.parametrize("shape,k", [((1, 5, 3), 2), ((3, 70, 33), 7),
+                                     ((50, 400, 300), 10),
+                                     ((2, 3000, 129), 5), ((2, 50, 64), 200)]
+                         + [(s, k) for s, k, w in KMEANS_PATH_SHAPES if not w])
+@pytest.mark.parametrize("case", ["mixed", "dominant", "mostly_invalid",
+                                  "invalid_entry"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_kmeans_update_matches_plain(cuda_device, shape, k, case, dtype):
+    """Sums and counts against the plain version, with and without
+    weights: every path shape, d not a multiple of 4 (3, 33, 129), k > n
+    (empty clusters), one dominant cluster (a list of many segments),
+    rows mostly at -1, an all-invalid batch entry (exact zeros), bf16
+    x. The dominant cluster's sums are held to assert_update_close."""
     from repro_torch.kernels.kmeans_update import kmeans_update
-    g = torch.Generator().manual_seed(n + k)
-    x = torch.randn(B, n, d, generator=g).to(cuda_device)
-    a = torch.randint(-1, k, (B, n), generator=g).int().to(cuda_device)
-    w = torch.rand(B, n, generator=g).to(cuda_device)
+    x, a, w = update_inputs(sum(shape) + k, shape, k, case, cuda_device,
+                            dtype)
     for weights in (None, w):
         s, c = kmeans_update(x, a, k, weights)
         rs, rc = ref.kmeans_update(x, a, k, weights)
+        if case == "dominant":
+            assert_update_close(x, a, k, weights, s, c)
+        else:
+            torch.testing.assert_close(s, rs, rtol=1e-5, atol=1e-4)
+            torch.testing.assert_close(c, rc, rtol=1e-5, atol=1e-4)
+        if case == "invalid_entry":
+            e = min(1, a.numel() // shape[-2] - 1)
+            assert not bool(s.view(-1, k, shape[-1])[e].any())
+            assert not bool(c.view(-1, k)[e].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_kmeans_update_unaligned_rows(cuda_device, offset, dtype):
+    """x whose base is not aligned to 4 elements takes the element-wise
+    loads, and gives the bits of the aligned copy's 4-element loads."""
+    from repro_torch.kernels.kmeans_update import kmeans_update
+    x, a, w = update_inputs(3, (4, 300, 64), 9, "mixed", cuda_device, dtype,
+                            offset)
+    if offset:
+        assert x.data_ptr() % (4 * x.element_size())
+    for weights in (None, w):
+        s, c = kmeans_update(x, a, 9, weights)
+        rs, rc = ref.kmeans_update(x, a, 9, weights)
         torch.testing.assert_close(s, rs, rtol=1e-5, atol=1e-4)
         torch.testing.assert_close(c, rc, rtol=1e-5, atol=1e-4)
+        aligned = kmeans_update(x.clone(), a, 9, weights)
+        assert torch.equal(s.view(torch.int32), aligned[0].view(torch.int32))
+        assert torch.equal(c.view(torch.int32), aligned[1].view(torch.int32))
+
+
+def in_order(terms):
+    """f32 sum of the rows of ``terms`` one after the other (0 if none)."""
+    if len(terms) == 0:
+        return np.float32(0)
+    return np.cumsum(np.asarray(terms, np.float32), axis=0,
+                     dtype=np.float32)[-1]
+
+
+def sequential_sums(x, a, k, seg_rows, group):
+    """Each cluster's rows in point order, summed in f32 one after the
+    other within segments of ``seg_rows`` rows; the segments' sums added
+    in order within groups of ``group`` segments, then the groups' sums
+    in order: the kernel's order of summation, on the CPU."""
+    x = x.float().cpu().numpy().reshape(-1, *x.shape[-2:])
+    a = a.cpu().numpy().reshape(-1, x.shape[1])
+    out = np.zeros((x.shape[0], k, x.shape[2]), np.float32)
+    for b in range(x.shape[0]):
+        for r in range(k):
+            rows = x[b][a[b] == r]
+            segs = [in_order(rows[lo:lo + seg_rows])
+                    for lo in range(0, len(rows), seg_rows)]
+            groups = [in_order(segs[g:g + group])
+                      for g in range(0, len(segs), group)]
+            out[b, r] = in_order(groups)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,k,case", [((3, 40, 33), 10, "mixed"),
+                                          ((8, 1024, 300), 10, "mixed"),
+                                          ((2, 500, 64), 5, "dominant"),
+                                          ((1, 10240, 36), 100, "dominant")])
+def test_gpu_kmeans_update_sums_in_point_order(cuda_device, shape, k, case):
+    """A list of one segment is summed in point order from 0 (the bits
+    of a sequential f32 sum, as the first version of the kernel gave); a
+    longer list in segments of L rows, added in order within groups of
+    segments and then the groups in order (about 77 groups of 8 at the
+    last shape): the sums equal that order's bit for bit."""
+    from repro_torch.kernels.kmeans_update import kmeans_update, plan
+    x, a, _ = update_inputs(k + shape[-1], shape, k, case, cuda_device)
+    B = shape[0]
+    p = plan(B, shape[1], k, shape[2], False, cuda_device)
+    s, _ = kmeans_update(x, a, k)
+    want = sequential_sums(x, a, k, p.seg_rows, p.group)
+    assert np.array_equal(s.cpu().numpy().view(np.int32),
+                          want.reshape(s.shape).view(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,k,weighted", KMEANS_PATH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_kmeans_update_runs_twice_alike(cuda_device, shape, k, weighted,
+                                            dtype):
+    """Two calls give the same bits (no float atomics: every sum in an
+    order fixed by the shape and the assignment), at every path shape,
+    with a dominant cluster (many segments) as well as mixed rows."""
+    from repro_torch.kernels.kmeans_update import kmeans_update
+    for case in ("mixed", "dominant"):
+        x, a, w = update_inputs(k + shape[-1], shape, k, case, cuda_device,
+                                dtype)
+        w = w if weighted else None
+        first = kmeans_update(x, a, k, w)
+        second = kmeans_update(x, a, k, w)
+        for f, g in zip(first, second):
+            assert torch.equal(f.view(torch.int32), g.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape_k,want", zip(KMEANS_PATH_SHAPES,
+                                             KMEANS_PATH_PLANS))
+def test_gpu_kmeans_update_path_plans(cuda_device, shape_k, want):
+    """The plan of every path shape is what the kernels launch: a call
+    with the plan's scratch gives the plain version's sums, one byte
+    less is refused; the summing grid is items x groups x B with
+    items = ceil(n / L) + k; on a card of 132 SMs the plan is the one
+    that PERF.md gives."""
+    from repro_torch.kernels import kmeans_update as ku
+    shape, k, weighted = shape_k
+    B = shape[0] if len(shape) == 3 else 1
+    n, d = shape[-2:]
+    p = ku.plan(B, n, k, d, weighted, cuda_device)
+    assert p.items == -(-n // p.seg_rows) + k
+    assert p.sum_blocks == p.items * p.groups * B
+    assert p.groups * p.sum_threads >= -(-d // 4) and p.sum_threads % 32 == 0
+    if p.sms == 132:
+        assert (p.seg_rows, p.groups, p.sum_threads, p.bucket_warps) == want
+    x, a, w = update_inputs(n + k, shape, k, "mixed", cuda_device)
+    w = w if weighted else None
+    sums = torch.empty((*shape[:-2], k, d), device=cuda_device)
+    counts = torch.empty((*shape[:-2], k), device=cuda_device)
+    scratch = torch.empty((p.scratch_bytes,), dtype=torch.uint8,
+                          device=cuda_device)
+    ku._launch(x, a, k, w, sums, counts, scratch)
+    rs, rc = ref.kmeans_update(x, a, k, w)
+    torch.testing.assert_close(sums, rs, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(counts, rc, rtol=1e-5, atol=1e-4)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ku._launch(x, a, k, w, sums, counts, scratch[:-1])
+
+
+@pytest.mark.gpu
+def test_gpu_kmeans_update_counts_one_launch_a_call(cuda_device):
+    """LAUNCHES grows by one a wrapper call (two kernels each), batched
+    or 2-D, with weights or without, and not for an empty output."""
+    from repro_torch.kernels import kmeans_update as ku
+    x, a, w = update_inputs(1, (3, 70, 33), 7, "mixed", cuda_device)
+    before = ku.LAUNCHES
+    ku.kmeans_update(x, a, 7)
+    ku.kmeans_update(x, a, 7, w)
+    ku.kmeans_update(x[0], a[0], 7)
+    assert ku.LAUNCHES == before + 3
+    ku.kmeans_update(x[:0], a[:0], 7)
+    assert ku.LAUNCHES == before + 3
 
 
 def _clustered_batch(seed, B, n, d, kp, k, distinct=False):

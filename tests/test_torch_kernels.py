@@ -279,15 +279,32 @@ def test_pdist_split_mirror_matches_jax(B, n, d, k, shared, mask, split):
 
 UPDATE_SHAPES = [(16, 8, 3), (100, 33, 7), (64, 48, 12), (40, 5, 40)]
 
+# (n, d, k, case): the shapes above with mixed rows, then rows mostly at
+# -1, one dominant cluster, k > n (empty clusters), and the round's
+# server update (500 x 300 into k = 100) at a reduced n.
+UPDATE_CASES = [pytest.param(n, d, k, "mixed", id=f"{n}-{d}-{k}")
+                for n, d, k in UPDATE_SHAPES] + [
+    pytest.param(200, 24, 10, "mostly_invalid", id="mostly_invalid"),
+    pytest.param(300, 16, 8, "dominant", id="dominant"),
+    pytest.param(12, 6, 30, "mixed", id="k_above_n"),
+    pytest.param(100, 300, 100, "mixed", id="server")]
 
-@pytest.mark.parametrize("n,d,k", UPDATE_SHAPES)
+
+@pytest.mark.parametrize("n,d,k,case", UPDATE_CASES)
 @pytest.mark.parametrize("weighted", [False, True])
-def test_kmeans_update_matches_jax(n, d, k, weighted):
+def test_kmeans_update_matches_jax(n, d, k, case, weighted):
     """Sums and counts with assign = -1 rows and optional weights: port
-    ref == JAX ref == Pallas (interpret) within rtol=atol=1e-5."""
+    ref == JAX ref == Pallas (interpret) within rtol=atol=1e-5. Cases:
+    uniform in [-1, k); 92% of the rows at -1; 95% in one cluster; k > n
+    (empty clusters: zero sums and counts)."""
     rng = np.random.default_rng(n * 7 + k)
     x = rng.normal(size=(n, d)).astype(np.float32)
     a = rng.integers(-1, k, size=n).astype(np.int32)
+    u = rng.random(n)
+    if case == "mostly_invalid":
+        a[u < 0.92] = -1
+    elif case == "dominant":
+        a[u < 0.95] = k // 2
     w = rng.uniform(0.5, 3.0, size=n).astype(np.float32) if weighted else None
     sums, cnt = ops.kmeans_update(T(x), T(a), k,
                                   None if w is None else T(w))
@@ -301,6 +318,9 @@ def test_kmeans_update_matches_jax(n, d, k, weighted):
         np.testing.assert_allclose(cnt.numpy(), np.asarray(c_),
                                    rtol=1e-5, atol=1e-5)
     assert sums.dtype == torch.float32 and cnt.dtype == torch.float32
+    empty = np.bincount(a[a >= 0], minlength=k) == 0
+    assert not bool(sums.numpy()[empty].any())
+    assert not bool(cnt.numpy()[empty].any())
 
 
 def test_kmeans_update_batched_and_all_invalid():
