@@ -33,7 +33,12 @@ it at (tallied in the same pass): its rows at -1 and longest list, its
 device time beside one index_add_ call's and two bounds (the rows whose
 assignment is valid, and all of x), and its sums held against the sums
 taken in f64 and against the f32 plain version within check_update's
-tolerance, two calls bit for bit.
+tolerance, two calls bit for bit. moe_combine likewise, at every shape
+the routed serve path and the decode leg (its prefill and its steps,
+tallied in one more generate) launch it at: bit for bit equal to the
+plain version, two calls bit for bit, its device time beside one
+F.embedding_bag call's and the bound, and its launch plan. One more
+prefill of the decode leg's batch runs under the profiler.
 
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
@@ -232,22 +237,30 @@ def kmeans_key(x, assign, k, weights=None):
             str(x.dtype).replace("torch.", ""))
 
 
+def combine_key(ybuf, slot, gates, top_k):
+    return (tuple(ybuf.shape), int(top_k), str(ybuf.dtype).replace(
+        "torch.", ""))
+
+
 def tallied(fn):
-    """Run ``fn`` once with the launches of pdist_argmin and
-    kmeans_update tallied by shape: {kernel name: Tally}."""
+    """Run ``fn`` once with the launches of pdist_argmin, kmeans_update
+    and moe_combine tallied by shape: {kernel name: Tally}."""
     with Tally("pdist_argmin", pdist_key) as pd, \
-            Tally("kmeans_update", kmeans_key) as km:
+            Tally("kmeans_update", kmeans_key) as km, \
+            Tally("moe_combine", combine_key) as mc:
         fn()
         sync()
-    return {"pdist_argmin": pd, "kmeans_update": km}
+    return {"pdist_argmin": pd, "kmeans_update": km, "moe_combine": mc}
 
 
 def merged(tallies, name):
     """{shape key: {"launches": {path: count}, "inputs": first inputs}}
-    of kernel ``name`` over the paths' tallies, the most launched
-    first."""
+    of kernel ``name`` over the paths' tallies (a path that did not
+    tally it is left out), the most launched first."""
     shapes = {}
     for path, by_kernel in tallies.items():
+        if name not in by_kernel:
+            continue
         for key, (count, inputs) in by_kernel[name].shapes.items():
             entry = shapes.setdefault(key, {"launches": {}, "inputs": inputs})
             entry["launches"][path] = count
@@ -259,7 +272,7 @@ def tally_line(tallies, name, shape_name) -> str:
     return "; ".join(
         f"{path} " + json.dumps({shape_name(key): v[0] for key, v
                                  in by_kernel[name].shapes.items()})
-        for path, by_kernel in tallies.items())
+        for path, by_kernel in tallies.items() if name in by_kernel)
 
 
 def shape_name(key) -> str:
@@ -562,6 +575,91 @@ def kmeans_shapes(tallies) -> None:
         n, d = x.shape[-2:]
         p = plan(B, n, k, d, w is not None, x.device)
         print(f"kmeans plan {kmeans_name(key)}: {p.describe()}", flush=True)
+    require(not faults, "; ".join(faults))
+
+
+def combine_name(key) -> str:
+    (S, d), top_k, dtype = key
+    return f"({S},{d}) {dtype} top_k={top_k}"
+
+
+def embedding_bag_combine(ybuf, slot, gates, top_k):
+    """The library yardstick of moe_combine: one F.embedding_bag over
+    the clipped slots with the gates as per-sample weights (in ybuf's
+    dtype, so its output is ybuf's dtype), timed only."""
+    import torch.nn.functional as F
+    T = slot.shape[0] // top_k
+    idx = torch.clamp(slot, 0, ybuf.shape[0] - 1).long().view(T, top_k)
+    w = gates.to(ybuf.dtype).view(T, top_k)
+    return lambda: F.embedding_bag(idx, ybuf, per_sample_weights=w,
+                                   mode="sum")
+
+
+def combine_work(ybuf, slot, top_k):
+    """(bytes, flops) of one moe_combine call: each distinct row that a
+    choice names read once (zero gates included: 0 * inf must give
+    NaN), slot and gates read once, the f32 output written once; a
+    multiply and an add an element of each choice."""
+    S, d = ybuf.shape
+    N = slot.shape[0]
+    rows = int(torch.unique(torch.clamp(slot, 0, S - 1)).numel())
+    nbytes = ybuf.element_size() * rows * d + 4 * (N // top_k) * d + 8 * N
+    return nbytes, 2 * N * d
+
+
+def combine_shapes(tallies) -> None:
+    """moe_combine at every shape that the routed serve path and the
+    decode leg (its prefill and its steps) launched, on the first inputs
+    the path gave it there: the kernel against the plain version bit for
+    bit (the paths launch top_k <= 2, where the kernel's sum in j order
+    is the plain version's), two calls bit for bit, the device time by
+    graph replay of the kernel and of one F.embedding_bag (each the
+    median of three captures) beside the bound. Every shape is timed and
+    printed before any check is required; the kernel's plans come
+    last."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_combine import moe_combine
+    shapes = merged(tallies, "moe_combine")
+    print("combine tally: " + tally_line(tallies, "moe_combine",
+                                         combine_name), flush=True)
+    faults = []
+    for key, entry in shapes.items():
+        ybuf, slot, gates, top_k = entry["inputs"]
+        got = moe_combine(ybuf, slot, gates, top_k)
+        again = moe_combine(ybuf, slot, gates, top_k)
+        want = ref.moe_combine(ybuf, slot, gates, top_k)
+        sync()
+        exact = same_bits((got,), (want,))
+        twice = same_bits((got,), (again,))
+        err = float((got - want).abs().nan_to_num(0.0).max())
+        if not (exact and twice):
+            faults.append(f"moe_combine {combine_name(key)}: bitwise equal "
+                          f"to the plain version={exact}, two calls={twice}")
+        nbytes, flops = combine_work(ybuf, slot, top_k)
+        bms, by = bound(nbytes, flops)
+        # Each the median of three graph captures: after the decode leg,
+        # a single capture at the prefill shape can read far slower.
+        dev = sorted(graph_ms(lambda: moe_combine(ybuf, slot, gates, top_k))
+                     for _ in range(3))
+        lib = sorted(graph_ms(embedding_bag_combine(ybuf, slot, gates, top_k))
+                     for _ in range(3))
+        print(f"combine {combine_name(key)}: launches "
+              f"{json.dumps(entry['launches'])}; {slot.shape[0] // top_k} "
+              f"tokens, {int((gates == 0).sum())} of {slot.shape[0]} gates "
+              f"0; bitwise equal to the plain version={exact}, two calls "
+              f"bitwise equal={twice}, max_abs_err={err:.3e} | device "
+              f"ms={dev[1]:.5f} ({dev[0]:.5f}-{dev[2]:.5f} over three "
+              f"captures) embedding_bag device ms={lib[1]:.5f} "
+              f"({lib[0]:.5f}-{lib[2]:.5f}; "
+              f"{str(ybuf.dtype).replace('torch.', '')} out) "
+              f"bound_ms={bms:.5f} ({by}, {nbytes} bytes)", flush=True)
+    from repro_torch.kernels.moe_combine import plan
+    for key, entry in shapes.items():
+        ybuf, slot, _, top_k = entry["inputs"]
+        p = plan(slot.shape[0] // top_k, ybuf.shape[1], top_k, ybuf.dtype,
+                 ybuf.device)
+        print(f"combine plan {combine_name(key)}: {p.describe()}",
+              flush=True)
     require(not faults, "; ".join(faults))
 
 
@@ -880,17 +978,9 @@ def routing_kernels(dev, rounds: int):
         got = moe_combine(yy, sl, g, top_k)
         want = ref.moe_combine(yy, sl, g, top_k)
         sync()
-        e = (got - want).abs()
-        if top_k == 1:
-            require(bool((e == 0).all()),
-                    f"moe_combine {label}: differs from the plain version")
-        else:
-            # One rounding of a product may be skipped (FMA): the bound
-            # is relative to the sum of the absolute products.
-            terms = ref.moe_combine(yy.abs(), sl, g.abs(), top_k)
-            require(bool((e <= 1e-6 * terms).all()),
-                    f"moe_combine {label}: error {float(e.max())}")
-        err = max(err, float(e.max()))
+        require(same_bits((got,), (want,)),
+                f"moe_combine {label}: differs from the plain version")
+        err = max(err, float((got - want).abs().max()))
     ms = time_ms(lambda: moe_combine(ybuf, slot, gates, 1), rounds)
     plain = time_ms(lambda: ref.moe_combine(ybuf, slot, gates, 1), rounds)
     cidx = torch.clamp(slot, 0, S - 1).long().view(-1, 1)
@@ -904,7 +994,7 @@ def routing_kernels(dev, rounds: int):
     nbytes = 4 * (rows_read * R_D + B * R_D) + 8 * B
     bms, by = bound(nbytes, 2 * B * R_D)
     print(f"kernel moe_combine: ybuf {tuple(ybuf.shape)} -> ({B}, {R_D}) "
-          f"top_k=1 f32 and bf16 (bitwise), top_k=2 f32; "
+          f"top_k=1 f32 and bf16, top_k=2 f32, each bitwise; "
           f"max_abs_err={err:.3e} match=True | ms={ms:.4f} "
           f"plain_ms={plain:.4f} embedding_bag_ms={lib:.4f} "
           f"bound_ms={bms:.6f} ({by}, {nbytes} bytes) | device time by CUDA "
@@ -968,10 +1058,9 @@ def moe_prefill_kernels(dev, rounds: int) -> None:
     got = moe_combine(ybuf, slot, wk, m.top_k)
     want = ref.moe_combine(ybuf, slot, wk, m.top_k)
     sync()
-    terms = ref.moe_combine(ybuf.abs(), slot, wk.abs(), m.top_k)
+    require(same_bits((got,), (want,)),
+            "moe_combine prefill: differs from the plain version")
     err = (got - want).abs()
-    require(bool((err <= 1e-6 * terms).all()),
-            f"moe_combine prefill: error {float(err.max())}")
     ms = time_ms(lambda: moe_combine(ybuf, slot, wk, m.top_k), rounds)
     plain = time_ms(lambda: ref.moe_combine(ybuf, slot, wk, m.top_k), rounds)
     cidx = torch.clamp(slot, 0, S - 1).long().view(T, m.top_k)
@@ -988,7 +1077,7 @@ def moe_prefill_kernels(dev, rounds: int) -> None:
     print(f"kernel moe_combine mixtral prefill: ybuf {tuple(ybuf.shape)} bf16 "
           f"-> ({T}, {d}) f32, top_k={m.top_k}, {int(keep.sum())} of "
           f"{T * m.top_k} choices kept; max_abs_err={float(err.max()):.3e} "
-          f"(within 1e-6 of sum |g y|) match=True | ms={ms:.4f} "
+          f"(bitwise) match=True | ms={ms:.4f} "
           f"plain_ms={plain:.4f} embedding_bag_ms={lib:.4f} (bf16 out) "
           f"bound_ms={bms:.5f} ({by}, {nbytes} bytes) | device time by CUDA "
           f"graph replay: ms={dev_ms:.4f} embedding_bag_ms={dev_lib:.4f}",
@@ -1346,7 +1435,9 @@ def decode_leg(device):
     each layer launches swa_decode once a step; each MoE layer launches
     moe_dispatch and moe_combine once in the prefill and once a step.
     Then swa_decode is held against its plain version on the leg's own
-    layer-0 ring and last query, and 8 more steps run under the
+    layer-0 ring and last query; one more generate tallies moe_combine
+    by shape (returned beside the counts); one more prefill of the same
+    batch is timed, then profiled, and 8 more steps run under the
     profiler."""
     import math
 
@@ -1354,7 +1445,7 @@ def decode_leg(device):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.swa_decode import swa_decode_attention as swa
     from repro_torch.launch.serve import (generate, init_params,
-                                          make_serve_step)
+                                          make_prefill, make_serve_step)
     from repro_torch.models.common import apply_norm, apply_rope, tree_map
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import layer_params
@@ -1454,6 +1545,22 @@ def decode_leg(device):
           f"ring max_abs_err={serr:.3e} | launches {counts} | leg wall "
           f"{time.perf_counter() - t_leg:.1f} s", flush=True)
 
+    # One more pass, moe_combine's launches tallied by shape (the
+    # prefill's and the steps').
+    with Tally("moe_combine", combine_key) as combine_tally:
+        generate(model, params, batch, steps=MX_STEPS)
+        sync()
+
+    # One more prefill of the same batch, timed alone, then profiled.
+    prefill = make_prefill(model)
+    dev_batch = {"tokens": prompts.to(device)}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        prefill(params, dev_batch)
+        sync()
+        prefill_wall = time.perf_counter() - t0
+        profile("prefill", lambda: prefill(params, dev_batch), prefill_wall)
+
     step = make_serve_step(model)
     tok = toks[:, -1].to(device)
 
@@ -1465,7 +1572,7 @@ def decode_leg(device):
     profile("decode", eight_steps, decode_s * 8 / MX_STEPS)
     del params, cache, stats
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"moe_combine": combine_tally}
 
 
 def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
@@ -1553,7 +1660,8 @@ def main() -> int:
           f"generate, 2 prompts of 64 tokens and 8 steps over the ring, on "
           f"the card equals the CPU run (tokens exact; logits within 1e-4 "
           f"relative, max error {lerr:.3e})", flush=True)
-    decode_counts = decode_leg(torch.device("cuda"))
+    decode_counts, tallies["decode"] = decode_leg(torch.device("cuda"))
+    combine_shapes(tallies)
     for name in ("pdist_argmin", "kmeans_update", "solve_attach"):
         require(run_counts[name] + serve_counts[name] > 0,
                 f"{name} was not launched on the round and serve paths")

@@ -10,56 +10,289 @@
 //   y[t, :] = sum_{j < top_k} gates[t*top_k + j] * ybuf[clip(slot[...]), :]
 // in f32, with j in order.
 //
-// What bounds it on an H100: one multiply-add per element read, so the
-// bytes: top_k rows of ybuf read and one f32 row written per token.
+// What bounds it on an H100: one multiply and one add per element read,
+// so the bytes: top_k rows of ybuf read and one f32 row written per
+// token (at Mixtral's prefill, 268 MB read and 268 MB written a layer).
 //
-// Design: the TPU kernel walked j on a sequential grid axis, adding into
-// its resident output block. Here each block owns one token and a chunk
-// of 256 columns, one per thread: it loads the token's top_k slots and
-// gates itself (the same addresses for every thread, served by one
-// broadcast) and keeps the sum in a register across j. The products
-// and sums are rounded one at a time (__fmul_rn / __fadd_rn), so nvcc
-// cannot contract them into an FMA and the result is the plain
-// version's, sum order included. Loads widen f32 or bf16 to f32;
-// offsets are 64-bit.
+// What the first design lacked: bytes in flight. It gave each thread one
+// column, so a thread had one 2-byte (bf16) load per choice in flight,
+// behind a load of its token's slot: at most about 8 KB of ybuf in
+// flight an SM, where the card's bandwidth times its memory latency asks
+// for about 15-20 KB. It reached 37% of the bytes bound on an H100.
+//
+// Design (`make_plan` below lays out each launch from the shape and the
+// card):
+// - A thread owns one 16-byte piece of a row: 8 bf16 or 4 f32 columns
+//   (the vector path; d a multiple of the piece and ybuf's base 16-byte
+//   aligned), or one column (the scalar path, any d and base).
+// - A block takes chunks of one or more tokens' rows, each chunk at
+//   most 512 pieces in whole warps (lanes past the row idle); the grid
+//   is one-dimensional over (token group, chunk). At the Mixtral
+//   prefill a block is one token's row, 512 threads. Where the tokens
+//   are fewer than the SMs (a decode step's 4), rows are cut into
+//   chunks of 32 pieces, so that no SM reads and writes a whole token
+//   alone.
+// - Each warp holds one token: it loads the token's slots (clipped) and
+//   gates once, lane j the choice j, and shares them by shuffles. No
+//   shared memory, no barrier, and integer divisions by a multiply
+//   (FastDiv), so a block of one warp starts its row loads soon after
+//   it starts.
+// - Every choice's load is issued before the first multiply: the loop
+//   over j is unrolled for top_k in {1, 2, 4, 8}, so at top_k = 2 a
+//   thread has 32 bytes in flight and an SM up to 64 KB. Other top_k go
+//   through stages of 8 choices, each unrolled and masked, the sums
+//   carried across stages in registers.
+// - The f32 output is written as plain float4 stores (a streaming hint,
+//   `__stcs`, was no faster on an H100 at the prefill shape).
+// Each product and each sum is rounded on its own (__fmul_rn /
+// __fadd_rn, from a sum of 0, j in order), so nvcc cannot contract them
+// into an FMA: the result is the plain version's bit for bit for top_k
+// <= 2, and the sequential sum's for any top_k. An entry whose gate is 0
+// is still read and multiplied, so 0 * inf gives NaN as in the Pallas
+// kernel. Offsets are 64-bit.
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kThreads = 256;  // columns per block
+constexpr int kMaxThreads = 512;   // threads of a block
+constexpr int kStage = 8;          // choices a stage of the generic path
+constexpr int kFill = 4;           // blocks an SM aimed at
+constexpr int kMaxDevices = 64;
 
-// E: the storage type of ybuf (float or __nv_bfloat16).
+struct Card {
+  int sms;  // SMs
+};
+
+// The current device's index and its Card, queried once per device.
+cudaError_t current_card(int* dev, Card* card) {
+  static Card cards[kMaxDevices];
+  static bool known[kMaxDevices] = {false};
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!known[*dev]) {
+    Card q;
+    err = cudaDeviceGetAttribute(&q.sms, cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return err;
+    cards[*dev] = q;
+    known[*dev] = true;
+  }
+  *card = cards[*dev];
+  return cudaSuccess;
+}
+
+// n / d for 0 <= n < 2^31 in a multiply and a shift (the divisor's
+// magic number is computed on the host, as PyTorch's IntDivider does),
+// so a one-warp block does not wait on an integer division.
+struct FastDiv {
+  uint32_t d, m, s;
+  FastDiv() = default;
+  explicit FastDiv(uint32_t div) : d(div), s(0) {
+    while (s < 32 && (1ull << s) < div) ++s;
+    m = static_cast<uint32_t>(((1ull << 32) * ((1ull << s) - div)) / div + 1);
+  }
+  __device__ uint32_t div(uint32_t n) const {
+    return (__umulhi(n, m) + n) >> s;
+  }
+};
+
+// One call's launch.
+struct Plan {
+  int V;             // columns of a piece: 16 bytes' worth, or 1 (scalar)
+  long long pieces;  // pieces of a row
+  int chunks;        // chunks a row is cut into
+  int cw;            // threads a chunk, a piece each, in whole warps
+  int G;             // tokens a block
+  int K;             // choices unrolled: top_k in {1, 2, 4, 8}, else 0
+  int stages;        // stages of choices (1, or ceil(top_k / kStage))
+  int threads;       // threads of a block: G * cw
+  long long blocks;  // ceil(T / G) * chunks
+};
+
+inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// The launch for T tokens of d columns at top_k, with elements of esize
+// bytes, on the vector path (vec) or the scalar one:
+// - Chunks: a row's pieces cut into the fewest chunks of at most
+//   kMaxThreads pieces, or, where T tokens give fewer blocks than the
+//   card has SMs, into as many chunks of at least 32 pieces as make one
+//   block an SM (a token's row is then not one SM's to read and write).
+//   A chunk takes whole warps, so that each warp holds one token.
+// - G: tokens a block, as many as make kFill blocks an SM busy, at
+//   least one and at most kMaxThreads threads.
+// Returns false where the grid would be too large.
+bool make_plan(long long T, long long d, long long top_k, int esize,
+               bool vec, const Card& card, Plan* out) {
+  if (T < 1 || d < 1 || top_k < 1 || top_k > 0x7fffffff) return false;
+  Plan& p = *out;
+  p.V = vec ? 16 / esize : 1;
+  if (d % p.V) return false;
+  p.pieces = d / p.V;
+  long long chunks = cdiv(p.pieces, kMaxThreads);
+  if (T * chunks < card.sms)
+    chunks = std::max(chunks, std::min(cdiv(p.pieces, 32),
+                                       cdiv(card.sms, T)));
+  p.chunks = static_cast<int>(chunks);
+  p.cw = static_cast<int>(cdiv(cdiv(p.pieces, chunks), 32) * 32);
+  const bool unrolled = top_k == 1 || top_k == 2 || top_k == 4 || top_k == 8;
+  p.K = unrolled ? static_cast<int>(top_k) : 0;
+  p.stages = unrolled ? 1 : static_cast<int>(cdiv(top_k, kStage));
+  const long long most = kMaxThreads / p.cw;
+  const long long want =
+      cdiv(T * p.chunks, static_cast<long long>(card.sms) * kFill);
+  p.G = static_cast<int>(std::min(most, std::max(1LL, want)));
+  p.threads = p.G * p.cw;
+  p.blocks = cdiv(T, p.G) * p.chunks;
+  return p.blocks <= 0x7fffffff;
+}
+
+// A piece as loaded: 16 raw bytes on the vector path, else the element
+// widened to f32.
+template <typename E, bool kVec>
+struct Piece {
+  static constexpr int V = 1;
+  using Raw = float;
+  __device__ static Raw load(const E* p) { return load_f(p); }
+  __device__ static void add(float* acc, Raw raw, float g) {
+    acc[0] = __fadd_rn(acc[0], __fmul_rn(raw, g));
+  }
+  __device__ static void store(float* o, const float* acc) { *o = acc[0]; }
+};
+
 template <typename E>
-__global__ void __launch_bounds__(kThreads) moe_combine_kernel(
+struct Piece<E, true> {
+  static constexpr int V = 16 / sizeof(E);
+  using Raw = uint4;
+  __device__ static Raw load(const E* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  // Column c of the piece as f32: bf16 pairs sit low half first.
+  __device__ static float column(const uint4& raw, int c) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    if (sizeof(E) == 4) return __uint_as_float(w[c]);
+    const uint32_t u = w[c >> 1];
+    return __uint_as_float((c & 1) ? (u & 0xffff0000u) : (u << 16));
+  }
+  __device__ static void add(float* acc, const Raw& raw, float g) {
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+      acc[c] = __fadd_rn(acc[c], __fmul_rn(column(raw, c), g));
+  }
+  __device__ static void store(float* o, const float* acc) {
+#pragma unroll
+    for (int c = 0; c < V; c += 4)
+      *reinterpret_cast<float4*>(o + c) =
+          make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+  }
+};
+
+// E: the storage type of ybuf (float or __nv_bfloat16); kVec: the vector
+// path; K: top_k where it is 1, 2, 4 or 8, else 0 (stages of kStage
+// choices, masked past top_k). Each warp holds one token: lane j loads
+// its choice j, and the warp shares them by shuffles.
+template <typename E, bool kVec, int K>
+__global__ void __launch_bounds__(kMaxThreads) moe_combine_kernel(
     const E* __restrict__ ybuf, const int32_t* __restrict__ slot,
     const float* __restrict__ gates, float* __restrict__ out, int64_t S,
-    int64_t d, int top_k) {
-  const int64_t t = blockIdx.x;
-  const int64_t c = (int64_t)blockIdx.y * kThreads + threadIdx.x;
-  if (c >= d) return;
-  float acc = 0.f;
-  for (int j = 0; j < top_k; ++j) {
-    const int64_t e = t * top_k + j;
-    int64_t r = slot[e];
-    r = r < 0 ? 0 : (r >= S ? S - 1 : r);
-    acc = __fadd_rn(acc, __fmul_rn(load_f(ybuf + r * d + c), gates[e]));
+    int64_t T, int64_t d, int top_k, int64_t pieces, FastDiv chunks,
+    FastDiv cw, int G) {
+  using P = Piece<E, kVec>;
+  constexpr int KS = K ? K : kStage;  // choices a stage
+  const uint32_t group = chunks.div(blockIdx.x);
+  const uint32_t g = cw.div(threadIdx.x);
+  const int64_t t = static_cast<int64_t>(group) * G + g;
+  const int64_t piece =
+      static_cast<int64_t>(blockIdx.x - group * chunks.d) * cw.d +
+      (threadIdx.x - g * cw.d);
+  const bool active = t < T && piece < pieces;
+  const int lane = threadIdx.x & 31;
+  const E* col = ybuf + piece * P::V;
+  float acc[P::V];
+#pragma unroll
+  for (int c = 0; c < P::V; ++c) acc[c] = 0.f;
+  const int stages = K ? 1 : (top_k + kStage - 1) / kStage;
+  for (int s = 0; s < stages; ++s) {
+    const int j = s * KS + lane;
+    int32_t r = 0;
+    float w = 0.f;
+    if (lane < KS && t < T && j < top_k) {
+      const int64_t v = slot[t * top_k + j];
+      r = static_cast<int32_t>(v < 0 ? 0 : (v >= S ? S - 1 : v));
+      w = gates[t * top_k + j];
+    }
+    int64_t row[KS];
+    float gate[KS];
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      row[i] = static_cast<int64_t>(__shfl_sync(0xffffffffu, r, i)) * d;
+      gate[i] = __shfl_sync(0xffffffffu, w, i);
+    }
+    if (active) {
+      typename P::Raw raw[KS];
+#pragma unroll
+      for (int i = 0; i < KS; ++i)
+        if (K || s * KS + i < top_k) raw[i] = P::load(col + row[i]);
+#pragma unroll
+      for (int i = 0; i < KS; ++i)
+        if (K || s * KS + i < top_k) P::add(acc, raw[i], gate[i]);
+    }
   }
-  out[t * d + c] = acc;
+  if (active) P::store(out + t * d + piece * P::V, acc);
+}
+
+template <typename E, bool kVec, int K>
+void launch_as(const Plan& p, const void* ybuf, const void* slot,
+               const void* gates, void* out, int64_t S, int64_t T, int64_t d,
+               int top_k, cudaStream_t cs) {
+  moe_combine_kernel<E, kVec, K>
+      <<<static_cast<unsigned>(p.blocks), p.threads, 0, cs>>>(
+          static_cast<const E*>(ybuf), static_cast<const int32_t*>(slot),
+          static_cast<const float*>(gates), static_cast<float*>(out), S, T,
+          d, top_k, p.pieces, FastDiv(p.chunks), FastDiv(p.cw), p.G);
+}
+
+template <typename E, bool kVec>
+void launch_k(const Plan& p, const void* ybuf, const void* slot,
+              const void* gates, void* out, int64_t S, int64_t T, int64_t d,
+              int top_k, cudaStream_t cs) {
+  switch (p.K) {
+    case 1:
+      return launch_as<E, kVec, 1>(p, ybuf, slot, gates, out, S, T, d, top_k,
+                                   cs);
+    case 2:
+      return launch_as<E, kVec, 2>(p, ybuf, slot, gates, out, S, T, d, top_k,
+                                   cs);
+    case 4:
+      return launch_as<E, kVec, 4>(p, ybuf, slot, gates, out, S, T, d, top_k,
+                                   cs);
+    case 8:
+      return launch_as<E, kVec, 8>(p, ybuf, slot, gates, out, S, T, d, top_k,
+                                   cs);
+    default:
+      return launch_as<E, kVec, 0>(p, ybuf, slot, gates, out, S, T, d, top_k,
+                                   cs);
+  }
 }
 
 template <typename E>
 cudaError_t launch(const void* ybuf, const void* slot, const void* gates,
-                   void* out, int64_t S, int64_t T, int64_t d, int top_k,
-                   cudaStream_t stream) {
-  const int64_t chunks = (d + kThreads - 1) / kThreads;
-  if (T > 0x7fffffff || chunks > 65535) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)T, (unsigned)chunks);
-  moe_combine_kernel<E><<<grid, kThreads, 0, stream>>>(
-      static_cast<const E*>(ybuf), static_cast<const int32_t*>(slot),
-      static_cast<const float*>(gates), static_cast<float*>(out), S, d,
-      top_k);
+                   void* out, int64_t S, int64_t T, int64_t d, int64_t top_k,
+                   int vec, cudaStream_t cs) {
+  int dev = 0;
+  Card card;
+  cudaError_t err = current_card(&dev, &card);
+  if (err != cudaSuccess) return err;
+  Plan p;
+  if (!make_plan(T, d, top_k, sizeof(E), vec != 0, card, &p))
+    return cudaErrorInvalidValue;
+  if (vec)
+    launch_k<E, true>(p, ybuf, slot, gates, out, S, T, d, (int)top_k, cs);
+  else
+    launch_k<E, false>(p, ybuf, slot, gates, out, S, T, d, (int)top_k, cs);
   return cudaGetLastError();
 }
 
@@ -67,22 +300,43 @@ cudaError_t launch(const void* ybuf, const void* slot, const void* gates,
 }  // namespace repro_torch
 
 // C interface (loaded with ctypes). ybuf: (S, d); slot: (T*top_k,) int32;
-// gates: (T*top_k,) f32; out: (T, d) f32. Returns the cudaError_t of the
-// launch.
+// gates: (T*top_k,) f32; out: (T, d) f32, 16-byte aligned. vec: 1 where
+// d is a multiple of a 16-byte piece and ybuf is 16-byte aligned.
+// Returns the cudaError_t of the launch.
 extern "C" int moe_combine_f32(const void* ybuf, const void* slot,
                                const void* gates, void* out, int64_t S,
-                               int64_t T, int64_t d, int64_t top_k,
-                               void* stream) {
+                               int64_t T, int64_t d, int64_t top_k, int vec,
+                               void* cs) {
   return (int)repro_torch::launch<float>(ybuf, slot, gates, out, S, T, d,
-                                         (int)top_k,
-                                         static_cast<cudaStream_t>(stream));
+                                         top_k, vec,
+                                         static_cast<cudaStream_t>(cs));
 }
 
 extern "C" int moe_combine_bf16(const void* ybuf, const void* slot,
                                 const void* gates, void* out, int64_t S,
-                                int64_t T, int64_t d, int64_t top_k,
-                                void* stream) {
+                                int64_t T, int64_t d, int64_t top_k, int vec,
+                                void* cs) {
   return (int)repro_torch::launch<__nv_bfloat16>(
-      ybuf, slot, gates, out, S, T, d, (int)top_k,
-      static_cast<cudaStream_t>(stream));
+      ybuf, slot, gates, out, S, T, d, top_k, vec,
+      static_cast<cudaStream_t>(cs));
+}
+
+// The plan of a call on the current device, for the wrapper, reports and
+// tests: out gets the piece's columns, pieces a row, chunks a row,
+// threads a chunk, tokens a block, choices unrolled (0: stages),
+// stages, threads a block, blocks and the card's SMs. Returns a cudaError_t (cudaErrorInvalidValue where the
+// grid would be too large).
+extern "C" int moe_combine_plan(long long T, long long d, long long top_k,
+                                int esize, int vec, long long* out) {
+  int dev = 0;
+  repro_torch::Card card;
+  cudaError_t err = repro_torch::current_card(&dev, &card);
+  if (err != cudaSuccess) return (int)err;
+  repro_torch::Plan p;
+  if (!repro_torch::make_plan(T, d, top_k, esize, vec != 0, card, &p))
+    return (int)cudaErrorInvalidValue;
+  const long long v[] = {p.V, p.pieces, p.chunks,  p.cw,     p.G,
+                         p.K, p.stages, p.threads, p.blocks, card.sms};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return 0;
 }

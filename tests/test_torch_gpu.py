@@ -12,10 +12,10 @@ within chip_smoke.py's update tolerance of the f64 sums and of the plain
 version; see assert_update_close);
 min squared distances within the cancellation bound of the expanded form
 ||x||^2 - 2x.c + ||c||^2, 1e-6 * (||x_i||^2 + ||c_{a_i}||^2) + 1e-6.
-The moe_dispatch gather bit for bit; moe_combine exactly for top_k=1 and,
-above, within 1e-6 of the sum of the absolute products (where a compiler
-contracts a product and a sum into one FMA, one product's rounding is
-skipped, which matters where the terms cancel); the routed step's labels,
+The moe_dispatch gather bit for bit; the moe_combine kernel bit for bit
+against the plain version for top_k <= 2 and against the sequential sum
+(each product rounded, then added in j order) for any top_k, NaN where
+they have NaN (a zero gate on a row of inf); the routed step's labels,
 votes and keep mask exactly, its predictions within 1e-5 of their
 largest magnitude (f32 products summed in another order).
 swa_decode within 2e-5 (f32) or 2e-2 (bf16, one rounding of the output)
@@ -37,6 +37,14 @@ SOLVE_SHAPES = [(1, 16, 3, 2, 4, 100), (4, 33, 7, 3, 7, 9),
 
 # (T, d, S) of the routing kernels; d=7 is not a multiple of 4.
 MOE_SHAPES = [(32, 8, 24), (100, 130, 48), (64, 7, 80)]
+
+# (T, d, S) of the combine on the card besides MOE_SHAPES: the routed
+# leg's (64, 128) from 80 slots, the Mixtral decode step's 4 tokens of
+# 4096 from 16 slots, 64 tokens of 4096 (two chunks a row in f32), d=12
+# (the vector path in f32, the scalar one in bf16), and T past 65,535 at
+# a narrow d.
+COMBINE_SHAPES = MOE_SHAPES + [(64, 128, 80), (4, 4096, 16), (64, 4096, 80),
+                               (33, 12, 50), (70000, 8, 40)]
 
 
 def assert_min_dist(got, want, x, c, idx):
@@ -113,6 +121,43 @@ def assert_swa_close(got, want, dtype):
     tol = 2e-2 if dtype in (torch.bfloat16, "bfloat16") else 2e-5
     err = float((got - want).abs().max())
     assert err <= tol * float(want.abs().max()), err
+
+
+def with_inf_row(ybuf, slot, gates, top_k):
+    """A copy of the combine's inputs where row S // 2 of ybuf holds
+    +inf and -inf and only entries whose gate is 0 name it: (ybuf, slot,
+    gates, the tokens whose output must be all NaN, as 0 * inf is)."""
+    ybuf, slot, gates = ybuf.copy(), slot.copy(), gates.copy()
+    S = ybuf.shape[0]
+    R = S // 2
+    slot[np.clip(slot, 0, S - 1) == R] = (R + 1) % S
+    zero = np.nonzero(gates == 0)[0][:3]
+    slot[zero] = R
+    ybuf[R] = np.inf
+    ybuf[R, ::2] = -np.inf
+    return ybuf, slot, gates, np.unique(zero // top_k)
+
+
+def sequential_combine(ybuf, slot, gates, top_k):
+    """The kernel's arithmetic in plain PyTorch for any top_k: each
+    product rounded, then added to a sum that starts at 0, j in order
+    (for top_k <= 2 the plain version's bits)."""
+    S, d = ybuf.shape
+    T = slot.shape[0] // top_k
+    rows = (ybuf[torch.clamp(slot.long(), 0, S - 1)].float()
+            * gates[:, None]).view(T, top_k, d)
+    acc = torch.zeros((T, d), dtype=torch.float32, device=ybuf.device)
+    for j in range(top_k):
+        acc = acc + rows[:, j]
+    return acc
+
+
+def assert_same_bits(got, want):
+    """NaN in the same places, every other element bit for bit."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.masked_fill(nan, 0).view(torch.int32),
+                       want.masked_fill(nan, 0).view(torch.int32))
 
 
 def assert_combine_close(got, want, ybuf, slot, gates, top_k):
@@ -734,20 +779,78 @@ def test_gpu_moe_dispatch_matches_plain(cuda_device, T, d, S, dtype, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,d,S", MOE_SHAPES + [(64, 128, 80)])
+@pytest.mark.parametrize("T,d,S", COMBINE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("top_k", [1, 2, 4])
-def test_gpu_moe_combine_matches_plain(cuda_device, T, d, S, dtype, top_k):
+@pytest.mark.parametrize("top_k", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["mixed", "unaligned", "inf_row"])
+def test_gpu_moe_combine_matches_plain(cuda_device, T, d, S, dtype, top_k,
+                                       case):
+    """Bit for bit against the plain version (top_k <= 2) and the
+    sequential sum (any top_k), on the vector path (d a multiple of 16
+    bytes) and the scalar one, from a ybuf that starts off a 16-byte
+    boundary (the scalar path), with a row of inf named only by zero
+    gates (NaN, as in the plain version); two calls give the same bits
+    and count two launches."""
     from repro_torch.kernels import moe_combine as mc
     _, _, _, ybuf, (slot, gates) = moe_inputs(T * top_k + d, T, d, S,
                                               top_k=top_k)
+    if case == "inf_row":
+        ybuf, slot, gates, nan_tokens = with_inf_row(ybuf, slot, gates,
+                                                     top_k)
     ty = torch.as_tensor(ybuf).to(cuda_device, dtype)
+    if case == "unaligned":
+        buf = torch.zeros(S * d + 1, dtype=dtype, device=cuda_device)
+        buf[1:] = ty.reshape(-1)
+        ty = buf[1:].view(S, d)
     tsl, tg = torch.as_tensor(slot).to(cuda_device), torch.as_tensor(gates).to(cuda_device)
+    before = mc.LAUNCHES
     got = mc.moe_combine(ty, tsl, tg, top_k)
+    again = mc.moe_combine(ty, tsl, tg, top_k)
+    assert mc.LAUNCHES == before + 2
     want = ref.moe_combine(ty, tsl, tg, top_k)
+    seq = sequential_combine(ty, tsl, tg, top_k)
     torch.cuda.synchronize()
-    assert got.dtype == torch.float32
-    assert_combine_close(got, want, ty, tsl, tg, top_k)
+    assert got.dtype == torch.float32 and got.shape == (T, d)
+    assert_same_bits(got, again)
+    assert_same_bits(got, seq)
+    if top_k <= 2:
+        assert_same_bits(got, want)
+    else:
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert_combine_close(got.masked_fill(nan, 0), want.masked_fill(nan, 0),
+                             ty.float().nan_to_num(0, 0, 0), tsl, tg, top_k)
+    if case == "inf_row":
+        nan_rows = torch.isnan(got).all(dim=1).cpu().numpy()
+        assert np.array_equal(np.nonzero(nan_rows)[0], nan_tokens)
+
+
+# (T, d, top_k, dtype) of each path's combine -> the plan's fields but
+# the SMs, on a card of 132 SMs: routed (80, 128) f32 top_k=1, the
+# Mixtral prefill (40960, 4096) bf16 and decode step (16, 4096) bf16 at
+# top_k=2 (4 tokens: rows cut into 16 chunks).
+COMBINE_PATH_PLANS = [
+    ((64, 128, 1, torch.float32), (4, 32, 1, 32, 1, 1, 1, 32, 64)),
+    ((16384, 4096, 2, torch.bfloat16), (8, 512, 1, 512, 1, 2, 1, 512, 16384)),
+    ((4, 4096, 2, torch.bfloat16), (8, 512, 16, 32, 1, 2, 1, 32, 64))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,want", COMBINE_PATH_PLANS)
+def test_gpu_moe_combine_path_plans(cuda_device, shape, want):
+    """The plan at each path's shape on an H100 (132 SMs): a 16-byte
+    piece a thread, one token of 512 threads a block at the prefill, 64
+    one-warp blocks at the decode step and the routed step; a row that
+    is not a multiple of the piece takes the scalar path, in whole
+    warps."""
+    from repro_torch.kernels import moe_combine as mc
+    T_, d, top_k, dtype = shape
+    p = mc.plan(T_, d, top_k, dtype, cuda_device)
+    assert p.sms == 132, "the plans are an H100's"
+    assert tuple(p)[:-1] == want
+    scalar = mc.plan(T_, d + 1, top_k, dtype, cuda_device)
+    assert scalar.columns == 1 and scalar.pieces == d + 1
+    assert scalar.chunk % 32 == 0 and scalar.chunks * scalar.chunk > d
 
 
 @pytest.mark.gpu

@@ -33,7 +33,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from test_torch_gpu import (MOE_SHAPES, SOLVE_SHAPES,  # noqa: E402
                             assert_combine_close, assert_min_dist,
                             moe_inputs, request_batch, swa_chunk_bias,
-                            swa_inputs)
+                            swa_inputs, with_inf_row)
 
 T = torch.as_tensor
 
@@ -570,16 +570,30 @@ def test_moe_dispatch_matches_jax(T, d, S, dtype, all_invalid):
     assert np.all(_np(got)[~valid] == 0.0)
 
 
-@pytest.mark.parametrize("T,d,S", MOE_SHAPES)
+# (T, d, S, a row of inf named only by zero gates); the ids of the
+# finite cases are their shapes.
+COMBINE_CASES = [(*shape, False) for shape in MOE_SHAPES] + [
+    (40, 12, 30, True), (64, 7, 80, True)]
+
+
+@pytest.mark.parametrize(
+    "T,d,S,inf_row", COMBINE_CASES,
+    ids=[f"{T}-{d}-{S}" + ("-inf_row" if inf else "")
+         for T, d, S, inf in COMBINE_CASES])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("top_k", [1, 2])
-def test_moe_combine_matches_jax(T, d, S, dtype, top_k):
+def test_moe_combine_matches_jax(T, d, S, inf_row, dtype, top_k):
     """Port ref == JAX ref == Pallas (interpret): exact for top_k=1,
     within 1e-6 of sum |g y| for top_k=2; zero gates drop their slot, and slots out of
     range are clipped (by the port and the JAX reference; the Pallas
-    kernel is given them clipped)."""
+    kernel is given them clipped). A zero gate is still multiplied: a
+    row of +-inf named only by zero gates gives NaN across its tokens'
+    outputs in all three, and nowhere else."""
     _, _, _, ybuf, _ = moe_inputs(S * 3 + d, T, d, S)
     _, _, _, _, (slot, gates) = moe_inputs(T + top_k, T, d, S, top_k=top_k)
+    if inf_row:
+        ybuf, slot, gates, nan_tokens = with_inf_row(ybuf, slot, gates,
+                                                     top_k)
     ty, jy = _pair(ybuf, dtype)
     got = ops.moe_combine(ty, torch.as_tensor(slot), torch.as_tensor(gates),
                           top_k)
@@ -589,8 +603,19 @@ def test_moe_combine_matches_jax(T, d, S, dtype, top_k):
     pal = pallas_combine(jy, jnp.asarray(np.clip(slot, 0, S - 1)),
                          jnp.asarray(gates), top_k=top_k, bd=128,
                          interpret=True)
+    nan = np.isnan(_np(got))
+    if inf_row:
+        assert np.array_equal(np.nonzero(nan.all(axis=1))[0], nan_tokens)
+        assert nan.sum() == len(nan_tokens) * d
+    else:
+        assert not nan.any()
+    finite = np.nan_to_num(ybuf, posinf=0.0, neginf=0.0)
     for other in (want, pal):
-        assert_combine_close(got, other, ty, slot, gates, top_k)
+        other = _np(other)
+        np.testing.assert_array_equal(np.isnan(other), nan)
+        assert_combine_close(np.where(nan, 0, _np(got)),
+                             np.where(nan, 0, other), finite, slot, gates,
+                             top_k)
 
 
 # ---------------------------------------------------------- swa_decode --
