@@ -40,6 +40,24 @@ plain version, two calls bit for bit, its device time beside one
 F.embedding_bag call's and the bound, and its launch plan. One more
 prefill of the decode leg's batch runs under the profiler.
 
+Between the routed leg and the pdist lines it drives the slice that
+restores checkpoints and the paper's scenario layer, each leg once
+between a reset and a read of the launch counts, its pdist_argmin and
+kmeans_update launches tallied by shape (and those shapes timed and
+held to f64 with the paths' own): the serve path cut by Session.save
+and Session.restore after 16 of its 32 late devices, and the routed
+leg after its first wave (schema v5), each equal to the uninterrupted
+session bit for bit; an archive written on the CPU restored on the card
+(and back); a small personalize and separation report on the card
+against the CPU run; the paper's Table 2 (Global FedAvg, IFCA and k-FED
++ per-cluster FedAvg at Z in {100, 200}, k' in {1, 2},
+benchmarks/bench_table2_personalization.py in full mode), Figure 4
+(random, pow-d and k-FED pow-d client selection,
+benchmarks/bench_fig4_selection.py in full mode) and Figure 1
+(clustering accuracy and the median active c_rs against the separation
+constant c, benchmarks/bench_fig1_separation.py in full mode, one seed
+a c).
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -53,6 +71,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -81,6 +100,27 @@ R_K, R_KP, R_D, R_M0, R_NPER, R_SEP = 16, 4, 128, 4, 25, 60.0
 R_PLAN = dict(capacity=256, batch_size=64, bucket_sizes=(64,),
               heads="qwen1.5-0.5b", head_arch="transformer")
 R_WAVES, R_N_RANGE = 5, (20, 60)
+
+# The checkpoint legs: the serve path cut after RESTORE_HALF requests,
+# the routed leg after its first wave.
+RESTORE_HALF = SERVE_REQUESTS // 2
+
+# The scenario legs, each as its benchmark runs it in full mode. Table 2
+# (benchmarks/bench_table2_personalization.py): rotated-prototype tasks,
+# an MLP of 200 hidden units, Global FedAvg, IFCA and k-FED + FedAvg.
+P_ZS, P_KPS, P_N, P_D, P_K, P_CLASSES = (100, 200), (1, 2), 64, 32, 4, 10
+P_HIDDEN, P_ROUNDS, P_LR, P_EPOCHS = 200, 12, 0.1, 3
+# Figure 4 (benchmarks/bench_fig4_selection.py): client selection on a
+# FEMNIST-like federation, k-FED with k=8, k'=1 on mean features.
+S_Z, S_D, S_CLASSES, S_MEAN_N, S_ROUNDS = 100, 32, 10, 60, 30
+S_M, S_DCAND, S_HIDDEN, S_K, S_TARGET = 10, 30, 64, 8, 0.75
+# Figure 1 (benchmarks/bench_fig1_separation.py): accuracy against the
+# separation constant c, one seed a c.
+F_K, F_D, F_KP, F_M0, F_NPER = 64, 100, 8, 5, 30
+F_CS = (0.25, 0.5, 1.0, 2.0, 4.0, 6.0, 10.0)
+# What the Table 2 leg's clustering must reach (fixed before its first
+# run on the card; the JAX bench's quick mode on the CPU gives 100%).
+MIN_TABLE2_CLUSTER_ACC = 0.9
 
 # The LM decode leg: Mixtral-8x7B as published (configs/mixtral_8x7b.py,
 # arXiv:2401.04088) cut to 8 of its 32 layers (32 layers are about 93 GB
@@ -251,6 +291,23 @@ def tallied(fn):
         fn()
         sync()
     return {"pdist_argmin": pd, "kmeans_update": km, "moe_combine": mc}
+
+
+def counted(fn):
+    """Run ``fn`` once between a reset and a read of the launch counts,
+    with the launches of pdist_argmin, kmeans_update and moe_combine
+    tallied by shape: (fn's result, {kernel: launches}, tallies)."""
+    from repro_torch.kernels import ops
+    out = {}
+
+    def run():
+        ops.reset_launch_counts()
+        out["result"] = fn()
+        sync()
+        out["counts"] = ops.launch_counts()
+
+    tallies = tallied(run)
+    return out["result"], out["counts"], tallies
 
 
 def merged(tallies, name):
@@ -1398,6 +1455,424 @@ def route_path(device):
     return counts, tally
 
 
+def restore_path(fm, device, tmp: Path):
+    """The serve path at Table 1's largest setting, cut by a checkpoint.
+    An uninterrupted session serves the 32 late devices in two halves;
+    another serves the first half and saves, and a session restored from
+    the archive serves the second half (between a reset and a read of the
+    launch counts, tallied). The labels, tau versions, fold state and tau
+    must equal the uninterrupted session's bit for bit."""
+    from repro_torch.data.gaussian import late_device_stream
+    from repro_torch.fed.api import FederationPlan, Session
+    plan = FederationPlan(k=K, k_prime=KP, d=D, device=str(device),
+                          **SERVE_PLAN)
+    rr = Session(plan).run(0, fm.data).detail
+    reqs = late_device_stream(fm.means, KP, SERVE_REQUESTS, 7,
+                              n_range=(SERVE_N, SERVE_N + 1))
+    datas, kvs, h = [r[0] for r in reqs], [r[2] for r in reqs], RESTORE_HALF
+    live = Session.from_round(plan, rr, seed=0)
+    want = (live.serve_versioned(datas[:h], kvs[:h])
+            + live.serve_versioned(datas[h:], kvs[h:]))
+    first = Session.from_round(plan, rr, seed=0)
+    got = first.serve_versioned(datas[:h], kvs[:h])
+    sync()
+    t0 = time.perf_counter()
+    path = first.save(str(tmp / "serve.npz"))
+    save_s = time.perf_counter() - t0
+    walls = {}
+
+    def restore_and_serve():
+        t0 = time.perf_counter()
+        sess = Session.restore(path, plan)
+        sync()
+        walls["restore"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = sess.serve_versioned(datas[h:], kvs[h:])
+        sync()
+        walls["serve"] = time.perf_counter() - t0
+        return sess, out
+
+    (restored, rest), counts, tally = counted(restore_and_serve)
+    got += rest
+    require(all(np.array_equal(g, w) and gv == wv
+                for (g, gv), (w, wv) in zip(got, want)),
+            "restore: labels or tau versions differ from the uninterrupted "
+            "session's")
+    require(all(torch.equal(a, b) for a, b in zip(restored.service.state,
+                                                    live.service.state))
+            and torch.equal(restored.tau_centers, live.tau_centers),
+            "restore: fold state or tau differs from the uninterrupted "
+            "session's")
+    require(restored.stats()["served_devices"] == SERVE_REQUESTS,
+            "restore: served count")
+    versions = sorted({v for _, v in got})
+    print(f"restore: serve path d={D} k={K} k'={KP}, {h} late devices of "
+          f"n={SERVE_N}, save ({Path(path).stat().st_size} bytes, "
+          f"{save_s:.3f} s), Session.restore ({walls['restore']:.3f} s), "
+          f"{SERVE_REQUESTS - h} more in {walls['serve']:.3f} s: labels, tau "
+          f"versions {versions} (final {restored.tau_version}), fold state "
+          f"and tau equal the uninterrupted session's bit for bit; "
+          f"launches {counts}", flush=True)
+    return counts, tally
+
+
+def route_restore_path(device, tmp: Path):
+    """The routed leg's configuration cut by a checkpoint (schema v5):
+    an uninterrupted session serves two waves of 64; another serves the
+    first and saves, and the restored session serves the second (counted
+    and tallied). Labels, versions, clusters, routing and the routed
+    counters exact, predictions within 1e-5 of their largest magnitude."""
+    from repro_torch.checkpoint.store import npz_keys
+    from repro_torch.data.gaussian import late_device_stream, structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    fm = structured_devices(0, k=R_K, d=R_D, k_prime=R_KP, m0=R_M0,
+                            n_per_comp_dev=R_NPER, sep=R_SEP)
+    base = FederationPlan(k=R_K, k_prime=R_KP, d=R_D, device=str(device))
+    rr = Session(base).run(1, fm.data).detail
+    plan = base.with_options(**R_PLAN)
+    B = plan.batch_size
+    stream = late_device_stream(fm.means, R_KP, 2 * B, 4, n_range=R_N_RANGE)
+    w1 = ([r[0] for r in stream[:B]], [r[2] for r in stream[:B]])
+    w2 = ([r[0] for r in stream[B:]], [r[2] for r in stream[B:]])
+    live = Session.from_round(plan, rr, seed=0)
+    live.serve_predict(*w1)
+    want = live.serve_predict(*w2)
+    first = Session.from_round(plan, rr, seed=0)
+    first.serve_predict(*w1)
+    path = first.save(str(tmp / "route.npz"))
+    require({"heads_tag", "heads_counters"} <= npz_keys(path),
+            "route restore: the archive is not of schema v5")
+    (restored, got), counts, tally = counted(
+        lambda: (lambda s: (s, s.serve_predict(*w2)))(
+            Session.restore(path, plan)))
+    require(all(np.array_equal(g.labels, w.labels)
+                and (g.tau_version, g.cluster, g.routed)
+                == (w.tau_version, w.cluster, w.routed)
+                for g, w in zip(got, want)),
+            "route restore: labels, versions, clusters or routing differ "
+            "from the uninterrupted session's")
+    gp = np.stack([g.prediction for g in got])
+    wp = np.stack([w.prediction for w in want])
+    err = float(np.abs(gp - wp).max())
+    require(err <= 1e-5 * float(np.abs(wp).max()),
+            f"route restore: predictions differ by {err}")
+    st, lst = restored.stats()["heads"], live.stats()["heads"]
+    require(st == lst, f"route restore: routed counters {st} != {lst}")
+    print(f"route restore: k={R_K} d={R_D} {plan.heads}/{plan.head_arch}, "
+          f"save after a wave of {B} ({Path(path).stat().st_size} bytes, "
+          f"schema v5), restore, a wave of {B}: labels, versions, clusters, "
+          f"routing and counters (routed {st['routed_served']}, overflowed "
+          f"{st['overflowed']}) equal the uninterrupted session's; "
+          f"predictions max error {err:.3e}; launches {counts}", flush=True)
+    return counts, tally
+
+
+def cpu_to_card_restore(device, tmp: Path):
+    """An archive the port writes on the CPU restores on the card (and
+    the card's archive on the CPU): the same state bit for bit, then the
+    same labels and tau versions as the CPU session serving on."""
+    from repro_torch.data.gaussian import late_device_stream, structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    fm = structured_devices(5, k=12, d=24, k_prime=3, m0=2,
+                            n_per_comp_dev=12, sep=30.0)
+    reqs = late_device_stream(fm.means, 3, 12, 6, n_range=(10, 60))
+    datas, kvs = [r[0] for r in reqs], [r[2] for r in reqs]
+    plan = FederationPlan(k=12, k_prime=3, d=24, device="cpu", batch_size=4,
+                          bucket_sizes=(32, 64), refresh_every=4)
+    cpu = Session(plan, seed=2)
+    cpu.run(7, fm.data)
+    cpu.serve(datas[:6], kvs[:6])
+    path = cpu.save(str(tmp / "cpu.npz"))
+    card = Session.restore(path, plan, device=device)
+    require(all(a.device.type == torch.device(device).type
+                and torch.equal(a.cpu(), b)
+                for a, b in zip(card.service.state, cpu.service.state)),
+            "cpu -> card: the restored fold state is not the CPU's on the "
+            "card")
+    back = Session.restore(card.save(str(tmp / "card.npz")), plan)
+    require(all(torch.equal(a, b) for a, b in zip(back.service.state,
+                                                    cpu.service.state)),
+            "card -> cpu: the restored fold state differs")
+    want = cpu.serve_versioned(datas[6:], kvs[6:])
+    got = card.serve_versioned(datas[6:], kvs[6:])
+    require(all(np.array_equal(g, w) and gv == wv
+                for (g, gv), (w, wv) in zip(got, want)),
+            "cpu -> card: labels or tau versions differ from the CPU's")
+    return len(got)
+
+
+def table2_features(x, y, kp: int, n_cls: int = P_CLASSES) -> np.ndarray:
+    """The Table 2 bench's clustering features: each chunk's per-class
+    prototype means, concatenated over the classes: (Z, kp, n_cls * d)."""
+    feats = np.zeros((x.shape[0], kp, n_cls * x.shape[2]), np.float32)
+    for z in range(x.shape[0]):
+        for ci, idx in enumerate(np.array_split(np.arange(x.shape[1]), kp)):
+            cx, cy = x[z, idx], y[z, idx]
+            proto = np.zeros((n_cls, x.shape[2]), np.float32)
+            for c in range(n_cls):
+                if (cy == c).any():
+                    proto[c] = cx[cy == c].mean(0)
+            feats[z, ci] = proto.reshape(-1)
+    return feats
+
+
+def device_accuracy(models, pick, x, y):
+    """Each device's accuracy over its points under model ``pick[z]`` of
+    the stacked ``models``: (Z,)."""
+    from torch.func import vmap
+
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.mlp import mlp_accuracy
+    return vmap(mlp_accuracy)(tree_map(lambda leaf: leaf[pick], models), x, y)
+
+
+def personalize_run(device, Z: int, kp: int, *, n=P_N, hidden=P_HIDDEN,
+                    rounds=P_ROUNDS, key=2):
+    """One row of Table 2 on ``device``: Global FedAvg, IFCA and k-FED +
+    per-cluster FedAvg (per chunk at k' > 1), as the bench runs them.
+    Returns (accuracies and walls, the k-FED models and assignment, IFCA's
+    choices, k-FED's cluster accuracy)."""
+    from repro_torch.data.synthetic_tasks import rotation_tasks
+    from repro_torch.fed.fedavg import FedAvgConfig, fedavg_round
+    from repro_torch.fed.ifca import ifca_round
+    from repro_torch.fed.personalize import kfed_personalize
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.mlp import init_mlp, mlp_loss
+    from repro_torch.utils.metrics import clustering_accuracy
+    data = rotation_tasks(np.random.default_rng(Z + kp), Z=Z, n_per_dev=n,
+                          d=P_D, k=P_K, k_prime=kp)
+    x = torch.as_tensor(data.x, device=device)
+    y = torch.as_tensor(data.y, device=device)
+    mask = torch.as_tensor(data.point_mask, device=device)
+    dev_data = {"x": x, "y": y, "mask": mask}
+    cfg = FedAvgConfig(lr=P_LR, local_epochs=P_EPOCHS, rounds=rounds)
+
+    def init(seed):
+        return init_mlp(torch.Generator().manual_seed(seed), P_D, hidden,
+                        P_CLASSES, device=device)
+
+    out = {}
+    t0 = time.perf_counter()
+    gp = init(0)
+    for _ in range(rounds):
+        gp, _ = fedavg_round(mlp_loss, gp, dev_data, cfg, point_mask=mask)
+    zeros = torch.zeros((Z,), dtype=torch.long, device=device)
+    out["global"] = 100 * float(device_accuracy(
+        tree_map(lambda a: a[None], gp), zeros, x, y).mean())
+    out["global_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inits = [init(1 + j) for j in range(P_K)]
+    models = tree_map(lambda *xs: torch.stack(xs), *inits)
+    for _ in range(rounds):
+        models, choice, _ = ifca_round(mlp_loss, models, dev_data, cfg,
+                                       point_mask=mask)
+    out["ifca"] = 100 * float(device_accuracy(models, choice, x, y).mean())
+    out["ifca_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats = torch.as_tensor(table2_features(data.x, data.y, kp),
+                            device=device)
+    models_kf, assign, _ = kfed_personalize(
+        key, mlp_loss, init(0), dev_data, feats, P_K, cfg, k_prime=kp,
+        point_mask=mask, per_chunk=kp > 1)
+    if kp > 1:
+        chunks = [torch.as_tensor(idx, device=device) for idx in
+                  np.array_split(np.arange(n), kp)]
+        accs = torch.stack([device_accuracy(
+            models_kf, assign[:, c].long(), x[:, idx], y[:, idx])
+            for c, idx in enumerate(chunks)])
+        first = assign[:, 0]
+    else:
+        accs = device_accuracy(models_kf, assign.long(), x, y)
+        first = assign
+    out["kfed"] = 100 * float(accs.mean())
+    out["kfed_s"] = time.perf_counter() - t0
+    clu = clustering_accuracy(first.cpu().numpy(), data.cluster, P_K)
+    return out, models_kf, assign, choice, clu
+
+
+def personalize_leg(device):
+    """Table 2 in full: Z in {100, 200} x k' in {1, 2}, each row between a
+    reset and a read of the launch counts (tallied)."""
+    rows, counts, tallies = [], {}, {}
+    for Z in P_ZS:
+        for kp in P_KPS:
+            (out, _, assign, _, clu), c, tally = counted(
+                lambda: personalize_run(device, Z, kp))
+            for name, v in c.items():
+                counts[name] = counts.get(name, 0) + v
+            tallies[f"table2_Z{Z}_kp{kp}"] = tally
+            accs = (out["global"], out["ifca"], out["kfed"])
+            require(all(np.isfinite(a) and 0 <= a <= 100 for a in accs),
+                    f"personalize Z={Z} k'={kp}: accuracies {accs}")
+            require(tuple(assign.shape) == ((Z,) if kp == 1 else (Z, kp)),
+                    f"personalize: assignment shape {tuple(assign.shape)}")
+            require(clu >= MIN_TABLE2_CLUSTER_ACC,
+                    f"personalize Z={Z} k'={kp}: k-FED cluster accuracy "
+                    f"{clu} < {MIN_TABLE2_CLUSTER_ACC}")
+            print(f"personalize table2_Z{Z}_kprime{kp}: global "
+                  f"{out['global']:.2f}% ({out['global_s']:.3f} s), IFCA "
+                  f"{out['ifca']:.2f}% ({out['ifca_s']:.3f} s), k-FED + "
+                  f"FedAvg {out['kfed']:.2f}% ({out['kfed_s']:.3f} s), "
+                  f"k-FED cluster accuracy {100 * clu:.2f}%; launches {c}",
+                  flush=True)
+            rows.append(out)
+    return counts, tallies
+
+
+def selection_leg(device):
+    """Figure 4 in full: random, pow-d and k-FED-filtered pow-d, 30
+    rounds each (counted and tallied together with the k-FED round)."""
+    from torch.func import vmap
+
+    from repro_torch.data.partition import _pack
+    from repro_torch.data.synthetic_tasks import femnist_like
+    from repro_torch.fed.api import FederationPlan, Session
+    from repro_torch.fed.fedavg import (FedAvgConfig, cohort_sgd,
+                                        weighted_average)
+    from repro_torch.fed.selection import kfed_pow_d, pow_d, random_selection
+    from repro_torch.models.mlp import init_mlp, mlp_accuracy, mlp_loss
+    xs, ys, _ = femnist_like(np.random.default_rng(3), Z=S_Z, d=S_D,
+                             n_classes=S_CLASSES, mean_n=S_MEAN_N)
+    part = _pack(xs, ys, S_CLASSES)
+    X = torch.as_tensor(part.data, device=device)
+    Y = torch.as_tensor(part.labels, device=device)
+    M = torch.as_tensor(part.point_mask, device=device)
+    data = {"x": X, "y": Y, "mask": M}
+    cfg = FedAvgConfig(lr=0.1, local_epochs=3)
+    rows = {}
+
+    def run_all():
+        t0 = time.perf_counter()
+        feats = (X * M[..., None]).sum(1) / torch.clamp(
+            M.sum(1), min=1)[:, None]
+        res = Session(FederationPlan(k=S_K, k_prime=1, d=S_D,
+                                     device=str(device))).run(
+            5, feats[:, None, :])
+        clusters = res.labels[:, 0].cpu().numpy()
+        rows["kfed_round_s"] = time.perf_counter() - t0
+        for strat in ("random", "pow_d", "kfed_pow_d"):
+            t0 = time.perf_counter()
+            params = init_mlp(torch.Generator().manual_seed(0), S_D,
+                              S_HIDDEN, S_CLASSES, device=device)
+            rng = np.random.default_rng(11)
+            accs = []
+            for _ in range(S_ROUNDS):
+                losses = vmap(mlp_loss, in_dims=(None, 0))(
+                    params, data).cpu().numpy()
+                if strat == "random":
+                    sel = random_selection(rng, S_Z, S_M)
+                elif strat == "pow_d":
+                    sel = pow_d(rng, losses, S_M, S_DCAND)
+                else:
+                    sel = kfed_pow_d(rng, losses, clusters, S_M, S_DCAND)
+                idx = torch.as_tensor(np.asarray(sel), device=device)
+                sub = {k: v[idx] for k, v in data.items()}
+                upd = cohort_sgd(mlp_loss, params, sub, cfg, sub["mask"])
+                params = weighted_average(upd.params,
+                                          M[idx].sum(1).float())
+                accs.append(vmap(mlp_accuracy, in_dims=(None, 0, 0, 0))(
+                    params, X, Y, M))
+            accs = torch.stack(accs).cpu().numpy()      # (rounds, Z)
+            hit = np.where(accs.mean(1) >= S_TARGET)[0]
+            rows[strat] = (100 * accs[-1].mean(), float(np.var(
+                100 * accs[-1])), int(hit[0]) + 1 if len(hit) else -1,
+                time.perf_counter() - t0)
+
+    _, counts, tally = counted(run_all)
+    for strat in ("random", "pow_d", "kfed_pow_d"):
+        acc, var, t2t, wall = rows[strat]
+        require(np.isfinite(acc) and 0 <= acc <= 100 and np.isfinite(var),
+                f"selection {strat}: accuracy {acc}, variance {var}")
+        print(f"selection fig4_{strat}: final accuracy {acc:.2f}%, variance "
+              f"{var:.2f}, rounds to {int(100 * S_TARGET)}% {t2t} "
+              f"({wall:.3f} s)", flush=True)
+    print(f"selection: Z={S_Z} d={S_D} mean_n={S_MEAN_N} rounds={S_ROUNDS} "
+          f"m={S_M} d_cand={S_DCAND} hidden={S_HIDDEN}, k-FED k={S_K} k'=1 "
+          f"round {rows['kfed_round_s']:.3f} s; launches {counts}",
+          flush=True)
+    return counts, tally
+
+
+def separation_leg(device):
+    """Figure 1 in full, one seed a c: the one-shot round's clustering
+    accuracy and the separation report's median active c_rs at each c
+    (counted and tallied together)."""
+    from repro_torch.core.separation import separation_report
+    from repro_torch.data.gaussian import structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    from repro_torch.utils.metrics import clustering_accuracy
+    rows = []
+
+    def run_all():
+        for c in F_CS:
+            fm = structured_devices(0, k=F_K, d=F_D, k_prime=F_KP, m0=F_M0,
+                                    n_per_comp_dev=F_NPER,
+                                    sep=c * np.sqrt(F_D))
+            t0 = time.perf_counter()
+            out = Session(FederationPlan(k=F_K, k_prime=F_KP, d=F_D,
+                                         device=str(device))).run(
+                100, fm.data)
+            labels = out.labels.cpu().numpy()
+            run_s = time.perf_counter() - t0
+            rep = separation_report(
+                torch.as_tensor(fm.data.reshape(-1, F_D), device=device),
+                torch.as_tensor(fm.labels.reshape(-1), device=device), F_K,
+                torch.as_tensor(fm.presence, device=device),
+                fm.data.shape[1], k_prime=F_KP, m0=F_M0, c=c)
+            c_rs = rep.c_rs.cpu().numpy()[rep.active.cpu().numpy()]
+            rows.append((c, clustering_accuracy(labels, fm.labels, F_K),
+                         float(np.median(c_rs)), run_s,
+                         bool(torch.isfinite(rep.c_rs).all())))
+
+    _, counts, tally = counted(run_all)
+    for c, acc, c_eff, run_s, finite in rows:
+        require(finite and np.isfinite(c_eff),
+                f"separation c={c}: the report is not finite")
+        print(f"separation fig1_c{c}: Z={F_K // F_KP * F_M0} n="
+              f"{F_KP * F_NPER} d={F_D} k={F_K} k'={F_KP}: accuracy "
+              f"{100 * acc:.2f}%, median active c_rs {c_eff:.4f} "
+              f"(round {run_s:.3f} s)", flush=True)
+    print(f"separation: launches {counts}", flush=True)
+    return counts, tally
+
+
+def small_scenario_agreement(device):
+    """A small personalize (Z=16, k' = 1 and 2, two rounds) and a small
+    separation report on ``device`` against the CPU run of the port:
+    assignments and IFCA choices exact, parameters within atol 2e-5 +
+    rtol 1e-4, the report's counts and flags exact and its norms within
+    rtol 1e-4 (the CPU tests' tolerances)."""
+    from repro_torch.core.separation import separation_report
+    from repro_torch.data.gaussian import structured_devices
+    for kp in (1, 2):
+        runs = [personalize_run(dev, 16, kp, n=12, hidden=16, rounds=2)
+                for dev in (device, torch.device("cpu"))]
+        (_, m1, a1, c1, _), (_, m0, a0, c0, _) = runs
+        require(torch.equal(a1.cpu(), a0) and torch.equal(c1.cpu(), c0),
+                f"small personalize k'={kp}: assignments or IFCA choices "
+                f"differ from the CPU")
+        for name in m0:
+            require(torch.allclose(m1[name].cpu(), m0[name], rtol=1e-4,
+                                   atol=2e-5),
+                    f"small personalize k'={kp}: {name} differs from the "
+                    f"CPU")
+    fm = structured_devices(3, k=8, d=12, k_prime=2, m0=3,
+                            n_per_comp_dev=15, sep=4.0)
+    reps = [separation_report(
+        torch.as_tensor(fm.data.reshape(-1, 12), device=dev),
+        torch.as_tensor(fm.labels.reshape(-1), device=dev), 8,
+        torch.as_tensor(fm.presence, device=dev), fm.data.shape[1],
+        k_prime=2, m0=3, c=0.3) for dev in (device, torch.device("cpu"))]
+    got, want = ([t.cpu() for t in r] for r in reps)
+    for i in (1, 6, 7, 8):        # sizes, active, the two fractions
+        require(torch.equal(got[i], want[i]),
+                f"small separation: field {i} differs from the CPU")
+    for i in (0, 2, 3, 4):        # norm, means, deltas, lambda
+        require(torch.allclose(got[i], want[i], rtol=1e-4,
+                               atol=1e-4 * float(want[i].abs().max())),
+                f"small separation: field {i} differs from the CPU")
+
+
 def small_lm_agreement(device):
     """Reduced Mixtral (f32; 2 layers, d=256, W=64) through
     launch.serve.generate on ``device`` and on the CPU from the same
@@ -1653,6 +2128,39 @@ def main() -> int:
           f"exact; predictions within 1e-5 relative, max error "
           f"{perr:.3e})", flush=True)
     route_counts, tallies["route"] = route_path(torch.device("cuda"))
+    t_legs = time.perf_counter()
+    cuda = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        restore_counts, tallies["restore"] = restore_path(fm, cuda, Path(tmp))
+        rroute_counts, tallies["route_restore"] = route_restore_path(
+            cuda, Path(tmp))
+        nmoved = cpu_to_card_restore(cuda, Path(tmp))
+    print(f"reference: an archive written on the CPU (k=12, d=24) restores "
+          f"on the card with the same fold state, and the card's on the CPU;"
+          f" {nmoved} more devices served on the card equal the CPU "
+          f"session's (labels, tau versions)", flush=True)
+    small_scenario_agreement(cuda)
+    print("reference: a small personalize (Z=16, k'=1 and 2 per chunk, 2 "
+          "rounds) and a small separation report (k=8, d=12) on the card "
+          "equal the CPU run (assignments and IFCA choices exact; "
+          "parameters within atol 2e-5 + rtol 1e-4; the report's counts "
+          "exact, norms within rtol 1e-4)", flush=True)
+    pers_counts, pers_tallies = personalize_leg(cuda)
+    tallies.update(pers_tallies)
+    sel_counts, tallies["selection"] = selection_leg(cuda)
+    sep_counts, tallies["separation"] = separation_leg(cuda)
+    print(f"legs: restore, route restore, cpu -> card, scenario agreement, "
+          f"personalize, selection and separation in "
+          f"{time.perf_counter() - t_legs:.1f} s of wall", flush=True)
+    for name in ("pdist_argmin", "kmeans_update"):
+        require(pers_counts[name] > 0 and sel_counts[name] > 0
+                and sep_counts[name] > 0,
+                f"{name} was not launched on every scenario leg")
+    require(restore_counts["solve_attach"] > 0
+            and rroute_counts["solve_attach"] > 0,
+            "solve_attach was not launched on both restored serve paths")
+    new_counts = (restore_counts, rroute_counts, pers_counts, sel_counts,
+                  sep_counts)
     pdist_shapes(tallies, attach)
     kmeans_shapes(tallies)
     lerr = small_lm_agreement(torch.device("cuda"))
@@ -1690,7 +2198,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": (run_counts[name] + serve_counts[name]
-                         + route_counts[name] + decode_counts[name]),
+                         + route_counts[name] + decode_counts[name]
+                         + sum(c[name] for c in new_counts)),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1698,6 +2207,10 @@ def main() -> int:
     print("launches: run " + json.dumps(run_counts) + " serve "
           + json.dumps(serve_counts) + " route " + json.dumps(route_counts)
           + " decode " + json.dumps(decode_counts)
+          + " restore " + json.dumps(restore_counts) + " route_restore "
+          + json.dumps(rroute_counts) + " personalize "
+          + json.dumps(pers_counts) + " selection " + json.dumps(sel_counts)
+          + " separation " + json.dumps(sep_counts)
           + "; every kernel matched its plain version", flush=True)
     print(f"card: {smi}; chip_smoke wall {time.perf_counter() - t_all:.1f} s",
           flush=True)

@@ -6,8 +6,9 @@ lifecycle (counterpart of ``repro/fed/api.py``).
 have yet is refused with a ``PlanError`` naming the field; that is
 validation, not a fallback. ``Session`` owns one lifecycle: ``run`` (the
 one-shot round), ``begin``/``fold``/``finalize`` (asynchronous cohort
-arrival) and ``attach``/``serve``/``submit``/``flush``/``refresh``
-(streaming Theorem 3.2 attachment with incremental folding), and with
+arrival), ``attach``/``serve``/``submit``/``flush``/``refresh``
+(streaming Theorem 3.2 attachment with incremental folding) and
+``save``/``restore`` (checkpoints in the JAX package's schema), and with
 ``heads`` on, ``serve_predict``/``flush_predict`` (the same serving
 through per-cluster heads, DESIGN.md §16).
 
@@ -415,6 +416,35 @@ class Session:
 
     def stats(self) -> dict:
         return self.service.stats()
+
+    # ---------------------------------------------------- checkpoint --
+    def save(self, path: Optional[str] = None) -> str:
+        """Checkpoint the serving state (tau buffers and version, fold
+        state, counters, policy state, heads) in the JAX package's npz
+        schema; ``path`` defaults to ``plan.checkpoint``. Returns the
+        file's name."""
+        path = path or self.plan.checkpoint
+        if not path:
+            raise SessionError(
+                "save() needs a path (or set FederationPlan.checkpoint)")
+        return self.service.save(path)
+
+    @classmethod
+    def restore(cls, path: str, plan: FederationPlan, *, seed: int = 0,
+                device=None,
+                gumbel: Optional[GumbelSource] = None) -> "Session":
+        """A serving session from a checkpoint written by :meth:`save` or
+        by the JAX package's ``Session.save`` (schemas v1-v5), on
+        ``device`` (default: ``plan.device``). Restore then serve gives
+        the labels and tau versions of the uninterrupted session: the
+        serving draws are keyed by the archive's base seed, or come from
+        ``gumbel``."""
+        sess = cls(plan, seed=seed, device=device, gumbel=gumbel)
+        sess._svc = AttachService._restore(path, plan.stream_config(),
+                                           gumbel=gumbel,
+                                           device=sess.device)
+        sess._tau = sess._svc.tau
+        return sess
 
     @classmethod
     def from_round(cls, plan: FederationPlan, round_result: E.RoundResult,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import server
@@ -57,6 +58,16 @@ class TauBuffer(NamedTuple):
 
     def swap_now(self, new_tau: torch.Tensor) -> "TauBuffer":
         return self.stage(new_tau).commit()
+
+    # -- checkpoint plumbing (the arrays the v2+ schema stores) ---------
+    def meta_array(self) -> np.ndarray:
+        return np.asarray([self.active, self.version, int(self.pending)],
+                          np.int64)
+
+    @classmethod
+    def from_arrays(cls, bufs: torch.Tensor, meta) -> "TauBuffer":
+        m = np.asarray(meta)
+        return cls(bufs.float(), int(m[0]), int(m[1]), bool(m[2]))
 
 
 def _make_step(cfg):

@@ -14,7 +14,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ["FoldPolicy", "DropPolicy", "POLICIES", "make_policy"]
+__all__ = ["FoldPolicy", "DropPolicy", "POLICIES", "POLICY_IDS",
+           "make_policy"]
 
 
 class FoldPolicy:
@@ -30,6 +31,18 @@ class FoldPolicy:
 
     def admit(self, rid: int, weight: float = 1.0) -> Optional[int]:
         raise NotImplementedError
+
+    # -- checkpoint plumbing (the ``policy`` subtree of an archive) -----
+    def state_like(self) -> Dict[str, np.ndarray]:
+        """Zero-filled arrays matching :meth:`state_arrays` (the restore
+        template for ``checkpoint.store.load_pytree``)."""
+        return {}
+
+    def state_arrays(self) -> Dict[str, np.ndarray]:
+        return {}
+
+    def load_state(self, arrays: Dict[str, np.ndarray]) -> None:
+        pass
 
     def admit_batch(self, rids, weights=None):
         """Admission for one serve batch, in request order. Returns
@@ -73,6 +86,10 @@ class DropPolicy(FoldPolicy):
 
 
 POLICIES = {"drop": DropPolicy}
+
+# The JAX package's numeric codes of every fold policy, as a checkpoint
+# stores them (npz holds no strings); the port reads and refuses by them.
+POLICY_IDS = {"drop": 0, "lru": 1, "weighted_reservoir": 2}
 
 
 def make_policy(name: str, capacity: int) -> FoldPolicy:

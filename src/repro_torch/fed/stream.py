@@ -16,10 +16,15 @@ routed step instead: the same labels, plus one prediction per request
 from the head of its majority-vote cluster (``flush_predict`` /
 ``serve_predict``).
 
+``save`` writes the serving state in the JAX package's npz schema and
+``_restore`` reads the archives of schemas v1-v5 that it can honour
+(see ``_restore``).
+
 Not in the port yet: autoscaling, the async refresh, the ``lru`` and
 ``weighted_reservoir`` admission policies, drift (and with it the head
-re-map on split/retire), the encoder and checkpoints;
-``fed.api.FederationPlan`` refuses a plan that asks for one of them.
+re-map on split/retire) and the encoder; ``fed.api.FederationPlan``
+refuses a plan that asks for one of them, and ``_restore`` an archive
+written under one.
 """
 from __future__ import annotations
 
@@ -30,9 +35,13 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import (decode_tag, encode_tag,
+                                         load_extras, load_pytree,
+                                         save_pytree)
 from repro_torch.core import server
 from repro_torch.fed.plane import ServePlane, TauBuffer, route_capacity
-from repro_torch.fed.policy import POLICIES, FoldPolicy, make_policy
+from repro_torch.fed.policy import (POLICIES, POLICY_IDS, FoldPolicy,
+                                    make_policy)
 from repro_torch.kernels.ref import SOLVE_ATTACH_DTYPES
 from repro_torch.models import heads as heads_mod
 from repro_torch.utils.prng import GumbelSource
@@ -65,6 +74,22 @@ class ServedPrediction(NamedTuple):
 # Salt of the head-init stream, apart from the per-request draws (which
 # are keyed by request id).
 _HEADS_SALT = 0x48454144  # "HEAD"
+
+# The JAX package's numeric codes of the autoscale and drift modes, as a
+# checkpoint stores them. The port runs both "off", and refuses an
+# archive written under another mode by name.
+AUTOSCALE_IDS = {"off": 0, "latency": 1, "throughput": 2}
+DRIFT_IDS = {"off": 0, "decay": 1, "split_merge": 2}
+
+
+class _ServerStateV3(NamedTuple):
+    """Restore template for pre-v4 archives: the fold state before the
+    drift layer's epoch stamps, under the same key paths
+    ("server/.centers" ...)."""
+    centers: torch.Tensor
+    mask: torch.Tensor
+    weights: torch.Tensor
+    received: torch.Tensor
 
 
 def _bad(fieldname: str, got, accepted: str) -> None:
@@ -167,16 +192,22 @@ class AttachService:
     ``GumbelSource`` of ``seed``). With ``cfg.heads`` on, ``heads`` are
     the per-cluster head parameters (``models.heads.init_heads``
     layout); by default they are drawn from ``seed`` on a salted
-    stream."""
+    stream. A restore (:meth:`_restore`) hands in the archive's tau
+    buffer, fold state and counters."""
 
     def __init__(self, cfg: StreamConfig, tau_centers, *,
                  state: Optional[server.ServerState] = None,
                  policy: Optional[FoldPolicy] = None, seed: int = 0,
                  gumbel: Optional[GumbelSource] = None, next_id: int = 0,
+                 since_refresh: int = 0, served_devices: int = 0,
+                 served_points: int = 0,
+                 tau_buffer: Optional[TauBuffer] = None,
                  heads=None, device="cuda"):
         self.cfg = cfg
         self.plane = ServePlane(cfg, device)
-        self._taubuf = TauBuffer.fresh(self.plane.localize(tau_centers))
+        self._taubuf = (TauBuffer.fresh(self.plane.localize(tau_centers))
+                        if tau_buffer is None else tau_buffer._replace(
+                            bufs=self.plane.localize(tau_buffer.bufs)))
         if tuple(self._taubuf.bufs.shape) != (2, cfg.k, cfg.d):
             raise StreamConfigError(
                 f"tau centers of shape {tuple(self._taubuf.tau.shape)} do "
@@ -185,11 +216,12 @@ class AttachService:
                                         device=self.plane.device)
                       if state is None else state)
         self.policy = policy or make_policy(cfg.fold_policy, cfg.capacity)
+        self._base_seed = int(seed)
         self._gumbel = gumbel or GumbelSource(seed)
         self._next_id = int(next_id)
-        self._since_refresh = 0
-        self._served_devices = 0
-        self._served_points = 0
+        self._since_refresh = int(since_refresh)
+        self._served_devices = int(served_devices)
+        self._served_points = int(served_points)
         self._pending: List[Tuple[int, np.ndarray, int]] = []
         # served, not yet delivered: rid -> (labels, tau version,
         # (prediction, cluster, routed) | None with heads off)
@@ -464,6 +496,140 @@ class AttachService:
             self.plane.localize(agg.tau_centers))
         self._since_refresh = 0
         return agg
+
+    # -------------------------------------------------------- checkpoint --
+
+    def _counters(self) -> np.ndarray:
+        return np.asarray([self._next_id, self._since_refresh,
+                           self._served_devices, self._served_points,
+                           self._base_seed], np.int64)
+
+    def save(self, path: str) -> str:
+        """Checkpoint the serving state in the JAX package's schema: both
+        tau buffers and their version, the fold state, the counters, the
+        admission policy's id and state, the autoscale and drift arrays
+        of their "off" modes, and with heads on (schema v5) the head
+        parameters, their tag and the routed counters. A restore in
+        either package replays the labels and tau versions. Pending
+        requests are not stored."""
+        extra = {}
+        if self._head_spec is not None:
+            extra["heads"] = self.heads
+            extra["heads_tag"] = encode_tag(
+                f"{self.cfg.heads}|{self.cfg.head_arch}")
+            extra["heads_counters"] = np.asarray(
+                [self._routed_served, self._overflowed], np.int64)
+        cfg = self.cfg
+        return save_pytree(path, {
+            **extra,
+            "tau_bufs": self._taubuf.bufs,
+            "tau_meta": self._taubuf.meta_array(),
+            "server": self.state,
+            "counters": self._counters(),
+            "policy_id": np.asarray(POLICY_IDS[self.policy.name], np.int64),
+            "policy": self.policy.state_arrays(),
+            "autoscale_id": np.asarray(AUTOSCALE_IDS["off"], np.int64),
+            "drift_id": np.asarray(DRIFT_IDS["off"], np.int64),
+            "drift_state": np.zeros((3,), np.int64),
+            "drift_mass": np.zeros((cfg.k,), np.float32),
+            # The "off" controller's decision: one shard, the plan's
+            # batch and ladder, no decision taken.
+            "autoscale_state": np.asarray([1, cfg.batch_size, 0, 0],
+                                          np.int64),
+            "autoscale_ladder": np.asarray(cfg.bucket_sizes, np.int64)})
+
+    @classmethod
+    def _restore(cls, path: str, cfg: StreamConfig, *,
+                 gumbel: Optional[GumbelSource] = None,
+                 device="cuda") -> "AttachService":
+        """A service from an archive of schema v1-v5 (the JAX package's
+        or the port's), on ``device``. Serving draws are keyed by the
+        archive's base seed unless ``gumbel`` is given. An archive the
+        port cannot honour is refused by the field it disagrees on:
+        ``fold_policy``, ``autoscale`` (a v3+ archive written under
+        latency or throughput), ``drift`` (a v4+ archive written under
+        decay or split_merge), ``heads``/``head_arch``, and ``encoder``
+        (any v6 archive)."""
+        extras = load_extras(path, ("policy_id", "autoscale_id",
+                                    "tau_bufs", "drift_id",
+                                    "server/.epoch", "heads_tag",
+                                    "heads_counters", "encoder_tag"))
+        # Archives from before the policy layer were written under drop.
+        saved = (int(extras["policy_id"]) if "policy_id" in extras
+                 else POLICY_IDS["drop"])
+        if saved != POLICY_IDS[cfg.fold_policy]:
+            names = {v: n for n, v in POLICY_IDS.items()}
+            raise StreamConfigError(
+                f"StreamConfig.fold_policy={cfg.fold_policy!r} does not "
+                f"match the checkpoint at {path!r}, which was saved "
+                f"under fold_policy={names.get(saved, saved)!r}")
+        for field_, ids in (("autoscale", AUTOSCALE_IDS),
+                            ("drift", DRIFT_IDS)):
+            if f"{field_}_id" in extras:
+                got = int(extras[f"{field_}_id"])
+                if got != ids["off"]:
+                    names = {v: n for n, v in ids.items()}
+                    raise StreamConfigError(
+                        f"StreamConfig.{field_}='off' does not match the "
+                        f"checkpoint at {path!r}, which was saved under "
+                        f"{field_}={names.get(got, got)!r}")
+        if "heads_tag" in extras:
+            tag = decode_tag(extras["heads_tag"])
+            if tag != f"{cfg.heads}|{cfg.head_arch}":
+                sv_h, sv_a = tag.split("|", 1)
+                raise StreamConfigError(
+                    f"StreamConfig.heads={cfg.heads!r}/"
+                    f"head_arch={cfg.head_arch!r} does not match the "
+                    f"checkpoint at {path!r}, which was saved under "
+                    f"heads={sv_h!r}/head_arch={sv_a!r}")
+        if "encoder_tag" in extras:
+            sv_e, sv_dt, sv_sl = decode_tag(extras["encoder_tag"]).split(
+                "|", 2)
+            raise StreamConfigError(
+                f"StreamConfig.encoder='off' does not match the "
+                f"checkpoint at {path!r}, which was saved under "
+                f"encoder={sv_e!r}/encode_dtype={sv_dt!r}/"
+                f"encode_seq_len={sv_sl}")
+        policy = make_policy(cfg.fold_policy, cfg.capacity)
+        # v1 holds one tau (restored as version 0, both buffers equal);
+        # pre-v4 archives hold the fold state without its epoch stamps.
+        v2 = "tau_bufs" in extras
+        v4srv = "server/.epoch" in extras
+        srv_like = server.init_state(cfg.capacity, cfg.k_prime, cfg.d,
+                                     device="cpu")
+        like = {"server": (srv_like if v4srv
+                           else _ServerStateV3(*tuple(srv_like)[:4])),
+                "counters": np.zeros((5,), np.int64),
+                "policy": policy.state_like()}
+        if v2:
+            like["tau_bufs"] = torch.zeros((2, cfg.k, cfg.d))
+            like["tau_meta"] = np.zeros((3,), np.int64)
+        else:
+            like["tau"] = torch.zeros((cfg.k, cfg.d))
+        if "heads_tag" in extras:
+            # The seeded init doubles as the exact-shape template.
+            like["heads"] = heads_mod.init_heads(
+                torch.Generator(device="cpu").manual_seed(0), cfg.k,
+                cfg.head_spec(), device="cpu")
+        dev = torch.device(device)
+        tree = load_pytree(path, like, device=dev)
+        policy.load_state(tree["policy"])
+        taubuf = (TauBuffer.from_arrays(tree["tau_bufs"], tree["tau_meta"])
+                  if v2 else TauBuffer.fresh(tree["tau"]))
+        srv = tree["server"]
+        if not v4srv:
+            srv = server.ServerState(*srv, torch.zeros(
+                (cfg.capacity,), dtype=torch.int32, device=dev))
+        cnt = np.asarray(tree["counters"])
+        svc = cls(cfg, taubuf.tau, tau_buffer=taubuf, state=srv,
+                  policy=policy, seed=int(cnt[4]), gumbel=gumbel,
+                  next_id=int(cnt[0]), since_refresh=int(cnt[1]),
+                  served_devices=int(cnt[2]), served_points=int(cnt[3]),
+                  heads=tree.get("heads"), device=dev)
+        if "heads_counters" in extras:
+            hc = np.asarray(extras["heads_counters"], np.int64)
+            svc._routed_served, svc._overflowed = int(hc[0]), int(hc[1])
+        return svc
 
     # ------------------------------------------------------------- stats --
 

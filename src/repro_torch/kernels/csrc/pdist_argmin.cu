@@ -49,8 +49,13 @@
 //   products and the row norms: a row equal to a center (the server's
 //   seeds are some of its rows) is at a distance of exactly 0. No thread
 //   walks a center on the critical path.
-// - The F partial sums are added in part order, the TK distances of a
-//   slice are scanned in index order, and the S slices (then the center
+// - The F partial sums are added in part order with Kahan's
+//   compensation, and the distance takes the sums and their
+//   compensations apart: (|x|^2 - 2 x.c + |c|^2) of the sums minus the
+//   same of the compensations, so that rounding the three sums of d
+//   terms before they cancel costs no more than the distance's own
+//   rounding (the server's rows lie close to their seeds). The TK
+//   distances of a slice are scanned in index order, and the S slices (then the center
 //   groups, where k does not fit at once) are merged in slice order, all
 //   with a strict `<`: the first minimum wins, so ties go to the smallest
 //   index. Duplicated centers give bit-identical distances.
@@ -102,8 +107,8 @@ __host__ __device__ inline Layout layout(int R, int S, int F, int TK, int XP,
     L.red = end;
     end += red;
   }
-  L.cn = end;
-  end += up16(static_cast<size_t>(S) * TK * 4);
+  L.cn = end;  // each center's norm and its compensation
+  end += up16(static_cast<size_t>(S) * TK * 8);
   L.mk = end;
   end += up16(static_cast<size_t>(S) * TK);
   L.mv = end;
@@ -124,6 +129,15 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   p = fmaf(a.y, b.y, p);
   p = fmaf(a.z, b.z, p);
   return fmaf(a.w, b.w, p);
+}
+
+// s + v with Kahan's compensation c (the sum is s - c): the rounding
+// error of each addition is carried into the next.
+__device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
+  const float y = __fsub_rn(v, c);
+  const float t = __fadd_rn(s, y);
+  c = __fsub_rn(__fsub_rn(t, s), y);
+  s = t;
 }
 
 // Four consecutive elements in shared memory, widened to f32.
@@ -273,7 +287,7 @@ __global__ void __launch_bounds__(512) pdist_argmin_kernel(
       // exactly 0 from it.
       for (int t = tid - p.workers; t < nc; t += p.norm_threads) {
         const T* cr = cs + (t / TK) * p.SP + (t % TK) * p.CP;
-        float sum = 0.f;
+        float sum = 0.f, comp = 0.f;
         for (int f0 = 0; f0 < F; f0 += kNormIlp) {
           float a[kNormIlp];
 #pragma unroll
@@ -290,10 +304,12 @@ __global__ void __launch_bounds__(512) pdist_argmin_kernel(
           }
 #pragma unroll
           for (int q = 0; q < kNormIlp; ++q) {
-            if (f0 + q < F) sum = (f0 + q == 0) ? a[q] : sum + a[q];
+            if (f0 + q == 0) sum = a[q];
+            else if (f0 + q < F) kahan_add(sum, comp, a[q]);
           }
         }
-        cn[t] = sum;
+        cn[2 * t] = sum;
+        cn[2 * t + 1] = comp;
       }
     }
     // The partial sums overwrite x and the centers when aliased, and
@@ -308,16 +324,19 @@ __global__ void __launch_bounds__(512) pdist_argmin_kernel(
     __syncthreads();
 
     if (tid < R * S && live) {  // f == 0: parts in order, then the slice
-      float dot[TK];
+      float dot[TK], dc[TK];
       const float* o = red + (s * R + r) * (TK + 1);
 #pragma unroll
-      for (int t = 0; t < TK; ++t) dot[t] = o[t];
-      float xn = o[TK];
+      for (int t = 0; t < TK; ++t) {
+        dot[t] = o[t];
+        dc[t] = 0.f;
+      }
+      float xn = o[TK], xc = 0.f;
       for (int ff = 1; ff < F; ++ff) {
         const float* q = red + ((ff * S + s) * R + r) * (TK + 1);
 #pragma unroll
-        for (int t = 0; t < TK; ++t) dot[t] += q[t];
-        xn += q[TK];
+        for (int t = 0; t < TK; ++t) kahan_add(dot[t], dc[t], q[t]);
+        kahan_add(xn, xc, q[TK]);
       }
       const uint8_t* mrow =
           cmask == nullptr ? nullptr
@@ -329,7 +348,10 @@ __global__ void __launch_bounds__(512) pdist_argmin_kernel(
       for (int t = 0; t < TK; ++t) {
         const int gt = k0 + s * TK + t;
         if (gt < p.k) {
-          float dist = fmaxf(xn - 2.f * dot[t] + cn[s * TK + t], 0.f);
+          const float* ct = cn + 2 * (s * TK + t);
+          const float hi = __fadd_rn(__fmaf_rn(-2.f, dot[t], xn), ct[0]);
+          const float lo = __fadd_rn(__fmaf_rn(-2.f, dc[t], xc), ct[1]);
+          float dist = fmaxf(__fsub_rn(hi, lo), 0.f);
           if (mrow != nullptr && mrow[gt] == 0) dist = kMaskedDist;
           if (dist < bv) {
             bv = dist;

@@ -7,9 +7,11 @@ The CUDA source plans each launch from the shape and the card
 consecutive rows (the rows of all batch entries as one axis when the
 centers are shared), copies them and its centers into shared memory
 once, and splits its work over S slices of TK centers and F parts of the
-features, with one more thread a center for the center norms. The
-slices are merged in index order with a strict ``<``, so ties go to the
-smallest center index. One call counts one launch."""
+features, with one more thread a center for the center norms. The F
+parts' sums are added in order under Kahan's compensation, which the
+distance carries through its cancellation. The slices are merged in
+index order with a strict ``<``, so ties go to the smallest center
+index. One call counts one launch."""
 from __future__ import annotations
 
 import ctypes

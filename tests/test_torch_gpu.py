@@ -377,6 +377,47 @@ def test_gpu_pdist_argmin_duplicates_pick_smallest(cuda_device, B, n, d, k,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,n,d,k,shared", [(1, 200, 320, 4, True),
+                                            (50, 400, 300, 10, False),
+                                            (1, 500, 300, 100, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_pdist_argmin_rows_on_centers_are_at_zero(cuda_device, B, n, d,
+                                                      k, shared, dtype):
+    """Plans of several feature parts (F > 1), whose part sums are added
+    under Kahan's compensation: a row equal to a center is at a distance
+    of exactly 0 from it (the row's norm, the center's and their product
+    take the same operations), as the server's seeds, which are some of
+    its rows, need. Every row is held to the distances taken in f64
+    (the plain f32 version is itself off by more than the tolerance on
+    rows equal to a center at d=300 and these norms): within the
+    tolerance, and the exact argmin but for ties within it."""
+    from repro_torch.kernels.pdist_argmin import pdist_argmin, plan
+    x, c, _ = pdist_inputs(n + k, B, n, d, k, shared, False, cuda_device,
+                           dtype)
+    assert plan(B, n, k, d, shared, dtype, cuda_device).parts > 1
+    cb = c if shared else c.view(B, k, d)
+    on = torch.arange(0, n, 7, device=cuda_device)
+    want = on % k
+    if shared:
+        x[on] = cb[want]
+    else:
+        x[:, on] = cb[:, want]
+    idx, val = pdist_argmin(x, c, None)
+    assert torch.equal(idx[..., on], want.int().expand_as(idx[..., on]))
+    assert bool((val[..., on] == 0).all())
+    xd, cd = x.double().cpu(), c.double().cpu()
+    xn, cn = (xd * xd).sum(-1), (cd * cd).sum(-1)
+    exact = (xn.unsqueeze(-1) - 2.0 * (xd @ cd.transpose(-1, -2))
+             + cn.unsqueeze(-2)).clamp_min(0.0)
+    emin, eidx = exact.min(-1)
+    tol = 1e-6 * (xn + torch.gather(cn.expand(*xn.shape[:-1], k), -1,
+                                    eidx)) + 1e-6
+    assert bool(((val.cpu().double() - emin).abs() <= tol).all())
+    at = torch.gather(exact, -1, idx.cpu().long().unsqueeze(-1)).squeeze(-1)
+    assert bool(((idx.cpu().long() == eidx) | ((at - emin) <= tol)).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("k,d", [(10, 300), (100, 300), (257, 33)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_pdist_argmin_all_masked_rows(cuda_device, k, d, dtype):
@@ -1106,3 +1147,100 @@ def test_gpu_generate_matches_cpu(cuda_device):
     (t1, l1), (t0, l0) = runs
     assert torch.equal(t1, t0)
     assert float((l1 - l0).abs().max()) <= 1e-4 * float(l0.abs().max())
+
+
+def _small_serving(seed=5):
+    from repro_torch.data.gaussian import late_device_stream, structured_devices
+    from repro_torch.fed.api import FederationPlan
+    fm = structured_devices(seed, k=12, d=24, k_prime=3, m0=2,
+                            n_per_comp_dev=12, sep=30.0)
+    reqs = late_device_stream(fm.means, 3, 12, 6, n_range=(10, 60))
+    plan = FederationPlan(k=12, k_prime=3, d=24, device="cpu", batch_size=4,
+                          bucket_sizes=(32, 64), refresh_every=4)
+    return fm, [r[0] for r in reqs], [r[2] for r in reqs], plan
+
+
+@pytest.mark.gpu
+def test_gpu_save_restore_serves_like_the_live_session(cuda_device,
+                                                       tmp_path):
+    """Serve, save and restore on the card: the restored session serves
+    the rest with the labels, tau versions and fold state of the
+    session that kept serving, bit for bit."""
+    from repro_torch.fed.api import Session
+    fm, datas, kvs, plan = _small_serving()
+    live = Session(plan, seed=2, device=cuda_device)
+    live.run(7, fm.data)
+    live.serve(datas[:6], kvs[:6])
+    path = live.save(str(tmp_path / "card"))
+    restored = Session.restore(path, plan, device=cuda_device)
+    assert all(a.is_cuda for a in restored.service.state)
+    ops.reset_launch_counts()
+    got = restored.serve_versioned(datas[6:], kvs[6:])
+    assert ops.launch_counts()["solve_attach"] > 0
+    want = live.serve_versioned(datas[6:], kvs[6:])
+    for (g, gv), (w, wv) in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+        assert gv == wv
+    for a, b in zip(restored.service.state, live.service.state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gpu_cpu_archive_restores_on_the_card(cuda_device, tmp_path):
+    """An archive written on the CPU restores on the card with the same
+    state, and serves the CPU session's labels and tau versions; the
+    card's archive restores on the CPU."""
+    from repro_torch.fed.api import Session
+    fm, datas, kvs, plan = _small_serving(6)
+    cpu = Session(plan, seed=2)
+    cpu.run(7, fm.data)
+    cpu.serve(datas[:6], kvs[:6])
+    card = Session.restore(cpu.save(str(tmp_path / "cpu")), plan,
+                           device=cuda_device)
+    for a, b in zip(card.service.state, cpu.service.state):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+    back = Session.restore(card.save(str(tmp_path / "card")), plan)
+    for a, b in zip(back.service.state, cpu.service.state):
+        assert a.device.type == "cpu" and torch.equal(a, b)
+    got = card.serve_versioned(datas[6:], kvs[6:])
+    want = cpu.serve_versioned(datas[6:], kvs[6:])
+    for (g, gv), (w, wv) in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+        assert gv == wv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kp", [1, 2])
+def test_gpu_kfed_personalize_matches_cpu(cuda_device, kp):
+    """k-FED + per-cluster FedAvg on the card (the clustering through
+    pdist_argmin and kmeans_update) against the CPU run: assignments
+    exact, models within atol 2e-5 + rtol 1e-4 (f32 products summed in
+    another order)."""
+    from repro_torch.data.synthetic_tasks import rotation_tasks
+    from repro_torch.fed.fedavg import FedAvgConfig
+    from repro_torch.fed.personalize import kfed_personalize
+    from repro_torch.models.mlp import init_mlp, mlp_loss
+    data = rotation_tasks(np.random.default_rng(kp), Z=16, n_per_dev=12,
+                          d=6, k=4, k_prime=kp)
+    feats = np.stack([np.stack([data.x[z, idx].mean(0) for idx in
+                                np.array_split(np.arange(12), kp)])
+                      for z in range(16)])
+    cfg = FedAvgConfig(lr=0.1, local_epochs=2, rounds=2)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        dd = {"x": T(data.x, device=dev), "y": T(data.y, device=dev),
+              "mask": T(data.point_mask, device=dev)}
+        init = init_mlp(torch.Generator().manual_seed(0), 6, 16, 10,
+                        device=dev)
+        ops.reset_launch_counts()
+        models, assign, _ = kfed_personalize(
+            2, mlp_loss, init, dd, T(feats, device=dev), 4, cfg,
+            k_prime=kp, point_mask=dd["mask"], per_chunk=kp > 1)
+        if dev.type == "cuda":
+            counts = ops.launch_counts()
+            assert counts["pdist_argmin"] > 0 and counts["kmeans_update"] > 0
+        outs.append((assign.cpu(), {k: v.cpu() for k, v in models.items()}))
+    (a1, m1), (a0, m0) = outs
+    assert torch.equal(a1, a0)
+    for name in m0:
+        torch.testing.assert_close(m1[name], m0[name], rtol=1e-4, atol=2e-5)
