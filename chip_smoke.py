@@ -58,6 +58,24 @@ benchmarks/bench_fig4_selection.py in full mode) and Figure 1
 constant c, benchmarks/bench_fig1_separation.py in full mode, one seed
 a c).
 
+After those it drives the attachment server's slice: the attach plan at
+k=12, d=24 (lru, async refresh, latency autoscaling) on the card against
+the CPU run; the attach leg on the round of the run leg (Table 1's serve
+plan with 64 fold slots, an async refresh every 16 admissions, 96 late
+devices of 16-4096 points in bursts of 1 to 43, one flush a burst), once
+under LRU folding and throughput autoscaling and once under the
+weighted reservoir and latency autoscaling, each cut by save and restore
+after six bursts and held to the uninterrupted session bit for bit, with
+its decisions, tau versions, folds, step shapes and solve_attach
+launches by shape; the attachment server's command line
+(python -m repro_torch.launch.attach_server) in a process of its own;
+and the paper's Figures 2 (the cost ratio of structured to IID
+partitions, benchmarks/bench_fig2_heterogeneity.py) and 3 (one round
+against 25 rounds of distributed Lloyd, in cost and bytes,
+bench_fig3_communication.py), each in full mode. solve_attach is then
+timed and held to its plain version at every shape the paths launched
+it at.
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -68,6 +86,7 @@ file, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -127,6 +146,27 @@ MIN_TABLE2_CLUSTER_ACC = 0.9
 # in bf16, more than the card's 80 GB); 4 prompts of its own window,
 # 4096 tokens, then 32 greedy steps: every step decodes over the ring.
 MX_LAYERS, MX_BATCH, MX_PROMPT, MX_STEPS, MX_SEED = 8, 4, 4096, 32, 0
+
+# The attachment server's leg: Table 1's serve plan with 64 fold slots
+# (fewer than the round's 50 devices and the 96 late ones, so LRU
+# evicts), the async refresh every 16 admissions, under (LRU,
+# throughput) and then (weighted reservoir, latency). 96 late devices of
+# 16-4096 points come in bursts that move the batch rung both ways; the
+# ones above 1024 points fill the oversized rungs of 2048 and 4096,
+# which throughput coalesces. A session saved after A_CUT bursts and
+# restored serves the last two as the uninterrupted one does.
+A_PLAN = dict(capacity=64, batch_size=8, bucket_sizes=(64, 256, 1024),
+              refresh_every=16, refresh="async")
+A_RUNS = (("lru", "throughput"), ("weighted_reservoir", "latency"))
+A_BURSTS, A_CUT = (1, 2, 3, 5, 8, 13, 21, 43), 6
+A_N_RANGE, A_SEED = (16, 4097), 11
+# What the attach leg's mean served accuracy (a request's labels against
+# its components, averaged over the 96) must reach; fixed before the
+# leg's first run on the card (PERF.md §2).
+MIN_ATTACH_ACCURACY = 0.9
+# The attachment server's command line, as README.md shows it.
+CLI_ARGS = ("--requests", "24", "--fold-policy", "lru", "--capacity", "20",
+            "--refresh", "async", "--autoscale", "throughput")
 
 
 class SmokeFailure(RuntimeError):
@@ -250,13 +290,14 @@ class Tally:
             f"repro_torch.kernels.{self.name}")
         self._fn = getattr(self._module, self.name)
 
-        def counted(*args):
+        def counted(*args, **kw):
             key = self.key(*args)
             if key not in self.shapes:
                 self.shapes[key] = [0, tuple(
-                    a.clone() if torch.is_tensor(a) else a for a in args)]
+                    a.clone() if torch.is_tensor(a) else a
+                    for a in args + tuple(kw.values()))]
             self.shapes[key][0] += 1
-            return self._fn(*args)
+            return self._fn(*args, **kw)
 
         setattr(self._module, self.name, counted)
         return self
@@ -282,21 +323,30 @@ def combine_key(ybuf, slot, gates, top_k):
         "torch.", ""))
 
 
+def solve_key(x, centers0, tau, center_mask, point_mask):
+    return (tuple(x.shape), centers0.shape[1], tau.shape[0],
+            str(x.dtype).replace("torch.", ""))
+
+
 def tallied(fn):
-    """Run ``fn`` once with the launches of pdist_argmin, kmeans_update
-    and moe_combine tallied by shape: {kernel name: Tally}."""
+    """Run ``fn`` once with the launches of pdist_argmin, kmeans_update,
+    moe_combine and solve_attach tallied by shape: {kernel name:
+    Tally}."""
     with Tally("pdist_argmin", pdist_key) as pd, \
             Tally("kmeans_update", kmeans_key) as km, \
-            Tally("moe_combine", combine_key) as mc:
+            Tally("moe_combine", combine_key) as mc, \
+            Tally("solve_attach", solve_key) as sa:
         fn()
         sync()
-    return {"pdist_argmin": pd, "kmeans_update": km, "moe_combine": mc}
+    return {"pdist_argmin": pd, "kmeans_update": km, "moe_combine": mc,
+            "solve_attach": sa}
 
 
 def counted(fn):
     """Run ``fn`` once between a reset and a read of the launch counts,
-    with the launches of pdist_argmin, kmeans_update and moe_combine
-    tallied by shape: (fn's result, {kernel: launches}, tallies)."""
+    with the launches of pdist_argmin, kmeans_update, moe_combine and
+    solve_attach tallied by shape: (fn's result, {kernel: launches},
+    tallies)."""
     from repro_torch.kernels import ops
     out = {}
 
@@ -750,6 +800,24 @@ def same_bits(got, want) -> bool:
                for g, w in zip(got, want))
 
 
+def solve_work(x, c0, tau, cm, pm, max_iters: int):
+    """(each request's Lloyd iterations, (bytes, flops)) of one
+    solve_attach call: each input read once, each output written once,
+    and the products of the iterations these inputs need (the work
+    depends on the data)."""
+    from repro_torch.core.lloyd import lloyd
+    iters = lloyd(x, c0, center_mask=cm, point_mask=pm,
+                  max_iters=max_iters).iters
+    it = int(iters.sum())
+    esz = x.element_size()
+    (B, n, d), kp, k = x.shape, c0.shape[1], tau.shape[0]
+    nbytes = (esz * (B * n * d + B * kp * d + k * d) + B * (kp + n)
+              + 4 * (2 * B * n + B * kp * d + B * kp))
+    flops = ((it + B) * 2 * n * kp * d + it * n * d + B * 2 * n * d
+             + B * 2 * kp * k * d)
+    return iters, (nbytes, flops)
+
+
 def solve_kernel(fm, dev, rounds: int):
     """solve_attach at the serve shape (8 late devices of 1024 points,
     started from their Algorithm 1 steps 1-3 core-set means, against
@@ -759,7 +827,6 @@ def solve_kernel(fm, dev, rounds: int):
     the batch and two calls against each other, bit for bit. Times: CUDA
     events over back-to-back wrapper calls, and the device time. Returns
     the f32 serve-shape row."""
-    from repro_torch.core.lloyd import lloyd
     from repro_torch.core.local_kmeans import local_prepare
     from repro_torch.data.gaussian import late_device_stream
     from repro_torch.kernels import ref
@@ -799,17 +866,9 @@ def solve_kernel(fm, dev, rounds: int):
         plain = time_ms(lambda: ref.solve_attach(
             sx, c0, stau, scm, spm, max_iters=100, dtype=dtype),
             max(2, rounds // 4))
-        # The work this batch needs: each request's own iteration count.
-        iters = lloyd(args[0], args[1], center_mask=scm, point_mask=spm,
-                      max_iters=100).iters
-        it = int(iters.sum())
-        esz = 4 if dtype == "f32" else 2
+        iters, work = solve_work(*args, 100)
+        bms, by = bound(*work)
         sb, sn = sx.shape[:2]
-        nbytes = (esz * (sb * sn * D + sb * KP * D + K * D) + sb * (KP + sn)
-                  + 4 * (2 * sb * sn + sb * KP * D + sb * KP))
-        flops = ((it + sb) * 2 * sn * KP * D + it * sn * D
-                 + sb * 2 * sn * D + sb * 2 * KP * K * D)
-        bms, by = bound(nbytes, flops)
         pl = plan(sn, KP, D, store, dev)
         groups = min(sb, pl.groups)
         print(f"kernel solve_attach {dtype}: {tuple(sx.shape)} k'={KP} k={K} "
@@ -1374,7 +1433,7 @@ def main_path(fm, device):
             .serve_versioned(datas, kvs), serve_s)
     attach = (out.detail.device_centers, out.detail.agg.tau_centers)
     return (run_counts, serve_counts, {"run": run_tally, "serve": serve_tally},
-            attach)
+            attach, out.detail)
 
 
 def route_path(device):
@@ -1873,6 +1932,246 @@ def small_scenario_agreement(device):
                 f"small separation: field {i} differs from the CPU")
 
 
+def serve_bursts(sess, bursts):
+    """Submit each burst and flush it: ({rid: (labels, tau version)},
+    [(batch rung, ladder) of each flush])."""
+    served, decisions = {}, []
+    for burst in bursts:
+        for data, _, kv in burst:
+            sess.submit(data, kv)
+        served.update(sess.flush_versioned())
+        d = sess.service.autoscaler.decision
+        decisions.append((d.batch_size, d.ladder))
+    return served, decisions
+
+
+def same_served(got, want) -> bool:
+    return sorted(got) == sorted(want) and all(
+        np.array_equal(got[r][0], want[r][0]) and got[r][1] == want[r][1]
+        for r in want)
+
+
+def solve_line(tally) -> str:
+    """solve_attach's launches by shape: {"(B,n,d) k'=.. k=..": count}."""
+    return json.dumps({f"({','.join(map(str, key[0]))}) k'={key[1]} "
+                       f"k={key[2]} {key[3]}": v[0]
+                       for key, v in tally.shapes.items()})
+
+
+def attach_run(rr, device, policy, autoscale, bursts, tmp: Path):
+    """One run of the attach leg under (policy, autoscale): the
+    uninterrupted session over every burst (counted and tallied), then a
+    session cut by save / restore after A_CUT bursts whose last bursts
+    must equal the uninterrupted session's bit for bit (labels, versions,
+    decisions; then the fold state and the tau buffers)."""
+    from repro_torch.fed.api import FederationPlan, Session
+    from repro_torch.utils.metrics import clustering_accuracy
+    plan = FederationPlan(k=K, k_prime=KP, d=D, device=str(device),
+                          fold_policy=policy, autoscale=autoscale, **A_PLAN)
+    walls = {}
+
+    def uninterrupted():
+        sess = Session.from_round(plan, rr, seed=0)
+        t0 = time.perf_counter()
+        out = serve_bursts(sess, bursts)
+        sync()
+        walls["serve"] = time.perf_counter() - t0
+        return sess, out
+
+    (live, (served, decisions)), counts, tally = counted(uninterrupted)
+    first = Session.from_round(plan, rr, seed=0)
+    got, got_dec = serve_bursts(first, bursts[:A_CUT])
+    pending = first.service._taubuf.pending
+    t0 = time.perf_counter()
+    path = first.save(str(tmp / f"attach_{policy}.npz"))
+    walls["save"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = Session.restore(path, plan)
+    sync()
+    walls["restore"] = time.perf_counter() - t0
+    rest, rest_dec = serve_bursts(restored, bursts[A_CUT:])
+    got.update(rest)
+    require(same_served(got, served) and got_dec + rest_dec == decisions,
+            f"attach {policy}/{autoscale}: the restored session's labels, "
+            f"tau versions or decisions differ from the uninterrupted one's")
+    require(all(torch.equal(a, b) for a, b in zip(restored.service.state,
+                                                    live.service.state))
+            and torch.equal(restored.service._taubuf.bufs,
+                            live.service._taubuf.bufs),
+            f"attach {policy}/{autoscale}: the restored fold state or tau "
+            f"buffers differ from the uninterrupted session's")
+    reqs = [r for b in bursts for r in b]
+    rids = sorted(served)
+    accs = [clustering_accuracy(served[rid][0], r[1], K)
+            for rid, r in zip(rids, reqs)]
+    acc = float(np.mean(accs))
+    npts = sum(r[0].shape[0] for r in reqs)
+    st = live.stats()
+    require(st["served_devices"] == len(reqs),
+            f"attach {policy}: served {st['served_devices']}")
+    require(acc >= MIN_ATTACH_ACCURACY,
+            f"attach {policy}/{autoscale}: mean accuracy {acc} < "
+            f"{MIN_ATTACH_ACCURACY}")
+    versions = sorted({v for _, v in served.values()})
+    print(f"attach {policy}/{autoscale}: {len(reqs)} late devices n in "
+          f"[{A_N_RANGE[0]}, {A_N_RANGE[1]}) in bursts {list(A_BURSTS)}, "
+          f"capacity {A_PLAN['capacity']}, async refresh every "
+          f"{A_PLAN['refresh_every']}: {walls['serve']:.3f} s, "
+          f"{len(reqs) / walls['serve']:.2f} devices/s, "
+          f"{npts / walls['serve']:.1f} points/s; mean accuracy {acc:.4f} "
+          f"(>= {MIN_ATTACH_ACCURACY}); decisions (batch, ladder) "
+          f"{decisions}; tau versions served {versions} (final "
+          f"{live.tau_version}, refresh pending {st['refresh_pending']}); "
+          f"{st['folded']} slots folded, {st['served_devices']} served; "
+          f"plane_compiles {st['plane_compiles']}; solve_attach launches by "
+          f"shape {solve_line(tally['solve_attach'])}; launches {counts}",
+          flush=True)
+    print(f"attach restore {policy}/{autoscale}: save after {A_CUT} bursts "
+          f"({len(got) - len(rest)} devices; {Path(path).stat().st_size} "
+          f"bytes, {walls['save']:.3f} s, refresh staged {pending}), "
+          f"Session.restore {walls['restore']:.3f} s, {len(rest)} more "
+          f"devices: labels, tau versions, decisions, fold state and tau "
+          f"buffers equal the uninterrupted session's bit for bit",
+          flush=True)
+    return counts, tally, walls["serve"], (plan, bursts)
+
+
+def attach_leg(fm, rr, device, tmp: Path):
+    """The attach leg's two runs on the round the run leg computed, then
+    the first run's session under the profiler."""
+    from repro_torch.data.gaussian import late_device_stream
+    from repro_torch.fed.api import Session
+    reqs = late_device_stream(fm.means, KP, sum(A_BURSTS), A_SEED,
+                              n_range=A_N_RANGE)
+    bursts, lo = [], 0
+    for b in A_BURSTS:
+        bursts.append(reqs[lo:lo + b])
+        lo += b
+    counts, tallies, profiled = {}, {}, None
+    for policy, autoscale in A_RUNS:
+        c, tally, wall, run = attach_run(rr, device, policy, autoscale,
+                                         bursts, tmp)
+        for name, v in c.items():
+            counts[name] = counts.get(name, 0) + v
+        tallies[f"attach_{policy}"] = tally
+        profiled = profiled or (run, wall)
+    (plan, bursts), wall = profiled
+    profile("attach", lambda: serve_bursts(Session.from_round(
+        plan, rr, seed=0), bursts), wall)
+    return counts, tallies
+
+
+def cli_leg(tmp: Path):
+    """The attachment server's command line on the card, as a process of
+    its own: it must exit 0 and find the restored session bit for bit
+    equal. Returns its launches, which it prints."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.attach_server",
+           *CLI_ARGS, "--checkpoint", str(tmp / "cli.npz")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=HERE, env={**os.environ,
+                                         "PYTHONPATH": str(HERE / "src")})
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0,
+            f"cli: exit code {proc.returncode}: {proc.stderr[-2000:]}")
+    require(any(ln.endswith("uninterrupted session: True") for ln in lines),
+            "cli: the restored session did not serve bit for bit alike")
+    counts = json.loads(lines[-1].split("launches: ", 1)[1])
+    require(counts["solve_attach"] > 0, "cli: solve_attach not launched")
+    print(f"cli: python -m repro_torch.launch.attach_server "
+          f"{' '.join(CLI_ARGS)} --checkpoint <tmp>: exit 0 in {wall:.1f} s "
+          f"| " + " | ".join(lines), flush=True)
+    return counts
+
+
+def figures_leg(device):
+    """The paper's Figures 2 and 3 in full mode, each once, counted and
+    tallied: Figure 2's cost ratios of structured to IID partitions and
+    Figure 3's cost ratio and bytes of one round against 25 rounds of
+    distributed Lloyd."""
+    from repro_torch.launch import figures
+    rows2, c2, t2 = counted(lambda: figures.fig2(full=True, device=device))
+    for r in rows2:
+        require(np.isfinite(r["ratio"]) and r["phi_star"] > 0,
+                f"{r['name']}: ratio {r['ratio']}")
+        print(f"figure {r['name']}: cost ratio (phi(k') - phi*) / (phi(k) -"
+              f" phi*) {r['ratio']:.4f}, per seed "
+              f"{[round(v, 4) for v in r['ratios']]}; phi* "
+              f"{r['phi_star']:.1f}, (phi(k'), phi(k)) "
+              f"{[(round(a, 1), round(b, 1)) for a, b in r['costs']]} "
+              f"({r['wall_s']:.3f} s)", flush=True)
+    print(f"figure 2: launches {c2}", flush=True)
+    rows3, c3, t3 = counted(lambda: figures.fig3(full=True, device=device))
+    for r in rows3:
+        require(np.isfinite(r["ratio"]) and r["bytes_lloyd"]
+                > r["bytes_kfed"] > 0, f"{r['name']}: {r}")
+        print(f"figure {r['name']}: Z={r['Z']} cost ratio k-FED / Lloyd "
+              f"{r['ratio']:.4f} (phi {r['phi_kfed']:.1f} / "
+              f"{r['phi_lloyd']:.1f}); bytes k-FED {r['bytes_kfed']}, Lloyd "
+              f"{r['bytes_lloyd']} ({r['bytes_lloyd'] / r['bytes_kfed']:.1f}"
+              f"x); k-FED round {r['kfed_s']:.3f} s, 25 Lloyd rounds "
+              f"{r['lloyd_s']:.3f} s", flush=True)
+    print(f"figure 3: launches {c3}", flush=True)
+    return c2, t2, c3, t3
+
+
+def small_attach_agreement(device):
+    """The attach leg's plan at k=12, d=24 under lru, async and latency,
+    on ``device`` and on the CPU from the same round inputs: labels,
+    tau versions and the decision sequence exact."""
+    from repro_torch.data.gaussian import late_device_stream, structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    fm = structured_devices(5, k=12, d=24, k_prime=3, m0=2,
+                            n_per_comp_dev=12, sep=30.0)
+    reqs = late_device_stream(fm.means, 3, 32, 9, n_range=(10, 150))
+    bursts, lo = [], 0
+    for b in (1, 2, 3, 5, 8, 13):
+        bursts.append(reqs[lo:lo + b])
+        lo += b
+    runs = []
+    for dev in (device, "cpu"):
+        plan = FederationPlan(k=12, k_prime=3, d=24, device=str(dev),
+                              capacity=10, batch_size=4,
+                              bucket_sizes=(32, 64), refresh_every=4,
+                              refresh="async", fold_policy="lru",
+                              autoscale="latency")
+        sess = Session(plan, seed=2)
+        sess.run(7, fm.data)
+        runs.append(serve_bursts(sess, bursts))
+    (got, gdec), (want, wdec) = runs
+    require(same_served(got, want) and gdec == wdec,
+            "small attach: labels, tau versions or decisions differ from "
+            "the CPU")
+    return len(got), len({v for _, v in got.values()})
+
+
+def solve_shapes(tallies) -> None:
+    """solve_attach at every shape the attach leg launched it at, on the
+    first inputs there: held against its plain version (check_solve),
+    its device time by graph replay beside the bound, and its plan."""
+    from repro_torch.kernels.solve_attach import plan, solve_attach
+    shapes = merged(tallies, "solve_attach")
+    for key, entry in shapes.items():
+        x, c0, tau, cm, pm, max_iters = entry["inputs"]
+        err = check_solve(x, c0, tau, cm, pm, "f32", max_iters)
+        iters, work = solve_work(x, c0, tau, cm, pm, max_iters)
+        bms, by = bound(*work)
+        dev_ms = graph_ms(lambda: solve_attach(x, c0, tau, cm, pm,
+                                               max_iters=max_iters))
+        B, n, d = x.shape
+        pl = plan(n, c0.shape[1], d, x.dtype, x.device)
+        print(f"solve ({B},{n},{d}) k'={key[1]} k={key[2]} {key[3]}: "
+              f"launches {json.dumps(entry['launches'])}; iterations "
+              f"{iters.tolist()}; max_abs_err={err:.3e} match=True | "
+              f"device ms={dev_ms:.4f} bound_ms={bms:.5f} ({by}) | "
+              f"P={pl.slices} slices of R={pl.rows} rows, "
+              f"{'resident' if pl.resident else 'streaming'}, "
+              f"{min(B, pl.groups)} groups ({pl.groups} fit at once), "
+              f"{min(B, pl.groups) * pl.slices} blocks on {pl.sms} SMs",
+              flush=True)
+
+
 def small_lm_agreement(device):
     """Reduced Mixtral (f32; 2 layers, d=256, W=64) through
     launch.serve.generate on ``device`` and on the CPU from the same
@@ -2119,7 +2418,7 @@ def main() -> int:
     print(f"reference: a small round (Z=8, d=24, k=12) and {nsmall} served "
           f"devices on the card equal the CPU run of the plain versions "
           f"(labels, tau versions; tau within 1e-4)", flush=True)
-    run_counts, serve_counts, tallies, attach = main_path(
+    run_counts, serve_counts, tallies, attach, rr = main_path(
         fm, torch.device("cuda"))
     nreq, nrouted, perr = small_routed_agreement(torch.device("cuda"))
     print(f"reference: a small routed serve (k=12, d=24, granite-3-2b "
@@ -2152,6 +2451,20 @@ def main() -> int:
     print(f"legs: restore, route restore, cpu -> card, scenario agreement, "
           f"personalize, selection and separation in "
           f"{time.perf_counter() - t_legs:.1f} s of wall", flush=True)
+    t_legs = time.perf_counter()
+    nattach, nversions = small_attach_agreement(cuda)
+    print(f"reference: the attach plan at k=12, d=24 (lru, async, latency; "
+          f"{nattach} devices in 6 bursts, {nversions} tau versions) on the "
+          f"card equals the CPU run (labels, tau versions and decisions "
+          f"exact)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        attach_counts, attach_tallies = attach_leg(fm, rr, cuda, Path(tmp))
+        cli_counts = cli_leg(Path(tmp))
+    tallies.update(attach_tallies)
+    fig2_counts, tallies["fig2"], fig3_counts, tallies["fig3"] = \
+        figures_leg(cuda)
+    print(f"legs: attach agreement, attach (2 runs), cli, figures 2 and 3 "
+          f"in {time.perf_counter() - t_legs:.1f} s of wall", flush=True)
     for name in ("pdist_argmin", "kmeans_update"):
         require(pers_counts[name] > 0 and sel_counts[name] > 0
                 and sep_counts[name] > 0,
@@ -2159,10 +2472,18 @@ def main() -> int:
     require(restore_counts["solve_attach"] > 0
             and rroute_counts["solve_attach"] > 0,
             "solve_attach was not launched on both restored serve paths")
+    for name in ("pdist_argmin", "kmeans_update", "solve_attach"):
+        require(attach_counts[name] > 0 and cli_counts[name] > 0,
+                f"{name} was not launched on the attach and cli legs")
+    for name in ("pdist_argmin", "kmeans_update"):
+        require(fig2_counts[name] > 0 and fig3_counts[name] > 0,
+                f"{name} was not launched on the figure 2 and 3 legs")
     new_counts = (restore_counts, rroute_counts, pers_counts, sel_counts,
-                  sep_counts)
+                  sep_counts, attach_counts, cli_counts, fig2_counts,
+                  fig3_counts)
     pdist_shapes(tallies, attach)
     kmeans_shapes(tallies)
+    solve_shapes(tallies)
     lerr = small_lm_agreement(torch.device("cuda"))
     print(f"reference: reduced Mixtral (f32, 2 layers, d=256, W=64) through "
           f"generate, 2 prompts of 64 tokens and 8 steps over the ring, on "
@@ -2211,6 +2532,9 @@ def main() -> int:
           + json.dumps(rroute_counts) + " personalize "
           + json.dumps(pers_counts) + " selection " + json.dumps(sel_counts)
           + " separation " + json.dumps(sep_counts)
+          + " attach " + json.dumps(attach_counts) + " cli "
+          + json.dumps(cli_counts) + " figure2 " + json.dumps(fig2_counts)
+          + " figure3 " + json.dumps(fig3_counts)
           + "; every kernel matched its plain version", flush=True)
     print(f"card: {smi}; chip_smoke wall {time.perf_counter() - t_all:.1f} s",
           flush=True)

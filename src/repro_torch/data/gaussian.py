@@ -78,3 +78,19 @@ def late_device_stream(means, k_prime: int, requests: int, seed: int, *,
         data = (mu[lab] + rng.normal(size=(n, d)) * sigma).astype(np.float32)
         out.append((data, lab, kv))
     return out
+
+
+def iid_devices(seed: int, *, k: int, d: int, Z: int, n_per_dev: int,
+                sep: float, sigma: float = 1.0) -> FederatedMixture:
+    """The IID counterpart: every device draws its ``n_per_dev`` points
+    uniformly from all k components (k' = k, no heterogeneity)."""
+    rng = np.random.default_rng(seed)
+    means = make_mixture_means(rng, k, d, sep=sep)
+    labels = rng.integers(0, k, size=(Z, n_per_dev))
+    noise = rng.standard_normal((Z, n_per_dev, d)).astype(np.float32) * sigma
+    data = (means[labels] + noise).astype(np.float32)
+    presence = np.zeros((Z, k), bool)
+    presence[np.arange(Z)[:, None], labels] = True
+    k_valid = np.full((Z,), k, np.int32)
+    return FederatedMixture(data, labels, k_valid, presence, means,
+                            np.zeros((Z,), np.int32))

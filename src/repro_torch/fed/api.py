@@ -2,15 +2,20 @@
 lifecycle (counterpart of ``repro/fed/api.py``).
 
 ``FederationPlan`` has the JAX package's fields and defaults, plus
-``device`` (default ``"cuda"``). A value whose code the port does not
-have yet is refused with a ``PlanError`` naming the field; that is
-validation, not a fallback. ``Session`` owns one lifecycle: ``run`` (the
-one-shot round), ``begin``/``fold``/``finalize`` (asynchronous cohort
-arrival), ``attach``/``serve``/``submit``/``flush``/``refresh``
-(streaming Theorem 3.2 attachment with incremental folding) and
-``save``/``restore`` (checkpoints in the JAX package's schema), and with
-``heads`` on, ``serve_predict``/``flush_predict`` (the same serving
-through per-cluster heads, DESIGN.md §16).
+``device`` (default ``"cuda"``). The serving options run as in the JAX
+package: ``fold_policy`` drop, lru or weighted_reservoir, ``refresh``
+sync or async, ``autoscale`` off, latency or throughput. A value whose
+code the port does not have yet (drift, the encoder, a topology other
+than simulated, ``serve_axes``) is refused with a ``PlanError`` naming
+the field; that is validation, not a fallback. ``Session`` owns one
+lifecycle: ``run`` (the one-shot round), ``begin``/``fold``/``finalize``
+(asynchronous cohort arrival),
+``attach``/``serve``/``submit``/``flush``/``refresh`` (streaming Theorem
+3.2 attachment with incremental folding), ``attach_fn`` (a closure that
+labels one device against the current tau) and ``save``/``restore``
+(checkpoints in the JAX package's schema), and with ``heads`` on,
+``serve_predict``/``flush_predict`` (the same serving through
+per-cluster heads, DESIGN.md §16).
 
 A Session runs on its device: CUDA unless the caller passes
 ``device="cpu"``. Without a card it refuses to start rather than run on
@@ -26,6 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import server
+from repro_torch.core.lloyd import lloyd_attach
+from repro_torch.core.local_kmeans import local_prepare, split_local_kw
 from repro_torch.fed import engine as E
 from repro_torch.fed.stream import AttachService, StreamConfig, StreamConfigError
 from repro_torch.utils.prng import GumbelSource
@@ -151,16 +158,15 @@ class FederationPlan:
     def _check_not_ported(self) -> None:
         """The JAX package's values of the serving options, with the ones
         whose code the port does not have yet refused by name."""
-        choices = (("refresh", REFRESH_MODES, "sync"),
-                   ("autoscale", AUTOSCALE_POLICIES, "off"),
-                   ("fold_policy", FOLD_POLICIES, "drop"),
-                   ("drift", DRIFT_MODES, "off"))
-        for name, accepted, ported in choices:
+        for name, accepted in (("refresh", REFRESH_MODES),
+                               ("autoscale", AUTOSCALE_POLICIES),
+                               ("fold_policy", FOLD_POLICIES),
+                               ("drift", DRIFT_MODES)):
             got = getattr(self, name)
             if got not in accepted:
                 _bad(name, got, f"accepted values are {list(accepted)}")
-            if got != ported:
-                _not_ported(name, got, repr(ported))
+        if self.drift != "off":
+            _not_ported("drift", self.drift, "'off'")
         if not isinstance(self.policy_seed, int) or self.policy_seed < 0:
             _bad("policy_seed", self.policy_seed,
                  "must be a non-negative int")
@@ -191,10 +197,11 @@ class FederationPlan:
             k=self.k, k_prime=self.k_prime, d=self.d,
             capacity=self.capacity, batch_size=self.batch_size,
             bucket_sizes=tuple(self.bucket_sizes),
-            refresh_every=self.refresh_every,
-            fold_reports=self.fold_reports,
+            refresh_every=self.refresh_every, refresh=self.refresh,
+            autoscale=self.autoscale, fold_reports=self.fold_reports,
             weight_by_core_counts=self.weight_by_core_counts,
-            fold_policy=self.fold_policy, serve_dtype=self.serve_dtype,
+            fold_policy=self.fold_policy, policy_seed=self.policy_seed,
+            serve_dtype=self.serve_dtype,
             heads=self.heads, head_capacity=self.head_capacity,
             head_arch=self.head_arch, local_kw=dict(self.local_kw))
 
@@ -415,7 +422,34 @@ class Session:
         return self.service.tau_version
 
     def stats(self) -> dict:
+        """Live serving counters, the autoscale controller's decision and
+        last flush telemetry (``"autoscale"``), and ``"plane_compiles"``,
+        the serve plane's distinct step shapes (flat in steady state)."""
         return self.service.stats()
+
+    def attach_fn(self):
+        """A ``(key, device_data) -> point labels`` closure over the
+        current tau centers: Algorithm 1 steps 1-3 on the device's
+        (n, d) points, then one fused ``lloyd_attach`` (one
+        ``solve_attach`` launch on the card) under ``plan.serve_dtype``,
+        on the session's device. ``key`` is an int seed or a
+        ``utils.prng.GumbelSource``; the k-means++ draws are those of
+        its id 0."""
+        tau = self.tau_centers
+        kp = self.plan.k_prime
+        prep_kw, max_iters = split_local_kw(dict(self.plan.local_kw))
+        serve_dtype = self.plan.serve_dtype
+
+        def attach(key, device_data) -> torch.Tensor:
+            x = self._tensor(device_data).float()[None]
+            gumbel = self._source(key).draw([0], kp, x.shape[1], x.device)
+            prep = local_prepare(gumbel, x, k_max=kp, **prep_kw)
+            labels, _, _, _ = lloyd_attach(
+                x, prep.theta, tau, center_mask=prep.center_mask,
+                max_iters=max_iters, serve_dtype=serve_dtype)
+            return labels[0]
+
+        return attach
 
     # ---------------------------------------------------- checkpoint --
     def save(self, path: Optional[str] = None) -> str:

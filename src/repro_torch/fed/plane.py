@@ -47,6 +47,10 @@ class TauBuffer(NamedTuple):
     def tau(self) -> torch.Tensor:
         return self.bufs[self.active]
 
+    @property
+    def standby(self) -> torch.Tensor:
+        return self.bufs[1 - self.active]
+
     def stage(self, new_tau: torch.Tensor) -> "TauBuffer":
         t = new_tau.float()
         cur = self.bufs[self.active]
@@ -166,7 +170,13 @@ def _make_routed_step(cfg):
 
 
 class ServePlane:
-    """Serve step, routed step and fold scatter on one device."""
+    """Serve step, routed step and fold scatter on one device.
+
+    ``compile_count`` counts the first-seen (kind, shards, shape)
+    signatures of the steps and folds, as the JAX package's plane counts
+    its compiled ones: here each is one distinct shape, and with it one
+    set of kernel launch plans. Under autoscaling it stays flat once
+    the traffic's (batch, rung) pairs have each been seen."""
 
     def __init__(self, cfg, device):
         self.cfg = cfg
@@ -176,6 +186,14 @@ class ServePlane:
                         if cfg.head_spec() is not None else None)
         self.steps = 0
         self.folds = 0
+        self._signatures = set()
+        self.compile_count = 0
+
+    def _count(self, kind: str, shape) -> None:
+        sig = (kind, 1, tuple(shape))
+        if sig not in self._signatures:
+            self._signatures.add(sig)
+            self.compile_count += 1
 
     def step(self, tau, gumbel, data, point_mask, k_valid):
         """Serve one fixed-shape (B, n_pad, d) batch. ``gumbel``: the
@@ -183,6 +201,7 @@ class ServePlane:
         (B, n_pad), centers (B, k', d), center_mask (B, k'), core
         weights (B, k'))."""
         self.steps += 1
+        self._count("step", data.shape)
         return self._step(tau, gumbel, data, point_mask, k_valid)
 
     def routed_step(self, tau, head_params, gumbel, data, point_mask,
@@ -192,6 +211,7 @@ class ServePlane:
         cluster (B,) int32, kept (B,) bool); preds are zero and kept is
         False where the request overflowed its cluster's queue."""
         self.steps += 1
+        self._count("routed", data.shape)
         return self._routed(tau, head_params, gumbel, data, point_mask,
                             k_valid)
 
@@ -204,6 +224,8 @@ class ServePlane:
         slots at or beyond the capacity are dropped. ``epochs``: the
         request ids stamped on the slots (default: the slots)."""
         self.folds += 1
+        self._count("fold",
+                    (int(slots.shape[0]),) + tuple(centers.shape[1:]))
         if weights is None:
             weights = torch.ones(cmask.shape, dtype=torch.float32,
                                  device=self.device)
@@ -213,5 +235,7 @@ class ServePlane:
 
     def describe(self) -> dict:
         return {"serve_axes": None, "serve_shards": 1,
+                "chunk_rows": ops.CHUNK_ROWS,
+                "plane_compiles": self.compile_count,
                 "serve_device": str(self.device),
                 "plane_steps": self.steps, "plane_folds": self.folds}

@@ -3,31 +3,42 @@
 
 After the one round, Theorem 3.2 attaches any late device in O(k'k)
 with no extra round. This service batches such requests: they are
-bucketed by padded point count, padded into fixed ``(batch_size, n_pad,
-d)`` shapes with point masks and served by the plane's step. Each served
-report can be folded into the incremental server state, and every
-``refresh_every`` folds the round is finalized again so tau tracks the
-population. tau is double-buffered and versioned, and every served
-label carries the version that produced it. A request's k-means++ draws
-depend on its own request id only, so batching never changes labels.
+bucketed by padded point count, padded into fixed ``(B, n_pad, d)``
+shapes with point masks and served by the plane's step. A request's
+k-means++ draws depend on its own request id only, so batching never
+changes its labels.
 
-With ``heads`` on (DESIGN.md §16), every batch goes through the plane's
-routed step instead: the same labels, plus one prediction per request
-from the head of its majority-vote cluster (``flush_predict`` /
-``serve_predict``).
+  * **Folding and refresh**: each served report can be folded into the
+    incremental server state through an admission policy
+    (``fed/policy.py``: ``drop``, ``lru`` or ``weighted_reservoir``),
+    and every ``refresh_every`` granted admissions the round is
+    finalized again so tau tracks the population. tau is double-buffered
+    and versioned (``fed/plane.TauBuffer``): ``refresh="sync"`` swaps at
+    once, between batches; ``refresh="async"`` stages the standby
+    buffer on the current stream without waiting for it and commits the
+    swap, one version bump, at the next flush boundary. Every served
+    label carries the version that produced it.
+  * **Autoscaling** (``fed/autoscale.py``): at each flush boundary a
+    deterministic controller may re-select the batch rung and the
+    active bucket ladder from the queue's depth and histogram, and each
+    bucket group right-sizes its batch to ``min(rung, pow2_ceil(len))``.
+  * **Routed heads** (DESIGN.md §16): with ``heads`` on every batch goes
+    through the plane's routed step: the same labels, plus one
+    prediction per request from the head of its majority-vote cluster
+    (``flush_predict`` / ``serve_predict``).
+  * **Checkpoints**: ``save`` writes the serving state in the JAX
+    package's npz schema and ``_restore`` reads the archives of schemas
+    v1-v5 that it can honour (see ``_restore``); restore then serve
+    replays labels, versions and decisions exactly.
 
-``save`` writes the serving state in the JAX package's npz schema and
-``_restore`` reads the archives of schemas v1-v5 that it can honour
-(see ``_restore``).
-
-Not in the port yet: autoscaling, the async refresh, the ``lru`` and
-``weighted_reservoir`` admission policies, drift (and with it the head
-re-map on split/retire) and the encoder; ``fed.api.FederationPlan``
-refuses a plan that asks for one of them, and ``_restore`` an archive
-written under one.
+Not in the port yet: drift (and with it the head re-map on
+split/retire), the encoder and multi-device serving;
+``fed.api.FederationPlan`` refuses a plan that asks for one of them,
+and ``_restore`` an archive written under drift or the encoder.
 """
 from __future__ import annotations
 
+import time
 import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -39,6 +50,9 @@ from repro_torch.checkpoint.store import (decode_tag, encode_tag,
                                          load_extras, load_pytree,
                                          save_pytree)
 from repro_torch.core import server
+from repro_torch.fed.autoscale import (AUTOSCALE_IDS, AUTOSCALE_POLICIES,
+                                       AutoscaleController, FlushTelemetry,
+                                       bucket_of, pow2_ceil, snapshot_queue)
 from repro_torch.fed.plane import ServePlane, TauBuffer, route_capacity
 from repro_torch.fed.policy import (POLICIES, POLICY_IDS, FoldPolicy,
                                     make_policy)
@@ -75,10 +89,11 @@ class ServedPrediction(NamedTuple):
 # are keyed by request id).
 _HEADS_SALT = 0x48454144  # "HEAD"
 
-# The JAX package's numeric codes of the autoscale and drift modes, as a
-# checkpoint stores them. The port runs both "off", and refuses an
-# archive written under another mode by name.
-AUTOSCALE_IDS = {"off": 0, "latency": 1, "throughput": 2}
+REFRESH_MODES = ("sync", "async")
+
+# The JAX package's numeric codes of the drift modes, as a checkpoint
+# stores them. The port runs drift "off", and refuses an archive written
+# under another mode by name.
 DRIFT_IDS = {"off": 0, "decay": 1, "split_merge": 2}
 
 
@@ -97,18 +112,6 @@ def _bad(fieldname: str, got, accepted: str) -> None:
         f"StreamConfig.{fieldname}={got!r} is invalid: {accepted}")
 
 
-def bucket_of(n: int, ladder: Tuple[int, ...]) -> int:
-    """The pad rung of an n-point request: the smallest ladder rung
-    holding n points, doubling above the top rung."""
-    for b in ladder:
-        if n <= b:
-            return int(b)
-    b = int(ladder[-1])
-    while b < n:
-        b *= 2
-    return b
-
-
 @dataclass(frozen=True)
 class StreamConfig:
     """Static configuration of the attachment service."""
@@ -116,12 +119,15 @@ class StreamConfig:
     k_prime: int                # per-request k^(z) cap (static pad)
     d: int                      # feature dimension
     capacity: int               # fold-state slots (device ids)
-    batch_size: int = 8         # requests per serve step
+    batch_size: int = 8         # requests per serve step (autoscale: cap)
     bucket_sizes: Tuple[int, ...] = (64, 256, 1024)  # n^(z) pad buckets
     refresh_every: int = 0      # re-finalize after this many folds; 0 = never
+    refresh: str = "sync"       # tau swap: sync (at once) | async
+    autoscale: str = "off"      # off | latency | throughput
     fold_reports: bool = True   # fold served reports into the server state
     weight_by_core_counts: bool = False
-    fold_policy: str = "drop"
+    fold_policy: str = "drop"   # admission: drop | lru | weighted_reservoir
+    policy_seed: int = 0        # weighted_reservoir key seed
     serve_dtype: str = "f32"    # fused-step storage: f32 | bf16
     heads: str = "off"          # per-cluster serving heads: off|linear|<config>
     head_capacity: float = 1.25  # dispatch queue slots per cluster, x B/k
@@ -144,6 +150,18 @@ class StreamConfig:
         if self.refresh_every < 0:
             _bad("refresh_every", self.refresh_every,
                  "must be >= 0 (0 disables the refresh cadence)")
+        if self.refresh not in REFRESH_MODES:
+            _bad("refresh", self.refresh,
+                 f"accepted values are {list(REFRESH_MODES)}")
+        if self.autoscale not in AUTOSCALE_POLICIES:
+            _bad("autoscale", self.autoscale,
+                 f"accepted values are {list(AUTOSCALE_POLICIES)}")
+        if (self.autoscale != "off"
+                and self.batch_size & (self.batch_size - 1)):
+            _bad("batch_size", self.batch_size,
+                 "must be a power of two when autoscale is enabled (the "
+                 "controller re-selects power-of-two batch rungs within "
+                 "it)")
         if (not self.bucket_sizes
                 or any(int(b) < 1 for b in self.bucket_sizes)
                 or list(self.bucket_sizes)
@@ -154,6 +172,10 @@ class StreamConfig:
         if self.fold_policy not in POLICIES:
             _bad("fold_policy", self.fold_policy,
                  f"accepted values are {sorted(POLICIES)}")
+        if not isinstance(self.policy_seed, int) or self.policy_seed < 0:
+            _bad("policy_seed", self.policy_seed,
+                 "must be a non-negative int (seeds the "
+                 "weighted_reservoir keys)")
         if self.serve_dtype not in SOLVE_ATTACH_DTYPES:
             _bad("serve_dtype", self.serve_dtype,
                  f"accepted values are {list(SOLVE_ATTACH_DTYPES)} (f32, "
@@ -215,7 +237,14 @@ class AttachService:
         self.state = (server.init_state(cfg.capacity, cfg.k_prime, cfg.d,
                                         device=self.plane.device)
                       if state is None else state)
-        self.policy = policy or make_policy(cfg.fold_policy, cfg.capacity)
+        self.policy = policy or make_policy(cfg.fold_policy, cfg.capacity,
+                                            seed=cfg.policy_seed)
+        # The flush-boundary controller: one decision a non-empty flush,
+        # on one device (one shard, one axis). With autoscale "off" its
+        # static decision is the plan's batch and ladder.
+        self.autoscaler = AutoscaleController(
+            cfg.autoscale, max_batch=cfg.batch_size, granted=1, n_axes=1,
+            base_ladder=tuple(cfg.bucket_sizes))
         self._base_seed = int(seed)
         self._gumbel = gumbel or GumbelSource(seed)
         self._next_id = int(next_id)
@@ -249,7 +278,7 @@ class AttachService:
         and fold the participating devices' reports, so a later refresh
         re-finalizes over round + streamed devices."""
         Z = int(rr.device_centers.shape[0])
-        if cfg.capacity < Z:
+        if cfg.fold_policy == "drop" and cfg.capacity < Z:
             raise StreamConfigError(
                 f"StreamConfig.capacity={cfg.capacity} is invalid: the "
                 f"drop policy needs a slot for each of the round's "
@@ -261,8 +290,10 @@ class AttachService:
             if ids.numel():
                 idx = ids.to(svc.plane.device)
                 cw = server.core_weights(rr.core_counts[idx])
+                dev_w = (torch.sum(cw, dim=1).cpu().numpy()
+                         if svc.policy.needs_weight else None)
                 svc._admit_and_fold(
-                    ids.numpy(), rr.device_centers[idx],
+                    ids.numpy(), dev_w, rr.device_centers[idx],
                     rr.center_mask[idx],
                     cw if cfg.weight_by_core_counts else None)
         return svc
@@ -298,14 +329,18 @@ class AttachService:
         self._pending.append((rid, arr, kv))
         return rid
 
-    def _bucket(self, n: int) -> int:
-        lad = tuple(self.cfg.bucket_sizes)
-        b = bucket_of(n, lad)
-        if n > lad[-1] and b not in self._oversized_warned:
-            self._oversized_warned.add(b)
+    def _bucket(self, n: int, ladder: Tuple[int, ...]) -> int:
+        """The pad rung of an n-point request under the flush decision's
+        active ladder (autoscale may have coalesced the oversized rungs);
+        each distinct oversized (ladder, rung) warns once."""
+        top = self.cfg.bucket_sizes[-1]
+        b = bucket_of(n, tuple(ladder))
+        key = (tuple(ladder), b)
+        if n > top and key not in self._oversized_warned:
+            self._oversized_warned.add(key)
             warnings.warn(
                 f"attach request with n={n} points exceeds the largest "
-                f"configured bucket ({lad[-1]}); padding to an oversized "
+                f"configured bucket ({top}); padding to an oversized "
                 f"bucket of {b}. Add larger bucket_sizes to the plan to "
                 f"avoid oversized pads.", ReproPerfWarning, stacklevel=3)
         return b
@@ -338,25 +373,45 @@ class AttachService:
     def _flush_all(self) -> Dict[int, tuple]:
         """Serve every pending request; returns {request_id: (labels,
         tau_version, pred)}, ``pred`` = (prediction, cluster, routed)
-        with heads on, else None. Requests are grouped by pad bucket in
-        fixed (batch_size, n_pad, d) shapes; a short batch pads by
-        repeating its last real request (discarded). Two phases: first
-        every batch is launched (serve or routed step, fold, cadence
-        refresh), then the results are brought to the host."""
+        with heads on, else None.
+
+        The flush boundary is where a staged async tau swap commits and
+        where the autoscale decision is taken, from a snapshot of the
+        queue. Requests are grouped by pad bucket under the decision's
+        ladder and served in fixed (B, n_pad, d) shapes; a short batch
+        pads by repeating its last real request (discarded). Two phases:
+        first every batch is launched (serve or routed step, fold,
+        cadence refresh), then the results are brought to the host."""
+        if self._taubuf.pending:
+            self._taubuf = self._taubuf.commit()
         pending, self._pending = self._pending, []
+        decision = self.autoscaler.decision
+        if pending and self.cfg.autoscale != "off":
+            decision = self.autoscaler.observe(snapshot_queue(
+                [item[1].shape[0] for item in pending],
+                self.cfg.bucket_sizes))
         buckets: Dict[int, list] = {}
         for item in pending:
-            buckets.setdefault(self._bucket(item[1].shape[0]),
+            buckets.setdefault(self._bucket(item[1].shape[0],
+                                            decision.ladder),
                                []).append(item)
         out, self._done = self._done, {}  # undelivered earlier results
         staged: List[tuple] = []
-        B = self.cfg.batch_size
+        B = decision.batch_size
+        t0 = time.perf_counter()
         try:
             for bucket in sorted(buckets):
                 group = buckets[bucket]
                 for lo in range(0, len(group), B):
-                    self._serve_batch(group[lo:lo + B], bucket, staged)
+                    self._serve_batch(group[lo:lo + B], bucket, B, staged)
+            t1 = time.perf_counter()
             self._deliver(staged, out)
+            if pending:
+                self.autoscaler.record(FlushTelemetry(
+                    dispatch_us=int((t1 - t0) * 1e6),
+                    materialize_us=int((time.perf_counter() - t1) * 1e6),
+                    batches=len(staged), requests=len(pending),
+                    points=sum(item[1].shape[0] for item in pending)))
         except BaseException:
             # A failed batch must not lose work: batches that still
             # materialize are kept as undelivered results, and every
@@ -420,11 +475,16 @@ class AttachService:
         self._done.update(got)
         return mine
 
-    def _serve_batch(self, batch, n_pad: int, staged) -> None:
+    def _serve_batch(self, batch, n_pad: int, B: int, staged) -> None:
         """Launch one batch's serve step and fold (and a cadence refresh)
-        and stage its labels, still on the device."""
+        and stage its labels, still on the device. Under autoscale the
+        batch right-sizes to ``min(rung, pow2_ceil(len(batch)))``, a
+        function of the group's size alone, so a replay cuts the same
+        batches. Nothing here waits for the device, except a
+        ``needs_weight`` policy's one copy of the report weights."""
         cfg = self.cfg
-        B = cfg.batch_size
+        if cfg.autoscale != "off":
+            B = min(B, pow2_ceil(len(batch)))
         data = np.zeros((B, n_pad, cfg.d), np.float32)
         pmask = np.zeros((B, n_pad), bool)
         kv = np.full((B,), cfg.k_prime, np.int32)
@@ -455,13 +515,15 @@ class AttachService:
 
     # -------------------------------------------------------------- fold --
 
-    def _admit_and_fold(self, rids, centers, cmask, fold_w,
+    def _admit_and_fold(self, rids, dev_w, centers, cmask, fold_w,
                         total: Optional[int] = None) -> int:
-        """Admit a batch of reports through the policy and scatter the
-        granted ones into their slots; padding rows and declined reports
-        carry the out-of-capacity slot and are dropped. Returns the
-        number of granted admissions (the refresh-cadence count)."""
-        slots, granted = self.policy.admit_padded(rids, total=total)
+        """Admit a batch of reports through the policy (``dev_w``: each
+        report's core-set mass, for a ``needs_weight`` policy) and
+        scatter the granted ones into their slots; padding rows and
+        declined reports carry the out-of-capacity slot and are dropped.
+        Returns the number of granted admissions (the refresh-cadence
+        count)."""
+        slots, granted = self.policy.admit_padded(rids, dev_w, total=total)
         if granted:
             # Stamp each admitted slot with its request id.
             ep = np.zeros((len(slots),), np.int64)
@@ -473,8 +535,12 @@ class AttachService:
         return granted
 
     def _fold(self, batch, rids, centers, cmask, weights) -> None:
+        # The reservoir's keys need each report's mass on the host: one
+        # copy a batch, summed over the axis the JAX package sums over.
+        dev_w = (torch.sum(weights, dim=1).cpu().numpy()[:len(batch)]
+                 if self.policy.needs_weight else None)
         admitted = self._admit_and_fold(
-            rids[:len(batch)], centers, cmask,
+            rids[:len(batch)], dev_w, centers, cmask,
             weights if self.cfg.weight_by_core_counts else None,
             total=len(rids))
         if not admitted:
@@ -482,20 +548,35 @@ class AttachService:
         self._since_refresh += admitted
         if (self.cfg.refresh_every
                 and self._since_refresh >= self.cfg.refresh_every):
-            self.refresh()
+            if self.cfg.refresh == "sync":
+                self.refresh()
+            else:
+                self._stage_refresh()
 
     # ----------------------------------------------------------- refresh --
 
+    def _refinalize(self) -> server.KFedAggregate:
+        """Algorithm 2 again over every folded report (round devices and
+        streamed attachments), the sync and the async refresh alike."""
+        self._since_refresh = 0
+        return server.finalize(self.state, self.cfg.k,
+                               weighted=self.cfg.weight_by_core_counts)
+
     def refresh(self) -> server.KFedAggregate:
-        """Finalize Algorithm 2 again over every folded report (round
-        devices + streamed attachments) and swap the new tau in now: one
+        """Finalize Algorithm 2 again and swap the new tau in now: one
         atomic version bump."""
-        agg = server.finalize(self.state, self.cfg.k,
-                              weighted=self.cfg.weight_by_core_counts)
+        agg = self._refinalize()
         self._taubuf = self._taubuf.swap_now(
             self.plane.localize(agg.tau_centers))
-        self._since_refresh = 0
         return agg
+
+    def _stage_refresh(self) -> None:
+        """The async refresh: finalize into the standby buffer, enqueued
+        on the current stream without waiting for it, so the batches
+        behind it keep serving the active tau; the swap (one version
+        bump) commits at the next flush boundary."""
+        self._taubuf = self._taubuf.stage(
+            self.plane.localize(self._refinalize().tau_centers))
 
     # -------------------------------------------------------- checkpoint --
 
@@ -506,12 +587,13 @@ class AttachService:
 
     def save(self, path: str) -> str:
         """Checkpoint the serving state in the JAX package's schema: both
-        tau buffers and their version, the fold state, the counters, the
-        admission policy's id and state, the autoscale and drift arrays
-        of their "off" modes, and with heads on (schema v5) the head
-        parameters, their tag and the routed counters. A restore in
-        either package replays the labels and tau versions. Pending
-        requests are not stored."""
+        tau buffers, their version and whether a swap is staged, the
+        fold state, the counters, the admission policy's id and state,
+        the autoscale controller's id and decision state (schema v3),
+        the drift arrays of its "off" mode, and with heads on (schema
+        v5) the head parameters, their tag and the routed counters. A
+        restore in either package replays the labels, tau versions and
+        decisions. Pending requests are not stored."""
         extra = {}
         if self._head_spec is not None:
             extra["heads"] = self.heads
@@ -528,15 +610,12 @@ class AttachService:
             "counters": self._counters(),
             "policy_id": np.asarray(POLICY_IDS[self.policy.name], np.int64),
             "policy": self.policy.state_arrays(),
-            "autoscale_id": np.asarray(AUTOSCALE_IDS["off"], np.int64),
+            "autoscale_id": np.asarray(AUTOSCALE_IDS[cfg.autoscale],
+                                       np.int64),
             "drift_id": np.asarray(DRIFT_IDS["off"], np.int64),
             "drift_state": np.zeros((3,), np.int64),
             "drift_mass": np.zeros((cfg.k,), np.float32),
-            # The "off" controller's decision: one shard, the plan's
-            # batch and ladder, no decision taken.
-            "autoscale_state": np.asarray([1, cfg.batch_size, 0, 0],
-                                          np.int64),
-            "autoscale_ladder": np.asarray(cfg.bucket_sizes, np.int64)})
+            **self.autoscaler.state_arrays()})
 
     @classmethod
     def _restore(cls, path: str, cfg: StreamConfig, *,
@@ -544,13 +623,17 @@ class AttachService:
                  device="cuda") -> "AttachService":
         """A service from an archive of schema v1-v5 (the JAX package's
         or the port's), on ``device``. Serving draws are keyed by the
-        archive's base seed unless ``gumbel`` is given. An archive the
-        port cannot honour is refused by the field it disagrees on:
-        ``fold_policy``, ``autoscale`` (a v3+ archive written under
-        latency or throughput), ``drift`` (a v4+ archive written under
-        decay or split_merge), ``heads``/``head_arch``, and ``encoder``
-        (any v6 archive)."""
+        archive's base seed unless ``gumbel`` is given. The policy's
+        slots, a staged tau swap (committed at the first flush) and the
+        autoscale decision state are taken over, so serving replays the
+        writer's. An archive is refused by the field it disagrees on:
+        ``fold_policy`` and ``autoscale`` where the archive was written
+        under another value than ``cfg``'s, ``drift`` (a v4+ archive
+        written under decay or split_merge, which the port does not
+        run), ``heads``/``head_arch``, and ``encoder`` (any v6
+        archive)."""
         extras = load_extras(path, ("policy_id", "autoscale_id",
+                                    "autoscale_state", "autoscale_ladder",
                                     "tau_bufs", "drift_id",
                                     "server/.epoch", "heads_tag",
                                     "heads_counters", "encoder_tag"))
@@ -563,16 +646,19 @@ class AttachService:
                 f"StreamConfig.fold_policy={cfg.fold_policy!r} does not "
                 f"match the checkpoint at {path!r}, which was saved "
                 f"under fold_policy={names.get(saved, saved)!r}")
-        for field_, ids in (("autoscale", AUTOSCALE_IDS),
-                            ("drift", DRIFT_IDS)):
+        # v1/v2 archives predate the controller and restore under any
+        # autoscale policy with a fresh decision.
+        for field_, ids, want in (("autoscale", AUTOSCALE_IDS,
+                                   cfg.autoscale),
+                                  ("drift", DRIFT_IDS, "off")):
             if f"{field_}_id" in extras:
                 got = int(extras[f"{field_}_id"])
-                if got != ids["off"]:
+                if got != ids[want]:
                     names = {v: n for n, v in ids.items()}
                     raise StreamConfigError(
-                        f"StreamConfig.{field_}='off' does not match the "
-                        f"checkpoint at {path!r}, which was saved under "
-                        f"{field_}={names.get(got, got)!r}")
+                        f"StreamConfig.{field_}={want!r} does not match "
+                        f"the checkpoint at {path!r}, which was saved "
+                        f"under {field_}={names.get(got, got)!r}")
         if "heads_tag" in extras:
             tag = decode_tag(extras["heads_tag"])
             if tag != f"{cfg.heads}|{cfg.head_arch}":
@@ -590,7 +676,8 @@ class AttachService:
                 f"checkpoint at {path!r}, which was saved under "
                 f"encoder={sv_e!r}/encode_dtype={sv_dt!r}/"
                 f"encode_seq_len={sv_sl}")
-        policy = make_policy(cfg.fold_policy, cfg.capacity)
+        policy = make_policy(cfg.fold_policy, cfg.capacity,
+                             seed=cfg.policy_seed)
         # v1 holds one tau (restored as version 0, both buffers equal);
         # pre-v4 archives hold the fold state without its epoch stamps.
         v2 = "tau_bufs" in extras
@@ -629,6 +716,9 @@ class AttachService:
         if "heads_counters" in extras:
             hc = np.asarray(extras["heads_counters"], np.int64)
             svc._routed_served, svc._overflowed = int(hc[0]), int(hc[1])
+        if "autoscale_state" in extras:
+            svc.autoscaler.load_state(extras["autoscale_state"],
+                                      extras["autoscale_ladder"])
         return svc
 
     # ------------------------------------------------------------- stats --
@@ -662,6 +752,13 @@ class AttachService:
             "since_refresh": self._since_refresh,
             "tau_version": self._taubuf.version,
             "refresh_pending": self._taubuf.pending,
+            "autoscale": self.autoscaler.stats(),
             "heads": self._heads_stats(),
+            # The JAX package's "off" forms of the layers the port does
+            # not have yet.
+            "encoder": {"mode": "off"},
+            "drift": {"mode": "off", "half_life": 0, "events": 0,
+                      "moves": 0, "last_moves": 0,
+                      "mass": [0.0] * self.cfg.k},
             **self.plane.describe(),
         }

@@ -54,7 +54,12 @@
 //   compensations apart: (|x|^2 - 2 x.c + |c|^2) of the sums minus the
 //   same of the compensations, so that rounding the three sums of d
 //   terms before they cancel costs no more than the distance's own
-//   rounding (the server's rows lie close to their seeds). The TK
+//   rounding (the server's rows lie close to their seeds). Where the
+//   plan has one part (F = 1: under 64 features, or 128 and more row and
+//   slice threads) the part is the whole row, so its running sums of d / 4
+//   terms are themselves added under Kahan's compensation (the norm
+//   threads' too, in the same order), and the compensations enter the
+//   distance as those of the parts do. The TK
 //   distances of a slice are scanned in index order, and the S slices (then the center
 //   groups, where k does not fit at once) are merged in slice order, all
 //   with a strict `<`: the first minimum wins, so ties go to the smallest
@@ -210,7 +215,8 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int rows, int d,
 // own running sum (independent chains).
 constexpr int kNormIlp = 4;
 
-template <typename T, int TK>
+// KC: the plan has one feature part, whose running sums are compensated.
+template <typename T, int TK, bool KC>
 __global__ void __launch_bounds__(512) pdist_argmin_kernel(
     const T* __restrict__ x, const T* __restrict__ c,
     const uint8_t* __restrict__ cmask, int32_t* __restrict__ idx_out,
@@ -263,21 +269,23 @@ __global__ void __launch_bounds__(512) pdist_argmin_kernel(
     cp_async_wait_all();
     __syncthreads();
 
-    float acc[TK];
+    float acc[TK], accc[TK];
 #pragma unroll
-    for (int t = 0; t < TK; ++t) acc[t] = 0.f;
-    float xq = 0.f;
+    for (int t = 0; t < TK; ++t) acc[t] = accc[t] = 0.f;
+    float xq = 0.f, xqc = 0.f;
     if (worker && live) {
       const T* xr = xs + r * p.XP;
       const T* cr = cs + s * p.SP;
 #pragma unroll 2
       for (int g = g0; g < g1; ++g) {
         const float4 xv = lds4(xr + 4 * g);
-        xq = __fadd_rn(xq, dot4(xv, xv));
+        if (KC) kahan_add(xq, xqc, dot4(xv, xv));
+        else xq = __fadd_rn(xq, dot4(xv, xv));
 #pragma unroll
         for (int t = 0; t < TK; ++t) {
           const float4 cv = lds4(cr + t * p.CP + 4 * g);
-          acc[t] = __fadd_rn(acc[t], dot4(xv, cv));
+          if (KC) kahan_add(acc[t], accc[t], dot4(xv, cv));
+          else acc[t] = __fadd_rn(acc[t], dot4(xv, cv));
         }
       }
     } else if (tid >= p.workers) {
@@ -289,23 +297,28 @@ __global__ void __launch_bounds__(512) pdist_argmin_kernel(
         const T* cr = cs + (t / TK) * p.SP + (t % TK) * p.CP;
         float sum = 0.f, comp = 0.f;
         for (int f0 = 0; f0 < F; f0 += kNormIlp) {
-          float a[kNormIlp];
+          float a[kNormIlp], ac[kNormIlp];
 #pragma unroll
-          for (int q = 0; q < kNormIlp; ++q) a[q] = 0.f;
+          for (int q = 0; q < kNormIlp; ++q) a[q] = ac[q] = 0.f;
           for (int g = 0; g < p.G; ++g) {
 #pragma unroll
             for (int q = 0; q < kNormIlp; ++q) {
               const int h = (f0 + q) * p.G + g;
               if (f0 + q < F && h < d4) {
                 const float4 v = lds4(cr + 4 * h);
-                a[q] = __fadd_rn(a[q], dot4(v, v));
+                if (KC) kahan_add(a[q], ac[q], dot4(v, v));
+                else a[q] = __fadd_rn(a[q], dot4(v, v));
               }
             }
           }
 #pragma unroll
           for (int q = 0; q < kNormIlp; ++q) {
-            if (f0 + q == 0) sum = a[q];
-            else if (f0 + q < F) kahan_add(sum, comp, a[q]);
+            if (f0 + q == 0) {
+              sum = a[q];
+              comp = ac[q];
+            } else if (f0 + q < F) {
+              kahan_add(sum, comp, a[q]);
+            }
           }
         }
         cn[2 * t] = sum;
@@ -324,14 +337,16 @@ __global__ void __launch_bounds__(512) pdist_argmin_kernel(
     __syncthreads();
 
     if (tid < R * S && live) {  // f == 0: parts in order, then the slice
+      // With one part this thread took the sums itself (f == 0), and
+      // its compensations are still in registers.
       float dot[TK], dc[TK];
       const float* o = red + (s * R + r) * (TK + 1);
 #pragma unroll
       for (int t = 0; t < TK; ++t) {
         dot[t] = o[t];
-        dc[t] = 0.f;
+        dc[t] = KC ? accc[t] : 0.f;
       }
-      float xn = o[TK], xc = 0.f;
+      float xn = o[TK], xc = KC ? xqc : 0.f;
       for (int ff = 1; ff < F; ++ff) {
         const float* q = red + ((ff * S + s) * R + r) * (TK + 1);
 #pragma unroll
@@ -530,12 +545,12 @@ bool make_plan(int B, int n, int k, int d, bool shared, int esize, int rows,
   return true;
 }
 
-template <typename T, int TK>
+template <typename T, int TK, bool KC>
 cudaError_t launch(const void* x, const void* c, const void* cmask, void* idx,
                    void* val, int dev, const Plan& pl, cudaStream_t stream) {
   // Shared memory a block may take, per device, once raised.
   static int raised[kMaxDevices] = {0};
-  auto kernel = pdist_argmin_kernel<T, TK>;
+  auto kernel = pdist_argmin_kernel<T, TK, KC>;
   const int smem = static_cast<int>(pl.smem);
   if (smem > 48 * 1024 && smem > raised[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -549,6 +564,22 @@ cudaError_t launch(const void* x, const void* c, const void* cmask, void* idx,
       static_cast<const uint8_t*>(cmask), static_cast<int32_t*>(idx),
       static_cast<float*>(val), pl.p);
   return cudaGetLastError();
+}
+
+template <typename T, bool KC>
+cudaError_t launch_tk(const void* x, const void* c, const void* cmask,
+                      void* idx, void* val, int dev, const Plan& pl,
+                      cudaStream_t stream) {
+  switch (pl.tk) {
+    case 4:
+      return launch<T, 4, KC>(x, c, cmask, idx, val, dev, pl, stream);
+    case 8:
+      return launch<T, 8, KC>(x, c, cmask, idx, val, dev, pl, stream);
+    case 10:
+      return launch<T, 10, KC>(x, c, cmask, idx, val, dev, pl, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -565,16 +596,10 @@ cudaError_t run(const void* x, const void* c, const void* cmask, void* idx,
   pl.p.c_bstride = c_bstride;
   pl.p.m_bstride = m_bstride;
   pl.p.vec = vec;
-  switch (pl.tk) {
-    case 4:
-      return launch<T, 4>(x, c, cmask, idx, val, dev, pl, stream);
-    case 8:
-      return launch<T, 8>(x, c, cmask, idx, val, dev, pl, stream);
-    case 10:
-      return launch<T, 10>(x, c, cmask, idx, val, dev, pl, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return pl.p.F == 1 ? launch_tk<T, true>(x, c, cmask, idx, val, dev, pl,
+                                          stream)
+                     : launch_tk<T, false>(x, c, cmask, idx, val, dev, pl,
+                                           stream);
 }
 
 }  // namespace

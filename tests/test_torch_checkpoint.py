@@ -2,9 +2,11 @@
 (repro_torch/checkpoint/store.py) and Session.save / Session.restore
 against the JAX package's.
 
-An archive the JAX package writes (schemas v1-v5: sync refresh, the
-drop policy, autoscale and drift off, heads off or on) restores in the
-port, and an archive the port writes restores in the JAX package. After
+An archive the JAX package writes (schemas v1-v5: drift off, heads off
+or on) restores in the port, and an archive the port writes restores in
+the JAX package; tests/test_torch_attach.py does the same for archives
+of the lru and weighted_reservoir policies, the async refresh and
+autoscaling. After
 a restore both serve the same requests: labels, tau versions, clusters,
 routing and counters exactly; the restored fold state and tau buffers
 bit for bit; predictions within 1e-5 of their largest magnitude (f32
@@ -412,24 +414,75 @@ def test_port_restore_replays_itself(jax_round, requests, tmp_path):
     (dict(encoder="granite-3-2b"), "encoder"),
 ])
 def test_restore_refuses_unported_modes(jax_round, tmp_path, writer, field):
-    """An archive the JAX package wrote under a mode the port does not
-    run is refused with the field named."""
+    """An archive the JAX package wrote under a mode the restoring plan
+    (drop, autoscale off) does not run is refused with the field named:
+    drift and the encoder, which the port does not have, and lru,
+    latency and throughput, which it runs but this plan does not."""
     path = japi.Session.from_round(_jplan(**writer), jax_round).save(
         str(tmp_path / "m.npz"))
     with pytest.raises(StreamConfigError, match=f"StreamConfig.{field}"):
         Session.restore(path, _plan())
 
 
-def test_restore_refuses_a_v3_archive_under_latency(archives, tmp_path):
-    """A v3 archive (no drift arrays) written under autoscale latency."""
+@pytest.mark.parametrize("writer,reader,field", [
+    (dict(fold_policy="lru"), dict(), "fold_policy"),
+    (dict(autoscale="latency"), dict(autoscale="throughput"), "autoscale"),
+    (dict(autoscale="throughput"), dict(autoscale="latency"), "autoscale"),
+    (dict(fold_policy="weighted_reservoir"), dict(fold_policy="lru"),
+     "fold_policy"),
+])
+def test_restore_refuses_a_mode_mismatch(jax_round, tmp_path, writer,
+                                         reader, field):
+    """An archive written under one policy or autoscale mode restores only
+    under the same: the slots and the decision state mean nothing under
+    another. The error names the field and the archive's value."""
+    path = japi.Session.from_round(_jplan(**writer), jax_round).save(
+        str(tmp_path / "m.npz"))
+    with pytest.raises(StreamConfigError,
+                       match=f"StreamConfig.{field}=.*saved under "
+                             f"{field}='{writer[field]}'"):
+        Session.restore(path, _plan(**reader))
+
+
+def _v3_under_latency(archives, tmp_path):
+    """The v3 archive (no drift arrays) with its autoscale id set to
+    latency: a v3 archive written under autoscale latency."""
     paths, _ = archives
     with np.load(paths["v3"]) as data:
         arrays = dict(data)
     arrays["autoscale_id"] = np.asarray(JAX_AUTOSCALE_IDS["latency"],
                                         np.int64)
     np.savez(tmp_path / "v3l.npz", **arrays)
-    with pytest.raises(StreamConfigError, match="autoscale='latency'"):
-        Session.restore(str(tmp_path / "v3l.npz"), _plan())
+    return str(tmp_path / "v3l.npz")
+
+
+def test_restore_refuses_a_v3_archive_under_latency(archives, tmp_path):
+    """A v3 archive written under autoscale latency, restored under a
+    plan with autoscale off or throughput."""
+    path = _v3_under_latency(archives, tmp_path)
+    for autoscale in ("off", "throughput"):
+        with pytest.raises(StreamConfigError, match="autoscale='latency'"):
+            Session.restore(path, _plan(autoscale=autoscale))
+
+
+def test_v3_archive_under_latency_restores_and_replays(archives, requests,
+                                                       tmp_path):
+    """The same archive under a latency plan restores in both packages,
+    which then serve the rest alike: labels, versions and decisions."""
+    path = _v3_under_latency(archives, tmp_path)
+    datas, kvs = requests
+    got_sess = Session.restore(path, _plan(autoscale="latency"),
+                               gumbel=JaxServeGumbel(0))
+    want_sess = japi.Session.restore(path, _jplan(autoscale="latency"))
+    for lo, hi in ((5, 6), (6, 10)):
+        got = got_sess.serve_versioned(datas[lo:hi], kvs[lo:hi])
+        want = want_sess.serve_versioned(datas[lo:hi], kvs[lo:hi])
+        for (g, gv), (w, wv) in zip(got, want):
+            np.testing.assert_array_equal(g, np.asarray(w))
+            assert gv == wv
+        assert (got_sess.service.autoscaler.decision
+                == want_sess.service.autoscaler.decision)
+    assert got_sess.stats()["autoscale"]["decisions"] == 2
 
 
 @pytest.mark.parametrize("plan_kw", [

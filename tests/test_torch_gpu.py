@@ -418,6 +418,52 @@ def test_gpu_pdist_argmin_rows_on_centers_are_at_zero(cuda_device, B, n, d,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,n,d,k,shared", [(1, 3600, 53, 8, False),
+                                            (60, 300, 53, 1, False),
+                                            (864, 40, 60, 1, False),
+                                            (1, 34560, 60, 36, True),
+                                            (1, 10240, 300, 100, True)])
+def test_gpu_pdist_argmin_one_part_is_compensated(cuda_device, B, n, d, k,
+                                                  shared):
+    """Plans of one feature part (the Figure 2 and 3 legs' shapes, and
+    the serve refresh's), whose running sums are added under Kahan's
+    compensation, on rows near their centers at large norms (the
+    cancellation of the paths): a row equal to a center is at exactly 0;
+    every distance is within the tolerance of the f64 one, and the
+    largest error is no larger than the f32 plain version's."""
+    from repro_torch.kernels.pdist_argmin import pdist_argmin, plan
+    assert plan(B, n, k, d, shared, torch.float32, cuda_device).parts == 1
+    g = torch.Generator().manual_seed(n + d)
+    c = torch.randn(k, d, generator=g) * 3 + 20
+    if not shared:
+        c = c.expand(B, k, d) + torch.randn(B, k, d, generator=g)
+    pick = torch.randint(0, k, (B, n), generator=g)
+    x = (torch.gather(c.expand(B, k, d), 1, pick.unsqueeze(-1).expand(
+        B, n, d)) + 0.3 * torch.randn(B, n, d, generator=g))
+    on = torch.arange(0, n, 7)
+    x[:, on] = torch.gather(c.expand(B, k, d), 1, pick[:, on].unsqueeze(
+        -1).expand(B, len(on), d))
+    if shared:
+        x = x.reshape(B * n, d)
+    x, c = x.contiguous().to(cuda_device), c.contiguous().to(cuda_device)
+    idx, val = pdist_argmin(x, c, None)
+    plain_idx, plain_val = ref.assign_argmin(x, c)
+    xd, cd = x.double().cpu(), c.double().cpu()
+    xn, cn = (xd * xd).sum(-1), (cd * cd).sum(-1)
+    exact = (xn.unsqueeze(-1) - 2.0 * (xd @ cd.transpose(-1, -2))
+             + cn.unsqueeze(-2)).clamp_min(0.0)
+    emin, eidx = exact.min(-1)
+    tol = 1e-6 * (xn + torch.gather(cn.expand(*xn.shape[:-1], k), -1,
+                                    eidx)) + 1e-6
+    err = (val.cpu().double() - emin).abs()
+    assert bool((err <= tol).all())
+    assert float((err / tol).max()) <= float(
+        ((plain_val.cpu().double() - emin).abs() / tol).max())
+    rows = val.view(B, n)[:, on] if shared else val[:, on]
+    assert bool((rows == 0).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("k,d", [(10, 300), (100, 300), (257, 33)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_pdist_argmin_all_masked_rows(cuda_device, k, d, dtype):
@@ -721,7 +767,10 @@ def _clustered_batch(seed, B, n, d, kp, k, distinct=False):
 #   the plan takes slices of 128 rows (streamed).
 SPLIT_SHAPES = [(3, 200, 37, 5, 9, 30), (4, 500, 64, 6, 12, 2),
                 (8, 1024, 300, 10, 100, 100), (64, 1024, 300, 10, 100, 100),
-                (2, 4096, 64, 668, 1000, 100), (2, 10000, 16, 4, 8, 30)]
+                (2, 4096, 64, 668, 1000, 100), (2, 10000, 16, 4, 8, 30),
+                # The attach leg's coalesced oversized rungs at Table 1's
+                # width, right-sized to batches of 1 and 2.
+                (1, 4096, 300, 10, 100, 100), (2, 2048, 300, 10, 100, 100)]
 
 
 @pytest.mark.gpu
@@ -1183,6 +1232,36 @@ def test_gpu_save_restore_serves_like_the_live_session(cuda_device,
         assert gv == wv
     for a, b in zip(restored.service.state, live.service.state):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [40, 200, 1500])
+def test_gpu_request_alone_equals_it_in_a_batch_of_8(cuda_device, n):
+    """Autoscale's premise on the card: a request that latency
+    autoscaling serves alone, in a batch of 1, gets the labels it gets
+    inside a batch of 8 (autoscale off), bit for bit, for 8 requests of
+    n to n + 50 points padded to one rung of n + 50 (2 to 25 slices of
+    the serve step's kernel)."""
+    from repro_torch.data.gaussian import late_device_stream
+    from repro_torch.fed.api import Session
+    fm, _, _, plan = _small_serving()
+    reqs = late_device_stream(fm.means, 3, 8, 7, n_range=(n, n + 50))
+    plan = plan.with_options(batch_size=8, refresh_every=0,
+                             bucket_sizes=(n + 50,))
+    batched = Session(plan, seed=2, device=cuda_device)
+    rr = batched.run(7, fm.data).detail
+    ops.reset_launch_counts()
+    want = batched.serve_versioned([r[0] for r in reqs],
+                                   [r[2] for r in reqs])
+    assert ops.launch_counts()["solve_attach"] == 1
+    alone = Session.from_round(plan.with_options(autoscale="latency"), rr,
+                               seed=2, device=cuda_device)
+    for (data, _, kv), (w, wv) in zip(reqs, want):
+        (g, gv), = alone.serve_versioned([data], [kv])
+        assert alone.service.autoscaler.decision.batch_size == 1
+        np.testing.assert_array_equal(g, w)
+        assert gv == wv
+    assert ops.launch_counts()["solve_attach"] == 1 + len(reqs)
 
 
 @pytest.mark.gpu

@@ -51,6 +51,20 @@ class JaxServeGumbel(GumbelSource):
                           k_prime, n) for i in ids]), device=device)
 
 
+class JaxKeyGumbel(GumbelSource):
+    """The draws of one JAX key used directly, as the JAX package's
+    unbatched ``kmeans_pp_init(key, ...)`` and ``Session.attach_fn``
+    use it: pick t by ``split(key, k)[t]``, whatever the id."""
+
+    def __init__(self, key):
+        super().__init__(0)
+        self.key = key
+
+    def draw(self, ids, k_prime, n, device):
+        rows = _gumbel_rows(self.key, k_prime, n)
+        return torch.as_tensor(np.stack([rows for _ in ids]), device=device)
+
+
 def test_categorical_is_argmax_of_gumbel_plus_logits():
     """The identity the Jax*Gumbel sources rest on, in the installed
     jax: categorical(key, logits) == argmax(gumbel(key) + logits)."""

@@ -165,9 +165,7 @@ def test_from_tau_and_lifecycle_errors(mixture):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("topology", "sharded"), ("serve_axes", ("data",)),
-    ("autoscale", "latency"), ("refresh", "async"), ("fold_policy", "lru"),
-    ("fold_policy", "weighted_reservoir"), ("drift", "decay"),
+    ("topology", "sharded"), ("serve_axes", ("data",)), ("drift", "decay"),
     ("encoder", "granite_3_2b")])
 def test_plan_refuses_what_is_not_ported(field, value):
     """A value whose code the port does not have is refused, naming the
@@ -175,6 +173,30 @@ def test_plan_refuses_what_is_not_ported(field, value):
     with pytest.raises(PlanError, match=f"FederationPlan.{field}=.*not in "
                                         f"the PyTorch port yet"):
         FederationPlan(k=K, k_prime=KP, d=D, device="cpu", **{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("autoscale", "latency"), ("autoscale", "throughput"),
+    ("refresh", "async"), ("fold_policy", "lru"),
+    ("fold_policy", "weighted_reservoir")])
+def test_plan_accepts_the_ported_serving_options(field, value):
+    """The serving options this port runs reach the service's config."""
+    plan = FederationPlan(k=K, k_prime=KP, d=D, device="cpu",
+                          policy_seed=3, **{field: value})
+    cfg = plan.stream_config()
+    assert getattr(cfg, field) == value and cfg.policy_seed == 3
+
+
+@pytest.mark.parametrize("field,value,match", [
+    ("autoscale", "fast", "FederationPlan.autoscale='fast' is invalid"),
+    ("refresh", "lazy", "FederationPlan.refresh='lazy' is invalid"),
+    ("batch_size", 6, "FederationPlan.batch_size=6 is invalid: must be a "
+                      "power of two")])
+def test_plan_validates_the_serving_options(field, value, match):
+    kw = {"autoscale": "latency"} if field == "batch_size" else {}
+    with pytest.raises(PlanError, match=match):
+        FederationPlan(k=K, k_prime=KP, d=D, device="cpu",
+                       **{field: value, **kw})
 
 
 def test_plan_validation_names_field():
