@@ -76,6 +76,21 @@ bench_fig3_communication.py), each in full mode. solve_attach is then
 timed and held to its plain version at every shape the paths launched
 it at.
 
+Then the mesh legs (the replicated and sharded topologies and the
+sharded serve plane over torch.distributed): the run leg's round under
+the simulated, replicated and sharded topologies in a one-rank NCCL
+world in this process (mesh1: the same labels, the replicated tau bit
+for bit the simulated one's, the sharded one within 1e-4), then in a
+two-rank gloo world whose two processes share cuda:0, with every
+collective staged through the host (mesh2: the same labels, tau within
+1e-4), which also serves the serve leg's 32 late devices with
+serve_axes=("data",), and again under latency autoscaling in bursts
+that take the active shard count to 1 and 2, each equal to one process
+serving alone bit for bit (labels, tau versions, fold state). Their
+launches are counted in each rank and their per-shard shapes join the
+pdist, kmeans and solve lines. One card measures no multi-chip speed:
+these legs report walls only.
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -167,6 +182,18 @@ MIN_ATTACH_ACCURACY = 0.9
 # The attachment server's command line, as README.md shows it.
 CLI_ARGS = ("--requests", "24", "--fold-policy", "lru", "--capacity", "20",
             "--refresh", "async", "--autoscale", "throughput")
+
+# The mesh legs: the run leg's round (Table 1's largest setting, not
+# cut) under the simulated, replicated and sharded topologies, in a
+# one-rank NCCL world in this process (mesh1) and in a two-rank gloo
+# world whose two processes share cuda:0, every collective staged
+# through the host (mesh2), which then serves the serve leg's 32 late
+# devices with serve_axes=("data",) (4 of each batch of 8 a rank), and
+# again under latency autoscaling in bursts that take the active shard
+# count to 1 and to 2. One card cannot measure multi-chip speed: these
+# legs check the collectives and report walls only.
+MESH_TOPOLOGIES = ("simulated", "replicated", "sharded")
+MESH_BURSTS = (1, 7, 8, 16)
 
 
 class SmokeFailure(RuntimeError):
@@ -2349,6 +2376,245 @@ def decode_leg(device):
     return counts, {"moe_combine": combine_tally}
 
 
+def tau_error(got, want) -> float:
+    """max |got - want| over the largest |want|: within 1e-4 is the
+    round's tau tolerance (tests/test_torch_session.py's _tau_close)."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def mesh_rounds(mesh, fm, walls, key: int = 0):
+    """Session.run of the round under each topology: {topology:
+    RunResult}; ``walls`` gets each run's wall."""
+    from repro_torch.fed.api import FederationPlan, Session
+    outs = {}
+    for t in MESH_TOPOLOGIES:
+        plan = FederationPlan(k=K, k_prime=KP, d=D, topology=t)
+        t0 = time.perf_counter()
+        outs[t] = Session(plan, mesh=mesh).run(key, fm.data)
+        sync()
+        walls[t] = time.perf_counter() - t0
+    return outs
+
+
+def mesh1_leg(fm, rr, tmp: Path):
+    """The round in a one-rank NCCL world in this process: the real
+    collectives, the same labels under every topology (and the run
+    leg's), the replicated tau bit for bit the simulated one's and the
+    sharded one within tolerance."""
+    import torch.distributed as dist
+    from repro_torch.utils.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp / "mesh1_store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), backend="nccl")
+        # A warm-up run of each topology: NCCL's communicator.
+        mesh_rounds(mesh, fm, {}, key=1)
+        walls = {}
+        outs, counts, tally = counted(lambda: mesh_rounds(mesh, fm, walls))
+        describe = mesh.describe()
+    finally:
+        dist.destroy_process_group()
+    sim = outs["simulated"]
+    for t in MESH_TOPOLOGIES:
+        require(torch.equal(outs[t].labels, rr.labels),
+                f"mesh1: the {t} round's labels differ from the run leg's")
+    require(torch.equal(outs["replicated"].tau_centers, sim.tau_centers),
+            "mesh1: the replicated tau is not the simulated one bit for bit")
+    err = tau_error(outs["sharded"].tau_centers, sim.tau_centers)
+    require(err <= 1e-4, f"mesh1: the sharded tau is {err:.3e} off")
+    print(f"mesh1: {describe}; Session.run d={D} k={K} k'={KP} "
+          f"Z={fm.data.shape[0]} n={fm.data.shape[1]} walls "
+          + ", ".join(f"{t} {walls[t]:.3f} s" for t in MESH_TOPOLOGIES)
+          + f"; labels equal under every topology and the run leg's; "
+          f"replicated tau = simulated bit for bit; sharded tau max "
+          f"|diff| / max|tau| = {err:.3e} (<= 1e-4); launches {counts}",
+          flush=True)
+    return counts, tally, {t: o.tau_centers for t, o in outs.items()}
+
+
+def mesh_decisions(sess, bursts):
+    """serve_bursts with each flush's (shards, batch) decision."""
+    served, decisions = {}, []
+    for burst in bursts:
+        for data, _, kv in burst:
+            sess.submit(data, kv)
+        served.update(sess.flush_versioned())
+        d = sess.service.autoscaler.decision
+        decisions.append((d.shards, d.batch_size))
+    return served, decisions
+
+
+def mesh_serve_inputs(fm):
+    from repro_torch.data.gaussian import late_device_stream
+    reqs = late_device_stream(fm.means, KP, SERVE_REQUESTS, 7,
+                              n_range=(SERVE_N, SERVE_N + 1))
+    bursts, lo = [], 0
+    for b in MESH_BURSTS:
+        bursts.append(reqs[lo:lo + b])
+        lo += b
+    return [r[0] for r in reqs], [r[2] for r in reqs], bursts
+
+
+def mesh_plans(serve_axes):
+    from repro_torch.fed.api import FederationPlan
+    base = dict(k=K, k_prime=KP, d=D, serve_axes=serve_axes, **SERVE_PLAN)
+    return (FederationPlan(**base),
+            FederationPlan(**base, autoscale="latency"))
+
+
+def _cpu(t):
+    return t.cpu() if torch.is_tensor(t) else t
+
+
+def mesh2_rank(rank: int, tmp: str) -> None:
+    """One rank of the mesh2 leg (spawned): joins the gloo world, runs
+    the round under each topology, the sharded serve and the autoscaled
+    one between a reset and a read of the launch counts, and saves what
+    it got for the parent to check."""
+    import torch.distributed as dist
+    from repro_torch.data.gaussian import structured_devices
+    from repro_torch.fed.api import Session
+    from repro_torch.utils.mesh import make_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "mesh2_store"), 2), rank=rank, world_size=2)
+    try:
+        mesh = make_mesh((2,), ("data",), backend="gloo")
+        fm = structured_devices(0, k=K, d=D, k_prime=KP, m0=M0,
+                                n_per_comp_dev=N_PER, sep=SEP)
+        rr = tree_to(torch.load(os.path.join(tmp, "round.pt"),
+                                weights_only=False), "cuda")
+        datas, kvs, bursts = mesh_serve_inputs(fm)
+        plan, scaled = mesh_plans(("data",))
+        # Warm-up: the libraries' handles in this process.
+        mesh_rounds(mesh, fm, {}, key=1)
+        Session.from_round(plan, rr, mesh=mesh, seed=1).serve(
+            datas[:plan.batch_size], kvs[:plan.batch_size])
+        walls = {}
+
+        def drive():
+            outs = mesh_rounds(mesh, fm, walls)
+            sess = Session.from_round(plan, rr, mesh=mesh, seed=0)
+            t0 = time.perf_counter()
+            served = sess.serve_versioned(datas, kvs)
+            sync()
+            walls["serve"] = time.perf_counter() - t0
+            auto = Session.from_round(scaled, rr, mesh=mesh, seed=0)
+            t0 = time.perf_counter()
+            a_served, decisions = mesh_decisions(auto, bursts)
+            sync()
+            walls["autoscale"] = time.perf_counter() - t0
+            return (outs, sess, served, auto, a_served, decisions)
+
+        (outs, sess, served, auto, a_served, decisions), counts, tally = \
+            counted(drive)
+        out = {
+            "describe": mesh.describe(), "walls": walls, "counts": counts,
+            "labels": {t: o.labels.cpu() for t, o in outs.items()},
+            "tau": {t: o.tau_centers.cpu() for t, o in outs.items()},
+            "served": served, "state": [t.cpu() for t in sess.service.state],
+            "stats": {k: v for k, v in sess.stats().items()
+                      if k in ("serve_shards", "serve_axes", "tau_version",
+                               "plane_compiles")},
+            "a_served": a_served, "decisions": decisions,
+            "a_state": [t.cpu() for t in auto.service.state],
+            "tally": ({name: {key: [c, tuple(_cpu(a) for a in inputs)]
+                              for key, (c, inputs) in t.shapes.items()}
+                       for name, t in tally.items()} if rank == 0 else None),
+        }
+        torch.save(out, os.path.join(tmp, f"mesh2_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tree_to(t, device):
+    """A round's (nested NamedTuple) tensors on ``device``."""
+    if torch.is_tensor(t):
+        return t.to(device)
+    return type(t)(*(tree_to(x, device) for x in t))
+
+
+class Shapes:
+    """A Tally's shapes brought back from another process."""
+
+    def __init__(self, shapes):
+        self.shapes = {key: [c, tuple(a.cuda() if torch.is_tensor(a) else a
+                                      for a in inputs)]
+                       for key, (c, inputs) in shapes.items()}
+
+
+def mesh2_leg(fm, rr, taus, tmp: Path):
+    """The two-rank gloo world on one card: the round's labels equal the
+    run leg's and its tau is within tolerance under both mesh
+    topologies; the sharded serve and the autoscaled one equal one
+    process serving alone bit for bit (labels, tau versions, fold
+    state), on both ranks; the autoscaled decisions take 1 and 2
+    shards. Kernels were built before the spawn, so the ranks only load
+    them."""
+    import torch.multiprocessing as mp
+    from repro_torch.fed.api import Session
+    datas, kvs, bursts = mesh_serve_inputs(fm)
+    plan, scaled = mesh_plans(None)
+    ref = Session.from_round(plan, rr, seed=0)
+    want = ref.serve_versioned(datas, kvs)
+    aref = Session.from_round(scaled, rr, seed=0)
+    a_want, a_dec = mesh_decisions(aref, bursts)
+    torch.save(tree_to(rr, "cpu"), tmp / "round.pt")
+    t0 = time.perf_counter()
+    mp.spawn(mesh2_rank, args=(str(tmp),), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"mesh2_rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    for r, got in enumerate(ranks):
+        for t in MESH_TOPOLOGIES:
+            require(torch.equal(got["labels"][t], rr.labels.cpu()),
+                    f"mesh2 rank {r}: the {t} round's labels differ")
+            err = tau_error(got["tau"][t], taus[t].cpu())
+            require(err <= 1e-4, f"mesh2 rank {r}: the {t} tau is {err:.3e}"
+                                 f" off mesh1's")
+        require(torch.equal(got["tau"]["sharded"],
+                            ranks[0]["tau"]["sharded"]),
+                "mesh2: the ranks' sharded tau differ")
+        require(len(got["served"]) == len(want) and all(
+            np.array_equal(a, b) and va == vb
+            for (a, va), (b, vb) in zip(got["served"], want)),
+            f"mesh2 rank {r}: the sharded serve's labels or tau versions "
+            f"differ from one process serving alone")
+        require(all(torch.equal(a, b.cpu()) for a, b in
+                    zip(got["state"], ref.service.state)),
+                f"mesh2 rank {r}: the sharded fold state differs")
+        require(same_served(got["a_served"], a_want)
+                and all(torch.equal(a, b.cpu()) for a, b in
+                        zip(got["a_state"], aref.service.state))
+                and [b for _, b in got["decisions"]]
+                == [b for _, b in a_dec],
+                f"mesh2 rank {r}: the autoscaled serve differs from one "
+                f"process serving alone")
+        require(got["stats"]["serve_shards"] == 2,
+                f"mesh2 rank {r}: {got['stats']}")
+    shards = sorted({s for s, _ in ranks[0]["decisions"]})
+    require(shards == [1, 2], f"mesh2: active shard counts {shards}")
+    w = ranks[0]["walls"]
+    counts = {name: ranks[0]["counts"][name] + ranks[1]["counts"][name]
+              for name in ranks[0]["counts"]}
+    print(f"mesh2: {ranks[0]['describe']} (two processes on cuda:0); "
+          f"Session.run walls "
+          + ", ".join(f"{t} {w[t]:.3f} s" for t in MESH_TOPOLOGIES)
+          + f"; labels equal the run leg's, tau within 1e-4 of mesh1's "
+          f"(sharded tau the same bits on both ranks); serve_axes=data: "
+          f"{SERVE_REQUESTS} late devices n={SERVE_N} batch="
+          f"{plan.batch_size} (4 a rank) {w['serve']:.3f} s, "
+          f"{SERVE_REQUESTS / w['serve']:.2f} requests/s, labels, tau "
+          f"versions and fold state equal one process serving alone bit "
+          f"for bit; latency autoscaling in bursts {list(MESH_BURSTS)}: "
+          f"{w['autoscale']:.3f} s, decisions (shards, batch) "
+          f"{ranks[0]['decisions']}, equal to one process alone; "
+          f"{spawn_s:.1f} s from spawn to join; launches by rank "
+          f"{ranks[0]['counts']} {ranks[1]['counts']}", flush=True)
+    return counts, {name: Shapes(shapes)
+                    for name, shapes in ranks[0]["tally"].items()}
+
+
 def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -2465,6 +2731,17 @@ def main() -> int:
         figures_leg(cuda)
     print(f"legs: attach agreement, attach (2 runs), cli, figures 2 and 3 "
           f"in {time.perf_counter() - t_legs:.1f} s of wall", flush=True)
+    t_legs = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh1_counts, tallies["mesh1"], taus = mesh1_leg(fm, rr, Path(tmp))
+        mesh2_counts, tallies["mesh2"] = mesh2_leg(fm, rr, taus, Path(tmp))
+    print(f"legs: mesh1, mesh2 in {time.perf_counter() - t_legs:.1f} s of "
+          f"wall", flush=True)
+    for name in ("pdist_argmin", "kmeans_update"):
+        require(mesh1_counts[name] > 0 and mesh2_counts[name] > 0,
+                f"{name} was not launched on the mesh1 and mesh2 legs")
+    require(mesh2_counts["solve_attach"] > 0,
+            "solve_attach was not launched on the mesh2 leg")
     for name in ("pdist_argmin", "kmeans_update"):
         require(pers_counts[name] > 0 and sel_counts[name] > 0
                 and sep_counts[name] > 0,
@@ -2480,7 +2757,7 @@ def main() -> int:
                 f"{name} was not launched on the figure 2 and 3 legs")
     new_counts = (restore_counts, rroute_counts, pers_counts, sel_counts,
                   sep_counts, attach_counts, cli_counts, fig2_counts,
-                  fig3_counts)
+                  fig3_counts, mesh1_counts, mesh2_counts)
     pdist_shapes(tallies, attach)
     kmeans_shapes(tallies)
     solve_shapes(tallies)
@@ -2535,6 +2812,8 @@ def main() -> int:
           + " attach " + json.dumps(attach_counts) + " cli "
           + json.dumps(cli_counts) + " figure2 " + json.dumps(fig2_counts)
           + " figure3 " + json.dumps(fig3_counts)
+          + " mesh1 " + json.dumps(mesh1_counts) + " mesh2 "
+          + json.dumps(mesh2_counts)
           + "; every kernel matched its plain version", flush=True)
     print(f"card: {smi}; chip_smoke wall {time.perf_counter() - t_all:.1f} s",
           flush=True)

@@ -81,11 +81,19 @@ def _host(leaf):
     return arr, None
 
 
-def save_pytree(path: str, tree, step: Optional[int] = None) -> str:
+def save_pytree(path: str, tree, step: Optional[int] = None, *,
+                mesh=None) -> str:
     """Write ``tree`` to ``path`` (``.npz`` appended if missing) and
     return the file's name. The write is atomic: the archive is written
     beside the target and renamed over it, so a crash mid-save never
-    leaves a truncated file where the last good checkpoint was."""
+    leaves a truncated file where the last good checkpoint was. With a
+    ``utils.mesh.Mesh`` every rank calls this with the same tree: rank 0
+    writes, and every rank returns once the file is there (a barrier)."""
+    if mesh is not None:
+        if mesh.rank == 0:
+            save_pytree(path, tree, step)
+        mesh.barrier()
+        return _npz(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     flat = {}
     for parts, leaf in _flatten(tree):

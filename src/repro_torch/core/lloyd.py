@@ -154,7 +154,8 @@ def kmeans_pp_init(gumbel: torch.Tensor, x: torch.Tensor, k: int, *,
 
 class LocalReducer:
     """Reduction strategy for a server that owns the full point set:
-    argmax, row fetch and sum are plain local operations."""
+    argmax, row fetch and sum are plain local operations (the sharded
+    server's collective form is ``core/server.ShardedReducer``)."""
 
     def argmax(self, vals: torch.Tensor) -> torch.Tensor:
         return torch.argmax(vals).to(torch.int32)
@@ -162,6 +163,15 @@ class LocalReducer:
     def fetch_row(self, points: torch.Tensor,
                   idx: torch.Tensor) -> torch.Tensor:
         return points[idx.long()]
+
+    def fetch_rows(self, points: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+        """(k,) indices -> (k, d) rows; an index outside the points (-1,
+        an unfilled slot) gives a row of zeros, as the sharded fetch
+        does."""
+        ok = (idx >= 0) & (idx < points.shape[0])
+        got = points[torch.clamp(idx, 0, points.shape[0] - 1).long()]
+        return torch.where(ok[:, None], got, torch.zeros_like(got))
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return x

@@ -1,5 +1,12 @@
 """The k-FED server, Algorithm 2 steps 2-8 (counterpart of
-``repro/core/server.py``, without its sharded and drift parts).
+``repro/core/server.py``, without its drift part).
+
+The replicated server (:func:`aggregate`, also the simulated path's) and
+the sharded one (:func:`aggregate_sharded`, where each shard owns its
+slice of the device centers) differ only in the reducer handed to the
+shared greedy max-min loop (``lloyd.maxmin_grow``) and to the one Lloyd
+round (:func:`lloyd_round`): ``lloyd.LocalReducer`` or the collective
+:class:`ShardedReducer`.
 
 On top of the one-shot :func:`aggregate` the server has an incremental
 fold — :func:`init_state` / :func:`aggregate_incremental` /
@@ -27,16 +34,20 @@ class KFedAggregate(NamedTuple):
 
 
 def lloyd_round(x: torch.Tensor, fm: torch.Tensor, M: torch.Tensor, k: int,
-                *, weights: Optional[torch.Tensor] = None,
+                *, reducer=None, weights: Optional[torch.Tensor] = None,
                 center_mask: Optional[torch.Tensor] = None):
     """Steps 7-8 of Algorithm 2: ONE Lloyd round of the device centers
-    against the seeded set M; with ``weights`` the weighted mean. A
-    center is divided by its actual mass whenever that is positive, and
-    a zero-mass center keeps its seed. Returns (tau (k, d) f32,
-    labels (m,) int32)."""
+    against the seeded set M; with ``weights`` the weighted mean.
+    ``reducer.psum`` combines the partial sums and counts of the server's
+    shards (the identity for the replicated server). A center is divided
+    by its actual mass whenever that is positive, and a zero-mass center
+    keeps its seed. Returns (tau (k, d) f32, labels (m,) int32)."""
+    reducer = reducer or L.LocalReducer()
     labels, _ = L.assign_points(x, M, center_mask=center_mask, point_mask=fm)
     w = None if weights is None else weights.float()
     sums, cnt = ops.kmeans_update(x.float(), labels, k, w)
+    sums = reducer.psum(sums)
+    cnt = reducer.psum(cnt)
     pos = cnt > 0
     tau = torch.where(pos[:, None],
                       sums / torch.where(pos, cnt, torch.ones_like(cnt))[:, None],
@@ -104,6 +115,116 @@ def aggregate(device_centers: torch.Tensor, center_mask: torch.Tensor,
                          labels.reshape(Z, kp), z0)
 
 
+_BIG = 2 ** 30
+
+
+class ShardedReducer:
+    """Collective counterpart of ``lloyd.LocalReducer`` over a
+    ``utils.mesh.ShardGroup``: each shard owns rows [base, base + m_loc)
+    of the global point set. argmax resolves ties to the smallest global
+    index (the first occurrence, as the local argmax does)."""
+
+    def __init__(self, group, base: int, m_loc: int):
+        self.group, self.base, self.m_loc = group, int(base), int(m_loc)
+
+    def argmax(self, vals: torch.Tensor) -> torch.Tensor:
+        lmax = torch.amax(vals)
+        larg = torch.argmax(vals).to(torch.int32)
+        gmax = self.group.pmax(lmax)
+        return self.group.pmin(torch.where(
+            lmax >= gmax, self.base + larg,
+            torch.full_like(larg, _BIG)))
+
+    def _owned(self, gidx: torch.Tensor):
+        mine = (gidx >= self.base) & (gidx < self.base + self.m_loc)
+        rows = torch.clamp(gidx - self.base, 0, self.m_loc - 1).long()
+        return mine, rows
+
+    def fetch_row(self, points: torch.Tensor,
+                  gidx: torch.Tensor) -> torch.Tensor:
+        """The row of global index ``gidx``: the owner contributes it,
+        the other shards add 0."""
+        mine, row = self._owned(gidx)
+        return self.group.psum(torch.where(mine, points[row],
+                                           torch.zeros_like(points[row])))
+
+    def fetch_rows(self, points: torch.Tensor,
+                   gidx: torch.Tensor) -> torch.Tensor:
+        """(k,) global indices -> (k, d) rows, the owner contributing
+        each (a row of zeros for an index no shard owns)."""
+        mine, rows = self._owned(gidx)
+        got = points[rows]
+        return self.group.psum(torch.where(mine[:, None], got,
+                                           torch.zeros_like(got)))
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.group.psum(x)
+
+
+def aggregate_sharded(centers_loc: torch.Tensor, mask_loc: torch.Tensor,
+                      kz_all: torch.Tensor, k: int, group, base: int, *,
+                      weights_loc: Optional[torch.Tensor] = None):
+    """Steps 2-8 of Algorithm 2 with the server itself sharded over
+    ``group`` (a ``utils.mesh.ShardGroup``): each shard owns its
+    m_loc = Z_loc*k' rows of the device centers. Every greedy max-min
+    step is a local argmax, a pmax and a pmin of scalars and a psum of
+    the winning (d,) row; the selection order is the replicated
+    server's (first-occurrence argmax = smallest global index).
+
+    centers_loc: (Z_loc, k', d); mask_loc: (Z_loc, k'); kz_all: (Z,)
+    every device's local cluster count; ``base`` = this shard's first
+    global row. Returns (M (k, d), tau_centers (k, d), my_labels
+    (Z_loc, k'))."""
+    Z_loc, kp, d = centers_loc.shape
+    m_loc = Z_loc * kp
+    dev = centers_loc.device
+    pf = centers_loc.reshape(m_loc, d).float()
+    fm = mask_loc.reshape(m_loc)
+    shard = base // m_loc
+    red = ShardedReducer(group, base, m_loc)
+
+    # "Pick any z": the device with the most local clusters, first wins.
+    z0 = torch.argmax(kz_all).to(torch.int32)
+    rows = torch.arange(m_loc, device=dev)
+    init_loc = (rows // kp == (z0 - shard * Z_loc)) & fm
+    count0 = red.psum(torch.sum(init_loc).to(torch.int32))
+
+    # The initial chosen indices (global, ascending), the owner's win.
+    cand = torch.where(init_loc, base + rows.to(torch.int32),
+                       torch.full((m_loc,), _BIG, dtype=torch.int32,
+                                  device=dev))
+    if m_loc < k:
+        cand = torch.cat([cand, torch.full((k - m_loc,), _BIG,
+                                           dtype=torch.int32, device=dev)])
+    chosen0 = group.pmin(torch.sort(cand).values[:k])
+    # The owner gathers its initial rows into slot order by a one-hot
+    # product (at most one row feeds a slot), never a float scatter-add;
+    # the other shards contribute 0.
+    slot_of = torch.cumsum(init_loc.to(torch.int32), 0) - 1
+    slots = torch.arange(k, device=dev, dtype=torch.int32)
+    sel = ((slot_of[:, None] == slots[None, :])
+           & init_loc[:, None]).float()                     # (m_loc, k)
+    M0 = red.psum(sel.T @ torch.where(init_loc[:, None], pf,
+                                      torch.zeros_like(pf)))
+
+    d2 = ops.pairwise_sq_dists(pf, M0)                      # (m_loc, k)
+    ok = slots < count0
+    mind2 = torch.amin(torch.where(ok[None, :], d2,
+                                   torch.full_like(d2, float("inf"))), dim=1)
+    mind2 = torch.where(fm, mind2, torch.full_like(mind2, float("-inf")))
+    chosen = torch.where(ok, chosen0, torch.full_like(chosen0, -1))
+
+    # The replicated server's greedy growth loop, collective reducer.
+    chosen = L.maxmin_grow(pf, fm, chosen, mind2, count0, k, reducer=red)
+
+    # M from the owners; one local Lloyd assignment, one global update.
+    M = red.fetch_rows(pf, chosen)
+    w = None if weights_loc is None else weights_loc.reshape(m_loc)
+    tau, labels = lloyd_round(pf, fm, M, k, reducer=red, weights=w,
+                              center_mask=chosen >= 0)
+    return M, tau.to(centers_loc.dtype), labels.reshape(Z_loc, kp)
+
+
 class ServerState(NamedTuple):
     """Fold state of the asynchronous server: device reports buffered by
     device id, so folding the same cohorts in any order gives the same
@@ -154,6 +275,32 @@ def aggregate_incremental(state: ServerState, device_ids, centers, mask,
         put(state.weights, w),
         put(state.received, torch.ones_like(ids, dtype=torch.bool)),
         put(state.epoch, e))
+
+
+def aggregate_incremental_sharded(state: ServerState, device_ids, centers,
+                                  mask, group, weights=None, epochs=None, *,
+                                  active: Optional[int] = None
+                                  ) -> ServerState:
+    """The collective path of :func:`aggregate_incremental`, the fold of
+    the sharded serve plane: ``state`` is replicated, ``device_ids`` /
+    ``centers`` / ``mask`` / ``weights`` / ``epochs`` are this shard's
+    rows of the report batch. One tiled gather over ``group`` (a
+    ``utils.mesh.ShardGroup``) moves the batch, the reports and never the
+    fold state, and every shard applies the one
+    :func:`aggregate_incremental` scatter; gathering keeps the global
+    batch order, so the result is bit for bit the unsharded fold's.
+    With ``active``, only the first ``active`` shards hold rows (see
+    ``ShardGroup.all_gather``)."""
+    dev = state.centers.device
+    ids = torch.as_tensor(device_ids, device=dev).to(torch.int32)
+    w = (torch.ones(mask.shape, dtype=torch.float32, device=dev)
+         if weights is None else weights.float())
+    e = ids if epochs is None else torch.as_tensor(
+        epochs, device=dev).to(torch.int32)
+    ids, centers, mask, w, e = group.all_gather_many(
+        [ids, centers, mask, w, e], active=active)
+    return aggregate_incremental(state, ids, centers, mask, weights=w,
+                                 epochs=e)
 
 
 def finalize(state: ServerState, k: int, *,

@@ -4,11 +4,15 @@ lifecycle (counterpart of ``repro/fed/api.py``).
 ``FederationPlan`` has the JAX package's fields and defaults, plus
 ``device`` (default ``"cuda"``). The serving options run as in the JAX
 package: ``fold_policy`` drop, lru or weighted_reservoir, ``refresh``
-sync or async, ``autoscale`` off, latency or throughput. A value whose
-code the port does not have yet (drift, the encoder, a topology other
-than simulated, ``serve_axes``) is refused with a ``PlanError`` naming
-the field; that is validation, not a fallback. ``Session`` owns one
-lifecycle: ``run`` (the one-shot round), ``begin``/``fold``/``finalize``
+sync or async, ``autoscale`` off, latency or throughput. ``topology``
+``replicated`` and ``sharded`` run the round over a ``utils.mesh.Mesh``
+(``Session(plan, mesh=...)``, one process per rank) and ``serve_axes``
+splits each serve batch over the mesh's ranks. A value whose code the
+port does not have yet (drift, the encoder, ``serve_axes`` with heads
+on: the sharded routed step, ROADMAP item 5b) is refused with a
+``PlanError`` naming the field; that is validation, not a fallback.
+``Session`` owns one lifecycle: ``run`` (the one-shot round),
+``begin``/``fold``/``finalize``
 (asynchronous cohort arrival),
 ``attach``/``serve``/``submit``/``flush``/``refresh`` (streaming Theorem
 3.2 attachment with incremental folding), ``attach_fn`` (a closure that
@@ -31,9 +35,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import server
+from repro_torch.core.distributed import kfed_shard_map_impl
 from repro_torch.core.lloyd import lloyd_attach
 from repro_torch.core.local_kmeans import local_prepare, split_local_kw
 from repro_torch.fed import engine as E
+from repro_torch.fed.plane import ServePlane, ServePlaneError
 from repro_torch.fed.stream import AttachService, StreamConfig, StreamConfigError
 from repro_torch.utils.prng import GumbelSource
 
@@ -124,8 +130,6 @@ class FederationPlan:
         if self.topology not in TOPOLOGIES:
             _bad("topology", self.topology,
                  f"accepted values are {list(TOPOLOGIES)}")
-        if self.topology != "simulated":
-            _not_ported("topology", self.topology, "'simulated'")
         if isinstance(self.mesh_axes, str):
             object.__setattr__(self, "mesh_axes", (self.mesh_axes,))
         if (not self.mesh_axes
@@ -135,9 +139,21 @@ class FederationPlan:
         if self.fold_capacity is not None and self.fold_capacity < 1:
             _bad("fold_capacity", self.fold_capacity,
                  "must be None (infer the device count) or an int >= 1")
+        if isinstance(self.serve_axes, str):
+            object.__setattr__(self, "serve_axes", (self.serve_axes,))
         if self.serve_axes is not None:
-            _not_ported("serve_axes", self.serve_axes,
-                        "None (single-device serving)")
+            if (not self.serve_axes
+                    or not all(isinstance(a, str) for a in self.serve_axes)):
+                _bad("serve_axes", self.serve_axes,
+                     "must be None (single-device serving) or a non-empty "
+                     "tuple of mesh axis names, e.g. ('data',)")
+            object.__setattr__(self, "serve_axes", tuple(self.serve_axes))
+            if self.heads != "off":
+                raise PlanError(
+                    f"FederationPlan.serve_axes={self.serve_axes!r} with "
+                    f"heads={self.heads!r} is not in the PyTorch port yet: "
+                    f"the sharded routed step is ROADMAP item 5b (serve "
+                    f"with serve_axes=None, or heads='off')")
         if not isinstance(self.local_kw, Mapping):
             _bad("local_kw", self.local_kw,
                  "must be a mapping of Algorithm 1 options")
@@ -232,15 +248,40 @@ class Session:
     per-cluster head parameters the serving layer starts with (see
     ``convert.heads`` for the JAX package's); by default they are drawn
     from ``seed``.
+
+    The ``replicated`` and ``sharded`` topologies and ``serve_axes``
+    take ``mesh``, a ``utils.mesh.Mesh``: every rank builds the same
+    Session and calls it with the same host inputs, moves only its
+    shard to its device, and gets the same results back (the round's
+    labels gathered, tau replicated). A checkpoint is written by rank 0.
     """
 
-    def __init__(self, plan: FederationPlan, *, seed: int = 0,
+    def __init__(self, plan: FederationPlan, *, mesh=None, seed: int = 0,
                  device=None, gumbel: Optional[GumbelSource] = None,
                  heads=None):
         if not isinstance(plan, FederationPlan):
             raise PlanError(f"Session needs a FederationPlan, got "
                             f"{type(plan).__name__}")
+        if plan.topology != "simulated":
+            if mesh is None:
+                raise PlanError(
+                    f"FederationPlan.topology={plan.topology!r} needs a "
+                    f"mesh: Session(plan, mesh=...)")
+            missing = [a for a in plan.mesh_axes if a not in mesh.shape]
+            if missing:
+                _bad("mesh_axes", tuple(plan.mesh_axes),
+                     f"axes {missing} not in the mesh (available: "
+                     f"{list(mesh.shape)})")
+        if plan.serve_axes is not None:
+            # The serve plane's one rule set, checked now rather than at
+            # the first (lazy) serve.
+            try:
+                ServePlane.validate_mesh_axes(mesh, plan.serve_axes,
+                                              plan.batch_size)
+            except ServePlaneError as e:
+                raise PlanError(str(e)) from None
         self.plan = plan
+        self.mesh = mesh
         self.device = resolve_device(plan.device if device is None
                                      else device)
         self._seed = int(seed)
@@ -260,21 +301,41 @@ class Session:
             point_mask=None) -> RunResult:
         """The one communication round (Algorithm 1 on every device,
         Algorithm 2 on the server, Definition 3.3 labels)."""
-        data = self._data(data)
-        rr = E.run_round_impl(self._source(key), data,
-                              self.plan.engine_config(),
-                              participation=self._tensor(participation),
-                              k_valid=self._tensor(k_valid),
-                              point_mask=self._tensor(point_mask))
-        self._set_round(rr, rr.agg.tau_centers)
-        return RunResult(rr.labels, rr.agg.tau_centers, rr)
+        if self.plan.topology == "simulated":
+            data = self._data(data)
+            rr = E.run_round_impl(self._source(key), data,
+                                  self.plan.engine_config(),
+                                  participation=self._tensor(participation),
+                                  k_valid=self._tensor(k_valid),
+                                  point_mask=self._tensor(point_mask))
+            self._set_round(rr, rr.agg.tau_centers)
+            return RunResult(rr.labels, rr.agg.tau_centers, rr)
+        # Every rank holds the host inputs and moves its own shard.
+        if not isinstance(data, torch.Tensor):
+            data = np.asarray(data, np.float32)
+        self._check_data(data)
+        labels, tau = kfed_shard_map_impl(
+            self.mesh, data, self.plan.k, self.plan.k_prime,
+            source=self._source(key), axis=tuple(self.plan.mesh_axes),
+            server=self.plan.topology, participation=participation,
+            weight_by_core_counts=self.plan.weight_by_core_counts,
+            k_valid=k_valid, point_mask=point_mask, device=self.device,
+            **dict(self.plan.local_kw))
+        self._set_round(None, tau)
+        return RunResult(labels, tau, None)
 
     # ---------------------------------------------------- async fold --
     def begin(self, key, data, *, k_valid=None,
               point_mask=None) -> "Session":
         """Start an asynchronous round: run the local stage (Algorithm 1
         on every device) and open an empty fold state sized
-        ``plan.fold_capacity`` (default: the device count)."""
+        ``plan.fold_capacity`` (default: the device count). Staged
+        arrival runs on the simulated topology."""
+        if self.plan.topology != "simulated":
+            raise SessionError(
+                "fold/finalize staged arrival runs on the simulated "
+                "topology; the replicated and sharded topologies are "
+                "one-shot run()")
         data = self._data(data)
         cfg = self.plan.engine_config()
         loc = E.local_stage(self._source(key), data, cfg,
@@ -340,21 +401,24 @@ class Session:
     @property
     def service(self) -> AttachService:
         """The streaming attachment layer, started on first use: seeded
-        with tau and the participants' reports after a round, or with tau
-        alone after :meth:`from_tau`."""
+        with tau and the participants' reports after a simulated round,
+        or with tau alone after a replicated or sharded round (the
+        device reports never left their shards) or :meth:`from_tau`."""
         if self._svc is None:
             cfg = self.plan.stream_config()
             kw = dict(seed=self._seed, gumbel=self._gumbel,
-                      heads=self._heads, device=self.device)
+                      heads=self._heads, device=self.device, mesh=self.mesh,
+                      serve_axes=self.plan.serve_axes)
             if self._round is not None:
                 self._svc = AttachService._from_round(self._round, cfg, **kw)
             elif self._tau is not None:
                 if self.plan.refresh_every:
                     warnings.warn(
                         "Session streaming is seeded with tau centers only "
-                        "(from_tau): refresh_every will re-finalize over "
-                        "the streamed reports alone, without the round's "
-                        "device reports. Seed via a round or "
+                        "(a replicated or sharded round, or from_tau): "
+                        "refresh_every will re-finalize over the streamed "
+                        "reports alone, without the round's device "
+                        "reports. Seed via a simulated round or "
                         "Session.from_round, or set refresh_every=0 to "
                         "keep tau fixed.", UserWarning, stacklevel=3)
                 self._svc = AttachService(cfg, self._tau, **kw)
@@ -464,19 +528,20 @@ class Session:
         return self.service.save(path)
 
     @classmethod
-    def restore(cls, path: str, plan: FederationPlan, *, seed: int = 0,
-                device=None,
+    def restore(cls, path: str, plan: FederationPlan, *, mesh=None,
+                seed: int = 0, device=None,
                 gumbel: Optional[GumbelSource] = None) -> "Session":
         """A serving session from a checkpoint written by :meth:`save` or
         by the JAX package's ``Session.save`` (schemas v1-v5), on
-        ``device`` (default: ``plan.device``). Restore then serve gives
-        the labels and tau versions of the uninterrupted session: the
-        serving draws are keyed by the archive's base seed, or come from
-        ``gumbel``."""
-        sess = cls(plan, seed=seed, device=device, gumbel=gumbel)
+        ``device`` (default: ``plan.device``); every rank of ``mesh``
+        restores. Restore then serve gives the labels and tau versions
+        of the uninterrupted session, sharded or not: the serving draws
+        are keyed by the archive's base seed, or come from ``gumbel``."""
+        sess = cls(plan, mesh=mesh, seed=seed, device=device, gumbel=gumbel)
         sess._svc = AttachService._restore(path, plan.stream_config(),
                                            gumbel=gumbel,
-                                           device=sess.device)
+                                           device=sess.device, mesh=mesh,
+                                           serve_axes=plan.serve_axes)
         sess._tau = sess._svc.tau
         return sess
 
@@ -514,12 +579,17 @@ class Session:
         self._round, self._tau = rr, tau
         self._svc = None
 
+    def _check_data(self, data) -> None:
+        shape = tuple(data.shape if hasattr(data, "shape")
+                      else np.shape(data))
+        if len(shape) != 3:
+            raise PlanError(f"device data must be (Z, n, d), got shape "
+                            f"{shape}")
+        if int(shape[-1]) != self.plan.d:
+            raise PlanError(f"device data feature dim {int(shape[-1])}"
+                            f" != FederationPlan.d={self.plan.d}")
+
     def _data(self, data) -> torch.Tensor:
         data = self._tensor(data).float()
-        if data.dim() != 3:
-            raise PlanError(f"device data must be (Z, n, d), got shape "
-                            f"{tuple(data.shape)}")
-        if int(data.shape[-1]) != self.plan.d:
-            raise PlanError(f"device data feature dim {int(data.shape[-1])}"
-                            f" != FederationPlan.d={self.plan.d}")
+        self._check_data(data)
         return data

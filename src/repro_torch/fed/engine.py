@@ -46,12 +46,15 @@ def core_weights(loc: LocalKMeansResult) -> torch.Tensor:
 
 
 def local_stage(source: GumbelSource, device_data: torch.Tensor,
-                cfg: EngineConfig, *, k_valid=None,
-                point_mask=None) -> LocalKMeansResult:
+                cfg: EngineConfig, *, k_valid=None, point_mask=None,
+                first_id: int = 0) -> LocalKMeansResult:
     """Stage 1: Algorithm 1 over the device axis. Device z's k-means++
-    draws come from ``source`` under id z."""
+    draws come from ``source`` under its global id ``first_id + z``, so
+    a shard holding devices [first_id, first_id + Z) draws what the
+    whole round would draw for them."""
     Z, n, _ = device_data.shape
-    gumbel = source.draw(range(Z), cfg.k_prime, n, device_data.device)
+    gumbel = source.draw(range(first_id, first_id + Z), cfg.k_prime, n,
+                         device_data.device)
     return local_kmeans(gumbel, device_data, k_max=cfg.k_prime,
                         k_valid=k_valid, point_mask=point_mask,
                         **cfg.local_kw)

@@ -1,16 +1,25 @@
-"""The single-host serve plane (counterpart of ``repro/fed/plane.py``
-without its mesh and encoder parts).
+"""The serve plane (counterpart of ``repro/fed/plane.py`` without its
+encoder part; DESIGN.md §11).
 
 It owns the device computations of the serving hot path — the serve
 step, the routed personalization step (DESIGN.md §16, ``heads !=
 "off"``) and the fold scatter — and the double-buffered, versioned tau
 the steps read. Queues, buckets, policies and refresh cadence live in
 ``fed/stream.py``.
+
+With ``serve_axes`` (and a ``utils.mesh.Mesh``) the plane is sharded:
+the request batch splits over the ranks of those mesh axes, tau and the
+fold state stay replicated, and the fold runs through
+``server.aggregate_incremental_sharded``. ``serve_axes`` grants up to
+``n_shards`` ranks; the autoscale controller may run a flush on fewer
+(``shards=`` on :meth:`ServePlane.step` and :meth:`ServePlane.fold`),
+down to one, and a multi-axis grant switches only between 1 and the
+whole grant.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +31,12 @@ from repro_torch.fed.personalize import majority_vote
 from repro_torch.kernels import ops
 from repro_torch.models.heads import apply_heads
 
-__all__ = ["ServePlane", "TauBuffer", "route_capacity"]
+__all__ = ["ServePlane", "ServePlaneError", "TauBuffer", "route_capacity"]
+
+
+class ServePlaneError(ValueError):
+    """A serve-plane configuration failed validation (named, with the
+    accepted values), raised at construction."""
 
 
 class TauBuffer(NamedTuple):
@@ -170,17 +184,66 @@ def _make_routed_step(cfg):
 
 
 class ServePlane:
-    """Serve step, routed step and fold scatter on one device.
+    """Serve step, routed step and fold scatter, on one device or
+    sharded over the ranks of ``serve_axes``.
+
+    Sharded, at ``s`` active shards shard i < s serves rows
+    [i B/s, (i+1) B/s) of a B-request batch: it draws, moves and solves
+    only those. The labels are gathered over the whole grant, so every
+    rank delivers the whole batch; a rank outside the first s skips the
+    step and sends a placeholder that the gather drops. The reports stay
+    on the shard that computed them until the fold, whose one gather
+    moves them. Per request, every result is the single-device plane's
+    bit for bit: a request's computation depends on its own draws and
+    points only.
 
     ``compile_count`` counts the first-seen (kind, shards, shape)
     signatures of the steps and folds, as the JAX package's plane counts
     its compiled ones: here each is one distinct shape, and with it one
     set of kernel launch plans. Under autoscaling it stays flat once
-    the traffic's (batch, rung) pairs have each been seen."""
+    the traffic's (shards, batch, rung) triples have each been seen."""
 
-    def __init__(self, cfg, device):
+    @staticmethod
+    def validate_mesh_axes(mesh, axes, batch_size: int) -> int:
+        """The serve-axes rules (checked by ``Session`` and by the
+        plane): returns the shard count, or raises
+        :class:`ServePlaneError` naming the field."""
+        if not axes or not all(isinstance(a, str) for a in axes):
+            raise ServePlaneError(
+                f"serve_axes={axes!r} is invalid: must be None "
+                f"(single-device serving) or a non-empty tuple of mesh "
+                f"axis names, e.g. ('data',)")
+        if mesh is None:
+            raise ServePlaneError(
+                f"serve_axes={tuple(axes)!r} needs a mesh: "
+                f"Session(plan, mesh=...)")
+        missing = [a for a in axes if a not in mesh.shape]
+        if missing:
+            raise ServePlaneError(
+                f"serve_axes={tuple(axes)!r}: axes {missing} not in "
+                f"the mesh (available: {list(mesh.shape)})")
+        n = mesh.size(axes)
+        if batch_size % n:
+            raise ServePlaneError(
+                f"batch_size={batch_size} is invalid: must be "
+                f"divisible by the serve_axes shard count {n} "
+                f"(axes {tuple(axes)})")
+        return n
+
+    def __init__(self, cfg, device, mesh=None, serve_axes=None):
         self.cfg = cfg
         self.device = torch.device(device)
+        axes = tuple(serve_axes) if serve_axes else None
+        self.n_shards = (self.validate_mesh_axes(mesh, axes, cfg.batch_size)
+                         if axes else 1)
+        if axes and cfg.head_spec() is not None:
+            raise ServePlaneError(
+                f"serve_axes={axes!r} with heads={cfg.heads!r} is not in "
+                f"the PyTorch port yet: the sharded routed step is ROADMAP "
+                f"item 5b")
+        self.mesh = mesh
+        self.axes = axes
+        self.group = mesh.group(axes) if axes else None
         self._step = _make_step(cfg)
         self._routed = (_make_routed_step(cfg)
                         if cfg.head_spec() is not None else None)
@@ -189,52 +252,131 @@ class ServePlane:
         self._signatures = set()
         self.compile_count = 0
 
-    def _count(self, kind: str, shape) -> None:
-        sig = (kind, 1, tuple(shape))
+    def _count(self, kind: str, s: int, shape) -> None:
+        sig = (kind, s, tuple(shape))
         if sig not in self._signatures:
             self._signatures.add(sig)
             self.compile_count += 1
 
-    def step(self, tau, gumbel, data, point_mask, k_valid):
-        """Serve one fixed-shape (B, n_pad, d) batch. ``gumbel``: the
-        batch's k-means++ noise (B, k', n_pad). Returns (labels
-        (B, n_pad), centers (B, k', d), center_mask (B, k'), core
-        weights (B, k'))."""
-        self.steps += 1
-        self._count("step", data.shape)
-        return self._step(tau, gumbel, data, point_mask, k_valid)
+    def _shards(self, shards: Optional[int]) -> int:
+        s = self.n_shards if shards is None else int(shards)
+        if not 1 <= s <= self.n_shards:
+            raise ServePlaneError(
+                f"shards={s} is invalid: the plan's serve_axes grant "
+                f"1..{self.n_shards} active shards")
+        if s not in (1, self.n_shards) and len(self.axes) > 1:
+            raise ServePlaneError(
+                f"shards={s} is invalid: multi-axis serve_axes "
+                f"{self.axes!r} only switch between 1 and the full "
+                f"grant ({self.n_shards})")
+        return s
 
-    def routed_step(self, tau, head_params, gumbel, data, point_mask,
-                    k_valid):
-        """Serve one (B, n_pad, d) batch through the per-cluster heads.
-        Returns the :meth:`step` quadruple plus (preds (B, d) f32,
-        cluster (B,) int32, kept (B,) bool); preds are zero and kept is
-        False where the request overflowed its cluster's queue."""
+    def rows(self, B: int, shards: Optional[int] = None) -> Tuple[int, int]:
+        """This rank's rows [lo, hi) of a B-request batch at ``shards``
+        active shards: all of them on a single-device plane, none
+        (lo == hi) on a rank outside the active shards."""
+        if self.group is None:
+            return 0, B
+        s = self._shards(shards)
+        b = B // s
+        i = self.group.index
+        return (i * b, (i + 1) * b) if i < s else (0, 0)
+
+    def _inputs(self, source, rids, data, point_mask, k_valid):
+        """A host batch on the device, with its k-means++ draws."""
+        dev = self.device
+        return (source.draw([int(r) for r in rids], self.cfg.k_prime,
+                            data.shape[1], dev),
+                torch.from_numpy(np.ascontiguousarray(data)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(point_mask)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(k_valid)).to(dev))
+
+    def step(self, tau, source, rids, data, point_mask, k_valid,
+             shards: Optional[int] = None):
+        """Serve one fixed-shape batch given on the host: ``data``
+        (B, n_pad, d) f32, ``point_mask`` (B, n_pad), ``k_valid`` (B,)
+        and the request ids ``rids`` that key each request's draws from
+        ``source``. ``shards``: the active shard count (default: the
+        whole grant). Returns (labels (B, n_pad) of the whole batch, and
+        this rank's rows of the reports: centers (b, k', d), center_mask
+        (b, k'), core weights (b, k'))."""
+        B, n_pad, d = data.shape
+        s = self._shards(shards) if self.group is not None else 1
         self.steps += 1
-        self._count("routed", data.shape)
-        return self._routed(tau, head_params, gumbel, data, point_mask,
-                            k_valid)
+        self._count("step", s, data.shape)
+        lo, hi = self.rows(B, s)
+        if hi > lo:
+            out = self._step(tau, *self._inputs(
+                source, rids[lo:hi], data[lo:hi], point_mask[lo:hi],
+                k_valid[lo:hi]))
+        else:
+            b, kp, dev = B // s, self.cfg.k_prime, self.device
+            out = (torch.zeros((b, n_pad), dtype=torch.int32, device=dev),
+                   torch.zeros((b, kp, d), device=dev),
+                   torch.zeros((b, kp), dtype=torch.bool, device=dev),
+                   torch.zeros((b, kp), device=dev))
+        if self.group is None:
+            return out
+        return (self.group.all_gather(out[0], active=s),) + tuple(out[1:])
+
+    def routed_step(self, tau, head_params, source, rids, data, point_mask,
+                    k_valid):
+        """Serve one host batch (as :meth:`step`, single-device) through
+        the per-cluster heads. Returns the :meth:`step` quadruple plus
+        (preds (B, d) f32, cluster (B,) int32, kept (B,) bool); preds
+        are zero and kept is False where the request overflowed its
+        cluster's queue."""
+        self.steps += 1
+        self._count("routed", 1, data.shape)
+        return self._routed(tau, head_params, *self._inputs(
+            source, rids, data, point_mask, k_valid))
+
+    def gather_rows(self, x: torch.Tensor,
+                    shards: Optional[int] = None) -> torch.Tensor:
+        """The whole batch of a per-request tensor of which this rank
+        holds its :meth:`rows` (itself on a single-device plane)."""
+        if self.group is None:
+            return x
+        return self.group.all_gather(x, active=self._shards(shards))
 
     def localize(self, x) -> torch.Tensor:
         """A tensor on the plane's device."""
         return torch.as_tensor(x, device=self.device)
 
-    def fold(self, state, slots, centers, cmask, weights=None, epochs=None):
-        """Scatter one batch of admitted reports into the fold state;
-        slots at or beyond the capacity are dropped. ``epochs``: the
-        request ids stamped on the slots (default: the slots)."""
+    def fold(self, state, slots, centers, cmask, weights=None, epochs=None,
+             shards: Optional[int] = None):
+        """Scatter one batch of admitted reports into the fold state.
+        ``slots`` (B,) cover the whole batch; slots at or beyond the
+        capacity are dropped. ``epochs``: the request ids stamped on the
+        slots (default: the slots). With ``shards`` on a sharded plane,
+        the reports are this rank's rows of the step at that shard
+        count and the sharded fold gathers them; otherwise they are the
+        whole batch on every rank (the round's seeding)."""
         self.folds += 1
-        self._count("fold",
-                    (int(slots.shape[0]),) + tuple(centers.shape[1:]))
+        B = int(slots.shape[0])
+        slots = torch.as_tensor(slots).to(self.device)
+        epochs = slots if epochs is None else torch.as_tensor(epochs).to(
+            self.device)
         if weights is None:
             weights = torch.ones(cmask.shape, dtype=torch.float32,
                                  device=self.device)
-        return server.aggregate_incremental(
-            state, slots, centers, cmask, weights=weights,
-            epochs=slots if epochs is None else epochs)
+        if self.group is None or shards is None:
+            self._count("fold", 1, (B,) + tuple(centers.shape[1:]))
+            return server.aggregate_incremental(
+                state, slots, centers, cmask, weights=weights,
+                epochs=epochs)
+        s = self._shards(shards)
+        self._count("fold", s, (B,) + tuple(centers.shape[1:]))
+        lo, hi = self.rows(B, s)
+        if hi == lo:  # a placeholder's rows, dropped by the gather
+            lo, hi = 0, B // s
+        return server.aggregate_incremental_sharded(
+            state, slots[lo:hi], centers, cmask, self.group,
+            weights=weights, epochs=epochs[lo:hi], active=s)
 
     def describe(self) -> dict:
-        return {"serve_axes": None, "serve_shards": 1,
+        return {"serve_axes": list(self.axes) if self.axes else None,
+                "serve_shards": self.n_shards,
                 "chunk_rows": ops.CHUNK_ROWS,
                 "plane_compiles": self.compile_count,
                 "serve_device": str(self.device),

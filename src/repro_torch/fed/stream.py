@@ -1,4 +1,4 @@
-"""The streaming attachment service, single-host path (counterpart of
+"""The streaming attachment service (counterpart of
 ``repro/fed/stream.py``).
 
 After the one round, Theorem 3.2 attaches any late device in O(k'k)
@@ -19,9 +19,15 @@ changes its labels.
     swap, one version bump, at the next flush boundary. Every served
     label carries the version that produced it.
   * **Autoscaling** (``fed/autoscale.py``): at each flush boundary a
-    deterministic controller may re-select the batch rung and the
-    active bucket ladder from the queue's depth and histogram, and each
-    bucket group right-sizes its batch to ``min(rung, pow2_ceil(len))``.
+    deterministic controller may re-select the active shard count
+    (within the plane's ``serve_axes`` grant), the batch rung and the
+    active bucket ladder from the queue's depth and histogram; each
+    bucket group right-sizes its batch to ``min(rung, pow2_ceil(len))``
+    and its shard count to what that batch divides over.
+  * **Sharded serving** (``serve_axes`` and a ``utils.mesh.Mesh``): every
+    rank runs this service on the same requests; the plane splits each
+    batch over the ranks and gathers the labels, and the fold state and
+    tau stay the same bits on every rank. Rank 0 writes the checkpoint.
   * **Routed heads** (DESIGN.md §16): with ``heads`` on every batch goes
     through the plane's routed step: the same labels, plus one
     prediction per request from the head of its majority-vote cluster
@@ -32,7 +38,7 @@ changes its labels.
     replays labels, versions and decisions exactly.
 
 Not in the port yet: drift (and with it the head re-map on
-split/retire), the encoder and multi-device serving;
+split/retire), the encoder and sharded routed serving;
 ``fed.api.FederationPlan`` refuses a plan that asks for one of them,
 and ``_restore`` an archive written under drift or the encoder.
 """
@@ -52,8 +58,10 @@ from repro_torch.checkpoint.store import (decode_tag, encode_tag,
 from repro_torch.core import server
 from repro_torch.fed.autoscale import (AUTOSCALE_IDS, AUTOSCALE_POLICIES,
                                        AutoscaleController, FlushTelemetry,
-                                       bucket_of, pow2_ceil, snapshot_queue)
-from repro_torch.fed.plane import ServePlane, TauBuffer, route_capacity
+                                       bucket_of, pow2_ceil, shards_for,
+                                       snapshot_queue)
+from repro_torch.fed.plane import (ServePlane, ServePlaneError, TauBuffer,
+                                   route_capacity)
 from repro_torch.fed.policy import (POLICIES, POLICY_IDS, FoldPolicy,
                                     make_policy)
 from repro_torch.kernels.ref import SOLVE_ATTACH_DTYPES
@@ -215,7 +223,9 @@ class AttachService:
     the per-cluster head parameters (``models.heads.init_heads``
     layout); by default they are drawn from ``seed`` on a salted
     stream. A restore (:meth:`_restore`) hands in the archive's tau
-    buffer, fold state and counters."""
+    buffer, fold state and counters. ``mesh`` and ``serve_axes`` shard
+    the serve plane (DESIGN.md §11): per request the labels are the
+    single-device plane's bit for bit for a fixed tau version."""
 
     def __init__(self, cfg: StreamConfig, tau_centers, *,
                  state: Optional[server.ServerState] = None,
@@ -224,9 +234,13 @@ class AttachService:
                  since_refresh: int = 0, served_devices: int = 0,
                  served_points: int = 0,
                  tau_buffer: Optional[TauBuffer] = None,
-                 heads=None, device="cuda"):
+                 heads=None, device="cuda", mesh=None, serve_axes=None):
         self.cfg = cfg
-        self.plane = ServePlane(cfg, device)
+        try:
+            self.plane = ServePlane(cfg, device, mesh=mesh,
+                                    serve_axes=serve_axes)
+        except ServePlaneError as e:
+            raise StreamConfigError(str(e)) from None
         self._taubuf = (TauBuffer.fresh(self.plane.localize(tau_centers))
                         if tau_buffer is None else tau_buffer._replace(
                             bufs=self.plane.localize(tau_buffer.bufs)))
@@ -240,10 +254,12 @@ class AttachService:
         self.policy = policy or make_policy(cfg.fold_policy, cfg.capacity,
                                             seed=cfg.policy_seed)
         # The flush-boundary controller: one decision a non-empty flush,
-        # on one device (one shard, one axis). With autoscale "off" its
-        # static decision is the plan's batch and ladder.
+        # against the shards serve_axes granted. With autoscale "off" its
+        # static decision is the whole grant, the plan's batch and ladder.
         self.autoscaler = AutoscaleController(
-            cfg.autoscale, max_batch=cfg.batch_size, granted=1, n_axes=1,
+            cfg.autoscale, max_batch=cfg.batch_size,
+            granted=self.plane.n_shards,
+            n_axes=len(self.plane.axes) if self.plane.axes else 1,
             base_ladder=tuple(cfg.bucket_sizes))
         self._base_seed = int(seed)
         self._gumbel = gumbel or GumbelSource(seed)
@@ -273,7 +289,8 @@ class AttachService:
     @classmethod
     def _from_round(cls, rr, cfg: StreamConfig, *, seed: int = 0,
                     gumbel: Optional[GumbelSource] = None, heads=None,
-                    device="cuda") -> "AttachService":
+                    device="cuda", mesh=None,
+                    serve_axes=None) -> "AttachService":
         """Seed the service from a finished round: cache its tau centers
         and fold the participating devices' reports, so a later refresh
         re-finalizes over round + streamed devices."""
@@ -284,7 +301,8 @@ class AttachService:
                 f"drop policy needs a slot for each of the round's "
                 f"{Z} devices")
         svc = cls(cfg, rr.agg.tau_centers, seed=seed, gumbel=gumbel,
-                  next_id=Z, heads=heads, device=device)
+                  next_id=Z, heads=heads, device=device, mesh=mesh,
+                  serve_axes=serve_axes)
         if cfg.fold_reports:
             ids = torch.nonzero(rr.participated.cpu()).reshape(-1)
             if ids.numel():
@@ -403,7 +421,8 @@ class AttachService:
             for bucket in sorted(buckets):
                 group = buckets[bucket]
                 for lo in range(0, len(group), B):
-                    self._serve_batch(group[lo:lo + B], bucket, B, staged)
+                    self._serve_batch(group[lo:lo + B], bucket, B,
+                                      decision.shards, staged)
             t1 = time.perf_counter()
             self._deliver(staged, out)
             if pending:
@@ -475,16 +494,20 @@ class AttachService:
         self._done.update(got)
         return mine
 
-    def _serve_batch(self, batch, n_pad: int, B: int, staged) -> None:
+    def _serve_batch(self, batch, n_pad: int, B: int, shards: int,
+                     staged) -> None:
         """Launch one batch's serve step and fold (and a cadence refresh)
-        and stage its labels, still on the device. Under autoscale the
-        batch right-sizes to ``min(rung, pow2_ceil(len(batch)))``, a
-        function of the group's size alone, so a replay cuts the same
-        batches. Nothing here waits for the device, except a
-        ``needs_weight`` policy's one copy of the report weights."""
+        at the flush decision's (shards, batch) and stage its labels,
+        still on the device. Under autoscale the batch right-sizes to
+        ``min(rung, pow2_ceil(len(batch)))``, a function of the group's
+        size alone, so a replay cuts the same batches, and the shard
+        count follows it down (``shards_for``). Nothing here waits for
+        the device, except a ``needs_weight`` policy's one copy of the
+        report weights."""
         cfg = self.cfg
         if cfg.autoscale != "off":
             B = min(B, pow2_ceil(len(batch)))
+            shards = shards_for(B, shards, self.autoscaler.n_axes)
         data = np.zeros((B, n_pad, cfg.d), np.float32)
         pmask = np.zeros((B, n_pad), bool)
         kv = np.full((B,), cfg.k_prime, np.int32)
@@ -496,33 +519,33 @@ class AttachService:
             pmask[i, :n] = True
             kv[i] = k_valid
             rids[i] = rid
-        dev = self.plane.device
-        gumbel = self._gumbel.draw(rids.tolist(), cfg.k_prime, n_pad, dev)
         version = self._taubuf.version
-        args = (gumbel, torch.from_numpy(data).to(dev),
-                torch.from_numpy(pmask).to(dev), torch.from_numpy(kv).to(dev))
+        args = (self._gumbel, rids, data, pmask, kv)
         routed = None
         if self._head_spec is None:
-            labels, centers, cmask, weights = self.plane.step(self.tau,
-                                                              *args)
+            labels, centers, cmask, weights = self.plane.step(
+                self.tau, *args, shards=shards)
         else:
             (labels, centers, cmask, weights, preds, cluster,
              kept) = self.plane.routed_step(self.tau, self.heads, *args)
             routed = (preds, cluster, kept)
         if cfg.fold_reports:
-            self._fold(batch, rids, centers, cmask, weights)
+            self._fold(batch, rids, centers, cmask, weights, shards)
         staged.append((batch, labels, version, routed))
 
     # -------------------------------------------------------------- fold --
 
     def _admit_and_fold(self, rids, dev_w, centers, cmask, fold_w,
-                        total: Optional[int] = None) -> int:
+                        total: Optional[int] = None,
+                        shards: Optional[int] = None) -> int:
         """Admit a batch of reports through the policy (``dev_w``: each
         report's core-set mass, for a ``needs_weight`` policy) and
         scatter the granted ones into their slots; padding rows and
         declined reports carry the out-of-capacity slot and are dropped.
-        Returns the number of granted admissions (the refresh-cadence
-        count)."""
+        ``shards``: the step's active shard count, whose rows of the
+        reports this rank holds (None: the whole batch, the round's
+        seeding). Returns the number of granted admissions (the
+        refresh-cadence count)."""
         slots, granted = self.policy.admit_padded(rids, dev_w, total=total)
         if granted:
             # Stamp each admitted slot with its request id.
@@ -531,18 +554,20 @@ class AttachService:
             dev = self.plane.device
             self.state = self.plane.fold(
                 self.state, torch.from_numpy(slots).to(dev), centers, cmask,
-                weights=fold_w, epochs=torch.from_numpy(ep).to(dev))
+                weights=fold_w, epochs=torch.from_numpy(ep).to(dev),
+                shards=shards)
         return granted
 
-    def _fold(self, batch, rids, centers, cmask, weights) -> None:
+    def _fold(self, batch, rids, centers, cmask, weights, shards) -> None:
         # The reservoir's keys need each report's mass on the host: one
         # copy a batch, summed over the axis the JAX package sums over.
-        dev_w = (torch.sum(weights, dim=1).cpu().numpy()[:len(batch)]
+        dev_w = (self.plane.gather_rows(torch.sum(weights, dim=1), shards)
+                 .cpu().numpy()[:len(batch)]
                  if self.policy.needs_weight else None)
         admitted = self._admit_and_fold(
             rids[:len(batch)], dev_w, centers, cmask,
             weights if self.cfg.weight_by_core_counts else None,
-            total=len(rids))
+            total=len(rids), shards=shards)
         if not admitted:
             return
         self._since_refresh += admitted
@@ -593,7 +618,8 @@ class AttachService:
         the drift arrays of its "off" mode, and with heads on (schema
         v5) the head parameters, their tag and the routed counters. A
         restore in either package replays the labels, tau versions and
-        decisions. Pending requests are not stored."""
+        decisions. Pending requests are not stored. On a mesh, rank 0
+        writes and every rank waits for it at a barrier."""
         extra = {}
         if self._head_spec is not None:
             extra["heads"] = self.heads
@@ -602,7 +628,7 @@ class AttachService:
             extra["heads_counters"] = np.asarray(
                 [self._routed_served, self._overflowed], np.int64)
         cfg = self.cfg
-        return save_pytree(path, {
+        tree = {
             **extra,
             "tau_bufs": self._taubuf.bufs,
             "tau_meta": self._taubuf.meta_array(),
@@ -615,15 +641,19 @@ class AttachService:
             "drift_id": np.asarray(DRIFT_IDS["off"], np.int64),
             "drift_state": np.zeros((3,), np.int64),
             "drift_mass": np.zeros((cfg.k,), np.float32),
-            **self.autoscaler.state_arrays()})
+            **self.autoscaler.state_arrays()}
+        return save_pytree(path, tree, mesh=self.plane.mesh)
 
     @classmethod
     def _restore(cls, path: str, cfg: StreamConfig, *,
                  gumbel: Optional[GumbelSource] = None,
-                 device="cuda") -> "AttachService":
+                 device="cuda", mesh=None,
+                 serve_axes=None) -> "AttachService":
         """A service from an archive of schema v1-v5 (the JAX package's
         or the port's), on ``device``. Serving draws are keyed by the
-        archive's base seed unless ``gumbel`` is given. The policy's
+        archive's base seed unless ``gumbel`` is given; ``mesh`` and
+        ``serve_axes`` shard the plane (an archive restores sharded or
+        not, whichever way it was written). The policy's
         slots, a staged tau swap (committed at the first flush) and the
         autoscale decision state are taken over, so serving replays the
         writer's. An archive is refused by the field it disagrees on:
@@ -712,7 +742,8 @@ class AttachService:
                   policy=policy, seed=int(cnt[4]), gumbel=gumbel,
                   next_id=int(cnt[0]), since_refresh=int(cnt[1]),
                   served_devices=int(cnt[2]), served_points=int(cnt[3]),
-                  heads=tree.get("heads"), device=dev)
+                  heads=tree.get("heads"), device=dev, mesh=mesh,
+                  serve_axes=serve_axes)
         if "heads_counters" in extras:
             hc = np.asarray(extras["heads_counters"], np.int64)
             svc._routed_served, svc._overflowed = int(hc[0]), int(hc[1])

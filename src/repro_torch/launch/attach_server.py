@@ -14,13 +14,24 @@ serve the rest of the stream bit for bit as the uninterrupted one.
       --autoscale throughput --checkpoint /tmp/attach.npz
 
 It runs on the card unless given ``--device cpu`` (the plain PyTorch
-versions of the kernels). Multi-device serving (the reference's
-``--serve-axes`` and ``--force-host-devices``) is not in the port.
+versions of the kernels). ``--serve-axes`` shards each serve batch over
+the ranks of a ``torch.distributed`` world started by ``torchrun`` (rank
+and world size come from its environment; the mesh puts every rank on
+the first named axis), over NCCL on the card, one rank a card, or gloo
+(``--backend gloo``: on the CPU, or ranks sharing a card):
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.attach_server \\
+      --serve-axes data --device cpu
+
+Every rank serves the same stream and rank 0 prints. The JAX package's
+``--force-host-devices`` is refused by name: its counterpart here is
+``torchrun --nproc-per-node``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 
@@ -65,7 +76,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
-    return ap.parse_args(argv)
+    ap.add_argument("--serve-axes", default=None, metavar="AXES",
+                    help="comma-separated mesh axes to shard the serve "
+                         "batch over (run under torchrun; --batch-size "
+                         "must divide over the ranks)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the mesh's collectives: nccl (default on the "
+                         "card, one rank a card) or gloo (default on the "
+                         "CPU; ranks may share a card)")
+    ap.add_argument("--force-host-devices", type=int, default=0,
+                    metavar="N", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.force_host_devices:
+        ap.error("--force-host-devices is the JAX package's flag; in the "
+                 "port run the server under torchrun --nproc-per-node N "
+                 "with --serve-axes")
+    return args
 
 
 def main(argv=None) -> None:
@@ -78,6 +104,22 @@ def main(argv=None) -> None:
     from repro_torch.kernels import ops
     from repro_torch.utils.metrics import clustering_accuracy
 
+    serve_axes = (tuple(args.serve_axes.split(","))
+                  if args.serve_axes else None)
+    mesh = None
+    if serve_axes:
+        from repro_torch.utils.mesh import make_mesh
+        backend = args.backend or ("gloo" if args.device == "cpu"
+                                   else "nccl")
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        mesh = make_mesh((world,) + (1,) * (len(serve_axes) - 1),
+                         serve_axes, backend=backend)
+    lead = mesh is None or mesh.rank == 0
+
+    def say(line: str) -> None:
+        if lead:
+            print(line, flush=True)
+
     k, kp, d = args.k, args.k_prime, args.d
     fm = structured_devices(args.seed, k=k, d=d, k_prime=kp,
                             m0=args.devices_per_group, n_per_comp_dev=25,
@@ -89,13 +131,16 @@ def main(argv=None) -> None:
                           fold_policy=args.fold_policy, heads=args.heads,
                           head_arch=args.head_arch,
                           head_capacity=args.head_capacity,
-                          checkpoint=args.checkpoint, device=args.device)
-    sess = Session(plan)
+                          checkpoint=args.checkpoint, device=args.device,
+                          serve_axes=serve_axes)
+    sess = Session(plan, mesh=mesh)
+    if mesh is not None:
+        say(f"mesh: {mesh.describe()}")
     rr = sess.run(args.seed + 1, fm.data)
     Z = fm.data.shape[0]
     acc0 = clustering_accuracy(rr.labels.cpu().numpy(), fm.labels, k)
-    print(f"round: Z={Z} devices, k={k}, k'={kp}, accuracy "
-          f"{100 * acc0:.2f}% on {sess.device}")
+    say(f"round: Z={Z} devices, k={k}, k'={kp}, accuracy "
+        f"{100 * acc0:.2f}% on {sess.device}")
 
     stream = late_device_stream(fm.means, kp, args.requests, args.seed + 2)
     half = len(stream) // 2
@@ -113,31 +158,31 @@ def main(argv=None) -> None:
             for (lbl, _), r in zip(out, stream[:half])]
     st = sess.stats()
     versions = sorted({v for _, v in out})
-    print(f"served {half} devices / {pts} points in {dt:.2f}s "
-          f"({half / dt:.1f} dev/s, {pts / dt:.0f} pts/s) on "
-          f"{st['serve_shards']} serve shard(s), tau versions {versions}, "
-          f"mean accuracy {100 * float(np.mean(accs)):.2f}%")
+    say(f"served {half} devices / {pts} points in {dt:.2f}s "
+        f"({half / dt:.1f} dev/s, {pts / dt:.0f} pts/s) on "
+        f"{st['serve_shards']} serve shard(s), tau versions {versions}, "
+        f"mean accuracy {100 * float(np.mean(accs)):.2f}%")
     if args.heads != "off":
         h = st["heads"]
         routed = [p for p in preds if p.routed]
         clusters = sorted({p.cluster for p in routed})
         mean_pred = (float(np.mean([np.abs(p.prediction).mean()
                                     for p in routed])) if routed else 0.0)
-        print(f"heads[{h['mode']}/{h['arch']}]: routed {len(routed)}/{half}"
-              f" requests over {len(clusters)} cluster head(s) "
-              f"({h['params_per_head']} params/head, {h['queue_capacity']}"
-              f" queue slots/cluster, {h['overflowed']} overflowed), mean "
-              f"|prediction| {mean_pred:.3f}")
+        say(f"heads[{h['mode']}/{h['arch']}]: routed {len(routed)}/{half}"
+            f" requests over {len(clusters)} cluster head(s) "
+            f"({h['params_per_head']} params/head, {h['queue_capacity']}"
+            f" queue slots/cluster, {h['overflowed']} overflowed), mean "
+            f"|prediction| {mean_pred:.3f}")
 
     if args.checkpoint:
         sess.save()
-        restored = Session.restore(args.checkpoint, plan)
+        restored = Session.restore(args.checkpoint, plan, mesh=mesh)
         live = sess.serve_versioned(*rest)
         again = restored.serve_versioned(*rest)
         same = all(np.array_equal(a, b) and va == vb
                    for (a, va), (b, vb) in zip(live, again))
-        print(f"checkpoint -> restore -> serve: bitwise identical labels "
-              f"AND tau versions vs uninterrupted session: {same}")
+        say(f"checkpoint -> restore -> serve: bitwise identical labels "
+            f"AND tau versions vs uninterrupted session: {same}")
         if not same:
             raise SystemExit("the restored session served other labels or "
                              "tau versions than the uninterrupted one")
@@ -145,18 +190,21 @@ def main(argv=None) -> None:
         sess.serve(*rest)
 
     st = sess.stats()
-    print(f"stats: {st['served_devices']} served, {st['folded']} folded "
-          f"(capacity {st['capacity']}, policy {st['fold_policy']}), "
-          f"refresh cadence {args.refresh_every} ({args.refresh}), final "
-          f"tau version {st['tau_version']}")
+    say(f"stats: {st['served_devices']} served, {st['folded']} folded "
+        f"(capacity {st['capacity']}, policy {st['fold_policy']}), "
+        f"refresh cadence {args.refresh_every} ({args.refresh}), final "
+        f"tau version {st['tau_version']}")
     a = st["autoscale"]
-    print(f"autoscale[{a['policy']}]: active shards {a['shards']}/"
-          f"{a['granted_shards']}, batch {a['batch_size']}/"
-          f"{a['max_batch']}, ladder {a['ladder']}, {a['decisions']} "
-          f"decisions, {st['plane_compiles']} compiled signatures, last "
-          f"flush dispatch {a['last_dispatch_us']}us / materialize "
-          f"{a['last_materialize_us']}us")
-    print("launches: " + json.dumps(ops.launch_counts()))
+    say(f"autoscale[{a['policy']}]: active shards {a['shards']}/"
+        f"{a['granted_shards']}, batch {a['batch_size']}/"
+        f"{a['max_batch']}, ladder {a['ladder']}, {a['decisions']} "
+        f"decisions, {st['plane_compiles']} compiled signatures, last "
+        f"flush dispatch {a['last_dispatch_us']}us / materialize "
+        f"{a['last_materialize_us']}us")
+    say("launches: " + json.dumps(ops.launch_counts()))
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

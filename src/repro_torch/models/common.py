@@ -13,7 +13,7 @@ import torch
 class DistCtx:
     """The distribution context of the reference's signatures. The port
     runs on one device (``mesh`` None); a context with a mesh is refused
-    where a layer would shard (ROADMAP item 5)."""
+    where a layer would shard (ROADMAP item 5b)."""
     mesh: Optional[object] = None
 
     @staticmethod

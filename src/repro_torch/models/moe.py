@@ -12,7 +12,7 @@ each (token, choice) entry, an index assignment: no float scatter-add
 
 The expert-parallel paths (``impl="alltoall"`` under a mesh, and the
 shard_map expert tensor parallelism) need a device mesh; the port runs
-on one device and refuses a sharded context (ROADMAP item 5).
+on one device and refuses a sharded context (ROADMAP item 5b).
 """
 from __future__ import annotations
 
@@ -136,7 +136,7 @@ def apply_moe(p, x: torch.Tensor, cfg, ctx: DistCtx = None):
         raise NotImplementedError(
             "apply_moe: the expert-parallel paths (alltoall, shard_map "
             "expert tensor parallelism) need a device mesh and are not "
-            "ported yet (ROADMAP item 5); use DistCtx.local()")
+            "ported yet (ROADMAP item 5b); use DistCtx.local()")
     m = cfg.moe
     B, S, d = x.shape
     y, aux = _local_moe(p, x.reshape(-1, d), m)

@@ -21,7 +21,10 @@ largest magnitude (f32 products summed in another order).
 swa_decode within 2e-5 (f32) or 2e-2 (bf16, one rounding of the output)
 of the plain version's largest magnitude: an online softmax over tiles
 sums in another order than one softmax over the window.
-The helpers here are shared with test_torch_kernels.py.
+The helpers here are shared with test_torch_kernels.py. The topologies
+run here too: a one-rank NCCL round in the test's own process, and a
+two-rank gloo world of processes sharing the card
+(tests/_torch_mesh_ranks.py, which imports no jax either).
 """
 import numpy as np
 import pytest
@@ -1323,3 +1326,69 @@ def test_gpu_kfed_personalize_matches_cpu(cuda_device, kp):
     assert torch.equal(a1, a0)
     for name in m0:
         torch.testing.assert_close(m1[name], m0[name], rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_one_rank_nccl_round_equals_simulated(cuda_device, tmp_path):
+    """A one-rank NCCL world runs the real collectives: the replicated
+    and sharded rounds give the simulated round's labels, the replicated
+    one its tau bit for bit and the sharded one within 1e-4 of its
+    largest entry."""
+    import torch.distributed as dist
+
+    from repro_torch.data.gaussian import structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    from repro_torch.utils.mesh import make_mesh
+    fm = structured_devices(0, k=16, d=24, k_prime=4, m0=4,
+                            n_per_comp_dev=20, sep=60.0)
+    sim = Session(FederationPlan(k=16, k_prime=4, d=24)).run(1, fm.data)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), backend="nccl")
+        for topology in ("replicated", "sharded"):
+            out = Session(FederationPlan(k=16, k_prime=4, d=24,
+                                         topology=topology),
+                          mesh=mesh).run(1, fm.data)
+            assert torch.equal(out.labels, sim.labels), topology
+            if topology == "replicated":
+                assert torch.equal(out.tau_centers, sim.tau_centers)
+            want = sim.tau_centers.abs().max().item()
+            assert (out.tau_centers - sim.tau_centers).abs().max().item() \
+                <= 1e-4 * want
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_gpu_two_rank_gloo_plane_equals_single_process(cuda_device,
+                                                       tmp_path):
+    """Two gloo ranks share the card (collectives staged through the
+    host): the sharded plane serves the labels, tau versions and fold
+    state of one process serving alone, bit for bit, on both ranks."""
+    import _torch_mesh_ranks as R
+    from repro_torch.data.gaussian import (late_device_stream,
+                                           structured_devices)
+    from repro_torch.fed.api import FederationPlan, Session
+    fm = structured_devices(0, k=16, d=24, k_prime=4, m0=4,
+                            n_per_comp_dev=25, sep=60.0)
+    plan = dict(k=16, k_prime=4, d=24, capacity=256, batch_size=8,
+                bucket_sizes=(32, 64, 128), refresh_every=5,
+                refresh="async")
+    rr = Session(FederationPlan(**plan)).run(1, fm.data).detail
+    stream = late_device_stream(fm.means, 4, 13, 5, n_range=(10, 120))
+    reqs, kvs = [r[0] for r in stream], [r[2] for r in stream]
+    single = Session.from_round(FederationPlan(**plan), rr)
+    want = single.serve_versioned(reqs, kvs)
+    want += single.serve_versioned(reqs[:4], kvs[:4])
+    res = R.spawn(2, str(tmp_path), {"plane": dict(
+        plan=plan, round=R._to(rr, "cpu"), reqs=reqs, kvs=kvs,
+        device="cuda")})
+    for r in res:
+        got = r["plane"]
+        assert got["serve_shards"] == 2
+        for (lbl, ver), (w, wv) in zip(got["served"], want):
+            np.testing.assert_array_equal(lbl, w)
+            assert ver == wv
+        for x, y in zip(got["state"], single.service.state):
+            np.testing.assert_array_equal(x, y.cpu().numpy())

@@ -165,14 +165,17 @@ def test_from_tau_and_lifecycle_errors(mixture):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("topology", "sharded"), ("serve_axes", ("data",)), ("drift", "decay"),
+    ("serve_axes", ("data",)), ("drift", "decay"),
     ("encoder", "granite_3_2b")])
 def test_plan_refuses_what_is_not_ported(field, value):
     """A value whose code the port does not have is refused, naming the
-    field; it never falls back to something else."""
+    field; it never falls back to something else. ``serve_axes`` is
+    refused with heads on (the sharded routed step)."""
+    extra = {"heads": "linear"} if field == "serve_axes" else {}
     with pytest.raises(PlanError, match=f"FederationPlan.{field}=.*not in "
                                         f"the PyTorch port yet"):
-        FederationPlan(k=K, k_prime=KP, d=D, device="cpu", **{field: value})
+        FederationPlan(k=K, k_prime=KP, d=D, device="cpu",
+                       **{field: value, **extra})
 
 
 @pytest.mark.parametrize("field,value", [
