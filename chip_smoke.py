@@ -91,6 +91,23 @@ launches are counted in each rank and their per-shard shapes join the
 pdist, kmeans and solve lines. One card measures no multi-chip speed:
 these legs report walls only.
 
+Before the mesh legs come the drift legs: a small split_merge session
+(heads off and on) on the card against the CPU run; the drift
+benchmark (benchmarks/bench_drift.py in full mode on the port's draws:
+frozen against split_merge, whose tail mislabel rate must be no higher);
+Table 1's serve plan under decay and split_merge with its late devices
+from a resampled mixture, each cut by save and restore and replayed bit
+for bit, with a refresh timed with drift and without; and the routed
+leg's plan under split_merge, whose re-seeded centers' heads must be
+re-mapped and committed, with labels equal to a heads-off drift twin's.
+The mesh legs then also serve the routed leg's plan with
+serve_axes=("data",) (the sharded routed step: votes gathered, overflow
+decided over the whole batch), at the full grant and under latency
+autoscaling, and Table 1's split_merge plan, each equal to one process
+alone bit for bit (labels, predictions, clusters, routing, fold state,
+mass, moves). Their pdist_argmin, kmeans_update, solve_attach and
+moe_combine shapes join those lines.
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -194,6 +211,36 @@ CLI_ARGS = ("--requests", "24", "--fold-policy", "lru", "--capacity", "20",
 # legs check the collectives and report walls only.
 MESH_TOPOLOGIES = ("simulated", "replicated", "sharded")
 MESH_BURSTS = (1, 7, 8, 16)
+
+# The drift legs. benchmarks/bench_drift.py in full mode on the port's
+# draws: its round (k=16, k'=4, d=24, m0=4, 25 points a component, sep
+# 60), phase 1 (16 requests from the round's means) then phase 2 (96
+# requests of 20-60 points from means resampled x40), batches of 8 in a
+# bucket of 64, frozen (no refresh) against split_merge (a refresh every
+# 8 folds, half-life 32, retire below 0.2 of the mean mass); the tail
+# mislabel rate is the mean over phase 2's second half.
+DR_K, DR_KP, DR_D, DR_P1, DR_P2, DR_CHUNK = 16, 4, 24, 16, 96, 8
+DR_RUNS = (("frozen", dict(refresh_every=0)),
+           ("split_merge", dict(refresh_every=8, drift="split_merge",
+                                drift_half_life=32,
+                                drift_retire_frac=0.2)))
+# Table 1's serve plan (the serve leg's) under decay (half-life 16) and
+# split_merge, its 32 late devices drawn from a resampled mixture of the
+# same separation, so that the served clusters move; each run cut by a
+# save and restore after DT_CUT devices.
+DT_RUNS = (("decay", dict(drift="decay", drift_half_life=16)),
+           ("split_merge", dict(drift="split_merge", drift_half_life=16,
+                                drift_retire_frac=0.2)))
+DT_CUT = SERVE_REQUESTS // 2
+# The routed leg's plan with split_merge, a refresh every batch of 64:
+# RD_WAVES waves from means resampled x40.
+RD_DRIFT = dict(refresh_every=64, drift="split_merge", drift_half_life=64,
+                drift_retire_frac=0.2)
+RD_WAVES = 3
+# The routed plan on the mesh legs: two waves of the routed leg's
+# requests at the full grant, then under latency autoscaling in bursts
+# that take 1 and 2 active shards.
+MESH_R_WAVES, MESH_R_BURSTS = 2, (1, 15, 48, 64)
 
 
 class SmokeFailure(RuntimeError):
@@ -346,8 +393,8 @@ def kmeans_key(x, assign, k, weights=None):
 
 
 def combine_key(ybuf, slot, gates, top_k):
-    return (tuple(ybuf.shape), int(top_k), str(ybuf.dtype).replace(
-        "torch.", ""))
+    return (tuple(ybuf.shape), slot.shape[0] // int(top_k), int(top_k),
+            str(ybuf.dtype).replace("torch.", ""))
 
 
 def solve_key(x, centers0, tau, center_mask, point_mask):
@@ -713,8 +760,8 @@ def kmeans_shapes(tallies) -> None:
 
 
 def combine_name(key) -> str:
-    (S, d), top_k, dtype = key
-    return f"({S},{d}) {dtype} top_k={top_k}"
+    (S, d), tokens, top_k, dtype = key
+    return f"({S},{d}) {dtype} top_k={top_k} tokens={tokens}"
 
 
 def embedding_bag_combine(ybuf, slot, gates, top_k):
@@ -2376,6 +2423,310 @@ def decode_leg(device):
     return counts, {"moe_combine": combine_tally}
 
 
+def drift_stats(sess):
+    """A drift session's state to replay: (events, moves, last moves),
+    the mass and the staged head re-map."""
+    svc = sess.service
+    return ((svc._drift_events, svc._drift_moves, svc._drift_last),
+            svc._drift_mass.copy(),
+            None if svc._heads_perm is None else svc._heads_perm.copy())
+
+
+def same_drift(a, b) -> bool:
+    (ca, ma, pa), (cb, mb, pb) = a, b
+    return ca == cb and np.array_equal(ma, mb) and (
+        (pa is None and pb is None)
+        or (pa is not None and pb is not None and np.array_equal(pa, pb)))
+
+
+def same_predictions(got, want) -> bool:
+    """Routed results bit for bit: labels, versions, clusters, routing
+    and predictions."""
+    return len(got) == len(want) and all(
+        np.array_equal(g.labels, w.labels)
+        and np.array_equal(g.prediction, w.prediction)
+        and (g.tau_version, g.cluster, g.routed)
+        == (w.tau_version, w.cluster, w.routed) for g, w in zip(got, want))
+
+
+def small_drift_agreement(device):
+    """A small split_merge session, heads off and on (linear heads), on
+    ``device`` against the CPU run of the plain versions: labels,
+    versions, clusters, routing, drift events and moves exact, mass
+    and predictions within 1e-5 relative."""
+    from repro_torch.data.gaussian import late_device_stream, structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    fm = structured_devices(0, k=DR_K, d=DR_D, k_prime=DR_KP, m0=4,
+                            n_per_comp_dev=25, sep=60.0)
+    means = np.random.default_rng(3).normal(size=(DR_K, DR_D)).astype(
+        np.float32) * 40.0
+    reqs = late_device_stream(means, DR_KP, 24, 19, n_range=(15, 50))
+    datas, kvs = [r[0] for r in reqs], [r[2] for r in reqs]
+    moves = {}
+    for heads in ("off", "linear"):
+        outs = []
+        for dev in (device, "cpu"):
+            plan = FederationPlan(k=DR_K, k_prime=DR_KP, d=DR_D,
+                                  device=str(dev), capacity=512,
+                                  batch_size=4, bucket_sizes=(32, 64, 128),
+                                  refresh_every=4, drift="split_merge",
+                                  drift_half_life=24, drift_retire_frac=0.2,
+                                  heads=heads)
+            sess = Session(plan, seed=2)
+            sess.run(7, fm.data)
+            served = []
+            for lo in range(0, 24, 6):
+                if heads == "off":
+                    served += sess.serve_versioned(datas[lo:lo + 6],
+                                                   kvs[lo:lo + 6])
+                else:
+                    served += sess.serve_predict(datas[lo:lo + 6],
+                                                 kvs[lo:lo + 6])
+            outs.append((served, drift_stats(sess)))
+        (got, (gc, gm, _)), (want, (wc, wm, _)) = outs
+        if heads == "off":
+            same = all(np.array_equal(a, b) and va == vb
+                       for (a, va), (b, vb) in zip(got, want))
+        else:
+            same = all(np.array_equal(g.labels, w.labels)
+                       and (g.tau_version, g.cluster, g.routed)
+                       == (w.tau_version, w.cluster, w.routed)
+                       for g, w in zip(got, want))
+            gp = np.stack([g.prediction for g in got])
+            wp = np.stack([w.prediction for w in want])
+            require(float(np.abs(gp - wp).max())
+                    <= 1e-5 * float(np.abs(wp).max()),
+                    "small routed drift: predictions differ from the CPU")
+        require(same and gc == wc, f"small drift (heads {heads}): labels, "
+                f"versions or drift counters {gc} differ from the CPU's {wc}")
+        require(float(np.abs(gm - wm).max()) <= 1e-5 * float(np.abs(wm).max()),
+                f"small drift (heads {heads}): mass differs from the CPU")
+        moves[heads] = gc[1]
+    require(moves["off"] > 0, "small drift: no center moved")
+    return moves
+
+
+def drift_leg(device):
+    """benchmarks/bench_drift.py in full mode on the port's draws:
+    frozen against split_merge, between a reset and a read of the launch
+    counts. split_merge must mislabel no more than frozen (the
+    benchmark's own bar)."""
+    from repro_torch.data.gaussian import late_device_stream, structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    from repro_torch.utils.metrics import clustering_accuracy
+    fm = structured_devices(0, k=DR_K, d=DR_D, k_prime=DR_KP, m0=4,
+                            n_per_comp_dev=25, sep=60.0)
+    base = FederationPlan(k=DR_K, k_prime=DR_KP, d=DR_D, device=str(device))
+    rr = Session(base).run(1, fm.data).detail
+    new_means = np.random.default_rng(7).normal(size=(DR_K, DR_D)).astype(
+        np.float32) * 40.0
+
+    def phase(means, count, seed):
+        st = late_device_stream(means, DR_KP, count, seed, n_range=(20, 60))
+        return [r[0] for r in st], [r[1] for r in st], [r[2] for r in st]
+
+    reqs1, _, kvs1 = phase(fm.means, DR_P1, 5)
+    reqs2, truths2, kvs2 = phase(new_means, DR_P2, 11)
+    runs = {}
+
+    def drive():
+        for name, kw in DR_RUNS:
+            sess = Session.from_round(base.with_options(
+                capacity=512, batch_size=DR_CHUNK, bucket_sizes=(64,), **kw),
+                rr)
+            # Phase 1: the stale evidence the drift layer must decay
+            # away (and the first launches of each shape), untimed.
+            for lo in range(0, DR_P1, DR_CHUNK):
+                sess.serve(reqs1[lo:lo + DR_CHUNK], kvs1[lo:lo + DR_CHUNK])
+            sync()
+            labels = []
+            t0 = time.perf_counter()
+            for lo in range(0, DR_P2, DR_CHUNK):
+                labels += sess.serve(reqs2[lo:lo + DR_CHUNK],
+                                     kvs2[lo:lo + DR_CHUNK])
+            sync()
+            wall = time.perf_counter() - t0
+            errs = [1.0 - clustering_accuracy(lbl, tr, DR_K)
+                    for lbl, tr in zip(labels, truths2)]
+            st = sess.stats()["drift"]
+            runs[name] = dict(
+                mislabel=float(np.mean(errs[len(errs) // 2:])), wall=wall,
+                pps=sum(r.shape[0] for r in reqs2) / wall,
+                version=sess.tau_version, events=st["events"],
+                moves=st["moves"])
+
+    _, counts, tally = counted(drive)
+    gain = (runs["frozen"]["mislabel"] + 1e-3) / (
+        runs["split_merge"]["mislabel"] + 1e-3)
+    print(f"drift: bench_drift full mode k={DR_K} k'={DR_KP} d={DR_D}, "
+          f"{DR_P1} + {DR_P2} requests, batch {DR_CHUNK}: "
+          + "; ".join(f"{n} tail mislabel {r['mislabel']:.4f}, "
+                      f"{r['pps']:.1f} pts/s ({r['wall']:.3f} s for phase 2),"
+                      f" tau_version {r['version']}, drift events "
+                      f"{r['events']}, moves {r['moves']}"
+                      for n, r in runs.items())
+          + f"; mislabel_gain {gain:.2f}; launches {counts}", flush=True)
+    require(runs["split_merge"]["mislabel"] <= runs["frozen"]["mislabel"],
+            f"drift: split_merge mislabels {runs['split_merge']['mislabel']}"
+            f" > frozen {runs['frozen']['mislabel']}")
+    require(runs["split_merge"]["moves"] > 0, "drift: no center moved")
+    return counts, tally
+
+
+def drift_table1_inputs(fm):
+    """Table 1's 32 late devices of n=1024, drawn from a resampled
+    mixture of the same separation."""
+    from repro_torch.data.gaussian import late_device_stream, make_mixture_means
+    means = make_mixture_means(np.random.default_rng(7), K, D, sep=SEP)
+    reqs = late_device_stream(means, KP, SERVE_REQUESTS, 7,
+                              n_range=(SERVE_N, SERVE_N + 1))
+    return [r[0] for r in reqs], [r[2] for r in reqs]
+
+
+def drift_table1_leg(fm, rr, device, tmp: Path):
+    """Table 1's serve plan under decay and split_merge on the run leg's
+    round, between a reset and a read of the launch counts: an
+    uninterrupted session serves the 32 late devices in two halves,
+    another the first half, saves, and a restored session the second;
+    labels, versions, fold state, mass, moves and the staged head
+    re-map must replay bit for bit. Then a refresh of each is timed
+    beside a refresh without drift on the same fold state."""
+    from repro_torch.core import server
+    from repro_torch.fed.api import FederationPlan, Session
+    datas, kvs = drift_table1_inputs(fm)
+    h = DT_CUT
+    out = {}
+
+    def drive():
+        for name, kw in DT_RUNS:
+            plan = FederationPlan(k=K, k_prime=KP, d=D, device=str(device),
+                                  **SERVE_PLAN, **kw)
+            live = Session.from_round(plan, rr, seed=0)
+            t0 = time.perf_counter()
+            want = (live.serve_versioned(datas[:h], kvs[:h])
+                    + live.serve_versioned(datas[h:], kvs[h:]))
+            sync()
+            wall = time.perf_counter() - t0
+            first = Session.from_round(plan, rr, seed=0)
+            got = first.serve_versioned(datas[:h], kvs[:h])
+            path = first.save(str(tmp / f"drift_{name}.npz"))
+            restored = Session.restore(path, plan)
+            got += restored.serve_versioned(datas[h:], kvs[h:])
+            sync()
+            out[name] = (live, restored, want, got, wall)
+
+    _, counts, tally = counted(drive)
+    lines = []
+    for name, (live, restored, want, got, wall) in out.items():
+        require(all(np.array_equal(g, w) and gv == wv
+                    for (g, gv), (w, wv) in zip(got, want)),
+                f"drift {name}: the restored session's labels or versions "
+                f"differ from the uninterrupted session's")
+        require(all(torch.equal(a, b) for a, b in
+                    zip(restored.service.state, live.service.state))
+                and same_drift(drift_stats(restored), drift_stats(live)),
+                f"drift {name}: the restored fold state, mass, moves or "
+                f"head re-map differ")
+        st = live.stats()["drift"]
+        svc = live.service
+        sync()
+        t0 = time.perf_counter()
+        server.finalize(svc.state, K)
+        sync()
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svc._refinalize()
+        sync()
+        drift_s = time.perf_counter() - t0
+        lines.append(f"{name} {wall:.3f} s for {SERVE_REQUESTS} devices "
+                     f"({SERVE_REQUESTS / wall:.2f} requests/s), tau "
+                     f"versions {sorted({v for _, v in want})}, drift "
+                     f"events {st['events']}, moves {st['moves']}, a "
+                     f"refresh {1e3 * drift_s:.2f} ms with drift against "
+                     f"{1e3 * plain_s:.2f} ms without")
+    moves = out["split_merge"][0].stats()["drift"]["moves"]
+    print(f"drift table1: serve plan d={D} k={K} k'={KP} batch "
+          f"{SERVE_PLAN['batch_size']} refresh every "
+          f"{SERVE_PLAN['refresh_every']}, late devices from a resampled "
+          f"mixture: " + "; ".join(lines) + f"; each cut by save and "
+          f"restore after {h}: labels, versions, fold state, mass, moves "
+          f"and head re-map equal the uninterrupted session's bit for bit;"
+          f" launches {counts}", flush=True)
+    require(moves >= 1, "drift table1: split_merge moved no center")
+    return counts, tally
+
+
+def route_drift_leg(device):
+    """The routed leg's configuration under split_merge, between a reset
+    and a read of the launch counts: RD_WAVES waves of 64 from resampled
+    means through serve_predict. At least one center moves and its
+    re-map commits (a head now holds another's parameters), none is
+    left pending, and the labels and versions equal a heads-off drift
+    twin's."""
+    from repro_torch.data.gaussian import late_device_stream, structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    from repro_torch.models.heads import tree_map
+    fm = structured_devices(0, k=R_K, d=R_D, k_prime=R_KP, m0=R_M0,
+                            n_per_comp_dev=R_NPER, sep=R_SEP)
+    base = FederationPlan(k=R_K, k_prime=R_KP, d=R_D, device=str(device))
+    rr = Session(base).run(1, fm.data).detail
+    plan = base.with_options(**R_PLAN, **RD_DRIFT)
+    B = plan.batch_size
+    means = np.random.default_rng(3).normal(size=(R_K, R_D)).astype(
+        np.float32) * 40.0
+    stream = late_device_stream(means, R_KP, RD_WAVES * B, 5,
+                                n_range=R_N_RANGE)
+    waves = [([r[0] for r in stream[lo:lo + B]],
+              [r[2] for r in stream[lo:lo + B]])
+             for lo in range(0, RD_WAVES * B, B)]
+    sess = Session.from_round(plan, rr, seed=0)
+    heads0 = tree_map(lambda a: a.clone(), sess.service.heads)
+    walls = {}
+
+    def drive():
+        t0 = time.perf_counter()
+        out = [p for w in waves for p in sess.serve_predict(*w)]
+        sync()
+        walls["serve"] = time.perf_counter() - t0
+        return out
+
+    served, counts, tally = counted(drive)
+    twin = Session.from_round(plan.with_options(heads="off"), rr, seed=0)
+    plain = [x for w in waves for x in twin.serve_versioned(*w)]
+    require(all(np.array_equal(p.labels, lbl) and p.tau_version == v
+                for p, (lbl, v) in zip(served, plain)),
+            "route drift: labels or versions differ from the heads-off "
+            "drift twin's")
+    st = sess.stats()
+    moved = sorted({c for a, b in zip(_leaves(heads0),
+                                      _leaves(sess.service.heads))
+                    for c in range(R_K) if not torch.equal(a[c], b[c])})
+    require(st["drift"]["moves"] > 0 and moved,
+            f"route drift: no committed head re-map ({st['drift']})")
+    require(not st["heads"]["remap_pending"],
+            "route drift: a head re-map is left pending")
+    require(twin.stats()["drift"]["moves"] == st["drift"]["moves"],
+            "route drift: the twin moved other centers")
+    print(f"route drift: Session.serve_predict k={R_K} k'={R_KP} d={R_D} "
+          f"heads={plan.heads}/{plan.head_arch} split_merge refresh every "
+          f"{RD_DRIFT['refresh_every']} (half-life "
+          f"{RD_DRIFT['drift_half_life']}): {RD_WAVES} waves of {B} from "
+          f"resampled means in {walls['serve']:.3f} s "
+          f"({len(served) / walls['serve']:.2f} requests/s); drift events "
+          f"{st['drift']['events']}, moves {st['drift']['moves']}, heads "
+          f"of centers {moved} re-mapped and committed, none pending; "
+          f"labels and versions equal the heads-off drift twin's; routed "
+          f"{sum(p.routed for p in served)} of {len(served)}; launches "
+          f"{counts}", flush=True)
+    return counts, tally
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
 def tau_error(got, want) -> float:
     """max |got - want| over the largest |want|: within 1e-4 is the
     round's tau tolerance (tests/test_torch_session.py's _tau_close)."""
@@ -2396,11 +2747,106 @@ def mesh_rounds(mesh, fm, walls, key: int = 0):
     return outs
 
 
-def mesh1_leg(fm, rr, tmp: Path):
+def mesh_more_inputs(fm, route_rr=None, device=None):
+    """The routed leg's round (``route_rr``, or run on ``device``) and
+    MESH_R_WAVES waves of its requests, and the drift Table 1 leg's late
+    devices."""
+    from repro_torch.data.gaussian import late_device_stream, structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    rfm = structured_devices(0, k=R_K, d=R_D, k_prime=R_KP, m0=R_M0,
+                             n_per_comp_dev=R_NPER, sep=R_SEP)
+    if route_rr is None:
+        route_rr = Session(FederationPlan(k=R_K, k_prime=R_KP, d=R_D,
+                                          device=str(device))).run(
+            1, rfm.data).detail
+    stream = late_device_stream(rfm.means, R_KP,
+                                MESH_R_WAVES * R_PLAN["batch_size"], 3,
+                                n_range=R_N_RANGE)
+    dreqs, dkvs = drift_table1_inputs(fm)
+    return dict(route_rr=route_rr, rreqs=[r[0] for r in stream],
+                rkvs=[r[2] for r in stream], dreqs=dreqs, dkvs=dkvs)
+
+
+def mesh_serve_more(mesh, serve_axes, rr, more, walls):
+    """The routed leg's plan at the full grant and under latency
+    autoscaling, and Table 1's split_merge plan, with ``serve_axes`` on
+    ``mesh`` (None, None: one process alone). Returns what must equal
+    one process alone, bit for bit."""
+    from repro_torch.fed.api import FederationPlan, Session
+    rplan = FederationPlan(k=R_K, k_prime=R_KP, d=R_D, serve_axes=serve_axes,
+                           **R_PLAN)
+    rreqs, rkvs, B = more["rreqs"], more["rkvs"], rplan.batch_size
+    sess = Session.from_round(rplan, more["route_rr"], mesh=mesh, seed=0)
+    t0 = time.perf_counter()
+    routed = [p for lo in range(0, len(rreqs), B)
+              for p in sess.serve_predict(rreqs[lo:lo + B], rkvs[lo:lo + B])]
+    sync()
+    walls["routed"] = time.perf_counter() - t0
+    auto = Session.from_round(rplan.with_options(autoscale="latency"),
+                              more["route_rr"], mesh=mesh, seed=0)
+    a_routed, decisions, at = [], [], 0
+    t0 = time.perf_counter()
+    for nb in MESH_R_BURSTS:
+        a_routed += auto.serve_predict(rreqs[at:at + nb], rkvs[at:at + nb])
+        d = auto.service.autoscaler.decision
+        decisions.append((d.shards, d.batch_size))
+        at += nb
+    sync()
+    walls["routed_autoscale"] = time.perf_counter() - t0
+    dplan = FederationPlan(k=K, k_prime=KP, d=D, serve_axes=serve_axes,
+                           **SERVE_PLAN, **dict(DT_RUNS)["split_merge"])
+    ds = Session.from_round(dplan, rr, mesh=mesh, seed=0)
+    t0 = time.perf_counter()
+    drift = ds.serve_versioned(more["dreqs"], more["dkvs"])
+    sync()
+    walls["drift"] = time.perf_counter() - t0
+    return {"routed": routed, "routed_state": [t.cpu() for t in
+                                               sess.service.state],
+            "auto": a_routed, "decisions": decisions,
+            "auto_state": [t.cpu() for t in auto.service.state],
+            "drift": drift, "drift_state": [t.cpu() for t in
+                                            ds.service.state],
+            "drift_stats": drift_stats(ds)}
+
+
+def check_serve_more(got, want, label) -> None:
+    """The sharded routed, autoscaled routed and drift serves against one
+    process alone, bit for bit."""
+    require(same_predictions(got["routed"], want["routed"])
+            and same_predictions(got["auto"], want["auto"]),
+            f"{label}: the routed serve's labels, versions, clusters, "
+            f"routing or predictions differ from one process alone")
+    require(all(np.array_equal(a, b) and va == vb for (a, va), (b, vb)
+                in zip(got["drift"], want["drift"]))
+            and len(got["drift"]) == len(want["drift"]),
+            f"{label}: the drift serve's labels or versions differ")
+    for key in ("routed_state", "auto_state", "drift_state"):
+        require(all(torch.equal(a, b) for a, b in zip(got[key], want[key])),
+                f"{label}: the {key} differs from one process alone")
+    require(same_drift(got["drift_stats"], want["drift_stats"]),
+            f"{label}: drift mass or moves differ from one process alone")
+    require(got["drift_stats"][0][1] > 0, f"{label}: no center moved")
+
+
+def mesh_more_line(got, walls) -> str:
+    return (f"routed plan (k={R_K} d={R_D} {R_PLAN['heads']}/"
+            f"{R_PLAN['head_arch']}, {len(got['routed'])} requests in "
+            f"batches of {R_PLAN['batch_size']}) {walls['routed']:.3f} s, "
+            f"routed {sum(p.routed for p in got['routed'])}; under latency "
+            f"autoscaling in bursts {list(MESH_R_BURSTS)} "
+            f"{walls['routed_autoscale']:.3f} s, decisions (shards, batch) "
+            f"{got['decisions']}; Table 1 split_merge plan "
+            f"{walls['drift']:.3f} s, moves {got['drift_stats'][0][1]}; "
+            f"labels, predictions, clusters, routing, fold state, mass and "
+            f"moves equal one process alone bit for bit")
+
+
+def mesh1_leg(fm, rr, tmp: Path, more, want):
     """The round in a one-rank NCCL world in this process: the real
     collectives, the same labels under every topology (and the run
     leg's), the replicated tau bit for bit the simulated one's and the
-    sharded one within tolerance."""
+    sharded one within tolerance; then the routed plan and Table 1's
+    split_merge plan with serve_axes, equal to one process alone."""
     import torch.distributed as dist
     from repro_torch.utils.mesh import make_mesh
     dist.init_process_group("nccl", store=dist.FileStore(
@@ -2409,11 +2855,14 @@ def mesh1_leg(fm, rr, tmp: Path):
         mesh = make_mesh((1,), ("data",), backend="nccl")
         # A warm-up run of each topology: NCCL's communicator.
         mesh_rounds(mesh, fm, {}, key=1)
-        walls = {}
-        outs, counts, tally = counted(lambda: mesh_rounds(mesh, fm, walls))
+        walls, mwalls = {}, {}
+        (outs, got), counts, tally = counted(lambda: (
+            mesh_rounds(mesh, fm, walls),
+            mesh_serve_more(mesh, ("data",), rr, more, mwalls)))
         describe = mesh.describe()
     finally:
         dist.destroy_process_group()
+    check_serve_more(got, want, "mesh1")
     sim = outs["simulated"]
     for t in MESH_TOPOLOGIES:
         require(torch.equal(outs[t].labels, rr.labels),
@@ -2427,7 +2876,8 @@ def mesh1_leg(fm, rr, tmp: Path):
           + ", ".join(f"{t} {walls[t]:.3f} s" for t in MESH_TOPOLOGIES)
           + f"; labels equal under every topology and the run leg's; "
           f"replicated tau = simulated bit for bit; sharded tau max "
-          f"|diff| / max|tau| = {err:.3e} (<= 1e-4); launches {counts}",
+          f"|diff| / max|tau| = {err:.3e} (<= 1e-4); serve_axes=data: "
+          + mesh_more_line(got, mwalls) + f"; launches {counts}",
           flush=True)
     return counts, tally, {t: o.tau_centers for t, o in outs.items()}
 
@@ -2484,6 +2934,9 @@ def mesh2_rank(rank: int, tmp: str) -> None:
                                 n_per_comp_dev=N_PER, sep=SEP)
         rr = tree_to(torch.load(os.path.join(tmp, "round.pt"),
                                 weights_only=False), "cuda")
+        more = mesh_more_inputs(fm, route_rr=tree_to(torch.load(
+            os.path.join(tmp, "route_round.pt"), weights_only=False),
+            "cuda"))
         datas, kvs, bursts = mesh_serve_inputs(fm)
         plan, scaled = mesh_plans(("data",))
         # Warm-up: the libraries' handles in this process.
@@ -2504,10 +2957,13 @@ def mesh2_rank(rank: int, tmp: str) -> None:
             a_served, decisions = mesh_decisions(auto, bursts)
             sync()
             walls["autoscale"] = time.perf_counter() - t0
-            return (outs, sess, served, auto, a_served, decisions)
+            mwalls = {}
+            got = mesh_serve_more(mesh, ("data",), rr, more, mwalls)
+            return (outs, sess, served, auto, a_served, decisions, got,
+                    mwalls)
 
-        (outs, sess, served, auto, a_served, decisions), counts, tally = \
-            counted(drive)
+        ((outs, sess, served, auto, a_served, decisions, more_got, mwalls),
+         counts, tally) = counted(drive)
         out = {
             "describe": mesh.describe(), "walls": walls, "counts": counts,
             "labels": {t: o.labels.cpu() for t, o in outs.items()},
@@ -2518,6 +2974,7 @@ def mesh2_rank(rank: int, tmp: str) -> None:
                                "plane_compiles")},
             "a_served": a_served, "decisions": decisions,
             "a_state": [t.cpu() for t in auto.service.state],
+            "more": more_got, "more_walls": mwalls,
             "tally": ({name: {key: [c, tuple(_cpu(a) for a in inputs)]
                               for key, (c, inputs) in t.shapes.items()}
                        for name, t in tally.items()} if rank == 0 else None),
@@ -2543,7 +3000,7 @@ class Shapes:
                        for key, (c, inputs) in shapes.items()}
 
 
-def mesh2_leg(fm, rr, taus, tmp: Path):
+def mesh2_leg(fm, rr, taus, tmp: Path, more, want_more):
     """The two-rank gloo world on one card: the round's labels equal the
     run leg's and its tau is within tolerance under both mesh
     topologies; the sharded serve and the autoscaled one equal one
@@ -2560,6 +3017,7 @@ def mesh2_leg(fm, rr, taus, tmp: Path):
     aref = Session.from_round(scaled, rr, seed=0)
     a_want, a_dec = mesh_decisions(aref, bursts)
     torch.save(tree_to(rr, "cpu"), tmp / "round.pt")
+    torch.save(tree_to(more["route_rr"], "cpu"), tmp / "route_round.pt")
     t0 = time.perf_counter()
     mp.spawn(mesh2_rank, args=(str(tmp),), nprocs=2, join=True)
     spawn_s = time.perf_counter() - t0
@@ -2592,8 +3050,12 @@ def mesh2_leg(fm, rr, taus, tmp: Path):
                 f"process serving alone")
         require(got["stats"]["serve_shards"] == 2,
                 f"mesh2 rank {r}: {got['stats']}")
+        check_serve_more(got["more"], want_more, f"mesh2 rank {r}")
     shards = sorted({s for s, _ in ranks[0]["decisions"]})
     require(shards == [1, 2], f"mesh2: active shard counts {shards}")
+    rshards = sorted({s for s, _ in ranks[0]["more"]["decisions"]})
+    require(rshards == [1, 2],
+            f"mesh2: routed active shard counts {rshards}")
     w = ranks[0]["walls"]
     counts = {name: ranks[0]["counts"][name] + ranks[1]["counts"][name]
               for name in ranks[0]["counts"]}
@@ -2609,6 +3071,8 @@ def mesh2_leg(fm, rr, taus, tmp: Path):
           f"for bit; latency autoscaling in bursts {list(MESH_BURSTS)}: "
           f"{w['autoscale']:.3f} s, decisions (shards, batch) "
           f"{ranks[0]['decisions']}, equal to one process alone; "
+          + mesh_more_line(ranks[0]["more"], ranks[0]["more_walls"])
+          + f" on both ranks; "
           f"{spawn_s:.1f} s from spawn to join; launches by rank "
           f"{ranks[0]['counts']} {ranks[1]['counts']}", flush=True)
     return counts, {name: Shapes(shapes)
@@ -2732,11 +3196,37 @@ def main() -> int:
     print(f"legs: attach agreement, attach (2 runs), cli, figures 2 and 3 "
           f"in {time.perf_counter() - t_legs:.1f} s of wall", flush=True)
     t_legs = time.perf_counter()
+    dmoves = small_drift_agreement(cuda)
+    print(f"reference: a small split_merge session (k={DR_K}, d={DR_D}, 24 "
+          f"requests from resampled means, heads off and linear; moves "
+          f"{dmoves}) on the card equals the CPU run (labels, versions, "
+          f"clusters, routing, drift events and moves exact; mass and "
+          f"predictions within 1e-5 relative)", flush=True)
+    drift_counts, tallies["drift"] = drift_leg(cuda)
     with tempfile.TemporaryDirectory() as tmp:
-        mesh1_counts, tallies["mesh1"], taus = mesh1_leg(fm, rr, Path(tmp))
-        mesh2_counts, tallies["mesh2"] = mesh2_leg(fm, rr, taus, Path(tmp))
+        dt_counts, tallies["drift_table1"] = drift_table1_leg(fm, rr, cuda,
+                                                              Path(tmp))
+    rdrift_counts, tallies["route_drift"] = route_drift_leg(cuda)
+    print(f"legs: small drift agreement, drift, drift table1, route drift "
+          f"in {time.perf_counter() - t_legs:.1f} s of wall", flush=True)
+    t_legs = time.perf_counter()
+    more = mesh_more_inputs(fm, device=cuda)
+    want_more = mesh_serve_more(None, None, rr, more, {})
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh1_counts, tallies["mesh1"], taus = mesh1_leg(fm, rr, Path(tmp),
+                                                         more, want_more)
+        mesh2_counts, tallies["mesh2"] = mesh2_leg(fm, rr, taus, Path(tmp),
+                                                   more, want_more)
     print(f"legs: mesh1, mesh2 in {time.perf_counter() - t_legs:.1f} s of "
           f"wall", flush=True)
+    for name in ("pdist_argmin", "kmeans_update", "solve_attach"):
+        require(drift_counts[name] > 0 and dt_counts[name] > 0
+                and rdrift_counts[name] > 0,
+                f"{name} was not launched on every drift leg")
+    for name in ("moe_dispatch", "moe_combine"):
+        require(rdrift_counts[name] > 0 and mesh1_counts[name] > 0
+                and mesh2_counts[name] > 0,
+                f"{name} was not launched on the routed drift and mesh legs")
     for name in ("pdist_argmin", "kmeans_update"):
         require(mesh1_counts[name] > 0 and mesh2_counts[name] > 0,
                 f"{name} was not launched on the mesh1 and mesh2 legs")
@@ -2757,7 +3247,8 @@ def main() -> int:
                 f"{name} was not launched on the figure 2 and 3 legs")
     new_counts = (restore_counts, rroute_counts, pers_counts, sel_counts,
                   sep_counts, attach_counts, cli_counts, fig2_counts,
-                  fig3_counts, mesh1_counts, mesh2_counts)
+                  fig3_counts, mesh1_counts, mesh2_counts, drift_counts,
+                  dt_counts, rdrift_counts)
     pdist_shapes(tallies, attach)
     kmeans_shapes(tallies)
     solve_shapes(tallies)
@@ -2813,7 +3304,9 @@ def main() -> int:
           + json.dumps(cli_counts) + " figure2 " + json.dumps(fig2_counts)
           + " figure3 " + json.dumps(fig3_counts)
           + " mesh1 " + json.dumps(mesh1_counts) + " mesh2 "
-          + json.dumps(mesh2_counts)
+          + json.dumps(mesh2_counts) + " drift " + json.dumps(drift_counts)
+          + " drift_table1 " + json.dumps(dt_counts) + " route_drift "
+          + json.dumps(rdrift_counts)
           + "; every kernel matched its plain version", flush=True)
     print(f"card: {smi}; chip_smoke wall {time.perf_counter() - t_all:.1f} s",
           flush=True)

@@ -1,5 +1,5 @@
 """The k-FED server, Algorithm 2 steps 2-8 (counterpart of
-``repro/core/server.py``, without its drift part).
+``repro/core/server.py``).
 
 The replicated server (:func:`aggregate`, also the simulated path's) and
 the sharded one (:func:`aggregate_sharded`, where each shard owns its
@@ -14,6 +14,16 @@ fold — :func:`init_state` / :func:`aggregate_incremental` /
 may report in any order across many calls and the finalized aggregate
 does not depend on the order. The max-min seeding, which does, runs at
 :func:`finalize`.
+
+The drift layer (DESIGN.md §14) is pure functions of the fold state:
+:func:`decay_factors` / :func:`decayed_evidence` weight every slot by its
+age, :func:`center_mass` sums the decayed weights per center, and
+:func:`split_retire` re-seeds starved centers from over-massed ones.
+They reproduce the JAX package's f32 arithmetic on the CPU, where XLA
+flushes to zero: a factor whose exponent is at or below -126 is 0 (XLA's
+``exp2`` returns 0 there, though 2^-126 is a normal f32) and a subnormal
+weight is 0. PyTorch keeps both on every device, so the rule is written
+out here, on the CPU and on CUDA alike.
 """
 from __future__ import annotations
 
@@ -303,11 +313,132 @@ def aggregate_incremental_sharded(state: ServerState, device_ids, centers,
                                  epochs=e)
 
 
-def finalize(state: ServerState, k: int, *,
-             weighted: bool = False) -> KFedAggregate:
+# The f32 exponent at and below which XLA's exp2 gives exactly 0, and the
+# smallest normal f32 (XLA flushes the subnormal products below it).
+_EXP2_ZERO_AT = -126.0
+_F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def decay_factors(epoch: torch.Tensor, now_epoch,
+                  half_life) -> torch.Tensor:
+    """Per-slot exponential decay 2^(-(now - epoch) / half_life) in f32:
+    a slot folded ``half_life`` requests ago carries half its mass. The
+    age is an int32 difference cast to f32 and divided by an f32
+    ``half_life``, as the JAX package forms it; the factor is 0 wherever
+    that exponent is <= -126 (XLA's underflow on the CPU), so a slot the
+    reference drops is dropped here on every device."""
+    now = torch.tensor(int(now_epoch), dtype=torch.int32, device=epoch.device)
+    age = (now - epoch.to(torch.int32)).float()
+    arg = -age / torch.tensor(float(half_life), dtype=torch.float32,
+                              device=epoch.device)
+    return torch.where(arg <= _EXP2_ZERO_AT, torch.zeros_like(arg),
+                       torch.exp2(arg))
+
+
+def decayed_evidence(state: ServerState, now_epoch, half_life):
+    """The (mask, weights) a drift finalize sees: received reports with
+    their fold weights scaled by :func:`decay_factors`, a subnormal
+    product flushed to 0 (XLA's rule). A slot whose decayed weight is 0
+    is masked out: a zero-mass center must never seed or anchor a
+    cluster."""
+    fac = decay_factors(state.epoch, now_epoch, half_life)
+    w = state.weights * fac[:, None]
+    w = torch.where(w.abs() < _F32_TINY, torch.zeros_like(w), w)
+    mask = state.mask & state.received[:, None] & (w > 0)
+    return mask, w
+
+
+def finalize(state: ServerState, k: int, *, weighted: bool = False,
+             decay=None) -> KFedAggregate:
     """Run Algorithm 2 over every report received so far. Devices that
     never reported are masked out (their labels come out -1); attach
-    them afterwards with :func:`attach_absent_devices`."""
-    mask = state.mask & state.received[:, None]
-    return aggregate(state.centers, mask, k,
-                     weights=state.weights if weighted else None)
+    them afterwards with :func:`attach_absent_devices`.
+
+    ``decay``: optional ``(now_epoch, half_life)``: every slot weighted
+    by its age factor (always weighted). The masked slots' coordinates
+    are zeroed too: a zero weight does not keep a NaN out of the
+    weighted Lloyd sums (0 * NaN is NaN)."""
+    if decay is None:
+        mask = state.mask & state.received[:, None]
+        return aggregate(state.centers, mask, k,
+                         weights=state.weights if weighted else None)
+    mask, w = decayed_evidence(state, *decay)
+    centers = torch.where(mask[..., None], state.centers,
+                          torch.zeros_like(state.centers))
+    return aggregate(centers, mask, k, weights=w)
+
+
+def center_mass(agg: KFedAggregate, mask: torch.Tensor,
+                weights: torch.Tensor) -> torch.Tensor:
+    """Per-center attached fold mass: the sum of the (decayed) slot
+    weights whose device centers labelled into each tau center, (k,)
+    f32. A one-hot product, as the reference's ``dot_general``: the
+    split/retire thresholds read this mass, so it must replay bit for
+    bit, and a float ``index_add_`` adds in the order of CUDA's atomics."""
+    k = agg.tau_centers.shape[0]
+    lbl = agg.center_labels.reshape(-1)
+    w = torch.where(mask.reshape(-1) & (lbl >= 0), weights.reshape(-1),
+                    torch.zeros_like(weights.reshape(-1)))
+    oh = (lbl[:, None] == torch.arange(k, dtype=lbl.dtype,
+                                       device=lbl.device)[None, :]).float()
+    return w.float() @ oh
+
+
+def split_retire(flat: torch.Tensor, fm: torch.Tensor, agg: KFedAggregate,
+                 mass: torch.Tensor, k: int, *, split_factor: float,
+                 retire_frac: float, max_moves: int,
+                 weights: Optional[torch.Tensor] = None):
+    """Mass-driven center split/retire at a flush boundary.
+
+    Centers with mass below ``retire_frac`` of the mean are starved,
+    those above ``split_factor`` times the mean over-massed. Up to
+    ``max_moves`` starved centers (poorest first) are re-seeded at the
+    farthest attached report of an over-massed donor (fattest first),
+    then ONE :func:`lloyd_round` re-anchors all k centers (on the card:
+    one ``pdist_argmin`` and one ``kmeans_update`` launch). Stable sorts
+    and first-occurrence argmaxes (a donor with no attached report gives
+    index 0, as ``jnp.argmax`` of a column of -inf does) make every
+    decision replay bit for bit.
+
+    ``flat``: (Z*k', d) device centers; ``fm``: (Z*k',) evidence mask;
+    ``weights``: optional (Z*k',) Lloyd weights. Returns ``(tau (k, d)
+    f32, moved (k,) bool, donors (k,) int32 (-1 where not moved),
+    n_moves () int32)``; with zero moves ``tau`` is ``agg.tau_centers``
+    exactly."""
+    dev = flat.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    mass = mass.float()
+    mean = torch.sum(mass) / torch.tensor(float(k), **f32)
+    starved = mass < torch.tensor(float(retire_frac), **f32) * mean
+    over = mass > torch.tensor(float(split_factor), **f32) * mean
+    n_mv = torch.minimum(
+        torch.minimum(torch.sum(starved), torch.sum(over)),
+        torch.tensor(int(max_moves), device=dev)).to(torch.int32)
+
+    # Rank the starved ascending by mass and the donors descending, and
+    # pair rank j with rank j; stable sorts give ties to the lowest index.
+    inf = torch.full_like(mass, float("inf"))
+    sorder = torch.argsort(torch.where(starved, mass, inf), stable=True)
+    oorder = torch.argsort(torch.where(over, -mass, inf),
+                           stable=True).to(torch.int32)
+    ar = torch.arange(k, dtype=torch.int32, device=dev)
+    srank = torch.zeros((k,), dtype=torch.int32, device=dev)
+    srank[sorder] = ar
+    donors = oorder[torch.clamp(srank, 0, k - 1).long()]
+    take = starved & (srank < n_mv)
+
+    # The residual re-seed: within each donor cluster, the attached
+    # report farthest from its tau center.
+    lbl = agg.center_labels.reshape(-1)
+    tau0 = agg.tau_centers.float()
+    d2 = ops.pairwise_sq_dists(flat.float(), tau0)
+    attached = (lbl[:, None] == ar[None, :]) & fm[:, None]
+    scores = torch.where(attached, d2, torch.full_like(d2, float("-inf")))
+    reseed_idx = torch.argmax(scores, dim=0)                 # (k,)
+    M1 = torch.where(take[:, None], flat[reseed_idx[donors.long()]].float(),
+                     tau0)
+
+    tau2, _ = lloyd_round(flat, fm, M1, k, weights=weights)
+    tau = torch.where(n_mv > 0, tau2, tau0)
+    donors = torch.where(take, donors, torch.full_like(donors, -1))
+    return tau, take, donors, n_mv

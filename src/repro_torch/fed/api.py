@@ -4,12 +4,12 @@ lifecycle (counterpart of ``repro/fed/api.py``).
 ``FederationPlan`` has the JAX package's fields and defaults, plus
 ``device`` (default ``"cuda"``). The serving options run as in the JAX
 package: ``fold_policy`` drop, lru or weighted_reservoir, ``refresh``
-sync or async, ``autoscale`` off, latency or throughput. ``topology``
-``replicated`` and ``sharded`` run the round over a ``utils.mesh.Mesh``
+sync or async, ``autoscale`` off, latency or throughput, ``drift`` off,
+decay or split_merge, ``heads`` off or on. ``topology`` ``replicated``
+and ``sharded`` run the round over a ``utils.mesh.Mesh``
 (``Session(plan, mesh=...)``, one process per rank) and ``serve_axes``
-splits each serve batch over the mesh's ranks. A value whose code the
-port does not have yet (drift, the encoder, ``serve_axes`` with heads
-on: the sharded routed step, ROADMAP item 5b) is refused with a
+splits each serve batch, routed or not, over the mesh's ranks. The
+encoder, whose code the port does not have yet, is refused with a
 ``PlanError`` naming the field; that is validation, not a fallback.
 ``Session`` owns one lifecycle: ``run`` (the one-shot round),
 ``begin``/``fold``/``finalize``
@@ -148,12 +148,6 @@ class FederationPlan:
                      "must be None (single-device serving) or a non-empty "
                      "tuple of mesh axis names, e.g. ('data',)")
             object.__setattr__(self, "serve_axes", tuple(self.serve_axes))
-            if self.heads != "off":
-                raise PlanError(
-                    f"FederationPlan.serve_axes={self.serve_axes!r} with "
-                    f"heads={self.heads!r} is not in the PyTorch port yet: "
-                    f"the sharded routed step is ROADMAP item 5b (serve "
-                    f"with serve_axes=None, or heads='off')")
         if not isinstance(self.local_kw, Mapping):
             _bad("local_kw", self.local_kw,
                  "must be a mapping of Algorithm 1 options")
@@ -172,8 +166,9 @@ class FederationPlan:
                                            "FederationPlan.")) from None
 
     def _check_not_ported(self) -> None:
-        """The JAX package's values of the serving options, with the ones
-        whose code the port does not have yet refused by name."""
+        """The JAX package's values of the serving options, with the one
+        whose code the port does not have yet (the encoder) refused by
+        name."""
         for name, accepted in (("refresh", REFRESH_MODES),
                                ("autoscale", AUTOSCALE_POLICIES),
                                ("fold_policy", FOLD_POLICIES),
@@ -181,21 +176,9 @@ class FederationPlan:
             got = getattr(self, name)
             if got not in accepted:
                 _bad(name, got, f"accepted values are {list(accepted)}")
-        if self.drift != "off":
-            _not_ported("drift", self.drift, "'off'")
         if not isinstance(self.policy_seed, int) or self.policy_seed < 0:
             _bad("policy_seed", self.policy_seed,
                  "must be a non-negative int")
-        if not float(self.drift_split_factor) > 1.0:
-            _bad("drift_split_factor", self.drift_split_factor,
-                 "must be > 1.0 (multiples of the mean center mass)")
-        if not 0.0 <= float(self.drift_retire_frac) < 1.0:
-            _bad("drift_retire_frac", self.drift_retire_frac,
-                 "must be in [0.0, 1.0) (fraction of the mean mass)")
-        if (not isinstance(self.drift_max_moves, int)
-                or self.drift_max_moves < 1):
-            _bad("drift_max_moves", self.drift_max_moves,
-                 "must be an int >= 1 (split/retire moves per boundary)")
         if self.encode_dtype not in ENCODE_DTYPES:
             _bad("encode_dtype", self.encode_dtype,
                  f"accepted values are {list(ENCODE_DTYPES)}")
@@ -217,8 +200,12 @@ class FederationPlan:
             autoscale=self.autoscale, fold_reports=self.fold_reports,
             weight_by_core_counts=self.weight_by_core_counts,
             fold_policy=self.fold_policy, policy_seed=self.policy_seed,
-            serve_dtype=self.serve_dtype,
-            heads=self.heads, head_capacity=self.head_capacity,
+            serve_dtype=self.serve_dtype, drift=self.drift,
+            drift_half_life=self.drift_half_life,
+            drift_split_factor=self.drift_split_factor,
+            drift_retire_frac=self.drift_retire_frac,
+            drift_max_moves=self.drift_max_moves, heads=self.heads,
+            head_capacity=self.head_capacity,
             head_arch=self.head_arch, local_kw=dict(self.local_kw))
 
     def with_options(self, **kw) -> "FederationPlan":

@@ -8,8 +8,8 @@ the steps read. Queues, buckets, policies and refresh cadence live in
 ``fed/stream.py``.
 
 With ``serve_axes`` (and a ``utils.mesh.Mesh``) the plane is sharded:
-the request batch splits over the ranks of those mesh axes, tau and the
-fold state stay replicated, and the fold runs through
+the request batch splits over the ranks of those mesh axes, tau, the
+heads and the fold state stay replicated, and the fold runs through
 ``server.aggregate_incremental_sharded``. ``serve_axes`` grants up to
 ``n_shards`` ranks; the autoscale controller may run a flush on fewer
 (``shards=`` on :meth:`ServePlane.step` and :meth:`ServePlane.fold`),
@@ -124,18 +124,26 @@ def _make_routed_step(cfg):
     ``moe_dispatch`` gather of whole requests into per-cluster head
     queues (clusters are the experts), every queue through its own head
     (``models/heads.py``) and the ``moe_combine`` back to request order.
-    The routing scatters are int/bool overwrites onto unique slots."""
+    The routing scatters are int/bool overwrites onto unique slots.
+
+    Sharded, the step gets this shard's rows of the batch and
+    ``gather_votes``, which gathers every shard's votes into the whole
+    batch's, in shard order, and says where this shard's rows start.
+    Keep or overflow is then decided over the whole batch, with
+    ``C = route_capacity(whole batch, ...)`` slots a cluster, so the
+    sharded plane drops exactly the requests the single-device plane
+    drops; dispatch, heads and combine stay on the shard, some of its
+    slots empty."""
     spec = cfg.head_spec()
     base = _make_step(cfg)
     k = cfg.k
 
-    def routed(tau, head_params, gumbel, data, point_mask, k_valid):
+    def routed(tau, head_params, gumbel, data, point_mask, k_valid,
+               gather_votes=None):
         labels, centers, cmask, weights = base(tau, gumbel, data,
                                                point_mask, k_valid)
         B, n_pad, d = data.shape
         dev = data.device
-        C = route_capacity(B, k, cfg.head_capacity)
-        S = k * C
         # One cluster per request, by first-max vote. A row with no
         # valid point takes the out-of-range class k: it matches no
         # cluster, so it never takes a queue slot. (The service's
@@ -146,12 +154,20 @@ def _make_routed_step(cfg):
         eff = torch.where(req, cluster, torch.full_like(cluster, k))
         col = torch.clamp_max(eff, k - 1).long()
         rows = torch.arange(B, device=dev)
+        ks = torch.arange(k, device=dev, dtype=eff.dtype)
+        oh = (eff.unsqueeze(1) == ks).int()
         # Queue position = exclusive running count of earlier requests
-        # of the same cluster, in row order; the first C are kept.
-        oh = (eff.unsqueeze(1) == torch.arange(k, device=dev,
-                                               dtype=eff.dtype)).int()
-        cum = torch.cumsum(oh, dim=0) - oh
+        # of the same cluster over the whole batch, in row order; the
+        # first C are kept. Sharded, this shard's rows are [off, off + B)
+        # of the gathered votes.
+        gcl, off = (eff, 0) if gather_votes is None else gather_votes(eff)
+        C = route_capacity(gcl.shape[0], k, cfg.head_capacity)
+        S = k * C
+        goh = (gcl.unsqueeze(1) == ks).int()
+        cum = (torch.cumsum(goh, dim=0) - goh)[off:off + B]
         kept = (cum[rows, col] < C) & req
+        # Local slot = exclusive running count among this shard's kept
+        # rows of the cluster: a subset of the <= C kept over the batch.
         ohl = oh * kept.int().unsqueeze(1)
         lpos = (torch.cumsum(ohl, dim=0) - ohl)[rows, col]
         slot = cluster * C + lpos.int()
@@ -195,7 +211,8 @@ class ServePlane:
     on the shard that computed them until the fold, whose one gather
     moves them. Per request, every result is the single-device plane's
     bit for bit: a request's computation depends on its own draws and
-    points only.
+    points only. The routed step adds one gather, of the requests'
+    votes, so that keep or overflow is decided over the whole batch.
 
     ``compile_count`` counts the first-seen (kind, shards, shape)
     signatures of the steps and folds, as the JAX package's plane counts
@@ -236,11 +253,6 @@ class ServePlane:
         axes = tuple(serve_axes) if serve_axes else None
         self.n_shards = (self.validate_mesh_axes(mesh, axes, cfg.batch_size)
                          if axes else 1)
-        if axes and cfg.head_spec() is not None:
-            raise ServePlaneError(
-                f"serve_axes={axes!r} with heads={cfg.heads!r} is not in "
-                f"the PyTorch port yet: the sharded routed step is ROADMAP "
-                f"item 5b")
         self.mesh = mesh
         self.axes = axes
         self.group = mesh.group(axes) if axes else None
@@ -310,26 +322,55 @@ class ServePlane:
                 source, rids[lo:hi], data[lo:hi], point_mask[lo:hi],
                 k_valid[lo:hi]))
         else:
-            b, kp, dev = B // s, self.cfg.k_prime, self.device
-            out = (torch.zeros((b, n_pad), dtype=torch.int32, device=dev),
-                   torch.zeros((b, kp, d), device=dev),
-                   torch.zeros((b, kp), dtype=torch.bool, device=dev),
-                   torch.zeros((b, kp), device=dev))
+            out = self._placeholder(B // s, n_pad, d)
         if self.group is None:
             return out
         return (self.group.all_gather(out[0], active=s),) + tuple(out[1:])
 
     def routed_step(self, tau, head_params, source, rids, data, point_mask,
-                    k_valid):
-        """Serve one host batch (as :meth:`step`, single-device) through
-        the per-cluster heads. Returns the :meth:`step` quadruple plus
-        (preds (B, d) f32, cluster (B,) int32, kept (B,) bool); preds
+                    k_valid, shards: Optional[int] = None):
+        """Serve one host batch (as :meth:`step`) through the per-cluster
+        heads. Returns the :meth:`step` quadruple plus (preds (B, d) f32,
+        cluster (B,) int32, kept (B,) bool) of the whole batch; preds
         are zero and kept is False where the request overflowed its
-        cluster's queue."""
+        cluster's queue. Sharded, the votes are gathered once to decide
+        the overflow over the whole batch, and labels, preds, cluster
+        and kept in one more gather."""
+        B, n_pad, d = data.shape
+        s = self._shards(shards) if self.group is not None else 1
         self.steps += 1
-        self._count("routed", 1, data.shape)
-        return self._routed(tau, head_params, *self._inputs(
-            source, rids, data, point_mask, k_valid))
+        self._count("routed", s, data.shape)
+        if self.group is None:
+            return self._routed(tau, head_params, *self._inputs(
+                source, rids, data, point_mask, k_valid))
+        lo, hi = self.rows(B, s)
+        if hi > lo:
+            out = self._routed(
+                tau, head_params, *self._inputs(
+                    source, rids[lo:hi], data[lo:hi], point_mask[lo:hi],
+                    k_valid[lo:hi]),
+                gather_votes=lambda eff: (
+                    self.group.all_gather(eff, active=s), lo))
+        else:
+            b, dev = B // s, self.device
+            # A placeholder's votes, dropped by the gather.
+            votes = torch.zeros((b,), dtype=torch.int32, device=dev)
+            self.group.all_gather(votes, active=s)
+            out = self._placeholder(b, n_pad, d) + (
+                torch.zeros((b, d), device=dev), votes,
+                torch.zeros((b,), dtype=torch.bool, device=dev))
+        labels, preds, cluster, kept = self.group.all_gather_many(
+            [out[0], out[4], out[5], out[6]], active=s)
+        return (labels,) + tuple(out[1:4]) + (preds, cluster, kept)
+
+    def _placeholder(self, b: int, n_pad: int, d: int):
+        """What a rank outside the active shards contributes in place of
+        a step's labels and reports (b rows, dropped by the gathers)."""
+        kp, dev = self.cfg.k_prime, self.device
+        return (torch.zeros((b, n_pad), dtype=torch.int32, device=dev),
+                torch.zeros((b, kp, d), device=dev),
+                torch.zeros((b, kp), dtype=torch.bool, device=dev),
+                torch.zeros((b, kp), device=dev))
 
     def gather_rows(self, x: torch.Tensor,
                     shards: Optional[int] = None) -> torch.Tensor:

@@ -29,18 +29,25 @@ changes its labels.
     batch over the ranks and gathers the labels, and the fold state and
     tau stay the same bits on every rank. Rank 0 writes the checkpoint.
   * **Routed heads** (DESIGN.md §16): with ``heads`` on every batch goes
-    through the plane's routed step: the same labels, plus one
-    prediction per request from the head of its majority-vote cluster
-    (``flush_predict`` / ``serve_predict``).
+    through the plane's routed step, on one device or sharded: the same
+    labels, plus one prediction per request from the head of its
+    majority-vote cluster (``flush_predict`` / ``serve_predict``).
+  * **Drift** (DESIGN.md §14): with ``drift="decay"`` a refresh weights
+    every fold slot by 2^(-age/half_life), age in requests since its
+    fold, and masks out the fully decayed; ``"split_merge"`` then
+    re-seeds starved centers from over-massed ones. A re-seeded
+    center's head starts as a copy of its donor's: the re-map is staged
+    at the refresh and committed with the tau swap that bumps the
+    version (at once on a sync refresh, at the next flush boundary on an
+    async one). Every decision is a function of the folded stream, so
+    it replays from a checkpoint.
   * **Checkpoints**: ``save`` writes the serving state in the JAX
     package's npz schema and ``_restore`` reads the archives of schemas
-    v1-v5 that it can honour (see ``_restore``); restore then serve
-    replays labels, versions and decisions exactly.
+    v1-v5 (see ``_restore``); restore then serve replays labels,
+    versions and decisions exactly.
 
-Not in the port yet: drift (and with it the head re-map on
-split/retire), the encoder and sharded routed serving;
-``fed.api.FederationPlan`` refuses a plan that asks for one of them,
-and ``_restore`` an archive written under drift or the encoder.
+Not in the port yet: the encoder; ``fed.api.FederationPlan`` refuses a
+plan that asks for it, and ``_restore`` an archive written under it.
 """
 from __future__ import annotations
 
@@ -99,9 +106,12 @@ _HEADS_SALT = 0x48454144  # "HEAD"
 
 REFRESH_MODES = ("sync", "async")
 
+DRIFT_MODES = ("off", "decay", "split_merge")
+
 # The JAX package's numeric codes of the drift modes, as a checkpoint
-# stores them. The port runs drift "off", and refuses an archive written
-# under another mode by name.
+# (schema v4+) stores them: its fold epochs, mass histogram and
+# split/retire counters mean something only under the mode that wrote
+# them.
 DRIFT_IDS = {"off": 0, "decay": 1, "split_merge": 2}
 
 
@@ -137,6 +147,11 @@ class StreamConfig:
     fold_policy: str = "drop"   # admission: drop | lru | weighted_reservoir
     policy_seed: int = 0        # weighted_reservoir key seed
     serve_dtype: str = "f32"    # fused-step storage: f32 | bf16
+    drift: str = "off"          # drift adaptation: off|decay|split_merge
+    drift_half_life: int = 0    # decay half-life in requests (>= 1 on)
+    drift_split_factor: float = 2.0   # split centers above this x mean mass
+    drift_retire_frac: float = 0.1    # retire centers below this x mean mass
+    drift_max_moves: int = 1    # split/retire moves per flush boundary
     heads: str = "off"          # per-cluster serving heads: off|linear|<config>
     head_capacity: float = 1.25  # dispatch queue slots per cluster, x B/k
     head_arch: str = "ffn"      # head architecture: ffn | transformer
@@ -184,6 +199,24 @@ class StreamConfig:
             _bad("policy_seed", self.policy_seed,
                  "must be a non-negative int (seeds the "
                  "weighted_reservoir keys)")
+        if self.drift not in DRIFT_MODES:
+            _bad("drift", self.drift,
+                 f"accepted values are {list(DRIFT_MODES)}")
+        if self.drift != "off" and (
+                not isinstance(self.drift_half_life, int)
+                or self.drift_half_life < 1):
+            _bad("drift_half_life", self.drift_half_life,
+                 "must be an int >= 1 (requests) when drift is enabled")
+        if not float(self.drift_split_factor) > 1.0:
+            _bad("drift_split_factor", self.drift_split_factor,
+                 "must be > 1.0 (multiples of the mean center mass)")
+        if not 0.0 <= float(self.drift_retire_frac) < 1.0:
+            _bad("drift_retire_frac", self.drift_retire_frac,
+                 "must be in [0.0, 1.0) (fraction of the mean mass)")
+        if (not isinstance(self.drift_max_moves, int)
+                or self.drift_max_moves < 1):
+            _bad("drift_max_moves", self.drift_max_moves,
+                 "must be an int >= 1 (split/retire moves per boundary)")
         if self.serve_dtype not in SOLVE_ATTACH_DTYPES:
             _bad("serve_dtype", self.serve_dtype,
                  f"accepted values are {list(SOLVE_ATTACH_DTYPES)} (f32, "
@@ -211,6 +244,11 @@ class StreamConfig:
             return None
         return heads_mod.resolve_head_spec(self.heads, self.head_arch,
                                            self.d)
+
+    def policy_half_life(self) -> int:
+        """The fold policy's decay half-life: the drift one, 0 with
+        drift off (the weighted reservoir's key then does not decay)."""
+        return self.drift_half_life if self.drift != "off" else 0
 
 
 class AttachService:
@@ -251,8 +289,9 @@ class AttachService:
         self.state = (server.init_state(cfg.capacity, cfg.k_prime, cfg.d,
                                         device=self.plane.device)
                       if state is None else state)
-        self.policy = policy or make_policy(cfg.fold_policy, cfg.capacity,
-                                            seed=cfg.policy_seed)
+        self.policy = policy or make_policy(
+            cfg.fold_policy, cfg.capacity, seed=cfg.policy_seed,
+            half_life=cfg.policy_half_life())
         # The flush-boundary controller: one decision a non-empty flush,
         # against the shards serve_axes granted. With autoscale "off" its
         # static decision is the whole grant, the plan's batch and ladder.
@@ -273,8 +312,18 @@ class AttachService:
         self._done: Dict[int, tuple] = {}
         self._oversized_warned: set = set()
         self._head_spec = cfg.head_spec()
+        # A split/retire head re-map staged by a refresh, applied with
+        # the tau swap that bumps the version (_commit_heads_perm).
+        self._heads_perm: Optional[np.ndarray] = None
         self._routed_served = 0
         self._overflowed = 0
+        # The drift state (schema v4): each center's decayed fold mass at
+        # the last refresh and the split/retire counters, functions of
+        # the folded stream only.
+        self._drift_mass = np.zeros((cfg.k,), np.float32)
+        self._drift_events = 0    # refreshes that moved >= 1 center
+        self._drift_moves = 0     # split/retire moves in all
+        self._drift_last = 0      # moves at the latest refresh
         if self._head_spec is None:
             self.heads = None
         elif heads is not None:
@@ -393,21 +442,25 @@ class AttachService:
         tau_version, pred)}, ``pred`` = (prediction, cluster, routed)
         with heads on, else None.
 
-        The flush boundary is where a staged async tau swap commits and
-        where the autoscale decision is taken, from a snapshot of the
-        queue. Requests are grouped by pad bucket under the decision's
+        The flush boundary is where a staged async tau swap commits (with
+        any split/retire head re-map staged beside it) and where the
+        autoscale decision is taken, from a snapshot of the queue (under
+        drift it carries the last refresh's mass histogram). Requests are grouped by pad bucket under the decision's
         ladder and served in fixed (B, n_pad, d) shapes; a short batch
         pads by repeating its last real request (discarded). Two phases:
         first every batch is launched (serve or routed step, fold,
         cadence refresh), then the results are brought to the host."""
         if self._taubuf.pending:
             self._taubuf = self._taubuf.commit()
+            self._commit_heads_perm()
         pending, self._pending = self._pending, []
         decision = self.autoscaler.decision
         if pending and self.cfg.autoscale != "off":
             decision = self.autoscaler.observe(snapshot_queue(
                 [item[1].shape[0] for item in pending],
-                self.cfg.bucket_sizes))
+                self.cfg.bucket_sizes,
+                mass=(self._drift_mass if self.cfg.drift != "off"
+                      else ())))
         buckets: Dict[int, list] = {}
         for item in pending:
             buckets.setdefault(self._bucket(item[1].shape[0],
@@ -527,7 +580,8 @@ class AttachService:
                 self.tau, *args, shards=shards)
         else:
             (labels, centers, cmask, weights, preds, cluster,
-             kept) = self.plane.routed_step(self.tau, self.heads, *args)
+             kept) = self.plane.routed_step(self.tau, self.heads, *args,
+                                            shards=shards)
             routed = (preds, cluster, kept)
         if cfg.fold_reports:
             self._fold(batch, rids, centers, cmask, weights, shards)
@@ -580,28 +634,85 @@ class AttachService:
 
     # ----------------------------------------------------------- refresh --
 
-    def _refinalize(self) -> server.KFedAggregate:
+    def _refinalize(self):
         """Algorithm 2 again over every folded report (round devices and
-        streamed attachments), the sync and the async refresh alike."""
+        streamed attachments), the sync and the async refresh alike,
+        with the drift layer on top when the plan asks for it:
+
+          * ``drift="off"``: the plain finalize;
+          * ``"decay"``: every slot weighted by its age factor, the
+            fully decayed masked out (``server.finalize(decay=)``), and
+            the per-center mass recomputed;
+          * ``"split_merge"``: then ``server.split_retire`` re-seeds
+            starved centers from over-massed ones and re-anchors with
+            one Lloyd round; its move count is one copy to the host.
+            With heads on, a re-seeded center's head is staged to start
+            as a copy of its donor's.
+
+        Returns ``(agg, tau)``: the tau to swap in."""
+        cfg = self.cfg
         self._since_refresh = 0
-        return server.finalize(self.state, self.cfg.k,
-                               weighted=self.cfg.weight_by_core_counts)
+        if cfg.drift == "off":
+            agg = server.finalize(self.state, cfg.k,
+                                  weighted=cfg.weight_by_core_counts)
+            return agg, agg.tau_centers
+        decay = (self._next_id, cfg.drift_half_life)
+        agg = server.finalize(self.state, cfg.k, decay=decay)
+        mask, w = server.decayed_evidence(self.state, *decay)
+        mass = server.center_mass(agg, mask, w)
+        tau = agg.tau_centers
+        if cfg.drift == "split_merge":
+            # Masked slots carry no evidence: their coordinates stay out
+            # of the re-seed distances and the Lloyd round, as finalize
+            # keeps them out.
+            flat = torch.where(mask[..., None], self.state.centers,
+                               torch.zeros_like(self.state.centers)
+                               ).reshape(-1, cfg.d).float()
+            tau, take, donors, n_mv = server.split_retire(
+                flat, mask.reshape(-1), agg, mass, cfg.k,
+                split_factor=cfg.drift_split_factor,
+                retire_frac=cfg.drift_retire_frac,
+                max_moves=cfg.drift_max_moves, weights=w.reshape(-1))
+            moves = int(n_mv)
+            self._drift_events += 1 if moves else 0
+            self._drift_moves += moves
+            self._drift_last = moves
+            if moves and self._head_spec is not None:
+                # Overwritten, not composed: donors index the current
+                # heads, and an earlier staged re-map was committed with
+                # its own tau swap.
+                perm = np.arange(cfg.k, dtype=np.int64)
+                tk = take.cpu().numpy()
+                perm[tk] = donors.cpu().numpy()[tk]
+                self._heads_perm = perm
+        self._drift_mass = mass.cpu().numpy().astype(np.float32)
+        return agg, tau
 
     def refresh(self) -> server.KFedAggregate:
         """Finalize Algorithm 2 again and swap the new tau in now: one
-        atomic version bump."""
-        agg = self._refinalize()
-        self._taubuf = self._taubuf.swap_now(
-            self.plane.localize(agg.tau_centers))
+        atomic version bump (with any staged head re-map)."""
+        agg, tau = self._refinalize()
+        self._taubuf = self._taubuf.swap_now(self.plane.localize(tau))
+        self._commit_heads_perm()
         return agg
 
     def _stage_refresh(self) -> None:
         """The async refresh: finalize into the standby buffer, enqueued
-        on the current stream without waiting for it, so the batches
-        behind it keep serving the active tau; the swap (one version
-        bump) commits at the next flush boundary."""
-        self._taubuf = self._taubuf.stage(
-            self.plane.localize(self._refinalize().tau_centers))
+        on the current stream without waiting for it (a split/retire
+        refresh waits once, for its move count), so the batches behind
+        it keep serving the active tau; the swap (one version bump)
+        commits at the next flush boundary."""
+        _, tau = self._refinalize()
+        self._taubuf = self._taubuf.stage(self.plane.localize(tau))
+
+    def _commit_heads_perm(self) -> None:
+        """Apply a staged split/retire head re-map: the partner of the
+        tau swap that staged it."""
+        perm, self._heads_perm = self._heads_perm, None
+        if perm is None or self._head_spec is None:
+            return
+        idx = torch.as_tensor(perm, device=self.plane.device)
+        self.heads = heads_mod.tree_map(lambda p: p[idx], self.heads)
 
     # -------------------------------------------------------- checkpoint --
 
@@ -615,11 +726,13 @@ class AttachService:
         tau buffers, their version and whether a swap is staged, the
         fold state, the counters, the admission policy's id and state,
         the autoscale controller's id and decision state (schema v3),
-        the drift arrays of its "off" mode, and with heads on (schema
-        v5) the head parameters, their tag and the routed counters. A
-        restore in either package replays the labels, tau versions and
-        decisions. Pending requests are not stored. On a mesh, rank 0
-        writes and every rank waits for it at a barrier."""
+        the drift mode, its counters and mass histogram (schema v4; the
+        fold epochs ride in the state), and with heads on (schema v5)
+        the head parameters, their tag, the routed counters and a staged
+        head re-map. A restore in either package replays the labels, tau
+        versions, scaling and split/retire decisions. Pending requests
+        are not stored. On a mesh, rank 0 writes and every rank waits
+        for it at a barrier."""
         extra = {}
         if self._head_spec is not None:
             extra["heads"] = self.heads
@@ -627,6 +740,8 @@ class AttachService:
                 f"{self.cfg.heads}|{self.cfg.head_arch}")
             extra["heads_counters"] = np.asarray(
                 [self._routed_served, self._overflowed], np.int64)
+            if self._heads_perm is not None:
+                extra["heads_perm"] = np.asarray(self._heads_perm, np.int64)
         cfg = self.cfg
         tree = {
             **extra,
@@ -638,9 +753,11 @@ class AttachService:
             "policy": self.policy.state_arrays(),
             "autoscale_id": np.asarray(AUTOSCALE_IDS[cfg.autoscale],
                                        np.int64),
-            "drift_id": np.asarray(DRIFT_IDS["off"], np.int64),
-            "drift_state": np.zeros((3,), np.int64),
-            "drift_mass": np.zeros((cfg.k,), np.float32),
+            "drift_id": np.asarray(DRIFT_IDS[cfg.drift], np.int64),
+            "drift_state": np.asarray([self._drift_events,
+                                       self._drift_moves,
+                                       self._drift_last], np.int64),
+            "drift_mass": np.asarray(self._drift_mass, np.float32),
             **self.autoscaler.state_arrays()}
         return save_pytree(path, tree, mesh=self.plane.mesh)
 
@@ -653,20 +770,21 @@ class AttachService:
         or the port's), on ``device``. Serving draws are keyed by the
         archive's base seed unless ``gumbel`` is given; ``mesh`` and
         ``serve_axes`` shard the plane (an archive restores sharded or
-        not, whichever way it was written). The policy's
-        slots, a staged tau swap (committed at the first flush) and the
-        autoscale decision state are taken over, so serving replays the
-        writer's. An archive is refused by the field it disagrees on:
-        ``fold_policy`` and ``autoscale`` where the archive was written
-        under another value than ``cfg``'s, ``drift`` (a v4+ archive
-        written under decay or split_merge, which the port does not
-        run), ``heads``/``head_arch``, and ``encoder`` (any v6
-        archive)."""
+        not, whichever way it was written). The policy's slots, a staged
+        tau swap (committed at the first flush) with its staged head
+        re-map, the autoscale decision state and the drift state are
+        taken over, so serving replays the writer's. A pre-v4 archive
+        restores under any drift mode with the drift state at its
+        defaults. An archive is refused by the field it disagrees on:
+        ``fold_policy``, ``autoscale`` and ``drift`` where the archive
+        was written under another value than ``cfg``'s,
+        ``heads``/``head_arch``, and ``encoder`` (any v6 archive)."""
         extras = load_extras(path, ("policy_id", "autoscale_id",
                                     "autoscale_state", "autoscale_ladder",
-                                    "tau_bufs", "drift_id",
-                                    "server/.epoch", "heads_tag",
-                                    "heads_counters", "encoder_tag"))
+                                    "tau_bufs", "drift_id", "drift_state",
+                                    "drift_mass", "server/.epoch",
+                                    "heads_tag", "heads_counters",
+                                    "heads_perm", "encoder_tag"))
         # Archives from before the policy layer were written under drop.
         saved = (int(extras["policy_id"]) if "policy_id" in extras
                  else POLICY_IDS["drop"])
@@ -680,7 +798,7 @@ class AttachService:
         # autoscale policy with a fresh decision.
         for field_, ids, want in (("autoscale", AUTOSCALE_IDS,
                                    cfg.autoscale),
-                                  ("drift", DRIFT_IDS, "off")):
+                                  ("drift", DRIFT_IDS, cfg.drift)):
             if f"{field_}_id" in extras:
                 got = int(extras[f"{field_}_id"])
                 if got != ids[want]:
@@ -707,7 +825,8 @@ class AttachService:
                 f"encoder={sv_e!r}/encode_dtype={sv_dt!r}/"
                 f"encode_seq_len={sv_sl}")
         policy = make_policy(cfg.fold_policy, cfg.capacity,
-                             seed=cfg.policy_seed)
+                             seed=cfg.policy_seed,
+                             half_life=cfg.policy_half_life())
         # v1 holds one tau (restored as version 0, both buffers equal);
         # pre-v4 archives hold the fold state without its epoch stamps.
         v2 = "tau_bufs" in extras
@@ -747,6 +866,17 @@ class AttachService:
         if "heads_counters" in extras:
             hc = np.asarray(extras["heads_counters"], np.int64)
             svc._routed_served, svc._overflowed = int(hc[0]), int(hc[1])
+        if "heads_perm" in extras:
+            svc._heads_perm = np.asarray(extras["heads_perm"],
+                                         np.int64).copy()
+        if "drift_state" in extras:
+            ds = np.asarray(extras["drift_state"], np.int64)
+            svc._drift_events, svc._drift_moves, svc._drift_last = (
+                int(ds[0]), int(ds[1]), int(ds[2]))
+        if "drift_mass" in extras:
+            dm = np.asarray(extras["drift_mass"], np.float32)
+            if dm.shape == (cfg.k,):
+                svc._drift_mass = dm.copy()
         if "autoscale_state" in extras:
             svc.autoscaler.load_state(extras["autoscale_state"],
                                       extras["autoscale_ladder"])
@@ -766,9 +896,7 @@ class AttachService:
             "params_per_head": heads_mod.head_param_count(self._head_spec),
             "routed_served": self._routed_served,
             "overflowed": self._overflowed,
-            # No split/retire re-map without drift, which the port
-            # does not have yet.
-            "remap_pending": False,
+            "remap_pending": self._heads_perm is not None,
         }
 
     def stats(self) -> dict:
@@ -785,11 +913,14 @@ class AttachService:
             "refresh_pending": self._taubuf.pending,
             "autoscale": self.autoscaler.stats(),
             "heads": self._heads_stats(),
-            # The JAX package's "off" forms of the layers the port does
-            # not have yet.
+            # The JAX package's "off" form of the encoder, which the
+            # port does not have yet.
             "encoder": {"mode": "off"},
-            "drift": {"mode": "off", "half_life": 0, "events": 0,
-                      "moves": 0, "last_moves": 0,
-                      "mass": [0.0] * self.cfg.k},
+            "drift": {"mode": self.cfg.drift,
+                      "half_life": self.cfg.drift_half_life,
+                      "events": self._drift_events,
+                      "moves": self._drift_moves,
+                      "last_moves": self._drift_last,
+                      "mass": [float(m) for m in self._drift_mass]},
             **self.plane.describe(),
         }

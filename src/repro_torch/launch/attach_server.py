@@ -21,9 +21,10 @@ the first named axis), over NCCL on the card, one rank a card, or gloo
 (``--backend gloo``: on the CPU, or ranks sharing a card):
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.attach_server \\
-      --serve-axes data --device cpu
+      --serve-axes data --device cpu [--heads linear]
 
-Every rank serves the same stream and rank 0 prints. The JAX package's
+Every rank serves the same stream and rank 0 prints; with ``--heads``
+each batch goes through the sharded routed step. The JAX package's
 ``--force-host-devices`` is refused by name: its counterpart here is
 ``torchrun --nproc-per-node``.
 """

@@ -206,6 +206,81 @@ def case_checkpoint(spec):
             "restored_state": [_np(t) for t in restored.service.state]}
 
 
+def served_routed(sess, reqs, kvs, chunk):
+    """serve_predict in flushes of ``chunk``: each request's (labels,
+    version, prediction, cluster, routed)."""
+    out = []
+    for lo in range(0, len(reqs), chunk):
+        out += [(p.labels, p.tau_version, p.prediction, p.cluster, p.routed)
+                for p in sess.serve_predict(reqs[lo:lo + chunk],
+                                            kvs[lo:lo + chunk])]
+    return out
+
+
+def case_routed(spec):
+    """The sharded routed step: serve_predict at the full grant (and,
+    with ``bursts``, under autoscaling); the plan's small head_capacity
+    makes queues overflow across shards."""
+    from repro_torch.fed.api import FederationPlan, Session
+    mesh = _mesh()
+    plan = FederationPlan(**spec["plan"], serve_axes=("data",),
+                          device="cpu")
+    sess = Session.from_round(plan, spec["round"], mesh=mesh, seed=3)
+    out = {"served": served_routed(sess, spec["reqs"], spec["kvs"],
+                                   spec["chunk"]),
+           "state": [_np(t) for t in sess.service.state],
+           "heads": sess.stats()["heads"],
+           "plane_compiles": sess.stats()["plane_compiles"]}
+    if spec.get("bursts"):
+        auto = Session.from_round(plan.with_options(autoscale="latency"),
+                                  spec["round"], mesh=mesh, seed=3)
+        served, decisions, at = [], [], 0
+        for nb in spec["bursts"]:
+            served += served_routed(auto, spec["reqs"][at:at + nb],
+                                    spec["kvs"][at:at + nb], nb)
+            d = auto.service.autoscaler.decision
+            decisions.append((d.shards, d.batch_size))
+            at += nb
+        out["auto"] = {"served": served, "decisions": decisions,
+                       "state": [_np(t) for t in auto.service.state]}
+    return out
+
+
+def drift_outcome(sess):
+    """What a drift session must replay: fold state, mass, counters,
+    version (and the heads, with heads on)."""
+    svc = sess.service
+    out = {"state": [_np(t) for t in svc.state],
+           "mass": svc._drift_mass.copy(),
+           "counters": (svc._drift_events, svc._drift_moves,
+                        svc._drift_last),
+           "version": sess.tau_version}
+    if svc.heads is not None:
+        from repro_torch.models.heads import tree_map
+        out["heads"] = tree_map(_np, svc.heads)
+    return out
+
+
+def case_drift(spec):
+    """A split_merge session on the sharded plane, heads off
+    (serve_versioned) and on (serve_predict, the routed re-map)."""
+    from repro_torch.fed.api import FederationPlan, Session
+    mesh = _mesh()
+    out = {}
+    for heads in ("off", "linear"):
+        plan = FederationPlan(**spec["plan"], heads=heads,
+                              serve_axes=("data",), device="cpu")
+        sess = Session.from_round(plan, spec["round"], mesh=mesh, seed=3)
+        if heads == "off":
+            served = [sess.serve_versioned(spec["reqs"][lo:lo + 8],
+                                           spec["kvs"][lo:lo + 8])
+                      for lo in range(0, len(spec["reqs"]), 8)]
+        else:
+            served = served_routed(sess, spec["reqs"], spec["kvs"], 8)
+        out[heads] = {"served": served, **drift_outcome(sess)}
+    return out
+
+
 def case_lloyd(spec):
     from repro_torch.core.distributed import distributed_lloyd
     mesh = _mesh()
@@ -242,4 +317,5 @@ def case_errors(spec):
 CASES = {"primitives": case_primitives, "round": case_round,
          "fold": case_fold, "plane": case_plane,
          "autoscale": case_autoscale, "checkpoint": case_checkpoint,
-         "lloyd": case_lloyd, "errors": case_errors}
+         "lloyd": case_lloyd, "errors": case_errors, "routed": case_routed,
+         "drift": case_drift}

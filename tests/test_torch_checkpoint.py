@@ -2,8 +2,8 @@
 (repro_torch/checkpoint/store.py) and Session.save / Session.restore
 against the JAX package's.
 
-An archive the JAX package writes (schemas v1-v5: drift off, heads off
-or on) restores in the port, and an archive the port writes restores in
+An archive the JAX package writes (schemas v1-v5: drift off, decay or
+split_merge, heads off or on) restores in the port, and an archive the port writes restores in
 the JAX package; tests/test_torch_attach.py does the same for archives
 of the lru and weighted_reservoir policies, the async refresh and
 autoscaling. After
@@ -409,19 +409,51 @@ def test_port_restore_replays_itself(jax_round, requests, tmp_path):
     (dict(fold_policy="lru"), "fold_policy"),
     (dict(autoscale="latency"), "autoscale"),
     (dict(autoscale="throughput"), "autoscale"),
-    (dict(drift="decay", drift_half_life=64), "drift"),
-    (dict(drift="split_merge", drift_half_life=64), "drift"),
     (dict(encoder="granite-3-2b"), "encoder"),
 ])
 def test_restore_refuses_unported_modes(jax_round, tmp_path, writer, field):
     """An archive the JAX package wrote under a mode the restoring plan
     (drop, autoscale off) does not run is refused with the field named:
-    drift and the encoder, which the port does not have, and lru,
-    latency and throughput, which it runs but this plan does not."""
+    the encoder, which the port does not have, and lru, latency and
+    throughput, which it runs but this plan does not."""
     path = japi.Session.from_round(_jplan(**writer), jax_round).save(
         str(tmp_path / "m.npz"))
     with pytest.raises(StreamConfigError, match=f"StreamConfig.{field}"):
         Session.restore(path, _plan())
+
+
+@pytest.mark.parametrize("writer", [
+    dict(drift="decay", drift_half_life=64),
+    dict(drift="split_merge", drift_half_life=64)],
+    ids=["decay", "split_merge"])
+def test_restore_takes_jax_drift_archives(jax_round, requests, tmp_path,
+                                         writer):
+    """An archive the JAX package wrote under decay or split_merge (once
+    refused by name) restores in the port under the same drift plan,
+    with its fold epochs, mass and counters, and both serve the same
+    labels, tau versions and drift counters; under drift off it is
+    refused, naming StreamConfig.drift."""
+    datas, kvs = requests
+    jsess = japi.Session.from_round(_jplan(**writer), jax_round)
+    jsess.serve(datas[:5], kvs[:5])
+    path = jsess.save(str(tmp_path / "m.npz"))
+    with pytest.raises(StreamConfigError, match="StreamConfig.drift"):
+        Session.restore(path, _plan())
+    sess = Session.restore(path, _plan(**writer), gumbel=JaxServeGumbel(0))
+    svc, jsvc = sess.service, jsess.service
+    for a, b in zip(svc.state, jsvc.state):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(svc._drift_mass, jsvc._drift_mass)
+    got = sess.serve_versioned(datas[5:], kvs[5:])
+    want = jsess.serve_versioned(datas[5:], kvs[5:])
+    for (g, gv), (w, wv) in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+        assert gv == wv
+    assert sess.tau_version == jsess.tau_version >= 2
+    st, jst = sess.stats()["drift"], jsess.stats()["drift"]
+    assert (st["mode"], st["events"], st["moves"]) == (
+        jst["mode"], jst["events"], jst["moves"])
+    np.testing.assert_allclose(st["mass"], jst["mass"], rtol=1e-5)
 
 
 @pytest.mark.parametrize("writer,reader,field", [

@@ -1392,3 +1392,92 @@ def test_gpu_two_rank_gloo_plane_equals_single_process(cuda_device,
             assert ver == wv
         for x, y in zip(got["state"], single.service.state):
             np.testing.assert_array_equal(x, y.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [1, 3, 24, 64])
+def test_gpu_drift_functions_match_cpu(cuda_device, h):
+    """The drift layer's functions on the card against the CPU on the
+    same fold state: the same zero set of the decay factors (the
+    exponent <= -126 rule holds where CUDA keeps subnormals), the same
+    evidence mask, finalize labels and split/retire decisions; factors,
+    tau and mass within 1e-5 relative."""
+    from repro_torch.core import server as S
+    now = 130 * h
+    ep = torch.arange(now + 1, dtype=torch.int32)
+    f0 = S.decay_factors(ep, now, h)
+    f1 = S.decay_factors(ep.to(cuda_device), now, h).cpu()
+    assert torch.equal(f1 == 0, f0 == 0)
+    assert int((f0 == 0).sum()) == now - 126 * h + 1
+    torch.testing.assert_close(f1, f0, rtol=1e-5, atol=0)
+    rng = np.random.default_rng(h)
+    Z, kp, d, k = 40, 3, 6, 8
+    centers = (rng.normal(size=(Z, kp, d)) * 5
+               + rng.integers(0, 5, size=(Z, 1, 1)) * 50).astype(np.float32)
+    w = (0.5 + 2.5 * rng.random((Z, kp))).astype(np.float32)
+    w[:4] *= 1e-37                   # products that go subnormal
+    st0 = S.aggregate_incremental(
+        S.init_state(Z, kp, d, device="cpu"), torch.arange(Z),
+        T(centers), T(rng.random((Z, kp)) < 0.9), weights=T(w),
+        epochs=T(rng.integers(0, 20 * h, size=Z).astype(np.int32)))
+    st1 = S.ServerState(*(t.to(cuda_device) for t in st0))
+    horizon = 20 * h
+    outs = []
+    for st in (st1, st0):
+        mask, dw = S.decayed_evidence(st, horizon, h)
+        agg = S.finalize(st, k, decay=(horizon, h))
+        mass = S.center_mass(agg, mask, dw)
+        flat = torch.where(mask[..., None], st.centers,
+                           torch.zeros_like(st.centers)).reshape(-1, d)
+        sr = S.split_retire(flat, mask.reshape(-1), agg, mass, k,
+                            split_factor=1.2, retire_frac=0.5, max_moves=2,
+                            weights=dw.reshape(-1))
+        outs.append([t.cpu() for t in (mask, dw, agg.center_labels,
+                                       agg.tau_centers, mass) + sr])
+    got, want = outs
+    for i in (0, 2, 6, 7, 8):        # mask, labels, take, donors, moves
+        assert torch.equal(got[i], want[i]), i
+    assert torch.equal(got[1] == 0, want[1] == 0)
+    for i in (1, 3, 4, 5):
+        scale = float(want[i].abs().max())
+        torch.testing.assert_close(got[i], want[i], rtol=0,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+def test_gpu_one_rank_nccl_sharded_routed_step(cuda_device, tmp_path):
+    """serve_axes with heads on in a one-rank NCCL world: the sharded
+    routed step (its votes and outputs gathered over NCCL) serves the
+    labels, versions, clusters, routing and predictions of the
+    single-device plane, bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.data.gaussian import (late_device_stream,
+                                           structured_devices)
+    from repro_torch.fed.api import FederationPlan, Session
+    from repro_torch.utils.mesh import make_mesh
+    fm = structured_devices(0, k=16, d=24, k_prime=4, m0=4,
+                            n_per_comp_dev=25, sep=60.0)
+    plan = FederationPlan(k=16, k_prime=4, d=24, capacity=256,
+                          batch_size=8, bucket_sizes=(32, 64, 128),
+                          refresh_every=4, heads="linear",
+                          head_capacity=0.5)
+    rr = Session(plan).run(1, fm.data).detail
+    stream = late_device_stream(fm.means, 4, 16, 5, n_range=(10, 120))
+    reqs, kvs = [r[0] for r in stream], [r[2] for r in stream]
+    want = Session.from_round(plan, rr, seed=3).serve_predict(reqs, kvs)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), backend="nccl")
+        sharded = plan.with_options(serve_axes=("data",))
+        got = Session.from_round(sharded, rr, mesh=mesh,
+                                 seed=3).serve_predict(reqs, kvs)
+    finally:
+        dist.destroy_process_group()
+    assert not all(w.routed for w in want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.labels, w.labels)
+        np.testing.assert_array_equal(g.prediction, w.prediction)
+        assert (g.tau_version, g.cluster, g.routed) == (
+            w.tau_version, w.cluster, w.routed)

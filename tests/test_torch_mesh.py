@@ -7,7 +7,9 @@ the JAX package's k-means++ draws, computed here. The rule across
 topologies is the JAX package's (DESIGN.md §4): the round's labels equal
 the simulated round's exactly, tau within 1e-4 of its largest entry; the
 sharded plane equals the single-device plane bit for bit (labels, tau
-versions, fold state), and every rank holds the same bits.
+versions, fold state; routed: predictions, clusters and routing; drift:
+mass, counters and the re-mapped heads), and every rank holds the same
+bits.
 """
 import numpy as np
 import pytest
@@ -35,6 +37,13 @@ PLANE = dict(k=K, k_prime=KP, d=D, capacity=256, batch_size=8,
 AUTOSCALE = dict(PLANE, autoscale="latency")
 BURSTS = (1, 3, 8, 2, 5, 1, 4)
 LLOYD_K, LLOYD_ITERS = 16, 10
+# The routed plane: heads on, half the default queue depth, so that
+# C = 1 slot a cluster for a batch of 8 and queues overflow across
+# shards. The drift plane: tests/test_drift.py:345's split_merge plan.
+ROUTED = dict(PLANE, heads="linear", head_capacity=0.5)
+DRIFT = dict(k=K, k_prime=KP, d=D, capacity=512, batch_size=8,
+             bucket_sizes=(32, 64, 128), refresh_every=4,
+             drift="split_merge", drift_half_life=24, drift_retire_frac=0.2)
 WORLDS = (1, 2, 4)
 TOPOLOGIES = ("replicated", "sharded")
 
@@ -112,6 +121,57 @@ def single_plane(plane_inputs):
                 version=sess.tau_version, jax=want)
 
 
+@pytest.fixture(scope="module")
+def shifted():
+    """24 requests from resampled means (x40): split/retire moves
+    centers on this stream, and its clusters collide in batches."""
+    means = np.random.default_rng(3).normal(size=(K, D)).astype(
+        np.float32) * 40.0
+    stream = late_device_stream(means, KP, 24, 19, n_range=(15, 50))
+    return [r[0] for r in stream], [r[2] for r in stream]
+
+
+def _routed_spec(pi, shifted, bursts=None):
+    reqs, kvs = shifted
+    return dict(plan=ROUTED, round=pi["round"], reqs=reqs, kvs=kvs,
+                chunk=ROUTED["batch_size"], bursts=bursts)
+
+
+@pytest.fixture(scope="module")
+def single_routed(plane_inputs, shifted):
+    """The single-device port under the routed and drift plans: what
+    the sharded ranks must equal."""
+    spec = _routed_spec(plane_inputs, shifted, BURSTS)
+    plan = FederationPlan(**ROUTED, device="cpu")
+    rr = plane_inputs["round"]
+    sess = Session.from_round(plan, rr, seed=3)
+    out = {"served": R.served_routed(sess, spec["reqs"], spec["kvs"], 8),
+           "state": [t.numpy() for t in sess.service.state],
+           "heads": sess.stats()["heads"]}
+    auto = Session.from_round(plan.with_options(autoscale="latency"), rr,
+                              seed=3)
+    served, at = [], 0
+    for nb in BURSTS:
+        served += R.served_routed(auto, spec["reqs"][at:at + nb],
+                                  spec["kvs"][at:at + nb], nb)
+        at += nb
+    out["auto"] = {"served": served,
+                   "state": [t.numpy() for t in auto.service.state]}
+    drift = {}
+    for heads in ("off", "linear"):
+        d = Session.from_round(FederationPlan(**DRIFT, heads=heads,
+                                              device="cpu"), rr, seed=3)
+        reqs, kvs = shifted
+        if heads == "off":
+            served = [d.serve_versioned(reqs[lo:lo + 8], kvs[lo:lo + 8])
+                      for lo in range(0, len(reqs), 8)]
+        else:
+            served = R.served_routed(d, reqs, kvs, 8)
+        drift[heads] = {"served": served, **R.drift_outcome(d)}
+    out["drift"] = drift
+    return out
+
+
 def _burst_stream(fm):
     stream = late_device_stream(fm.means, KP, sum(BURSTS), 9,
                                 n_range=(10, 120))
@@ -148,7 +208,7 @@ def _fold_inputs(world):
                 w=rng.random((B, 3)).astype(np.float32), cap=B, kp=3, d=5)
 
 
-def _cases(world, mixture, part, plane_inputs, lloyd_inputs, tmp):
+def _cases(world, mixture, part, plane_inputs, lloyd_inputs, shifted, tmp):
     cases = {
         "round": dict(data=mixture.data, draws=_round_draws(mixture.data),
                       part=part, k=K, kp=KP, d=D),
@@ -156,9 +216,13 @@ def _cases(world, mixture, part, plane_inputs, lloyd_inputs, tmp):
         "fold": _fold_inputs(world),
     }
     pi = plane_inputs
+    cases["routed"] = _routed_spec(pi, shifted,
+                                   BURSTS if world == 4 else None)
     if world > 1:
         cases["plane"] = dict(plan=PLANE, round=pi["round"], reqs=pi["reqs"],
                               kvs=pi["kvs"], draws=pi["draws"])
+        cases["drift"] = dict(plan=DRIFT, round=pi["round"], reqs=shifted[0],
+                              kvs=shifted[1])
     if world == 2:
         cases["checkpoint"] = dict(plan=PLANE, round=pi["round"],
                                    reqs=pi["reqs"], kvs=pi["kvs"], cut=7,
@@ -174,7 +238,8 @@ def _cases(world, mixture, part, plane_inputs, lloyd_inputs, tmp):
 
 
 @pytest.fixture(scope="module")
-def ranks(mixture, part, plane_inputs, lloyd_inputs, tmp_path_factory):
+def ranks(mixture, part, plane_inputs, lloyd_inputs, shifted,
+          tmp_path_factory):
     """{world: [rank 0's results, rank 1's, ...]}, one spawn a world,
     started on first use."""
     done = {}
@@ -183,7 +248,8 @@ def ranks(mixture, part, plane_inputs, lloyd_inputs, tmp_path_factory):
         if world not in done:
             tmp = tmp_path_factory.mktemp(f"world{world}")
             done[world] = R.spawn(world, str(tmp), _cases(
-                world, mixture, part, plane_inputs, lloyd_inputs, tmp))
+                world, mixture, part, plane_inputs, lloyd_inputs, shifted,
+                tmp))
         return done[world]
 
     return get
@@ -340,6 +406,62 @@ def test_sharded_plane_matches_single_device(ranks, single_plane, world):
     assert got["serve_axes"] == ["data"]
 
 
+def _assert_routed_equal(got, want):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g[0], w[0], err_msg=f"request {i}")
+        np.testing.assert_array_equal(g[2], w[2], err_msg=f"request {i}")
+        assert (g[1], g[3], g[4]) == (w[1], w[3], w[4]), i
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_sharded_routed_step_matches_single_device(ranks, single_routed,
+                                                   world):
+    """serve_predict on the sharded routed step at 2 and 4 shards:
+    labels, versions, predictions, clusters and routing equal the
+    single-device port bit for bit, on every rank; C = 1 slot a cluster,
+    and requests overflow a queue whose earlier request sits on another
+    shard, which only the gathered votes can see."""
+    got = _same_on_every_rank(ranks(world), "routed")
+    want = single_routed
+    _assert_routed_equal(got["served"], want["served"])
+    for x, y in zip(got["state"], want["state"]):
+        np.testing.assert_array_equal(x, y)
+    assert got["heads"] == want["heads"] and got["heads"]["overflowed"] > 0
+    b = ROUTED["batch_size"] // world
+    cluster = [s[3] for s in want["served"]]
+    cross = [i for i, s in enumerate(want["served"]) if not s[4] and any(
+        cluster[j] == cluster[i] and (j % 8) // b != (i % 8) // b
+        for j in range(i - i % 8, i))]
+    assert cross, "no overflow across shards"
+
+
+def test_routed_autoscale_switches_shard_counts_with_heads_on(
+        ranks, single_routed):
+    """Latency autoscaling at a grant of 4 with heads on: the active
+    shard count takes 1, 2 and 4, and every routed result equals the
+    single-device port's under the same plan, bit for bit."""
+    got = _same_on_every_rank(ranks(4), "routed")["auto"]
+    assert {s for s, _ in got["decisions"]} == {1, 2, 4}
+    _assert_routed_equal(got["served"], single_routed["auto"]["served"])
+    for x, y in zip(got["state"], single_routed["auto"]["state"]):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_sharded_drift_matches_single_device(ranks, single_routed, world):
+    """tests/test_drift.py:345 in the port: a split_merge session on the
+    sharded plane, heads off and on, equals the single-device one in
+    labels, versions, predictions, fold state, mass, counters and the
+    re-mapped heads, bit for bit, on every rank."""
+    got = _same_on_every_rank(ranks(world), "drift")
+    want = single_routed["drift"]
+    _assert_tree_equal(got["off"], want["off"])
+    _assert_tree_equal(got["linear"], want["linear"])
+    assert want["off"]["counters"][1] > 0          # centers moved
+    assert want["linear"]["counters"] == want["off"]["counters"]
+
+
 def test_autoscale_switches_shard_counts_as_the_jax_controller(
         ranks, plane_inputs):
     """Latency autoscaling at a grant of 4: every decision's shards (and
@@ -438,13 +560,15 @@ def test_topology_needs_a_mesh():
                                device="cpu"))
 
 
-def test_serve_axes_with_heads_is_refused_naming_item_5b():
-    with pytest.raises(PlanError, match=r"serve_axes=\('data',\) with "
-                                        r"heads='linear' is not in the "
-                                        r"PyTorch port yet: the sharded "
-                                        r"routed step is ROADMAP item 5b"):
-        FederationPlan(k=K, k_prime=KP, d=D, serve_axes=("data",),
-                       heads="linear", device="cpu")
+def test_serve_axes_with_heads_serves_routed_on_one_rank(ranks,
+                                                         single_routed):
+    """serve_axes with heads on, once refused, is a routed sharded serve:
+    on a one-rank world it equals the single-device plane bit for bit."""
+    got = ranks(1)[0]["routed"]
+    _assert_routed_equal(got["served"], single_routed["served"])
+    for x, y in zip(got["state"], single_routed["state"]):
+        np.testing.assert_array_equal(x, y)
+    assert got["heads"] == single_routed["heads"]
 
 
 def test_staged_arrival_refuses_a_mesh_topology(mixture):
@@ -462,10 +586,13 @@ def test_staged_arrival_refuses_a_mesh_topology(mixture):
         sess.fold([0], key=0, data=mixture.data)
 
 
-def test_attach_server_under_torchrun_two_ranks(tmp_path):
+@pytest.mark.parametrize("heads", [(), ("--heads", "linear")],
+                         ids=["plain", "heads"])
+def test_attach_server_under_torchrun_two_ranks(tmp_path, heads):
     """The attachment server with --serve-axes under torchrun: two gloo
-    ranks on the CPU serve the stream, rank 0 prints, and the restored
-    session serves the rest bit for bit."""
+    ranks on the CPU serve the stream (through the sharded routed step
+    with --heads), rank 0 prints, and the restored session serves the
+    rest bit for bit."""
     import os
     import subprocess
     import sys
@@ -478,7 +605,7 @@ def test_attach_server_under_torchrun_two_ranks(tmp_path):
          "--nproc-per-node", "2", "-m", "repro_torch.launch.attach_server",
          "--serve-axes", "data", "--device", "cpu", "--requests", "16",
          "--refresh", "async", "--autoscale", "latency",
-         "--checkpoint", str(tmp_path / "attach.npz")],
+         "--checkpoint", str(tmp_path / "attach.npz"), *heads],
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     lines = out.stdout.splitlines()
@@ -486,6 +613,8 @@ def test_attach_server_under_torchrun_two_ranks(tmp_path):
     assert any("backend=gloo" in ln and "data=2" in ln for ln in lines)
     assert any("on 2 serve shard(s)" in ln for ln in lines)
     assert any("vs uninterrupted session: True" in ln for ln in lines)
+    assert any(ln.startswith("heads[linear/ffn]: routed")
+               for ln in lines) == bool(heads)
 
 
 def test_attach_server_refuses_force_host_devices(capsys):

@@ -264,11 +264,135 @@ def test_default_heads_follow_the_seed(mixture):
     (dict(d=20, heads="granite-3-2b", head_arch="transformer"), "heads"),
     (dict(heads="linear", head_capacity=0.0), "head_capacity"),
     (dict(heads="linear", encoder="granite_3_2b"), "encoder"),
-    (dict(heads="linear", drift="decay"), "drift")])
+    (dict(heads="linear", drift="decay", drift_half_life=0),
+     "drift_half_life")])
 def test_plan_validates_heads(opts, field):
     """Head options are validated by name (granite's 8 attention heads
-    do not divide d=20); heads combined with a part the port does not
-    have is refused by that part's name."""
+    do not divide d=20); heads combined with the encoder, which the port
+    does not have, is refused by its name, and with drift, which it has,
+    by the drift field that is invalid."""
     with pytest.raises(PlanError, match=f"FederationPlan.{field}="):
         FederationPlan(**{**dict(k=K, k_prime=KP, d=D, device="cpu"),
                           **opts})
+
+
+# ------------------------------------------------ drift re-maps heads --
+
+DK, DKP = 16, 4
+DRIFT = dict(k=DK, k_prime=DKP, d=D, capacity=512, batch_size=4,
+             bucket_sizes=(32, 64, 128), refresh_every=4,
+             drift="split_merge", drift_half_life=24, drift_retire_frac=0.2,
+             heads="linear")
+
+
+@pytest.fixture(scope="module")
+def drift_round():
+    """tests/test_route_serve.py's drift fixture on the port's mixture:
+    the JAX package's round and a stream from resampled means, which
+    makes split/retire move a center."""
+    fm = structured_devices(0, k=DK, d=D, k_prime=DKP, m0=4,
+                            n_per_comp_dev=25, sep=60.0)
+    jr = japi.Session(japi.FederationPlan(k=DK, k_prime=DKP, d=D)).run(
+        jax.random.PRNGKey(1), jnp.asarray(fm.data)).detail
+    means = np.random.default_rng(3).normal(size=(DK, D)).astype(
+        np.float32) * 40.0
+    stream = late_device_stream(means, DKP, 24, 19, n_range=(15, 50))
+    return jr, [r[0] for r in stream], [r[2] for r in stream]
+
+
+def _drift_pair(jr, **kw):
+    opts = {**DRIFT, **kw}
+    jsess = japi.Session.from_round(japi.FederationPlan(**opts), jr)
+    heads = convert.heads(jax.tree.map(np.asarray, jsess.service.heads),
+                          device="cpu")
+    sess = Session.from_round(FederationPlan(device="cpu", **opts),
+                              _port_round(jr), heads=heads,
+                              gumbel=JaxServeGumbel(0), device="cpu")
+    return jsess, sess
+
+
+def _assert_heads_equal(sess, jsess):
+    for a, b in zip(jax.tree.leaves(sess.service.heads),
+                    jax.tree.leaves(jsess.service.heads)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("refresh", ["sync", "async"])
+def test_split_retire_remaps_heads_like_jax(drift_round, refresh):
+    """tests/test_route_serve.py:238 against the JAX package: under
+    split_merge a re-seeded center's head starts as its donor's, through
+    the tau swap that bumps the version (at once on a sync refresh, at
+    the next flush on an async one). Labels, versions, clusters and
+    routing exact, predictions within 1e-5 relative, the heads the JAX
+    session's bit for bit after each wave; labels equal the heads-off
+    drift twin's; no re-map left pending."""
+    jr, datas, kvs = drift_round
+    jsess, sess = _drift_pair(jr, refresh=refresh)
+    plain = Session.from_round(
+        FederationPlan(device="cpu", **{**DRIFT, "heads": "off",
+                                        "refresh": refresh}),
+        _port_round(jr), gumbel=JaxServeGumbel(0), device="cpu")
+    pending = []
+    for lo in range(0, 24, 6):
+        got = sess.serve_predict(datas[lo:lo + 6], kvs[lo:lo + 6])
+        want = jsess.serve_predict(datas[lo:lo + 6], kvs[lo:lo + 6])
+        _assert_served_equal(got, want, "f32")
+        for g, (lbl, ver) in zip(got, plain.serve_versioned(
+                datas[lo:lo + 6], kvs[lo:lo + 6])):
+            np.testing.assert_array_equal(g.labels, lbl)
+            assert g.tau_version == ver
+        _assert_heads_equal(sess, jsess)
+        st = sess.stats()["heads"]
+        assert st == jsess.stats()["heads"]
+        pending.append(st["remap_pending"])
+    assert sess.service._drift_moves == jsess.service._drift_moves > 0
+    assert pending[-1] is False
+    assert any(pending) == (refresh == "async")
+    assert sess.tau_version == jsess.tau_version == plain.tau_version > 0
+
+
+def test_pending_heads_perm_survives_save_and_restore(drift_round,
+                                                      tmp_path):
+    """An async split/retire refresh leaves its head re-map staged with
+    the tau swap; a save there carries ``heads_perm``. The JAX package's
+    archive restores in the port with the re-map pending and serves
+    JAX's continuation; the port's archive restores in the port (bit for
+    bit against the uninterrupted session) and in the JAX package."""
+    from repro_torch.checkpoint.store import npz_keys
+    jr, datas, kvs = drift_round
+    jsess, sess = _drift_pair(jr, refresh="async")
+    for lo in (0, 6, 12):
+        sess.serve_predict(datas[lo:lo + 6], kvs[lo:lo + 6])
+        jsess.serve_predict(datas[lo:lo + 6], kvs[lo:lo + 6])
+    assert sess.stats()["heads"]["remap_pending"] is True
+    jpath = jsess.save(str(tmp_path / "jax_perm.npz"))
+    path = sess.save(str(tmp_path / "port_perm.npz"))
+    assert "heads_perm" in npz_keys(jpath) and \
+        npz_keys(path) == npz_keys(jpath)
+    with np.load(path) as a, np.load(jpath) as b:
+        np.testing.assert_array_equal(a["heads_perm"], b["heads_perm"])
+    plan = FederationPlan(device="cpu", **{**DRIFT, "refresh": "async"})
+    jplan = japi.FederationPlan(**{**DRIFT, "refresh": "async"})
+    from_jax = Session.restore(jpath, plan, gumbel=JaxServeGumbel(0))
+    from_port = Session.restore(path, plan, gumbel=JaxServeGumbel(0))
+    in_jax = japi.Session.restore(path, jplan)
+    for s in (from_jax, from_port):
+        assert s.stats()["heads"]["remap_pending"] is True
+        np.testing.assert_array_equal(s.service._heads_perm,
+                                      sess.service._heads_perm)
+    rest = (datas[18:], kvs[18:])
+    want = jsess.serve_predict(*rest)
+    live = sess.serve_predict(*rest)
+    _assert_served_equal(live, want, "f32")
+    _assert_served_equal(from_jax.serve_predict(*rest), want, "f32")
+    _assert_served_equal(in_jax.serve_predict(*rest), want, "f32")
+    again = from_port.serve_predict(*rest)
+    for g, w in zip(again, live):
+        np.testing.assert_array_equal(g.labels, w.labels)
+        np.testing.assert_array_equal(g.prediction, w.prediction)
+        assert (g.tau_version, g.cluster, g.routed) == (
+            w.tau_version, w.cluster, w.routed)
+    for x, y in zip(jax.tree.leaves(from_port.service.heads),
+                    jax.tree.leaves(sess.service.heads)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert from_port.stats()["heads"]["remap_pending"] is False

@@ -164,30 +164,34 @@ def test_from_tau_and_lifecycle_errors(mixture):
     assert clustering_accuracy(served, mixture.labels[0], K) > 0.95
 
 
-@pytest.mark.parametrize("field,value", [
-    ("serve_axes", ("data",)), ("drift", "decay"),
-    ("encoder", "granite_3_2b")])
+@pytest.mark.parametrize("field,value", [("encoder", "granite_3_2b")])
 def test_plan_refuses_what_is_not_ported(field, value):
-    """A value whose code the port does not have is refused, naming the
-    field; it never falls back to something else. ``serve_axes`` is
-    refused with heads on (the sharded routed step)."""
-    extra = {"heads": "linear"} if field == "serve_axes" else {}
+    """A value whose code the port does not have (the encoder) is
+    refused, naming the field; it never falls back to something else."""
     with pytest.raises(PlanError, match=f"FederationPlan.{field}=.*not in "
                                         f"the PyTorch port yet"):
-        FederationPlan(k=K, k_prime=KP, d=D, device="cpu",
-                       **{field: value, **extra})
+        FederationPlan(k=K, k_prime=KP, d=D, device="cpu", **{field: value})
 
 
-@pytest.mark.parametrize("field,value", [
-    ("autoscale", "latency"), ("autoscale", "throughput"),
-    ("refresh", "async"), ("fold_policy", "lru"),
-    ("fold_policy", "weighted_reservoir")])
-def test_plan_accepts_the_ported_serving_options(field, value):
-    """The serving options this port runs reach the service's config."""
+@pytest.mark.parametrize("field,value,extra", [
+    ("autoscale", "latency", {}), ("autoscale", "throughput", {}),
+    ("refresh", "async", {}), ("fold_policy", "lru", {}),
+    ("fold_policy", "weighted_reservoir", {}),
+    ("serve_axes", ("data",), {"heads": "linear"}),
+    ("drift", "decay", {"drift_half_life": 16})])
+def test_plan_accepts_the_ported_serving_options(field, value, extra):
+    """The serving options this port runs reach the service's config:
+    ``serve_axes`` with heads on (the sharded routed step) and drift
+    included."""
     plan = FederationPlan(k=K, k_prime=KP, d=D, device="cpu",
-                          policy_seed=3, **{field: value})
+                          policy_seed=3, **{field: value, **extra})
+    if field == "serve_axes":
+        assert plan.serve_axes == value and plan.heads == "linear"
+        return
     cfg = plan.stream_config()
     assert getattr(cfg, field) == value and cfg.policy_seed == 3
+    for name, v in extra.items():
+        assert getattr(cfg, name) == v
 
 
 @pytest.mark.parametrize("field,value,match", [
