@@ -108,6 +108,27 @@ alone bit for bit (labels, predictions, clusters, routing, fold state,
 mass, moves). Their pdist_argmin, kmeans_update, solve_attach and
 moe_combine shapes join those lines.
 
+Between the drift legs and the mesh legs come the encoder legs
+(DESIGN.md §17: raw token sequences encoded on the card ahead of the
+unchanged serve step): tests/test_encode_serve.py's plan on its 7
+ragged requests on the card against the CPU run (f32, bf16 storage, and
+the granite-3-2b encoder with linear heads); the configuration of
+benchmarks/bench_encode_serve.py, not cut (k=16, d=16, batches of 32
+requests of 4 points of 8 tokens): the fused encode step against the
+unbatched front end, device time and wall, a request alone against its
+batch, and 6 waves through a session whose step shapes stay flat after
+the first; Table 1's serve plan with the qwen1.5-0.5b encoder at d=300
+(4 heads of 75, SwiGLU d_ff 600, 2 layers), in f32 and in bf16 storage:
+the round on the 50 devices' encoded sequences of 16 tokens, 32 late
+devices of 1024 points of 8-64 tokens (every sequence rung) served
+twice and once cut by save and restore (schema v6), all the same bits,
+one batch through the encode step equal to the serve step on the
+encoder's output, and a profile line; and the routed leg's plan with
+the granite-3-2b encoder, 2 waves of 64, labels equal an encoded
+heads-off twin's. The mesh legs then also serve one wave of the encoded
+Table 1 plan and of the encoded routed plan with serve_axes, bit for
+bit against one process.
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -241,6 +262,28 @@ RD_WAVES = 3
 # requests at the full grant, then under latency autoscaling in bursts
 # that take 1 and 2 active shards.
 MESH_R_WAVES, MESH_R_BURSTS = 2, (1, 15, 48, 64)
+
+# The encoder legs (DESIGN.md §17). tests/test_encode_serve.py's plan.
+E_PLAN = dict(k=8, k_prime=3, d=16, capacity=128, batch_size=2,
+              bucket_sizes=(16, 32), encoder="qwen1.5-0.5b",
+              encode_seq_len=16)
+# benchmarks/bench_encode_serve.py's configuration, not cut.
+EB_K, EB_KP, EB_D, EB_B, EB_N, EB_S, EB_WAVES = 16, 3, 16, 32, 4, 8, 6
+# Table 1's serve plan with the qwen1.5-0.5b encoder re-dimensioned to
+# d=300 (4 heads of 75, SwiGLU d_ff 600, 2 layers): the round's devices
+# at ET_ROUND_SEQ tokens a point, the 32 late devices at 8-64 (every
+# rung), each token its point plus N(0, ET_NOISE^2) noise; cut by save
+# and restore after ET_CUT.
+ET_ENC = dict(encoder="qwen1.5-0.5b", encode_seq_len=64)
+ET_ROUND_SEQ, ET_SEQ_RANGE, ET_NOISE = 16, (8, 65), 0.1
+ET_CUT = SERVE_REQUESTS // 2
+# The routed leg's plan with the granite-3-2b encoder (GQA: 8 heads of
+# 16 over 2): ER_WAVES waves of 64 requests of 8-32 tokens a point.
+ER_ENC = dict(encoder="granite-3-2b", encode_seq_len=32)
+ER_ROUND_SEQ, ER_SEQ_RANGE, ER_WAVES = 8, (8, 33), 2
+# The mesh legs' encoded serves: one wave of the encode table1 leg's
+# late devices and one of the encode route leg's requests.
+MESH_E_DEVICES = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -2025,6 +2068,13 @@ def same_served(got, want) -> bool:
         for r in want)
 
 
+def same_pairs(got, want) -> bool:
+    """Served (labels, version) lists bit for bit."""
+    return len(got) == len(want) and all(
+        np.array_equal(a, b) and va == vb
+        for (a, va), (b, vb) in zip(got, want))
+
+
 def solve_line(tally) -> str:
     """solve_attach's launches by shape: {"(B,n,d) k'=.. k=..": count}."""
     return json.dumps({f"({','.join(map(str, key[0]))}) k'={key[1]} "
@@ -2721,6 +2771,510 @@ def route_drift_leg(device):
     return counts, tally
 
 
+# ------------------------------------------------------------ encoder --
+
+def token_sequences(points, seqs, seed: int, device, first: int = 0):
+    """Each point's raw token sequence: the point plus N(0, ET_NOISE^2)
+    noise per token, drawn on ``device`` (request i from the generator
+    seeded seed * 1000 + first + i, so any subset draws the same bits);
+    host arrays (n, s, d)."""
+    out = []
+    for i, (x, s) in enumerate(zip(points, seqs)):
+        gen = torch.Generator(device=device).manual_seed(
+            seed * 1000 + first + i)
+        xt = torch.as_tensor(x, device=device)
+        t = xt[:, None, :] + ET_NOISE * torch.randn(
+            (xt.shape[0], int(s), xt.shape[1]), generator=gen,
+            device=device)
+        out.append(t.cpu().numpy())
+    return out
+
+
+def service_encoder(plan, seed: int = 0):
+    """The encoder parameters a session of ``plan`` draws from ``seed``
+    (the service's own salted stream)."""
+    from repro_torch.fed.api import Session
+    return Session.from_tau(plan.with_options(refresh_every=0),
+                            np.zeros((plan.k, plan.d), np.float32),
+                            seed=seed).service.encoder
+
+
+def encoded_round(data, plan, seq: int, seed: int, device):
+    """The round on the devices' encoded sequences: every point becomes
+    ``seq`` tokens (token_sequences), encoded by the encoder the plan's
+    service draws from seed 0 so that tau lives where the served
+    embeddings do, then Session.run. Returns (round, encode seconds)."""
+    from repro_torch.fed.api import Session
+    from repro_torch.models.encoder import apply_encoder
+    spec = plan.stream_config().encoder_spec()
+    params = service_encoder(plan)
+    Z, n, d = data.shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.as_tensor(data, device=device)
+    sync()
+    t0 = time.perf_counter()
+    tok = x[:, :, None, :] + ET_NOISE * torch.randn(
+        (Z, n, seq, d), generator=gen, device=device)
+    tmask = torch.ones(tok.shape[:-1], dtype=torch.bool, device=device)
+    emb = apply_encoder(params, tok, tmask, spec, plan.encode_dtype)
+    sync()
+    enc_s = time.perf_counter() - t0
+    del tok, tmask
+    return Session(plan).run(0, emb).detail, enc_s
+
+
+def small_encode_agreement(device):
+    """tests/test_encode_serve.py's plan on its 7 ragged requests, on the
+    card against the CPU run: f32, bf16 storage, and the granite-3-2b
+    encoder (GQA) with linear heads. Embeddings within rtol 1e-5 / atol
+    1e-5 (bf16: 1e-2 of max(max|y|, 1)); labels, versions, encoder stats
+    (and clusters and routing) exact; predictions within 1e-5 of their
+    largest magnitude."""
+    from repro_torch.fed.api import FederationPlan, Session
+    from repro_torch.models.encoder import apply_encoder
+    rng = np.random.default_rng(1)
+    reqs = []
+    for _ in range(7):
+        n, s = int(rng.integers(4, 14)), int(rng.integers(2, 17))
+        reqs.append(np.asarray(rng.normal(size=(n, s, 16)), np.float32))
+    tau = np.asarray(np.random.default_rng(0).normal(size=(8, 16)) * 4,
+                     np.float32)
+    errs = {}
+    for name, opts in (("f32", {}), ("bf16", dict(encode_dtype="bf16")),
+                       ("granite+heads", dict(encoder="granite-3-2b",
+                                              heads="linear"))):
+        outs = []
+        for dev in (device, "cpu"):
+            plan = FederationPlan(**{**E_PLAN, **opts}, device=str(dev))
+            sess = Session.from_tau(plan, tau, seed=0)
+            served = (sess.serve_predict(reqs) if "heads" in opts
+                      else sess.serve_versioned(reqs))
+            spec = plan.stream_config().encoder_spec()
+            embs = [apply_encoder(sess.service.encoder,
+                                  torch.as_tensor(r, device=dev),
+                                  torch.ones(r.shape[:2], dtype=torch.bool,
+                                             device=dev),
+                                  spec, plan.encode_dtype).cpu()
+                    for r in reqs]
+            outs.append((served, sess.stats()["encoder"], embs))
+        (got, gst, gemb), (want, wst, wemb) = outs
+        require(gst == wst, f"encode small {name}: encoder stats differ: "
+                            f"{gst} != {wst}")
+        g, w = torch.cat(gemb), torch.cat(wemb)
+        err = float((g - w).abs().max())
+        bound = (1e-5 + 1e-5 * w.abs() if name != "bf16"
+                 else 1e-2 * max(float(w.abs().max()), 1.0))
+        require(bool(((g - w).abs() <= bound).all()),
+                f"encode small {name}: embeddings differ by {err}")
+        if "heads" in opts:
+            require(all(np.array_equal(a.labels, b.labels)
+                        and (a.tau_version, a.cluster, a.routed)
+                        == (b.tau_version, b.cluster, b.routed)
+                        for a, b in zip(got, want)),
+                    f"encode small {name}: labels, versions, clusters or "
+                    f"routing differ from the CPU")
+            gp = np.stack([a.prediction for a in got])
+            wp = np.stack([b.prediction for b in want])
+            require(np.abs(gp - wp).max() <= 1e-5 * np.abs(wp).max(),
+                    f"encode small {name}: predictions differ")
+        else:
+            require(all(np.array_equal(a, b) and va == vb
+                        for (a, va), (b, vb) in zip(got, want)),
+                    f"encode small {name}: labels or versions differ from "
+                    f"the CPU")
+        errs[name] = err
+    return len(reqs), errs
+
+
+def wall_ms(fn, reps: int = 11, warmup: int = 2) -> float:
+    """Median wall of one call, synchronized, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    sync()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ts.append(time.perf_counter() - t0)
+    return 1e3 * sorted(ts)[reps // 2]
+
+
+def device_ms(fn):
+    """Device time of one call: the sum of its kernels' own times under
+    torch.profiler (None where the profiler records none)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    fn()
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    t = sum(e.self_device_time_total for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA"))
+    return t / 1e3 if t else None
+
+
+def encode_bench_leg(device):
+    """benchmarks/bench_encode_serve.py's configuration, not cut: the
+    fused encode_step against the unbatched front end (B encode calls,
+    then one serve step) on identical inputs, device time and wall;
+    each request's embedding alone within 1e-5 of the batch's, its
+    labels equal wherever the gap between its two nearest tau centers
+    is above 10x that tolerance (times sqrt(d), the most a move within
+    the tolerance can change a distance); then the session part, 6 waves
+    of 32 requests, whose step shapes must stay flat after the first."""
+    from repro_torch.fed import plane as plane_mod
+    from repro_torch.fed.api import FederationPlan, Session
+    from repro_torch.fed.stream import StreamConfig
+    from repro_torch.models.encoder import apply_encoder, init_encoder
+    from repro_torch.utils.prng import GumbelSource
+    cfg = StreamConfig(k=EB_K, k_prime=EB_KP, d=EB_D, capacity=64,
+                       batch_size=EB_B, bucket_sizes=(EB_N,),
+                       encoder=E_PLAN["encoder"], encode_seq_len=EB_S)
+    spec = cfg.encoder_spec()
+    gen = torch.Generator(device=device).manual_seed(0)
+    tau = torch.randn((EB_K, EB_D), generator=gen, device=device) * 8.0
+    data = torch.randn((EB_B, EB_N, EB_S, EB_D), generator=gen,
+                       device=device)
+    pmask = torch.ones((EB_B, EB_N), dtype=torch.bool, device=device)
+    tmask = torch.ones((EB_B, EB_N, EB_S), dtype=torch.bool, device=device)
+    kv = torch.full((EB_B,), EB_KP, dtype=torch.int32, device=device)
+    g = GumbelSource(0).draw(list(range(EB_B)), EB_KP, EB_N, device)
+    params = init_encoder(torch.Generator().manual_seed(0), spec,
+                          device=device)
+    fused_step = plane_mod._make_encode_step(cfg)
+    step = plane_mod._make_step(cfg)
+
+    def fused():
+        return fused_step(tau, params, g, data, pmask, kv, tmask)
+
+    def unbatched():
+        embs = [apply_encoder(params, data[i], tmask[i], spec)
+                for i in range(EB_B)]
+        return step(tau, g, torch.stack(embs), pmask, kv)
+
+    times = {name: (wall_ms(fn), device_ms(fn))
+             for name, fn in (("fused", fused), ("unbatched", unbatched))}
+    emb = apply_encoder(params, data, tmask, spec)
+    alone = torch.stack([apply_encoder(params, data[i], tmask[i], spec)
+                         for i in range(EB_B)])
+    tol = 1e-5 + 1e-5 * emb.abs()
+    err = float((alone - emb).abs().max())
+    require(bool(((alone - emb).abs() <= tol).all()),
+            f"encode bench: a request alone embeds {err} off its batch")
+    exact = int(torch.equal(alone, emb))
+    lf, lu = fused()[0], unbatched()[0]
+    d2 = torch.cdist(emb.reshape(-1, EB_D).double(), tau.double())
+    two = torch.topk(d2, 2, largest=False).values
+    gap = (two[:, 1] - two[:, 0]).reshape(EB_B, EB_N)
+    sure = gap > 10 * float(tol.max()) * EB_D ** 0.5
+    require(torch.equal(lf[sure], lu[sure]),
+            "encode bench: labels of a request alone differ from the "
+            "batch's where the gap is wide")
+    near = int((~sure).sum())
+    # The session part.
+    rng = np.random.default_rng(0)
+    plan = FederationPlan(k=EB_K, k_prime=EB_KP, d=EB_D, capacity=256,
+                          batch_size=EB_B, bucket_sizes=(EB_N,),
+                          encoder=E_PLAN["encoder"], encode_seq_len=EB_S,
+                          device=str(device))
+    stau = np.asarray(rng.normal(size=(EB_K, EB_D)) * 8, np.float32)
+    reqs = [np.asarray(rng.normal(size=(EB_N, EB_S, EB_D)), np.float32)
+            for _ in range(EB_WAVES * EB_B)]
+
+    def drive():
+        sess = Session.from_tau(plan, stau)
+        sess.serve(reqs[:EB_B])
+        warm = sess.stats()["plane_compiles"]
+        sync()
+        t0 = time.perf_counter()
+        served = sum(lbl.shape[0] for lo in range(EB_B, len(reqs), EB_B)
+                     for lbl in sess.serve(reqs[lo:lo + EB_B]))
+        sync()
+        return sess, warm, served, time.perf_counter() - t0
+
+    (sess, warm, served, wall), counts, tally = counted(drive)
+    steady = sess.stats()["plane_compiles"] - warm
+    require(steady == 0, f"encode bench: {steady} new step shapes after "
+                         f"the first wave")
+    (fw, fd), (uw, ud) = times["fused"], times["unbatched"]
+    fmt = (lambda v: "not measured" if v is None else f"{v:.4f} ms")
+    print(f"encode bench: bench_encode_serve.py's configuration k={EB_K} "
+          f"k'={EB_KP} d={EB_D} B={EB_B} N={EB_N} S={EB_S} "
+          f"{E_PLAN['encoder']}: fused encode_step wall {fw:.4f} ms "
+          f"(device {fmt(fd)}), unbatched front end ({EB_B} encode calls "
+          f"+ one step) wall {uw:.4f} ms (device {fmt(ud)}); unbatched / "
+          f"fused wall {uw / fw:.2f}x"
+          + ("" if fd is None or ud is None else
+             f", device {ud / fd:.2f}x")
+          + f" (the JAX bench's CPU bar is >= 3x; not gated here); a "
+          f"request alone embeds within 1e-5 of its batch (max |diff| "
+          f"{err:.3e}, bit for bit: {bool(exact)}), labels equal where the"
+          f" gap is wide, {near} of {EB_B * EB_N} points under the gap; "
+          f"session {EB_WAVES - 1} waves of {EB_B} after a warm-up in "
+          f"{wall:.3f} s ({served / wall:.1f} points/s), plane_compiles "
+          f"flat after the first wave ({warm}); launches {counts}",
+          flush=True)
+    return counts, tally
+
+
+def rung_lengths(rng, count: int, span) -> np.ndarray:
+    """``count`` sequence lengths in [span[0], span[1]): a power-of-two
+    rung drawn uniformly from those the span reaches, then a length
+    uniformly among the lengths that pad to it, so every rung occurs."""
+    lo, hi = span
+    rungs = [r for r in (8, 16, 32, 64, 128, 256) if lo <= r < hi]
+    r = np.asarray(rungs)[rng.integers(0, len(rungs), size=count)]
+    first = np.maximum(r // 2 + 1, lo)
+    return (first + (rng.random(count) * (r - first + 1))).astype(np.int64)
+
+
+def encode_table1_inputs(fm, device, count: int = SERVE_REQUESTS):
+    """Table 1's late devices (n=1024, the serve leg's) as raw token
+    sequences of ET_SEQ lengths: (datas, kvs, labels, seqs)."""
+    from repro_torch.data.gaussian import late_device_stream
+    reqs = late_device_stream(fm.means, KP, SERVE_REQUESTS, 7,
+                              n_range=(SERVE_N, SERVE_N + 1))[:count]
+    seqs = rung_lengths(np.random.default_rng(17), SERVE_REQUESTS,
+                        ET_SEQ_RANGE)[:count]
+    datas = token_sequences([r[0] for r in reqs], seqs, 23, device)
+    return datas, [r[2] for r in reqs], [r[1] for r in reqs], seqs
+
+
+def encode_profile(label: str, fn, wall_s: float):
+    """Runs ``fn`` once under torch.profiler and prints its device time
+    split by the operators that launched it: GEMMs (aten::mm,
+    aten::addmm), the attention's batched products and softmax
+    (aten::bmm, which also takes the pool's small product, and
+    aten::_softmax), the local solve's SVD (aten::_linalg_svd, cuSOLVER
+    and its QR), the port's kernels (by name), and the rest (elementwise
+    work, norms, casts, copies). Returns fn's result."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync()
+    ka = prof.key_averages()
+    dev = [e for e in ka if str(e.device_type).endswith("CUDA")]
+    total = sum(e.self_device_time_total for e in dev) / 1e3
+    if not total:
+        print(f"profile {label}: the profiler recorded no device time "
+              f"(not measured)", flush=True)
+        return out
+    port = sum(e.self_device_time_total for e in dev
+               if "repro_torch" in e.key) / 1e3
+    ops_ = {e.key: e.self_device_time_total / 1e3 for e in ka
+            if not str(e.device_type).endswith("CUDA")}
+    gemm = ops_.get("aten::mm", 0.0) + ops_.get("aten::addmm", 0.0)
+    attn = ops_.get("aten::bmm", 0.0) + ops_.get("aten::_softmax", 0.0)
+    svd = ops_.get("aten::_linalg_svd", 0.0)
+    other = total - gemm - attn - svd - port
+    print(f"profile {label}: device time {total:.2f} ms of "
+          f"{wall_s * 1e3:.1f} ms unprofiled wall (busy "
+          f"{100 * total / (wall_s * 1e3):.1f}%): GEMMs {gemm:.2f} ms "
+          f"({100 * gemm / total:.1f}%), attention and pool products and "
+          f"softmax {attn:.2f} ms ({100 * attn / total:.1f}%), SVD "
+          f"{svd:.2f} ms ({100 * svd / total:.1f}%), port kernels "
+          f"{port:.2f} ms ({100 * port / total:.1f}%), other elementwise "
+          f"{other:.2f} ms ({100 * other / total:.1f}%)", flush=True)
+    return out
+
+
+def encode_table1_leg(fm, device, tmp: Path):
+    """Table 1's serve plan with the qwen1.5-0.5b encoder at d=300 (4
+    heads of 75, SwiGLU d_ff 600, 2 layers), f32 then bf16 storage. The
+    round runs on the 50 devices' encoded sequences of ET_ROUND_SEQ
+    tokens; 32 late devices of 1024 points, ET_SEQ_RANGE tokens each
+    (every rung of 8/16/32/64), are served in two halves twice (the two
+    runs must be the same bits; the f32 one's second run under the
+    profiler) and once cut by save and restore after the first half
+    (schema v6; the same bits again). One batch of the
+    longest rung through the plane's encode step gives the labels of the
+    serve step on apply_encoder's output, bit for bit. Returns ({dtype:
+    counts}, {dtype: tally}, the f32 round)."""
+    from repro_torch.fed.api import FederationPlan, Session
+    from repro_torch.fed.plane import _make_encode_step, _make_step
+    from repro_torch.models.encoder import apply_encoder
+    from repro_torch.utils.metrics import clustering_accuracy
+    from repro_torch.utils.prng import GumbelSource
+    datas, kvs, labels, seqs = encode_table1_inputs(fm, device)
+    rungs = sorted({min(64, max(8, 1 << (int(s) - 1).bit_length()))
+                    for s in seqs})
+    require(rungs == [8, 16, 32, 64], f"encode table1: rungs {rungs}")
+    truth = np.concatenate(labels)
+    h = ET_CUT
+    counts_by, tallies, rounds = {}, {}, {}
+    for dtype in ("f32", "bf16"):
+        plan = FederationPlan(k=K, k_prime=KP, d=D, device=str(device),
+                              **SERVE_PLAN, **ET_ENC, encode_dtype=dtype)
+        (rr, enc_s), rcounts, rtally = counted(lambda: encoded_round(
+            fm.data, plan, ET_ROUND_SEQ, 29, device))
+        rounds[dtype] = rr
+        racc = clustering_accuracy(rr.labels.cpu().numpy(), fm.labels, K)
+        Session.from_round(plan, rr, seed=1).serve(datas[:2], kvs[:2])
+        sync()                          # warm-up: the libraries' handles
+
+        def run_once():
+            sess = Session.from_round(plan, rr, seed=0)
+            t0 = time.perf_counter()
+            served = (sess.serve_versioned(datas[:h], kvs[:h])
+                      + sess.serve_versioned(datas[h:], kvs[h:]))
+            sync()
+            return sess, served, time.perf_counter() - t0
+
+        (live, want, wall), counts, tally = counted(run_once)
+        again, twice, _ = (run_once() if dtype != "f32" else encode_profile(
+            f"encode table1 {dtype}", run_once, wall))
+        first = Session.from_round(plan, rr, seed=0)
+        cut = first.serve_versioned(datas[:h], kvs[:h])
+        path = first.save(str(tmp / f"encode_{dtype}.npz"))
+        restored = Session.restore(path, plan)
+        cut += restored.serve_versioned(datas[h:], kvs[h:])
+        sync()
+        for name, other, sess in (("second run", twice, again),
+                                  ("restored run", cut, restored)):
+            require(same_pairs(other, want)
+                    and all(torch.equal(a, b) for a, b in
+                            zip(sess.service.state, live.service.state))
+                    and torch.equal(sess.tau_centers, live.tau_centers)
+                    and sess.stats()["encoder"] == live.stats()["encoder"],
+                    f"encode table1 {dtype}: the {name}'s labels, versions, "
+                    f"fold state, tau or encoder stats differ")
+        acc = clustering_accuracy(np.concatenate([s[0] for s in want]),
+                                  truth, K)
+        st = live.stats()["encoder"]
+        require(st["encoded_points"] == SERVE_REQUESTS * SERVE_N,
+                f"encode table1 {dtype}: {st}")
+        # One batch of the longest rung through the encode step, against
+        # the serve step on apply_encoder's output.
+        cfg = plan.stream_config()
+        spec = cfg.encoder_spec()
+        idx = [i for i, s in enumerate(seqs) if s > 32][:SERVE_PLAN[
+            "batch_size"]]
+        B = len(idx)
+        x = torch.zeros((B, SERVE_N, 64, D), device=device)
+        tm = torch.zeros((B, SERVE_N, 64), dtype=torch.bool, device=device)
+        for j, i in enumerate(idx):
+            x[j, :, :seqs[i]] = torch.as_tensor(datas[i], device=device)
+            tm[j, :, :seqs[i]] = True
+        pm = torch.ones((B, SERVE_N), dtype=torch.bool, device=device)
+        kv = torch.as_tensor([kvs[i] for i in idx], dtype=torch.int32,
+                             device=device)
+        g = GumbelSource(0).draw(idx, KP, SERVE_N, device)
+        enc = live.service.encoder
+        tau = live.tau_centers
+        got = _make_encode_step(cfg)(tau, enc, g, x, pm, kv, tm)
+        emb = apply_encoder(enc, x, tm, spec, dtype)
+        ref = _make_step(cfg)(tau, g, emb, pm, kv)
+        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                f"encode table1 {dtype}: the encode step's labels differ "
+                f"from the serve step on the encoder's output")
+        del x, tm, emb, got, ref
+        counts = {k: v + rcounts[k] for k, v in counts.items()}
+        counts_by[dtype] = counts
+        tallies[f"encode_table1_{dtype}"] = tally
+        tallies[f"encode_round_{dtype}"] = rtally
+        print(f"encode table1 {dtype}: Table 1's serve plan d={D} k={K} "
+              f"k'={KP} batch {SERVE_PLAN['batch_size']} refresh every "
+              f"{SERVE_PLAN['refresh_every']} with encoder="
+              f"{ET_ENC['encoder']} (layers {st['layers']}, heads "
+              f"{spec.n_heads} of {D // spec.n_heads}, {spec.activation} "
+              f"d_ff {spec.d_ff}, {st['params']} parameters), "
+              f"encode_seq_len {ET_ENC['encode_seq_len']}: round on the "
+              f"encoded sequences ({fm.data.shape[0]} devices x "
+              f"{fm.data.shape[1]} points x {ET_ROUND_SEQ} tokens, encoded "
+              f"in {enc_s:.3f} s) accuracy {racc:.4f}; {SERVE_REQUESTS} late "
+              f"devices n={SERVE_N} with {ET_SEQ_RANGE[0]}-"
+              f"{ET_SEQ_RANGE[1] - 1} tokens (rungs {rungs}) in {wall:.3f} s"
+              f" ({SERVE_REQUESTS * SERVE_N / wall:.1f} points/s, "
+              f"{SERVE_REQUESTS / wall:.2f} requests/s), Hungarian accuracy "
+              f"{acc:.4f} (information only), tau versions "
+              f"{sorted({v for _, v in want})}; two runs and the run cut by "
+              f"save and restore (schema v6) after {h} are the same bits; "
+              f"a batch of {B} at rung 64 through encode_step equals step "
+              f"on apply_encoder's output bit for bit; launches (round and "
+              f"serve) {counts}",
+              flush=True)
+    return counts_by, tallies, rounds["f32"]
+
+
+def encode_route_inputs(rfm, device, count: int):
+    """The routed leg's late devices as raw token sequences of
+    ER_SEQ_RANGE tokens: (datas, kvs)."""
+    from repro_torch.data.gaussian import late_device_stream
+    stream = late_device_stream(rfm.means, R_KP, count, 3,
+                                n_range=R_N_RANGE)
+    seqs = np.random.default_rng(19).integers(*ER_SEQ_RANGE, size=count)
+    return (token_sequences([r[0] for r in stream], seqs, 31, device),
+            [r[2] for r in stream])
+
+
+def encode_route_leg(device):
+    """The routed leg's plan (qwen1.5-0.5b transformer heads) with the
+    granite-3-2b encoder (GQA, 8 heads of 16 over 2): the round on the
+    devices' encoded sequences, then ER_WAVES waves of 64 requests of
+    ER_SEQ_RANGE tokens through serve_predict (the encoded routed step),
+    between a reset and a read of the launch counts. The labels and
+    versions must equal an encoded heads-off twin's; moe_dispatch and
+    moe_combine must be launched. Returns (counts, tally, round)."""
+    from repro_torch.data.gaussian import structured_devices
+    from repro_torch.fed.api import FederationPlan, Session
+    rfm = structured_devices(0, k=R_K, d=R_D, k_prime=R_KP, m0=R_M0,
+                             n_per_comp_dev=R_NPER, sep=R_SEP)
+    plan = FederationPlan(k=R_K, k_prime=R_KP, d=R_D, device=str(device),
+                          **R_PLAN, **ER_ENC)
+    (rr, _), rcounts, rtally = counted(lambda: encoded_round(
+        rfm.data, plan, ER_ROUND_SEQ, 37, device))
+    B = plan.batch_size
+    datas, kvs = encode_route_inputs(rfm, device, ER_WAVES * B)
+    waves = [(datas[lo:lo + B], kvs[lo:lo + B])
+             for lo in range(0, ER_WAVES * B, B)]
+    Session.from_round(plan, rr, seed=1).serve_predict(*waves[0])
+    sync()                              # warm-up: the libraries' handles
+    sess = Session.from_round(plan, rr, seed=0)
+    walls = {}
+
+    def drive():
+        t0 = time.perf_counter()
+        out = [p for w in waves for p in sess.serve_predict(*w)]
+        sync()
+        walls["serve"] = time.perf_counter() - t0
+        return out
+
+    served, counts, tally = counted(drive)
+    twin = Session.from_round(plan.with_options(heads="off"), rr, seed=0)
+    plain = [x for w in waves for x in twin.serve_versioned(*w)]
+    require(all(np.array_equal(p.labels, lbl) and p.tau_version == v
+                for p, (lbl, v) in zip(served, plain)),
+            "encode route: labels or versions differ from the encoded "
+            "heads-off twin's")
+    require(rcounts["pdist_argmin"] > 0 and rcounts["kmeans_update"] > 0,
+            f"encode route: the round launched {rcounts}")
+    require(all(p.prediction.shape == (R_D,)
+                and bool(np.isfinite(p.prediction).all()) for p in served),
+            "encode route: predictions of the wrong shape or not finite")
+    require(counts["moe_dispatch"] > 0 and counts["moe_combine"] > 0
+            and counts["solve_attach"] > 0,
+            f"encode route: launches {counts}")
+    st = sess.stats()
+    npts = sum(p.labels.shape[0] for p in served)
+    print(f"encode route: Session.serve_predict k={R_K} k'={R_KP} d={R_D} "
+          f"heads={plan.heads}/{plan.head_arch} encoder={plan.encoder} "
+          f"({st['encoder']['layers']} layers, "
+          f"{st['encoder']['params']} parameters): {ER_WAVES} waves of "
+          f"{B} late devices n in [{R_N_RANGE[0]}, {R_N_RANGE[1]}) with "
+          f"{ER_SEQ_RANGE[0]}-{ER_SEQ_RANGE[1] - 1} tokens in "
+          f"{walls['serve']:.3f} s ({len(served) / walls['serve']:.2f} "
+          f"requests/s, {npts / walls['serve']:.1f} points/s); routed "
+          f"{sum(p.routed for p in served)} of {len(served)}; labels and "
+          f"versions equal the encoded heads-off twin's; launches (round "
+          f"{rcounts}, serve) {counts}", flush=True)
+    return ({k: v + rcounts[k] for k, v in counts.items()},
+            {"encode_route_round": rtally, "encode_route": tally}, rr)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -2747,10 +3301,11 @@ def mesh_rounds(mesh, fm, walls, key: int = 0):
     return outs
 
 
-def mesh_more_inputs(fm, route_rr=None, device=None):
+def mesh_more_inputs(fm, device, route_rr=None, enc_rrs=None):
     """The routed leg's round (``route_rr``, or run on ``device``) and
-    MESH_R_WAVES waves of its requests, and the drift Table 1 leg's late
-    devices."""
+    MESH_R_WAVES waves of its requests, the drift Table 1 leg's late
+    devices, and the encoded rounds of the encode table1 and encode
+    route legs (``enc_rrs``) with a wave of each leg's raw sequences."""
     from repro_torch.data.gaussian import late_device_stream, structured_devices
     from repro_torch.fed.api import FederationPlan, Session
     rfm = structured_devices(0, k=R_K, d=R_D, k_prime=R_KP, m0=R_M0,
@@ -2763,8 +3318,12 @@ def mesh_more_inputs(fm, route_rr=None, device=None):
                                 MESH_R_WAVES * R_PLAN["batch_size"], 3,
                                 n_range=R_N_RANGE)
     dreqs, dkvs = drift_table1_inputs(fm)
+    ereqs, ekvs, _, _ = encode_table1_inputs(fm, device, MESH_E_DEVICES)
+    rereqs, rekvs = encode_route_inputs(rfm, device, R_PLAN["batch_size"])
     return dict(route_rr=route_rr, rreqs=[r[0] for r in stream],
-                rkvs=[r[2] for r in stream], dreqs=dreqs, dkvs=dkvs)
+                rkvs=[r[2] for r in stream], dreqs=dreqs, dkvs=dkvs,
+                enc_rr=enc_rrs[0], ereqs=ereqs, ekvs=ekvs,
+                renc_rr=enc_rrs[1], rereqs=rereqs, rekvs=rekvs)
 
 
 def mesh_serve_more(mesh, serve_axes, rr, more, walls):
@@ -2800,7 +3359,25 @@ def mesh_serve_more(mesh, serve_axes, rr, more, walls):
     drift = ds.serve_versioned(more["dreqs"], more["dkvs"])
     sync()
     walls["drift"] = time.perf_counter() - t0
-    return {"routed": routed, "routed_state": [t.cpu() for t in
+    eplan = FederationPlan(k=K, k_prime=KP, d=D, serve_axes=serve_axes,
+                           **SERVE_PLAN, **ET_ENC)
+    es = Session.from_round(eplan, more["enc_rr"], mesh=mesh, seed=0)
+    t0 = time.perf_counter()
+    encoded = es.serve_versioned(more["ereqs"], more["ekvs"])
+    sync()
+    walls["encoded"] = time.perf_counter() - t0
+    erplan = rplan.with_options(**ER_ENC)
+    ers = Session.from_round(erplan, more["renc_rr"], mesh=mesh, seed=0)
+    t0 = time.perf_counter()
+    enc_routed = ers.serve_predict(more["rereqs"], more["rekvs"])
+    sync()
+    walls["enc_routed"] = time.perf_counter() - t0
+    return {"encoded": encoded,
+            "encoded_state": [t.cpu() for t in es.service.state],
+            "encoded_stats": es.stats()["encoder"],
+            "enc_routed": enc_routed,
+            "enc_routed_state": [t.cpu() for t in ers.service.state],
+            "routed": routed, "routed_state": [t.cpu() for t in
                                                sess.service.state],
             "auto": a_routed, "decisions": decisions,
             "auto_state": [t.cpu() for t in auto.service.state],
@@ -2826,6 +3403,15 @@ def check_serve_more(got, want, label) -> None:
     require(same_drift(got["drift_stats"], want["drift_stats"]),
             f"{label}: drift mass or moves differ from one process alone")
     require(got["drift_stats"][0][1] > 0, f"{label}: no center moved")
+    require(same_pairs(got["encoded"], want["encoded"])
+            and got["encoded_stats"] == want["encoded_stats"]
+            and same_predictions(got["enc_routed"], want["enc_routed"]),
+            f"{label}: the encoded serve's or the encoded routed serve's "
+            f"labels, versions, predictions or encoder stats differ from "
+            f"one process alone")
+    for key in ("encoded_state", "enc_routed_state"):
+        require(all(torch.equal(a, b) for a, b in zip(got[key], want[key])),
+                f"{label}: the {key} differs from one process alone")
 
 
 def mesh_more_line(got, walls) -> str:
@@ -2837,8 +3423,12 @@ def mesh_more_line(got, walls) -> str:
             f"{walls['routed_autoscale']:.3f} s, decisions (shards, batch) "
             f"{got['decisions']}; Table 1 split_merge plan "
             f"{walls['drift']:.3f} s, moves {got['drift_stats'][0][1]}; "
-            f"labels, predictions, clusters, routing, fold state, mass and "
-            f"moves equal one process alone bit for bit")
+            f"encoded Table 1 plan ({MESH_E_DEVICES} devices of raw "
+            f"sequences) {walls['encoded']:.3f} s; encoded routed plan "
+            f"({len(got['enc_routed'])} requests, {ER_ENC['encoder']}) "
+            f"{walls['enc_routed']:.3f} s; labels, predictions, clusters, "
+            f"routing, fold state, mass, moves and encoder stats equal one "
+            f"process alone bit for bit")
 
 
 def mesh1_leg(fm, rr, tmp: Path, more, want):
@@ -2934,9 +3524,11 @@ def mesh2_rank(rank: int, tmp: str) -> None:
                                 n_per_comp_dev=N_PER, sep=SEP)
         rr = tree_to(torch.load(os.path.join(tmp, "round.pt"),
                                 weights_only=False), "cuda")
-        more = mesh_more_inputs(fm, route_rr=tree_to(torch.load(
+        more = mesh_more_inputs(fm, "cuda", route_rr=tree_to(torch.load(
             os.path.join(tmp, "route_round.pt"), weights_only=False),
-            "cuda"))
+            "cuda"), enc_rrs=tuple(tree_to(torch.load(
+                os.path.join(tmp, f"{name}.pt"), weights_only=False), "cuda")
+                for name in ("enc_round", "renc_round")))
         datas, kvs, bursts = mesh_serve_inputs(fm)
         plan, scaled = mesh_plans(("data",))
         # Warm-up: the libraries' handles in this process.
@@ -3018,6 +3610,8 @@ def mesh2_leg(fm, rr, taus, tmp: Path, more, want_more):
     a_want, a_dec = mesh_decisions(aref, bursts)
     torch.save(tree_to(rr, "cpu"), tmp / "round.pt")
     torch.save(tree_to(more["route_rr"], "cpu"), tmp / "route_round.pt")
+    torch.save(tree_to(more["enc_rr"], "cpu"), tmp / "enc_round.pt")
+    torch.save(tree_to(more["renc_rr"], "cpu"), tmp / "renc_round.pt")
     t0 = time.perf_counter()
     mp.spawn(mesh2_rank, args=(str(tmp),), nprocs=2, join=True)
     spawn_s = time.perf_counter() - t0
@@ -3210,7 +3804,27 @@ def main() -> int:
     print(f"legs: small drift agreement, drift, drift table1, route drift "
           f"in {time.perf_counter() - t_legs:.1f} s of wall", flush=True)
     t_legs = time.perf_counter()
-    more = mesh_more_inputs(fm, device=cuda)
+    nenc, eerrs = small_encode_agreement(cuda)
+    print(f"reference: tests/test_encode_serve.py's plan (k=8, d=16, "
+          f"{E_PLAN['encoder']}, {nenc} ragged requests) on the card equals "
+          f"the CPU run in f32, bf16 and with the granite-3-2b encoder and "
+          f"linear heads (labels, versions, encoder stats, clusters and "
+          f"routing exact; embeddings within rtol 1e-5 / atol 1e-5, bf16 "
+          f"within 1e-2 of max(max|y|, 1), max errors "
+          + ", ".join(f"{k} {v:.3e}" for k, v in eerrs.items())
+          + "; predictions within 1e-5 relative)", flush=True)
+    ebench_counts, tallies["encode_bench"] = encode_bench_leg(cuda)
+    with tempfile.TemporaryDirectory() as tmp:
+        et_counts, et_tallies, enc_rr = encode_table1_leg(fm, cuda,
+                                                          Path(tmp))
+    tallies.update(et_tallies)
+    eroute_counts, er_tallies, renc_rr = encode_route_leg(cuda)
+    tallies.update(er_tallies)
+    print(f"legs: encode small, encode bench, encode table1 (f32, bf16), "
+          f"encode route in {time.perf_counter() - t_legs:.1f} s of wall",
+          flush=True)
+    t_legs = time.perf_counter()
+    more = mesh_more_inputs(fm, cuda, enc_rrs=(enc_rr, renc_rr))
     want_more = mesh_serve_more(None, None, rr, more, {})
     with tempfile.TemporaryDirectory() as tmp:
         mesh1_counts, tallies["mesh1"], taus = mesh1_leg(fm, rr, Path(tmp),
@@ -3232,6 +3846,14 @@ def main() -> int:
                 f"{name} was not launched on the mesh1 and mesh2 legs")
     require(mesh2_counts["solve_attach"] > 0,
             "solve_attach was not launched on the mesh2 leg")
+    enc_counts = (ebench_counts, et_counts["f32"], et_counts["bf16"],
+                  eroute_counts)
+    for name in ("pdist_argmin", "kmeans_update", "solve_attach"):
+        require(all(c[name] > 0 for c in enc_counts[1:]),
+                f"{name} was not launched on every encode table1 and route "
+                f"leg")
+    require(ebench_counts["solve_attach"] > 0,
+            "solve_attach was not launched on the encode bench leg")
     for name in ("pdist_argmin", "kmeans_update"):
         require(pers_counts[name] > 0 and sel_counts[name] > 0
                 and sep_counts[name] > 0,
@@ -3248,7 +3870,7 @@ def main() -> int:
     new_counts = (restore_counts, rroute_counts, pers_counts, sel_counts,
                   sep_counts, attach_counts, cli_counts, fig2_counts,
                   fig3_counts, mesh1_counts, mesh2_counts, drift_counts,
-                  dt_counts, rdrift_counts)
+                  dt_counts, rdrift_counts) + enc_counts
     pdist_shapes(tallies, attach)
     kmeans_shapes(tallies)
     solve_shapes(tallies)
@@ -3306,7 +3928,11 @@ def main() -> int:
           + " mesh1 " + json.dumps(mesh1_counts) + " mesh2 "
           + json.dumps(mesh2_counts) + " drift " + json.dumps(drift_counts)
           + " drift_table1 " + json.dumps(dt_counts) + " route_drift "
-          + json.dumps(rdrift_counts)
+          + json.dumps(rdrift_counts) + " encode_bench "
+          + json.dumps(ebench_counts) + " encode_table1_f32 "
+          + json.dumps(et_counts["f32"]) + " encode_table1_bf16 "
+          + json.dumps(et_counts["bf16"]) + " encode_route "
+          + json.dumps(eroute_counts)
           + "; every kernel matched its plain version", flush=True)
     print(f"card: {smi}; chip_smoke wall {time.perf_counter() - t_all:.1f} s",
           flush=True)

@@ -6,7 +6,8 @@ state. Given as numpy arrays (``np.asarray`` of each JAX leaf), these
 functions build the port's counterparts on a device, so that
 ``Session.from_round(plan, convert.round_result(np_round))`` serves from
 a round the JAX package computed, and ``heads=convert.heads(np_heads)``
-with the JAX package's per-cluster head parameters; and
+with the JAX package's per-cluster head parameters,
+``encoder=convert.encoder(np_encoder)`` with its ingestion encoder's; and
 ``model_params`` carries a JAX ``Model.init`` pytree across for the
 port's ``models.model.Model``.
 """
@@ -67,12 +68,24 @@ def server_state(state, device="cuda") -> server.ServerState:
         _t(state.epoch, device, _INT))
 
 
+def _f32_tree(np_tree, device):
+    return tree_map(lambda a: _t(np.asarray(a, np.float32), device,
+                                 torch.float32), np_tree)
+
+
 def heads(np_tree, device="cuda"):
     """Per-cluster head parameters: the JAX package's ``init_heads``
     pytree (nested dicts of ``(k, ...)`` arrays) as the port's nested
     dicts of f32 tensors. The head casts to its storage dtype itself."""
-    return tree_map(lambda a: _t(np.asarray(a, np.float32), device,
-                                 torch.float32), np_tree)
+    return _f32_tree(np_tree, device)
+
+
+def encoder(np_tree, device="cuda"):
+    """Ingestion-encoder parameters: the JAX package's ``init_encoder``
+    pytree (``layers`` of ``(n_layers, ...)`` arrays and ``norm_f``) as
+    the port's nested dicts of f32 tensors, the same layout. The encoder
+    casts to its storage dtype itself."""
+    return _f32_tree(np_tree, device)
 
 
 def _tensor(a, device) -> torch.Tensor:

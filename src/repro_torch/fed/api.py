@@ -5,13 +5,14 @@ lifecycle (counterpart of ``repro/fed/api.py``).
 ``device`` (default ``"cuda"``). The serving options run as in the JAX
 package: ``fold_policy`` drop, lru or weighted_reservoir, ``refresh``
 sync or async, ``autoscale`` off, latency or throughput, ``drift`` off,
-decay or split_merge, ``heads`` off or on. ``topology`` ``replicated``
+decay or split_merge, ``heads`` off or on, ``encoder`` off or on (raw
+token sequences encoded ahead of the serve step, DESIGN.md §17). Every
+field is validated by ``StreamConfig``'s named errors, re-raised as
+``FederationPlan.<field>=``. ``topology`` ``replicated``
 and ``sharded`` run the round over a ``utils.mesh.Mesh``
 (``Session(plan, mesh=...)``, one process per rank) and ``serve_axes``
-splits each serve batch, routed or not, over the mesh's ranks. The
-encoder, whose code the port does not have yet, is refused with a
-``PlanError`` naming the field; that is validation, not a fallback.
-``Session`` owns one lifecycle: ``run`` (the one-shot round),
+splits each serve batch, routed or encoded or not, over the mesh's
+ranks. ``Session`` owns one lifecycle: ``run`` (the one-shot round),
 ``begin``/``fold``/``finalize``
 (asynchronous cohort arrival),
 ``attach``/``serve``/``submit``/``flush``/``refresh`` (streaming Theorem
@@ -47,11 +48,6 @@ __all__ = ["FederationPlan", "PlanError", "RunResult", "Session",
            "SessionError", "TOPOLOGIES"]
 
 TOPOLOGIES = ("simulated", "replicated", "sharded")
-REFRESH_MODES = ("sync", "async")
-AUTOSCALE_POLICIES = ("off", "latency", "throughput")
-FOLD_POLICIES = ("drop", "lru", "weighted_reservoir")
-DRIFT_MODES = ("off", "decay", "split_merge")
-ENCODE_DTYPES = ("f32", "bf16")
 
 
 class PlanError(ValueError):
@@ -66,12 +62,6 @@ class SessionError(RuntimeError):
 def _bad(fieldname: str, got: Any, accepted: str) -> None:
     raise PlanError(
         f"FederationPlan.{fieldname}={got!r} is invalid: {accepted}")
-
-
-def _not_ported(fieldname: str, got: Any, has: str) -> None:
-    raise PlanError(
-        f"FederationPlan.{fieldname}={got!r} is not in the PyTorch port "
-        f"yet: it has {has}")
 
 
 def resolve_device(device) -> torch.device:
@@ -158,32 +148,11 @@ class FederationPlan:
         if dev is None or dev.type not in ("cuda", "cpu"):
             _bad("device", self.device, "accepted values are 'cuda' (or "
                  "'cuda:<index>') and 'cpu'")
-        self._check_not_ported()
         try:
             self.stream_config()
         except StreamConfigError as e:
             raise PlanError(str(e).replace("StreamConfig.",
                                            "FederationPlan.")) from None
-
-    def _check_not_ported(self) -> None:
-        """The JAX package's values of the serving options, with the one
-        whose code the port does not have yet (the encoder) refused by
-        name."""
-        for name, accepted in (("refresh", REFRESH_MODES),
-                               ("autoscale", AUTOSCALE_POLICIES),
-                               ("fold_policy", FOLD_POLICIES),
-                               ("drift", DRIFT_MODES)):
-            got = getattr(self, name)
-            if got not in accepted:
-                _bad(name, got, f"accepted values are {list(accepted)}")
-        if not isinstance(self.policy_seed, int) or self.policy_seed < 0:
-            _bad("policy_seed", self.policy_seed,
-                 "must be a non-negative int")
-        if self.encode_dtype not in ENCODE_DTYPES:
-            _bad("encode_dtype", self.encode_dtype,
-                 f"accepted values are {list(ENCODE_DTYPES)}")
-        if self.encoder != "off":
-            _not_ported("encoder", self.encoder, "'off'")
 
     def engine_config(self) -> E.EngineConfig:
         return E.EngineConfig(
@@ -206,7 +175,9 @@ class FederationPlan:
             drift_retire_frac=self.drift_retire_frac,
             drift_max_moves=self.drift_max_moves, heads=self.heads,
             head_capacity=self.head_capacity,
-            head_arch=self.head_arch, local_kw=dict(self.local_kw))
+            head_arch=self.head_arch, encoder=self.encoder,
+            encode_dtype=self.encode_dtype,
+            encode_seq_len=self.encode_seq_len, local_kw=dict(self.local_kw))
 
     def with_options(self, **kw) -> "FederationPlan":
         """A copy of the plan with fields replaced (re-validated)."""
@@ -233,8 +204,9 @@ class Session:
     keys the serving requests' draws by request id. ``device`` overrides
     the plan's device. With ``plan.heads`` on, ``heads`` are the
     per-cluster head parameters the serving layer starts with (see
-    ``convert.heads`` for the JAX package's); by default they are drawn
-    from ``seed``.
+    ``convert.heads`` for the JAX package's), and with ``plan.encoder``
+    on, ``encoder`` the ingestion encoder's (``convert.encoder``); by
+    default each is drawn from ``seed``.
 
     The ``replicated`` and ``sharded`` topologies and ``serve_axes``
     take ``mesh``, a ``utils.mesh.Mesh``: every rank builds the same
@@ -245,7 +217,7 @@ class Session:
 
     def __init__(self, plan: FederationPlan, *, mesh=None, seed: int = 0,
                  device=None, gumbel: Optional[GumbelSource] = None,
-                 heads=None):
+                 heads=None, encoder=None):
         if not isinstance(plan, FederationPlan):
             raise PlanError(f"Session needs a FederationPlan, got "
                             f"{type(plan).__name__}")
@@ -274,6 +246,7 @@ class Session:
         self._seed = int(seed)
         self._gumbel = gumbel
         self._heads = heads
+        self._encoder = encoder
         self._round: Optional[E.RoundResult] = None
         self._tau: Optional[torch.Tensor] = None
         self._svc: Optional[AttachService] = None
@@ -394,7 +367,8 @@ class Session:
         if self._svc is None:
             cfg = self.plan.stream_config()
             kw = dict(seed=self._seed, gumbel=self._gumbel,
-                      heads=self._heads, device=self.device, mesh=self.mesh,
+                      heads=self._heads, encoder=self._encoder,
+                      device=self.device, mesh=self.mesh,
                       serve_axes=self.plan.serve_axes)
             if self._round is not None:
                 self._svc = AttachService._from_round(self._round, cfg, **kw)
@@ -432,8 +406,9 @@ class Session:
                           None if k_valid is None else [k_valid])[0]
 
     def serve(self, datas, k_valid=None) -> List[np.ndarray]:
-        """Serve a batch of late devices; their reports fold by the
-        plan's admission policy."""
+        """Serve a batch of late devices, each (n, d) points, or with
+        ``plan.encoder`` on (n, seq, d) raw token sequences; their
+        reports fold by the plan's admission policy."""
         return self.service.serve(datas, k_valid)
 
     def serve_versioned(self, datas, k_valid=None):
@@ -505,9 +480,9 @@ class Session:
     # ---------------------------------------------------- checkpoint --
     def save(self, path: Optional[str] = None) -> str:
         """Checkpoint the serving state (tau buffers and version, fold
-        state, counters, policy state, heads) in the JAX package's npz
-        schema; ``path`` defaults to ``plan.checkpoint``. Returns the
-        file's name."""
+        state, counters, policy state, heads, encoder) in the JAX
+        package's npz schema; ``path`` defaults to ``plan.checkpoint``.
+        Returns the file's name."""
         path = path or self.plan.checkpoint
         if not path:
             raise SessionError(
@@ -519,7 +494,7 @@ class Session:
                 seed: int = 0, device=None,
                 gumbel: Optional[GumbelSource] = None) -> "Session":
         """A serving session from a checkpoint written by :meth:`save` or
-        by the JAX package's ``Session.save`` (schemas v1-v5), on
+        by the JAX package's ``Session.save`` (schemas v1-v6), on
         ``device`` (default: ``plan.device``); every rank of ``mesh``
         restores. Restore then serve gives the labels and tau versions
         of the uninterrupted session, sharded or not: the serving draws

@@ -1,20 +1,22 @@
-"""The serve plane (counterpart of ``repro/fed/plane.py`` without its
-encoder part; DESIGN.md §11).
+"""The serve plane (counterpart of ``repro/fed/plane.py``; DESIGN.md
+§11).
 
 It owns the device computations of the serving hot path — the serve
 step, the routed personalization step (DESIGN.md §16, ``heads !=
-"off"``) and the fold scatter — and the double-buffered, versioned tau
-the steps read. Queues, buckets, policies and refresh cadence live in
-``fed/stream.py``.
+"off"``), their encoded forms (DESIGN.md §17, ``encoder != "off"``: the
+ingestion encoder prepended, raw token sequences in, the unchanged step
+on the embeddings) and the fold scatter — and the double-buffered,
+versioned tau the steps read. Queues, buckets, policies and refresh
+cadence live in ``fed/stream.py``.
 
 With ``serve_axes`` (and a ``utils.mesh.Mesh``) the plane is sharded:
 the request batch splits over the ranks of those mesh axes, tau, the
-heads and the fold state stay replicated, and the fold runs through
-``server.aggregate_incremental_sharded``. ``serve_axes`` grants up to
-``n_shards`` ranks; the autoscale controller may run a flush on fewer
-(``shards=`` on :meth:`ServePlane.step` and :meth:`ServePlane.fold`),
-down to one, and a multi-axis grant switches only between 1 and the
-whole grant.
+heads, the encoder and the fold state stay replicated, and the fold
+runs through ``server.aggregate_incremental_sharded``. ``serve_axes``
+grants up to ``n_shards`` ranks; the autoscale controller may run a
+flush on fewer (``shards=`` on :meth:`ServePlane.step` and
+:meth:`ServePlane.fold`), down to one, and a multi-axis grant switches
+only between 1 and the whole grant.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.core.lloyd import lloyd_attach
 from repro_torch.core.local_kmeans import local_prepare, split_local_kw
 from repro_torch.fed.personalize import majority_vote
 from repro_torch.kernels import ops
+from repro_torch.models.encoder import apply_encoder
 from repro_torch.models.heads import apply_heads
 
 __all__ = ["ServePlane", "ServePlaneError", "TauBuffer", "route_capacity"]
@@ -199,9 +202,43 @@ def _make_routed_step(cfg):
     return routed
 
 
+def _make_encode_step(cfg):
+    """The encoder (raw (B, n, S, d) token sequences and (B, n, S) token
+    masks -> (B, n, d) f32 embeddings at the plan's ``encode_dtype``) in
+    front of the serve-step body of :func:`_make_step`, unchanged: the
+    embeddings stay on the device between the two."""
+    base = _make_step(cfg)
+    spec = cfg.encoder_spec()
+
+    def step(tau, enc_params, gumbel, data, point_mask, k_valid,
+             token_mask):
+        emb = apply_encoder(enc_params, data, token_mask, spec,
+                            cfg.encode_dtype)
+        return base(tau, gumbel, emb, point_mask, k_valid)
+
+    return step
+
+
+def _make_encoded_routed_step(cfg):
+    """The encoder in front of the routed step of
+    :func:`_make_routed_step`, unchanged: the attachment and the heads
+    both work on the embeddings."""
+    routed = _make_routed_step(cfg)
+    spec = cfg.encoder_spec()
+
+    def step(tau, enc_params, head_params, gumbel, data, point_mask,
+             k_valid, token_mask, gather_votes=None):
+        emb = apply_encoder(enc_params, data, token_mask, spec,
+                            cfg.encode_dtype)
+        return routed(tau, head_params, gumbel, emb, point_mask, k_valid,
+                      gather_votes=gather_votes)
+
+    return step
+
+
 class ServePlane:
-    """Serve step, routed step and fold scatter, on one device or
-    sharded over the ranks of ``serve_axes``.
+    """Serve step, routed step (each also encoded) and fold scatter, on
+    one device or sharded over the ranks of ``serve_axes``.
 
     Sharded, at ``s`` active shards shard i < s serves rows
     [i B/s, (i+1) B/s) of a B-request batch: it draws, moves and solves
@@ -213,6 +250,12 @@ class ServePlane:
     bit for bit: a request's computation depends on its own draws and
     points only. The routed step adds one gather, of the requests'
     votes, so that keep or overflow is decided over the whole batch.
+    The encoded steps are the exception the card can make: the
+    encoder's products are cuBLAS GEMMs over all of a shard's tokens,
+    and cuBLAS may choose its algorithm by the row count, so an
+    embedding's low bits may depend on how many requests share the
+    product (on the CPU, and at the shapes ``chip_smoke.py`` serves
+    sharded, they do not).
 
     ``compile_count`` counts the first-seen (kind, shards, shape)
     signatures of the steps and folds, as the JAX package's plane counts
@@ -256,9 +299,13 @@ class ServePlane:
         self.mesh = mesh
         self.axes = axes
         self.group = mesh.group(axes) if axes else None
+        heads = cfg.head_spec() is not None
+        encoder = cfg.encoder_spec() is not None
         self._step = _make_step(cfg)
-        self._routed = (_make_routed_step(cfg)
-                        if cfg.head_spec() is not None else None)
+        self._routed = _make_routed_step(cfg) if heads else None
+        self._encode = _make_encode_step(cfg) if encoder else None
+        self._enc_routed = (_make_encoded_routed_step(cfg)
+                            if heads and encoder else None)
         self.steps = 0
         self.folds = 0
         self._signatures = set()
@@ -294,14 +341,19 @@ class ServePlane:
         i = self.group.index
         return (i * b, (i + 1) * b) if i < s else (0, 0)
 
-    def _inputs(self, source, rids, data, point_mask, k_valid):
-        """A host batch on the device, with its k-means++ draws."""
+    def _inputs(self, source, rids, data, point_mask, k_valid,
+                token_mask=None):
+        """A host batch on the device, with its k-means++ draws (and the
+        token mask of an encoded batch, last)."""
         dev = self.device
-        return (source.draw([int(r) for r in rids], self.cfg.k_prime,
-                            data.shape[1], dev),
-                torch.from_numpy(np.ascontiguousarray(data)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(point_mask)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(k_valid)).to(dev))
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        out = (source.draw([int(r) for r in rids], self.cfg.k_prime,
+                           data.shape[1], dev),
+               put(data), put(point_mask), put(k_valid))
+        return out if token_mask is None else out + (put(token_mask),)
 
     def step(self, tau, source, rids, data, point_mask, k_valid,
              shards: Optional[int] = None):
@@ -312,15 +364,35 @@ class ServePlane:
         whole grant). Returns (labels (B, n_pad) of the whole batch, and
         this rank's rows of the reports: centers (b, k', d), center_mask
         (b, k'), core weights (b, k'))."""
-        B, n_pad, d = data.shape
+        return self._labels_step(
+            "step", lambda *a: self._step(tau, *a), source, rids, data,
+            point_mask, k_valid, None, shards)
+
+    def encode_step(self, tau, enc_params, source, rids, data, point_mask,
+                    token_mask, k_valid, shards: Optional[int] = None):
+        """Serve one host batch of raw token sequences: ``data``
+        (B, n_pad, s_pad, d) f32 and ``token_mask`` (B, n_pad, s_pad)
+        are encoded to (B, n_pad, d) embeddings on the device, then
+        served as :meth:`step` serves points (DESIGN.md §17); returns
+        the :meth:`step` quadruple, the reports in latent space. Sharded,
+        each rank encodes only its rows; the collectives are
+        :meth:`step`'s."""
+        return self._labels_step(
+            "encode", lambda *a: self._encode(tau, enc_params, *a), source,
+            rids, data, point_mask, k_valid, token_mask, shards)
+
+    def _labels_step(self, kind, fn, source, rids, data, point_mask,
+                     k_valid, token_mask, shards):
+        B, n_pad, d = data.shape[0], data.shape[1], data.shape[-1]
         s = self._shards(shards) if self.group is not None else 1
         self.steps += 1
-        self._count("step", s, data.shape)
+        self._count(kind, s, data.shape)
         lo, hi = self.rows(B, s)
         if hi > lo:
-            out = self._step(tau, *self._inputs(
+            out = fn(*self._inputs(
                 source, rids[lo:hi], data[lo:hi], point_mask[lo:hi],
-                k_valid[lo:hi]))
+                k_valid[lo:hi],
+                None if token_mask is None else token_mask[lo:hi]))
         else:
             out = self._placeholder(B // s, n_pad, d)
         if self.group is None:
@@ -336,19 +408,37 @@ class ServePlane:
         cluster's queue. Sharded, the votes are gathered once to decide
         the overflow over the whole batch, and labels, preds, cluster
         and kept in one more gather."""
-        B, n_pad, d = data.shape
+        return self._heads_step(
+            "routed", lambda *a, **kw: self._routed(tau, head_params, *a,
+                                                    **kw),
+            source, rids, data, point_mask, k_valid, None, shards)
+
+    def encoded_routed_step(self, tau, enc_params, head_params, source,
+                            rids, data, point_mask, token_mask, k_valid,
+                            shards: Optional[int] = None):
+        """:meth:`encode_step` through the per-cluster heads: the
+        :meth:`routed_step` septuple, the attachment and the heads both
+        on the embeddings, with :meth:`routed_step`'s collectives."""
+        return self._heads_step(
+            "enc_routed", lambda *a, **kw: self._enc_routed(
+                tau, enc_params, head_params, *a, **kw),
+            source, rids, data, point_mask, k_valid, token_mask, shards)
+
+    def _heads_step(self, kind, fn, source, rids, data, point_mask,
+                    k_valid, token_mask, shards):
+        B, n_pad, d = data.shape[0], data.shape[1], data.shape[-1]
         s = self._shards(shards) if self.group is not None else 1
         self.steps += 1
-        self._count("routed", s, data.shape)
+        self._count(kind, s, data.shape)
         if self.group is None:
-            return self._routed(tau, head_params, *self._inputs(
-                source, rids, data, point_mask, k_valid))
+            return fn(*self._inputs(source, rids, data, point_mask, k_valid,
+                                    token_mask))
         lo, hi = self.rows(B, s)
         if hi > lo:
-            out = self._routed(
-                tau, head_params, *self._inputs(
-                    source, rids[lo:hi], data[lo:hi], point_mask[lo:hi],
-                    k_valid[lo:hi]),
+            out = fn(*self._inputs(
+                source, rids[lo:hi], data[lo:hi], point_mask[lo:hi],
+                k_valid[lo:hi],
+                None if token_mask is None else token_mask[lo:hi]),
                 gather_votes=lambda eff: (
                     self.group.all_gather(eff, active=s), lo))
         else:

@@ -41,13 +41,16 @@ changes its labels.
     version (at once on a sync refresh, at the next flush boundary on an
     async one). Every decision is a function of the folded stream, so
     it replays from a checkpoint.
+  * **Ingestion encoder** (DESIGN.md §17): with ``encoder`` on, each
+    request is (n, seq, d) raw token sequences, ``1 <= seq <=
+    encode_seq_len``. Requests group by (point-count rung, sequence rung)
+    and the plane encodes each batch on the device ahead of the
+    unchanged step (routed or not, sharded or not); folds, refreshes,
+    drift and autoscaling work on the embeddings.
   * **Checkpoints**: ``save`` writes the serving state in the JAX
     package's npz schema and ``_restore`` reads the archives of schemas
-    v1-v5 (see ``_restore``); restore then serve replays labels,
+    v1-v6 (see ``_restore``); restore then serve replays labels,
     versions and decisions exactly.
-
-Not in the port yet: the encoder; ``fed.api.FederationPlan`` refuses a
-plan that asks for it, and ``_restore`` an archive written under it.
 """
 from __future__ import annotations
 
@@ -72,6 +75,7 @@ from repro_torch.fed.plane import (ServePlane, ServePlaneError, TauBuffer,
 from repro_torch.fed.policy import (POLICIES, POLICY_IDS, FoldPolicy,
                                     make_policy)
 from repro_torch.kernels.ref import SOLVE_ATTACH_DTYPES
+from repro_torch.models import encoder as enc_mod
 from repro_torch.models import heads as heads_mod
 from repro_torch.utils.prng import GumbelSource
 
@@ -104,6 +108,15 @@ class ServedPrediction(NamedTuple):
 # are keyed by request id).
 _HEADS_SALT = 0x48454144  # "HEAD"
 
+# Salt of the encoder-init stream, apart from the head stream, so that
+# turning one on never re-keys the other.
+_ENCODER_SALT = 0x454E434F  # "ENCO"
+
+# The smallest token-axis pad rung: sequences pad to powers of two from
+# here up to ``encode_seq_len``, so the (n_pad, seq_pad) shapes a plan
+# serves form a small fixed grid.
+_SEQ_RUNG_FLOOR = 8
+
 REFRESH_MODES = ("sync", "async")
 
 DRIFT_MODES = ("off", "decay", "split_merge")
@@ -123,6 +136,11 @@ class _ServerStateV3(NamedTuple):
     mask: torch.Tensor
     weights: torch.Tensor
     received: torch.Tensor
+
+
+def _encoder_tag(cfg) -> str:
+    """What a schema v6 archive stores of the encoder's configuration."""
+    return f"{cfg.encoder}|{cfg.encode_dtype}|{cfg.encode_seq_len}"
 
 
 def _bad(fieldname: str, got, accepted: str) -> None:
@@ -155,6 +173,9 @@ class StreamConfig:
     heads: str = "off"          # per-cluster serving heads: off|linear|<config>
     head_capacity: float = 1.25  # dispatch queue slots per cluster, x B/k
     head_arch: str = "ffn"      # head architecture: ffn | transformer
+    encoder: str = "off"        # ingestion encoder: off | <config name>
+    encode_dtype: str = "f32"   # encoder storage: f32 | bf16 (f32 accum)
+    encode_seq_len: int = 64    # token-axis pad ceiling per point
     local_kw: dict = field(default_factory=dict)  # Algorithm 1 options
 
     def __post_init__(self):
@@ -237,6 +258,28 @@ class StreamConfig:
                                             self.d)
             except heads_mod.HeadConfigError as e:
                 _bad("heads", self.heads, str(e))
+        if self.encode_dtype not in enc_mod.ENCODE_DTYPES:
+            _bad("encode_dtype", self.encode_dtype,
+                 f"accepted values are {list(enc_mod.ENCODE_DTYPES)} (f32 "
+                 "keeps the encode stage bitwise-reproducible across "
+                 "restores; bf16 stores encoder params/activations in "
+                 "bfloat16 with f32 accumulation — DESIGN.md §17)")
+        if self.encoder != "off":
+            if (not isinstance(self.encode_seq_len, int)
+                    or self.encode_seq_len < 1):
+                _bad("encode_seq_len", self.encode_seq_len,
+                     "must be an int >= 1 (the per-point token-sequence "
+                     "pad ceiling) when the encoder is enabled")
+            try:
+                enc_mod.resolve_encoder_spec(self.encoder, self.d)
+            except enc_mod.EncoderConfigError as e:
+                _bad("encoder", self.encoder, str(e))
+
+    def encoder_spec(self) -> Optional[enc_mod.EncoderSpec]:
+        """The resolved encoder spec (None when the encoder is off)."""
+        if self.encoder == "off":
+            return None
+        return enc_mod.resolve_encoder_spec(self.encoder, self.d)
 
     def head_spec(self) -> Optional[heads_mod.HeadSpec]:
         """The resolved head spec (None when heads are off)."""
@@ -260,8 +303,11 @@ class AttachService:
     ``GumbelSource`` of ``seed``). With ``cfg.heads`` on, ``heads`` are
     the per-cluster head parameters (``models.heads.init_heads``
     layout); by default they are drawn from ``seed`` on a salted
-    stream. A restore (:meth:`_restore`) hands in the archive's tau
-    buffer, fold state and counters. ``mesh`` and ``serve_axes`` shard
+    stream. With ``cfg.encoder`` on, ``encoder`` is the ingestion
+    encoder's parameters (``models.encoder.init_encoder`` layout), by
+    default drawn from ``seed`` on a stream of its own salt. A restore
+    (:meth:`_restore`) hands in the archive's tau buffer, fold state and
+    counters. ``mesh`` and ``serve_axes`` shard
     the serve plane (DESIGN.md §11): per request the labels are the
     single-device plane's bit for bit for a fixed tau version."""
 
@@ -272,7 +318,8 @@ class AttachService:
                  since_refresh: int = 0, served_devices: int = 0,
                  served_points: int = 0,
                  tau_buffer: Optional[TauBuffer] = None,
-                 heads=None, device="cuda", mesh=None, serve_axes=None):
+                 heads=None, encoder=None, device="cuda", mesh=None,
+                 serve_axes=None):
         self.cfg = cfg
         try:
             self.plane = ServePlane(cfg, device, mesh=mesh,
@@ -334,11 +381,23 @@ class AttachService:
             gen = torch.Generator(device="cpu").manual_seed(int(head_seed))
             self.heads = heads_mod.init_heads(gen, cfg.k, self._head_spec,
                                               device=self.plane.device)
+        self._enc_spec = cfg.encoder_spec()
+        self._encoded_points = 0
+        if self._enc_spec is None:
+            self.encoder = None
+        elif encoder is not None:
+            self.encoder = heads_mod.tree_map(self.plane.localize, encoder)
+        else:
+            enc_seed = np.random.SeedSequence(
+                [int(seed), _ENCODER_SALT]).generate_state(1, np.uint64)[0]
+            gen = torch.Generator(device="cpu").manual_seed(int(enc_seed))
+            self.encoder = enc_mod.init_encoder(gen, self._enc_spec,
+                                                device=self.plane.device)
 
     @classmethod
     def _from_round(cls, rr, cfg: StreamConfig, *, seed: int = 0,
                     gumbel: Optional[GumbelSource] = None, heads=None,
-                    device="cuda", mesh=None,
+                    encoder=None, device="cuda", mesh=None,
                     serve_axes=None) -> "AttachService":
         """Seed the service from a finished round: cache its tau centers
         and fold the participating devices' reports, so a later refresh
@@ -350,8 +409,8 @@ class AttachService:
                 f"drop policy needs a slot for each of the round's "
                 f"{Z} devices")
         svc = cls(cfg, rr.agg.tau_centers, seed=seed, gumbel=gumbel,
-                  next_id=Z, heads=heads, device=device, mesh=mesh,
-                  serve_axes=serve_axes)
+                  next_id=Z, heads=heads, encoder=encoder, device=device,
+                  mesh=mesh, serve_axes=serve_axes)
         if cfg.fold_reports:
             ids = torch.nonzero(rr.participated.cpu()).reshape(-1)
             if ids.numel():
@@ -377,15 +436,32 @@ class AttachService:
         return self._taubuf.version
 
     def submit(self, data, k_valid: Optional[int] = None) -> int:
-        """Enqueue one device's (n, d) points; returns its request id (the
-        fold slot, and the key of its k-means++ draws)."""
+        """Enqueue one device's (n, d) points, or with the encoder on its
+        (n, seq, d) raw token sequences, ``1 <= seq <= encode_seq_len``;
+        returns its request id (the fold slot, and the key of its
+        k-means++ draws)."""
         if isinstance(data, torch.Tensor):
             data = data.detach().cpu().numpy()
         arr = np.asarray(data, np.float32)
-        if arr.ndim != 2 or arr.shape[1] != self.cfg.d:
-            raise StreamConfigError(
-                f"submit() takes (n, d={self.cfg.d}) points, got shape "
-                f"{arr.shape}")
+        if self._enc_spec is None:
+            if arr.ndim != 2 or arr.shape[1] != self.cfg.d:
+                raise StreamConfigError(
+                    f"submit() takes (n, d={self.cfg.d}) points, got shape "
+                    f"{arr.shape}")
+        else:
+            if arr.ndim != 3 or arr.shape[2] != self.cfg.d:
+                raise StreamConfigError(
+                    f"submit() takes (n, seq, d={self.cfg.d}) token "
+                    f"sequences with encoder={self.cfg.encoder!r}, got "
+                    f"shape {arr.shape}")
+            if arr.shape[1] < 1 or arr.shape[1] > self.cfg.encode_seq_len:
+                raise StreamConfigError(
+                    f"submit() got a token sequence of length "
+                    f"{arr.shape[1]}: with encoder="
+                    f"{self.cfg.encoder!r} every point must carry "
+                    f"1 <= seq <= encode_seq_len="
+                    f"{self.cfg.encode_seq_len} tokens (raise "
+                    f"encode_seq_len in the plan for longer inputs)")
         kv = self.cfg.k_prime if k_valid is None else int(k_valid)
         if not 1 <= kv <= self.cfg.k_prime:
             raise StreamConfigError(
@@ -411,6 +487,21 @@ class AttachService:
                 f"bucket of {b}. Add larger bucket_sizes to the plan to "
                 f"avoid oversized pads.", ReproPerfWarning, stacklevel=3)
         return b
+
+    def _seq_rung(self, seq: int) -> int:
+        """The token-axis pad rung of a request: the next power of two,
+        at least ``_SEQ_RUNG_FLOOR``, at most ``encode_seq_len``."""
+        return min(int(self.cfg.encode_seq_len),
+                   max(_SEQ_RUNG_FLOOR, pow2_ceil(seq)))
+
+    def _bucket_key(self, arr: np.ndarray, ladder: Tuple[int, ...]):
+        """The flush-group key of a request: its point-count rung with
+        the encoder off, the (n_pad, seq_pad) pair with it on. Keys of
+        one plan are of one kind, so the groups sort alike either way."""
+        n_pad = self._bucket(arr.shape[0], ladder)
+        if self._enc_spec is None:
+            return n_pad
+        return (n_pad, self._seq_rung(arr.shape[1]))
 
     def flush(self) -> Dict[int, np.ndarray]:
         """Serve every pending request; returns {request_id: (n,) labels}."""
@@ -461,10 +552,9 @@ class AttachService:
                 self.cfg.bucket_sizes,
                 mass=(self._drift_mass if self.cfg.drift != "off"
                       else ())))
-        buckets: Dict[int, list] = {}
+        buckets: Dict[object, list] = {}
         for item in pending:
-            buckets.setdefault(self._bucket(item[1].shape[0],
-                                            decision.ladder),
+            buckets.setdefault(self._bucket_key(item[1], decision.ladder),
                                []).append(item)
         out, self._done = self._done, {}  # undelivered earlier results
         staged: List[tuple] = []
@@ -547,42 +637,58 @@ class AttachService:
         self._done.update(got)
         return mine
 
-    def _serve_batch(self, batch, n_pad: int, B: int, shards: int,
+    def _serve_batch(self, batch, bucket, B: int, shards: int,
                      staged) -> None:
         """Launch one batch's serve step and fold (and a cadence refresh)
         at the flush decision's (shards, batch) and stage its labels,
-        still on the device. Under autoscale the batch right-sizes to
+        still on the device. ``bucket`` is the group's key: the
+        point-count rung, or with the encoder on the (n_pad, seq_pad)
+        pair, whose batch of raw sequences the plane encodes ahead of
+        the step. Under autoscale the batch right-sizes to
         ``min(rung, pow2_ceil(len(batch)))``, a function of the group's
         size alone, so a replay cuts the same batches, and the shard
         count follows it down (``shards_for``). Nothing here waits for
         the device, except a ``needs_weight`` policy's one copy of the
         report weights."""
         cfg = self.cfg
+        encoded = self._enc_spec is not None
+        n_pad, s_pad = bucket if encoded else (bucket, 0)
         if cfg.autoscale != "off":
             B = min(B, pow2_ceil(len(batch)))
             shards = shards_for(B, shards, self.autoscaler.n_axes)
-        data = np.zeros((B, n_pad, cfg.d), np.float32)
+        if encoded:
+            data = np.zeros((B, n_pad, s_pad, cfg.d), np.float32)
+            tmask = np.zeros((B, n_pad, s_pad), bool)
+        else:
+            data = np.zeros((B, n_pad, cfg.d), np.float32)
         pmask = np.zeros((B, n_pad), bool)
         kv = np.full((B,), cfg.k_prime, np.int32)
         rids = np.zeros((B,), np.int64)
         for i in range(B):
             rid, arr, k_valid = batch[min(i, len(batch) - 1)]  # pad=repeat
             n = arr.shape[0]
-            data[i, :n] = arr
+            if encoded:
+                data[i, :n, :arr.shape[1]] = arr
+                tmask[i, :n, :arr.shape[1]] = True
+            else:
+                data[i, :n] = arr
             pmask[i, :n] = True
             kv[i] = k_valid
             rids[i] = rid
         version = self._taubuf.version
-        args = (self._gumbel, rids, data, pmask, kv)
-        routed = None
-        if self._head_spec is None:
-            labels, centers, cmask, weights = self.plane.step(
-                self.tau, *args, shards=shards)
-        else:
-            (labels, centers, cmask, weights, preds, cluster,
-             kept) = self.plane.routed_step(self.tau, self.heads, *args,
-                                            shards=shards)
-            routed = (preds, cluster, kept)
+        heads = self._head_spec is not None
+        if encoded:
+            self._encoded_points += sum(item[1].shape[0] for item in batch)
+        step = {(False, False): self.plane.step,
+                (False, True): self.plane.routed_step,
+                (True, False): self.plane.encode_step,
+                (True, True): self.plane.encoded_routed_step}[encoded, heads]
+        params = ((self.tau,) + ((self.encoder,) if encoded else ())
+                  + ((self.heads,) if heads else ()))
+        out = step(*params, self._gumbel, rids, data, pmask,
+                   *((tmask,) if encoded else ()), kv, shards=shards)
+        labels, centers, cmask, weights = out[:4]
+        routed = tuple(out[4:]) or None
         if cfg.fold_reports:
             self._fold(batch, rids, centers, cmask, weights, shards)
         staged.append((batch, labels, version, routed))
@@ -729,10 +835,12 @@ class AttachService:
         the drift mode, its counters and mass histogram (schema v4; the
         fold epochs ride in the state), and with heads on (schema v5)
         the head parameters, their tag, the routed counters and a staged
-        head re-map. A restore in either package replays the labels, tau
-        versions, scaling and split/retire decisions. Pending requests
-        are not stored. On a mesh, rank 0 writes and every rank waits
-        for it at a barrier."""
+        head re-map, and with the encoder on (schema v6) the encoder
+        parameters, their ``encoder|encode_dtype|encode_seq_len`` tag and
+        the encoded-point counter. A restore in either package replays
+        the labels, tau versions, scaling and split/retire decisions.
+        Pending requests are not stored. On a mesh, rank 0 writes and
+        every rank waits for it at a barrier."""
         extra = {}
         if self._head_spec is not None:
             extra["heads"] = self.heads
@@ -743,6 +851,11 @@ class AttachService:
             if self._heads_perm is not None:
                 extra["heads_perm"] = np.asarray(self._heads_perm, np.int64)
         cfg = self.cfg
+        if self._enc_spec is not None:
+            extra["encoder"] = self.encoder
+            extra["encoder_tag"] = encode_tag(_encoder_tag(cfg))
+            extra["encoder_counters"] = np.asarray([self._encoded_points],
+                                                   np.int64)
         tree = {
             **extra,
             "tau_bufs": self._taubuf.bufs,
@@ -766,7 +879,7 @@ class AttachService:
                  gumbel: Optional[GumbelSource] = None,
                  device="cuda", mesh=None,
                  serve_axes=None) -> "AttachService":
-        """A service from an archive of schema v1-v5 (the JAX package's
+        """A service from an archive of schema v1-v6 (the JAX package's
         or the port's), on ``device``. Serving draws are keyed by the
         archive's base seed unless ``gumbel`` is given; ``mesh`` and
         ``serve_axes`` shard the plane (an archive restores sharded or
@@ -775,16 +888,21 @@ class AttachService:
         re-map, the autoscale decision state and the drift state are
         taken over, so serving replays the writer's. A pre-v4 archive
         restores under any drift mode with the drift state at its
-        defaults. An archive is refused by the field it disagrees on:
+        defaults; a pre-v6 archive restores under any encoder with a
+        fresh encoder drawn from the archive's seed, as a new service
+        draws it. An archive is refused by the field it disagrees on:
         ``fold_policy``, ``autoscale`` and ``drift`` where the archive
         was written under another value than ``cfg``'s,
-        ``heads``/``head_arch``, and ``encoder`` (any v6 archive)."""
+        ``heads``/``head_arch``, and ``encoder``/``encode_dtype``/
+        ``encode_seq_len`` where a v6 archive's tag differs (encoder off
+        included): the writer's embeddings could not be reproduced."""
         extras = load_extras(path, ("policy_id", "autoscale_id",
                                     "autoscale_state", "autoscale_ladder",
                                     "tau_bufs", "drift_id", "drift_state",
                                     "drift_mass", "server/.epoch",
                                     "heads_tag", "heads_counters",
-                                    "heads_perm", "encoder_tag"))
+                                    "heads_perm", "encoder_tag",
+                                    "encoder_counters"))
         # Archives from before the policy layer were written under drop.
         saved = (int(extras["policy_id"]) if "policy_id" in extras
                  else POLICY_IDS["drop"])
@@ -817,13 +935,16 @@ class AttachService:
                     f"checkpoint at {path!r}, which was saved under "
                     f"heads={sv_h!r}/head_arch={sv_a!r}")
         if "encoder_tag" in extras:
-            sv_e, sv_dt, sv_sl = decode_tag(extras["encoder_tag"]).split(
-                "|", 2)
-            raise StreamConfigError(
-                f"StreamConfig.encoder='off' does not match the "
-                f"checkpoint at {path!r}, which was saved under "
-                f"encoder={sv_e!r}/encode_dtype={sv_dt!r}/"
-                f"encode_seq_len={sv_sl}")
+            tag = decode_tag(extras["encoder_tag"])
+            if tag != _encoder_tag(cfg):
+                sv_e, sv_dt, sv_sl = tag.split("|", 2)
+                raise StreamConfigError(
+                    f"StreamConfig.encoder={cfg.encoder!r}/"
+                    f"encode_dtype={cfg.encode_dtype!r}/"
+                    f"encode_seq_len={cfg.encode_seq_len!r} does not "
+                    f"match the checkpoint at {path!r}, which was "
+                    f"saved under encoder={sv_e!r}/encode_dtype="
+                    f"{sv_dt!r}/encode_seq_len={sv_sl}")
         policy = make_policy(cfg.fold_policy, cfg.capacity,
                              seed=cfg.policy_seed,
                              half_life=cfg.policy_half_life())
@@ -847,6 +968,10 @@ class AttachService:
             like["heads"] = heads_mod.init_heads(
                 torch.Generator(device="cpu").manual_seed(0), cfg.k,
                 cfg.head_spec(), device="cpu")
+        if "encoder_tag" in extras:
+            like["encoder"] = enc_mod.init_encoder(
+                torch.Generator(device="cpu").manual_seed(0),
+                cfg.encoder_spec(), device="cpu")
         dev = torch.device(device)
         tree = load_pytree(path, like, device=dev)
         policy.load_state(tree["policy"])
@@ -861,8 +986,11 @@ class AttachService:
                   policy=policy, seed=int(cnt[4]), gumbel=gumbel,
                   next_id=int(cnt[0]), since_refresh=int(cnt[1]),
                   served_devices=int(cnt[2]), served_points=int(cnt[3]),
-                  heads=tree.get("heads"), device=dev, mesh=mesh,
-                  serve_axes=serve_axes)
+                  heads=tree.get("heads"), encoder=tree.get("encoder"),
+                  device=dev, mesh=mesh, serve_axes=serve_axes)
+        if "encoder_counters" in extras:
+            svc._encoded_points = int(np.asarray(
+                extras["encoder_counters"], np.int64)[0])
         if "heads_counters" in extras:
             hc = np.asarray(extras["heads_counters"], np.int64)
             svc._routed_served, svc._overflowed = int(hc[0]), int(hc[1])
@@ -899,6 +1027,18 @@ class AttachService:
             "remap_pending": self._heads_perm is not None,
         }
 
+    def _encoder_stats(self) -> dict:
+        if self._enc_spec is None:
+            return {"mode": "off"}
+        return {
+            "mode": self.cfg.encoder,
+            "dtype": self.cfg.encode_dtype,
+            "seq_len": self.cfg.encode_seq_len,
+            "layers": self._enc_spec.n_layers,
+            "params": enc_mod.encoder_param_count(self._enc_spec),
+            "encoded_points": self._encoded_points,
+        }
+
     def stats(self) -> dict:
         return {
             "served_devices": self._served_devices,
@@ -913,9 +1053,7 @@ class AttachService:
             "refresh_pending": self._taubuf.pending,
             "autoscale": self.autoscaler.stats(),
             "heads": self._heads_stats(),
-            # The JAX package's "off" form of the encoder, which the
-            # port does not have yet.
-            "encoder": {"mode": "off"},
+            "encoder": self._encoder_stats(),
             "drift": {"mode": self.cfg.drift,
                       "half_life": self.cfg.drift_half_life,
                       "events": self._drift_events,

@@ -281,6 +281,37 @@ def case_drift(spec):
     return out
 
 
+def encoded_outcome(sess, reqs, routed):
+    """An encoded session's results: serve_versioned (or serve_predict,
+    ``routed``) in two flushes, then the fold state and stats."""
+    half = len(reqs) // 2
+    if routed:
+        served = (served_routed(sess, reqs[:half], [None] * half, half)
+                  + served_routed(sess, reqs[half:],
+                                  [None] * (len(reqs) - half), len(reqs)))
+    else:
+        served = (sess.serve_versioned(reqs[:half])
+                  + sess.serve_versioned(reqs[half:]))
+    st = sess.stats()
+    return {"served": served, "state": [_np(t) for t in sess.service.state],
+            "encoder": st["encoder"], "heads": st["heads"],
+            "plane_compiles": st["plane_compiles"]}
+
+
+def case_encoded(spec):
+    """The encoded serve and the encoded routed step on the sharded
+    plane (each rank encodes its rows of every batch)."""
+    from repro_torch.fed.api import FederationPlan, Session
+    mesh = _mesh()
+    out = {}
+    for name, kw in spec["plans"].items():
+        plan = FederationPlan(**kw, serve_axes=("data",), device="cpu")
+        sess = Session.from_tau(plan, spec["tau"], mesh=mesh, seed=3)
+        out[name] = encoded_outcome(sess, spec["reqs"],
+                                    kw.get("heads", "off") != "off")
+    return out
+
+
 def case_lloyd(spec):
     from repro_torch.core.distributed import distributed_lloyd
     mesh = _mesh()
@@ -318,4 +349,4 @@ CASES = {"primitives": case_primitives, "round": case_round,
          "fold": case_fold, "plane": case_plane,
          "autoscale": case_autoscale, "checkpoint": case_checkpoint,
          "lloyd": case_lloyd, "errors": case_errors, "routed": case_routed,
-         "drift": case_drift}
+         "drift": case_drift, "encoded": case_encoded}

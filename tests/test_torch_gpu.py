@@ -1481,3 +1481,110 @@ def test_gpu_one_rank_nccl_sharded_routed_step(cuda_device, tmp_path):
         np.testing.assert_array_equal(g.prediction, w.prediction)
         assert (g.tau_version, g.cluster, g.routed) == (
             w.tau_version, w.cluster, w.routed)
+
+
+# ------------------------------------------------------------- encoder --
+
+ENC_PLAN = dict(k=8, k_prime=3, d=16, capacity=128, batch_size=2,
+                bucket_sizes=(16, 32), encoder="qwen1.5-0.5b",
+                encode_seq_len=16)
+
+
+def _token_requests(count, seed, d=16, seq=16):
+    rng = np.random.default_rng(seed)
+    return [np.asarray(rng.normal(size=(int(rng.integers(4, 14)),
+                                        int(rng.integers(2, seq + 1)), d)),
+                       np.float32) for _ in range(count)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name,d", [("qwen1.5-0.5b", 16),
+                                    ("granite-3-2b", 32),
+                                    ("nemotron-4-15b", 24)])
+def test_gpu_apply_encoder_matches_cpu(cuda_device, name, d, dtype):
+    """apply_encoder on the card against the CPU on ragged token masks
+    (GQA included): f32 within rtol 1e-5 / atol 1e-5, bf16 within 1e-2 of
+    max(max|y|, 1) (test_torch_encoder.py's bounds); an item with no
+    valid token embeds to exactly 0."""
+    from repro_torch.models import encoder as enc
+    from repro_torch.models.common import tree_map
+    spec = enc.resolve_encoder_spec(name, d)
+    params = tree_map(lambda t: t * 5.0, enc.init_encoder(
+        torch.Generator().manual_seed(3), spec, device="cpu"))
+    rng = np.random.default_rng(d)
+    x = T(rng.normal(size=(6, 9, 24, d)), dtype=torch.float32)
+    m = T(rng.random((6, 9, 24)) < 0.6)
+    m[0, 0] = False
+    want = enc.apply_encoder(params, x, m, spec, dtype)
+    card = tree_map(lambda t: t.to(cuda_device), params)
+    got = enc.apply_encoder(card, x.to(cuda_device), m.to(cuda_device),
+                            spec, dtype).cpu()
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert not got[0, 0].any()
+    if dtype == "f32":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        bound = 1e-2 * max(float(want.abs().max()), 1.0)
+        torch.testing.assert_close(got, want, rtol=0, atol=bound)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gpu_encode_step_is_step_on_the_embeddings(cuda_device, dtype):
+    """On the card the plane's encode step launches solve_attach once and
+    gives the labels and reports of the serve step on apply_encoder's
+    output, bit for bit."""
+    from repro_torch.fed.plane import _make_encode_step, _make_step
+    from repro_torch.fed.stream import StreamConfig
+    from repro_torch.models import encoder as enc
+    from repro_torch.utils.prng import GumbelSource
+    cfg = StreamConfig(**{**ENC_PLAN, "encode_dtype": dtype})
+    spec = cfg.encoder_spec()
+    params = enc.init_encoder(torch.Generator().manual_seed(1), spec,
+                              device=cuda_device)
+    rng = np.random.default_rng(2)
+    x = T(rng.normal(size=(4, 16, 8, 16)), dtype=torch.float32,
+          device=cuda_device)
+    tm = T(rng.random((4, 16, 8)) < 0.7, device=cuda_device)
+    pm = T(rng.random((4, 16)) < 0.8, device=cuda_device)
+    kv = torch.full((4,), 3, dtype=torch.int32, device=cuda_device)
+    g = GumbelSource(0).draw([0, 1, 2, 3], 3, 16, cuda_device)
+    tau = T(np.random.default_rng(0).normal(size=(8, 16)) * 4,
+            dtype=torch.float32, device=cuda_device)
+    ops.reset_launch_counts()
+    got = _make_encode_step(cfg)(tau, params, g, x, pm, kv, tm)
+    assert ops.launch_counts()["solve_attach"] == 1
+    emb = enc.apply_encoder(params, x, tm, spec, dtype)
+    want = _make_step(cfg)(tau, g, emb, pm, kv)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gpu_encoded_v6_save_restore_bitwise(cuda_device, tmp_path):
+    """An encoded session (bf16 encoder storage, sync refresh) served,
+    saved and restored on the card serves the rest as the live one, bit
+    for bit: labels, versions, fold state, encoder leaves and stats."""
+    from repro_torch.fed.api import FederationPlan, Session
+    plan = FederationPlan(**ENC_PLAN, encode_dtype="bf16", refresh_every=4,
+                          device="cuda")
+    tau = np.asarray(np.random.default_rng(0).normal(size=(8, 16)) * 4,
+                     np.float32)
+    live = Session.from_tau(plan, tau, seed=4, device=cuda_device)
+    reqs = _token_requests(10, seed=7)
+    live.serve(reqs[:5])
+    path = live.save(str(tmp_path / "card_v6.npz"))
+    restored = Session.restore(path, plan, device=cuda_device)
+    assert restored.service.encoder["norm_f"]["w"].is_cuda
+    ops.reset_launch_counts()
+    got = restored.serve_versioned(reqs[5:])
+    assert ops.launch_counts()["solve_attach"] > 0
+    want = live.serve_versioned(reqs[5:])
+    for (g, gv), (w, wv) in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+        assert gv == wv
+    for a, b in zip(restored.service.state, live.service.state):
+        assert torch.equal(a, b)
+    assert restored.stats()["encoder"] == live.stats()["encoder"]
+    assert live.tau_version >= 1

@@ -44,6 +44,15 @@ ROUTED = dict(PLANE, heads="linear", head_capacity=0.5)
 DRIFT = dict(k=K, k_prime=KP, d=D, capacity=512, batch_size=8,
              bucket_sizes=(32, 64, 128), refresh_every=4,
              drift="split_merge", drift_half_life=24, drift_retire_frac=0.2)
+# The encoded planes: tests/test_encode_serve.py's plan at a batch of 4,
+# once heads off in f32, once through the routed heads (half the queue
+# depth, so that queues overflow) in bf16 storage.
+ENCODED = dict(k=8, k_prime=3, d=16, capacity=128, batch_size=4,
+               bucket_sizes=(16, 32), encoder="qwen1.5-0.5b",
+               encode_seq_len=16)
+ENCODED_PLANS = {"serve": ENCODED,
+                 "routed": dict(ENCODED, heads="linear", head_capacity=0.5,
+                                encode_dtype="bf16")}
 WORLDS = (1, 2, 4)
 TOPOLOGIES = ("replicated", "sharded")
 
@@ -172,6 +181,30 @@ def single_routed(plane_inputs, shifted):
     return out
 
 
+@pytest.fixture(scope="module")
+def encoded_inputs():
+    """tau and 13 raw-sequence requests of 4-13 points, 2-16 tokens."""
+    rng = np.random.default_rng(17)
+    tau = np.asarray(rng.normal(size=(8, 16)) * 4, np.float32)
+    reqs = [np.asarray(rng.normal(size=(int(rng.integers(4, 14)),
+                                        int(rng.integers(2, 17)), 16)),
+                       np.float32) for _ in range(13)]
+    return dict(plans=ENCODED_PLANS, tau=tau, reqs=reqs)
+
+
+@pytest.fixture(scope="module")
+def single_encoded(encoded_inputs):
+    """The single-device port's encoded sessions: what the sharded ranks
+    must equal."""
+    ei = encoded_inputs
+    out = {}
+    for name, kw in ei["plans"].items():
+        sess = Session.from_tau(FederationPlan(**kw, device="cpu"),
+                                ei["tau"], seed=3)
+        out[name] = R.encoded_outcome(sess, ei["reqs"], name == "routed")
+    return out
+
+
 def _burst_stream(fm):
     stream = late_device_stream(fm.means, KP, sum(BURSTS), 9,
                                 n_range=(10, 120))
@@ -208,7 +241,8 @@ def _fold_inputs(world):
                 w=rng.random((B, 3)).astype(np.float32), cap=B, kp=3, d=5)
 
 
-def _cases(world, mixture, part, plane_inputs, lloyd_inputs, shifted, tmp):
+def _cases(world, mixture, part, plane_inputs, lloyd_inputs, shifted,
+           encoded, tmp):
     cases = {
         "round": dict(data=mixture.data, draws=_round_draws(mixture.data),
                       part=part, k=K, kp=KP, d=D),
@@ -223,6 +257,7 @@ def _cases(world, mixture, part, plane_inputs, lloyd_inputs, shifted, tmp):
                               kvs=pi["kvs"], draws=pi["draws"])
         cases["drift"] = dict(plan=DRIFT, round=pi["round"], reqs=shifted[0],
                               kvs=shifted[1])
+        cases["encoded"] = encoded
     if world == 2:
         cases["checkpoint"] = dict(plan=PLANE, round=pi["round"],
                                    reqs=pi["reqs"], kvs=pi["kvs"], cut=7,
@@ -239,7 +274,7 @@ def _cases(world, mixture, part, plane_inputs, lloyd_inputs, shifted, tmp):
 
 @pytest.fixture(scope="module")
 def ranks(mixture, part, plane_inputs, lloyd_inputs, shifted,
-          tmp_path_factory):
+          encoded_inputs, tmp_path_factory):
     """{world: [rank 0's results, rank 1's, ...]}, one spawn a world,
     started on first use."""
     done = {}
@@ -249,7 +284,7 @@ def ranks(mixture, part, plane_inputs, lloyd_inputs, shifted,
             tmp = tmp_path_factory.mktemp(f"world{world}")
             done[world] = R.spawn(world, str(tmp), _cases(
                 world, mixture, part, plane_inputs, lloyd_inputs, shifted,
-                tmp))
+                encoded_inputs, tmp))
         return done[world]
 
     return get
@@ -460,6 +495,38 @@ def test_sharded_drift_matches_single_device(ranks, single_routed, world):
     _assert_tree_equal(got["linear"], want["linear"])
     assert want["off"]["counters"][1] > 0          # centers moved
     assert want["linear"]["counters"] == want["off"]["counters"]
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_sharded_encoded_serve_matches_single_device(ranks, single_encoded,
+                                                     encoded_inputs, world):
+    """tests/test_encode_serve.py's sharded case in the port: raw
+    sequences encoded on each rank's rows, then served; labels, tau
+    versions, fold state, encoder stats and step shapes equal the
+    single-device port bit for bit, on every rank."""
+    got = _same_on_every_rank(ranks(world), "encoded")["serve"]
+    want = single_encoded["serve"]
+    _assert_tree_equal(got["served"], want["served"])
+    _assert_tree_equal(got["state"], want["state"])
+    assert got["encoder"] == want["encoder"]
+    assert got["encoder"]["encoded_points"] == sum(
+        r.shape[0] for r in encoded_inputs["reqs"])
+    assert got["plane_compiles"] == want["plane_compiles"]
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_sharded_encoded_routed_step_matches_single_device(
+        ranks, single_encoded, world):
+    """The encoded routed step (bf16 encoder storage, linear heads, half
+    the queue depth) on 2 and 4 shards: labels, versions, predictions,
+    clusters and routing equal the single-device port bit for bit, on
+    every rank, and some requests overflow their queue."""
+    got = _same_on_every_rank(ranks(world), "encoded")["routed"]
+    want = single_encoded["routed"]
+    _assert_routed_equal(got["served"], want["served"])
+    _assert_tree_equal(got["state"], want["state"])
+    assert got["encoder"] == want["encoder"]
+    assert got["heads"] == want["heads"] and want["heads"]["overflowed"] > 0
 
 
 def test_autoscale_switches_shard_counts_as_the_jax_controller(

@@ -268,10 +268,12 @@ def test_default_heads_follow_the_seed(mixture):
      "drift_half_life")])
 def test_plan_validates_heads(opts, field):
     """Head options are validated by name (granite's 8 attention heads
-    do not divide d=20); heads combined with the encoder, which the port
-    does not have, is refused by its name, and with drift, which it has,
-    by the drift field that is invalid."""
-    with pytest.raises(PlanError, match=f"FederationPlan.{field}="):
+    do not divide d=20); heads combined with an encoder that is not a
+    registered config (the registry spells it granite-3-2b) are refused
+    by the encoder's name, and with drift by the drift field that is
+    invalid."""
+    with pytest.raises(PlanError,
+                       match=f"FederationPlan.{field}=.* is invalid"):
         FederationPlan(**{**dict(k=K, k_prime=KP, d=D, device="cpu"),
                           **opts})
 

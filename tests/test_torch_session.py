@@ -164,13 +164,21 @@ def test_from_tau_and_lifecycle_errors(mixture):
     assert clustering_accuracy(served, mixture.labels[0], K) > 0.95
 
 
-@pytest.mark.parametrize("field,value", [("encoder", "granite_3_2b")])
-def test_plan_refuses_what_is_not_ported(field, value):
-    """A value whose code the port does not have (the encoder) is
-    refused, naming the field; it never falls back to something else."""
-    with pytest.raises(PlanError, match=f"FederationPlan.{field}=.*not in "
-                                        f"the PyTorch port yet"):
-        FederationPlan(k=K, k_prime=KP, d=D, device="cpu", **{field: value})
+@pytest.mark.parametrize("field,value,extra,match", [
+    pytest.param("encoder", "granite_3_2b", {},
+                 r"is invalid: accepted values are 'off' or a registered "
+                 r"model config \[", id="encoder-granite_3_2b"),
+    pytest.param("encoder", "granite-3-2b", {"d": 20},
+                 r"is invalid for d=20: the config's n_heads=8 must divide "
+                 r"the plan's feature dimension", id="encoder-indivisible")])
+def test_plan_refuses_what_is_not_ported(field, value, extra, match):
+    """An encoder the port cannot build is refused with the JAX package's
+    named error: a name that is not a registered config (the registry
+    spells it granite-3-2b), or a config whose attention heads do not
+    divide d. It never falls back to something else."""
+    with pytest.raises(PlanError, match=f"FederationPlan.{field}=.*" + match):
+        FederationPlan(**{**dict(k=K, k_prime=KP, d=D, device="cpu"),
+                          field: value, **extra})
 
 
 @pytest.mark.parametrize("field,value,extra", [
