@@ -129,6 +129,21 @@ heads-off twin's. The mesh legs then also serve one wave of the encoded
 Table 1 plan and of the encoded routed plan with serve_axes, bit for
 bit against one process.
 
+Last come the train legs (LM training through repro_torch.launch.train,
+Model.loss and the optimizers): the MoE layer's backward on the card
+(moe_dispatch's gradient through the moe_combine kernel with 0/1 gates,
+moe_combine's through the moe_combine_bwd kernel) at the full-width
+leg's routing and at small shapes (top_k 1, 2 and 4, dropped entries,
+f32 and bf16, d not a multiple of 8), against the plain versions'
+autograd and f64, timed beside index_add_ and gather + mul + sum; 3
+steps of reduced Mixtral-8x7B and granite-3-2b (f32, microbatch 2) on
+the card against the CPU from one state; Mixtral-8x7B at its published
+widths cut to 2 of its 32 layers, with its remat, microbatch 4 and
+adamw, 1 warm-up and 3 timed steps of 4 x 4096 tokens (tokens/s, peak
+memory, loss and grad norm, launches a step, a profile line); and
+examples/train_lm.py (reduced granite-3-2b, 200 steps, then generate),
+whose loss must fall.
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -284,6 +299,35 @@ ER_ROUND_SEQ, ER_SEQ_RANGE, ER_WAVES = 8, (8, 33), 2
 # The mesh legs' encoded serves: one wave of the encode table1 leg's
 # late devices and one of the encode route leg's requests.
 MESH_E_DEVICES = 8
+
+# The train legs. The backward kernels at the full-width leg's routing
+# (a microbatch of 4096 tokens of d=4096 bf16, 8 experts top-2, C=1280:
+# 10240 slots) and at small shapes: (T, d, E, top_k, capacity factor,
+# dtype), top_k 1, 2 and 4, dropped entries, f32 and bf16, d of 12 and
+# 13 (not multiples of 8).
+TK_SHAPES = [(64, 128, 4, 1, 1.0, torch.float32),
+             (100, 12, 8, 2, 0.5, torch.bfloat16),
+             (100, 12, 8, 2, 0.5, torch.float32),
+             (70, 36, 6, 4, 0.75, torch.bfloat16),
+             (70, 36, 6, 4, 0.75, torch.float32),
+             (33, 13, 4, 2, 0.6, torch.bfloat16)]
+# Train small: reduced Mixtral-8x7B and granite-3-2b in f32, microbatch
+# 2, 3 steps of make_train_step (adamw, lr 1e-3, eps 1e-4) on the card
+# against the CPU from one state; batches of 4 x 32 tokens.
+TS_CONFIGS, TS_STEPS, TS_BATCH, TS_SEQ, TS_MB = (
+    ("mixtral-8x7b", "granite-3-2b"), 3, 4, 32, 2)
+# Train full: Mixtral-8x7B at its published widths (configs/
+# mixtral_8x7b.py) cut to 2 of 32 layers (a layer is about 1.45 B
+# parameters: 17 GB as bf16 weights and gradients plus adamw's f32 m and
+# v; two and the embeddings about 38 GB), with the config's own remat,
+# microbatch 4 and adamw: batches of 4 x 4096 tokens of the synthetic
+# stream, 1 warm-up step, 3 timed steps and 1 profiled.
+TF_LAYERS, TF_BATCH, TF_SEQ, TF_WARM, TF_STEPS, TF_LR, TF_SEED = (
+    2, 4, 4096, 1, 3, 1e-4, 0)
+# Train example: examples/train_lm.py on the card (reduced granite-3-2b,
+# 200 adamw steps at lr 3e-3 on batches of 8 x 65 tokens, a loss logged
+# every 20 steps, then 8 tokens generated for 4 prompts).
+TE_STEPS, TE_LR, TE_BATCH, TE_SEQ, TE_LOG = 200, 3e-3, 8, 65, 20
 
 
 class SmokeFailure(RuntimeError):
@@ -1260,7 +1304,7 @@ def moe_prefill_kernels(dev, rounds: int) -> None:
     router = (torch.randn(d, m.n_experts, generator=g, device=dev)
               * 0.006).to(torch.bfloat16)
     ids, gates, _ = moe._route(router, x, m)
-    src, valid, flat_e, pos_c, keep = moe._plan(ids, m, C)
+    src, valid, flat_e, pos_c, keep, _ = moe._plan(ids, m, C)
     S = src.shape[0]
     got, want = moe_dispatch(x, src, valid), ref.moe_dispatch(x, src, valid)
     sync()
@@ -3673,6 +3717,522 @@ def mesh2_leg(fm, rr, taus, tmp: Path, more, want_more):
                     for name, shapes in ranks[0]["tally"].items()}
 
 
+# ------------------------------------------------------------ training --
+
+def moe_bwd_inputs(dev, T, d, E, top_k, cf, dtype, seed=0):
+    """A routing of T tokens of d among E experts by the model's own
+    route and plan (models/moe.py), with random x, router, queue
+    gradient dbuf, expert outputs ybuf and output gradient dout."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    m = dataclasses.replace(get_config("mixtral-8x7b").moe, n_experts=E,
+                            top_k=top_k, capacity_factor=cf)
+    g = torch.Generator(device=dev).manual_seed(seed + T + d + top_k)
+    x = torch.randn(T, d, generator=g, device=dev).to(dtype)
+    scale = 0.006 if d >= 1024 else 0.05
+    router = (torch.randn(d, E, generator=g, device=dev) * scale).to(dtype)
+    ids, gates, _ = moe._route(router, x, m)
+    C = moe._capacity(T, m)
+    src, valid, flat_e, pos_c, keep, src_entry = moe._plan(ids, m, C)
+    S = E * C
+    return dict(
+        T=T, d=d, top_k=top_k, dtype=dtype, S=S, x=x, src=src, valid=valid,
+        keep=keep, src_entry=src_entry, gates=gates.reshape(-1),
+        slot=(flat_e * C + pos_c).to(torch.int32),
+        w=torch.where(keep, gates.reshape(-1), 0.0).float(),
+        dbuf=torch.randn(S, d, generator=g, device=dev).to(dtype),
+        ybuf=torch.randn(S, d, generator=g, device=dev).to(dtype),
+        dout=torch.randn(T, d, generator=g, device=dev))
+
+
+def kernel_moe_grads(inp):
+    """dx, dybuf and dgates through ops.moe_dispatch / ops.moe_combine
+    given the routing (the kernels and their backward), with the
+    launches of the two calls: (dx, dy, dg, counts)."""
+    from repro_torch.kernels import ops
+    top_k = inp["top_k"]
+    xr = inp["x"].clone().requires_grad_(True)
+    yr = inp["ybuf"].clone().requires_grad_(True)
+    gr = inp["gates"].clone().requires_grad_(True)
+    ops.reset_launch_counts()
+    buf = ops.moe_dispatch(xr, inp["src"], inp["valid"], slot=inp["slot"],
+                           keep=inp["keep"], top_k=top_k)
+    dx, = torch.autograd.grad(buf, xr, inp["dbuf"])
+    y = ops.moe_combine(yr, inp["slot"], torch.where(inp["keep"], gr, 0.0),
+                        top_k, src_entry=inp["src_entry"],
+                        valid=inp["valid"])
+    dy, dg = torch.autograd.grad(y, (yr, gr), inp["dout"])
+    sync()
+    return dx, dy, dg, ops.launch_counts()
+
+
+def check_moe_grads(inp) -> dict:
+    """The kernels' gradients against the plain versions on the card
+    and against f64: dx bit for bit with the plain formula (the f32 sum
+    in j order, cast once: ref.moe_dispatch_bwd) for every top_k, with
+    the plain autograd for top_k <= 2, and within one rounding to x's
+    type (plus the f32 sum's own error) of the f64 sum; dybuf bit for bit
+    with the plain autograd; dgates within 1e-6 of sum_c |dout * ybuf|
+    of the f64 sum; two calls bit for bit; launches (1, 2, 1). Returns
+    the errors."""
+    from repro_torch.kernels import ref
+    T, top_k, dtype = inp["T"], inp["top_k"], inp["dtype"]
+    dx, dy, dg, counts = kernel_moe_grads(inp)
+    dx2, dy2, dg2, _ = kernel_moe_grads(inp)
+    label = (f"({inp['S']},{inp['d']}) {str(dtype).replace('torch.', '')} "
+             f"top_k={top_k}")
+    require((counts["moe_dispatch"], counts["moe_combine"],
+             counts["moe_combine_bwd"]) == (1, 2, 1),
+            f"train kernels {label}: launches {counts}")
+    require(same_bits((dx.float(), dy.float(), dg),
+                      (dx2.float(), dy2.float(), dg2)),
+            f"train kernels {label}: two calls differ")
+    xr = inp["x"].clone().requires_grad_(True)
+    want_dx, = torch.autograd.grad(
+        ref.moe_dispatch(xr, inp["src"], inp["valid"]), xr, inp["dbuf"])
+    require(torch.equal(dx, ref.moe_dispatch_bwd(
+        inp["dbuf"], inp["slot"], inp["keep"], T, top_k, dtype)),
+        f"train kernels {label}: dx differs from the plain formula")
+    exact = ref.moe_dispatch_bwd(inp["dbuf"].double(), inp["slot"],
+                                 inp["keep"], T, top_k)
+    terms = ref.sequential_combine(inp["dbuf"].double().abs(), inp["slot"],
+                                   inp["keep"].double(), top_k)
+    unit = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+    require(bool(((dx.double() - exact).abs()
+                  <= unit * exact.abs() + top_k * 2.0 ** -24 * terms).all()),
+            f"train kernels {label}: dx beyond one rounding of the f64 sum")
+    dx_err = float((dx.float() - want_dx.float()).abs().max())
+    if top_k <= 2:
+        require(torch.equal(dx, want_dx),
+                f"train kernels {label}: dx differs from the plain autograd")
+    yr = inp["ybuf"].clone().requires_grad_(True)
+    gr = inp["gates"].clone().requires_grad_(True)
+    want_dy, want_dg = torch.autograd.grad(
+        ref.moe_combine(yr, inp["slot"], torch.where(inp["keep"], gr, 0.0),
+                        top_k), (yr, gr), inp["dout"])
+    require(torch.equal(dy, want_dy),
+            f"train kernels {label}: dybuf differs from the plain autograd")
+    args = (inp["src_entry"], inp["valid"], inp["w"].double(), top_k)
+    exact_dg = ref.moe_combine_bwd(inp["dout"].double(),
+                                   inp["ybuf"].double(), *args)[1]
+    terms = ref.moe_combine_bwd(inp["dout"].double().abs(),
+                                inp["ybuf"].double().abs(), *args)[1]
+    ratio = float(((dg.double() - exact_dg).abs()
+                   / (1e-6 * terms + 1e-30)).max())
+    require(ratio <= 1.0, f"train kernels {label}: dgates beyond 1e-6 of "
+                          f"its terms (x{ratio:.3f})")
+    require(bool((dg[~inp["keep"]] == 0).all()),
+            f"train kernels {label}: a dropped entry's gate gradient")
+    return dict(label=label, dx_err=dx_err,
+                dg_err=float((dg - want_dg).abs().max()), dg_ratio=ratio)
+
+
+def train_kernels(dev, rounds: int):
+    """The MoE layer's backward on the card: moe_dispatch's (the
+    moe_combine kernel with 0/1 gates, then the cast to x's dtype) and
+    moe_combine's (the moe_combine_bwd kernel), at the full-width train
+    leg's routing and at TK_SHAPES, checked by check_moe_grads; at the
+    full width each timed (CUDA events over ``rounds`` calls; device
+    time by graph replay) beside the plain formulas (kernels/ref.py),
+    one library call each (index_add_ for dx; torch.gather + mul + sum
+    for the combine's) and the bounds. Returns the kernels line's row
+    of moe_combine_bwd."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_combine as mc
+    from repro_torch.kernels import moe_combine_bwd as mcb
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
+    cfg = get_config("mixtral-8x7b")
+    m = cfg.moe
+    T = TF_SEQ * TF_BATCH // cfg.microbatch        # tokens a microbatch
+    full = moe_bwd_inputs(dev, T, cfg.d_model, m.n_experts, m.top_k,
+                          m.capacity_factor, torch.bfloat16)
+    require(full["S"] == m.n_experts * moe._capacity(T, m),
+            "train kernels: the full-width routing's slots")
+    checks = [check_moe_grads(full)]
+    for T_, d_, E_, k_, cf_, dt_ in TK_SHAPES:
+        checks.append(check_moe_grads(moe_bwd_inputs(dev, T_, d_, E_, k_,
+                                                     cf_, dt_)))
+    for c in checks:
+        print(f"train kernels {c['label']}: two calls bitwise equal, "
+              f"launches 1/2/1; dx max_abs_err={c['dx_err']:.3e} against "
+              f"the plain autograd, dybuf bitwise, dgates "
+              f"max_abs_err={c['dg_err']:.3e} (x{c['dg_ratio']:.4f} of the "
+              f"1e-6 tolerance against f64)", flush=True)
+
+    f = full
+    S, d, top_k, dtype = f["S"], f["d"], f["top_k"], f["dtype"]
+    esz = f["dbuf"].element_size()
+    valid, keep = f["valid"], f["keep"]
+    nvalid = int(valid.sum())
+    N = T * top_k
+    # Dispatch backward: dx = the combine of dbuf with keep as 0/1 gates.
+    keepf = keep.float()
+
+    def dx_fn():
+        return ops._dispatch_bwd(f["dbuf"], f["slot"], keep, T, top_k, dtype)
+    ms = time_ms(dx_fn, rounds)
+    plain = time_ms(lambda: ref.moe_dispatch_bwd(f["dbuf"], f["slot"], keep,
+                                                 T, top_k, dtype), rounds)
+    # The library's dx: index_add_ of every slot's row into its token's,
+    # the invalid slots into a spare row T.
+    idx = torch.where(valid, f["src"], T).long()
+
+    def lib_fn():
+        return torch.zeros((T + 1, d), dtype=dtype, device=dev).index_add_(
+            0, idx, f["dbuf"])
+    lib = time_ms(lib_fn, rounds)
+    dev_ms = graph_ms(dx_fn)
+    kern_ms = graph_ms(lambda: mc.moe_combine(f["dbuf"], f["slot"], keepf,
+                                              top_k))
+    dev_lib = graph_ms(lib_fn)
+    nbytes = esz * (nvalid * d + T * d) + 5 * N
+    bms, by = bound(nbytes, nvalid * d)
+    print(f"train kernels dispatch backward ({S},{d}) bf16 -> ({T},{d}) "
+          f"top_k={top_k}, {nvalid} valid slots, {int(keep.sum())} of {N} "
+          f"entries kept: ms={ms:.4f} plain_ms={plain:.4f} "
+          f"index_add_ms={lib:.4f} bound_ms={bms:.5f} ({by}, {nbytes} "
+          f"bytes) | device time by CUDA graph replay: ms={dev_ms:.4f} "
+          f"(moe_combine kernel {kern_ms:.4f}, the rest the cast) "
+          f"index_add_ms={dev_lib:.4f}", flush=True)
+    # Combine backward: the moe_combine_bwd kernel.
+    def bwd_fn():
+        return mcb.moe_combine_bwd(f["dout"], f["ybuf"], f["src_entry"],
+                                   valid, f["w"], top_k)
+    ms_c = time_ms(bwd_fn, rounds)
+    plain_c = time_ms(lambda: ref.moe_combine_bwd(
+        f["dout"], f["ybuf"], f["src_entry"], valid, f["w"], top_k), rounds)
+    owner = torch.where(valid, f["src_entry"].long(), 0)
+    gidx = (owner // top_k)[:, None].expand(S, d)
+    wv = torch.where(valid, f["w"][owner], 0.0)[:, None]
+
+    def lib_c():
+        rows = torch.gather(f["dout"], 0, gidx)
+        return (rows * wv).to(dtype), torch.sum(rows * f["ybuf"], dim=-1)
+    lib_ms_c = time_ms(lib_c, rounds)
+    dev_c = graph_ms(bwd_fn)
+    dev_lib_c = graph_ms(lib_c)
+    tokens = int(torch.unique(owner[valid] // top_k).numel())
+    nbytes_c = (4 * tokens * d + esz * nvalid * d + 5 * S + 4 * N
+                + esz * S * d + 4 * N)
+    bms_c, by_c = bound(nbytes_c, 3 * nvalid * d)
+    got_dy, got_dg = bwd_fn()
+    want_dy, want_dg = ref.moe_combine_bwd(f["dout"], f["ybuf"],
+                                           f["src_entry"], valid, f["w"],
+                                           top_k)
+    sync()
+    err = max(float((got_dy.float() - want_dy.float()).abs().max()),
+              float((got_dg - want_dg).abs().max()))
+    print(f"train kernels combine backward dout ({T},{d}) f32, ybuf "
+          f"({S},{d}) bf16, {nvalid} valid slots of {tokens} tokens: "
+          f"max_abs_err={err:.3e} against the plain formula | "
+          f"ms={ms_c:.4f} plain_ms={plain_c:.4f} "
+          f"gather_mul_sum_ms={lib_ms_c:.4f} bound_ms={bms_c:.5f} ({by_c}, "
+          f"{nbytes_c} bytes) | device time by CUDA graph replay: "
+          f"ms={dev_c:.4f} gather_mul_sum_ms={dev_lib_c:.4f}", flush=True)
+    return dict(max_abs_err=max([err] + [c["dg_err"] for c in checks]),
+                ms=ms_c, plain_ms=plain_c, bound_ms=bms_c, bound_by=by_c,
+                library_ms=lib_ms_c, device_ms=dev_c)
+
+
+def train_batches(seed: int, vocab: int, B: int, S: int, steps: int,
+                  device):
+    from repro_torch.data.lm_stream import synthetic_batches
+    return [{k: torch.as_tensor(v).to(device) for k, v in b.items()}
+            for b in synthetic_batches(seed, vocab, B, S, steps)]
+
+
+def small_train_agreement(device):
+    """TS_CONFIGS reduced, f32, microbatch TS_MB: TS_STEPS steps of
+    make_train_step on ``device`` and on the CPU from one state, carried
+    by convert.train_state; loss and grad norm within 1e-5 relative,
+    parameters within 1e-5 of each leaf's largest magnitude plus 1e-6
+    (adamw at eps 1e-4: tests/test_torch_train.py). Returns {config:
+    (largest loss error, largest parameter error)}."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import leaves
+    out = {}
+    for name in TS_CONFIGS:
+        cfg = get_config(name, reduced=True).replace(dtype="float32",
+                                                     microbatch=TS_MB)
+        model = build_model(cfg)
+        opt = build_optimizer("adamw", 1e-3, eps=1e-4)
+        params = init_params(model, seed=0, device="cpu")
+        np_state = (tree_map(lambda a: a.numpy(), params),
+                    tree_map(lambda a: a.numpy(), opt.init(params)),
+                    np.int32(0))
+        step = make_train_step(model, None, opt)
+        states = {dev: convert.train_state(np_state, dev)
+                  for dev in (device, torch.device("cpu"))}
+        lerr = perr = 0.0
+        for b in train_batches(1, cfg.vocab_size, TS_BATCH, TS_SEQ + 1,
+                               TS_STEPS, "cpu"):
+            mets = {}
+            for dev in states:
+                states[dev], mets[dev] = step(
+                    states[dev], {k: v.to(dev) for k, v in b.items()})
+            got, want = mets[device], mets[torch.device("cpu")]
+            for key in ("loss", "grad_norm"):
+                e = abs(float(got[key]) - float(want[key]))
+                require(e <= 1e-5 * abs(float(want[key])),
+                        f"train small {name}: {key} differs from the CPU "
+                        f"by {e}")
+                lerr = max(lerr, e)
+            for a, w in zip(leaves(states[device].params),
+                            leaves(states[torch.device("cpu")].params)):
+                e = float((a.cpu() - w).abs().max())
+                require(e <= 1e-5 * float(w.abs().max()) + 1e-6,
+                        f"train small {name}: parameters differ by {e}")
+                perr = max(perr, e)
+        require(int(states[device].step) == TS_STEPS,
+                f"train small {name}: step")
+        out[name] = (lerr, perr)
+    return out
+
+
+def train_profile(label: str, fn, wall_s: float) -> None:
+    """Runs ``fn`` (one train step) once under torch.profiler and prints
+    its device time split: bf16 GEMMs (projections, experts, unembed),
+    f32 GEMMs (the attention's scores and weighted sums), the port's MoE
+    kernels by name and split into forward (moe_dispatch, moe_combine)
+    and backward (moe_combine_bwd, and the moe_combine launches of the
+    dispatch's backward, by their share of the combine's launches), the
+    optimizer and the clip (their record_function ranges in
+    launch/train.py), and the rest (elementwise work, softmax, norms,
+    casts, the embedding's scatter)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    # The kernels' own times; the ranges' GPU-side spans are left out,
+    # and a range's device time is its kernels' (those of the ops inside
+    # it on the host thread).
+    dev = [e for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")
+           and not e.key.startswith("train_step/")]
+    total = sum(e.self_device_time_total for e in dev) / 1e3
+    if not total:
+        print(f"profile {label}: the profiler recorded no device time "
+              f"(not measured)", flush=True)
+        return
+    ranges = {}
+    for e in prof.events():
+        if e.name.startswith("train_step/") and str(
+                e.device_type).endswith("CPU"):
+            ranges[e.name] = (ranges.get(e.name, 0.0)
+                              + e.device_time_total / 1e3)
+    # cuBLAS's GEMM kernels by name: Hopper's tensor-core kernels
+    # (nvjet, xmma, cutlass) take the bf16 products; the f32 ones (TF32
+    # off) are the SIMT / f32f32 kernels.
+    gemm = re.compile(r"gemm|xmma|cutlass|wgmma|nvjet", re.I)
+    simt = re.compile(r"sgemm|f32f32|simt", re.I)
+    bf16 = sum(e.self_device_time_total for e in dev
+               if gemm.search(e.key) and not simt.search(e.key)) / 1e3
+    f32 = sum(e.self_device_time_total for e in dev
+              if gemm.search(e.key) and simt.search(e.key)) / 1e3
+    port = {}
+    for e in dev:
+        hit = re.search(r"moe_(dispatch|combine|combine_bwd)_kernel", e.key)
+        if hit and "repro_torch" in e.key:
+            ms, n = port.get(hit.group(0), (0.0, 0))
+            port[hit.group(0)] = (ms + e.self_device_time_total / 1e3,
+                                  n + e.count)
+    opt = ranges.get("train_step/optimizer", 0.0)
+    clip = ranges.get("train_step/clip", 0.0)
+    ours = sum(ms for ms, _ in port.values())
+    rest = total - bf16 - f32 - ours - opt - clip
+    parts = "; ".join(f"{k} {ms:.3f} ms x{n} ({1e3 * ms / n:.1f} us each)"
+                      for k, (ms, n) in sorted(port.items()))
+    # Forward and backward: each forward (and remat) dispatch pairs with
+    # a forward combine; the combine's other launches are the dispatch's
+    # backward, at the same shape, so its time is split by launches.
+    d_ms, d_n = port.get("moe_dispatch_kernel", (0.0, 0))
+    c_ms, c_n = port.get("moe_combine_kernel", (0.0, 0))
+    b_ms, _ = port.get("moe_combine_bwd_kernel", (0.0, 0))
+    c_fwd = c_ms * min(d_n, c_n) / c_n if c_n else 0.0
+    parts += (f"; forward {d_ms + c_fwd:.3f} ms, backward "
+              f"{b_ms + c_ms - c_fwd:.3f} ms")
+
+    def pct(v):
+        return f"{v:.2f} ms ({100 * v / total:.1f}%)"
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    tops = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} "
+                     f"ms x{e.count}" for e in top)
+    print(f"profile {label}: device time {total:.2f} ms of "
+          f"{wall_s * 1e3:.1f} ms unprofiled wall (busy "
+          f"{100 * total / (wall_s * 1e3):.1f}%): bf16 GEMMs {pct(bf16)}, "
+          f"f32 GEMMs (attention) {pct(f32)}, port MoE kernels "
+          f"{pct(ours)} [{parts}], optimizer {pct(opt)}, clip {pct(clip)}, "
+          f"the rest {pct(rest)} | top kernels: {tops}", flush=True)
+
+
+def train_full_leg(device):
+    """Training at Mixtral-8x7B's full width, TF_LAYERS of 32 layers,
+    with the config's remat, microbatch and adamw (launch.train): a
+    warm-up step, then TF_STEPS timed steps between a reset and a read
+    of the launch counts, then one more step under the profiler.
+    Returns the counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.train import TrainState, make_train_step
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import param_count, tree_bytes
+    t_leg = time.perf_counter()
+    full = get_config("mixtral-8x7b")
+    cfg = full.replace(n_layers=TF_LAYERS)
+    require(cfg.remat and cfg.microbatch == 4 and cfg.optimizer == "adamw",
+            "train full: the config's remat, microbatch and optimizer")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model, seed=TF_SEED, device=device)
+    opt = build_optimizer(cfg.optimizer, TF_LR)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=device))
+    sync()
+    init_s = time.perf_counter() - t0
+    nparam, pbytes = param_count(params), tree_bytes(params)
+    step = make_train_step(model, None, opt)
+    batches = train_batches(TF_SEED, cfg.vocab_size, TF_BATCH, TF_SEQ + 1,
+                            TF_WARM + TF_STEPS + 1, device)
+    for b in batches[:TF_WARM]:
+        state, _ = step(state, b)
+    sync()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    walls, losses, gnorms = [], [], []
+    for b in batches[TF_WARM:TF_WARM + TF_STEPS]:
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    require(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+            f"train full: loss {losses}, grad norm {gnorms} not finite")
+    require(int(state.step) == TF_WARM + TF_STEPS, "train full: step")
+    mb, L = cfg.microbatch, TF_LAYERS
+    # Per step and MoE layer, per microbatch: the forward and its remat
+    # recompute each dispatch and combine once; the backward launches
+    # the combine (dispatch's gradient) and moe_combine_bwd once.
+    want = {"moe_dispatch": 2 * L * mb * TF_STEPS,
+            "moe_combine": 3 * L * mb * TF_STEPS,
+            "moe_combine_bwd": L * mb * TF_STEPS}
+    require(all(counts[k] == n for k, n in want.items()),
+            f"train full: launches {counts}, expected {want}")
+    wall = float(np.median(walls))
+    tokens = TF_BATCH * TF_SEQ
+    # Bound: the products of a step, counting only the routed queue
+    # slots the experts compute (E * C a microbatch); bf16 on the tensor
+    # cores, the attention's scores and weighted sums in f32. A layer's
+    # forward runs twice (remat) and its backward costs two forwards; the
+    # unembedding's forward once.
+    d, H, KVH, hd, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                        cfg.vocab_size)
+    m = cfg.moe
+    Tm = tokens // mb
+    slots = m.n_experts * moe._capacity(Tm, m)
+    layer_bf16 = (2 * Tm * d * (2 * H + 2 * KVH) * hd + 2 * Tm * d
+                  * m.n_experts + 2 * slots * 3 * d * m.d_expert)
+    pairs = sum(min(i + 1, cfg.sliding_window) for i in range(TF_SEQ))
+    layer_f32 = 4 * (Tm // TF_SEQ) * H * hd * pairs
+    bf16_flops = mb * (4 * L * layer_bf16 + 3 * 2 * Tm * d * V)
+    f32_flops = mb * 4 * L * layer_f32
+    bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    per_step = {k: counts[k] // TF_STEPS for k in want}
+    print(f"train full: Mixtral-8x7B (d={d}, {H} heads / {KVH} kv heads of "
+          f"{hd}, {m.n_experts} experts top-{m.top_k} of {m.d_expert}, "
+          f"vocab {V}, bf16) cut to {L} of {full.n_layers} layers "
+          f"({nparam / 1e9:.3f} B parameters, {pbytes / 1e9:.2f} GB, drawn "
+          f"on the card with adamw's state in {init_s:.2f} s), remat, "
+          f"microbatch {mb}, adamw lr {TF_LR}: batches of {TF_BATCH} x "
+          f"{TF_SEQ} tokens | steps "
+          + ", ".join(f"{w:.3f}" for w in walls)
+          + f" s ({tokens / wall:.1f} tokens/s at the median; bound "
+          f"{bound_s:.3f} s a step: {bf16_flops:.3e} bf16 + {f32_flops:.3e}"
+          f" f32 flops) | loss " + ", ".join(f"{v:.4f}" for v in losses)
+          + " | grad norm " + ", ".join(f"{v:.4f}" for v in gnorms)
+          + f" | peak memory {peak_gb:.2f} GB | launches a step "
+          f"{json.dumps(per_step)} | leg wall "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    train_profile("train full", lambda: step(state, batches[-1]), wall)
+    del state, params, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_example_leg(device):
+    """examples/train_lm.py on the card: reduced granite-3-2b trained by
+    launch.train.train_loop for TE_STEPS adamw steps at TE_LR on the
+    synthetic stream, then 8 tokens generated for 4 prompts; the last
+    logged loss must be below the first. Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_stream import synthetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import build_model
+    cfg = get_config("granite-3-2b", reduced=True).replace(microbatch=1)
+    model = build_model(cfg)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = train_loop(
+        model, synthetic_batches(0, cfg.vocab_size, TE_BATCH, TE_SEQ,
+                                 TE_STEPS),
+        steps=TE_STEPS, lr=TE_LR, log_every=TE_LOG, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    require(history[-1][1] < history[0][1],
+            f"train example: the loss did not fall ({history})")
+    prompt = {"tokens": torch.arange(16, dtype=torch.int32)[None].repeat(
+        4, 1)}
+    out = generate(model, state.params, prompt, steps=8)
+    require(tuple(out.shape) == (4, 8), "train example: generated tokens")
+    print(f"train example: reduced {cfg.name} ({cfg.n_layers} layers, "
+          f"d={cfg.d_model}, vocab {cfg.vocab_size}), {TE_STEPS} adamw "
+          f"steps at lr {TE_LR} on batches of {TE_BATCH} x {TE_SEQ - 1} "
+          f"tokens in {wall:.2f} s ({TE_STEPS / wall:.1f} steps/s) | loss "
+          + ", ".join(f"{s}: {v:.4f}" for s, v in history)
+          + f" | generated {out.tolist()[0]} (first of 4)", flush=True)
+    return ops.launch_counts()
+
+
+def train_legs(device, rounds: int):
+    """The train legs in order: the backward kernels, the small
+    agreement, the full-width leg and the example. Returns (the
+    moe_combine_bwd row of the kernels line, the full leg's counts, the
+    example's counts)."""
+    t_legs = time.perf_counter()
+    row = train_kernels(device, rounds)
+    errs = small_train_agreement(device)
+    print("reference: reduced " + " and ".join(errs) + f" (f32, microbatch "
+          f"{TS_MB}), {TS_STEPS} steps of make_train_step on the card equal "
+          f"the CPU's from one state (loss and grad norm within 1e-5 "
+          f"relative, parameters within 1e-5 of a leaf's largest magnitude "
+          f"+ 1e-6; largest errors "
+          + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in errs.items())
+          + ")", flush=True)
+    full_counts = train_full_leg(device)
+    example_counts = train_example_leg(device)
+    print(f"legs: train kernels, train small, train full, train example in "
+          f"{time.perf_counter() - t_legs:.1f} s of wall", flush=True)
+    return row, full_counts, example_counts
+
+
 def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -3892,6 +4452,8 @@ def main() -> int:
                 f"decode leg")
     require(decode_counts["swa_decode"] > 0,
             "swa_decode was not launched on the decode leg")
+    rows["moe_combine_bwd"], train_counts, example_counts = train_legs(
+        torch.device("cuda"), rounds=20)
 
     replaces = {
         "pdist_argmin": "src/repro/kernels/pdist_argmin.py:101",
@@ -3900,6 +4462,9 @@ def main() -> int:
         "moe_dispatch": "src/repro/kernels/moe_dispatch.py:57",
         "moe_combine": "src/repro/kernels/moe_dispatch.py:146",
         "swa_decode": "src/repro/kernels/swa_decode.py:65",
+        # No Pallas kernel: the JAX package differentiates ref.py's
+        # moe_combine, whose gradient this kernel computes.
+        "moe_combine_bwd": "src/repro/kernels/ref.py:142",
     }
     kernels = []
     for name in _build.KERNELS:
@@ -3910,6 +4475,7 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": (run_counts[name] + serve_counts[name]
                          + route_counts[name] + decode_counts[name]
+                         + train_counts[name] + example_counts[name]
                          + sum(c[name] for c in new_counts)),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3932,7 +4498,9 @@ def main() -> int:
           + json.dumps(ebench_counts) + " encode_table1_f32 "
           + json.dumps(et_counts["f32"]) + " encode_table1_bf16 "
           + json.dumps(et_counts["bf16"]) + " encode_route "
-          + json.dumps(eroute_counts)
+          + json.dumps(eroute_counts) + " train_full "
+          + json.dumps(train_counts) + " train_example "
+          + json.dumps(example_counts)
           + "; every kernel matched its plain version", flush=True)
     print(f"card: {smi}; chip_smoke wall {time.perf_counter() - t_all:.1f} s",
           flush=True)

@@ -9,7 +9,8 @@ a round the JAX package computed, and ``heads=convert.heads(np_heads)``
 with the JAX package's per-cluster head parameters,
 ``encoder=convert.encoder(np_encoder)`` with its ingestion encoder's; and
 ``model_params`` carries a JAX ``Model.init`` pytree across for the
-port's ``models.model.Model``.
+port's ``models.model.Model``, and ``train_state`` a JAX ``TrainState``
+(parameters, optimizer state, step) for ``launch.train``.
 """
 from __future__ import annotations
 
@@ -103,3 +104,17 @@ def model_params(np_tree, device="cuda"):
     parameters: the same nesting, every leaf a tensor of its own dtype
     on ``device``."""
     return tree_map(lambda a: _tensor(a, device), np_tree)
+
+
+def train_state(np_state, device="cuda"):
+    """A JAX ``launch.train.TrainState`` (``params``, ``opt``, ``step``;
+    leaves as numpy) as the port's ``TrainState``: parameters as
+    :func:`model_params`, the optimizer's tree (adamw's ``{"m", "v"}``,
+    sgd's ``{}`` or ``{"m"}``, adafactor's ``{"f": ...}``) leaf for leaf
+    in its own dtypes, the step as a 0-dim int32 tensor."""
+    from repro_torch.launch.train import TrainState
+    params, opt, step = np_state
+    return TrainState(model_params(params, device),
+                      tree_map(lambda a: _tensor(a, device), opt),
+                      torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                   device=device))

@@ -6,7 +6,13 @@ Replaces the Pallas scalar-prefetch DMA gather. Bound by bytes: a
 valid slot reads one row of x, every slot writes one. Design: one block
 per (slot, 16 KB chunk of the row), each loading its own routing index;
 16-byte vector copies where aligned, scalar on the ragged tail; an
-invalid slot writes zeros without reading x."""
+invalid slot writes zeros without reading x.
+
+Its gradient needs no kernel of its own: a valid slot is owned by
+exactly one kept (token, choice) entry, so dx is the combine of the
+queues' gradient with the keep mask as 0/1 gates, which the
+``moe_combine`` kernel (``csrc/moe_combine.cu``) computes, then a cast
+to x's dtype (``kernels.ops._Dispatch``)."""
 from __future__ import annotations
 
 import ctypes

@@ -6,7 +6,10 @@ the plain version in ``kernels/ref.py``; a CUDA tensor goes to the
 hand-written kernel, which launches or raises. There is no fallback
 from one to the other and no switch that routes CUDA tensors to the
 plain version. Operands are made contiguous here, because the kernel
-wrappers refuse strided tensors.
+wrappers refuse strided tensors. The MoE layer's dispatch and combine
+carry their gradients (``_Dispatch``, ``_Combine``), whose backward
+follows the same rule: the plain formulas on the CPU, kernels on the
+card.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.kernels import kmeans_update as _ku
 from repro_torch.kernels import moe_combine as _mc
+from repro_torch.kernels import moe_combine_bwd as _mcb
 from repro_torch.kernels import moe_dispatch as _md
 from repro_torch.kernels import pdist_argmin as _pa
 from repro_torch.kernels import ref as _ref
@@ -26,7 +30,7 @@ from repro_torch.kernels import swa_decode as _sw
 # the kernel instead of one monolithic call (repro/kernels/ops.py).
 CHUNK_ROWS = 1 << 18
 
-_WRAPPERS = (_pa, _ku, _sa, _md, _mc, _sw)
+_WRAPPERS = (_pa, _ku, _sa, _md, _mc, _sw, _mcb)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -103,26 +107,103 @@ def solve_attach(x: torch.Tensor, centers0: torch.Tensor, tau: torch.Tensor,
         max_iters=max_iters)
 
 
-def moe_dispatch(x: torch.Tensor, src: torch.Tensor,
-                 valid: torch.Tensor) -> torch.Tensor:
-    """Queue-order row gather (the routed step's dispatch of whole
-    requests into per-cluster head queues): (S, d) in x's dtype, slot s
-    holding row ``clip(src[s])`` of x, or zeros where not ``valid``."""
+def _dispatch(x, src, valid):
     if x.device.type == "cpu":
         return _ref.moe_dispatch(x, src, valid)
     return _md.moe_dispatch(x.contiguous(), src.contiguous(),
                             valid.contiguous())
 
 
-def moe_combine(ybuf: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
-                top_k: int) -> torch.Tensor:
-    """Weighted slot -> token re-assembly: (T, d) f32. The routed step
-    uses top_k=1 with the keep mask as gates, so an overflowed request
-    combines to exactly zero."""
+def _combine(ybuf, slot, gates, top_k):
     if ybuf.device.type == "cpu":
         return _ref.moe_combine(ybuf, slot, gates, top_k)
     return _mc.moe_combine(ybuf.contiguous(), slot.contiguous(),
                            gates.contiguous(), top_k)
+
+
+def _dispatch_bwd(dbuf, slot, keep, T: int, top_k: int, dtype):
+    """dx of the dispatch: on the card the combine kernel with the keep
+    mask as 0/1 gates (its f32 sum in j order), cast to x's dtype."""
+    if dbuf.device.type == "cpu":
+        return _ref.moe_dispatch_bwd(dbuf, slot, keep, T, top_k, dtype)
+    gates = keep.to(torch.float32).contiguous()
+    return _mc.moe_combine(dbuf.contiguous(), slot.contiguous(), gates,
+                           top_k).to(dtype)
+
+
+def _combine_bwd(dout, ybuf, src_entry, valid, w, top_k: int):
+    if ybuf.device.type == "cpu":
+        return _ref.moe_combine_bwd(dout, ybuf, src_entry, valid, w, top_k)
+    return _mcb.moe_combine_bwd(dout.float().contiguous(), ybuf.contiguous(),
+                                src_entry.contiguous(), valid.contiguous(),
+                                w.contiguous(), top_k)
+
+
+class _Dispatch(torch.autograd.Function):
+    """The MoE layer's dispatch with its gradient: forward
+    ``moe_dispatch`` (the gather kernel); backward, for the routing's
+    (T*top_k,) ``slot`` and ``keep``, :func:`_dispatch_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, src, valid, slot, keep, top_k):
+        ctx.save_for_backward(slot, keep)
+        ctx.top_k, ctx.T, ctx.dtype = int(top_k), x.shape[0], x.dtype
+        return _dispatch(x, src, valid)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        slot, keep = ctx.saved_tensors
+        dx = _dispatch_bwd(dbuf, slot, keep, ctx.T, ctx.top_k, ctx.dtype)
+        return dx, None, None, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """The MoE layer's combine with its gradient: forward
+    ``moe_combine``; backward, through the slot -> entry map
+    (``src_entry``, ``valid``), :func:`_combine_bwd`. The gradient of a
+    gate whose entry owns no slot is returned as 0: the layer passes 0
+    there (``where(keep, gates, 0)``), whose gradient is 0 anyway."""
+
+    @staticmethod
+    def forward(ctx, ybuf, slot, gates, src_entry, valid, top_k):
+        ctx.save_for_backward(ybuf, gates, src_entry, valid)
+        ctx.top_k = int(top_k)
+        return _combine(ybuf, slot, gates, top_k)
+
+    @staticmethod
+    def backward(ctx, dout):
+        ybuf, gates, src_entry, valid = ctx.saved_tensors
+        dybuf, dgates = _combine_bwd(dout, ybuf, src_entry, valid, gates,
+                                     ctx.top_k)
+        return dybuf, None, dgates, None, None, None
+
+
+def moe_dispatch(x: torch.Tensor, src: torch.Tensor, valid: torch.Tensor,
+                 *, slot: Optional[torch.Tensor] = None,
+                 keep: Optional[torch.Tensor] = None,
+                 top_k: int = 1) -> torch.Tensor:
+    """Queue-order row gather (the routed step's dispatch of whole
+    requests into per-cluster head queues, and the MoE layer's): (S, d)
+    in x's dtype, slot s holding row ``clip(src[s])`` of x, or zeros
+    where not ``valid``. Given the routing's (T*top_k,) ``slot`` and
+    ``keep`` (the MoE layer's), the result carries x's gradient
+    (:class:`_Dispatch`); without them it carries none."""
+    if slot is None:
+        return _dispatch(x, src, valid)
+    return _Dispatch.apply(x, src, valid, slot, keep, top_k)
+
+
+def moe_combine(ybuf: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
+                top_k: int, *, src_entry: Optional[torch.Tensor] = None,
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted slot -> token re-assembly: (T, d) f32. The routed step
+    uses top_k=1 with the keep mask as gates, so an overflowed request
+    combines to exactly zero. Given the slot -> entry map (``src_entry``
+    and ``valid``, the MoE layer's), the result carries the gradients of
+    ybuf and gates (:class:`_Combine`); without it, none."""
+    if src_entry is None:
+        return _combine(ybuf, slot, gates, top_k)
+    return _Combine.apply(ybuf, slot, gates, src_entry, valid, top_k)
 
 
 def swa_decode_attention(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,

@@ -3,8 +3,11 @@
 
 These are the reference semantics: on a CPU tensor ``kernels/ops.py``
 runs them, and every CUDA kernel in ``kernels/csrc`` is held against
-them on the card. Each function takes an optional leading batch axis, so
-a batched caller makes one call instead of one per batch entry.
+them on the card. Each clustering function takes an optional leading
+batch axis, so a batched caller makes one call instead of one per batch
+entry. ``moe_dispatch_bwd`` and ``moe_combine_bwd`` are the MoE
+functions' gradients (the JAX package differentiates its ``ref.py``
+instead; there is no Pallas backward).
 """
 from __future__ import annotations
 
@@ -133,12 +136,78 @@ def moe_dispatch(x: torch.Tensor, src: torch.Tensor,
 def moe_combine(ybuf: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
                 top_k: int) -> torch.Tensor:
     """Weighted re-assembly: ``y[t] = sum_{j < top_k} gates[t*top_k+j]
-    * ybuf[clip(slot[t*top_k+j])]`` in f32, j in order. ybuf: (S, d);
-    slot / gates: (T*top_k,). Returns (T, d) f32."""
-    rows = ybuf[torch.clamp(slot.long(), 0, ybuf.shape[0] - 1)].float()
-    w = gates.float()[:, None]
+    * ybuf[clip(slot[t*top_k+j])]`` in f32 (f64 for f64 inputs), j in
+    order. ybuf: (S, d); slot / gates: (T*top_k,). Returns (T, d)."""
+    acc = _acc(ybuf)
+    rows = ybuf[torch.clamp(slot.long(), 0, ybuf.shape[0] - 1)].to(acc)
+    w = gates.to(acc)[:, None]
     T = slot.shape[0] // top_k
     return torch.sum((rows * w).reshape(T, top_k, -1), dim=1)
+
+
+def sequential_combine(ybuf: torch.Tensor, slot: torch.Tensor,
+                       gates: torch.Tensor, top_k: int) -> torch.Tensor:
+    """``moe_combine`` summed as its kernel sums, for any top_k: each
+    product rounded, then added to a sum that starts at 0, j in order
+    (for top_k <= 2 the bits of :func:`moe_combine`). Returns (T, d)
+    f32 (f64 for f64 inputs)."""
+    S, d = ybuf.shape
+    T = slot.shape[0] // top_k
+    acc = _acc(ybuf)
+    rows = (ybuf[torch.clamp(slot.long(), 0, S - 1)].to(acc)
+            * gates.to(acc)[:, None]).view(T, top_k, d)
+    out = torch.zeros((T, d), dtype=acc, device=ybuf.device)
+    for j in range(top_k):
+        out = out + rows[:, j]
+    return out
+
+
+def moe_dispatch_bwd(dbuf: torch.Tensor, slot: torch.Tensor,
+                     keep: torch.Tensor, T: int, top_k: int,
+                     dtype=None) -> torch.Tensor:
+    """The gradient of :func:`moe_dispatch`'s x, for the queues of a
+    routing: ``dx[t] = sum over the kept j of dbuf[slot[t*top_k+j]]``,
+    summed in f32 in j order and cast to ``dtype`` (x's; dbuf's by
+    default). A valid slot is owned by exactly one kept entry, so this is
+    the combine of dbuf with the keep mask as 0/1 gates. dbuf: (S, d);
+    slot, keep: (T*top_k,). Returns (T, d)."""
+    if slot.shape[0] != T * top_k:
+        raise ValueError(f"moe_dispatch_bwd: {slot.shape[0]} entries for "
+                         f"T={T} at top_k={top_k}")
+    dx = sequential_combine(dbuf, slot, keep.float(), top_k)
+    return dx.to(dbuf.dtype if dtype is None else dtype)
+
+
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The type the MoE functions sum in: f32, or f64 for f64 inputs."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def moe_combine_bwd(dout: torch.Tensor, ybuf: torch.Tensor,
+                    src_entry: torch.Tensor, valid: torch.Tensor,
+                    w: torch.Tensor, top_k: int):
+    """The gradients of :func:`moe_combine` for the queues of a routing,
+    in gather form over the slots. A valid slot s is owned by the entry
+    e = ``src_entry[s]`` of token t = e // top_k:
+    ``dybuf[s] = (w[e] * dout[t])`` cast to ybuf's dtype (0 where the
+    slot is not valid) and ``dgates[e] = sum_c dout[t, c] * ybuf[s, c]``
+    in f32; an entry that owns no slot (dropped) gets a gate gradient of
+    0, as the forward's ``where(keep, gates, 0)`` gives it. dout: (T, d)
+    f32; ybuf: (S, d); src_entry: (S,) int; valid: (S,) bool;
+    w: (T*top_k,). Returns (dybuf (S, d), dgates (T*top_k,) f32; f64
+    for f64 inputs)."""
+    T = dout.shape[0]
+    acc = _acc(ybuf)
+    valid = valid.bool()
+    e = torch.where(valid, src_entry.long(), 0)
+    rows = dout.to(acc)[e // top_k]                    # (S, d)
+    we = w.to(acc)[e]
+    dybuf = torch.where(valid[:, None], rows * we[:, None],
+                        torch.zeros_like(rows)).to(ybuf.dtype)
+    dots = torch.sum(rows * ybuf.to(acc), dim=-1)
+    dgates = torch.zeros((T * top_k,), dtype=acc, device=ybuf.device)
+    dgates[e[valid]] = dots[valid]
+    return dybuf, dgates
 
 
 def swa_decode_attention(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,

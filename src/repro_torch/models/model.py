@@ -1,7 +1,7 @@
 """Model assembly and the serving API (counterpart of
 ``repro/models/model.py``): ``build_model(cfg)`` -> ``Model`` with
-``init``, ``prefill``, ``init_cache`` and ``serve_step``, for the dense
-and moe families with GQA attention.
+``init``, ``loss``, ``prefill``, ``init_cache`` and ``serve_step``, for
+the dense and moe families with GQA attention.
 
 Parameters are the reference's pytree as nested dicts of tensors
 (``embed``, ``final_norm``, ``segments`` (a tuple, one dict of stacked
@@ -18,8 +18,8 @@ from typing import Any, Dict, List
 import torch
 
 from repro_torch.models import attention as A
-from repro_torch.models.common import (DistCtx, apply_norm, dense_init,
-                                       init_norm)
+from repro_torch.models.common import (DistCtx, apply_norm, cross_entropy,
+                                       dense_init, init_norm)
 from repro_torch.models.transformer import (init_segment, plan_segments,
                                             run_segment, run_segment_decode)
 
@@ -86,6 +86,21 @@ class Model:
     def _embed_inputs(self, p, batch, ctx: DistCtx = None):
         """Token embedding. Returns (x, label_offset)."""
         return p["embed"][batch["tokens"].long()], 0
+
+    # -------------------------------------------------------------- loss --
+    def loss(self, p, batch, ctx: DistCtx = None):
+        """Next-token cross-entropy plus the MoE load-balance loss, for
+        training: ``batch["tokens"]`` (B, S) and ``batch["labels"]``
+        (B, S), -1 masked. Returns (total, {"ce", "aux"}), f32 scalars.
+        The reference's ``mtp`` term and the vlm / encdec inputs are
+        refused with the model (ROADMAP item 9)."""
+        ctx = ctx or DistCtx.local()
+        x, n_prefix = self._embed_inputs(p, batch, ctx)
+        h, aux, _ = self._backbone(p, x, ctx)
+        logits = self._unembed(p, h[:, n_prefix:], ctx)
+        labels = batch["labels"].long()
+        ce = cross_entropy(logits, torch.clamp_min(labels, 0), labels >= 0)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # ----------------------------------------------------------- prefill --
     def prefill(self, p, batch, ctx: DistCtx = None):

@@ -76,7 +76,8 @@ def _plan(ids: torch.Tensor, m, C: int):
     """The queues of a routing: (src_tok (E*C,) int32, the token each
     queue slot pulls; valid (E*C,) bool; flat_e (T*k,) int32, the
     expert of each (token, choice) entry; pos_c (T*k,) int32, its slot
-    in that queue, clipped; keep (T*k,) bool, whether it fit)."""
+    in that queue, clipped; keep (T*k,) bool, whether it fit; src_entry
+    (E*C,) int32, the entry that owns each valid slot)."""
     E = m.n_experts
     dev = ids.device
     flat_e = ids.reshape(-1).long()                    # (N = T*k,)
@@ -96,27 +97,36 @@ def _plan(ids: torch.Tensor, m, C: int):
     valid = slot < seg_end[:, None]
     src_entry = order[torch.clamp(slot, 0, N - 1).reshape(-1)]
     src_tok = (src_entry // m.top_k).to(torch.int32)
-    return src_tok, valid.reshape(-1), flat_e.to(torch.int32), pos_c, keep
+    return (src_tok, valid.reshape(-1), flat_e.to(torch.int32), pos_c, keep,
+            src_entry.to(torch.int32))
 
 
 def _pack(x2d: torch.Tensor, ids: torch.Tensor, m, C: int):
-    """Gather tokens into (E, C, d) queues. Returns (buf, flat_e, pos_c,
-    keep). Queue slot (e, c) pulls its token (a gather), so only the
-    (T * k,) int32 rank of each entry is scattered."""
-    src_tok, valid, flat_e, pos_c, keep = _plan(ids, m, C)
-    buf = ops.moe_dispatch(x2d, src_tok, valid).reshape(
-        m.n_experts, C, x2d.shape[1])
-    return buf, flat_e, pos_c, keep
+    """Gather tokens into (E, C, d) queues. Returns (buf, plan), plan
+    the :func:`_plan` tuple. Queue slot (e, c) pulls its token (a
+    gather), so only the (T * k,) int32 rank of each entry is scattered;
+    the gather's gradient is the combine of the queues' gradient
+    (``ops.moe_dispatch`` given the routing's slots and keep mask)."""
+    plan = _plan(ids, m, C)
+    src_tok, valid, flat_e, pos_c, keep, _ = plan
+    slot = (flat_e * C + pos_c).to(torch.int32)
+    buf = ops.moe_dispatch(x2d, src_tok, valid, slot=slot, keep=keep,
+                           top_k=m.top_k)
+    return buf.reshape(m.n_experts, C, x2d.shape[1]), plan
 
 
-def _unpack(ybuf: torch.Tensor, flat_e: torch.Tensor, pos_c: torch.Tensor,
-            keep: torch.Tensor, gates: torch.Tensor, T: int,
+def _unpack(ybuf: torch.Tensor, plan, gates: torch.Tensor,
             top_k: int) -> torch.Tensor:
+    """The experts' outputs re-assembled with their gates, 0 for a
+    dropped entry (the reference's ``where(keep, gates, 0)``, through
+    which the router's gradient flows); the gradients of ybuf and the
+    gates are read through the plan's slot -> entry map."""
+    _, valid, flat_e, pos_c, keep, src_entry = plan
     C = ybuf.shape[1]
     slot = (flat_e * C + pos_c).to(torch.int32)        # (T*k,)
     w = torch.where(keep, gates.reshape(-1), 0.0).float()
     return ops.moe_combine(ybuf.reshape(-1, ybuf.shape[-1]), slot, w,
-                           top_k=top_k)
+                           top_k=top_k, src_entry=src_entry, valid=valid)
 
 
 def _local_moe(p, x2d: torch.Tensor, m):
@@ -124,9 +134,9 @@ def _local_moe(p, x2d: torch.Tensor, m):
     T, _ = x2d.shape
     C = _capacity(T, m)
     ids, gates, aux = _route(p["router"], x2d, m)
-    buf, flat_e, pos_c, keep = _pack(x2d, ids, m, C)
+    buf, plan = _pack(x2d, ids, m, C)
     ye = _expert_ffn(p["w1"], p["w3"], p["w2"], buf)
-    y = _unpack(ye.to(x2d.dtype), flat_e, pos_c, keep, gates, T, m.top_k)
+    y = _unpack(ye.to(x2d.dtype), plan, gates, m.top_k)
     return y.to(x2d.dtype), aux
 
 

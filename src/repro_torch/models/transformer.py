@@ -15,6 +15,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
@@ -75,7 +76,8 @@ def init_layer(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
 
 
 def layer_params(seg_params, i: int):
-    """Layer ``i`` of a segment's stacked parameters (views)."""
+    """Layer ``i`` of a segment's stacked parameters (views; the decode
+    path's, which takes no gradient)."""
     return tree_map(lambda a: a[i], seg_params)
 
 
@@ -119,15 +121,38 @@ def block_seq(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec, *,
     return x + y, aux, cache
 
 
+def unbind_layers(seg_params, n_layers: int) -> List[dict]:
+    """The segment's layers as a list of parameter dicts, from one
+    ``torch.unbind`` per leaf: in a backward the unbind stacks the
+    layers' gradients once, where a slice per layer (``a[i]``) would
+    build a zero tensor the size of the whole stack for each layer."""
+    unbound = []
+    tree_map(lambda a: unbound.append(a.unbind(0)), seg_params)
+
+    def layer(i):
+        parts = iter(unbound)
+        return tree_map(lambda _: next(parts)[i], seg_params)
+    return [layer(i) for i in range(n_layers)]
+
+
 def run_segment(seg_params, x: torch.Tensor, cfg, ctx: DistCtx,
                 spec: SegmentSpec, *, want_cache: bool = False):
     """The segment's layers in order. Returns (x, aux summed over the
-    layers, caches stacked on a leading layer axis or None)."""
+    layers, caches stacked on a leading layer axis or None). With
+    ``cfg.remat`` and gradients on, each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
+    the scanned body): its activations are recomputed in the backward
+    instead of kept."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
-    for i in range(spec.n_layers):
-        x, a, cache = block_seq(layer_params(seg_params, i), x, cfg, ctx,
-                                spec, want_cache=want_cache)
+    remat = cfg.remat and torch.is_grad_enabled() and not want_cache
+    for lp in unbind_layers(seg_params, spec.n_layers):
+        if remat:
+            x, a, cache = torch.utils.checkpoint.checkpoint(
+                block_seq, lp, x, cfg, ctx, spec, use_reentrant=False)
+        else:
+            x, a, cache = block_seq(lp, x, cfg, ctx, spec,
+                                    want_cache=want_cache)
         aux = aux + a
         caches.append(cache)
     stacked = (tree_map(lambda *c: torch.stack(c), *caches)

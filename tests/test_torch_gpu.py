@@ -141,18 +141,10 @@ def with_inf_row(ybuf, slot, gates, top_k):
     return ybuf, slot, gates, np.unique(zero // top_k)
 
 
-def sequential_combine(ybuf, slot, gates, top_k):
-    """The kernel's arithmetic in plain PyTorch for any top_k: each
-    product rounded, then added to a sum that starts at 0, j in order
-    (for top_k <= 2 the plain version's bits)."""
-    S, d = ybuf.shape
-    T = slot.shape[0] // top_k
-    rows = (ybuf[torch.clamp(slot.long(), 0, S - 1)].float()
-            * gates[:, None]).view(T, top_k, d)
-    acc = torch.zeros((T, d), dtype=torch.float32, device=ybuf.device)
-    for j in range(top_k):
-        acc = acc + rows[:, j]
-    return acc
+# The kernel's arithmetic in plain PyTorch for any top_k: each product
+# rounded, then added to a sum that starts at 0, j in order (for
+# top_k <= 2 the plain version's bits).
+sequential_combine = ref.sequential_combine
 
 
 def assert_same_bits(got, want):
@@ -1588,3 +1580,214 @@ def test_gpu_encoded_v6_save_restore_bitwise(cuda_device, tmp_path):
         assert torch.equal(a, b)
     assert restored.stats()["encoder"] == live.stats()["encoder"]
     assert live.tau_version >= 1
+
+
+# ------------------------------------------------ training (backward) --
+
+# (T, d, E, top_k, capacity factor) of the MoE backward on the card: the
+# Mixtral training microbatch's routing shape (4096 tokens of 4096, 8
+# experts top-2, 10240 slots), top_k 1, 2 and 4 with dropped entries,
+# and d = 12 and 13 (not multiples of 8: bf16's scalar path; 13 also
+# f32's).
+BWD_SHAPES = [(4096, 4096, 8, 2, 1.25), (64, 128, 4, 1, 1.0),
+              (100, 12, 8, 2, 0.5), (70, 36, 6, 4, 0.75),
+              (33, 13, 4, 2, 0.6)]
+
+
+def moe_routing(device, T, d, E, top_k, cf, dtype, seed=0):
+    """x, the routing plan (models/moe.py _route and _plan), the raw
+    gates, C and the MoE config of a random router on ``device``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    m = dataclasses.replace(get_config("mixtral-8x7b").moe, n_experts=E,
+                            top_k=top_k, capacity_factor=cf)
+    g = torch.Generator().manual_seed(seed + T + d)
+    x = torch.randn(T, d, generator=g).to(device, dtype)
+    router = (torch.randn(d, E, generator=g) * 0.05).to(device, dtype)
+    ids, gates, _ = moe._route(router, x, m)
+    C = moe._capacity(T, m)
+    return x, moe._plan(ids, m, C), gates, C, m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,d,E,top_k,cf", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_moe_backward_matches_plain(cuda_device, T, d, E, top_k, cf,
+                                        dtype):
+    """The dispatch's and the combine's gradients through the kernels
+    (ops.moe_dispatch / ops.moe_combine given the routing) against the
+    plain formulas (ref.moe_dispatch_bwd / moe_combine_bwd) and against
+    autograd of the plain forward, on the card: dx bit for bit with the
+    formula (the kernel's f32 sum in j order, cast) and, at top_k <= 2,
+    with autograd; above 2 autograd within (top_k - 1) roundings of the
+    terms' magnitudes in x's type; dybuf bit for bit with both; dgates
+    within 1e-6 of sum_c |dout * ybuf| of the f64 sum. Two calls give
+    the same bits; one launch of each kernel a call."""
+    x, plan, gates, C, m = moe_routing(cuda_device, T, d, E, top_k, cf,
+                                       dtype)
+    src, valid, flat_e, pos_c, keep, src_entry = plan
+    S = E * C
+    slot = (flat_e * C + pos_c).to(torch.int32)
+    g = torch.Generator().manual_seed(T + top_k)
+    dbuf = torch.randn(S, d, generator=g).to(cuda_device, dtype)
+    ybuf = torch.randn(S, d, generator=g).to(cuda_device, dtype)
+    dout = torch.randn(T, d, generator=g).to(cuda_device)
+
+    def kernel_grads():
+        xr = x.clone().requires_grad_(True)
+        yr = ybuf.clone().requires_grad_(True)
+        gr = gates.reshape(-1).clone().requires_grad_(True)
+        ops.reset_launch_counts()
+        buf = ops.moe_dispatch(xr, src, valid, slot=slot, keep=keep,
+                               top_k=top_k)
+        dx, = torch.autograd.grad(buf, xr, dbuf)
+        y = ops.moe_combine(yr, slot, torch.where(keep, gr, 0.0), top_k,
+                            src_entry=src_entry, valid=valid)
+        dy, dg = torch.autograd.grad(y, (yr, gr), dout)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert (counts["moe_dispatch"], counts["moe_combine"],
+                counts["moe_combine_bwd"]) == (1, 2, 1), counts
+        return dx, dy, dg
+
+    dx, dy, dg = kernel_grads()
+    dx2, dy2, dg2 = kernel_grads()
+    assert_same_bits(dx.float(), dx2.float())
+    assert_same_bits(dy.float(), dy2.float())
+    assert_same_bits(dg, dg2)
+
+    assert dx.dtype == dtype and dy.dtype == dtype
+    assert torch.equal(dx, ref.moe_dispatch_bwd(dbuf, slot, keep, T, top_k,
+                                                dtype))
+    xr = x.clone().requires_grad_(True)
+    want_dx, = torch.autograd.grad(ref.moe_dispatch(xr, src, valid), xr,
+                                   dbuf)
+    if top_k <= 2:
+        assert torch.equal(dx, want_dx)
+    else:
+        terms = ref.sequential_combine(dbuf.double().abs(), slot,
+                                       keep.double(), top_k)
+        exact = ref.moe_dispatch_bwd(dbuf.double(), slot, keep, T, top_k)
+        unit = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+        assert bool(((want_dx.double() - exact).abs()
+                     <= (top_k - 1) * unit * terms).all())
+
+    w = torch.where(keep, gates.reshape(-1), 0.0)
+    want_dy, want_dg = ref.moe_combine_bwd(dout, ybuf, src_entry, valid, w,
+                                           top_k)
+    assert torch.equal(dy, want_dy)
+    yr = ybuf.clone().requires_grad_(True)
+    gr = gates.reshape(-1).clone().requires_grad_(True)
+    auto_dy, auto_dg = torch.autograd.grad(
+        ref.moe_combine(yr, slot, torch.where(keep, gr, 0.0), top_k),
+        (yr, gr), dout)
+    assert torch.equal(dy, auto_dy)
+    exact_dg = ref.moe_combine_bwd(dout.double(), ybuf.double(), src_entry,
+                                   valid, w.double(), top_k)[1]
+    terms = ref.moe_combine_bwd(dout.double().abs(), ybuf.double().abs(),
+                                src_entry, valid, w.double(), top_k)[1]
+    for got in (dg, want_dg, auto_dg):
+        assert bool(((got.double() - exact_dg).abs()
+                     <= 1e-6 * terms + 1e-30).all())
+    assert bool((dg[~keep] == 0).all())
+
+
+def _train_states(model, device, seed=0):
+    """One optimizer (adamw, lr 1e-3, eps 1e-4) and a state drawn on
+    the CPU, copied to the CPU and to ``device``."""
+    from repro_torch.launch.train import TrainState
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import build_optimizer
+    opt = build_optimizer("adamw", 1e-3, eps=1e-4)
+    params = model.init(torch.Generator().manual_seed(seed))
+    opt_state = opt.init(params)
+    return opt, [TrainState(tree_map(lambda a: a.clone().to(dev), params),
+                            tree_map(lambda a: a.clone().to(dev), opt_state),
+                            torch.zeros((), dtype=torch.int32, device=dev))
+                 for dev in (device, torch.device("cpu"))]
+
+
+@pytest.mark.gpu
+def test_gpu_train_step_matches_cpu(cuda_device):
+    """Reduced Mixtral (f32, capacity factor 0.75 so that entries drop,
+    microbatch 2): 3 steps of launch.train.make_train_step on the card
+    and on the CPU from the same state. Loss and grad norm within 1e-5
+    relative, parameters within 1e-5 of each leaf's largest magnitude
+    plus 1e-6 (adamw at eps 1e-4, as tests/test_torch_train.py states);
+    every MoE layer launches the backward kernels once a microbatch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import leaves
+    cfg = get_config("mixtral-8x7b", reduced=True)
+    cfg = cfg.replace(dtype="float32", microbatch=2,
+                      moe=dataclasses.replace(cfg.moe, capacity_factor=0.75))
+    model = build_model(cfg)
+    opt, (card, cpu) = _train_states(model, cuda_device)
+    step = make_train_step(model, None, opt)
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        toks = rng.integers(0, cfg.vocab_size, size=(4, 32)).astype(np.int32)
+        labels = rng.integers(0, cfg.vocab_size, size=(4, 32)).astype(
+            np.int32)
+        labels[:, ::5] = -1
+        ops.reset_launch_counts()
+        card, got = step(card, {"tokens": T(toks).to(cuda_device),
+                                "labels": T(labels).to(cuda_device)})
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts["moe_combine_bwd"] == 2 * cfg.n_layers, counts
+        assert counts["moe_dispatch"] == 2 * cfg.n_layers, counts
+        cpu, want = step(cpu, {"tokens": T(toks), "labels": T(labels)})
+        for key in ("loss", "grad_norm"):
+            assert abs(float(got[key]) - float(want[key])) <= 1e-5 * abs(
+                float(want[key])), (i, key)
+        for a, b in zip(leaves(card.params), leaves(cpu.params)):
+            err = float((a.cpu() - b).abs().max())
+            assert err <= 1e-5 * float(b.abs().max()) + 1e-6, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_moe_loss_gradient_reaches_router_and_experts(cuda_device,
+                                                          dtype):
+    """A MoE loss's gradient on the card reaches the router and every
+    expert weight of every MoE layer (a kernel output without a
+    gradient would leave them at 0), and in f32 agrees with the CPU's
+    within 1e-4 of each leaf's largest magnitude (in bf16 only the reach
+    is checked: a router tie broken the other way on one device moves
+    an expert's gradient by more than any tolerance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import _value_and_grad
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    cfg = get_config("mixtral-8x7b", reduced=True).replace(dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(1)
+    toks = T(rng.integers(0, cfg.vocab_size, size=(2, 48)).astype(np.int32))
+    labels = T(rng.integers(0, cfg.vocab_size, size=(2, 48)).astype(
+        np.int32))
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ops.reset_launch_counts()
+        _, _, g = _value_and_grad(model, None,
+                                  tree_map(lambda a: a.to(dev), params),
+                                  {"tokens": toks.to(dev),
+                                   "labels": labels.to(dev)})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["moe_combine_bwd"] == cfg.n_layers
+        grads.append(g)
+    for seg_card, seg_cpu in zip(grads[0]["segments"], grads[1]["segments"]):
+        for name in ("router", "w1", "w2", "w3"):
+            a, b = seg_card["moe"][name], seg_cpu["moe"][name]
+            per_layer = a.flatten(1).abs().amax(dim=1)
+            assert bool((per_layer > 0).all()), name
+            if dtype == "float32":
+                err = float((a.cpu() - b).abs().max())
+                assert err <= 1e-4 * float(b.abs().max()), name

@@ -17,6 +17,7 @@ from repro_torch.fed.api import FederationPlan, Session  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.kmeans_update import kmeans_update  # noqa: E402
 from repro_torch.kernels.moe_combine import moe_combine  # noqa: E402
+from repro_torch.kernels.moe_combine_bwd import moe_combine_bwd  # noqa: E402
 from repro_torch.kernels.moe_dispatch import moe_dispatch  # noqa: E402
 from repro_torch.kernels.pdist_argmin import pdist_argmin  # noqa: E402
 from repro_torch.kernels.solve_attach import solve_attach  # noqa: E402
@@ -82,6 +83,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     kv = torch.zeros((2, 6, 1, 3))
     with pytest.raises(ValueError, match="CUDA tensor"):
         swa_decode_attention(x[:, :2], kv, kv, torch.zeros((2, 6)), 1.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        moe_combine_bwd(torch.zeros((4, 3)), x[0], idx,
+                        torch.ones((5,), dtype=torch.bool), torch.ones((4,)),
+                        1)
 
 
 def test_cpu_dispatch_launches_no_kernel():
@@ -97,9 +102,19 @@ def test_cpu_dispatch_launches_no_kernel():
     ops.moe_combine(x[0], idx, torch.ones((4,)), 1)
     kv = torch.zeros((2, 6, 1, 4))
     ops.swa_decode_attention(x[:, :2], kv, kv, torch.zeros((2, 6)), 0.5)
+    # The MoE layer's dispatch and combine with their gradients.
+    xg = x[0, :4].clone().requires_grad_(True)
+    keep = torch.ones((4,), dtype=torch.bool)
+    own = torch.arange(4, dtype=torch.int32)
+    buf = ops.moe_dispatch(xg, own, keep, slot=own, keep=keep, top_k=1)
+    y = ops.moe_combine(buf, own, torch.ones((4,)), 1, src_entry=own,
+                        valid=keep)
+    y.sum().backward()
+    assert xg.grad is not None
     assert ops.launch_counts() == {"pdist_argmin": 0, "kmeans_update": 0,
                                    "solve_attach": 0, "moe_dispatch": 0,
-                                   "moe_combine": 0, "swa_decode": 0}
+                                   "moe_combine": 0, "swa_decode": 0,
+                                   "moe_combine_bwd": 0}
 
 
 def test_serve_path_imports_no_jax():
