@@ -144,6 +144,24 @@ memory, loss and grad norm, launches a step, a profile line); and
 examples/train_lm.py (reduced granite-3-2b, 200 steps, then generate),
 whose loss must fall.
 
+After the train legs come the DeepSeek-V3 legs (configs/
+deepseek_v3_671b.py at its published widths: MLA with the absorbed
+latent decode, the MTP head, 256 experts at top-8 plus a shared one):
+the MoE kernels at its routings (the serve leg's prefill of 16384 tokens
+and decode step of 4, the train leg's 4096 tokens; d=7168 bf16),
+moe_dispatch bit for bit with its plain version, moe_combine bit for
+bit with the sequential sum over the 8 choices and within 1e-6 of its
+terms of the plain version, both backward paths by the train legs'
+checks, each timed beside its plain version, a library call and the
+bound; reduced DeepSeek-V3 (f32) through generate and 3 adafactor steps
+on the card against the CPU; serving at 5 of 61 layers (the 3 dense
+and 2 MoE, about 55 GB), 4 prompts of 4096 tokens and 32 greedy steps
+over the latent cache (prefill s, decode ms a step, peak memory,
+launches by shape, a decode profile); and training at 2 of 61 layers
+with the MTP head, remat and adafactor at microbatch 1, 1 x 4096 tokens
+a step (s a step, loss, ce, mtp_ce, grad norm, peak memory, a profile,
+the clip and the update timed alone).
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -329,6 +347,25 @@ TF_LAYERS, TF_BATCH, TF_SEQ, TF_WARM, TF_STEPS, TF_LR, TF_SEED = (
 # every 20 steps, then 8 tokens generated for 4 prompts).
 TE_STEPS, TE_LR, TE_BATCH, TE_SEQ, TE_LOG = 200, 3e-3, 8, 65, 20
 
+# The DeepSeek-V3 legs: configs/deepseek_v3_671b.py (arXiv:2412.19437)
+# at its published widths (d=7168, 128 heads, MLA with q_lora 1536,
+# kv_lora 512, rope 64, nope 128, v 128; 256 experts of 2048 at top-8
+# plus 1 shared; dense d_ff 18432; vocab 129280; bf16), depth cut (61
+# layers are about 1.3 TB in bf16). Serve: the 3 dense and 2 MoE layers
+# (about 55 GB with the MTP head), 4 prompts of 4096 tokens, 32 greedy
+# steps. Train: 1 dense and 1 MoE layer (n_dense_layers cut to 1) with
+# the MTP head, the config's remat and adafactor, microbatch 1 (the
+# config's 8 would hold a third gradient copy: launch/train.py sums the
+# microbatches' gradients into the first's), 1 x 4096 tokens a step.
+DS_LAYERS, DS_DENSE, DS_BATCH, DS_PROMPT, DS_STEPS, DS_SEED = (
+    5, 3, 4, 4096, 32, 0)
+DST_LAYERS, DST_DENSE, DST_BATCH, DST_SEQ, DST_WARM, DST_STEPS, DST_LR = (
+    2, 1, 1, 4096, 1, 3, 1e-4)
+# Reference: reduced DeepSeek-V3 (f32) on the card against the CPU:
+# generate (2 prompts of 48 tokens, DSR_DECODE steps), then DSR_TRAIN
+# adafactor steps at microbatch 2 on batches of 4 x 32 tokens.
+DSR_DECODE, DSR_TRAIN = 4, 3
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -438,11 +475,12 @@ class Tally:
     """Counts the launches of one kernel's wrapper function
     (``repro_torch.kernels.<name>.<name>``) over one pass of a path by
     the shape key that ``key`` gives its arguments, by wrapping the
-    function for the length of a ``with`` block, and keeps a copy of the
-    first inputs of each shape, so that they can be checked and timed."""
+    function for the length of a ``with`` block, and (unless ``keep`` is
+    False) keeps a copy of the first inputs of each shape, so that they
+    can be checked and timed."""
 
-    def __init__(self, name: str, key):
-        self.name, self.key = name, key
+    def __init__(self, name: str, key, keep: bool = True):
+        self.name, self.key, self.keep = name, key, keep
         self.shapes = {}
 
     def __enter__(self):
@@ -456,7 +494,8 @@ class Tally:
             if key not in self.shapes:
                 self.shapes[key] = [0, tuple(
                     a.clone() if torch.is_tensor(a) else a
-                    for a in args + tuple(kw.values()))]
+                    for a in args + tuple(kw.values())) if self.keep
+                    else None]
             self.shapes[key][0] += 1
             return self._fn(*args, **kw)
 
@@ -477,6 +516,10 @@ def pdist_key(x, c, c_mask=None):
 def kmeans_key(x, assign, k, weights=None):
     return (tuple(x.shape), int(k), weights is not None,
             str(x.dtype).replace("torch.", ""))
+
+
+def dispatch_key(x, src, valid):
+    return (tuple(x.shape), src.shape[0], str(x.dtype).replace("torch.", ""))
 
 
 def combine_key(ybuf, slot, gates, top_k):
@@ -4005,18 +4048,17 @@ def train_profile(label: str, fn, wall_s: float) -> None:
     kernels by name and split into forward (moe_dispatch, moe_combine)
     and backward (moe_combine_bwd, and the moe_combine launches of the
     dispatch's backward, by their share of the combine's launches), the
-    optimizer and the clip (their record_function ranges in
-    launch/train.py), and the rest (elementwise work, softmax, norms,
-    casts, the embedding's scatter)."""
+    optimizer and the clip (the kernels inside the device-side spans of
+    their record_function ranges in launch/train.py; "not measured"
+    without those spans), and the rest (elementwise work, softmax,
+    norms, casts, the embedding's scatter)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
-    # The kernels' own times; the ranges' GPU-side spans are left out,
-    # and a range's device time is its kernels' (those of the ops inside
-    # it on the host thread).
+    # The kernels' own times; the ranges' GPU-side spans are left out.
     dev = [e for e in prof.key_averages()
            if str(e.device_type).endswith("CUDA")
            and not e.key.startswith("train_step/")]
@@ -4025,12 +4067,22 @@ def train_profile(label: str, fn, wall_s: float) -> None:
         print(f"profile {label}: the profiler recorded no device time "
               f"(not measured)", flush=True)
         return
-    ranges = {}
+    # A range's device time: the kernels that run inside its device-side
+    # span (the GPU user annotation of its record_function). The host
+    # range's device_time_total would count that span as one of its own
+    # kernels beside the kernels inside it.
+    spans = {}
     for e in prof.events():
         if e.name.startswith("train_step/") and str(
-                e.device_type).endswith("CPU"):
-            ranges[e.name] = (ranges.get(e.name, 0.0)
-                              + e.device_time_total / 1e3)
+                e.device_type).endswith("CUDA"):
+            spans.setdefault(e.name, []).append((e.time_range.start,
+                                                 e.time_range.end))
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")
+               and not e.name.startswith("train_step/")]
+    ranges = {name: sum(k.time_range.elapsed_us() for k in kernels
+                        if any(a <= k.time_range.start and k.time_range.end
+                               <= b for a, b in sp)) / 1e3
+              for name, sp in spans.items()}
     # cuBLAS's GEMM kernels by name: Hopper's tensor-core kernels
     # (nvjet, xmma, cutlass) take the bf16 products; the f32 ones (TF32
     # off) are the SIMT / f32f32 kernels.
@@ -4047,6 +4099,9 @@ def train_profile(label: str, fn, wall_s: float) -> None:
             ms, n = port.get(hit.group(0), (0.0, 0))
             port[hit.group(0)] = (ms + e.self_device_time_total / 1e3,
                                   n + e.count)
+    if not ranges:
+        print(f"profile {label}: no device-side spans of the optimizer and "
+              f"clip ranges (their split not measured)", flush=True)
     opt = ranges.get("train_step/optimizer", 0.0)
     clip = ranges.get("train_step/clip", 0.0)
     ours = sum(ms for ms, _ in port.values())
@@ -4231,6 +4286,495 @@ def train_legs(device, rounds: int):
     print(f"legs: train kernels, train small, train full, train example in "
           f"{time.perf_counter() - t_legs:.1f} s of wall", flush=True)
     return row, full_counts, example_counts
+
+
+def ds_config(layers: int, dense: int, **kw):
+    """DeepSeek-V3 at its published widths, cut to ``layers`` layers of
+    which the first ``dense`` are dense."""
+    from repro_torch.configs import get_config
+    full = get_config("deepseek-v3-671b")
+    return full, full.replace(n_layers=layers, n_dense_layers=dense, **kw)
+
+
+def mla_layer_flops(cfg, T: int) -> int:
+    """bf16 flops of one MLA layer's projections over T tokens (the
+    latent up-projected to every token's keys and values)."""
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return 2 * T * (d * m.q_lora_rank + m.q_lora_rank * H * qk
+                    + d * (m.kv_lora_rank + m.qk_rope_dim)
+                    + m.kv_lora_rank * H * (m.qk_nope_dim + m.v_dim)
+                    + H * m.v_dim * d)
+
+
+def ffn_flops(cfg, T: int, moe_layer: bool, kept: int = 0) -> int:
+    """bf16 flops of a layer's FFN over T tokens: the dense SwiGLU, or
+    the router, the ``kept`` routed (token, expert) pairs and the shared
+    expert."""
+    d = cfg.d_model
+    if not moe_layer:
+        return 2 * T * 3 * d * cfg.d_ff
+    m = cfg.moe
+    return (2 * T * d * m.n_experts + 2 * kept * 3 * d * m.d_expert
+            + 2 * T * 3 * d * m.n_shared * m.d_expert)
+
+
+def attention_f32_flops(cfg, B: int, S: int) -> int:
+    """f32 flops of one layer's causal attention (scores and weighted
+    sums) over B sequences of S tokens."""
+    m = cfg.mla
+    pairs = S * (S + 1) // 2
+    return 2 * B * cfg.n_heads * pairs * (m.qk_nope_dim + m.qk_rope_dim
+                                          + m.v_dim)
+
+
+def deepseek_kernels(dev, rounds: int) -> None:
+    """The MoE kernels at DeepSeek-V3's full-width routings (d=7168 bf16,
+    256 experts at top-8, capacity factor 1.25) of the serve leg's
+    prefill (16384 tokens, C=640) and decode step (4 tokens, C=1) and of
+    the train leg (4096 tokens, C=160), each routing by the model's own
+    _route and _plan from a router at the init's scale: moe_dispatch bit
+    for bit with its plain version; moe_combine bit for bit with the
+    sequential sum (ref.sequential_combine, choices in order) and within
+    1e-6 of the terms' magnitudes of the plain version (torch.sum over
+    the 8 choices); at the train routing both backward paths by
+    check_moe_grads. Device times by graph replay beside the plain
+    versions (event time), one library call each (embedding_bag;
+    index_add_ for dx; gather + mul + sum for the combine's backward)
+    and the bounds."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.moe_combine import moe_combine
+    from repro_torch.kernels.moe_combine_bwd import moe_combine_bwd
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
+    _, cfg = ds_config(DS_LAYERS, DS_DENSE)
+    m, d = cfg.moe, cfg.d_model
+    for label, T in (("serve prefill", DS_BATCH * DS_PROMPT),
+                     ("serve decode", DS_BATCH),
+                     ("train", DST_BATCH * DST_SEQ)):
+        f = moe_bwd_inputs(dev, T, d, m.n_experts, m.top_k,
+                           m.capacity_factor, torch.bfloat16)
+        x, src, valid, slot, w = f["x"], f["src"], f["valid"], f["slot"], \
+            f["w"]
+        S, N, top_k, esz = f["S"], T * m.top_k, m.top_k, 2
+        C = S // m.n_experts
+        got, want = moe_dispatch(x, src, valid), ref.moe_dispatch(x, src,
+                                                                  valid)
+        sync()
+        require(torch.equal(got, want), f"deepseek kernels {label}: "
+                                        f"moe_dispatch differs from the plain "
+                                        f"version")
+        del got, want
+        nvalid = int(valid.sum())
+        dev_ms = graph_ms(lambda: moe_dispatch(x, src, valid))
+        plain = time_ms(lambda: ref.moe_dispatch(x, src, valid), rounds)
+        idx = torch.clamp(src, 0, T - 1).long().view(-1, 1)
+        wv = valid.to(x.dtype).view(-1, 1)
+        lib = graph_ms(lambda: F.embedding_bag(idx, x, per_sample_weights=wv,
+                                               mode="sum"))
+        nbytes = esz * (int(torch.unique(src[valid]).numel()) * d + S * d) \
+            + 5 * S
+        bms, by = bound(nbytes, 0)
+        print(f"deepseek kernels moe_dispatch {label}: x ({T},{d}) bf16 -> "
+              f"({S},{d}) = {m.n_experts} experts x C={C}, {nvalid} valid "
+              f"slots; bitwise equal to the plain version | device "
+              f"ms={dev_ms:.4f} plain_ms={plain:.4f} embedding_bag device "
+              f"ms={lib:.4f} bound_ms={bms:.5f} ({by}, {nbytes} bytes)",
+              flush=True)
+
+        ybuf = f["ybuf"]
+        got = moe_combine(ybuf, slot, w, top_k)
+        again = moe_combine(ybuf, slot, w, top_k)
+        seq = ref.sequential_combine(ybuf, slot, w, top_k)
+        plain_out = ref.moe_combine(ybuf, slot, w, top_k)
+        terms = ref.sequential_combine(ybuf.abs(), slot, w.abs(), top_k)
+        sync()
+        bitwise = same_bits((got,), (seq,)) and same_bits((got,), (again,))
+        ratio = float(((got - plain_out).abs()
+                       / (1e-6 * terms + 1e-30)).max())
+        err = float((got - plain_out).abs().max())
+        require(bitwise, f"deepseek kernels {label}: moe_combine differs "
+                         f"from the sequential sum or between two calls")
+        require(ratio <= 1.0, f"deepseek kernels {label}: moe_combine beyond "
+                              f"1e-6 of its terms of the plain version "
+                              f"(x{ratio:.3f})")
+        del got, again, seq, plain_out, terms
+        dev_c = graph_ms(lambda: moe_combine(ybuf, slot, w, top_k))
+        plain_c = time_ms(lambda: ref.moe_combine(ybuf, slot, w, top_k),
+                          rounds)
+        cidx = torch.clamp(slot, 0, S - 1).long().view(T, top_k)
+        cw = w.to(ybuf.dtype).view(T, top_k)
+        lib_c = graph_ms(lambda: F.embedding_bag(
+            cidx, ybuf, per_sample_weights=cw, mode="sum"))
+        nbytes_c, flops_c = combine_work(ybuf, slot, top_k)
+        bms_c, by_c = bound(nbytes_c, flops_c)
+        print(f"deepseek kernels moe_combine {label}: ybuf ({S},{d}) bf16 -> "
+              f"({T},{d}) f32 at top_k={top_k}, {int(f['keep'].sum())} of {N} "
+              f"choices kept; bitwise equal to the sequential sum and run "
+              f"twice, max_abs_err={err:.3e} against the plain version "
+              f"(x{ratio:.4f} of 1e-6 of its terms) | device ms={dev_c:.4f} "
+              f"plain_ms={plain_c:.4f} embedding_bag device ms={lib_c:.4f} "
+              f"(bf16 out) bound_ms={bms_c:.5f} ({by_c}, {nbytes_c} bytes)",
+              flush=True)
+        if label != "train":
+            del f
+            continue
+        c = check_moe_grads(f)
+        keep = f["keep"]
+        dbuf = f["dbuf"]
+        dx_dev = graph_ms(lambda: ops._dispatch_bwd(dbuf, slot, keep, T,
+                                                    top_k, torch.bfloat16))
+        dx_plain = time_ms(lambda: ref.moe_dispatch_bwd(
+            dbuf, slot, keep, T, top_k, torch.bfloat16), rounds)
+        aidx = torch.where(valid, src, T).long()
+        dx_lib = graph_ms(lambda: torch.zeros(
+            (T + 1, d), dtype=torch.bfloat16, device=dev).index_add_(
+                0, aidx, dbuf))
+        nbytes_x = esz * (nvalid * d + T * d) + 5 * N
+        bms_x, by_x = bound(nbytes_x, nvalid * d)
+        print(f"deepseek kernels dispatch backward {c['label']}: dbuf "
+              f"({S},{d}) -> dx ({T},{d}), dx bitwise equal to the plain "
+              f"formula, max_abs_err={c['dx_err']:.3e} against the plain "
+              f"autograd | device ms={dx_dev:.4f} plain_ms={dx_plain:.4f} "
+              f"index_add_ device ms={dx_lib:.4f} bound_ms={bms_x:.5f} "
+              f"({by_x}, {nbytes_x} bytes)", flush=True)
+        bw = (f["dout"], ybuf, f["src_entry"], valid, w, top_k)
+        cb_dev = graph_ms(lambda: moe_combine_bwd(*bw))
+        cb_plain = time_ms(lambda: ref.moe_combine_bwd(*bw), rounds)
+        owner = torch.where(valid, f["src_entry"].long(), 0)
+        gidx = (owner // top_k)[:, None].expand(S, d)
+        wo = torch.where(valid, w[owner], 0.0)[:, None]
+
+        def lib_cb():
+            rows = torch.gather(f["dout"], 0, gidx)
+            return (rows * wo).to(ybuf.dtype), torch.sum(rows * ybuf, dim=-1)
+        cb_lib = graph_ms(lib_cb)
+        tokens = int(torch.unique(owner[valid] // top_k).numel())
+        nbytes_b = (4 * tokens * d + esz * nvalid * d + 5 * S + 4 * N
+                    + esz * S * d + 4 * N)
+        bms_b, by_b = bound(nbytes_b, 3 * nvalid * d)
+        print(f"deepseek kernels combine backward {c['label']}: dout "
+              f"({T},{d}) f32, ybuf ({S},{d}) bf16, {nvalid} valid slots: "
+              f"dybuf bitwise, dgates max_abs_err={c['dg_err']:.3e} "
+              f"(x{c['dg_ratio']:.4f} of the 1e-6 tolerance against f64), "
+              f"two calls bitwise | device ms={cb_dev:.4f} "
+              f"plain_ms={cb_plain:.4f} gather_mul_sum device "
+              f"ms={cb_lib:.4f} bound_ms={bms_b:.5f} ({by_b}, {nbytes_b} "
+              f"bytes)", flush=True)
+        del f
+    torch.cuda.empty_cache()
+
+
+def small_deepseek_agreement(device):
+    """Reduced DeepSeek-V3 (f32; MLA, MTP, 1 dense and 1 MoE layer of 4
+    experts at top-2) on ``device`` and on the CPU from the same
+    parameters: generate over 2 prompts of 48 tokens and DSR_DECODE
+    steps (tokens exact, logits within 1e-4 of their largest magnitude,
+    as the Mixtral reference line), then DSR_TRAIN steps of
+    make_train_step with the config's adafactor (lr 1e-3) at microbatch
+    2 on batches of 4 x 32 tokens from one state (loss and grad norm
+    within 1e-5 relative, parameters within 1e-5 of a leaf's largest
+    magnitude + 1e-6). Returns (logit error, loss error, parameter
+    error)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, init_params
+    from repro_torch.launch.train import TrainState, make_train_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import leaves
+    cfg = get_config("deepseek-v3-671b", reduced=True).replace(
+        dtype="float32", microbatch=2)
+    model = build_model(cfg)
+    params = init_params(model, seed=0, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 48)), dtype=torch.int32)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        stats = {}
+        out = generate(model, tree_map(lambda a: a.to(dev), params),
+                       {"tokens": toks}, steps=DSR_DECODE, stats=stats)
+        runs.append((out.cpu(), torch.stack([lg.float().cpu()
+                                             for lg in stats["logits"]])))
+    (t1, l1), (t0, l0) = runs
+    require(torch.equal(t1, t0), "small deepseek: tokens differ from the CPU")
+    lerr = float((l1 - l0).abs().max())
+    require(lerr <= 1e-4 * float(l0.abs().max()),
+            f"small deepseek: logits differ from the CPU by {lerr}")
+    opt = build_optimizer(cfg.optimizer, 1e-3)
+    step = make_train_step(model, None, opt)
+    states = {dev: TrainState(tree_map(lambda a: a.clone().to(dev), params),
+                              tree_map(lambda a: a.to(dev),
+                                       opt.init(params)),
+                              torch.zeros((), dtype=torch.int32, device=dev))
+              for dev in (device, torch.device("cpu"))}
+    merr = perr = 0.0
+    for b in train_batches(2, cfg.vocab_size, 4, 33, DSR_TRAIN, "cpu"):
+        mets = {}
+        for dev in states:
+            states[dev], mets[dev] = step(
+                states[dev], {k: v.to(dev) for k, v in b.items()})
+        got, want = mets[device], mets[torch.device("cpu")]
+        for key in ("loss", "grad_norm"):
+            e = abs(float(got[key]) - float(want[key]))
+            require(e <= 1e-5 * abs(float(want[key])),
+                    f"small deepseek: {key} differs from the CPU by {e}")
+            merr = max(merr, e)
+        for a, w in zip(leaves(states[device].params),
+                        leaves(states[torch.device("cpu")].params)):
+            e = float((a.cpu() - w).abs().max())
+            require(e <= 1e-5 * float(w.abs().max()) + 1e-6,
+                    f"small deepseek: parameters differ by {e}")
+            perr = max(perr, e)
+    return lerr, merr, perr
+
+
+def deepseek_serve_leg(device):
+    """LM serving at DeepSeek-V3's full widths, DS_LAYERS of 61 layers
+    (the 3 dense and 2 MoE) with the MTP head drawn (serving does not
+    run it): a warm-up generate of 2 steps with moe_dispatch and
+    moe_combine launches tallied by shape, then 4 prompts of 4096
+    tokens and DS_STEPS greedy steps through launch.serve.generate
+    between a reset and a read of the launch counts and of the peak
+    memory, then 8 more steps under the profiler. Every MoE layer
+    launches moe_dispatch and moe_combine once in the prefill and once
+    a step. Returns the counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate, init_params
+    from repro_torch.launch.serve import make_serve_step
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import tree_bytes
+    t_leg = time.perf_counter()
+    full, cfg = ds_config(DS_LAYERS, DS_DENSE)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model, seed=DS_SEED, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    pbytes = tree_bytes(params)
+    mtp_bytes = tree_bytes({k: params[k] for k in params
+                            if k.startswith("mtp_")})
+    emb = params["embed"]
+    prompts = torch.as_tensor(np.random.default_rng(DS_SEED).integers(
+        0, cfg.vocab_size, size=(DS_BATCH, DS_PROMPT)), dtype=torch.int32)
+    batch = {"tokens": prompts}
+    with Tally("moe_dispatch", dispatch_key, keep=False) as dtally, \
+            Tally("moe_combine", combine_key, keep=False) as ctally:
+        generate(model, params, batch, steps=2)           # warm-up
+        sync()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    stats = {}
+    toks = generate(model, params, batch, steps=DS_STEPS, stats=stats)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    cache = stats["cache"]
+    B, V, S = DS_BATCH, cfg.vocab_size, DS_PROMPT
+    require(tuple(toks.shape) == (B, DS_STEPS)
+            and bool(((toks >= 0) & (toks < V)).all()),
+            "deepseek serve: tokens")
+    require(all(tuple(lg.shape) == (B, V) and bool(torch.isfinite(lg).all())
+                for lg in stats["logits"]),
+            "deepseek serve: logits not finite")
+    m = cfg.mla
+    require(all(sorted(seg) == ["latent", "rope"]
+                and tuple(seg["latent"].shape[1:]) == (B, S + DS_STEPS + 1,
+                                                       m.kv_lora_rank)
+                for seg in cache["segments"])
+            and cache["len"].tolist() == [S + DS_STEPS] * B,
+            "deepseek serve: the latent cache")
+    n_moe = DS_LAYERS - DS_DENSE
+    want = {"moe_dispatch": n_moe * (DS_STEPS + 1),
+            "moe_combine": n_moe * (DS_STEPS + 1)}
+    require(all(counts[k] == n for k, n in want.items())
+            and counts["swa_decode"] == 0,
+            f"deepseek serve: launches {counts}, expected {want}")
+    # Bounds. Decode: every parameter but the embedding table and the
+    # MTP head is read each step (every expert's queue has C = 1 slot),
+    # plus B embedding rows and the latent caches. Prefill: the products
+    # the model needs, the routed pairs at top-8 (none dropped counted
+    # as kept: an upper count), attention in f32.
+    cache_bytes = sum(seg[n].numel() * seg[n].element_size()
+                      for seg in cache["segments"] for n in seg)
+    step_bytes = (pbytes - mtp_bytes - emb.numel() * emb.element_size()
+                  + B * cfg.d_model * emb.element_size() + cache_bytes)
+    step_bound_ms = step_bytes / PEAK_HBM_BYTES * 1e3
+    T = B * S
+    bf16_flops = (DS_LAYERS * mla_layer_flops(cfg, T)
+                  + DS_DENSE * ffn_flops(cfg, T, False)
+                  + n_moe * ffn_flops(cfg, T, True, T * cfg.moe.top_k)
+                  + 2 * B * cfg.d_model * V)
+    f32_flops = DS_LAYERS * attention_f32_flops(cfg, B, S)
+    prefill_bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    prefill_s, decode_s = stats["prefill_s"], stats["decode_s"]
+    step_ms = decode_s / DS_STEPS * 1e3
+    tally = "; ".join(
+        f"{name} " + json.dumps({str(k): v[0] for k, v in t.shapes.items()})
+        for name, t in (("moe_dispatch", dtally), ("moe_combine", ctally)))
+    print(f"deepseek serve full: DeepSeek-V3 (d={cfg.d_model}, "
+          f"{cfg.n_heads} heads, MLA q_lora {m.q_lora_rank} / kv_lora "
+          f"{m.kv_lora_rank} / rope {m.qk_rope_dim} / nope {m.qk_nope_dim} "
+          f"/ v {m.v_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+          f"of {cfg.moe.d_expert} + {cfg.moe.n_shared} shared, dense d_ff "
+          f"{cfg.d_ff}, vocab {V}, bf16) cut to {DS_LAYERS} of "
+          f"{full.n_layers} layers ({DS_DENSE} dense, {n_moe} MoE) with the "
+          f"MTP head: {pbytes / 1e9:.2f} GB drawn on the card in "
+          f"{init_s:.2f} s; {B} prompts of {S} tokens, {DS_STEPS} greedy "
+          f"steps through launch.serve.generate over the latent cache "
+          f"({cache_bytes / 1e6:.1f} MB) | prefill {prefill_s:.3f} s, "
+          f"{T / prefill_s:.1f} tokens/s (bound {prefill_bound_s:.3f} s, "
+          f"operations: {bf16_flops:.3e} bf16 + {f32_flops:.3e} f32 flops) | "
+          f"decode {decode_s:.3f} s, {B * DS_STEPS / decode_s:.1f} tokens/s, "
+          f"{step_ms:.3f} ms per step (bound {step_bound_ms:.3f} ms, bytes: "
+          f"{step_bytes / 1e9:.2f} GB per step) | peak memory "
+          f"{peak_gb:.2f} GB | logits finite | launches {counts} | warm-up "
+          f"(2 steps) launches by shape: {tally} | leg wall "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    step = make_serve_step(model)
+    tok = toks[:, -1].to(device)
+
+    def eight_steps():
+        # The last 8 positions decoded again (the cache has no room
+        # past them), in place.
+        c = {**cache, "len": cache["len"] - 8}
+        for _ in range(8):
+            _, c = step(params, c, tok)
+    profile("deepseek decode", eight_steps, decode_s * 8 / DS_STEPS)
+    del params, cache, stats
+    torch.cuda.empty_cache()
+    return counts
+
+
+def deepseek_train_leg(device):
+    """Training at DeepSeek-V3's full widths, DST_LAYERS of 61 layers (1
+    dense, 1 MoE) with the MTP head, the config's remat and adafactor,
+    microbatch 1 (launch.train): a warm-up step, then DST_STEPS timed
+    steps between a reset and a read of the launch counts and the peak
+    memory, then one more step under the profiler. Returns the counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.train import TrainState, make_train_step
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import param_count, tree_bytes
+    t_leg = time.perf_counter()
+    full, cfg = ds_config(DST_LAYERS, DST_DENSE, microbatch=1)
+    require(cfg.remat and cfg.optimizer == "adafactor" and cfg.mtp
+            and full.microbatch == 8,
+            "deepseek train: the config's remat, adafactor and MTP head")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model, seed=DS_SEED, device=device)
+    opt = build_optimizer(cfg.optimizer, DST_LR)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=device))
+    sync()
+    init_s = time.perf_counter() - t0
+    nparam, pbytes = param_count(params), tree_bytes(params)
+    sbytes = tree_bytes(state.opt)
+    step = make_train_step(model, None, opt)
+    batches = train_batches(DS_SEED, cfg.vocab_size, DST_BATCH, DST_SEQ + 1,
+                            DST_WARM + DST_STEPS + 1, device)
+    for b in batches[:DST_WARM]:
+        state, _ = step(state, b)
+    sync()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    walls, mets = [], []
+    for b in batches[DST_WARM:DST_WARM + DST_STEPS]:
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in met.items()})
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    require(all(np.isfinite(v) for mt in mets for v in mt.values())
+            and all(sorted(mt) == ["aux", "ce", "grad_norm", "loss",
+                                   "mtp_ce"] for mt in mets),
+            f"deepseek train: metrics {mets}")
+    require(int(state.step) == DST_WARM + DST_STEPS, "deepseek train: step")
+    n_moe = DST_LAYERS - DST_DENSE
+    want = {"moe_dispatch": 2 * n_moe * DST_STEPS,
+            "moe_combine": 3 * n_moe * DST_STEPS,
+            "moe_combine_bwd": n_moe * DST_STEPS}
+    require(all(counts[k] == n for k, n in want.items()),
+            f"deepseek train: launches {counts}, expected {want}")
+    wall = float(np.median(walls))
+    T = DST_BATCH * DST_SEQ
+    d, V = cfg.d_model, cfg.vocab_size
+    slots = cfg.moe.n_experts * moe._capacity(T, cfg.moe)
+    # Bound: the products of a step. The segments' layers and the MTP
+    # block run their forward twice (remat) and a backward of two
+    # forwards; the unembedding (main and MTP) and the MTP projection
+    # a forward and a backward; the experts count their queue slots.
+    layers = (DST_LAYERS + 1) * mla_layer_flops(cfg, T) \
+        + (DST_DENSE + 1) * ffn_flops(cfg, T, False) \
+        + n_moe * ffn_flops(cfg, T, True, slots)
+    bf16_flops = 4 * layers + 3 * (2 * 2 * T * d * V + 2 * T * 2 * d * d)
+    f32_flops = 4 * (DST_LAYERS + 1) * attention_f32_flops(cfg, DST_BATCH,
+                                                            DST_SEQ)
+    bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    per_step = {k: counts[k] // DST_STEPS for k in want}
+
+    def series(key):
+        return ", ".join(f"{mt[key]:.4f}" for mt in mets)
+    print(f"deepseek train full: DeepSeek-V3 at its published widths cut to "
+          f"{DST_LAYERS} of {full.n_layers} layers ({DST_DENSE} dense, "
+          f"{n_moe} MoE) with the MTP head ({nparam / 1e9:.3f} B "
+          f"parameters, {pbytes / 1e9:.2f} GB, adafactor's state "
+          f"{sbytes / 1e9:.3f} GB, drawn on the card in {init_s:.2f} s), "
+          f"remat, microbatch 1 (the config's {full.microbatch} cut), "
+          f"adafactor lr {DST_LR}: batches of {DST_BATCH} x {DST_SEQ} "
+          f"tokens | steps " + ", ".join(f"{w:.3f}" for w in walls)
+          + f" s ({T / wall:.1f} tokens/s at the median; bound "
+          f"{bound_s:.3f} s a step: {bf16_flops:.3e} bf16 + {f32_flops:.3e} "
+          f"f32 flops) | loss {series('loss')} | ce {series('ce')} | mtp_ce "
+          f"{series('mtp_ce')} | aux {series('aux')} | grad norm "
+          f"{series('grad_norm')} | peak memory {peak_gb:.2f} GB | launches "
+          f"a step {json.dumps(per_step)} | leg wall "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    train_profile("deepseek train full", lambda: step(state, batches[-1]),
+                  wall)
+    # The clip and the optimizer alone, by CUDA events, on one batch's
+    # gradients: the profile's split of the step checked another way.
+    from repro_torch.launch.train import _value_and_grad
+    from repro_torch.optim import clip_by_global_norm
+    _, _, grads = _value_and_grad(model, None, state.params, batches[-1])
+    sync()
+    t_clip = time_ms(lambda: clip_by_global_norm(grads, 1.0), 1, warmup=0)
+    t_opt = time_ms(lambda: opt.update(grads, state.opt, state.params,
+                                       state.step), 1, warmup=0)
+    print(f"deepseek train full: the clip alone {t_clip:.2f} ms, adafactor's "
+          f"update alone {t_opt:.2f} ms (CUDA events, one call each, "
+          f"{nparam / 1e9:.3f} B parameters)", flush=True)
+    del state, params, batches, grads
+    torch.cuda.empty_cache()
+    return counts
+
+
+def deepseek_legs(device, rounds: int):
+    """The DeepSeek-V3 legs in order: the MoE kernels at its routings,
+    the reduced reference against the CPU, serving and training at full
+    width. Returns (the serve leg's counts, the train leg's)."""
+    t_legs = time.perf_counter()
+    deepseek_kernels(device, rounds)
+    lerr, merr, perr = small_deepseek_agreement(device)
+    print(f"reference: reduced deepseek-v3-671b (f32; MLA, MTP, 1 dense and "
+          f"1 MoE layer) through generate (2 prompts of 48 tokens, "
+          f"{DSR_DECODE} steps) and {DSR_TRAIN} adafactor steps of "
+          f"make_train_step (microbatch 2) on the card equals the CPU run "
+          f"(tokens exact, logits within 1e-4 relative, max error "
+          f"{lerr:.3e}; loss and grad norm within 1e-5 relative, max error "
+          f"{merr:.3e}; parameters within 1e-5 of a leaf's largest "
+          f"magnitude + 1e-6, max error {perr:.3e})", flush=True)
+    serve_counts = deepseek_serve_leg(device)
+    train_counts = deepseek_train_leg(device)
+    print(f"legs: deepseek kernels, reference, serve full, train full in "
+          f"{time.perf_counter() - t_legs:.1f} s of wall", flush=True)
+    return serve_counts, train_counts
 
 
 def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
@@ -4454,6 +4998,20 @@ def main() -> int:
             "swa_decode was not launched on the decode leg")
     rows["moe_combine_bwd"], train_counts, example_counts = train_legs(
         torch.device("cuda"), rounds=20)
+    # What the earlier legs kept on the card (tallied inputs, the mesh
+    # legs' serves) is not needed past here: the DeepSeek legs fill it.
+    del (tallies, pers_tallies, attach_tallies, et_tallies, er_tallies,
+         more, want_more, attach, taus, enc_rr, renc_rr)
+    torch.cuda.empty_cache()
+    ds_serve_counts, ds_train_counts = deepseek_legs(torch.device("cuda"),
+                                                     rounds=20)
+    for name in ("moe_dispatch", "moe_combine"):
+        require(ds_serve_counts[name] > 0 and ds_train_counts[name] > 0,
+                f"{name} was not launched on the deepseek serve and train "
+                f"legs")
+    require(ds_train_counts["moe_combine_bwd"] > 0,
+            "moe_combine_bwd was not launched on the deepseek train leg")
+    new_counts += (ds_serve_counts, ds_train_counts)
 
     replaces = {
         "pdist_argmin": "src/repro/kernels/pdist_argmin.py:101",
@@ -4500,7 +5058,9 @@ def main() -> int:
           + json.dumps(et_counts["bf16"]) + " encode_route "
           + json.dumps(eroute_counts) + " train_full "
           + json.dumps(train_counts) + " train_example "
-          + json.dumps(example_counts)
+          + json.dumps(example_counts) + " deepseek_serve "
+          + json.dumps(ds_serve_counts) + " deepseek_train "
+          + json.dumps(ds_train_counts)
           + "; every kernel matched its plain version", flush=True)
     print(f"card: {smi}; chip_smoke wall {time.perf_counter() - t_all:.1f} s",
           flush=True)

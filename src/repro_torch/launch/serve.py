@@ -10,7 +10,8 @@ by a decode loop.
 and refuses to start without a card; ``generate`` runs where the
 parameters are. A sliding-window model whose prompt plus steps exceed
 its window decodes over a ring cache, through the ``swa_decode``
-kernel.
+kernel; an MLA model (DeepSeek-V3) over its latent cache, in the
+absorbed form.
 """
 from __future__ import annotations
 

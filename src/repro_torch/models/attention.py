@@ -1,7 +1,8 @@
-"""GQA attention (counterpart of ``repro/models/attention.py``): the
-parameters, chunked flash-style attention for prefill, masked attention
-over a short key set, one-token decode against a full or a ring
-(sliding-window) KV cache, and the caches themselves.
+"""Attention (counterpart of ``repro/models/attention.py``): GQA and
+DeepSeek-V3's multi-head latent attention (MLA), their parameters,
+chunked flash-style attention for prefill and training, masked attention
+over a short key set, one-token decode against a full, a ring
+(sliding-window) or a latent KV cache, and the caches themselves.
 
 Every attention here is written out (matmul + softmax in f32 with the
 reference's -1e30 masks), not ``scaled_dot_product_attention``: a query
@@ -11,11 +12,16 @@ SDPA gives NaN. The one kernel is the ring-cache decode: it goes
 through ``kernels.ops.swa_decode_attention``, which launches the CUDA
 kernel on a CUDA tensor and runs the plain version on a CPU one.
 
-The caches are updated in place: ``gqa_decode`` writes the new token's
-key, value (and ring position) into the layer's cache tensors and
-returns them. The reference returns new arrays; at full width a copy of
-every layer's cache per step would move as many bytes as the attention
-reads.
+MLA prefill up-projects the latent to per-head keys and values and runs
+the chunked attention; MLA decode is the reference's absorbed form
+(scores and context in the latent space, f32), whose cache holds
+kv_lora + rope values a token (576 for DeepSeek-V3).
+
+The caches are updated in place: ``gqa_decode`` and ``mla_decode``
+write the new token's key, value (ring position, or latent and rope
+key) into the layer's cache tensors and return them. The reference
+returns new arrays; at full width a copy of every layer's cache per
+step would move as many bytes as the attention reads.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import DistCtx, apply_rope, dense_init
+from repro_torch.models.common import (DistCtx, apply_rope, dense_init,
+                                       rms_norm)
 
 MASKED_SCORE = -1e30  # the reference's additive mask value
 
@@ -158,6 +165,17 @@ def init_ring_cache(B: int, W: int, KVH: int, hd: int, dtype, layers: int,
             "len": torch.zeros((B,), dtype=torch.int32, device=device)}
 
 
+def init_mla_cache(B: int, S: int, lora: int, rope: int, dtype, layers: int,
+                   device=None) -> Dict[str, torch.Tensor]:
+    """The latent cache: each token's normalized kv latent (lora) and
+    its rotated rope key (rope), per layer."""
+    return {"latent": torch.zeros((layers, B, S, lora), dtype=dtype,
+                                  device=device),
+            "rope": torch.zeros((layers, B, S, rope), dtype=dtype,
+                                device=device),
+            "len": torch.zeros((B,), dtype=torch.int32, device=device)}
+
+
 # ---------------------------------------------------------- GQA block --
 
 def init_gqa(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
@@ -233,3 +251,114 @@ def gqa_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
         o = decode_attention(q, K, V, kv_valid=valid)
         new_cache = {"k": K, "v": V}
     return o.reshape(B, -1) @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------- MLA block --
+
+def init_mla(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
+    """``cfg`` has ``d_model``, ``n_heads`` and ``mla`` (q_lora_rank,
+    kv_lora_rank, qk_nope_dim, qk_rope_dim, v_dim); the reference's
+    names and shapes, the norms' weights as bare vectors."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    dev = gen.device
+    return {
+        "wq_a": dense_init(gen, (d, m.q_lora_rank), dtype),
+        "q_norm": torch.ones((m.q_lora_rank,), dtype=dtype, device=dev),
+        "wq_b": dense_init(gen, (m.q_lora_rank, H * qk), dtype),
+        "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_dim), dtype),
+        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dtype, device=dev),
+        "wk_b": dense_init(gen, (m.kv_lora_rank, H * m.qk_nope_dim), dtype),
+        "wv_b": dense_init(gen, (m.kv_lora_rank, H * m.v_dim), dtype),
+        "wo": dense_init(gen, (H * m.v_dim, d), dtype),
+    }
+
+
+def _mla_q(p, x: torch.Tensor, cfg):
+    """x (B, S, d) -> (qn (B, S, H, nope), qr (B, S, H, rope)), the
+    rope part not yet rotated."""
+    B, S, _ = x.shape
+    m, H = cfg.mla, cfg.n_heads
+    q = rms_norm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    q = q.reshape(B, S, H, m.qk_nope_dim + m.qk_rope_dim)
+    return torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+
+
+def _mla_latent(p, x: torch.Tensor, cfg):
+    """x (B, S, d) -> (normalized latent (B, S, lora), rope key
+    (B, S, rope), not yet rotated)."""
+    m = cfg.mla
+    kv = x @ p["wkv_a"]
+    latent, krope = torch.split(kv, [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    return rms_norm(latent, p["kv_norm"]), krope
+
+
+def mla_self(p, x: torch.Tensor, cfg, ctx: DistCtx = None):
+    """Prefill / training MLA over positions 0..S-1: the latent
+    up-projected to per-head keys (nope + the rope key shared by every
+    head) and values, then the chunked attention with Dk = nope + rope
+    and Dv = v_dim. x: (B, S, d) -> (B, S, d)."""
+    B, S, _ = x.shape
+    m, H = cfg.mla, cfg.n_heads
+    qn, qr = _mla_q(p, x, cfg)
+    latent, krope = _mla_latent(p, x, cfg)
+    pos = torch.arange(S, device=x.device)
+    qr = apply_rope(qr, pos, cfg.rope_theta)
+    krope = apply_rope(krope[:, :, None, :], pos, cfg.rope_theta)
+    kn = (latent @ p["wk_b"]).reshape(B, S, H, m.qk_nope_dim)
+    v = (latent @ p["wv_b"]).reshape(B, S, H, m.v_dim)
+    q = torch.cat([qn, qr], dim=-1)
+    k = torch.cat([kn, krope.expand(B, S, H, m.qk_rope_dim)], dim=-1)
+    o = flash_attention(q, k, v, causal=True, cq=cfg.attn_chunk,
+                        ck=cfg.attn_chunk)
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def mla_cache_entries(p, x: torch.Tensor, cfg):
+    """The latent cache of a prefill: {"latent" (B, S, lora), "rope"
+    (B, S, rope) rotated at positions 0..S-1}."""
+    latent, krope = _mla_latent(p, x, cfg)
+    pos = torch.arange(x.shape[1], device=x.device)
+    krope = apply_rope(krope[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
+    return {"latent": latent, "rope": krope}
+
+
+def mla_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
+               cfg, ctx: DistCtx = None, *, lengths: torch.Tensor):
+    """Absorbed-form one-token MLA decode. x1: (B, d); ``cache_layer``
+    {"latent": (B, S, lora), "rope": (B, S, rope)}; the new token's
+    latent and rotated rope key go to row ``lengths[b]``, in place.
+    The query's nope part is absorbed into ``wk_b`` (q_abs = qn . wk_b),
+    scored against the latents plus the rope term, softmaxed over the
+    rows <= lengths[b] (-1e30 elsewhere), the context taken in the
+    latent space and up-projected by ``wv_b``: all in f32, as the
+    reference. Returns (out (B, d), cache_layer)."""
+    B, _ = x1.shape
+    m, H = cfg.mla, cfg.n_heads
+    qn, qr = _mla_q(p, x1[:, None, :], cfg)
+    latent1, krope1 = _mla_latent(p, x1[:, None, :], cfg)
+    pos = lengths.long()
+    qr = apply_rope(qr, pos[:, None], cfg.rope_theta)[:, 0]     # (B,H,rope)
+    krope1 = apply_rope(krope1[:, :, None, :], pos[:, None],
+                        cfg.rope_theta)[:, 0, 0]                # (B,rope)
+    qn = qn[:, 0]                                               # (B,H,nope)
+    bidx = torch.arange(B, device=x1.device)
+    LC, RC = cache_layer["latent"], cache_layer["rope"]
+    LC[bidx, pos] = latent1[:, 0]
+    RC[bidx, pos] = krope1
+    valid = (torch.arange(LC.shape[1], device=x1.device)[None, :]
+             <= pos[:, None])
+    wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_dim)
+    wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_dim)
+    q_abs = torch.einsum("bhn,lhn->bhl", qn.float(), wk_b.float())
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    LCf = LC.float()
+    s = (torch.einsum("bhl,bsl->bhs", q_abs, LCf)
+         + torch.einsum("bhr,bsr->bhs", qr.float(), RC.float())) * scale
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, MASKED_SCORE))
+    pr = torch.softmax(s, dim=-1)
+    ctx_l = torch.einsum("bhs,bsl->bhl", pr, LCf)
+    o = torch.einsum("bhl,lhv->bhv", ctx_l, wv_b.float())
+    o = o.reshape(B, -1).to(x1.dtype)
+    return o @ p["wo"], {"latent": LC, "rope": RC}

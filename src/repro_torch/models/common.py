@@ -3,6 +3,7 @@
 embeddings, and the distribution context every layer takes."""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence
 
@@ -32,15 +33,33 @@ def tree_map(fn: Callable, *trees):
     return fn(*trees)
 
 
+# A tensor of more elements than DRAW_WHOLE is drawn in pieces of at
+# most DRAW_PIECE elements along its first axis (DeepSeek-V3's stacked
+# experts, 3.8e9 elements, would take 15 GB in f32 at once).
+DRAW_WHOLE, DRAW_PIECE = 1 << 30, 1 << 28
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
                scale: float = 0.02) -> torch.Tensor:
     """Normal(0, 1) * ``scale`` drawn in f32 from ``gen`` on the
     generator's device, stored in ``dtype``: a CPU generator draws on
     the CPU, a CUDA generator on the card (the full-width models have
-    billions of parameters)."""
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * scale).to(dtype)
+    billions of parameters). Above ``DRAW_WHOLE`` elements the draw
+    goes piece by piece into the stored tensor."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if n <= DRAW_WHOLE:
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return (w * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, DRAW_PIECE // (n // shape[0]))
+    for lo in range(0, shape[0], rows):
+        piece = out[lo:lo + rows]
+        w = torch.randn(piece.shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        piece.copy_((w * scale).to(dtype))
+    return out
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,

@@ -1,32 +1,41 @@
 """Model assembly and the serving API (counterpart of
 ``repro/models/model.py``): ``build_model(cfg)`` -> ``Model`` with
 ``init``, ``loss``, ``prefill``, ``init_cache`` and ``serve_step``, for
-the dense and moe families with GQA attention.
+the dense and moe families with GQA or MLA attention, and DeepSeek-V3's
+multi-token-prediction (MTP) head in the loss.
 
 Parameters are the reference's pytree as nested dicts of tensors
 (``embed``, ``final_norm``, ``segments`` (a tuple, one dict of stacked
-layers per segment) and ``unembed`` unless the embeddings are tied), so
-``convert.model_params`` carries the JAX package's parameters across
-one to one. The decode cache is ``{"len": (B,) int32, "segments": [...]}``
-with one dict of layer-stacked k / v (and ring ``pos``) per segment;
-``serve_step`` updates it in place and returns it with ``len + 1``.
+layers per segment), ``unembed`` unless the embeddings are tied, and
+with ``cfg.mtp`` ``mtp_proj``, ``mtp_block`` (one layer, not stacked)
+and ``mtp_norm``), so ``convert.model_params`` carries the JAX package's
+parameters across one to one. The decode cache is ``{"len": (B,) int32,
+"segments": [...]}`` with one dict of layer-stacked k / v (and ring
+``pos``), or for MLA latent / rope, per segment; ``serve_step`` updates
+it in place and returns it with ``len + 1``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models.common import (DistCtx, apply_norm, cross_entropy,
                                        dense_init, init_norm)
-from repro_torch.models.transformer import (init_segment, plan_segments,
-                                            run_segment, run_segment_decode)
+from repro_torch.models.transformer import (SegmentSpec, block_seq,
+                                            init_layer, init_segment,
+                                            plan_segments, run_segment,
+                                            run_segment_decode)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 PORTED_FAMILIES = ("dense", "moe")
+
+# The MTP block: one attn_ffn layer with a dense FFN.
+_MTP_SPEC = SegmentSpec("attn_ffn", 1)
 
 
 class Model:
@@ -35,14 +44,10 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet "
                 f"(ROADMAP item 9); the port serves {list(PORTED_FAMILIES)}")
-        if cfg.attn != "gqa":
+        if cfg.attn not in ("gqa", "mla"):
             raise NotImplementedError(
                 f"{cfg.name}: attention {cfg.attn!r} is not ported yet "
-                f"(ROADMAP item 9); the port has GQA")
-        if cfg.mtp:
-            raise NotImplementedError(
-                f"{cfg.name}: the multi-token-prediction head is not ported "
-                f"yet (ROADMAP item 9)")
+                f"(ROADMAP item 9); the port has GQA and MLA")
         self.cfg = cfg
         self.segments = plan_segments(cfg)
         self.dtype = _DTYPES[cfg.dtype]
@@ -63,6 +68,12 @@ class Model:
         if not cfg.tie_embeddings:
             p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                       dtype)
+        if cfg.mtp:
+            p["mtp_proj"] = dense_init(gen, (2 * cfg.d_model, cfg.d_model),
+                                       dtype)
+            p["mtp_block"] = init_layer(gen, cfg, _MTP_SPEC, dtype)
+            p["mtp_norm"] = init_norm(cfg.norm, cfg.d_model, dtype,
+                                      gen.device)
         return p
 
     # ------------------------------------------------------- common bits --
@@ -89,18 +100,50 @@ class Model:
 
     # -------------------------------------------------------------- loss --
     def loss(self, p, batch, ctx: DistCtx = None):
-        """Next-token cross-entropy plus the MoE load-balance loss, for
+        """Next-token cross-entropy plus the MoE load-balance loss, and
+        with ``cfg.mtp`` 0.3 times the MTP head's cross-entropy, for
         training: ``batch["tokens"]`` (B, S) and ``batch["labels"]``
-        (B, S), -1 masked. Returns (total, {"ce", "aux"}), f32 scalars.
-        The reference's ``mtp`` term and the vlm / encdec inputs are
-        refused with the model (ROADMAP item 9)."""
+        (B, S), -1 masked. Returns (total, {"ce", "aux"} and "mtp_ce"
+        with the head), f32 scalars. The vlm / encdec inputs are refused
+        with the model (ROADMAP item 9)."""
         ctx = ctx or DistCtx.local()
         x, n_prefix = self._embed_inputs(p, batch, ctx)
         h, aux, _ = self._backbone(p, x, ctx)
-        logits = self._unembed(p, h[:, n_prefix:], ctx)
+        h_text = h[:, n_prefix:]
+        logits = self._unembed(p, h_text, ctx)
         labels = batch["labels"].long()
         ce = cross_entropy(logits, torch.clamp_min(labels, 0), labels >= 0)
-        return ce + aux, {"ce": ce, "aux": aux}
+        metrics = {"ce": ce, "aux": aux}
+        total = ce + aux
+        if self.cfg.mtp:
+            mtp_ce = self._mtp_loss(p, h_text, batch, ctx)
+            metrics["mtp_ce"] = mtp_ce
+            total = total + 0.3 * mtp_ce
+        return total, metrics
+
+    def _mtp_loss(self, p, h: torch.Tensor, batch, ctx: DistCtx):
+        """DeepSeek-V3's multi-token prediction: one more layer predicts
+        token t+2 from [h_t ; embed(token_{t+1})] (the tokens and labels
+        rolled left by one, the last position masked). With
+        ``cfg.remat`` and gradients on, the layer is recomputed in the
+        backward, as the segments' layers are (the same values)."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"].long(), batch["labels"].long()
+        nxt = p["embed"][torch.roll(tokens, -1, dims=1)]
+        z = torch.cat([h, nxt], dim=-1) @ p["mtp_proj"]
+        if cfg.remat and torch.is_grad_enabled():
+            z, _, _ = torch.utils.checkpoint.checkpoint(
+                block_seq, p["mtp_block"], z, cfg, ctx, _MTP_SPEC,
+                use_reentrant=False)
+        else:
+            z, _, _ = block_seq(p["mtp_block"], z, cfg, ctx, _MTP_SPEC)
+        z = apply_norm(cfg.norm, p["mtp_norm"], z)
+        logits = self._unembed(p, z, ctx)
+        lbl2 = torch.roll(labels, -1, dims=1)
+        S = lbl2.shape[1]
+        mask = (lbl2 >= 0) & (torch.arange(S, device=lbl2.device)
+                              < S - 1)[None, :]
+        return cross_entropy(logits, torch.clamp_min(lbl2, 0), mask)
 
     # ----------------------------------------------------------- prefill --
     def prefill(self, p, batch, ctx: DistCtx = None):
@@ -118,14 +161,18 @@ class Model:
         whose room exceeds its window gets a ring of W slots holding the
         last W positions at ring indices 0..W-1, as the reference lays
         it out (``repro/models/model.py`` ``_pack_cache``); otherwise the
-        full cache is padded to the room."""
+        full cache (or MLA's latent cache) is padded to the room."""
         cfg = self.cfg
-        dev = caches[0]["k"].device
+        dev = next(iter(caches[0].values())).device
         out = {"len": torch.full((B,), S, dtype=torch.int32, device=dev),
                "segments": []}
         room = S + self.decode_room
         for cache in caches:
-            if cfg.sliding_window and room > cfg.sliding_window:
+            if cfg.attn == "mla":
+                entry = {name: torch.nn.functional.pad(
+                    cache[name], (0, 0, 0, room - S))
+                    for name in ("latent", "rope")}
+            elif cfg.sliding_window and room > cfg.sliding_window:
                 W = cfg.sliding_window
                 k = cache["k"][:, :, -W:].contiguous()
                 v = cache["v"][:, :, -W:].contiguous()
@@ -150,7 +197,10 @@ class Model:
                "segments": []}
         for spec in self.segments:
             L = spec.n_layers
-            if cfg.sliding_window and room > cfg.sliding_window:
+            if cfg.attn == "mla":
+                c = A.init_mla_cache(B, room, cfg.mla.kv_lora_rank,
+                                     cfg.mla.qk_rope_dim, dtype, L, device)
+            elif cfg.sliding_window and room > cfg.sliding_window:
                 c = A.init_ring_cache(B, cfg.sliding_window, cfg.n_kv_heads,
                                       cfg.hd, dtype, L, device)
             else:

@@ -1,13 +1,14 @@
 """Layer blocks and segments (counterpart of
-``repro/models/transformer.py``), for the ``attn_ffn`` kind with GQA
-attention and a dense FFN or a mixture of experts: the dense and moe
-families.
+``repro/models/transformer.py``), for the ``attn_ffn`` kind with GQA or
+MLA attention and a dense FFN or a mixture of experts: the dense and
+moe families (DeepSeek-V3's leading dense layers and its MoE layers
+alike).
 
 A model is a sequence of homogeneous segments whose per-layer
 parameters are stacked on a leading layer axis, as in the reference;
 where the reference scans a segment with ``lax.scan``, the port loops
-over the layers in Python. RWKV, Mamba, MLA attention and decoder
-cross-attention are not ported yet (ROADMAP item 9).
+over the layers in Python. RWKV, Mamba and decoder cross-attention are
+not ported yet (ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from repro_torch.models.common import (DistCtx, apply_norm, init_norm,
                                        tree_map)
 
 _NOT_PORTED = ("is not ported yet (ROADMAP item 9): the port runs the "
-               "attn_ffn kind with GQA attention, dense or MoE")
+               "attn_ffn kind with GQA or MLA attention, dense or MoE")
 
 
 @dataclass(frozen=True)
@@ -55,7 +56,7 @@ def plan_segments(cfg) -> List[SegmentSpec]:
 def _check(cfg, spec: SegmentSpec) -> None:
     if spec.kind != "attn_ffn":
         raise NotImplementedError(f"layer kind {spec.kind!r} {_NOT_PORTED}")
-    if cfg.attn != "gqa":
+    if cfg.attn not in ("gqa", "mla"):
         raise NotImplementedError(f"attention {cfg.attn!r} {_NOT_PORTED}")
     if spec.cross:
         raise NotImplementedError(f"cross-attention {_NOT_PORTED}")
@@ -66,7 +67,8 @@ def init_layer(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
     d = cfg.d_model
     dev = gen.device
     p = {"ln1": init_norm(cfg.norm, d, dtype, dev),
-         "attn": A.init_gqa(gen, cfg, dtype),
+         "attn": (A.init_mla(gen, cfg, dtype) if cfg.attn == "mla"
+                  else A.init_gqa(gen, cfg, dtype)),
          "ln2": init_norm(cfg.norm, d, dtype, dev)}
     if spec.moe:
         p["moe"] = MoE.init_moe(gen, cfg, dtype)
@@ -84,7 +86,11 @@ def layer_params(seg_params, i: int):
 def init_segment(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
     """The segment's layers, each drawn on its own and stacked on a
     leading layer axis; the stack is allocated once and filled layer by
-    layer, so a full-width segment never holds two copies."""
+    layer, so a full-width segment never holds two copies. A segment of
+    one layer is that layer's tensors with a leading axis of 1 (views)."""
+    if spec.n_layers == 1:
+        return tree_map(lambda a: a.unsqueeze(0),
+                        init_layer(gen, cfg, spec, dtype))
     stacked = None
     for i in range(spec.n_layers):
         lp = init_layer(gen, cfg, spec, dtype)
@@ -100,17 +106,23 @@ def init_segment(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
 
 def block_seq(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec, *,
               want_cache: bool = False):
-    """One layer over a full sequence. Returns (x, aux, cache), cache =
-    {"k", "v"} (rotated keys, values) when ``want_cache``."""
+    """One layer over a full sequence. Returns (x, aux, cache), cache
+    (when ``want_cache``) {"k", "v"} (rotated keys, values) for GQA,
+    {"latent", "rope"} (the latent and the rotated rope key) for MLA."""
     _check(cfg, spec)
     cache = None
     h = apply_norm(cfg.norm, lp["ln1"], x)
-    o = A.gqa_self(lp["attn"], h, cfg, ctx, causal=spec.causal)
-    if want_cache:
-        _, k, v = A._qkv(lp["attn"], h, cfg)
-        pos = torch.arange(h.shape[1], device=h.device)
-        k = A.apply_rope(k, pos, cfg.rope_theta)
-        cache = {"k": k, "v": v}
+    if cfg.attn == "mla":
+        o = A.mla_self(lp["attn"], h, cfg, ctx)
+        if want_cache:
+            cache = A.mla_cache_entries(lp["attn"], h, cfg)
+    else:
+        o = A.gqa_self(lp["attn"], h, cfg, ctx, causal=spec.causal)
+        if want_cache:
+            _, k, v = A._qkv(lp["attn"], h, cfg)
+            pos = torch.arange(h.shape[1], device=h.device)
+            k = A.apply_rope(k, pos, cfg.rope_theta)
+            cache = {"k": k, "v": v}
     x = x + o
     h = apply_norm(cfg.norm, lp["ln2"], x)
     if spec.moe:
@@ -125,9 +137,13 @@ def unbind_layers(seg_params, n_layers: int) -> List[dict]:
     """The segment's layers as a list of parameter dicts, from one
     ``torch.unbind`` per leaf: in a backward the unbind stacks the
     layers' gradients once, where a slice per layer (``a[i]``) would
-    build a zero tensor the size of the whole stack for each layer."""
+    build a zero tensor the size of the whole stack for each layer. A
+    segment of one layer is squeezed instead, whose gradient is a view:
+    no copy of the layer's gradients (23 GB for a DeepSeek-V3 MoE
+    layer)."""
     unbound = []
-    tree_map(lambda a: unbound.append(a.unbind(0)), seg_params)
+    tree_map(lambda a: unbound.append(a.unbind(0) if n_layers > 1
+                                      else (a.squeeze(0),)), seg_params)
 
     def layer(i):
         parts = iter(unbound)
@@ -169,7 +185,8 @@ def block_decode(lp, x1: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec,
     segment's stacked cache), updated in place. Returns (x1, cache)."""
     _check(cfg, spec)
     h = apply_norm(cfg.norm, lp["ln1"], x1)
-    o, nc = A.gqa_decode(lp["attn"], h, cache, cfg, ctx, lengths=lengths)
+    decode = A.mla_decode if cfg.attn == "mla" else A.gqa_decode
+    o, nc = decode(lp["attn"], h, cache, cfg, ctx, lengths=lengths)
     x1 = x1 + o
     h = apply_norm(cfg.norm, lp["ln2"], x1)
     if spec.moe:

@@ -13,9 +13,13 @@ computes another formula and is not used.
 Unlike the reference, ``update`` and ``clip_by_global_norm`` write the
 new values into the tensors they are given and return them: at full
 width a second copy of the parameters and the moments would not fit on
-the card. Elementwise updates run over flat slices of at most
-``CHUNK`` elements, which bounds their f32 temporaries and leaves every
-element's arithmetic as it is.
+the card. Every update, and the clip's norm, runs over slices of at
+most ``CHUNK`` elements, which bounds their f32 temporaries and leaves
+every element's arithmetic as it is: adamw and sgd over flat slices;
+adafactor over whole matrices or blocks of rows (its statistics and its
+update's RMS are sums over slices, taken in a fixed order, then the
+update applied slice by slice); the clip's norm a sum of per-slice sums
+in order.
 """
 from __future__ import annotations
 
@@ -56,12 +60,18 @@ def _slices(*tensors) -> Iterator[List[torch.Tensor]]:
         yield [f[lo:lo + CHUNK] for f in flats]
 
 
+def _sum_of_squares(g: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of g's squares: each slice's sum, added in order."""
+    return sum(torch.sum(piece.float() ** 2) for (piece,) in _slices(g))
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """Scale every gradient by ``min(1, max_norm / max(gn, 1e-9))``, in
     f32 and cast back, in place; gn is the global norm of the leaves'
-    f32 squares, added in sorted-key order. Returns (grads, gn)."""
+    f32 squares (each leaf's summed slice by slice), added in sorted-key
+    order. Returns (grads, gn)."""
     gs = leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in gs))
+    gn = torch.sqrt(sum(_sum_of_squares(g) for g in gs))
     scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0)
     for g in gs:
         for (piece,) in _slices(g):
@@ -120,11 +130,30 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95,
     return Optimizer(init, update)
 
 
+def _row_blocks(p: torch.Tensor):
+    """A factored leaf (..., R, C) as its slices for adafactor: (l0, l1,
+    r0, r1) views rows r0:r1 of matrices l0:l1 of the (L, R, C) view.
+    Whole matrices, as many a slice as fit in ``CHUNK`` elements; a
+    matrix larger than that in blocks of rows."""
+    R, C = p.shape[-2:]
+    L = p.numel() // (R * C)
+    if R * C <= CHUNK:
+        n = max(1, CHUNK // (R * C))
+        return [(l0, min(L, l0 + n), 0, R) for l0 in range(0, L, n)]
+    rows = max(1, CHUNK // C)
+    return [(l, l + 1, r0, min(R, r0 + rows))
+            for l in range(L) for r0 in range(0, R, rows)]
+
+
 def adafactor(lr: Schedule, eps: float = 1e-30, decay: float = 0.8,
               clip_threshold: float = 1.0,
               weight_decay: float = 0.0) -> Optimizer:
     """Shazeer & Stern (2018) factored second moment, no first moment.
-    Each leaf is updated whole: its update's RMS is over all of it."""
+    The reference's per-leaf formula (its update's RMS over the whole
+    leaf), computed in passes over slices (:func:`_row_blocks` of a
+    factored leaf, flat slices of a vector): the row and column means of
+    g^2 + eps and the new r and c; then the sum of u^2 over the slices
+    in order, for the RMS; then u applied slice by slice."""
     def _factored(p):
         return p.dim() >= 2
 
@@ -140,32 +169,73 @@ def adafactor(lr: Schedule, eps: float = 1e-30, decay: float = 0.8,
                                      device=p.device)}
         return {"f": map_sorted(per, params)}
 
+    def factored(p, g, s, beta):
+        """(the slices' (p, g, 1 / sqrt(vhat)) getter, count) of a
+        factored leaf, after the new r and c are written into s."""
+        R, C = p.shape[-2:]
+        L = p.numel() // (R * C)
+        pv, gv = p.view(L, R, C), g.view(L, R, C)
+        r_new = torch.empty((L, R), dtype=torch.float32, device=p.device)
+        csum = torch.zeros((L, C), dtype=torch.float32, device=p.device)
+        blocks = _row_blocks(p)
+        for l0, l1, r0, r1 in blocks:
+            gf = gv[l0:l1, r0:r1].float()
+            g2 = gf * gf + eps
+            r_new[l0:l1, r0:r1] = torch.mean(g2, dim=-1)
+            if r1 - r0 == R:
+                csum[l0:l1] = torch.sum(g2, dim=-2)
+            else:
+                csum[l0:l1] += torch.sum(g2, dim=-2)
+        sr, sc = s["r"].view(L, R), s["c"].view(L, C)
+        r = beta * sr + (1 - beta) * r_new
+        c = beta * sc + (1 - beta) * (csum / R)
+        sr.copy_(r)
+        sc.copy_(c)
+        rc = r / torch.clamp_min(torch.mean(r, dim=-1, keepdim=True), eps)
+
+        def piece(b):
+            l0, l1, r0, r1 = b
+            vhat = rc[l0:l1, r0:r1, None] * c[l0:l1, None, :]
+            return (pv[l0:l1, r0:r1], gv[l0:l1, r0:r1].float(),
+                    torch.rsqrt(torch.clamp_min(vhat, eps)))
+        return blocks, piece
+
+    def unfactored(p, g, s, beta):
+        """As :func:`factored`, for a vector: v updated in place."""
+        blocks = list(_slices(p, g, s["v"]))
+        for _, gg, vv in blocks:
+            gf = gg.float()
+            vv.copy_(beta * vv + (1 - beta) * (gf * gf + eps))
+
+        def piece(b):
+            pp, gg, vv = b
+            return pp, gg.float(), torch.rsqrt(torch.clamp_min(vv, eps))
+        return blocks, piece
+
     def update(grads, state, params, step):
         lrt = _lr_at(lr, step)
         t = torch.as_tensor(step).float() + 1.0
         beta = 1.0 - t ** (-decay)
         for p, g, s in zip(leaves(params), leaves(grads),
                            _states(params, state["f"])):
-            gf = g.float()
-            g2 = gf * gf + eps
-            if _factored(p):
-                r = beta * s["r"] + (1 - beta) * torch.mean(g2, dim=-1)
-                c = beta * s["c"] + (1 - beta) * torch.mean(g2, dim=-2)
-                rc = r / torch.clamp_min(torch.mean(r, dim=-1, keepdim=True),
-                                         eps)
-                vhat = rc[..., None] * c[..., None, :]
-                u = gf * torch.rsqrt(torch.clamp_min(vhat, eps))
-                s["r"].copy_(r)
-                s["c"].copy_(c)
-            else:
-                v = beta * s["v"] + (1 - beta) * g2
-                u = gf * torch.rsqrt(torch.clamp_min(v, eps))
-                s["v"].copy_(v)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
-            u = u / torch.clamp_min(rms / clip_threshold, 1.0)
-            if weight_decay:
-                u = u + weight_decay * p.float()
-            p.copy_((p.float() - lrt * u).to(p.dtype))
+            if not (p.is_contiguous() and g.is_contiguous()):
+                raise ValueError("optimizer: the parameters and gradients "
+                                 "must be contiguous")
+            blocks, piece = (factored if _factored(p) else unfactored)(
+                p, g, s, beta)
+            sq = 0
+            for b in blocks:
+                _, gf, inv = piece(b)
+                u = gf * inv
+                sq = sq + torch.sum(u * u)
+            rms = torch.sqrt(sq / p.numel() + 1e-30)
+            div = torch.clamp_min(rms / clip_threshold, 1.0)
+            for b in blocks:
+                pp, gf, inv = piece(b)
+                u = gf * inv / div
+                if weight_decay:
+                    u = u + weight_decay * pp.float()
+                pp.copy_((pp.float() - lrt * u).to(pp.dtype))
         return params, state
 
     return Optimizer(init, update)

@@ -1591,7 +1591,10 @@ def test_gpu_encoded_v6_save_restore_bitwise(cuda_device, tmp_path):
 # f32's).
 BWD_SHAPES = [(4096, 4096, 8, 2, 1.25), (64, 128, 4, 1, 1.0),
               (100, 12, 8, 2, 0.5), (70, 36, 6, 4, 0.75),
-              (33, 13, 4, 2, 0.6)]
+              (33, 13, 4, 2, 0.6),
+              # DeepSeek-V3's routing, top-8 of 256 experts: C = 3, and
+              # C = 1 with most entries dropped.
+              (64, 128, 256, 8, 1.25), (100, 72, 256, 8, 0.3)]
 
 
 def moe_routing(device, T, d, E, top_k, cf, dtype, seed=0):
@@ -1692,6 +1695,173 @@ def test_gpu_moe_backward_matches_plain(cuda_device, T, d, E, top_k, cf,
         assert bool(((got.double() - exact_dg).abs()
                      <= 1e-6 * terms + 1e-30).all())
     assert bool((dg[~keep] == 0).all())
+
+
+# (T, d, capacity factor) of DeepSeek-V3's forward routing at top-8 of
+# 256 experts on the card: its decode step (4 tokens of 7168, C = 1), a
+# small prefill (C = 3), drops at C = 1, and d = 72 (bf16's vector path
+# with a ragged piece count).
+TOP8_SHAPES = [(4, 7168, 1.25), (64, 128, 1.25), (200, 72, 0.2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,d,cf", TOP8_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_moe_top8_of_256_forward_matches_plain(cuda_device, T, d, cf,
+                                                   dtype):
+    """The layer's forward kernels at DeepSeek-V3's routing (top-8 of
+    256 experts, the model's own _route and _plan): moe_dispatch bit for
+    bit with its plain version; moe_combine bit for bit with the
+    sequential sum (choices in order) and within 1e-6 of the terms'
+    magnitudes of the plain version (torch.sum over the 8 choices);
+    one launch each."""
+    x, plan, gates, C, m = moe_routing(cuda_device, T, d, 256, 8, cf, dtype)
+    src, valid, flat_e, pos_c, keep, _ = plan
+    slot = (flat_e * C + pos_c).to(torch.int32)
+    w = torch.where(keep, gates.reshape(-1), 0.0).float()
+    ybuf = torch.randn(256 * C, d, generator=torch.Generator().manual_seed(
+        T)).to(cuda_device, dtype)
+    ops.reset_launch_counts()
+    buf = ops.moe_dispatch(x, src, valid)
+    y = ops.moe_combine(ybuf, slot, w, 8)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["moe_dispatch"], counts["moe_combine"]) == (1, 1)
+    assert torch.equal(buf, ref.moe_dispatch(x, src, valid))
+    assert_same_bits(y, sequential_combine(ybuf, slot, w, 8))
+    terms = sequential_combine(ybuf.abs(), slot, w.abs(), 8)
+    assert bool(((y - ref.moe_combine(ybuf, slot, w, 8)).abs()
+                 <= 1e-6 * terms + 1e-30).all())
+    if cf < 1:
+        assert not bool(keep.all())
+
+
+def _reduced_deepseek(dtype="float32", **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config("deepseek-v3-671b", reduced=True).replace(dtype=dtype,
+                                                              **kw)
+    model = build_model(cfg)
+    return cfg, model, model.init(torch.Generator().manual_seed(2))
+
+
+@pytest.mark.gpu
+def test_gpu_mla_generate_matches_cpu(cuda_device):
+    """Reduced DeepSeek-V3 (f32; MLA prefill, the absorbed latent decode,
+    a dense and a MoE layer) through launch.serve.generate on the card
+    and on the CPU from the same parameters: 48-token prompts, 8 steps;
+    tokens exact, logits within 1e-4 of their largest magnitude, the
+    latent cache within 1e-5; the MoE layer launches each routing kernel
+    once in the prefill and once a step."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.common import tree_map
+    cfg, model, params = _reduced_deepseek()
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 48)), dtype=torch.int32)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ops.reset_launch_counts()
+        stats = {}
+        out = generate(model, tree_map(lambda a: a.to(dev), params),
+                       {"tokens": toks}, steps=8, stats=stats)
+        if dev.type == "cuda":
+            counts = ops.launch_counts()
+            assert counts["moe_dispatch"] == counts["moe_combine"] == 9
+        runs.append((out.cpu(), torch.stack([lg.float().cpu()
+                                             for lg in stats["logits"]]),
+                     tree_map(lambda a: a.cpu(), stats["cache"])))
+    (t1, l1, c1), (t0, l0, c0) = runs
+    assert torch.equal(t1, t0)
+    assert float((l1 - l0).abs().max()) <= 1e-4 * float(l0.abs().max())
+    for s1, s0 in zip(c1["segments"], c0["segments"]):
+        assert sorted(s1) == ["latent", "rope"]
+        for k in s1:
+            assert float((s1[k] - s0[k]).abs().max()) <= 1e-5 * float(
+                s0[k].abs().max())
+
+
+@pytest.mark.gpu
+def test_gpu_mla_loss_and_grads_match_cpu(cuda_device):
+    """Reduced DeepSeek-V3 with 16 experts at top-8 (f32): the loss
+    (ce, aux, mtp_ce) within 1e-5 relative and every gradient within
+    1e-4 of its leaf's largest magnitude against the CPU; the MoE
+    layer's backward kernels launch once."""
+    import dataclasses
+
+    from repro_torch.launch.train import _value_and_grad
+    from repro_torch.models.common import tree_map
+    from repro_torch.utils.tree import leaves
+    from repro_torch.configs import get_config
+    moe = dataclasses.replace(get_config("deepseek-v3-671b",
+                                         reduced=True).moe,
+                              n_experts=16, top_k=8)
+    cfg, model, params = _reduced_deepseek(moe=moe)
+    rng = np.random.default_rng(4)
+    toks = T(rng.integers(0, cfg.vocab_size, size=(2, 40)).astype(np.int32))
+    labels = T(rng.integers(0, cfg.vocab_size, size=(2, 40)).astype(
+        np.int32))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ops.reset_launch_counts()
+        loss, met, g = _value_and_grad(model, None,
+                                       tree_map(lambda a: a.to(dev), params),
+                                       {"tokens": toks.to(dev),
+                                        "labels": labels.to(dev)})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["moe_combine_bwd"] == 1
+        outs.append((loss, met, g))
+    (l1, m1, g1), (l0, m0, g0) = outs
+    assert sorted(m1) == ["aux", "ce", "mtp_ce"]
+    for a, b in [(l1, l0)] + [(m1[k], m0[k]) for k in m0]:
+        assert abs(float(a) - float(b)) <= 1e-5 * abs(float(b))
+    for a, b in zip(leaves(g1), leaves(g0)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max()) + 1e-30
+
+
+def _sliced_trees(seed, device):
+    """Parameters and a gradient whose leaves span many slices of a
+    CHUNK of 1000: a stack of matrices, a tall matrix, a vector."""
+    g = torch.Generator().manual_seed(seed)
+
+    def tree_of(scale):
+        return {"stack": torch.randn(3, 300, 70, generator=g) * scale,
+                "tall": torch.randn(257, 129, generator=g) * scale,
+                "vec": torch.randn(5000, generator=g) * scale}
+    return ({k: v.to(device) for k, v in tree_of(1.0).items()},
+            [{k: v.to(device) for k, v in tree_of(0.3).items()}
+             for _ in range(3)])
+
+
+@pytest.mark.gpu
+def test_gpu_sliced_adafactor_and_clip_match_cpu(cuda_device, monkeypatch):
+    """adafactor and clip_by_global_norm over slices of 1000 elements
+    (matrices in row blocks, the stack matrix by matrix) on the card
+    against the CPU: the clip's norm and the clipped gradients within
+    1e-6 relative; 3 adafactor updates, parameters and the factored
+    state within 1e-6 of each leaf's largest magnitude."""
+    from repro_torch import optim
+    from repro_torch.utils.tree import leaves
+    monkeypatch.setattr(optim.optimizers, "CHUNK", 1000)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        params, grads = _sliced_trees(5, dev)
+        clipped, gn = optim.clip_by_global_norm(
+            {k: v.clone() for k, v in grads[0].items()}, 0.5)
+        opt = optim.build_optimizer("adafactor", 0.05, weight_decay=0.1)
+        state = opt.init(params)
+        for i, g in enumerate(grads):
+            params, state = opt.update(
+                g, state, params, torch.tensor(i, dtype=torch.int32,
+                                               device=dev))
+        runs.append((float(gn), [a.cpu() for a in leaves(clipped)],
+                     [a.cpu() for a in leaves(params)],
+                     [a.cpu() for a in leaves(state)]))
+    (n1, c1, p1, s1), (n0, c0, p0, s0) = runs
+    assert abs(n1 - n0) <= 1e-6 * n0
+    for a, b in zip(c1 + p1 + s1, c0 + p0 + s0):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
 
 
 def _train_states(model, device, seed=0):
