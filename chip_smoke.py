@@ -162,6 +162,22 @@ with the MTP head, remat and adafactor at microbatch 1, 1 x 4096 tokens
 a step (s a step, loss, ce, mtp_ce, grad norm, peak memory, a profile,
 the clip and the update timed alone).
 
+Last come the state-carrying legs (configs/rwkv6_7b.py and
+configs/zamba2_1_2b.py at their published widths; no kernel of the port
+is on these paths): reduced RWKV6-7B and Zamba2-1.2B (5 layers in groups
+of 2: three uses of the shared block), f32 on the card against the CPU,
+through generate (prompts of 48 and 50 tokens: the chunked and the scan
+prefill; 4 steps) and 3 adamw steps at microbatch 2 (tokens exact;
+logits, cache leaves, loss, grad norm and weights within 1e-5); then
+each model served at full depth (RWKV's 32 layers, Zamba2's 38 in groups
+of 6 and 2 with the shared block after each), 4 prompts of 4096 tokens
+and 32 greedy steps (prefill s, decode ms a step, tokens/s, peak memory,
+the bounds) with a profile of a prefill and of 8 steps that splits the
+device time into the chunk loop, the step scan, the shared block's
+attention, GEMMs and the rest; and trained with the configs' adamw,
+remat and microbatch 2 on 4 x 4096 tokens a step (Zamba2 at its 38
+layers, RWKV cut to SMT_RWKV_LAYERS), with a profiled step.
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -365,6 +381,38 @@ DST_LAYERS, DST_DENSE, DST_BATCH, DST_SEQ, DST_WARM, DST_STEPS, DST_LR = (
 # generate (2 prompts of 48 tokens, DSR_DECODE steps), then DSR_TRAIN
 # adafactor steps at microbatch 2 on batches of 4 x 32 tokens.
 DSR_DECODE, DSR_TRAIN = 4, 3
+# The state-carrying legs: RWKV6-7B (configs/rwkv6_7b.py,
+# arXiv:2404.05892: 32 layers, d=4096, 64 heads of 64, d_ff 14336, vocab
+# 65536) and Zamba2-1.2B (configs/zamba2_1_2b.py, arXiv:2411.15242: 38
+# Mamba2 layers in 6 groups of 6 and one of 2, d=2048, d_inner 4096, 64
+# heads of 64 over a state of 64, the shared block's 32 heads of 64 and
+# d_ff 8192, vocab 32000), bf16 at their published widths. Serve: every
+# layer, 4 prompts of 4096 tokens (a multiple of ssm_chunk = 32: the
+# chunked prefill), 32 greedy steps. Train: the configs' adamw, remat
+# and microbatch 2 on 4 x 4096 tokens a step, 1 warm-up step, 2 timed
+# and 1 profiled; Zamba2 at its 38 layers, RWKV cut to SMT_RWKV_LAYERS of
+# 32 (the deepest whose peak stays under about 72 GB: bf16 weights and
+# gradients, a second gradient copy for the microbatch sum and adamw's
+# f32 m and v take 14 bytes a parameter, a layer 202 M of them).
+SM_BATCH, SM_PROMPT, SM_STEPS, SM_SEED = 4, 4096, 32, 0
+SMT_BATCH, SMT_SEQ, SMT_WARM, SMT_STEPS, SMT_LR = 4, 4096, 1, 2, 1e-4
+SMT_RWKV_LAYERS = 20
+# Reference: reduced RWKV6-7B and Zamba2-1.2B (Zamba2 at 5 layers in
+# groups of 2: two groups and a remainder, three uses of the shared
+# block), f32 on the card against the CPU: generate over 2 prompts of
+# each of SMR_PROMPTS tokens (48: the chunked prefill, 50: the scan),
+# SMR_DECODE steps; then SMR_TRAIN adamw steps (lr 1e-3, eps 1e-4) at
+# microbatch 2 on batches of 4 x 32 tokens.
+SMR_PROMPTS, SMR_DECODE, SMR_TRAIN = (48, 50), 4, 3
+SMR_CONFIGS = {"rwkv6-7b": {},
+               "zamba2-1.2b": dict(n_layers=5, hybrid_attn_every=2)}
+# The record_function ranges of the recurrences (models/rwkv.py,
+# models/mamba.py) and of the attention (models/attention.py) whose
+# device time the state legs' profiles report.
+STATE_LEGS = {"rwkv6-7b": "rwkv", "zamba2-1.2b": "zamba2"}
+STATE_RANGES = {"rwkv6-7b": ("rwkv6_chunked", "rwkv6_scan"),
+                "zamba2-1.2b": ("ssd_chunked", "ssd_scan",
+                                "flash_attention", "decode_attention")}
 
 
 class SmokeFailure(RuntimeError):
@@ -4777,6 +4825,416 @@ def deepseek_legs(device, rounds: int):
     return serve_counts, train_counts
 
 
+def small_state_agreement(device, name):
+    """Reduced ``name`` (f32; SMR_CONFIGS's depth) on ``device`` and on
+    the CPU from the same parameters: greedy generate over 2 prompts of
+    each of SMR_PROMPTS tokens and SMR_DECODE steps (tokens exact; logits
+    and every cache leaf, states and shared-block caches, within 1e-5 of
+    their largest magnitude), then SMR_TRAIN steps of make_train_step
+    with adamw (lr 1e-3, eps 1e-4) at microbatch 2 on batches of 4 x 32
+    tokens from one state (loss and grad norm within 1e-5 relative,
+    parameters within 1e-5 of a leaf's largest magnitude + 1e-6).
+    Returns (logit error, loss error, parameter error)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, init_params
+    from repro_torch.launch.train import TrainState, make_train_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import leaves
+    cfg = get_config(name, reduced=True).replace(
+        dtype="float32", microbatch=2, **SMR_CONFIGS[name])
+    model = build_model(cfg)
+    params = init_params(model, seed=0, device="cpu")
+    lerr = 0.0
+    for S in SMR_PROMPTS:
+        toks = torch.as_tensor(np.random.default_rng(S).integers(
+            0, cfg.vocab_size, size=(2, S)), dtype=torch.int32)
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            stats = {}
+            out = generate(model, tree_map(lambda a: a.to(dev), params),
+                           {"tokens": toks}, steps=SMR_DECODE, stats=stats)
+            runs.append((out.cpu(), torch.stack([lg.float().cpu()
+                                                 for lg in stats["logits"]]),
+                         leaves(tree_map(lambda a: a.cpu(), stats["cache"]))))
+        (t1, l1, c1), (t0, l0, c0) = runs
+        require(torch.equal(t1, t0), f"small {name}: tokens differ from the "
+                f"CPU at S={S}")
+        e = float((l1 - l0).abs().max())
+        require(e <= 1e-5 * float(l0.abs().max()),
+                f"small {name}: logits differ from the CPU by {e} at S={S}")
+        lerr = max(lerr, e)
+        require(len(c1) == len(c0) and all(
+            a.shape == b.shape and a.dtype == b.dtype
+            and float((a.float() - b.float()).abs().max())
+            <= 1e-5 * float(b.float().abs().max()) for a, b in zip(c1, c0)),
+            f"small {name}: the cache differs from the CPU at S={S}")
+    opt = build_optimizer(cfg.optimizer, 1e-3, eps=1e-4)
+    step = make_train_step(model, None, opt)
+    states = {dev: TrainState(tree_map(lambda a: a.clone().to(dev), params),
+                              tree_map(lambda a: a.to(dev),
+                                       opt.init(params)),
+                              torch.zeros((), dtype=torch.int32, device=dev))
+              for dev in (device, torch.device("cpu"))}
+    merr = perr = 0.0
+    for b in train_batches(2, cfg.vocab_size, 4, 33, SMR_TRAIN, "cpu"):
+        mets = {}
+        for dev in states:
+            states[dev], mets[dev] = step(
+                states[dev], {k: v.to(dev) for k, v in b.items()})
+        got, want = mets[device], mets[torch.device("cpu")]
+        for key in ("loss", "grad_norm"):
+            e = abs(float(got[key]) - float(want[key]))
+            require(e <= 1e-5 * abs(float(want[key])),
+                    f"small {name}: {key} differs from the CPU by {e}")
+            merr = max(merr, e)
+        for a, w in zip(leaves(states[device].params),
+                        leaves(states[torch.device("cpu")].params)):
+            e = float((a.cpu() - w).abs().max())
+            require(e <= 1e-5 * float(w.abs().max()) + 1e-6,
+                    f"small {name}: parameters differ by {e}")
+            perr = max(perr, e)
+    return lerr, merr, perr
+
+
+def recurrence_f32_flops(cfg, B: int, S: int):
+    """f32 flops of one forward of a state model over B sequences of S
+    tokens (S a multiple of ssm_chunk): (its chunked recurrences, for
+    the hybrid its shared block's causal attention, else 0), the
+    products these forms need, the masked halves of the intra-chunk and
+    causal scores left out."""
+    C, nc = cfg.ssm_chunk, S // cfg.ssm_chunk
+    if cfg.family == "ssm":                    # rwkv6_chunked
+        dh = cfg.ssm.head_dim
+        H = cfg.d_model // dh
+        pairs = C * (C - 1) // 2               # strict lower triangle
+        per_chunk = H * (2 * 2 * pairs * dh + 2 * 2 * C * dh * dh
+                         + 2 * C * dh)
+        return B * nc * per_chunk * cfg.n_layers, 0
+    d_inner = cfg.ssm.expand * cfg.d_model     # ssd_chunked
+    P, N = cfg.ssm.head_dim, cfg.ssm.state_dim
+    H = d_inner // P
+    pairs = C * (C + 1) // 2                   # lower triangle, diagonal in
+    per_chunk = 2 * pairs * N + H * (2 * pairs * P + 2 * 2 * C * P * N)
+    uses = -(-cfg.n_layers // cfg.hybrid_attn_every)
+    attn = B * cfg.n_heads * 2 * 2 * cfg.hd * S * (S + 1) // 2
+    return B * nc * per_chunk * cfg.n_layers, uses * attn
+
+
+def span_profile(label: str, fn, wall_s: float, ranges) -> float:
+    """Runs ``fn`` once under torch.profiler and prints its device time
+    split by the record_function ``ranges`` (the kernels inside each
+    range's device-side spans), then the kernels outside them as bf16
+    GEMMs, f32 GEMMs (TF32 off) and the rest, and the busy share against
+    ``wall_s``, the unprofiled wall of the same work. Returns the device
+    time in ms (0.0 where the profiler recorded none)."""
+    import bisect
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    t_prof = time.perf_counter()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    # The profiler's raw events (name, start, duration): prof.events()
+    # builds a tree of every host and device event, which for a train
+    # step of 10^5 kernels costs far more than the step itself.
+    events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if str(e.device_type()).endswith("CUDA")]
+    spans = sorted((a, b, name) for name, a, b in events if name in ranges)
+    kernels = [ev for ev in events if ev[0] not in ranges]
+    total = sum(b - a for _, a, b in kernels) / 1e6
+    if not total:
+        print(f"profile {label}: the profiler recorded no device time "
+              f"(not measured)", flush=True)
+        return 0.0
+    starts = [a for a, _, _ in spans]
+    inside = {name: [0.0, 0] for name in ranges if name in
+              {n for _, _, n in spans}}
+    gemm = re.compile(r"gemm|xmma|cutlass|wgmma|nvjet", re.I)
+    simt = re.compile(r"sgemm|f32f32|simt", re.I)
+    outside = {"bf16 GEMMs": 0.0, "f32 GEMMs": 0.0, "the rest": 0.0}
+    rest = {}
+    for kname, t0, t1 in kernels:
+        # The ranges do not nest: the last span to start before the
+        # kernel holds it, or none does.
+        i = bisect.bisect_right(starts, t0) - 1
+        hit = spans[i][2] if i >= 0 and t1 <= spans[i][1] else None
+        ms = (t1 - t0) / 1e6
+        if hit is not None:
+            inside[hit][0] += ms
+            inside[hit][1] += 1
+        elif gemm.search(kname):
+            outside["f32 GEMMs" if simt.search(kname)
+                    else "bf16 GEMMs"] += ms
+        else:
+            outside["the rest"] += ms
+            r_ms, n = rest.get(kname, (0.0, 0))
+            rest[kname] = (r_ms + ms, n + 1)
+
+    def pct(v):
+        return f"{v:.2f} ms ({100 * v / total:.1f}%)"
+    parts = [f"{name} {pct(ms)} in {n} kernels"
+             for name, (ms, n) in inside.items()]
+    if not spans:
+        parts.append("no device-side spans of the ranges " + ", ".join(
+            ranges) + " (their split not measured)")
+    parts += [f"{name} outside them {pct(ms)}"
+              for name, ms in outside.items()]
+    def short(name):
+        for noise in ("void ", "at::native::", "(anonymous namespace)::"):
+            name = name.replace(noise, "")
+        return name[:96]
+    tops = "; ".join(f"{short(name)} {ms:.2f} ms x{n}" for name, (ms, n) in
+                     sorted(rest.items(), key=lambda r: -r[1][0])[:5])
+    print(f"profile {label}: device time {total:.2f} ms of "
+          f"{wall_s * 1e3:.1f} ms unprofiled wall (busy "
+          f"{100 * total / (wall_s * 1e3):.1f}%); " + "; ".join(parts)
+          + f" | the rest's top kernels: {tops} | profiled and read in "
+          f"{time.perf_counter() - t_prof:.1f} s", flush=True)
+    return total
+
+
+def state_serve_leg(device, name):
+    """LM serving at ``name``'s published widths and full depth: a
+    warm-up generate of 2 steps, then SM_BATCH prompts of SM_PROMPT
+    tokens and SM_STEPS greedy steps through launch.serve.generate
+    between a reset and a read of the launch counts and of the peak
+    memory; then one more prefill and 8 more steps under the profiler,
+    split by STATE_RANGES. No kernel of the port runs on this path.
+    Returns the counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate, init_params
+    from repro_torch.launch.serve import make_prefill, make_serve_step
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import param_count, tree_bytes
+    t_leg = time.perf_counter()
+    cfg = get_config(name)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model, seed=SM_SEED, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    nparam, pbytes = param_count(params), tree_bytes(params)
+    emb = params["embed"]
+    B, S, V, d = SM_BATCH, SM_PROMPT, cfg.vocab_size, cfg.d_model
+    prompts = torch.as_tensor(np.random.default_rng(SM_SEED).integers(
+        0, V, size=(B, S)), dtype=torch.int32)
+    batch = {"tokens": prompts}
+    generate(model, params, batch, steps=2)              # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    stats = {}
+    toks = generate(model, params, batch, steps=SM_STEPS, stats=stats)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    cache = stats["cache"]
+    require(tuple(toks.shape) == (B, SM_STEPS)
+            and bool(((toks >= 0) & (toks < V)).all()), f"{name} serve: tokens")
+    require(all(tuple(lg.shape) == (B, V) and bool(torch.isfinite(lg).all())
+                for lg in stats["logits"]), f"{name} serve: logits not finite")
+    require(cache["len"].tolist() == [S + SM_STEPS] * B
+            and len(cache["segments"]) == len(model.segments)
+            and all(tuple(next(iter(seg.values())).shape[:2])
+                    == (spec.n_layers, B)
+                    for seg, spec in zip(cache["segments"], model.segments)),
+            f"{name} serve: the state cache")
+    if cfg.family == "hybrid":
+        require(len(cache["shared"]) == len(model.segments)
+                and all(tuple(c["k"].shape) == (1, B, S + SM_STEPS + 1,
+                                                cfg.n_kv_heads, cfg.hd)
+                        for c in cache["shared"]),
+                f"{name} serve: the shared block's caches")
+    require(sum(counts.values()) == 0,
+            f"{name} serve: launches {counts}, expected none")
+    # Bounds. Prefill: the bf16 products of every layer over the B x S
+    # tokens and the unembedding of the last token, plus the recurrences'
+    # (and the shared attention's) f32 products. Decode: every parameter
+    # but the embedding table read once a step, B embedding rows, the
+    # states read and written, the shared caches read.
+    unembed = 0 if cfg.tie_embeddings else params["unembed"].numel()
+    n_mm = nparam - emb.numel() - unembed
+    T = B * S
+    bf16_flops = 2 * n_mm * T + 2 * d * V * B
+    loop_flops, attn_flops = recurrence_f32_flops(cfg, B, S)
+    f32_flops = loop_flops + attn_flops
+    prefill_bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    seg_bytes = tree_bytes(cache["segments"])
+    kv_bytes = tree_bytes(cache.get("shared", []))
+    step_bytes = (pbytes - emb.numel() * emb.element_size()
+                  + B * d * emb.element_size() + 2 * seg_bytes + kv_bytes)
+    step_bound_ms = step_bytes / PEAK_HBM_BYTES * 1e3
+    prefill_s, decode_s = stats["prefill_s"], stats["decode_s"]
+    step_ms = decode_s / SM_STEPS * 1e3
+    groups = (f"{len(model.segments)} groups of "
+              + "+".join(str(s.n_layers) for s in model.segments)
+              + f" Mamba2 layers, the shared block after each"
+              if cfg.family == "hybrid" else f"{cfg.n_layers} layers")
+    print(f"{STATE_LEGS[name]} serve full: {name} at its published widths "
+          f"(d={d}, vocab {V}, bf16), {groups}, {nparam / 1e9:.3f} B "
+          f"parameters ({pbytes / 1e9:.2f} GB) drawn on the card in "
+          f"{init_s:.2f} s; {B} prompts of {S} tokens (ssm_chunk "
+          f"{cfg.ssm_chunk}: the chunked prefill), {SM_STEPS} greedy steps "
+          f"through launch.serve.generate (states {seg_bytes / 1e6:.1f} MB"
+          + (f", shared-block caches {kv_bytes / 1e6:.1f} MB" if kv_bytes
+             else "")
+          + f") | prefill {prefill_s:.3f} s, {T / prefill_s:.1f} tokens/s "
+          f"(bound {prefill_bound_s:.4f} s: {bf16_flops:.3e} bf16 + "
+          f"{f32_flops:.3e} f32 flops, of which the chunk loop "
+          f"{loop_flops:.3e}, bound {loop_flops / PEAK_F32_FLOPS * 1e3:.2f}"
+          f" ms"
+          + (f", and the shared attention {attn_flops:.3e}, bound "
+             f"{attn_flops / PEAK_F32_FLOPS * 1e3:.2f} ms" if attn_flops
+             else "")
+          + f") | decode {decode_s:.3f} s, "
+          f"{B * SM_STEPS / decode_s:.1f} tokens/s, {step_ms:.3f} ms a step "
+          f"(bound {step_bound_ms:.3f} ms, bytes: {step_bytes / 1e9:.3f} GB a "
+          f"step) | peak memory {peak_gb:.2f} GB | logits finite | launches "
+          f"{json.dumps(counts)} | leg wall "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    prefill = make_prefill(model)
+    step = make_serve_step(model)
+    ranges = STATE_RANGES[name]
+    with torch.no_grad():
+        span_profile(f"{name} prefill", lambda: prefill(params, batch),
+                     prefill_s, ranges)
+        tok = toks[:, -1].to(device)
+
+        def eight_steps():
+            # Steps past the generated ones, the states advanced in place
+            # (the shared caches' last 8 rows written again).
+            c = {**cache, "len": cache["len"] - 8}
+            for _ in range(8):
+                _, c = step(params, c, tok)
+        span_profile(f"{name} decode (8 steps)", eight_steps,
+                     decode_s * 8 / SM_STEPS, ranges)
+    del params, cache, stats
+    torch.cuda.empty_cache()
+    return counts
+
+
+def state_train_leg(device, name, layers: int):
+    """Training at ``name``'s published widths cut to ``layers`` layers,
+    with the config's adamw, remat and microbatch 2 (launch.train): a
+    warm-up step, then SMT_STEPS timed steps of SMT_BATCH x SMT_SEQ
+    tokens between a reset and a read of the launch counts and the peak
+    memory, then one more step under the profiler (the recurrences'
+    ranges, the clip's and the optimizer's). Returns the counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.train import TrainState, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import param_count, tree_bytes
+    t_leg = time.perf_counter()
+    full = get_config(name)
+    cfg = full.replace(n_layers=layers)
+    require(cfg.remat and cfg.optimizer == "adamw" and cfg.microbatch == 2,
+            f"{name} train: the config's remat, adamw and microbatch 2")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model, seed=SM_SEED, device=device)
+    opt = build_optimizer(cfg.optimizer, SMT_LR)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=device))
+    sync()
+    init_s = time.perf_counter() - t0
+    nparam, pbytes = param_count(params), tree_bytes(params)
+    sbytes = tree_bytes(state.opt)
+    n_mm = nparam - params["embed"].numel()
+    step = make_train_step(model, None, opt)
+    batches = train_batches(SM_SEED, cfg.vocab_size, SMT_BATCH, SMT_SEQ + 1,
+                            SMT_WARM + SMT_STEPS + 1, device)
+    for b in batches[:SMT_WARM]:
+        state, _ = step(state, b)
+    sync()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    walls, mets = [], []
+    for b in batches[SMT_WARM:SMT_WARM + SMT_STEPS]:
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in met.items()})
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    require(all(np.isfinite(v) for mt in mets for v in mt.values())
+            and all(sorted(mt) == ["grad_norm", "loss"] for mt in mets),
+            f"{name} train: metrics {mets}")
+    require(int(state.step) == SMT_WARM + SMT_STEPS, f"{name} train: step")
+    require(sum(counts.values()) == 0,
+            f"{name} train: launches {counts}, expected none")
+    wall = float(np.median(walls))
+    T = SMT_BATCH * SMT_SEQ
+    # Bound: 6 N T bf16 flops (N: every parameter but the embedding
+    # table; a forward and a backward, remat's second forward not
+    # counted) and three forwards' worth of the recurrences' f32
+    # products (microbatches of SMT_BATCH / 2 sequences).
+    bf16_flops = 6 * n_mm * T
+    f32_flops = 3 * cfg.microbatch * sum(recurrence_f32_flops(
+        cfg, SMT_BATCH // cfg.microbatch, SMT_SEQ))
+    bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+
+    def series(key):
+        return ", ".join(f"{mt[key]:.4f}" for mt in mets)
+    print(f"{STATE_LEGS[name]} train full: {name} at its published widths "
+          f"cut to {layers} of {full.n_layers} layers ({nparam / 1e9:.3f} B "
+          f"parameters, {pbytes / 1e9:.2f} GB, adamw's state "
+          f"{sbytes / 1e9:.2f} GB, drawn on the card in {init_s:.2f} s), "
+          f"remat, microbatch {cfg.microbatch}, adamw lr {SMT_LR}: batches "
+          f"of {SMT_BATCH} x {SMT_SEQ} tokens | steps "
+          + ", ".join(f"{w:.3f}" for w in walls)
+          + f" s ({T / wall:.1f} tokens/s at the median; bound {bound_s:.3f}"
+          f" s a step: 6 N T = {bf16_flops:.3e} bf16 + {f32_flops:.3e} f32 "
+          f"flops) | loss {series('loss')} | grad norm {series('grad_norm')}"
+          f" | peak memory {peak_gb:.2f} GB | launches {json.dumps(counts)} "
+          f"| leg wall {time.perf_counter() - t_leg:.1f} s", flush=True)
+    span_profile(f"{name} train step (the ranges hold the forward and "
+                 f"remat's recompute; their backward is outside them)",
+                 lambda: step(state, batches[-1]), wall,
+                 STATE_RANGES[name] + ("train_step/clip",
+                                       "train_step/optimizer"))
+    del state, params, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def state_legs(device):
+    """The RWKV-6 and Zamba2 legs in order: the reduced references
+    against the CPU, then serving and training at full width. Returns
+    {leg: launch counts}."""
+    t_legs = time.perf_counter()
+    for name in SMR_CONFIGS:
+        t0 = time.perf_counter()
+        lerr, merr, perr = small_state_agreement(device, name)
+        depth = ("5 layers in groups of 2, three uses of the shared block"
+                 if name.startswith("zamba2") else "2 layers")
+        print(f"reference: reduced {name} (f32, {depth}) through generate "
+              f"(2 prompts of each of {SMR_PROMPTS} tokens: chunked and scan "
+              f"prefill, {SMR_DECODE} steps) and {SMR_TRAIN} adamw steps of "
+              f"make_train_step (microbatch 2, 4 x 32 tokens) on the card "
+              f"equals the CPU run (tokens exact; logits and cache leaves "
+              f"within 1e-5 relative, max logit error {lerr:.3e}; loss and "
+              f"grad norm within 1e-5 relative, max error {merr:.3e}; "
+              f"parameters within 1e-5 of a leaf's largest magnitude + 1e-6,"
+              f" max error {perr:.3e}) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    counts = {}
+    for name, layers in (("rwkv6-7b", SMT_RWKV_LAYERS), ("zamba2-1.2b", 38)):
+        key = STATE_LEGS[name]
+        counts[f"{key}_serve"] = state_serve_leg(device, name)
+        counts[f"{key}_train"] = state_train_leg(device, name, layers)
+    print(f"legs: rwkv and zamba2 references, serve full, train full in "
+          f"{time.perf_counter() - t_legs:.1f} s of wall", flush=True)
+    return counts
+
+
 def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -5012,6 +5470,13 @@ def main() -> int:
     require(ds_train_counts["moe_combine_bwd"] > 0,
             "moe_combine_bwd was not launched on the deepseek train leg")
     new_counts += (ds_serve_counts, ds_train_counts)
+    # The DeepSeek legs freed what they drew; the state legs start from a
+    # card holding little else.
+    torch.cuda.empty_cache()
+    print(f"card memory before the state legs: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+    state_counts = state_legs(torch.device("cuda"))
 
     replaces = {
         "pdist_argmin": "src/repro/kernels/pdist_argmin.py:101",
@@ -5060,8 +5525,11 @@ def main() -> int:
           + json.dumps(train_counts) + " train_example "
           + json.dumps(example_counts) + " deepseek_serve "
           + json.dumps(ds_serve_counts) + " deepseek_train "
-          + json.dumps(ds_train_counts)
-          + "; every kernel matched its plain version", flush=True)
+          + json.dumps(ds_train_counts) + "".join(
+              f" {leg} " + json.dumps(c) for leg, c in state_counts.items())
+          + "; every kernel matched its plain version; the rwkv and zamba2 "
+          "legs launched none of the port's kernels (those paths have none: "
+          "their chunked scans and attention are plain PyTorch)", flush=True)
     print(f"card: {smi}; chip_smoke wall {time.perf_counter() - t_all:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

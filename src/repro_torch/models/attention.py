@@ -29,6 +29,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import (DistCtx, apply_rope, dense_init,
@@ -214,8 +215,11 @@ def gqa_self(p, x: torch.Tensor, cfg, ctx: DistCtx = None, *,
     pos = torch.arange(S, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window,
-                        cq=cfg.attn_chunk, ck=cfg.attn_chunk)
+    # A named range for torch.profiler (the attention's device time).
+    with record_function("flash_attention"):
+        o = flash_attention(q, k, v, causal=causal,
+                            window=cfg.sliding_window, cq=cfg.attn_chunk,
+                            ck=cfg.attn_chunk)
     return o.reshape(B, S, -1) @ p["wo"]
 
 
@@ -248,7 +252,8 @@ def gqa_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
         V[bidx, pos] = v
         valid = (torch.arange(K.shape[1], device=x1.device)[None, :]
                  <= pos[:, None])
-        o = decode_attention(q, K, V, kv_valid=valid)
+        with record_function("decode_attention"):
+            o = decode_attention(q, K, V, kv_valid=valid)
         new_cache = {"k": K, "v": V}
     return o.reshape(B, -1) @ p["wo"], new_cache
 

@@ -1,18 +1,23 @@
 """Model assembly and the serving API (counterpart of
 ``repro/models/model.py``): ``build_model(cfg)`` -> ``Model`` with
 ``init``, ``loss``, ``prefill``, ``init_cache`` and ``serve_step``, for
-the dense and moe families with GQA or MLA attention, and DeepSeek-V3's
-multi-token-prediction (MTP) head in the loss.
+the dense and moe families with GQA or MLA attention (with DeepSeek-V3's
+multi-token-prediction (MTP) head in the loss), the ssm family (RWKV-6)
+and the hybrid family (Zamba2: groups of Mamba2 layers, the weight-tied
+shared attention block after each group).
 
 Parameters are the reference's pytree as nested dicts of tensors
 (``embed``, ``final_norm``, ``segments`` (a tuple, one dict of stacked
-layers per segment), ``unembed`` unless the embeddings are tied, and
-with ``cfg.mtp`` ``mtp_proj``, ``mtp_block`` (one layer, not stacked)
-and ``mtp_norm``), so ``convert.model_params`` carries the JAX package's
+layers per segment), ``unembed`` unless the embeddings are tied, with
+``cfg.mtp`` ``mtp_proj``, ``mtp_block`` (one layer, not stacked) and
+``mtp_norm``, and for the hybrid family ``shared_block`` (one layer,
+not stacked)), so ``convert.model_params`` carries the JAX package's
 parameters across one to one. The decode cache is ``{"len": (B,) int32,
-"segments": [...]}`` with one dict of layer-stacked k / v (and ring
-``pos``), or for MLA latent / rope, per segment; ``serve_step`` updates
-it in place and returns it with ``len + 1``.
+"segments": [...]}`` with, per segment, one dict of layer-stacked k / v
+(and ring ``pos``), for MLA latent / rope, or for a rwkv or mamba
+segment its layer-stacked state; the hybrid family adds ``"shared"``,
+one {"k", "v"} of (1, B, room, KVH, hd) per group. ``serve_step``
+updates it in place and returns it with ``len + 1``.
 """
 from __future__ import annotations
 
@@ -22,20 +27,24 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import attention as A
+from repro_torch.models import mamba as M
+from repro_torch.models import rwkv as R
 from repro_torch.models.common import (DistCtx, apply_norm, cross_entropy,
                                        dense_init, init_norm)
-from repro_torch.models.transformer import (SegmentSpec, block_seq,
-                                            init_layer, init_segment,
+from repro_torch.models.transformer import (SegmentSpec, block_decode,
+                                            block_seq, init_layer,
+                                            init_segment,
                                             plan_segments, run_segment,
                                             run_segment_decode)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
-# The MTP block: one attn_ffn layer with a dense FFN.
-_MTP_SPEC = SegmentSpec("attn_ffn", 1)
+# The MTP block and the hybrid family's shared block: one attn_ffn layer
+# with a dense FFN.
+_BLOCK_SPEC = SegmentSpec("attn_ffn", 1)
 
 
 class Model:
@@ -44,10 +53,12 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet "
                 f"(ROADMAP item 9); the port serves {list(PORTED_FAMILIES)}")
-        if cfg.attn not in ("gqa", "mla"):
+        if cfg.attn not in ("gqa", "mla") and not (
+                cfg.attn == "none" and cfg.family == "ssm"):
             raise NotImplementedError(
                 f"{cfg.name}: attention {cfg.attn!r} is not ported yet "
-                f"(ROADMAP item 9); the port has GQA and MLA")
+                f"(ROADMAP item 9); the port has GQA and MLA, and no "
+                f"attention in the ssm family")
         self.cfg = cfg
         self.segments = plan_segments(cfg)
         self.dtype = _DTYPES[cfg.dtype]
@@ -68,10 +79,12 @@ class Model:
         if not cfg.tie_embeddings:
             p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                       dtype)
+        if cfg.family == "hybrid":
+            p["shared_block"] = init_layer(gen, cfg, _BLOCK_SPEC, dtype)
         if cfg.mtp:
             p["mtp_proj"] = dense_init(gen, (2 * cfg.d_model, cfg.d_model),
                                        dtype)
-            p["mtp_block"] = init_layer(gen, cfg, _MTP_SPEC, dtype)
+            p["mtp_block"] = init_layer(gen, cfg, _BLOCK_SPEC, dtype)
             p["mtp_norm"] = init_norm(cfg.norm, cfg.d_model, dtype,
                                       gen.device)
         return p
@@ -83,16 +96,46 @@ class Model:
 
     def _backbone(self, p, x: torch.Tensor, ctx: DistCtx, *,
                   want_cache: bool = False):
-        """All segments, then the final norm. Returns (x, aux, caches)."""
+        """All segments, each from fresh (zero) states, the hybrid
+        family's shared block after each (not recomputed under
+        ``cfg.remat``, as in the reference), then the final norm.
+        Returns (x, aux, new states, caches, the shared block's
+        caches)."""
         cfg = self.cfg
+        states = self._fresh_states(x.shape[0], x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        caches = []
+        new_states, caches, shared_caches = [], [], []
         for i, spec in enumerate(self.segments):
-            x, a, cache = run_segment(p["segments"][i], x, cfg, ctx, spec,
-                                      want_cache=want_cache)
+            x, a, ns, cache = run_segment(p["segments"][i], x, cfg, ctx,
+                                          spec, state=states[i],
+                                          want_cache=want_cache)
             aux = aux + a
+            new_states.append(ns)
             caches.append(cache)
-        return apply_norm(cfg.norm, p["final_norm"], x), aux, caches
+            if cfg.family == "hybrid":
+                x, a2, _, scache = block_seq(p["shared_block"], x, cfg, ctx,
+                                             _BLOCK_SPEC,
+                                             want_cache=want_cache)
+                aux = aux + a2
+                shared_caches.append(scache)
+        x = apply_norm(cfg.norm, p["final_norm"], x)
+        return x, aux, new_states, caches, shared_caches
+
+    def _fresh_states(self, B: int, device=None) -> List[Any]:
+        """Zero states of every rwkv and mamba segment (None for the
+        others), stacked on the layer axis."""
+        cfg, states = self.cfg, []
+        for spec in self.segments:
+            if spec.kind == "rwkv":
+                s = R.init_rwkv_state(B, cfg, self.dtype, spec.n_layers,
+                                      device)
+            elif spec.kind == "mamba":
+                s = M.init_mamba_state(B, cfg, self.dtype, spec.n_layers,
+                                       device)
+            else:
+                s = None
+            states.append(s)
+        return states
 
     def _embed_inputs(self, p, batch, ctx: DistCtx = None):
         """Token embedding. Returns (x, label_offset)."""
@@ -108,7 +151,7 @@ class Model:
         with the model (ROADMAP item 9)."""
         ctx = ctx or DistCtx.local()
         x, n_prefix = self._embed_inputs(p, batch, ctx)
-        h, aux, _ = self._backbone(p, x, ctx)
+        h, aux, _, _, _ = self._backbone(p, x, ctx)
         h_text = h[:, n_prefix:]
         logits = self._unembed(p, h_text, ctx)
         labels = batch["labels"].long()
@@ -132,11 +175,11 @@ class Model:
         nxt = p["embed"][torch.roll(tokens, -1, dims=1)]
         z = torch.cat([h, nxt], dim=-1) @ p["mtp_proj"]
         if cfg.remat and torch.is_grad_enabled():
-            z, _, _ = torch.utils.checkpoint.checkpoint(
-                block_seq, p["mtp_block"], z, cfg, ctx, _MTP_SPEC,
+            z, _, _, _ = torch.utils.checkpoint.checkpoint(
+                block_seq, p["mtp_block"], z, cfg, ctx, _BLOCK_SPEC,
                 use_reentrant=False)
         else:
-            z, _, _ = block_seq(p["mtp_block"], z, cfg, ctx, _MTP_SPEC)
+            z, _, _, _ = block_seq(p["mtp_block"], z, cfg, ctx, _BLOCK_SPEC)
         z = apply_norm(cfg.norm, p["mtp_norm"], z)
         logits = self._unembed(p, z, ctx)
         lbl2 = torch.roll(labels, -1, dims=1)
@@ -147,28 +190,37 @@ class Model:
 
     # ----------------------------------------------------------- prefill --
     def prefill(self, p, batch, ctx: DistCtx = None):
-        """Full forward over ``batch["tokens"]`` (B, S), building the
-        decode cache. Returns (last-token logits (B, V), cache)."""
+        """Full forward over ``batch["tokens"]`` (B, S) from fresh
+        states, building the decode cache. Returns (last-token logits
+        (B, V), cache)."""
         ctx = ctx or DistCtx.local()
         x, _ = self._embed_inputs(p, batch, ctx)
-        h, _, caches = self._backbone(p, x, ctx, want_cache=True)
+        h, _, new_states, caches, shared_caches = self._backbone(
+            p, x, ctx, want_cache=True)
         logits = self._unembed(p, h[:, -1, :], ctx)
-        return logits, self._pack_cache(caches, x.shape[0], x.shape[1])
+        return logits, self._pack_cache(caches, new_states, shared_caches,
+                                        x.shape[0], x.shape[1], x.device)
 
-    def _pack_cache(self, caches: List[Dict[str, torch.Tensor]], B: int,
-                    S: int):
-        """Prefill caches -> the decode layout. A sliding-window model
-        whose room exceeds its window gets a ring of W slots holding the
-        last W positions at ring indices 0..W-1, as the reference lays
-        it out (``repro/models/model.py`` ``_pack_cache``); otherwise the
-        full cache (or MLA's latent cache) is padded to the room."""
+    def _pack_cache(self, caches: List[Any], new_states: List[Any],
+                    shared_caches: List[Dict[str, torch.Tensor]], B: int,
+                    S: int, dev):
+        """Prefill caches -> the decode layout. A rwkv or mamba
+        segment's final state goes in as it stands (stacked: no view of
+        an activation). A sliding-window model whose room exceeds its
+        window gets a ring of W slots holding the last W positions at
+        ring indices 0..W-1, as the reference lays it out
+        (``repro/models/model.py`` ``_pack_cache``); otherwise the full
+        cache (or MLA's latent cache) is padded to the room, and the
+        hybrid family's shared-block caches likewise, each as
+        (1, B, room, KVH, hd)."""
         cfg = self.cfg
-        dev = next(iter(caches[0].values())).device
         out = {"len": torch.full((B,), S, dtype=torch.int32, device=dev),
                "segments": []}
         room = S + self.decode_room
-        for cache in caches:
-            if cfg.attn == "mla":
+        for spec, cache, st in zip(self.segments, caches, new_states):
+            if spec.kind in ("rwkv", "mamba"):
+                entry = st
+            elif cfg.attn == "mla":
                 entry = {name: torch.nn.functional.pad(
                     cache[name], (0, 0, 0, room - S))
                     for name in ("latent", "rope")}
@@ -186,17 +238,30 @@ class Model:
                 entry = {name: torch.nn.functional.pad(
                     cache[name], (0, 0, 0, 0, 0, pad)) for name in ("k", "v")}
             out["segments"].append(entry)
+        if cfg.family == "hybrid":
+            out["shared"] = [{name: torch.nn.functional.pad(
+                c[name], (0, 0, 0, 0, 0, room - S))[None]
+                for name in ("k", "v")} for c in shared_caches]
         return out
 
     # -------------------------------------------------------- init_cache --
     def init_cache(self, B: int, S: int, device=None):
-        """Zeroed decode cache with room for S (+1) tokens."""
+        """Zeroed decode cache with room for S (+1) tokens (zero states
+        for the rwkv and mamba segments)."""
         cfg, dtype = self.cfg, self.dtype
         room = S + 1
         out = {"len": torch.zeros((B,), dtype=torch.int32, device=device),
                "segments": []}
         for spec in self.segments:
             L = spec.n_layers
+            if spec.kind == "rwkv":
+                out["segments"].append(R.init_rwkv_state(B, cfg, dtype, L,
+                                                         device))
+                continue
+            if spec.kind == "mamba":
+                out["segments"].append(M.init_mamba_state(B, cfg, dtype, L,
+                                                          device))
+                continue
             if cfg.attn == "mla":
                 c = A.init_mla_cache(B, room, cfg.mla.kv_lora_rank,
                                      cfg.mla.qk_rope_dim, dtype, L, device)
@@ -208,26 +273,47 @@ class Model:
                                       L, device)
             c.pop("len")
             out["segments"].append(c)
+        if cfg.family == "hybrid":
+            out["shared"] = [
+                {name: torch.zeros((1, B, room, cfg.n_kv_heads, cfg.hd),
+                                   dtype=dtype, device=device)
+                 for name in ("k", "v")} for _ in self.segments]
         return out
 
     # --------------------------------------------------------- serve_step --
     def serve_step(self, p, cache, tokens: torch.Tensor,
                    ctx: DistCtx = None):
         """One decode step. tokens: (B,). Returns (logits (B, V), cache),
-        the cache updated in place with ``len`` advanced by one."""
+        the cache (states, KV caches and the shared block's) updated in
+        place with ``len`` advanced by one."""
         ctx = ctx or DistCtx.local()
         cfg = self.cfg
         lengths = cache["len"]
         x1 = p["embed"][tokens.long()]
         segments = []
         for i, spec in enumerate(self.segments):
-            x1, ns = run_segment_decode(p["segments"][i], x1, cfg, ctx, spec,
-                                        cache=cache["segments"][i],
-                                        lengths=lengths)
+            held = cache["segments"][i]
+            if spec.kind in ("rwkv", "mamba"):
+                x1, ns = run_segment_decode(p["segments"][i], x1, cfg, ctx,
+                                            spec, state=held,
+                                            lengths=lengths)
+            else:
+                x1, ns = run_segment_decode(p["segments"][i], x1, cfg, ctx,
+                                            spec, cache=held,
+                                            lengths=lengths)
             segments.append(ns)
+            if cfg.family == "hybrid":
+                sc = cache["shared"][i]
+                x1, _ = block_decode(p["shared_block"], x1, cfg, ctx,
+                                     _BLOCK_SPEC,
+                                     cache={k: v[0] for k, v in sc.items()},
+                                     lengths=lengths)
         x1 = apply_norm(cfg.norm, p["final_norm"], x1)
         logits = self._unembed(p, x1, ctx)
-        return logits, {"len": lengths + 1, "segments": segments}
+        out = {"len": lengths + 1, "segments": segments}
+        if cfg.family == "hybrid":
+            out["shared"] = cache["shared"]
+        return logits, out
 
 
 def build_model(cfg) -> Model:

@@ -1,14 +1,19 @@
 """Layer blocks and segments (counterpart of
-``repro/models/transformer.py``), for the ``attn_ffn`` kind with GQA or
-MLA attention and a dense FFN or a mixture of experts: the dense and
-moe families (DeepSeek-V3's leading dense layers and its MoE layers
-alike).
+``repro/models/transformer.py``) for the layer kinds
+
+* ``attn_ffn``: GQA or MLA attention and a dense FFN or a mixture of
+  experts (the dense and moe families; DeepSeek-V3's leading dense
+  layers and its MoE layers alike; Zamba2's shared block);
+* ``rwkv``: RWKV-6 time-mix and channel-mix (the ssm family);
+* ``mamba``: the Mamba2 SSD block (the hybrid family's groups).
 
 A model is a sequence of homogeneous segments whose per-layer
 parameters are stacked on a leading layer axis, as in the reference;
 where the reference scans a segment with ``lax.scan``, the port loops
-over the layers in Python. RWKV, Mamba and decoder cross-attention are
-not ported yet (ROADMAP item 9).
+over the layers in Python. The state-carrying kinds (rwkv, mamba) take
+and return a per-layer state, stacked on the layer axis as the
+reference stacks it. The encdec and vlm families and decoder
+cross-attention are not ported yet (ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -20,12 +25,15 @@ import torch.utils.checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MoE
+from repro_torch.models import rwkv as R
 from repro_torch.models.common import (DistCtx, apply_norm, init_norm,
                                        tree_map)
 
 _NOT_PORTED = ("is not ported yet (ROADMAP item 9): the port runs the "
-               "attn_ffn kind with GQA or MLA attention, dense or MoE")
+               "dense, moe, ssm (RWKV-6) and hybrid (Zamba2) families; "
+               "encdec, vlm and cross-attention are still to come")
 
 
 @dataclass(frozen=True)
@@ -39,7 +47,19 @@ class SegmentSpec:
 
 def plan_segments(cfg) -> List[SegmentSpec]:
     """The dense family is one segment; the moe family a leading dense
-    segment (``n_dense_layers``, if any) and the MoE segment."""
+    segment (``n_dense_layers``, if any) and the MoE segment; the ssm
+    family (RWKV-6) one rwkv segment; the hybrid family (Zamba2) groups
+    of ``hybrid_attn_every`` Mamba2 layers and a remainder group, the
+    shared attention block applied after each (by the model, outside
+    the segments)."""
+    if cfg.family == "ssm" and cfg.ssm.kind == "rwkv6":
+        return [SegmentSpec("rwkv", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        g = cfg.hybrid_attn_every
+        segs = [SegmentSpec("mamba", g) for _ in range(cfg.n_layers // g)]
+        if cfg.n_layers % g:
+            segs.append(SegmentSpec("mamba", cfg.n_layers % g))
+        return segs
     if cfg.family == "moe":
         segs = []
         if cfg.n_dense_layers:
@@ -54,10 +74,6 @@ def plan_segments(cfg) -> List[SegmentSpec]:
 
 
 def _check(cfg, spec: SegmentSpec) -> None:
-    if spec.kind != "attn_ffn":
-        raise NotImplementedError(f"layer kind {spec.kind!r} {_NOT_PORTED}")
-    if cfg.attn not in ("gqa", "mla"):
-        raise NotImplementedError(f"attention {cfg.attn!r} {_NOT_PORTED}")
     if spec.cross:
         raise NotImplementedError(f"cross-attention {_NOT_PORTED}")
 
@@ -66,6 +82,14 @@ def init_layer(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
     _check(cfg, spec)
     d = cfg.d_model
     dev = gen.device
+    if spec.kind == "rwkv":
+        return {"ln1": init_norm(cfg.norm, d, dtype, dev),
+                "tm": R.init_rwkv6(gen, cfg, dtype),
+                "ln2": init_norm(cfg.norm, d, dtype, dev),
+                "cm": R.init_rwkv_channel_mix(gen, cfg, dtype)}
+    if spec.kind == "mamba":
+        return {"ln1": init_norm(cfg.norm, d, dtype, dev),
+                "mix": M.init_mamba2(gen, cfg, dtype)}
     p = {"ln1": init_norm(cfg.norm, d, dtype, dev),
          "attn": (A.init_mla(gen, cfg, dtype) if cfg.attn == "mla"
                   else A.init_gqa(gen, cfg, dtype)),
@@ -105,11 +129,29 @@ def init_segment(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
 # --------------------------------------------- full sequences (prefill) --
 
 def block_seq(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec, *,
-              want_cache: bool = False):
-    """One layer over a full sequence. Returns (x, aux, cache), cache
-    (when ``want_cache``) {"k", "v"} (rotated keys, values) for GQA,
-    {"latent", "rope"} (the latent and the rotated rope key) for MLA."""
+              state=None, want_cache: bool = False):
+    """One layer over a full sequence. Returns (x, aux, new_state,
+    cache): for the rwkv and mamba kinds the layer's new state from
+    ``state`` (the layer's {"s", "shift", "shift2"} or {"h", "conv"})
+    and no cache; for attn_ffn no state and, when ``want_cache``,
+    {"k", "v"} (rotated keys, values) for GQA, {"latent", "rope"} (the
+    latent and the rotated rope key) for MLA."""
     _check(cfg, spec)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.kind == "rwkv":
+        h = apply_norm(cfg.norm, lp["ln1"], x)
+        o, s_tm = R.rwkv6_time_mix(lp["tm"], h, {"s": state["s"],
+                                                 "shift": state["shift"]},
+                                   cfg, ctx)
+        x = x + o
+        h = apply_norm(cfg.norm, lp["ln2"], x)
+        o, shift2 = R.rwkv_channel_mix(lp["cm"], h, state["shift2"], cfg)
+        return (x + o, aux, {"s": s_tm["s"], "shift": s_tm["shift"],
+                             "shift2": shift2}, None)
+    if spec.kind == "mamba":
+        h = apply_norm(cfg.norm, lp["ln1"], x)
+        o, new_state = M.mamba2_block(lp["mix"], h, state, cfg, ctx)
+        return x + o, aux, new_state, None
     cache = None
     h = apply_norm(cfg.norm, lp["ln1"], x)
     if cfg.attn == "mla":
@@ -129,8 +171,7 @@ def block_seq(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec, *,
         y, aux = MoE.apply_moe(lp["moe"], h, cfg, ctx)
     else:
         y = F.apply_ffn(lp["ffn"], h, cfg.activation, ctx)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + y, aux, cache
+    return x + y, aux, None, cache
 
 
 def unbind_layers(seg_params, n_layers: int) -> List[dict]:
@@ -152,38 +193,63 @@ def unbind_layers(seg_params, n_layers: int) -> List[dict]:
 
 
 def run_segment(seg_params, x: torch.Tensor, cfg, ctx: DistCtx,
-                spec: SegmentSpec, *, want_cache: bool = False):
-    """The segment's layers in order. Returns (x, aux summed over the
-    layers, caches stacked on a leading layer axis or None). With
-    ``cfg.remat`` and gradients on, each layer runs under
-    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
-    the scanned body): its activations are recomputed in the backward
-    instead of kept."""
+                spec: SegmentSpec, *, state=None, want_cache: bool = False):
+    """The segment's layers in order, layer i from ``state``'s slice i
+    (the stacked states of a rwkv or mamba segment). Returns (x, aux
+    summed over the layers, the new states stacked on a leading layer
+    axis or None, caches stacked likewise or None). With ``cfg.remat``
+    and gradients on, each layer runs under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint`` of the scanned body), the
+    state-carrying kinds too: its activations are recomputed in the
+    backward instead of kept."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caches = []
+    states, caches = [], []
     remat = cfg.remat and torch.is_grad_enabled() and not want_cache
-    for lp in unbind_layers(seg_params, spec.n_layers):
+    for i, lp in enumerate(unbind_layers(seg_params, spec.n_layers)):
+        st = None if state is None else {k: v[i] for k, v in state.items()}
         if remat:
-            x, a, cache = torch.utils.checkpoint.checkpoint(
-                block_seq, lp, x, cfg, ctx, spec, use_reentrant=False)
+            x, a, ns, cache = torch.utils.checkpoint.checkpoint(
+                block_seq, lp, x, cfg, ctx, spec, state=st,
+                use_reentrant=False)
         else:
-            x, a, cache = block_seq(lp, x, cfg, ctx, spec,
-                                    want_cache=want_cache)
+            x, a, ns, cache = block_seq(lp, x, cfg, ctx, spec, state=st,
+                                        want_cache=want_cache)
         aux = aux + a
+        states.append(ns)
         caches.append(cache)
+    new_states = (tree_map(lambda *t: torch.stack(t), *states)
+                  if state is not None else None)
     stacked = (tree_map(lambda *c: torch.stack(c), *caches)
-               if want_cache else None)
-    return x, aux, stacked
+               if want_cache and spec.kind == "attn_ffn" else None)
+    return x, aux, new_states, stacked
 
 
 # ------------------------------------------------------ one token (decode) --
 
 def block_decode(lp, x1: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec,
-                 *, cache: Dict[str, torch.Tensor],
-                 lengths: torch.Tensor):
-    """One layer, one token. ``cache`` is this layer's (views of the
-    segment's stacked cache), updated in place. Returns (x1, cache)."""
+                 *, cache: Optional[Dict[str, torch.Tensor]] = None,
+                 state=None, lengths: Optional[torch.Tensor] = None):
+    """One layer, one token. For attn_ffn, ``cache`` is this layer's
+    (views of the segment's stacked cache), updated in place; returns
+    (x1, cache). For rwkv and mamba, ``state`` is the layer's; returns
+    (x1, the new state), new tensors (the shifts and the conv state
+    views of this step's activations)."""
     _check(cfg, spec)
+    if spec.kind == "rwkv":
+        h = apply_norm(cfg.norm, lp["ln1"], x1[:, None, :])
+        o, s_tm = R.rwkv6_time_mix(lp["tm"], h, {"s": state["s"],
+                                                 "shift": state["shift"]},
+                                   cfg, ctx, use_chunked=False)
+        x1 = x1 + o[:, 0]
+        h = apply_norm(cfg.norm, lp["ln2"], x1[:, None, :])
+        o, shift2 = R.rwkv_channel_mix(lp["cm"], h, state["shift2"], cfg)
+        return x1 + o[:, 0], {"s": s_tm["s"], "shift": s_tm["shift"],
+                              "shift2": shift2}
+    if spec.kind == "mamba":
+        h = apply_norm(cfg.norm, lp["ln1"], x1[:, None, :])
+        o, ns = M.mamba2_block(lp["mix"], h, state, cfg, ctx,
+                               use_chunked=False)
+        return x1 + o[:, 0], ns
     h = apply_norm(cfg.norm, lp["ln1"], x1)
     decode = A.mla_decode if cfg.attn == "mla" else A.gqa_decode
     o, nc = decode(lp["attn"], h, cache, cfg, ctx, lengths=lengths)
@@ -199,12 +265,22 @@ def block_decode(lp, x1: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec,
 
 def run_segment_decode(seg_params, x1: torch.Tensor, cfg, ctx: DistCtx,
                        spec: SegmentSpec, *,
-                       cache: Dict[str, torch.Tensor],
+                       cache: Optional[Dict[str, torch.Tensor]] = None,
+                       state=None,
                        lengths: Optional[torch.Tensor] = None):
-    """The segment's layers for one token; ``cache`` (stacked on the
-    layer axis) is updated in place and returned."""
+    """The segment's layers for one token. The stacked ``cache`` (an
+    attn_ffn segment's) or ``state`` (a rwkv or mamba segment's) is
+    updated in place, each layer's new state copied into its slice, and
+    returned."""
+    held = cache if state is None else state
     for i in range(spec.n_layers):
-        x1, _ = block_decode(layer_params(seg_params, i), x1, cfg, ctx, spec,
-                             cache={k: v[i] for k, v in cache.items()},
-                             lengths=lengths)
-    return x1, cache
+        layer = {k: v[i] for k, v in held.items()}
+        if state is None:
+            x1, _ = block_decode(layer_params(seg_params, i), x1, cfg, ctx,
+                                 spec, cache=layer, lengths=lengths)
+        else:
+            x1, ns = block_decode(layer_params(seg_params, i), x1, cfg, ctx,
+                                  spec, state=layer, lengths=lengths)
+            for k, v in ns.items():
+                layer[k].copy_(v)
+    return x1, held

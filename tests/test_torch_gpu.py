@@ -1961,3 +1961,102 @@ def test_gpu_moe_loss_gradient_reaches_router_and_experts(cuda_device,
             if dtype == "float32":
                 err = float((a.cpu() - b).abs().max())
                 assert err <= 1e-4 * float(b.abs().max()), name
+
+
+# --------------------------------------- RWKV-6 and the Zamba2 hybrid --
+
+STATE_MODELS = {"rwkv6-7b": {},
+                "zamba2-1.2b": dict(n_layers=5, hybrid_attn_every=2)}
+
+
+def _reduced_state_model(name):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(name, reduced=True).replace(dtype="float32",
+                                                 **STATE_MODELS[name])
+    model = build_model(cfg)
+    return cfg, model, model.init(torch.Generator().manual_seed(0))
+
+
+def _state_generate_matches_cpu(device, name):
+    """Greedy generate on the card and on the CPU from the same
+    parameters (f32): 2 prompts of 48 tokens (a chunked prefill) and of
+    50 (the scan), 4 steps each; tokens exact, logits and every cache
+    leaf (states, shared-block caches) within 1e-5 of their largest
+    magnitude; no kernel of the port launched (these paths have none)."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.common import tree_map
+    from repro_torch.utils.tree import leaves
+    cfg, model, params = _reduced_state_model(name)
+    for S in (48, 50):
+        toks = torch.as_tensor(np.random.default_rng(S).integers(
+            0, cfg.vocab_size, size=(2, S)), dtype=torch.int32)
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            ops.reset_launch_counts()
+            stats = {}
+            out = generate(model, tree_map(lambda a: a.to(dev), params),
+                           {"tokens": toks}, steps=4, stats=stats)
+            if dev.type == "cuda":
+                assert sum(ops.launch_counts().values()) == 0
+            runs.append((out.cpu(), torch.stack([lg.float().cpu()
+                                                 for lg in stats["logits"]]),
+                         leaves(tree_map(lambda a: a.cpu(), stats["cache"]))))
+        (t1, l1, c1), (t0, l0, c0) = runs
+        assert torch.equal(t1, t0)
+        assert float((l1 - l0).abs().max()) <= 1e-5 * float(l0.abs().max())
+        assert len(c1) == len(c0)
+        for a, b in zip(c1, c0):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert float((a.float() - b.float()).abs().max()) <= 1e-5 * float(
+                b.float().abs().max())
+
+
+def _state_loss_and_grads_match_cpu(device, name):
+    """The loss within 1e-5 relative and every gradient within 1e-5 of
+    its leaf's largest magnitude against the CPU (f32, 2 x 32 tokens: a
+    chunked sequence), with remat on (each state-carrying layer
+    recomputed in the backward)."""
+    from repro_torch.launch.train import _value_and_grad
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import leaves
+    cfg, _, params = _reduced_state_model(name)
+    model = build_model(cfg.replace(remat=True))
+    rng = np.random.default_rng(4)
+    toks = T(rng.integers(0, cfg.vocab_size, size=(2, 32)).astype(np.int32))
+    labels = T(rng.integers(0, cfg.vocab_size, size=(2, 32)).astype(
+        np.int32))
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        outs.append(_value_and_grad(model, None,
+                                    tree_map(lambda a: a.to(dev), params),
+                                    {"tokens": toks.to(dev),
+                                     "labels": labels.to(dev)}))
+    (l1, m1, g1), (l0, m0, g0) = outs
+    assert sorted(m1) == ["aux", "ce"]
+    for a, b in ((l1, l0), (m1["ce"], m0["ce"])):
+        assert abs(float(a) - float(b)) <= 1e-5 * abs(float(b))
+    for a, b in zip(leaves(g1), leaves(g0)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
+            b.abs().max()) + 1e-30
+
+
+@pytest.mark.gpu
+def test_gpu_rwkv_generate_matches_cpu(cuda_device):
+    _state_generate_matches_cpu(cuda_device, "rwkv6-7b")
+
+
+@pytest.mark.gpu
+def test_gpu_rwkv_loss_and_grads_match_cpu(cuda_device):
+    _state_loss_and_grads_match_cpu(cuda_device, "rwkv6-7b")
+
+
+@pytest.mark.gpu
+def test_gpu_hybrid_generate_matches_cpu(cuda_device):
+    _state_generate_matches_cpu(cuda_device, "zamba2-1.2b")
+
+
+@pytest.mark.gpu
+def test_gpu_hybrid_loss_and_grads_match_cpu(cuda_device):
+    _state_loss_and_grads_match_cpu(cuda_device, "zamba2-1.2b")
