@@ -178,6 +178,20 @@ attention, GEMMs and the rest; and trained with the configs' adamw,
 remat and microbatch 2 on 4 x 4096 tokens a step (Zamba2 at its 38
 layers, RWKV cut to SMT_RWKV_LAYERS), with a profiled step.
 
+Last of all come the encdec and vlm legs (configs/whisper_base.py and
+configs/internvl2_26b.py at their published widths): reduced Whisper,
+InternVL2 and InternVL2's sliding-window variant (f32) on the card
+against the CPU, through generate with the family's inputs (frame or
+patch embeddings) and 3 adamw steps; Whisper served at its 6 + 6
+layers (16 clips of 1500 frame embeddings, prompts of 224 tokens, 32
+steps; no kernel of the port on its path) and trained (16 x (1500
+frames, 448 tokens)); InternVL2 served at all 48 layers (4 x (256
+patches + 3840 tokens), 32 steps) over the full cache, then with the
+same parameters over the ring of with_sliding_window(4096), every step
+of every layer through swa_decode at a group width of 6, and trained
+at FT_INTERNVL_LAYERS of 48 layers; each with a profile split into the
+flash_attention, cross_attention and decode_attention ranges.
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -248,6 +262,9 @@ MIN_TABLE2_CLUSTER_ACC = 0.9
 # in bf16, more than the card's 80 GB); 4 prompts of its own window,
 # 4096 tokens, then 32 greedy steps: every step decodes over the ring.
 MX_LAYERS, MX_BATCH, MX_PROMPT, MX_STEPS, MX_SEED = 8, 4, 4096, 32, 0
+# swa_decode at the InternVL2 ring leg's shape (b, h, kvh, dh, W): 48
+# query heads over 8 KV heads, groups of 6.
+IV_SWA = (4, 48, 8, 128, 4096)
 
 # The attachment server's leg: Table 1's serve plan with 64 fold slots
 # (fewer than the round's 50 devices and the 96 late ones, so LRU
@@ -413,6 +430,46 @@ STATE_LEGS = {"rwkv6-7b": "rwkv", "zamba2-1.2b": "zamba2"}
 STATE_RANGES = {"rwkv6-7b": ("rwkv6_chunked", "rwkv6_scan"),
                 "zamba2-1.2b": ("ssd_chunked", "ssd_scan",
                                 "flash_attention", "decode_attention")}
+# The encdec and vlm legs. Whisper-base (configs/whisper_base.py,
+# arXiv:2212.04356: 6 encoder and 6 decoder layers, d=512, 8 heads of 64,
+# d_ff 2048 GeLU, LayerNorm, vocab 51865 tied, 1500 frames) and
+# InternVL2-26B (configs/internvl2_26b.py, arXiv:2404.16821: 48 layers,
+# d=6144, 48 heads over 8 KV heads of 128, d_ff 16384 SwiGLU, vocab 92553,
+# 256 patch embeddings), bf16 at their published widths. Serve, every
+# layer: Whisper 16 clips of 1500 frame embeddings and prompts of 224
+# tokens (inside its 448-token decoder context); InternVL2 4 x (256
+# patches + 3840 tokens), over the full cache and, with the same
+# parameters, over the ring of its sliding-window variant (the config's
+# with_sliding_window(4096), its long-context form; 4096 a multiple of W,
+# so the reference's ring layout holds); FS_STEPS greedy steps each.
+# Train: the configs' adamw and remat at their microbatch (Whisper 1,
+# InternVL2 4), Whisper at its 6 + 6 layers on 16 x (1500 frames, 448
+# tokens), InternVL2 cut to FT_INTERNVL_LAYERS of 48 layers on 4 x (256 +
+# 3840) tokens (the deepest whose peak stays under about 72 GB: bf16
+# weights and gradients, the microbatch sum's second gradient copy and
+# adamw's f32 m and v take 14 bytes a parameter, a layer 390 M of them,
+# the embeddings, unembedding and vis_proj 1.17 B more); 1 warm-up step,
+# FT_STEPS timed and 1 profiled.
+FAMILY_LEGS = {"whisper": ("whisper-base", 16, 224, None),
+               "internvl": ("internvl2-26b", 4, 4096, None),
+               "internvl ring": ("internvl2-26b", 4, 4096, 4096)}
+FAMILY_TRAIN = {"whisper": ("whisper-base", 16, 448),
+                "internvl": ("internvl2-26b", 4, 4096)}
+FS_STEPS, FS_SEED = 32, 0
+FT_WARM, FT_STEPS, FT_LR, FT_INTERNVL_LAYERS = 1, 2, 1e-4, 9
+# Reference: reduced whisper-base and internvl2-26b, and internvl2-26b's
+# sliding-window variant at W=32 (16 patches and FR_PROMPT = 16 tokens:
+# S = W, aligned), f32 on the card against the CPU: generate over 2
+# prompts of FR_PROMPT tokens with the family's inputs, FR_DECODE steps;
+# then FR_TRAIN adamw steps at microbatch 2 (not for the ring variant).
+FR_PROMPT, FR_DECODE, FR_TRAIN = 16, 4, 3
+FR_CONFIGS = {"whisper-base": ("whisper-base", {}),
+              "internvl2-26b": ("internvl2-26b", {}),
+              "internvl2-26b ring": ("internvl2-26b",
+                                     dict(sliding_window=32))}
+# The attention ranges (models/attention.py, models/transformer.py)
+# whose device time the family legs' profiles report.
+FAMILY_RANGES = ("flash_attention", "cross_attention", "decode_attention")
 
 
 class SmokeFailure(RuntimeError):
@@ -1468,14 +1525,15 @@ def swa_inputs(g, dev, b, h, kvh, dh, W, dtype):
 def swa_kernel(dev, rounds: int):
     """swa_decode at the decode leg's shape: q (4, 32, 128) against the
     ring of one layer, kw / vw (4, 4096, 8, 128), in bf16 and in f32,
-    plus a ragged window (W=200, g=1), a window of 8192 keys, and a
-    window short enough for one chunk (S = 1, the split kernel writes
-    the output itself). The library call is
+    plus a ragged window (W=200, g=1), a window of 8192 keys, a window
+    short enough for one chunk (S = 1, the split kernel writes the
+    output itself), and the InternVL2 ring leg's shape, q (4, 48, 128)
+    over kw / vw (4, 4096, 8, 128): groups of 6 query rows, which the
+    kernel rounds up to 8 (the 2 past the group must be skipped), in
+    bf16 and in f32, timed too. The library call is
     F.scaled_dot_product_attention on the (b, kvh, W, dh) views with
     enable_gqa and the bias as its mask, timed only."""
     import math
-
-    import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.swa_decode import splits
@@ -1486,7 +1544,9 @@ def swa_kernel(dev, rounds: int):
              ("ragged bf16", (MX_BATCH, 8, 8, 128, 200), torch.bfloat16),
              ("ragged f32", (MX_BATCH, 8, 8, 128, 200), torch.float32),
              ("W=8192 bf16", (MX_BATCH, 32, 8, 128, 8192), torch.bfloat16),
-             ("S=1 bf16", (MX_BATCH, 32, 8, 128, 100), torch.bfloat16)]
+             ("S=1 bf16", (MX_BATCH, 32, 8, 128, 100), torch.bfloat16),
+             ("g=6 bf16", IV_SWA, torch.bfloat16),
+             ("g=6 f32", IV_SWA, torch.float32)]
     errs, rels, plans = [], [], []
     for label, (b, h, kvh, dh, W), dtype in cases:
         q, kw, vw, bias = swa_inputs(g, dev, b, h, kvh, dh, W, dtype)
@@ -1509,38 +1569,64 @@ def swa_kernel(dev, rounds: int):
                                  torch.bfloat16)
     ms_8k = time_ms(lambda: swa(q, kw, vw, bias, 1.0 / math.sqrt(128)),
                     rounds)
-    q, kw, vw, bias = swa_inputs(g, dev, MX_BATCH, 32, 8, 128, 4096,
-                                 torch.bfloat16)
-    scale = 1.0 / math.sqrt(128)
-    ms = time_ms(lambda: swa(q, kw, vw, bias, scale), rounds)
-    plain = time_ms(lambda: ref.swa_decode_attention(q, kw, vw, bias, scale),
-                    rounds)
-    qs, ks, vs = q[:, :, None, :], kw.transpose(1, 2), vw.transpose(1, 2)
-    mask = bias[:, None, None, :].to(q.dtype)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=True), rounds)
-    dev_ms = graph_ms(lambda: swa(q, kw, vw, bias, scale))
-    dev_lib = graph_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=True))
-    b, h, dh = q.shape
-    W, kvh = kw.shape[1], kw.shape[2]
-    nbytes = 2 * (2 * q.numel() + kw.numel() + vw.numel()) + 4 * bias.numel()
-    flops = 4 * b * h * W * dh
-    bms, by = bound(nbytes, flops)
+    leg = swa_times(*swa_inputs(g, dev, MX_BATCH, 32, 8, 128, 4096,
+                                torch.bfloat16), rounds)
+    g6 = swa_times(*swa_inputs(g, dev, *IV_SWA, torch.bfloat16), rounds)
+    ib, ih, ikvh, idh, iW = IV_SWA
+    b, h, kvh, dh, W = MX_BATCH, 32, 8, 128, 4096
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    S = splits(b, h, W, kvh, dev)
-    print(f"kernel swa_decode: q {tuple(q.shape)} kw/vw {tuple(kw.shape)} "
-          f"bf16, scattered ring; errors {'; '.join(rels)} match=True | "
-          f"leg bf16 ms={ms:.4f} plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
-          f"bound_ms={bms:.5f} ({by}, {nbytes} bytes, {flops} flops) | "
-          f"device time by CUDA graph replay: ms={dev_ms:.4f} "
-          f"sdpa_ms={dev_lib:.4f} | "
-          f"W=8192 bf16 ms={ms_8k:.4f} | split: S={S} chunks of "
+    S = leg["S"]
+    print(f"kernel swa_decode: q ({b}, {h}, {dh}) kw/vw ({b}, {W}, {kvh}, "
+          f"{dh}) bf16, scattered ring; errors {'; '.join(rels)} match=True "
+          f"| leg bf16 ms={leg['ms']:.4f} plain_ms={leg['plain_ms']:.4f} "
+          f"sdpa_ms={leg['library_ms']:.4f} bound_ms={leg['bound_ms']:.5f} "
+          f"({leg['bound_by']}) | device time by CUDA graph replay: "
+          f"ms={leg['device_ms']:.4f} sdpa_ms={leg['device_lib']:.4f} | "
+          f"W=8192 bf16 ms={ms_8k:.4f} | g=6 (the internvl ring leg's "
+          f"shape, q ({ib}, {ih}, {idh}) kw/vw ({ib}, {iW}, {ikvh}, {idh}) "
+          f"bf16): ms={g6['ms']:.4f} plain_ms={g6['plain_ms']:.4f} "
+          f"sdpa_ms={g6['library_ms']:.4f} bound_ms={g6['bound_ms']:.5f} "
+          f"({g6['bound_by']}); by CUDA graph replay ms="
+          f"{g6['device_ms']:.4f} sdpa_ms={g6['device_lib']:.4f}; "
+          f"S={g6['S']} chunks | split: S={S} chunks of "
           f"{W // S} keys, {b * kvh * S} split blocks (one per sequence, "
           f"kv head and chunk) + {b * h} combine blocks "
           f"on {sms} SMs ({'; '.join(plans)})", flush=True)
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib, device_ms=dev_ms)
+    return dict(max_abs_err=max(errs), ms=leg["ms"],
+                plain_ms=leg["plain_ms"], bound_ms=leg["bound_ms"],
+                bound_by=leg["bound_by"], library_ms=leg["library_ms"],
+                device_ms=leg["device_ms"])
+
+
+def swa_times(q, kw, vw, bias, rounds: int) -> dict:
+    """swa_decode at one shape beside its plain version and SDPA
+    (enable_gqa, the bias as its mask): wrapper times by CUDA events,
+    device times by CUDA graph replay, the bytes bound, the chunks."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.swa_decode import splits
+    from repro_torch.kernels.swa_decode import swa_decode_attention as swa
+    b, h, dh = q.shape
+    W, kvh = kw.shape[1], kw.shape[2]
+    scale = 1.0 / math.sqrt(dh)
+    qs, ks, vs = q[:, :, None, :], kw.transpose(1, 2), vw.transpose(1, 2)
+    mask = bias[:, None, None, :].to(q.dtype)
+    nbytes = q.element_size() * (2 * q.numel() + kw.numel() + vw.numel()) \
+        + 4 * bias.numel()
+    bms, by = bound(nbytes, 4 * b * h * W * dh)
+    return dict(
+        ms=time_ms(lambda: swa(q, kw, vw, bias, scale), rounds),
+        plain_ms=time_ms(lambda: ref.swa_decode_attention(
+            q, kw, vw, bias, scale), rounds),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True), rounds),
+        device_ms=graph_ms(lambda: swa(q, kw, vw, bias, scale)),
+        device_lib=graph_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+        bound_ms=bms, bound_by=by, S=splits(b, h, W, kvh, q.device))
 
 
 # ------------------------------------------------------------ main path --
@@ -4827,49 +4913,64 @@ def deepseek_legs(device, rounds: int):
 
 def small_state_agreement(device, name):
     """Reduced ``name`` (f32; SMR_CONFIGS's depth) on ``device`` and on
-    the CPU from the same parameters: greedy generate over 2 prompts of
-    each of SMR_PROMPTS tokens and SMR_DECODE steps (tokens exact; logits
-    and every cache leaf, states and shared-block caches, within 1e-5 of
-    their largest magnitude), then SMR_TRAIN steps of make_train_step
-    with adamw (lr 1e-3, eps 1e-4) at microbatch 2 on batches of 4 x 32
-    tokens from one state (loss and grad norm within 1e-5 relative,
-    parameters within 1e-5 of a leaf's largest magnitude + 1e-6).
+    the CPU from the same parameters (``twin_agreement``): greedy
+    generate over 2 prompts of each of SMR_PROMPTS tokens and SMR_DECODE
+    steps, then SMR_TRAIN steps of make_train_step at microbatch 2.
     Returns (logit error, loss error, parameter error)."""
     from repro_torch.configs import get_config
+    cfg = get_config(name, reduced=True).replace(
+        dtype="float32", microbatch=2, **SMR_CONFIGS[name])
+    return twin_agreement(device, f"small {name}", cfg, SMR_PROMPTS,
+                          SMR_DECODE, SMR_TRAIN)
+
+
+def twin_agreement(device, what: str, cfg, prompts, decode: int,
+                   train: int, extra=None):
+    """``cfg`` (f32) on ``device`` and on the CPU from the same
+    parameters: greedy generate over 2 prompts of each of ``prompts``
+    tokens and ``decode`` steps (tokens exact; logits and every cache
+    leaf, states, shared-block caches and encoder keys and values,
+    within 1e-5 of their largest magnitude), then ``train`` steps of
+    make_train_step with adamw (lr 1e-3, eps 1e-4) at the config's
+    microbatch on batches of 4 x 32 tokens from one state (loss and grad
+    norm within 1e-5 relative, parameters within 1e-5 of a leaf's
+    largest magnitude + 1e-6). ``extra(B, seed)`` gives the family's
+    inputs beside the tokens (CPU tensors). Returns (logit error, loss
+    error, parameter error)."""
     from repro_torch.launch.serve import generate, init_params
     from repro_torch.launch.train import TrainState, make_train_step
     from repro_torch.models.common import tree_map
     from repro_torch.models.model import build_model
     from repro_torch.optim import build_optimizer
     from repro_torch.utils.tree import leaves
-    cfg = get_config(name, reduced=True).replace(
-        dtype="float32", microbatch=2, **SMR_CONFIGS[name])
+    extra = extra or (lambda B, seed: {})
     model = build_model(cfg)
     params = init_params(model, seed=0, device="cpu")
     lerr = 0.0
-    for S in SMR_PROMPTS:
+    for S in prompts:
         toks = torch.as_tensor(np.random.default_rng(S).integers(
             0, cfg.vocab_size, size=(2, S)), dtype=torch.int32)
         runs = []
         for dev in (device, torch.device("cpu")):
             stats = {}
             out = generate(model, tree_map(lambda a: a.to(dev), params),
-                           {"tokens": toks}, steps=SMR_DECODE, stats=stats)
+                           {"tokens": toks, **extra(2, S)},
+                           steps=decode, stats=stats)
             runs.append((out.cpu(), torch.stack([lg.float().cpu()
                                                  for lg in stats["logits"]]),
                          leaves(tree_map(lambda a: a.cpu(), stats["cache"]))))
         (t1, l1, c1), (t0, l0, c0) = runs
-        require(torch.equal(t1, t0), f"small {name}: tokens differ from the "
+        require(torch.equal(t1, t0), f"{what}: tokens differ from the "
                 f"CPU at S={S}")
         e = float((l1 - l0).abs().max())
         require(e <= 1e-5 * float(l0.abs().max()),
-                f"small {name}: logits differ from the CPU by {e} at S={S}")
+                f"{what}: logits differ from the CPU by {e} at S={S}")
         lerr = max(lerr, e)
         require(len(c1) == len(c0) and all(
             a.shape == b.shape and a.dtype == b.dtype
             and float((a.float() - b.float()).abs().max())
             <= 1e-5 * float(b.float().abs().max()) for a, b in zip(c1, c0)),
-            f"small {name}: the cache differs from the CPU at S={S}")
+            f"{what}: the cache differs from the CPU at S={S}")
     opt = build_optimizer(cfg.optimizer, 1e-3, eps=1e-4)
     step = make_train_step(model, None, opt)
     states = {dev: TrainState(tree_map(lambda a: a.clone().to(dev), params),
@@ -4878,7 +4979,9 @@ def small_state_agreement(device, name):
                               torch.zeros((), dtype=torch.int32, device=dev))
               for dev in (device, torch.device("cpu"))}
     merr = perr = 0.0
-    for b in train_batches(2, cfg.vocab_size, 4, 33, SMR_TRAIN, "cpu"):
+    for i, b in enumerate(train_batches(2, cfg.vocab_size, 4, 33, train,
+                                        "cpu")):
+        b = {**b, **extra(4, 10 + i)}
         mets = {}
         for dev in states:
             states[dev], mets[dev] = step(
@@ -4887,13 +4990,13 @@ def small_state_agreement(device, name):
         for key in ("loss", "grad_norm"):
             e = abs(float(got[key]) - float(want[key]))
             require(e <= 1e-5 * abs(float(want[key])),
-                    f"small {name}: {key} differs from the CPU by {e}")
+                    f"{what}: {key} differs from the CPU by {e}")
             merr = max(merr, e)
         for a, w in zip(leaves(states[device].params),
                         leaves(states[torch.device("cpu")].params)):
             e = float((a.cpu() - w).abs().max())
             require(e <= 1e-5 * float(w.abs().max()) + 1e-6,
-                    f"small {name}: parameters differ by {e}")
+                    f"{what}: parameters differ by {e}")
             perr = max(perr, e)
     return lerr, merr, perr
 
@@ -5235,6 +5338,350 @@ def state_legs(device):
     return counts
 
 
+def family_inputs(cfg, B: int, seed: int, device="cpu"):
+    """The family's inputs beside the tokens, drawn from a seeded numpy
+    generator x 0.02 as the JAX package's dummy_inputs: Whisper's
+    enc_embeds (B, n_ctx, d), InternVL2's patch_embeds (B, n_prefix, d),
+    f32 (the model casts them to its dtype)."""
+    rng = np.random.default_rng(1000 + seed)
+    if cfg.family == "encdec":
+        name, n = "enc_embeds", cfg.encoder.n_ctx
+    else:
+        name, n = "patch_embeds", cfg.encoder.n_prefix
+    return {name: torch.as_tensor((rng.normal(size=(B, n, cfg.d_model))
+                                   * 0.02).astype(np.float32)).to(device)}
+
+
+def small_family_agreement(device, label):
+    """Reduced whisper-base or internvl2-26b (FR_CONFIGS[label], f32,
+    microbatch 2) on ``device`` and on the CPU from the same parameters
+    (``twin_agreement``): greedy generate over 2 prompts of FR_PROMPT
+    tokens (with the family's inputs) and FR_DECODE steps, then FR_TRAIN
+    adamw steps. The ring variant (W=32, 16 patches and 16 tokens)
+    decodes through swa_decode. Returns the three errors."""
+    from repro_torch.configs import get_config
+    name, kw = FR_CONFIGS[label]
+    cfg = get_config(name, reduced=True).replace(dtype="float32",
+                                                  microbatch=2, **kw)
+    return twin_agreement(device, f"small {label}", cfg, (FR_PROMPT,),
+                          FR_DECODE, FR_TRAIN if not kw else 0,
+                          extra=lambda B, seed: family_inputs(cfg, B, seed))
+
+
+def gqa_layer_params(cfg) -> int:
+    """The product weights of one GQA attn_ffn layer: q, k, v, o and the
+    FFN (SwiGLU's three, GeLU's two)."""
+    d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ffn = (3 if cfg.activation == "swiglu" else 2) * d * cfg.d_ff
+    return 2 * d * H * hd + 2 * d * KVH * hd + ffn
+
+
+def family_flops(cfg, B: int, S: int, layers: int, last_only: bool):
+    """(bf16, f32) flops of one forward over B sequences: for Whisper S
+    decoder tokens over encoder.n_ctx frames (the encoder's layers, the
+    decoder's and its cross-attention's products), for InternVL2 the
+    n_prefix patches and S - n_prefix tokens through ``layers`` layers
+    (vis_proj's product too). The unembedding of the last token only
+    (``last_only``, a prefill) or of every text token. f32: the
+    attention's scores and weighted sums, 4 hd flops a (query head, key)
+    pair: the encoder's over every frame, the causal halves, the
+    cross-attention's over every frame."""
+    d, H, hd, V = cfg.d_model, cfg.n_heads, cfg.hd, cfg.vocab_size
+    per = gqa_layer_params(cfg)
+    causal = S * (S + 1) // 2
+    if cfg.family == "encdec":
+        Se, Le = cfg.encoder.n_ctx, cfg.encoder.n_layers
+        bf16 = 2 * B * (Se * per * Le + S * per * layers
+                        + layers * (S * 2 * d * H * hd
+                                    + Se * 2 * d * cfg.n_kv_heads * hd))
+        f32 = 4 * B * H * hd * (Le * Se * Se + layers * (causal + S * Se))
+        text = S
+    else:
+        P = cfg.encoder.n_prefix
+        bf16 = 2 * B * (S * per * layers + P * d * d)
+        f32 = 4 * B * H * hd * causal * layers
+        text = S - P
+    bf16 += 2 * B * d * V * (1 if last_only else text)
+    return bf16, f32
+
+
+def family_serve_leg(device, label, params=None):
+    """LM serving of whisper-base or InternVL2-26B at the published
+    widths and full depth (FAMILY_LEGS[label]): a warm-up generate of 2
+    steps (not for the ring, whose prefill is the full leg's), then the
+    leg's batch and FS_STEPS greedy steps through launch.serve.generate
+    between a reset and a read of the launch counts and the peak
+    memory; the ring leg holds swa_decode against its plain version on
+    its own layer-0 ring. Then one prefill and 8 more steps under the
+    profiler, split by FAMILY_RANGES. ``params`` reuses the full leg's
+    parameters (the ring variant). Returns (counts, params)."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.swa_decode import swa_decode_attention as swa
+    from repro_torch.launch.serve import generate, init_params
+    from repro_torch.launch.serve import make_prefill, make_serve_step
+    from repro_torch.models.common import apply_norm, apply_rope
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.utils.tree import param_count, tree_bytes
+    t_leg = time.perf_counter()
+    name, B, S, window = FAMILY_LEGS[label]
+    cfg = get_config(name)
+    if window:
+        cfg = cfg.with_sliding_window(window)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    if params is None:
+        params = init_params(model, seed=FS_SEED, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    nparam, pbytes = param_count(params), tree_bytes(params)
+    V, d = cfg.vocab_size, cfg.d_model
+    text = S - (cfg.encoder.n_prefix if cfg.family == "vlm" else 0)
+    prompts = torch.as_tensor(np.random.default_rng(FS_SEED).integers(
+        0, V, size=(B, text)), dtype=torch.int32)
+    batch = {"tokens": prompts, **family_inputs(cfg, B, FS_SEED)}
+    if not window:
+        generate(model, params, batch, steps=2)          # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    stats = {}
+    toks = generate(model, params, batch, steps=FS_STEPS, stats=stats)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    cache = stats["cache"]
+    require(tuple(toks.shape) == (B, FS_STEPS)
+            and bool(((toks >= 0) & (toks < V)).all()), f"{label}: tokens")
+    require(all(tuple(lg.shape) == (B, V) and bool(torch.isfinite(lg).all())
+                for lg in stats["logits"]), f"{label}: logits not finite")
+    seg = cache["segments"][0]
+    require(cache["len"].tolist() == [S + FS_STEPS] * B
+            and ("pos" in seg) == bool(window)
+            and ("ck" in seg) == (cfg.family == "encdec"), f"{label}: cache")
+    want = {k: 0 for k in counts}
+    if window:
+        want["swa_decode"] = cfg.n_layers * FS_STEPS
+    require(counts == want, f"{label}: launches {counts}, expected {want}")
+    swa_line = ""
+    if window:
+        # swa_decode on the leg's own layer-0 ring and last query.
+        lp = layer_params(params["segments"][0], 0)
+        pos = cache["len"].long() - 1
+        require(bool((seg["pos"][0].amax(dim=-1) == pos).all()),
+                f"{label}: the ring does not hold the last position")
+        h = apply_norm(cfg.norm, lp["ln1"],
+                       params["embed"][toks[:, -1].long().to(device)])
+        q = (h @ lp["attn"]["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)[:, 0].contiguous()
+        bias = torch.where(seg["pos"][0] >= 0, 0.0, -1e30).float()
+        scale = 1.0 / math.sqrt(cfg.hd)
+        got = swa(q, seg["k"][0], seg["v"][0], bias, scale)
+        ref_out = ref.swa_decode_attention(q, seg["k"][0], seg["v"][0], bias,
+                                           scale)
+        sync()
+        serr = float((got.float() - ref_out.float()).abs().max())
+        require(serr <= 2e-2 * float(ref_out.float().abs().max()),
+                f"{label}: swa_decode on the leg's ring differs by {serr}")
+        swa_line = (f", swa_decode on the leg's layer-0 ring (g="
+                    f"{cfg.n_heads // cfg.n_kv_heads}) max_abs_err="
+                    f"{serr:.3e}")
+    # Bounds. Prefill: the products of every layer (bf16) and the
+    # attention's (f32). Decode: every decoder parameter read once a step
+    # (the embedding table only where tied: the unembedding reads it; B
+    # of its rows otherwise), the caches read (Whisper's encoder keys and
+    # values too).
+    bf16_flops, f32_flops = family_flops(cfg, B, S, cfg.n_layers, True)
+    prefill_bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    emb = params["embed"]
+    enc_bytes = (tree_bytes(params["enc_segments"])
+                 + tree_bytes(params["enc_norm"])
+                 if cfg.family == "encdec" else 0)
+    vis_bytes = tree_bytes(params.get("vis_proj", []))
+    cache_bytes = tree_bytes(cache["segments"])
+    step_bytes = (pbytes - enc_bytes - vis_bytes
+                  - (0 if cfg.tie_embeddings
+                     else emb.numel() * emb.element_size())
+                  + B * d * emb.element_size() + cache_bytes)
+    step_bound_ms = step_bytes / PEAK_HBM_BYTES * 1e3
+    prefill_s, decode_s = stats["prefill_s"], stats["decode_s"]
+    step_ms = decode_s / FS_STEPS * 1e3
+    what = (f"{cfg.encoder.n_layers} encoder and {cfg.n_layers} decoder "
+            f"layers, {B} clips of {cfg.encoder.n_ctx} frame embeddings, "
+            f"prompts of {S} tokens" if cfg.family == "encdec" else
+            f"{cfg.n_layers} layers, {B} prompts of {cfg.encoder.n_prefix} "
+            f"patch embeddings and {text} tokens")
+    cache_what = (f"ring of W={window}" if window else "full cache")
+    print(f"{label} serve full: {name} at its published widths (d={d}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of {cfg.hd}, "
+          f"d_ff {cfg.d_ff} {cfg.activation}, {cfg.norm}, vocab {V}, bf16), "
+          f"{what}; {nparam / 1e9:.3f} B parameters ({pbytes / 1e9:.2f} GB)"
+          + (f" drawn on the card in {init_s:.2f} s" if not window
+             else " (the full leg's)")
+          + f"; {FS_STEPS} greedy steps over the {cache_what} "
+          f"({cache_bytes / 1e9:.3f} GB) | prefill {prefill_s:.3f} s, "
+          f"{B * S / prefill_s:.1f} tokens/s (bound {prefill_bound_s:.4f} s: "
+          f"{bf16_flops:.3e} bf16 flops, bound "
+          f"{bf16_flops / PEAK_BF16_FLOPS:.4f} s, + {f32_flops:.3e} f32 "
+          f"attention flops, bound {f32_flops / PEAK_F32_FLOPS:.4f} s) | "
+          f"decode {decode_s:.3f} s, {B * FS_STEPS / decode_s:.1f} tokens/s, "
+          f"{step_ms:.3f} ms a step (bound {step_bound_ms:.3f} ms, bytes: "
+          f"{step_bytes / 1e9:.3f} GB a step) | peak memory {peak_gb:.2f} GB "
+          f"| logits finite{swa_line} | launches {json.dumps(counts)} | leg "
+          f"wall {time.perf_counter() - t_leg:.1f} s", flush=True)
+    prefill = make_prefill(model)
+    step = make_serve_step(model)
+    dev_batch = {k: v.to(device) for k, v in batch.items()}
+    with torch.no_grad():
+        if not window:
+            span_profile(f"{label} prefill",
+                         lambda: prefill(params, dev_batch), prefill_s,
+                         FAMILY_RANGES)
+        tok = toks[:, -1].to(device)
+
+        def eight_steps():
+            # The last 8 positions again: their cache rows (or ring
+            # slots, with the same positions) written anew.
+            c = {**cache, "len": cache["len"] - 8}
+            for _ in range(8):
+                _, c = step(params, c, tok)
+        span_profile(f"{label} decode (8 steps)", eight_steps,
+                     decode_s * 8 / FS_STEPS, FAMILY_RANGES)
+    del cache, stats
+    return counts, params
+
+
+def family_train_leg(device, label, layers: int):
+    """Training of whisper-base or InternVL2-26B at the published widths
+    (FAMILY_TRAIN[label]) cut to ``layers`` decoder layers, with the
+    config's adamw, remat and microbatch: a warm-up step, then FT_STEPS
+    timed steps between a reset and a read of the launch counts and the
+    peak memory, then one more step under the profiler (the attention
+    ranges, the clip's and the optimizer's). Returns the counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.train import TrainState, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import param_count, tree_bytes
+    t_leg = time.perf_counter()
+    name, B, S = FAMILY_TRAIN[label]
+    full = get_config(name)
+    cfg = full.replace(n_layers=layers)
+    require(cfg.remat and cfg.optimizer == "adamw",
+            f"{label} train: the config's remat and adamw")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model, seed=FS_SEED, device=device)
+    opt = build_optimizer(cfg.optimizer, FT_LR)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=device))
+    sync()
+    init_s = time.perf_counter() - t0
+    nparam, pbytes = param_count(params), tree_bytes(params)
+    sbytes = tree_bytes(state.opt)
+    text = S - (cfg.encoder.n_prefix if cfg.family == "vlm" else 0)
+    step = make_train_step(model, None, opt)
+    batches = [{**b, **family_inputs(cfg, B, i, device)} for i, b in
+               enumerate(train_batches(FS_SEED, cfg.vocab_size, B, text + 1,
+                                       FT_WARM + FT_STEPS + 1, device))]
+    for b in batches[:FT_WARM]:
+        state, _ = step(state, b)
+    sync()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    walls, mets = [], []
+    for b in batches[FT_WARM:FT_WARM + FT_STEPS]:
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in met.items()})
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    require(all(np.isfinite(v) for mt in mets for v in mt.values())
+            and all({"grad_norm", "loss"} <= set(mt) for mt in mets),
+            f"{label} train: metrics {mets}")
+    require(int(state.step) == FT_WARM + FT_STEPS, f"{label} train: step")
+    require(sum(counts.values()) == 0,
+            f"{label} train: launches {counts}, expected none")
+    wall = float(np.median(walls))
+    # Bound: three forwards' worth (a forward and a backward; remat's
+    # second forward not counted) of the bf16 products, every text
+    # token unembedded, and of the attention's f32 products.
+    bf16_flops, f32_flops = (3 * f for f in family_flops(cfg, B, S, layers,
+                                                         False))
+    bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+
+    def series(key):
+        return ", ".join(f"{mt[key]:.4f}" for mt in mets)
+    what = (f"{B} x ({cfg.encoder.n_ctx} frames, {S} tokens)"
+            if cfg.family == "encdec" else
+            f"{B} x ({cfg.encoder.n_prefix} patches + {text} tokens)")
+    print(f"{label} train full: {name} at its published widths cut to "
+          f"{layers} of {full.n_layers} layers ({nparam / 1e9:.3f} B "
+          f"parameters, {pbytes / 1e9:.2f} GB, adamw's state "
+          f"{sbytes / 1e9:.2f} GB, drawn on the card in {init_s:.2f} s), "
+          f"remat, microbatch {cfg.microbatch}, adamw lr {FT_LR}: batches "
+          f"of {what} | steps " + ", ".join(f"{w:.3f}" for w in walls)
+          + f" s ({B * S / wall:.1f} tokens/s at the median; bound "
+          f"{bound_s:.3f} s a step: {bf16_flops:.3e} bf16 + {f32_flops:.3e} "
+          f"f32 flops) | loss {series('loss')} | grad norm "
+          f"{series('grad_norm')} | peak memory {peak_gb:.2f} GB | launches "
+          f"{json.dumps(counts)} | leg wall {time.perf_counter() - t_leg:.1f}"
+          f" s", flush=True)
+    span_profile(f"{label} train step (the ranges hold the forward and "
+                 f"remat's recompute; their backward is outside them)",
+                 lambda: step(state, batches[-1]), wall,
+                 FAMILY_RANGES + ("train_step/clip", "train_step/optimizer"))
+    del state, params, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def family_legs(device):
+    """The Whisper and InternVL2 legs in order: the reduced references
+    against the CPU, then Whisper serving and training at full depth,
+    InternVL2 serving all 48 layers over the full cache and over the
+    ring of its sliding-window variant (the same parameters), and
+    training at FT_INTERNVL_LAYERS layers. Returns {leg: launch
+    counts}."""
+    t_legs = time.perf_counter()
+    for label in FR_CONFIGS:
+        t0 = time.perf_counter()
+        lerr, merr, perr = small_family_agreement(device, label)
+        name, kw = FR_CONFIGS[label]
+        train = (f" and {FR_TRAIN} adamw steps of make_train_step "
+                 f"(microbatch 2, 4 x 32 tokens)" if not kw else "")
+        print(f"reference: reduced {label} (f32) through generate (2 prompts "
+              f"of {FR_PROMPT} tokens with the family's inputs, {FR_DECODE} "
+              f"steps){train} on the card equals the CPU run (tokens exact; "
+              f"logits and cache leaves within 1e-5 relative, max logit "
+              f"error {lerr:.3e}"
+              + (f"; loss and grad norm within 1e-5 relative, max error "
+                 f"{merr:.3e}; parameters within 1e-5 of a leaf's largest "
+                 f"magnitude + 1e-6, max error {perr:.3e}" if not kw else "")
+              + f") in {time.perf_counter() - t0:.1f} s", flush=True)
+    counts = {}
+    counts["whisper_serve"] = family_serve_leg(device, "whisper")[0]
+    torch.cuda.empty_cache()
+    counts["whisper_train"] = family_train_leg(device, "whisper", 6)
+    counts["internvl_serve"], params = family_serve_leg(device, "internvl")
+    counts["internvl_ring"] = family_serve_leg(device, "internvl ring",
+                                               params)[0]
+    # The 40 GB of parameters go before the train leg draws its own.
+    del params
+    torch.cuda.empty_cache()
+    counts["internvl_train"] = family_train_leg(device, "internvl",
+                                                FT_INTERNVL_LAYERS)
+    print(f"legs: whisper and internvl references, serve full, ring, train "
+          f"full in {time.perf_counter() - t_legs:.1f} s of wall", flush=True)
+    return counts
+
+
 def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -5477,6 +5924,12 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
           flush=True)
     state_counts = state_legs(torch.device("cuda"))
+    torch.cuda.empty_cache()
+    family_counts = family_legs(torch.device("cuda"))
+    require(family_counts["internvl_ring"]["swa_decode"]
+            == 48 * FS_STEPS, "swa_decode was not launched on every layer "
+            "and step of the internvl ring leg")
+    new_counts += tuple(family_counts.values())
 
     replaces = {
         "pdist_argmin": "src/repro/kernels/pdist_argmin.py:101",
@@ -5526,10 +5979,12 @@ def main() -> int:
           + json.dumps(example_counts) + " deepseek_serve "
           + json.dumps(ds_serve_counts) + " deepseek_train "
           + json.dumps(ds_train_counts) + "".join(
-              f" {leg} " + json.dumps(c) for leg, c in state_counts.items())
-          + "; every kernel matched its plain version; the rwkv and zamba2 "
-          "legs launched none of the port's kernels (those paths have none: "
-          "their chunked scans and attention are plain PyTorch)", flush=True)
+              f" {leg} " + json.dumps(c) for leg, c in
+              list(state_counts.items()) + list(family_counts.items()))
+          + "; every kernel matched its plain version; the rwkv, zamba2, "
+          "whisper and internvl legs launched none of the port's kernels "
+          "(those paths have none: their scans and attention are plain "
+          "PyTorch) but the internvl ring leg's swa_decode", flush=True)
     print(f"card: {smi}; chip_smoke wall {time.perf_counter() - t_all:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,6 +12,14 @@ parameters are. A sliding-window model whose prompt plus steps exceed
 its window decodes over a ring cache, through the ``swa_decode``
 kernel; an MLA model (DeepSeek-V3) over its latent cache, in the
 absorbed form.
+
+The batch holds ``tokens`` (B, S) and the family's inputs: for the
+encdec family (Whisper) ``enc_embeds`` (B, n_ctx, d), the frame
+embeddings its encoder reads, and ``tokens`` (B, S_dec) the decoder's
+prompt; for the vlm family (InternVL2) ``patch_embeds`` (B, P, d), the
+projected patches in front of ``tokens`` (B, S - P). A cross-attention
+model decodes over a full cache with the encoder's keys and values
+beside it, through the plain ``decode_attention``.
 """
 from __future__ import annotations
 
@@ -53,6 +61,11 @@ def make_prefill(model: Model, ctx: Optional[DistCtx] = None):
     return prefill
 
 
+# The batch leaves a prefill reads: the tokens, the encdec family's frame
+# embeddings and the vlm family's patch embeddings.
+_INPUTS = ("tokens", "enc_embeds", "patch_embeds")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -63,7 +76,8 @@ def generate(model: Model, params, batch, *, steps: int,
              ctx: Optional[DistCtx] = None, greedy: bool = True,
              key: Union[int, StepGumbel, None] = None,
              stats: Optional[dict] = None) -> torch.Tensor:
-    """Prefill ``batch["tokens"]`` (B, S), then decode ``steps`` tokens.
+    """Prefill ``batch["tokens"]`` (B, S) (with the family's
+    ``enc_embeds`` or ``patch_embeds``), then decode ``steps`` tokens.
     Returns (B, steps) int32: the prefill's next token, then each step's.
 
     Greedy decoding takes the argmax. Sampled decoding (``greedy=False``)
@@ -85,9 +99,10 @@ def generate(model: Model, params, batch, *, steps: int,
     model.decode_room = steps + 1
     prefill = make_prefill(model, ctx)
     step = make_serve_step(model, ctx)
-    tokens = torch.as_tensor(batch["tokens"]).to(device)
+    inputs = {name: torch.as_tensor(batch[name]).to(device)
+              for name in _INPUTS if name in batch}
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {**batch, "tokens": tokens})
+    logits, cache = prefill(params, {**batch, **inputs})
     if stats is not None:
         _sync(device)
         stats["prefill_s"] = time.perf_counter() - t0

@@ -1,23 +1,35 @@
 """Model assembly and the serving API (counterpart of
 ``repro/models/model.py``): ``build_model(cfg)`` -> ``Model`` with
 ``init``, ``loss``, ``prefill``, ``init_cache`` and ``serve_step``, for
-the dense and moe families with GQA or MLA attention (with DeepSeek-V3's
-multi-token-prediction (MTP) head in the loss), the ssm family (RWKV-6)
-and the hybrid family (Zamba2: groups of Mamba2 layers, the weight-tied
-shared attention block after each group).
+every family of ``configs/``: dense and moe with GQA or MLA attention
+(with DeepSeek-V3's multi-token-prediction (MTP) head in the loss), ssm
+(RWKV-6), hybrid (Zamba2: groups of Mamba2 layers, the weight-tied
+shared attention block after each group), encdec (Whisper: a
+non-causal encoder over precomputed frame embeddings, a decoder with
+cross-attention over its output) and vlm (InternVL2: projected patch
+embeddings in front of the text tokens).
+
+Inputs (a batch dict): ``tokens`` (B, S) int, and for training
+``labels`` of the same shape (-1 masked); the encdec family adds
+``enc_embeds`` (B, n_ctx, d), the vlm family ``patch_embeds`` (B, P, d),
+P = ``encoder.n_prefix``, whose positions come first and take no loss.
 
 Parameters are the reference's pytree as nested dicts of tensors
 (``embed``, ``final_norm``, ``segments`` (a tuple, one dict of stacked
 layers per segment), ``unembed`` unless the embeddings are tied, with
 ``cfg.mtp`` ``mtp_proj``, ``mtp_block`` (one layer, not stacked) and
-``mtp_norm``, and for the hybrid family ``shared_block`` (one layer,
-not stacked)), so ``convert.model_params`` carries the JAX package's
-parameters across one to one. The decode cache is ``{"len": (B,) int32,
-"segments": [...]}`` with, per segment, one dict of layer-stacked k / v
-(and ring ``pos``), for MLA latent / rope, or for a rwkv or mamba
-segment its layer-stacked state; the hybrid family adds ``"shared"``,
-one {"k", "v"} of (1, B, room, KVH, hd) per group. ``serve_step``
-updates it in place and returns it with ``len + 1``.
+``mtp_norm``, for the hybrid family ``shared_block`` (one layer, not
+stacked), for the encdec family ``enc_segments`` (a one-tuple of the
+encoder's stacked layers) and ``enc_norm``, and for the vlm family
+``vis_proj`` (d, d)), so ``convert.model_params`` carries the JAX
+package's parameters across one to one. The decode cache is
+``{"len": (B,) int32, "segments": [...]}`` with, per segment, one dict
+of layer-stacked k / v (and ring ``pos``), for MLA latent / rope, or for
+a rwkv or mamba segment its layer-stacked state; a cross segment's adds
+the encoder's keys and values ``ck`` / ``cv`` (L, B, Se, KVH, hd) and
+``cvalid`` (L, B, Se); the hybrid family adds ``"shared"``, one
+{"k", "v"} of (1, B, room, KVH, hd) per group. ``serve_step`` updates it
+in place and returns it with ``len + 1``.
 """
 from __future__ import annotations
 
@@ -32,15 +44,16 @@ from repro_torch.models import rwkv as R
 from repro_torch.models.common import (DistCtx, apply_norm, cross_entropy,
                                        dense_init, init_norm)
 from repro_torch.models.transformer import (SegmentSpec, block_decode,
-                                            block_seq, init_layer,
-                                            init_segment,
+                                            block_seq, cross_keys,
+                                            init_layer, init_segment,
                                             plan_segments, run_segment,
-                                            run_segment_decode)
+                                            run_segment_decode,
+                                            unbind_layers)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 # The MTP block and the hybrid family's shared block: one attn_ffn layer
 # with a dense FFN.
@@ -50,15 +63,13 @@ _BLOCK_SPEC = SegmentSpec("attn_ffn", 1)
 class Model:
     def __init__(self, cfg):
         if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                f"(ROADMAP item 9); the port serves {list(PORTED_FAMILIES)}")
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; "
+                             f"the port serves {list(PORTED_FAMILIES)}")
         if cfg.attn not in ("gqa", "mla") and not (
                 cfg.attn == "none" and cfg.family == "ssm"):
-            raise NotImplementedError(
-                f"{cfg.name}: attention {cfg.attn!r} is not ported yet "
-                f"(ROADMAP item 9); the port has GQA and MLA, and no "
-                f"attention in the ssm family")
+            raise ValueError(f"{cfg.name}: unknown attention {cfg.attn!r}; "
+                             f"the port has GQA and MLA, and no attention "
+                             f"in the ssm family")
         self.cfg = cfg
         self.segments = plan_segments(cfg)
         self.dtype = _DTYPES[cfg.dtype]
@@ -81,6 +92,14 @@ class Model:
                                       dtype)
         if cfg.family == "hybrid":
             p["shared_block"] = init_layer(gen, cfg, _BLOCK_SPEC, dtype)
+        if cfg.family == "encdec":
+            p["enc_segments"] = (init_segment(gen, cfg, self._enc_spec(),
+                                              dtype),)
+            p["enc_norm"] = init_norm(cfg.norm, cfg.d_model, dtype,
+                                      gen.device)
+        if cfg.family == "vlm":
+            p["vis_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model),
+                                       dtype)
         if cfg.mtp:
             p["mtp_proj"] = dense_init(gen, (2 * cfg.d_model, cfg.d_model),
                                        dtype)
@@ -94,13 +113,30 @@ class Model:
         w = p["embed"].T if self.cfg.tie_embeddings else p["unembed"]
         return x @ w
 
+    def _enc_spec(self) -> SegmentSpec:
+        """The encdec family's encoder: one non-causal segment."""
+        return SegmentSpec("attn_ffn", self.cfg.encoder.n_layers,
+                           causal=False)
+
+    def _encode(self, p, batch, ctx: DistCtx):
+        """The encdec family's encoder over ``batch["enc_embeds"]``
+        (B, Se, d), cast to the model's dtype, then ``enc_norm``; None
+        for the other families."""
+        cfg = self.cfg
+        if cfg.family != "encdec":
+            return None
+        x, _, _, _ = run_segment(p["enc_segments"][0],
+                                 batch["enc_embeds"].to(self.dtype), cfg, ctx,
+                                 self._enc_spec())
+        return apply_norm(cfg.norm, p["enc_norm"], x)
+
     def _backbone(self, p, x: torch.Tensor, ctx: DistCtx, *,
-                  want_cache: bool = False):
-        """All segments, each from fresh (zero) states, the hybrid
-        family's shared block after each (not recomputed under
-        ``cfg.remat``, as in the reference), then the final norm.
-        Returns (x, aux, new states, caches, the shared block's
-        caches)."""
+                  enc_out=None, want_cache: bool = False):
+        """All segments, each from fresh (zero) states, a cross segment's
+        layers attending over ``enc_out``, the hybrid family's shared
+        block after each (not recomputed under ``cfg.remat``, as in the
+        reference), then the final norm. Returns (x, aux, new states,
+        caches, the shared block's caches)."""
         cfg = self.cfg
         states = self._fresh_states(x.shape[0], x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -108,6 +144,7 @@ class Model:
         for i, spec in enumerate(self.segments):
             x, a, ns, cache = run_segment(p["segments"][i], x, cfg, ctx,
                                           spec, state=states[i],
+                                          enc_out=enc_out,
                                           want_cache=want_cache)
             aux = aux + a
             new_states.append(ns)
@@ -138,20 +175,29 @@ class Model:
         return states
 
     def _embed_inputs(self, p, batch, ctx: DistCtx = None):
-        """Token embedding. Returns (x, label_offset)."""
-        return p["embed"][batch["tokens"].long()], 0
+        """Token embedding; for the vlm family the patch embeddings, cast
+        to the model's dtype and projected by ``vis_proj``, in front.
+        Returns (x, label_offset): the number of leading positions that
+        are not text (P, or 0)."""
+        tok = p["embed"][batch["tokens"].long()]
+        if self.cfg.family == "vlm":
+            vis = batch["patch_embeds"].to(self.dtype) @ p["vis_proj"]
+            return torch.cat([vis, tok], dim=1), vis.shape[1]
+        return tok, 0
 
     # -------------------------------------------------------------- loss --
     def loss(self, p, batch, ctx: DistCtx = None):
         """Next-token cross-entropy plus the MoE load-balance loss, and
         with ``cfg.mtp`` 0.3 times the MTP head's cross-entropy, for
         training: ``batch["tokens"]`` (B, S) and ``batch["labels"]``
-        (B, S), -1 masked. Returns (total, {"ce", "aux"} and "mtp_ce"
-        with the head), f32 scalars. The vlm / encdec inputs are refused
-        with the model (ROADMAP item 9)."""
+        (B, S), -1 masked, with the family's ``enc_embeds`` or
+        ``patch_embeds`` (the loss is taken on the text positions only).
+        Returns (total, {"ce", "aux"} and "mtp_ce" with the head), f32
+        scalars."""
         ctx = ctx or DistCtx.local()
         x, n_prefix = self._embed_inputs(p, batch, ctx)
-        h, aux, _, _, _ = self._backbone(p, x, ctx)
+        h, aux, _, _, _ = self._backbone(p, x, ctx,
+                                         enc_out=self._encode(p, batch, ctx))
         h_text = h[:, n_prefix:]
         logits = self._unembed(p, h_text, ctx)
         labels = batch["labels"].long()
@@ -190,28 +236,32 @@ class Model:
 
     # ----------------------------------------------------------- prefill --
     def prefill(self, p, batch, ctx: DistCtx = None):
-        """Full forward over ``batch["tokens"]`` (B, S) from fresh
-        states, building the decode cache. Returns (last-token logits
-        (B, V), cache)."""
+        """Full forward over ``batch["tokens"]`` (B, S) (after the vlm
+        family's patches; the encdec family's decoder over the encoded
+        ``enc_embeds``) from fresh states, building the decode cache.
+        Returns (last-token logits (B, V), cache)."""
         ctx = ctx or DistCtx.local()
         x, _ = self._embed_inputs(p, batch, ctx)
+        enc_out = self._encode(p, batch, ctx)
         h, _, new_states, caches, shared_caches = self._backbone(
-            p, x, ctx, want_cache=True)
+            p, x, ctx, enc_out=enc_out, want_cache=True)
         logits = self._unembed(p, h[:, -1, :], ctx)
-        return logits, self._pack_cache(caches, new_states, shared_caches,
-                                        x.shape[0], x.shape[1], x.device)
+        return logits, self._pack_cache(p, caches, new_states, shared_caches,
+                                        enc_out, x.shape[0], x.shape[1],
+                                        x.device)
 
-    def _pack_cache(self, caches: List[Any], new_states: List[Any],
-                    shared_caches: List[Dict[str, torch.Tensor]], B: int,
-                    S: int, dev):
+    def _pack_cache(self, p, caches: List[Any], new_states: List[Any],
+                    shared_caches: List[Dict[str, torch.Tensor]], enc_out,
+                    B: int, S: int, dev):
         """Prefill caches -> the decode layout. A rwkv or mamba
         segment's final state goes in as it stands (stacked: no view of
         an activation). A sliding-window model whose room exceeds its
         window gets a ring of W slots holding the last W positions at
         ring indices 0..W-1, as the reference lays it out
         (``repro/models/model.py`` ``_pack_cache``); otherwise the full
-        cache (or MLA's latent cache) is padded to the room, and the
-        hybrid family's shared-block caches likewise, each as
+        cache (or MLA's latent cache) is padded to the room, a cross
+        segment's with the encoder's keys and values (``_cross_cache``),
+        and the hybrid family's shared-block caches likewise, each as
         (1, B, room, KVH, hd)."""
         cfg = self.cfg
         out = {"len": torch.full((B,), S, dtype=torch.int32, device=dev),
@@ -237,6 +287,8 @@ class Model:
                 pad = room - S
                 entry = {name: torch.nn.functional.pad(
                     cache[name], (0, 0, 0, 0, 0, pad)) for name in ("k", "v")}
+                if spec.cross:
+                    entry.update(self._cross_cache(p, enc_out, spec))
             out["segments"].append(entry)
         if cfg.family == "hybrid":
             out["shared"] = [{name: torch.nn.functional.pad(
@@ -244,10 +296,24 @@ class Model:
                 for name in ("k", "v")} for c in shared_caches]
         return out
 
+    def _cross_cache(self, p, enc_out: torch.Tensor, spec: SegmentSpec):
+        """A cross segment's decode entries: per layer the encoder's keys
+        and values, ``ck`` / ``cv`` (L, B, Se, KVH, hd), and ``cvalid``
+        (L, B, Se), all True."""
+        seg = p["segments"][self.segments.index(spec)]
+        kv = [cross_keys(lp["xattn"], enc_out, self.cfg)
+              for lp in unbind_layers(seg, spec.n_layers)]
+        B, Se = enc_out.shape[0], enc_out.shape[1]
+        return {"ck": torch.stack([k for k, _ in kv]),
+                "cv": torch.stack([v for _, v in kv]),
+                "cvalid": torch.ones((spec.n_layers, B, Se), dtype=torch.bool,
+                                     device=enc_out.device)}
+
     # -------------------------------------------------------- init_cache --
     def init_cache(self, B: int, S: int, device=None):
         """Zeroed decode cache with room for S (+1) tokens (zero states
-        for the rwkv and mamba segments)."""
+        for the rwkv and mamba segments; a cross segment's encoder keys
+        and values zero for ``encoder.n_ctx`` frames, all valid)."""
         cfg, dtype = self.cfg, self.dtype
         room = S + 1
         out = {"len": torch.zeros((B,), dtype=torch.int32, device=device),
@@ -271,6 +337,14 @@ class Model:
             else:
                 c = A.init_full_cache(B, room, cfg.n_kv_heads, cfg.hd, dtype,
                                       L, device)
+                if spec.cross:
+                    Se = cfg.encoder.n_ctx
+                    for name in ("ck", "cv"):
+                        c[name] = torch.zeros((L, B, Se, cfg.n_kv_heads,
+                                               cfg.hd), dtype=dtype,
+                                              device=device)
+                    c["cvalid"] = torch.ones((L, B, Se), dtype=torch.bool,
+                                             device=device)
             c.pop("len")
             out["segments"].append(c)
         if cfg.family == "hybrid":
@@ -285,7 +359,8 @@ class Model:
                    ctx: DistCtx = None):
         """One decode step. tokens: (B,). Returns (logits (B, V), cache),
         the cache (states, KV caches and the shared block's) updated in
-        place with ``len`` advanced by one."""
+        place with ``len`` advanced by one (a cross segment's encoder
+        keys and values kept as they are)."""
         ctx = ctx or DistCtx.local()
         cfg = self.cfg
         lengths = cache["len"]

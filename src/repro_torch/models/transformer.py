@@ -2,8 +2,10 @@
 ``repro/models/transformer.py``) for the layer kinds
 
 * ``attn_ffn``: GQA or MLA attention and a dense FFN or a mixture of
-  experts (the dense and moe families; DeepSeek-V3's leading dense
-  layers and its MoE layers alike; Zamba2's shared block);
+  experts (the dense, moe and vlm families; DeepSeek-V3's leading dense
+  layers and its MoE layers alike; Zamba2's shared block), causal or
+  not (Whisper's encoder), with cross-attention over an encoder's
+  output after the self-attention (Whisper's decoder, ``cross``);
 * ``rwkv``: RWKV-6 time-mix and channel-mix (the ssm family);
 * ``mamba``: the Mamba2 SSD block (the hybrid family's groups).
 
@@ -12,8 +14,7 @@ parameters are stacked on a leading layer axis, as in the reference;
 where the reference scans a segment with ``lax.scan``, the port loops
 over the layers in Python. The state-carrying kinds (rwkv, mamba) take
 and return a per-layer state, stacked on the layer axis as the
-reference stacks it. The encdec and vlm families and decoder
-cross-attention are not ported yet (ROADMAP item 9).
+reference stacks it.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.utils.checkpoint
+from torch.profiler import record_function
 
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
@@ -30,11 +32,6 @@ from repro_torch.models import moe as MoE
 from repro_torch.models import rwkv as R
 from repro_torch.models.common import (DistCtx, apply_norm, init_norm,
                                        tree_map)
-
-_NOT_PORTED = ("is not ported yet (ROADMAP item 9): the port runs the "
-               "dense, moe, ssm (RWKV-6) and hybrid (Zamba2) families; "
-               "encdec, vlm and cross-attention are still to come")
-
 
 @dataclass(frozen=True)
 class SegmentSpec:
@@ -46,7 +43,9 @@ class SegmentSpec:
 
 
 def plan_segments(cfg) -> List[SegmentSpec]:
-    """The dense family is one segment; the moe family a leading dense
+    """The dense and vlm families are one segment; the encdec family
+    (Whisper) one segment with cross-attention (its encoder is the
+    model's own, non-causal, segment); the moe family a leading dense
     segment (``n_dense_layers``, if any) and the MoE segment; the ssm
     family (RWKV-6) one rwkv segment; the hybrid family (Zamba2) groups
     of ``hybrid_attn_every`` Mamba2 layers and a remainder group, the
@@ -67,19 +66,14 @@ def plan_segments(cfg) -> List[SegmentSpec]:
         segs.append(SegmentSpec("attn_ffn", cfg.n_layers - cfg.n_dense_layers,
                                 moe=True))
         return segs
-    if cfg.family == "dense":
-        return [SegmentSpec("attn_ffn", cfg.n_layers)]
-    raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) "
-                              f"{_NOT_PORTED}")
-
-
-def _check(cfg, spec: SegmentSpec) -> None:
-    if spec.cross:
-        raise NotImplementedError(f"cross-attention {_NOT_PORTED}")
+    if cfg.family == "encdec":
+        return [SegmentSpec("attn_ffn", cfg.n_layers, cross=True)]
+    return [SegmentSpec("attn_ffn", cfg.n_layers)]
 
 
 def init_layer(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
-    _check(cfg, spec)
+    """One layer's parameters; a cross segment's layer adds ``ln_x`` and
+    ``xattn`` (a GQA parameter set) to the attn_ffn layer's."""
     d = cfg.d_model
     dev = gen.device
     if spec.kind == "rwkv":
@@ -98,6 +92,9 @@ def init_layer(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
         p["moe"] = MoE.init_moe(gen, cfg, dtype)
     else:
         p["ffn"] = F.init_ffn(gen, d, cfg.d_ff, cfg.activation, dtype)
+    if spec.cross:
+        p["ln_x"] = init_norm(cfg.norm, d, dtype, dev)
+        p["xattn"] = A.init_gqa(gen, cfg, dtype)
     return p
 
 
@@ -129,14 +126,16 @@ def init_segment(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
 # --------------------------------------------- full sequences (prefill) --
 
 def block_seq(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec, *,
-              state=None, want_cache: bool = False):
+              state=None, enc_out: Optional[torch.Tensor] = None,
+              want_cache: bool = False):
     """One layer over a full sequence. Returns (x, aux, new_state,
     cache): for the rwkv and mamba kinds the layer's new state from
     ``state`` (the layer's {"s", "shift", "shift2"} or {"h", "conv"})
     and no cache; for attn_ffn no state and, when ``want_cache``,
     {"k", "v"} (rotated keys, values) for GQA, {"latent", "rope"} (the
-    latent and the rotated rope key) for MLA."""
-    _check(cfg, spec)
+    latent and the rotated rope key) for MLA. A cross segment's layer
+    given ``enc_out`` (B, Se, d) attends over it after the
+    self-attention."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == "rwkv":
         h = apply_norm(cfg.norm, lp["ln1"], x)
@@ -166,12 +165,39 @@ def block_seq(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec, *,
             k = A.apply_rope(k, pos, cfg.rope_theta)
             cache = {"k": k, "v": v}
     x = x + o
+    if spec.cross and enc_out is not None:
+        x = x + cross_attention(lp, x, enc_out, cfg)
     h = apply_norm(cfg.norm, lp["ln2"], x)
     if spec.moe:
         y, aux = MoE.apply_moe(lp["moe"], h, cfg, ctx)
     else:
         y = F.apply_ffn(lp["ffn"], h, cfg.activation, ctx)
     return x + y, aux, None, cache
+
+
+def cross_keys(xattn, enc_out: torch.Tensor, cfg):
+    """The keys and values (B, Se, KVH, hd) of the encoder's output
+    ``enc_out`` (B, Se, d): its products with ``wk`` and ``wv``, with no
+    bias and no rotary positions."""
+    B, Se, _ = enc_out.shape
+    return ((enc_out @ xattn["wk"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd),
+            (enc_out @ xattn["wv"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd))
+
+
+def cross_attention(lp, x: torch.Tensor, enc_out: torch.Tensor, cfg):
+    """Cross-attention of a decoder layer over a full sequence x
+    (B, S, d): the query from ``ln_x``-normed x (with the bias, if the
+    set has one), the keys and values of ``cross_keys``, unmasked
+    attention, then ``wo``. Returns the residual's addend (B, S, d)."""
+    xattn = lp["xattn"]
+    # A named range for torch.profiler (the cross-attention's device
+    # time, its projections included).
+    with record_function("cross_attention"):
+        h = apply_norm(cfg.norm, lp["ln_x"], x)
+        q, _, _ = A._qkv(xattn, h, cfg)
+        ek, ev = cross_keys(xattn, enc_out, cfg)
+        o = A.plain_attention(q, ek, ev).reshape(x.shape[0], x.shape[1], -1)
+        return o @ xattn["wo"]
 
 
 def unbind_layers(seg_params, n_layers: int) -> List[dict]:
@@ -193,15 +219,19 @@ def unbind_layers(seg_params, n_layers: int) -> List[dict]:
 
 
 def run_segment(seg_params, x: torch.Tensor, cfg, ctx: DistCtx,
-                spec: SegmentSpec, *, state=None, want_cache: bool = False):
+                spec: SegmentSpec, *, state=None,
+                enc_out: Optional[torch.Tensor] = None,
+                want_cache: bool = False):
     """The segment's layers in order, layer i from ``state``'s slice i
-    (the stacked states of a rwkv or mamba segment). Returns (x, aux
-    summed over the layers, the new states stacked on a leading layer
-    axis or None, caches stacked likewise or None). With ``cfg.remat``
-    and gradients on, each layer runs under ``torch.utils.checkpoint``
-    (the reference's ``jax.checkpoint`` of the scanned body), the
+    (the stacked states of a rwkv or mamba segment), a cross segment's
+    each attending over ``enc_out``. Returns (x, aux summed over the
+    layers, the new states stacked on a leading layer axis or None,
+    caches stacked likewise or None). With ``cfg.remat`` and gradients
+    on, each layer runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of the scanned body), the
     state-carrying kinds too: its activations are recomputed in the
-    backward instead of kept."""
+    backward instead of kept, ``enc_out`` an argument of the recomputed
+    layer, so that its gradient reaches the encoder."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     states, caches = [], []
     remat = cfg.remat and torch.is_grad_enabled() and not want_cache
@@ -209,10 +239,11 @@ def run_segment(seg_params, x: torch.Tensor, cfg, ctx: DistCtx,
         st = None if state is None else {k: v[i] for k, v in state.items()}
         if remat:
             x, a, ns, cache = torch.utils.checkpoint.checkpoint(
-                block_seq, lp, x, cfg, ctx, spec, state=st,
+                block_seq, lp, x, cfg, ctx, spec, state=st, enc_out=enc_out,
                 use_reentrant=False)
         else:
             x, a, ns, cache = block_seq(lp, x, cfg, ctx, spec, state=st,
+                                        enc_out=enc_out,
                                         want_cache=want_cache)
         aux = aux + a
         states.append(ns)
@@ -231,10 +262,12 @@ def block_decode(lp, x1: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec,
                  state=None, lengths: Optional[torch.Tensor] = None):
     """One layer, one token. For attn_ffn, ``cache`` is this layer's
     (views of the segment's stacked cache), updated in place; returns
-    (x1, cache). For rwkv and mamba, ``state`` is the layer's; returns
-    (x1, the new state), new tensors (the shifts and the conv state
-    views of this step's activations)."""
-    _check(cfg, spec)
+    (x1, cache). A cross segment's cache also holds the encoder's keys
+    and values ``ck`` / ``cv`` (B, Se, KVH, hd) and their mask
+    ``cvalid`` (B, Se), which the self-attention ignores and the step
+    leaves as they are. For rwkv and mamba, ``state`` is the
+    layer's; returns (x1, the new state), new tensors (the shifts and
+    the conv state views of this step's activations)."""
     if spec.kind == "rwkv":
         h = apply_norm(cfg.norm, lp["ln1"], x1[:, None, :])
         o, s_tm = R.rwkv6_time_mix(lp["tm"], h, {"s": state["s"],
@@ -252,15 +285,31 @@ def block_decode(lp, x1: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec,
         return x1 + o[:, 0], ns
     h = apply_norm(cfg.norm, lp["ln1"], x1)
     decode = A.mla_decode if cfg.attn == "mla" else A.gqa_decode
-    o, nc = decode(lp["attn"], h, cache, cfg, ctx, lengths=lengths)
+    o, _ = decode(lp["attn"], h, cache, cfg, ctx, lengths=lengths)
     x1 = x1 + o
+    if spec.cross and "ck" in cache:
+        x1 = x1 + cross_decode(lp, x1, cache, cfg)
     h = apply_norm(cfg.norm, lp["ln2"], x1)
     if spec.moe:
         y, _ = MoE.apply_moe(lp["moe"], h[:, None, :], cfg, ctx)
         y = y[:, 0]
     else:
         y = F.apply_ffn(lp["ffn"], h, cfg.activation, ctx)
-    return x1 + y, nc
+    return x1 + y, cache
+
+
+def cross_decode(lp, x1: torch.Tensor, cache: Dict[str, torch.Tensor], cfg):
+    """One token's cross-attention: the query ``ln_x``-normed x1 (B, d)
+    times ``wq`` (no bias, as the reference's decode), the plain
+    ``decode_attention`` over the cached ``ck`` / ``cv`` where
+    ``cvalid``, then ``wo``. Returns the residual's addend (B, d)."""
+    xattn = lp["xattn"]
+    with record_function("cross_attention"):
+        h = apply_norm(cfg.norm, lp["ln_x"], x1)
+        q = (h @ xattn["wq"]).reshape(x1.shape[0], cfg.n_heads, cfg.hd)
+        o = A.decode_attention(q, cache["ck"], cache["cv"],
+                               kv_valid=cache["cvalid"])
+        return o.reshape(x1.shape[0], -1) @ xattn["wo"]
 
 
 def run_segment_decode(seg_params, x1: torch.Tensor, cfg, ctx: DistCtx,

@@ -1,10 +1,15 @@
-"""Shared helpers of tests/test_torch_rwkv.py and tests/test_torch_hybrid.py:
-a reduced state-carrying model (RWKV-6 or Zamba2) in both packages from
-one set of JAX parameters, and the comparisons both files make.
+"""Shared helpers of tests/test_torch_rwkv.py, tests/test_torch_hybrid.py,
+tests/test_torch_encdec.py and tests/test_torch_vlm.py: a reduced model
+(RWKV-6, Zamba2, Whisper or InternVL2) in both packages from one set of
+JAX parameters, its family's inputs (``Pair.extra``: Whisper's frame
+embeddings, InternVL2's patch embeddings) and the comparisons the files
+make.
 
 Tolerances (the largest |difference| over the largest |reference|):
 - f32: 1e-5 for every function, logit, state and cache leaf, loss and
   gradient leaf; generated tokens exactly.
+- The encdec and vlm files pass their own tolerances (1e-5 f32, 2e-2
+  bf16; tests/test_torch_model.py's for the dense family).
 - bf16: 1e-2 for one function alone (2.5 units in the last place of
   bf16, 2^-8 = 3.9e-3: XLA computes a fused chain of bf16 elementwise
   ops in f32 and rounds once, the port rounds after each op, as the
@@ -84,6 +89,23 @@ class Pair:
         labels[:, ::5] = -1
         return toks.astype(np.int32), labels.astype(np.int32)
 
+    def extra(self, B, seed):
+        """The family's inputs beside the tokens, f32 numpy drawn from
+        ``seed``, x 0.02 as the JAX package's ``dummy_inputs``: the encdec
+        family's ``enc_embeds`` (B, n_ctx, d), the vlm family's
+        ``patch_embeds`` (B, n_prefix, d); none for the others."""
+        rng = np.random.default_rng(1000 + seed)
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return {"enc_embeds": (rng.normal(size=(
+                B, cfg.encoder.n_ctx, cfg.d_model)) * 0.02).astype(
+                    np.float32)}
+        if cfg.family == "vlm":
+            return {"patch_embeds": (rng.normal(size=(
+                B, cfg.encoder.n_prefix, cfg.d_model)) * 0.02).astype(
+                    np.float32)}
+        return {}
+
     def jax_fns(self, room):
         self.jm.decode_room = room
         return (jax.jit(jax_make_prefill(self.jm, JaxCtx.local())),
@@ -104,12 +126,14 @@ def jax_value_and_grad(jcfg):
     return _VALUE_AND_GRAD[jcfg]
 
 
-def jax_batch(toks, labels):
-    return {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+def jax_batch(toks, labels, extra=None):
+    return {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+            **{k: jnp.asarray(v) for k, v in (extra or {}).items()}}
 
 
-def torch_batch(toks, labels):
-    return {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(labels)}
+def torch_batch(toks, labels, extra=None):
+    return {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(labels),
+            **{k: torch.as_tensor(v) for k, v in (extra or {}).items()}}
 
 
 def assert_tree_close(got, want, tol, what=""):
@@ -132,16 +156,21 @@ def assert_tree_close(got, want, tol, what=""):
             assert max_rel(g, w) <= tol, (what, path, max_rel(g, w))
 
 
-def check_prefill_and_decode(pr, S, steps=4):
-    """Prefill of 2 prompts of S tokens, then ``steps`` decode steps:
-    logits after each, and every cache leaf (the states, the shared
-    block's caches) after the prefill and after the last step."""
+def check_prefill_and_decode(pr, S, steps=4, tol=None):
+    """Prefill of 2 prompts of S tokens (with the family's inputs), then
+    ``steps`` decode steps: logits after each, and every cache leaf (the
+    states, the shared block's caches, the encoder's keys and values)
+    after the prefill and after the last step, within ``tol`` (default
+    ``TOL``)."""
     jprefill, jstep = pr.jax_fns(steps + 1)
     pr.m.decode_room = steps + 1
     toks, _ = pr.tokens(2, S, seed=S)
-    tol = TOL[pr.dtype]
-    jl, jc = jprefill(pr.jp, {"tokens": jnp.asarray(toks)})
-    tl, tc = pr.m.prefill(pr.p, {"tokens": torch.as_tensor(toks)})
+    extra = pr.extra(2, seed=S)
+    tol = TOL[pr.dtype] if tol is None else tol
+    jl, jc = jprefill(pr.jp, {"tokens": jnp.asarray(toks),
+                              **{k: jnp.asarray(v) for k, v in extra.items()}})
+    tl, tc = pr.m.prefill(pr.p, {"tokens": torch.as_tensor(toks), **{
+        k: torch.as_tensor(v) for k, v in extra.items()}})
     assert max_rel(tl, jl) <= tol
     assert_tree_close(tc, jc, tol, "prefill cache")
     held = tree.leaves({k: v for k, v in tc.items() if k != "len"})
@@ -159,12 +188,15 @@ def check_prefill_and_decode(pr, S, steps=4):
 
 def check_decode_equals_fresh_prefill(pr, S):
     """One decode step after a prefill of S tokens equals a fresh
-    prefill of the S + 1 tokens within 1e-5 (f32)."""
+    prefill of the S + 1 tokens (the family's inputs the same) within
+    1e-5 (f32)."""
     toks, _ = pr.tokens(2, S + 1, seed=3)
+    extra = {k: torch.as_tensor(v) for k, v in pr.extra(2, seed=3).items()}
     pr.m.decode_room = 2
-    _, cache = pr.m.prefill(pr.p, {"tokens": torch.as_tensor(toks[:, :S])})
+    _, cache = pr.m.prefill(pr.p, {"tokens": torch.as_tensor(toks[:, :S]),
+                                   **extra})
     got, _ = pr.m.serve_step(pr.p, cache, torch.as_tensor(toks[:, S]))
-    want, _ = pr.m.prefill(pr.p, {"tokens": torch.as_tensor(toks)})
+    want, _ = pr.m.prefill(pr.p, {"tokens": torch.as_tensor(toks), **extra})
     assert max_rel(got, want) <= 1e-5
 
 
@@ -174,14 +206,15 @@ def check_init_cache(pr):
                           "init_cache")
 
 
-def check_loss_and_grads(pr, toks, labels, want_leaf):
-    """loss, ce, aux and every gradient leaf against jax.value_and_grad;
-    ``want_leaf`` names a key path that must be among the gradients. In
-    bf16 the gradients are held to the f32 model's (JAX) at the same
-    parameter values."""
+def check_loss_and_grads(pr, toks, labels, want_leaf, extra=None):
+    """loss, ce, aux and every gradient leaf against jax.value_and_grad,
+    with the family's inputs ``extra``; ``want_leaf`` names a key path
+    (or a tuple of them) that must be among the gradients. In bf16 the
+    gradients are held to the f32 model's (JAX) at the same parameter
+    values."""
     from repro_torch.launch.train import _value_and_grad
 
-    batch = jax_batch(toks, labels)
+    batch = jax_batch(toks, labels, extra)
     (jl, jmet), jg = jax_value_and_grad(pr.jcfg)(pr.jp, batch)
     if pr.dtype == "bfloat16":
         _, exact = jax_value_and_grad(pr.jcfg.replace(dtype="float32"))(
@@ -189,7 +222,7 @@ def check_loss_and_grads(pr, toks, labels, want_leaf):
             batch)
         exact = jax.tree_util.tree_leaves(exact)
     loss, met, g = _value_and_grad(pr.m, None, pr.p,
-                                   torch_batch(toks, labels))
+                                   torch_batch(toks, labels, extra))
     assert sorted(met) == sorted(jmet) == ["aux", "ce"]
     ltol = 1e-5 if pr.dtype == "float32" else 1e-3
     for got, want in ((loss, jl), (met["ce"], jmet["ce"])):
@@ -199,13 +232,15 @@ def check_loss_and_grads(pr, toks, labels, want_leaf):
     paths = [jax.tree_util.keystr(k)
              for k, _ in jax.tree_util.tree_leaves_with_path(jg)]
     assert len(paths) == len(tree.leaves(g))
-    assert any(want_leaf in p for p in paths)
+    for want in (want_leaf,) if isinstance(want_leaf, str) else want_leaf:
+        assert any(want in p for p in paths), f"no gradient of {want}"
     for i, (path, got, want) in enumerate(zip(
             paths, tree.leaves(g), jax.tree_util.tree_leaves(jg))):
         assert str(got.dtype).split(".")[-1] == str(want.dtype), path
         assert float(np.max(np.abs(f32(want)))) > 0, path
         if pr.dtype == "float32":
-            assert max_rel(got, want) <= 1e-5, (path, max_rel(got, want))
+            assert max_rel(got, want) <= 1e-5, (
+                f"gradient of {path}", max_rel(got, want))
         else:
             ref = f32(exact[i])
             assert np.linalg.norm(f32(got) - ref) <= 2.0 * np.linalg.norm(
@@ -213,12 +248,13 @@ def check_loss_and_grads(pr, toks, labels, want_leaf):
     return g
 
 
-def check_train_steps(pr, mb, lr=1e-3):
-    """At microbatch ``mb``, 3 steps of the jitted JAX train_step with
-    adamw (eps 1e-4, as
-    tests/test_torch_train.py) and of the port's, from one JAX
-    TrainState carried by convert.train_state: loss and grad norm within
-    1e-5 relative and every parameter within 1e-5 of its leaf's largest
+def check_train_steps(pr, mb, lr=1e-3, **kw):
+    """At microbatch ``mb`` (and the config fields ``kw``, in both
+    packages), 3 steps of the jitted JAX train_step with adamw (eps
+    1e-4, as tests/test_torch_train.py) and of the port's, from one JAX
+    TrainState carried by convert.train_state, on batches of 4 x 32
+    tokens with the family's inputs: loss and grad norm within 1e-5
+    relative and every parameter within 1e-5 of its leaf's largest
     magnitude + 1e-6 after each step; the moments within 1e-4 after the
     last."""
     import repro.optim as joptim
@@ -232,23 +268,27 @@ def check_train_steps(pr, mb, lr=1e-3):
     state = convert.train_state(as_np(jstate), "cpu")
     assert_tree_close(state.params, jstate.params, 0.0, "train_state params")
     assert_tree_close(state.opt, jstate.opt, 0.0, "train_state opt")
-    jstep = jax.jit(jax_train_step(jax_build(pr.jcfg.replace(microbatch=mb)),
-                                   JaxCtx.local(), jopt))
-    step = make_train_step(build_model(pr.cfg.replace(microbatch=mb)), None,
-                           opt)
+    jstep = jax.jit(jax_train_step(
+        jax_build(pr.jcfg.replace(microbatch=mb, **kw)), JaxCtx.local(),
+        jopt))
+    step = make_train_step(build_model(pr.cfg.replace(microbatch=mb, **kw)),
+                           None, opt)
+    paths = [jax.tree_util.keystr(k) for k, _ in
+             jax.tree_util.tree_leaves_with_path(jstate.params)]
     for i in range(3):
         toks, labels = pr.tokens(4, 32, seed=10 + i)
-        jstate, jmet = jstep(jstate, jax_batch(toks, labels))
-        state, met = step(state, torch_batch(toks, labels))
+        extra = pr.extra(4, seed=10 + i)
+        jstate, jmet = jstep(jstate, jax_batch(toks, labels, extra))
+        state, met = step(state, torch_batch(toks, labels, extra))
         assert int(state.step) == i + 1
         assert sorted(met) == sorted(jmet)
         for key in ("loss", "grad_norm"):
             assert abs(float(met[key]) - float(jmet[key])) <= 1e-5 * abs(
                 float(jmet[key])), (i, key)
-        for got, want in zip(tree.leaves(state.params),
-                             jax.tree_util.tree_leaves(jstate.params)):
+        for path, got, want in zip(paths, tree.leaves(state.params),
+                                   jax.tree_util.tree_leaves(jstate.params)):
             err = np.max(np.abs(f32(got) - f32(want)))
-            assert err <= 1e-5 * np.max(np.abs(f32(want))) + 1e-6, i
+            assert err <= 1e-5 * np.max(np.abs(f32(want))) + 1e-6, (i, path)
     for got, want in zip(tree.leaves(state.opt),
                          jax.tree_util.tree_leaves(jstate.opt)):
         assert max_rel(got, want) <= 1e-4

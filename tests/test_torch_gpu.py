@@ -2060,3 +2060,137 @@ def test_gpu_hybrid_generate_matches_cpu(cuda_device):
 @pytest.mark.gpu
 def test_gpu_hybrid_loss_and_grads_match_cpu(cuda_device):
     _state_loss_and_grads_match_cpu(cuda_device, "zamba2-1.2b")
+
+
+# ------------------------------- Whisper (encdec) and InternVL2 (vlm) --
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kvh,dh,W", [
+    (4, 48, 8, 128, 4096),  # InternVL2's ring: g=6 in a block of 8 rows
+    (2, 12, 2, 128, 100),   # g=6, one chunk (S = 1)
+    (3, 6, 2, 128, 4096),   # g=3 in a block of 4 rows
+    (2, 6, 2, 128, 300),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_swa_decode_partial_row_groups(cuda_device, b, h, kvh, dh, W,
+                                           dtype):
+    """Groups of 6 and 3 query rows, which the kernel rounds up to 8 and
+    4: every row of every head against the plain version (a row past the
+    group written would land on the next kv head's rows), the bits the
+    same on a second call, one launch a call."""
+    from repro_torch.kernels import swa_decode as sw
+    q, kw, vw, bias = swa_inputs(h * W + b, b, h, kvh, dh, W, "scattered")
+    q, kw, vw = (torch.as_tensor(a).to(cuda_device, dtype)
+                 for a in (q, kw, vw))
+    bias = torch.as_tensor(bias).to(cuda_device)
+    before = sw.LAUNCHES
+    got = sw.swa_decode_attention(q, kw, vw, bias, 1.0 / np.sqrt(dh))
+    again = sw.swa_decode_attention(q, kw, vw, bias, 1.0 / np.sqrt(dh))
+    assert sw.LAUNCHES == before + 2
+    want = ref.swa_decode_attention(q, kw, vw, bias, 1.0 / np.sqrt(dh))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for i in range(h):
+        assert_swa_close(got[:, i], want[:, i], dtype)
+
+
+FAMILY_MODELS = {"whisper-base": {}, "internvl2-26b": {},
+                 "internvl2-26b ring": dict(sliding_window=32)}
+
+
+def _reduced_family_model(label, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(label.split()[0], reduced=True).replace(
+        dtype="float32", **FAMILY_MODELS[label], **kw)
+    model = build_model(cfg)
+    return cfg, model, model.init(torch.Generator().manual_seed(0))
+
+
+def family_inputs(cfg, B, seed):
+    """The family's inputs beside the tokens, x 0.02 as the JAX package's
+    dummy_inputs: Whisper's enc_embeds (B, n_ctx, d), InternVL2's
+    patch_embeds (B, n_prefix, d)."""
+    rng = np.random.default_rng(1000 + seed)
+    name = "enc_embeds" if cfg.family == "encdec" else "patch_embeds"
+    n = cfg.encoder.n_ctx if cfg.family == "encdec" else cfg.encoder.n_prefix
+    return {name: T((rng.normal(size=(B, n, cfg.d_model)) * 0.02).astype(
+        np.float32))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", list(FAMILY_MODELS))
+def test_gpu_family_generate_matches_cpu(cuda_device, label):
+    """Greedy generate of reduced Whisper, InternVL2 and InternVL2's
+    sliding-window variant (W=32; 16 patches and 16 tokens, then 6 steps
+    over the ring, each layer through swa_decode) on the card and on the
+    CPU from the same parameters (f32): tokens exact, logits and every
+    cache leaf (the encoder's ck / cv / cvalid included) within 1e-5 of
+    their largest magnitude."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.common import tree_map
+    from repro_torch.utils.tree import leaves
+    cfg, model, params = _reduced_family_model(label)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(2, 16)), dtype=torch.int32)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ops.reset_launch_counts()
+        stats = {}
+        out = generate(model, tree_map(lambda a: a.to(dev), params),
+                       {"tokens": toks, **family_inputs(cfg, 2, 2)},
+                       steps=6, stats=stats)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            ring = cfg.sliding_window is not None
+            assert ops.launch_counts()["swa_decode"] == (
+                6 * cfg.n_layers if ring else 0)
+        runs.append((out.cpu(), torch.stack([lg.float().cpu()
+                                             for lg in stats["logits"]]),
+                     leaves(tree_map(lambda a: a.cpu(), stats["cache"]))))
+    (t1, l1, c1), (t0, l0, c0) = runs
+    assert torch.equal(t1, t0)
+    assert float((l1 - l0).abs().max()) <= 1e-5 * float(l0.abs().max())
+    assert len(c1) == len(c0)
+    for a, b in zip(c1, c0):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= 1e-5 * float(
+            b.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["whisper-base", "internvl2-26b"])
+def test_gpu_family_gradient_reaches_encoder_and_projection(cuda_device,
+                                                             label):
+    """The loss on the card, with remat on (each layer recomputed in the
+    backward, the encoder's output an argument of every decoder layer):
+    the loss within 1e-5 relative and every gradient within 1e-5 of its
+    leaf's largest magnitude against the CPU, and the gradient of every
+    enc_segments / enc_norm leaf (Whisper) or of vis_proj (InternVL2)
+    nonzero."""
+    from repro_torch.launch.train import _value_and_grad
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import leaves
+    cfg, _, params = _reduced_family_model(label)
+    model = build_model(cfg.replace(remat=True))
+    rng = np.random.default_rng(4)
+    toks = T(rng.integers(0, cfg.vocab_size, size=(2, 12)).astype(np.int32))
+    labels = T(rng.integers(0, cfg.vocab_size, size=(2, 12)).astype(
+        np.int32))
+    extra = family_inputs(cfg, 2, 4)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        outs.append(_value_and_grad(
+            model, None, tree_map(lambda a: a.to(dev), params),
+            {"tokens": toks.to(dev), "labels": labels.to(dev),
+             **{k: v.to(dev) for k, v in extra.items()}}))
+    (l1, _, g1), (l0, _, g0) = outs
+    assert abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0))
+    for a, b in zip(leaves(g1), leaves(g0)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
+            b.abs().max()) + 1e-30
+    reach = (leaves(g1["enc_segments"]) + leaves(g1["enc_norm"])
+             if cfg.family == "encdec" else [g1["vis_proj"]])
+    assert reach and all(a.is_cuda and bool(a.abs().max() > 0)
+                         for a in reach)

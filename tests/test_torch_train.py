@@ -665,11 +665,3 @@ def test_synthetic_stream_follows_its_rule():
     np.testing.assert_array_equal(toks[:, 1:], labels[:, :-1])
     follows = labels == (3 * toks.astype(np.int64) + 7) % 97
     assert follows.mean() > 0.9
-
-
-@pytest.mark.parametrize("name", ["whisper-base", "internvl2-26b"])
-def test_unported_training_is_refused(name):
-    """The encdec family (Whisper) and the vlm family stay refused by
-    name."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        build_model(get_config(name, reduced=True))
