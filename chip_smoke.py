@@ -192,6 +192,24 @@ of every layer through swa_decode at a group width of 6, and trained
 at FT_INTERNVL_LAYERS of 48 layers; each with a profile split into the
 flash_attention, cross_attention and decode_attention ranges.
 
+After the decode leg come the expert-parallel legs (ROADMAP 5b: the MoE
+layer under a DistCtx with a mesh, every rank on the whole batch with
+its part of the experts): ep1, a one-rank NCCL world in this process,
+mesh (data=1, model=1), where Mixtral-8x7B through generate with the
+decode leg's parameters, prompts and steps (expert tensor parallelism)
+gives the decode leg's tokens and logits bit for bit, and one
+DeepSeek-V3 MoE layer at its published widths (256 experts top-8 of
+2048, one shared, alltoall over ("data", "model")) the local path's
+output bit for bit, each timed beside the local path; ep2, two gloo
+ranks on cuda:0, mesh (1, 2): Mixtral with its experts' hidden dim cut
+in two as drawn, the same tokens and logits on both ranks, within the
+bf16 tolerance of the decode leg's, with the count of equal tokens,
+and a reduced f32 twin equal to the CPU's sharded run; ep4, four gloo
+ranks on cuda:0, mesh (2, 2): the DeepSeek-V3 layer with 64 experts a
+rank, dropless against the single-device layer, at 1.25 for its wall.
+Each prints its walls and the share of its all_to_all, psum and
+all_gather calls.
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -262,6 +280,25 @@ MIN_TABLE2_CLUSTER_ACC = 0.9
 # in bf16, more than the card's 80 GB); 4 prompts of its own window,
 # 4096 tokens, then 32 greedy steps: every step decodes over the ring.
 MX_LAYERS, MX_BATCH, MX_PROMPT, MX_STEPS, MX_SEED = 8, 4, 4096, 32, 0
+# The expert-parallel legs (ROADMAP 5b): Mixtral as the decode leg runs
+# it under a (1, 1) NCCL mesh (ep1) and a (1, 2) gloo mesh of two ranks
+# on cuda:0 (ep2), and one DeepSeek-V3 MoE layer at its published widths
+# under (1, 1) and a (2, 2) gloo mesh of four ranks (ep4): EP_DS_DROPLESS
+# tokens at a dropless capacity factor (E / top_k: C = T) against the
+# single-device layer, EP_DS_WALL tokens (the DeepSeek serve leg's
+# prefill) at the config's 1.25 for its wall. Tolerances, fixed before
+# the legs' first run on the card, each of the single-device run's
+# largest magnitude: one bf16 MoE layer sharded (ep2's first layer,
+# ep4's layer) within EP_BF16_TOL, the CPU tests' bf16 tolerance (the
+# tensor-parallel path rounds each output twice more: its partials and
+# their sum); the logits of 8 bf16 layers within EP_LOGIT_TOL (at the
+# reduced widths on the CPU the bf16 model's own logits sit 4.0% from
+# its f32 twin's after 8 layers, and the two-rank run 4.3% from the
+# single-device one); the reduced f32 twin within EP_TWIN_TOL of the
+# CPU's sharded run.
+EP_AXES = ("data", "model")
+EP_DS_DROPLESS, EP_DS_WALL, EP_DS_SEED = (4, 256), (4, 4096), 3
+EP_BF16_TOL, EP_LOGIT_TOL, EP_TWIN_TOL = 2e-2, 1e-1, 1e-6
 # swa_decode at the InternVL2 ring leg's shape (b, h, kvh, dh, W): 48
 # query heads over 8 KV heads, groups of 6.
 IV_SWA = (4, 48, 8, 128, 4096)
@@ -2557,7 +2594,8 @@ def decode_leg(device):
     layer-0 ring and last query; one more generate tallies moe_combine
     by shape (returned beside the counts); one more prefill of the same
     batch is timed, then profiled, and 8 more steps run under the
-    profiler."""
+    profiler. Also returns the run (model, parameters, batch, tokens,
+    logits and walls) for the expert-parallel legs."""
     import math
 
     from repro_torch.configs import get_config
@@ -2579,8 +2617,7 @@ def decode_leg(device):
     leaves = []
     tree_map(leaves.append, params)
     pbytes = sum(a.numel() * a.element_size() for a in leaves)
-    prompts = torch.as_tensor(np.random.default_rng(MX_SEED).integers(
-        0, cfg.vocab_size, size=(MX_BATCH, MX_PROMPT)), dtype=torch.int32)
+    prompts = mx_prompts(cfg)
     batch = {"tokens": prompts}
     generate(model, params, batch, steps=2)           # warm-up
     sync()
@@ -2689,9 +2726,624 @@ def decode_leg(device):
             _, c = step(params, c, tok)
 
     profile("decode", eight_steps, decode_s * 8 / MX_STEPS)
+    run = {"model": model, "params": params, "batch": batch,
+           "toks": toks.cpu(),
+           "logits": [lg.cpu() for lg in stats["logits"]],
+           "prefill_s": prefill_s, "decode_s": decode_s}
     del params, cache, stats
     torch.cuda.empty_cache()
-    return counts, {"moe_combine": combine_tally}
+    return counts, {"moe_combine": combine_tally}, run
+
+
+def mx_prompts(cfg) -> torch.Tensor:
+    """The decode leg's MX_BATCH prompts of MX_PROMPT tokens."""
+    return torch.as_tensor(np.random.default_rng(MX_SEED).integers(
+        0, cfg.vocab_size, size=(MX_BATCH, MX_PROMPT)), dtype=torch.int32)
+
+
+# ------------------------------------------ expert-parallel MoE serving --
+
+class CollectiveClock:
+    """While entered: the seconds and calls of ``ShardGroup.all_to_all``,
+    ``psum`` and ``all_gather``, each call between two device syncs (on
+    gloo a collective waits for the card anyway: it stages through the
+    host)."""
+
+    KINDS = ("all_to_all", "psum", "all_gather")
+
+    def __init__(self):
+        self.s = dict.fromkeys(self.KINDS, 0.0)
+        self.n = dict.fromkeys(self.KINDS, 0)
+
+    def __enter__(self):
+        from repro_torch.utils.mesh import ShardGroup
+        self._saved = {k: getattr(ShardGroup, k) for k in self.KINDS}
+        for kind, fn in self._saved.items():
+            def timed(group, *a, _fn=fn, _kind=kind, **kw):
+                sync()
+                t0 = time.perf_counter()
+                out = _fn(group, *a, **kw)
+                sync()
+                self.s[_kind] += time.perf_counter() - t0
+                self.n[_kind] += 1
+                return out
+            setattr(ShardGroup, kind, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.utils.mesh import ShardGroup
+        for kind, fn in self._saved.items():
+            setattr(ShardGroup, kind, fn)
+
+    def share(self, wall: float) -> str:
+        return ", ".join(f"{k} {self.s[k]:.3f} s in {self.n[k]} calls "
+                         f"({100 * self.s[k] / wall:.1f}%)"
+                         for k in self.KINDS if self.n[k])
+
+
+def ep_ds_cfg(capacity_factor=None):
+    """DeepSeek-V3 at its published widths (configs/deepseek_v3_671b.py:
+    256 experts top-8 of 2048, one shared expert, impl="alltoall",
+    ep="2d"), with another capacity factor if given."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v3-671b")
+    if capacity_factor is None:
+        return cfg
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor))
+
+
+def ep_ds_layer(device, ctx=None):
+    """One DeepSeek-V3 MoE layer drawn from EP_DS_SEED on ``device``;
+    under a mesh ``ctx`` with this rank's part of its experts (cut as
+    drawn: the bits of that part of the whole draw)."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=device).manual_seed(EP_DS_SEED)
+    return moe.init_moe(gen, ep_ds_cfg(), torch.bfloat16, ctx)
+
+
+def ep_x(device, shape, d: int) -> torch.Tensor:
+    """A MoE layer's input: (B, S) tokens of d, N(0, 1) in bf16."""
+    gen = torch.Generator(device=device).manual_seed(EP_DS_SEED + 1)
+    return torch.randn(tuple(shape) + (d,), generator=gen,
+                       device=device).to(torch.bfloat16)
+
+
+def ep_ds_x(device, shape) -> torch.Tensor:
+    return ep_x(device, shape, ep_ds_cfg().d_model)
+
+
+def mx_draw_heads(params, f: int = 0):
+    """A few entries of the Mixtral leg's draw: the embedding's first
+    rows and, of layer 0's w1, the first columns from ``f`` of the hidden
+    dim (a rank's part starts its columns at its offset ``f``)."""
+    w1 = params["segments"][0]["moe"]["w1"]
+    return (params["embed"][:2, :8].cpu(), w1[0, :, :2, f:f + 8].cpu())
+
+
+def mx_dropless(model):
+    """The Mixtral leg's model at a dropless capacity factor (E / top_k:
+    every expert's queue holds every token)."""
+    import dataclasses
+
+    from repro_torch.models.model import build_model
+    m = model.cfg.moe
+    return build_model(model.cfg.replace(moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k)))
+
+
+def logit_gap(toks, logits, want_toks, want_logits):
+    """How a generate's (tokens, logits) stand to a reference run's: the
+    tokens equal, the largest |difference| of the prefill's logits and
+    the reference prefill's largest |logit|, and the largest |difference|
+    of every logit row whose tokens fed so far equal the reference's
+    (with their count)."""
+    same = toks == want_toks                                   # (B, steps)
+    fed = torch.cat([torch.ones(same.shape[0], 1, dtype=torch.bool),
+                     torch.cumprod(same.int(), dim=1).bool()], dim=1)
+    err, compared = 0.0, 0
+    for j, (got, want) in enumerate(zip(logits, want_logits)):
+        rows = fed[:, j]
+        if rows.any():
+            compared += int(rows.sum())
+            err = max(err, float((got.float()[rows] - want.float()[rows])
+                                 .abs().max()))
+    pre = float((logits[0].float() - want_logits[0].float()).abs().max())
+    return {"equal": int(same.sum()), "of": same.numel(), "pre": pre,
+            "err": err, "compared": compared,
+            "scale": float(want_logits[0].float().abs().max())}
+
+
+def gap_line(g, tol=None) -> str:
+    bar = "" if tol is None else f"tolerance {tol} x "
+    return (f"{g['equal']} of {g['of']} tokens equal, prefill logits max "
+            f"|diff| {g['pre']:.4g} ({bar}largest {g['scale']:.4g}), over "
+            f"the {g['compared']} (row, step) logits whose tokens so far "
+            f"agree {g['err']:.4g}")
+
+
+def mx_layer0(params):
+    """The MoE parameters of the Mixtral leg's first layer (views)."""
+    from repro_torch.models.transformer import layer_params
+    return layer_params(params["segments"][0], 0)["moe"]
+
+
+def expert_bytes(p) -> int:
+    from repro_torch.models.moe import EXPERT_LEAVES
+    return sum(p[k].numel() * p[k].element_size() for k in EXPERT_LEAVES)
+
+
+def nccl_one_rank(tmp: Path, name: str):
+    """A one-rank NCCL world in this process and its (data=1, model=1)
+    mesh's context."""
+    import torch.distributed as dist
+    from repro_torch.launch.sharding import make_ctx
+    from repro_torch.utils.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp / f"{name}_store"), 1), rank=0, world_size=1)
+    return make_ctx(make_mesh((1, 1), EP_AXES, backend="nccl"))
+
+
+def gloo_rank(tmp: str, name: str, rank: int, shape):
+    """Rank ``rank`` of a gloo world of the mesh ``shape``'s size on
+    cuda:0 (collectives staged through the host) and its context."""
+    import torch.distributed as dist
+    from repro_torch.launch.sharding import make_ctx
+    from repro_torch.utils.mesh import make_mesh
+    torch.cuda.set_device(0)
+    world = int(np.prod(shape))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, f"{name}_store"), world), rank=rank,
+        world_size=world)
+    return make_ctx(make_mesh(shape, EP_AXES, backend="gloo"))
+
+
+def timed_generate(model, params, batch, ctx, steps: int = MX_STEPS):
+    """(tokens, stats, wall s) of one generate, ending in a sync."""
+    from repro_torch.launch.serve import generate
+    stats = {}
+    sync()
+    t0 = time.perf_counter()
+    toks = generate(model, params, batch, steps=steps, ctx=ctx, stats=stats)
+    sync()
+    return toks, stats, time.perf_counter() - t0
+
+
+def ep1_leg(device, run, smi: str, tmp: Path):
+    """A one-rank NCCL world in this process, mesh (data=1, model=1),
+    where every path of the MoE layer is the local path: Mixtral-8x7B
+    (impl="dense": expert tensor parallelism) through generate with the
+    decode leg's parameters (popped from ``run``), prompts and steps,
+    its tokens and every logit bit for bit the decode leg's, launches
+    counted; then local and mesh runs in turns for the (1, 1) path's
+    overhead, and one more under the collective clock; and, for ep2
+    (saved to ``tmp``), its first MoE layer by the local path on
+    MX_BATCH x MX_PROMPT random tokens and one more local generate at a
+    dropless capacity factor. Then one
+    DeepSeek-V3 MoE layer at full width (impl="alltoall", ep="2d") on
+    EP_DS_WALL tokens, bit for bit the local path's, and its dropless
+    output on EP_DS_DROPLESS tokens by the local path, for ep4. Returns
+    (counts, that dropless output on the CPU)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    t_leg = time.perf_counter()
+    model, batch, params = run["model"], run["batch"], run.pop("params")
+    cfg = model.cfg
+    ctx = nccl_one_rank(tmp, "ep1")
+    try:
+        require(moe.moe_path(cfg.moe, MX_BATCH, MX_PROMPT, ctx) == "etp"
+                and moe.moe_path(cfg.moe, MX_BATCH, 1, ctx) == "etp",
+                "ep1: Mixtral does not take expert tensor parallelism")
+        timed_generate(model, params, batch, ctx, steps=2)   # NCCL warm-up
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launch_counts()
+        toks, stats, _ = timed_generate(model, params, batch, ctx)
+        counts = ops.launch_counts()
+        require(torch.equal(toks.cpu(), run["toks"])
+                and len(stats["logits"]) == len(run["logits"])
+                and all(torch.equal(a.cpu(), b) for a, b in
+                        zip(stats["logits"], run["logits"])),
+                "ep1: Mixtral under the (1, 1) mesh differs from the decode "
+                "leg's run")
+        want = {"swa_decode": MX_LAYERS * MX_STEPS,
+                "moe_dispatch": MX_LAYERS * (MX_STEPS + 1),
+                "moe_combine": MX_LAYERS * (MX_STEPS + 1)}
+        require(all(counts[k] == n for k, n in want.items()),
+                f"ep1: launches {counts}, expected {want}")
+        walls = {"mesh": [stats], "local": []}
+        for name in ("local", "mesh", "local"):
+            _, st, _ = timed_generate(model, params, batch,
+                                      ctx if name == "mesh" else None)
+            walls[name].append(st)
+        with CollectiveClock() as clock:
+            _, _, cwall = timed_generate(model, params, batch, ctx)
+        dl_toks, dl_stats, _ = timed_generate(mx_dropless(model), params,
+                                              batch, None)
+        mx_peak = torch.cuda.max_memory_allocated(device) / 1e9
+        y0, _ = moe.apply_moe(mx_layer0(params), ep_x(
+            device, (MX_BATCH, MX_PROMPT), cfg.d_model), cfg)
+        half = cfg.moe.d_expert // 2
+        torch.save({"layer0": y0.cpu(), "draw": mx_draw_heads(params),
+                    "w1": {f: mx_draw_heads(params, f)[1]
+                           for f in (0, half)},
+                    "dropless": (dl_toks.cpu(), [lg.cpu() for lg in
+                                                 dl_stats["logits"]])},
+                   tmp / "ep2_want.pt")
+        del params, stats, y0, dl_stats
+        torch.cuda.empty_cache()
+
+        def span(name, key):
+            v = [st[key] for st in walls[name]]
+            return f"{min(v):.3f}-{max(v):.3f} s"
+        mx_line = (f"Mixtral-8x7B ({MX_LAYERS} of 32 layers, {MX_BATCH} x "
+                   f"{MX_PROMPT} tokens, {MX_STEPS} steps) tokens and all "
+                   f"{len(run['logits'])} logits bit for bit the decode "
+                   f"leg's; prefill mesh {span('mesh', 'prefill_s')} / "
+                   f"local {span('local', 'prefill_s')}, decode mesh "
+                   f"{span('mesh', 'decode_s')} / local "
+                   f"{span('local', 'decode_s')} (decode leg "
+                   f"{run['prefill_s']:.3f} / {run['decode_s']:.3f} s); "
+                   f"under the clock {cwall:.3f} s: {clock.share(cwall)}; "
+                   f"peak {mx_peak:.2f} GB; launches {counts}")
+
+        # One DeepSeek-V3 MoE layer: the alltoall path at one shard.
+        torch.cuda.reset_peak_memory_stats(device)
+        p = ep_ds_layer(device)
+        cfg_ds = ep_ds_cfg()
+        x = ep_ds_x(device, EP_DS_WALL)
+        require(moe.moe_path(cfg_ds.moe, *EP_DS_WALL, ctx) == "alltoall",
+                "ep1: the DeepSeek-V3 layer does not take the alltoall path")
+        moe.apply_moe(p, x, cfg_ds, ctx)                     # warm-up
+        ops.reset_launch_counts()
+        y, aux = moe.apply_moe(p, x, cfg_ds, ctx)
+        sync()
+        ds_counts = ops.launch_counts()
+        y0, aux0 = moe.apply_moe(p, x, cfg_ds)
+        require(torch.equal(y, y0) and torch.equal(aux, aux0),
+                "ep1: the DeepSeek-V3 layer's alltoall path at (1, 1) "
+                "differs from its local path")
+        require(ds_counts["moe_dispatch"] == 1
+                and ds_counts["moe_combine"] == 1,
+                f"ep1: the DeepSeek-V3 layer launched {ds_counts}")
+        ds_walls = {"mesh": [], "local": []}
+        for name in ("local", "mesh", "mesh", "local"):
+            sync()
+            t0 = time.perf_counter()
+            moe.apply_moe(p, x, cfg_ds, ctx if name == "mesh" else None)
+            sync()
+            ds_walls[name].append(time.perf_counter() - t0)
+        with CollectiveClock() as clock:
+            sync()
+            t0 = time.perf_counter()
+            moe.apply_moe(p, x, cfg_ds, ctx)
+            sync()
+            ds_cwall = time.perf_counter() - t0
+        dropless = ep_ds_cfg(cfg_ds.moe.n_experts / cfg_ds.moe.top_k)
+        y_ref, _ = moe.apply_moe(p, ep_ds_x(device, EP_DS_DROPLESS),
+                                 dropless)
+        y_ref = y_ref.cpu()
+        ds_peak = torch.cuda.max_memory_allocated(device) / 1e9
+        held = expert_bytes(p)
+        del p, x, y, y0
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for k, v in ds_counts.items():
+        counts[k] += v
+    print(f"ep1: one-rank NCCL world, mesh (data=1, model=1) ({smi}): "
+          + mx_line + f" | DeepSeek-V3 MoE layer (E={cfg_ds.moe.n_experts} "
+          f"top-{cfg_ds.moe.top_k} of {cfg_ds.moe.d_expert}, "
+          f"d={cfg_ds.d_model}, {cfg_ds.moe.n_shared} shared expert, bf16, "
+          f"{held / 1e9:.2f} GB of experts; {EP_DS_WALL[0]} x "
+          f"{EP_DS_WALL[1]} tokens, capacity "
+          f"{cfg_ds.moe.capacity_factor}): alltoall / 2d bit for bit the "
+          f"local path (output and aux); mesh "
+          f"{min(ds_walls['mesh']) * 1e3:.1f}-"
+          f"{max(ds_walls['mesh']) * 1e3:.1f} ms / local "
+          f"{min(ds_walls['local']) * 1e3:.1f}-"
+          f"{max(ds_walls['local']) * 1e3:.1f} ms; under the clock "
+          f"{ds_cwall * 1e3:.1f} ms: {clock.share(ds_cwall)}; peak "
+          f"{ds_peak:.2f} GB; launches {ds_counts} | leg wall "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    return counts, y_ref
+
+
+def ep_twin(ctx):
+    """Reduced Mixtral-8x7B (f32) under ``ctx``'s mesh on the card and on
+    the CPU from one draw: 2 prompts of 64 tokens and 8 greedy steps.
+    Returns (tokens equal, the logits' largest difference over their
+    largest magnitude)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, init_params
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    cfg = get_config("mixtral-8x7b", reduced=True).replace(dtype="float32")
+    model = build_model(cfg)
+    params = init_params(model, seed=0, device="cpu", ctx=ctx)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 64)), dtype=torch.int32)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        stats = {}
+        out = generate(model, tree_map(lambda a: a.to(dev), params),
+                       {"tokens": toks}, steps=8, ctx=ctx, stats=stats)
+        runs.append((out.cpu(), torch.stack([lg.float().cpu()
+                                             for lg in stats["logits"]])))
+    (t1, l1), (t0, l0) = runs
+    return (torch.equal(t1, t0),
+            float((l1 - l0).abs().max()) / float(l0.abs().max()))
+
+
+def ep2_rank(rank: int, tmp: str) -> None:
+    """One rank of the ep2 leg (spawned): Mixtral-8x7B at the decode
+    leg's width, depth, prompts and steps under the (1, 2) mesh, its
+    experts' hidden dim cut in two as drawn; a warm-up, then one
+    generate between a reset and a read of the launch counts, under the
+    collective clock, and one at a dropless capacity factor; then the
+    reduced f32 twin."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import leaves
+    ctx = gloo_rank(tmp, "ep2", rank, (1, 2))
+    try:
+        cfg = get_config("mixtral-8x7b").replace(n_layers=MX_LAYERS)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = init_params(model, seed=MX_SEED, device="cuda", ctx=ctx)
+        sync()
+        init_s = time.perf_counter() - t0
+        held = sum(a.numel() * a.element_size() for a in leaves(params))
+        w1 = tuple(params["segments"][0]["moe"]["w1"].shape)
+        draw = mx_draw_heads(params)
+        batch = {"tokens": mx_prompts(cfg)}
+        path = moe.moe_path(cfg.moe, MX_BATCH, MX_PROMPT, ctx)
+        y0, _ = moe.apply_moe(mx_layer0(params), ep_x(
+            "cuda", (MX_BATCH, MX_PROMPT), cfg.d_model), cfg, ctx)
+        y0 = y0.cpu()
+        timed_generate(model, params, batch, ctx, steps=2)    # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with CollectiveClock() as clock:
+            toks, stats, wall = timed_generate(model, params, batch, ctx)
+        counts = ops.launch_counts()
+        dl_toks, dl_stats, _ = timed_generate(mx_dropless(model), params,
+                                              batch, ctx)
+        out = {"describe": ctx.mesh.describe(), "toks": toks.cpu(),
+               "dropless": (dl_toks.cpu(),
+                            [lg.cpu() for lg in dl_stats["logits"]]),
+               "logits": [lg.cpu() for lg in stats["logits"]],
+               "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+               "wall": wall, "clock": (clock.s, clock.n), "counts": counts,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "init_s": init_s, "held_gb": held / 1e9, "w1": w1,
+               "path": path, "layer0": y0, "draw": draw,
+               "part": moe.expert_part(cfg.moe, ctx, "w1")}
+        del params, stats
+        torch.cuda.empty_cache()
+        out["twin"] = ep_twin(ctx)
+        torch.save(out, os.path.join(tmp, f"ep2_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ep2_leg(run, smi: str, tmp: Path):
+    """Two gloo ranks on cuda:0, mesh (1, 2): Mixtral-8x7B's experts'
+    FFN hidden dim cut in two (each rank about 12 GB), the psum of the
+    bf16 partials in shard order. Each rank's draw holds the entries of
+    ep1's whole draw at its part's offset; every rank holds the same
+    tokens and logits. The first MoE layer on ep1's random input within
+    EP_BF16_TOL of the local path's largest magnitude. At a dropless
+    capacity factor the prefill's logits within EP_LOGIT_TOL of the
+    largest magnitude of ep1's local dropless run's. Reported only: the
+    tokens equal to the reference's and the step logits' distance while
+    the tokens fed so far agree, dropless and at the config's 1.25
+    against the decode leg. The randomly drawn router's logits are near
+    uniform, and in bf16 a token's choice of expert flips at a tie when
+    its input moves by one step of bf16; at 1.25 a flipped token also
+    moves which later tokens its expert drops (chip call 2, PR 29: the
+    prefill logits 5.2 off of 6.5 at 1.25, 0.16 dropless). The reduced
+    f32 twin equal to the CPU's sharded run within EP_TWIN_TOL (tokens
+    exact). The line is printed before the checks fail."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    mp.spawn(ep2_rank, args=(str(tmp),), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"ep2_rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    a, b = ranks
+    want = torch.load(tmp / "ep2_want.pt")
+    faults = []
+    for r, got in enumerate(ranks):
+        emb, w1 = got["draw"]
+        if not (torch.equal(emb, want["draw"][0])
+                and torch.equal(w1, want["w1"][got["part"].lo])):
+            faults.append(f"rank {r}: its draw differs from ep1's whole "
+                          f"draw at its part")
+    same_bits = all(torch.equal(x, y) for x, y in zip(
+        [a["toks"], a["layer0"], *a["logits"], *a["dropless"][1]],
+        [b["toks"], b["layer0"], *b["logits"], *b["dropless"][1]]))
+    if not same_bits:
+        faults.append("the ranks' tokens, logits or first layer differ")
+    if a["path"] != "etp":
+        faults.append(f"the path is {a['path']}")
+    gap = logit_gap(a["toks"], a["logits"], run["toks"], run["logits"])
+    dl = logit_gap(*a["dropless"], *want["dropless"])
+    if dl["pre"] > EP_LOGIT_TOL * dl["scale"]:
+        faults.append(f"dropless prefill logits {dl['pre']:.4g} off ep1's "
+                      f"local dropless run's (tolerance {EP_LOGIT_TOL} x "
+                      f"{dl['scale']:.4g})")
+    y0 = want["layer0"]
+    lscale = float(y0.float().abs().max())
+    lerr = float((a["layer0"].float() - y0.float()).abs().max())
+    if lerr > EP_BF16_TOL * lscale:
+        faults.append(f"the first MoE layer is {lerr:.4g} off the local "
+                      f"path's (tolerance {EP_BF16_TOL} x {lscale:.4g})")
+    launches = {"swa_decode": MX_LAYERS * MX_STEPS,
+                "moe_dispatch": MX_LAYERS * (MX_STEPS + 1),
+                "moe_combine": MX_LAYERS * (MX_STEPS + 1)}
+    for r, got in enumerate(ranks):
+        equal, terr = got["twin"]
+        if not (equal and terr <= EP_TWIN_TOL):
+            faults.append(f"rank {r}: the reduced f32 twin on the card "
+                          f"differs from the CPU's sharded run ({equal}, "
+                          f"{terr:.3e})")
+        if any(got["counts"][k] != n for k, n in launches.items()):
+            faults.append(f"rank {r}: launches {got['counts']}, expected "
+                          f"{launches}")
+    clock = CollectiveClock()
+    clock.s, clock.n = a["clock"]
+    counts = {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
+    print(f"ep2: {a['describe']} (two processes on cuda:0) ({smi}): "
+          f"Mixtral-8x7B ({MX_LAYERS} of 32 layers; each rank holds w1 "
+          f"{a['w1']} of every MoE segment, {a['held_gb']:.2f} GB, drawn in "
+          f"{a['init_s']:.2f} s), {MX_BATCH} x {MX_PROMPT} tokens, "
+          f"{MX_STEPS} steps; every rank the same bits: {same_bits}; the "
+          f"first MoE layer on random tokens max |diff| {lerr:.4g} from "
+          f"the local path's (tolerance {EP_BF16_TOL} x {lscale:.4g}); at "
+          f"capacity 1.25 against the decode leg: " + gap_line(gap)
+          + "; dropless against ep1's local dropless"
+          f" run: " + gap_line(dl, EP_LOGIT_TOL) + f"; prefill "
+          f"{a['prefill_s']:.3f} s, decode {a['decode_s']:.3f} s "
+          f"({a['decode_s'] / MX_STEPS * 1e3:.2f} ms a step), wall "
+          f"{a['wall']:.3f} s: {clock.share(a['wall'])}; peak "
+          f"{a['peak_gb']:.2f} + {b['peak_gb']:.2f} GB; reduced f32 twin "
+          f"on the card against the CPU's sharded run: tokens "
+          f"{'exact' if all(r['twin'][0] for r in ranks) else 'differ'}, "
+          f"logits within {max(r['twin'][1] for r in ranks):.3e} "
+          f"(tolerance {EP_TWIN_TOL}); {spawn_s:.1f} s from spawn to join; "
+          f"launches by rank {a['counts']} {b['counts']}", flush=True)
+    require(not faults, "ep2: " + "; ".join(faults))
+    return counts
+
+
+def ep4_rank(rank: int, tmp: str) -> None:
+    """One rank of the ep4 leg (spawned): the DeepSeek-V3 MoE layer under
+    the (2, 2) mesh, 64 of its 256 experts drawn on this rank; the
+    dropless output on EP_DS_DROPLESS tokens, then EP_DS_WALL tokens at
+    the config's capacity factor: a warm-up, two timed runs and one
+    under the collective clock, between a reset and a read of the
+    launch counts."""
+    import hashlib
+
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    ctx = gloo_rank(tmp, "ep4", rank, (2, 2))
+    try:
+        cfg = ep_ds_cfg()
+        t0 = time.perf_counter()
+        p = ep_ds_layer("cuda", ctx)
+        sync()
+        init_s = time.perf_counter() - t0
+        dropless = ep_ds_cfg(cfg.moe.n_experts / cfg.moe.top_k)
+        ops.reset_launch_counts()
+        y_dl, _ = moe.apply_moe(p, ep_ds_x("cuda", EP_DS_DROPLESS),
+                                dropless, ctx)
+        x = ep_ds_x("cuda", EP_DS_WALL)
+        moe.apply_moe(p, x, cfg, ctx)                       # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        walls, ys = [], []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            y, _ = moe.apply_moe(p, x, cfg, ctx)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            ys.append(y)
+        with CollectiveClock() as clock:
+            sync()
+            t0 = time.perf_counter()
+            moe.apply_moe(p, x, cfg, ctx)
+            sync()
+            cwall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        out = {"describe": ctx.mesh.describe(), "y_dl": y_dl.cpu(),
+               "hash": hashlib.sha256(ys[0].cpu().view(torch.int16).numpy()
+                                      .tobytes()).hexdigest(),
+               "twice": torch.equal(ys[0], ys[1]), "walls": walls,
+               "cwall": cwall, "clock": (clock.s, clock.n),
+               "counts": counts, "init_s": init_s,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "held_gb": expert_bytes(p) / 1e9,
+               "w1": tuple(p["w1"].shape),
+               "paths": (moe.moe_path(dropless.moe, *EP_DS_DROPLESS, ctx),
+                         moe.moe_path(cfg.moe, *EP_DS_WALL, ctx))}
+        torch.save(out, os.path.join(tmp, f"ep4_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ep4_leg(y_ref, smi: str, tmp: Path):
+    """Four gloo ranks on cuda:0, mesh (2, 2): the DeepSeek-V3 MoE layer
+    at full width under ep="2d", each rank 64 of the 256 experts. The
+    dropless output (capacity factor E / top_k) on every rank the same
+    bits and within EP_BF16_TOL of the largest magnitude of the single-
+    device dropless layer's (``y_ref``, ep1's); at the config's 1.25 the
+    same bits on every rank, and its wall."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    mp.spawn(ep4_rank, args=(str(tmp),), nprocs=4, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"ep4_rank{r}.pt", weights_only=False)
+             for r in range(4)]
+    a = ranks[0]
+    for r, got in enumerate(ranks):
+        require(got["paths"] == ("alltoall", "alltoall"),
+                f"ep4 rank {r}: paths {got['paths']}")
+        require(torch.equal(got["y_dl"], a["y_dl"])
+                and got["hash"] == a["hash"] and got["twice"],
+                f"ep4 rank {r}: the output differs from rank 0's or from "
+                f"its own first run")
+        require(got["counts"]["moe_dispatch"] == 5
+                and got["counts"]["moe_combine"] == 5,
+                f"ep4 rank {r}: launches {got['counts']}")
+    scale = float(y_ref.float().abs().max())
+    err = float((a["y_dl"].float() - y_ref.float()).abs().max())
+    require(err <= EP_BF16_TOL * scale,
+            f"ep4: the dropless output is {err:.4g} off the single-device "
+            f"layer's (tolerance {EP_BF16_TOL} x {scale:.4g})")
+    clock = CollectiveClock()
+    clock.s, clock.n = a["clock"]
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in a["counts"]}
+    print(f"ep4: {a['describe']} (four processes on cuda:0) ({smi}): "
+          f"DeepSeek-V3 MoE layer, ep=2d over (data, model): each rank "
+          f"holds w1 {a['w1']}, {a['held_gb']:.2f} GB of the layer's "
+          f"{a['held_gb'] * 4:.2f} GB of experts (drawn in "
+          f"{a['init_s']:.2f} s); dropless ({EP_DS_DROPLESS[0]} x "
+          f"{EP_DS_DROPLESS[1]} tokens, capacity factor 32) the same bits "
+          f"on every rank, max |diff| {err:.4g} from the single-device "
+          f"layer (tolerance {EP_BF16_TOL} x {scale:.4g}); capacity 1.25 "
+          f"on {EP_DS_WALL[0]} x {EP_DS_WALL[1]} tokens the same bits on "
+          f"every rank and twice: "
+          + ", ".join(f"{w * 1e3:.1f}" for w in a["walls"])
+          + f" ms, under the clock {a['cwall'] * 1e3:.1f} ms: "
+          f"{clock.share(a['cwall'])}; peak by rank "
+          + " + ".join(f"{r['peak_gb']:.2f}" for r in ranks)
+          + f" GB; {spawn_s:.1f} s from spawn to join; launches by rank "
+          + " ".join(json.dumps(r["counts"]) for r in ranks), flush=True)
+    return counts
+
+
+def ep_legs(device, run, smi: str):
+    """The expert-parallel legs: ep1, ep2 and ep4. Returns their launch
+    counts, by leg."""
+    t_legs = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ep1_counts, y_ref = ep1_leg(device, run, smi, tmp)
+        torch.cuda.empty_cache()
+        ep2_counts = ep2_leg(run, smi, tmp)
+        ep4_counts = ep4_leg(y_ref, smi, tmp)
+    print(f"legs: ep1, ep2, ep4 in {time.perf_counter() - t_legs:.1f} s of "
+          f"wall ({smi})", flush=True)
+    return {"ep1": ep1_counts, "ep2": ep2_counts, "ep4": ep4_counts}
 
 
 def drift_stats(sess):
@@ -5888,7 +6540,9 @@ def main() -> int:
           f"generate, 2 prompts of 64 tokens and 8 steps over the ring, on "
           f"the card equals the CPU run (tokens exact; logits within 1e-4 "
           f"relative, max error {lerr:.3e})", flush=True)
-    decode_counts, tallies["decode"] = decode_leg(torch.device("cuda"))
+    decode_counts, tallies["decode"], run = decode_leg(torch.device("cuda"))
+    ep_counts = ep_legs(torch.device("cuda"), run, smi)
+    del run
     combine_shapes(tallies)
     for name in ("pdist_argmin", "kmeans_update", "solve_attach"):
         require(run_counts[name] + serve_counts[name] > 0,
@@ -5901,6 +6555,13 @@ def main() -> int:
                 f"decode leg")
     require(decode_counts["swa_decode"] > 0,
             "swa_decode was not launched on the decode leg")
+    for leg, c in ep_counts.items():
+        require(c["moe_dispatch"] > 0 and c["moe_combine"] > 0,
+                f"moe_dispatch or moe_combine was not launched on the {leg} "
+                f"leg")
+        require(leg == "ep4" or c["swa_decode"] > 0,
+                f"swa_decode was not launched on the {leg} leg")
+    new_counts += tuple(ep_counts.values())
     rows["moe_combine_bwd"], train_counts, example_counts = train_legs(
         torch.device("cuda"), rounds=20)
     # What the earlier legs kept on the card (tallied inputs, the mesh
@@ -5979,6 +6640,8 @@ def main() -> int:
           + json.dumps(example_counts) + " deepseek_serve "
           + json.dumps(ds_serve_counts) + " deepseek_train "
           + json.dumps(ds_train_counts) + "".join(
+              f" {leg} " + json.dumps(c) for leg, c in ep_counts.items())
+          + "".join(
               f" {leg} " + json.dumps(c) for leg, c in
               list(state_counts.items()) + list(family_counts.items()))
           + "; every kernel matched its plain version; the rwkv, zamba2, "

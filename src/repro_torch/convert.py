@@ -98,11 +98,16 @@ def _tensor(a, device) -> torch.Tensor:
     return _t(a, device)
 
 
-def model_params(np_tree, device="cuda"):
+def model_params(np_tree, device="cuda", *, cfg=None, ctx=None):
     """A JAX ``Model.init`` pytree (dicts, with ``segments`` a tuple of
     dicts of layer-stacked arrays; leaves as numpy) as the port's
     parameters: the same nesting, every leaf a tensor of its own dtype
-    on ``device``."""
+    on ``device``. Under a mesh ``ctx`` (with the model's ``cfg``) each
+    MoE layer's expert leaves are cut to this rank's part on the host,
+    before they reach ``device`` (``launch.sharding.shard_params``)."""
+    if ctx is not None and ctx.mesh is not None:
+        from repro_torch.launch.sharding import shard_params
+        np_tree = shard_params(np_tree, cfg, ctx)
     return tree_map(lambda a: _tensor(a, device), np_tree)
 
 

@@ -13,6 +13,12 @@ its window decodes over a ring cache, through the ``swa_decode``
 kernel; an MLA model (DeepSeek-V3) over its latent cache, in the
 absorbed form.
 
+Under a ``DistCtx`` with a ``utils.mesh.Mesh`` (``launch.sharding.
+make_ctx``) every rank runs ``generate`` on the whole batch, holding its
+part of each MoE layer's experts (``init_params(..., ctx=ctx)``), and
+every MoE layer takes the reference's expert-parallel path for the mesh
+(``models/moe.py``): every rank returns the same tokens.
+
 The batch holds ``tokens`` (B, S) and the family's inputs: for the
 encdec family (Whisper) ``enc_embeds`` (B, n_ctx, d), the frame
 embeddings its encoder reads, and ``tokens`` (B, S_dec) the decoder's
@@ -33,16 +39,19 @@ from repro_torch.models.model import Model
 from repro_torch.utils.prng import StepGumbel
 
 
-def init_params(model: Model, seed: int = 0, device="cuda"):
+def init_params(model: Model, seed: int = 0, device="cuda",
+                ctx: Optional[DistCtx] = None):
     """The model's parameters drawn from a generator seeded with
-    ``seed`` on ``device``."""
+    ``seed`` on ``device``; under a mesh ``ctx``, with this rank's part
+    of each MoE layer's experts (the same bits as that part of the
+    draw without a mesh)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "init_params runs on CUDA, but torch.cuda.is_available() is "
             "False: run it on a machine with an NVIDIA GPU, or pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
-    return model.init(torch.Generator(device=dev).manual_seed(seed))
+    return model.init(torch.Generator(device=dev).manual_seed(seed), ctx)
 
 
 def make_serve_step(model: Model, ctx: Optional[DistCtx] = None):

@@ -5,21 +5,38 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
 @dataclass(frozen=True)
 class DistCtx:
-    """The distribution context of the reference's signatures. The port
-    runs on one device (``mesh`` None); a context with a mesh is refused
-    where a layer would shard (ROADMAP item 5b)."""
+    """The distribution context of the reference's signatures: ``mesh``
+    None runs on one device; a ``utils.mesh.Mesh`` runs every rank on
+    the whole batch (replicated activations, as every rank of
+    ``core/distributed.py`` runs on the same host inputs), with the MoE
+    layer's experts sharded over the mesh (``models/moe.py``). ``dp``
+    names the data-parallel axes, ``tp`` the tensor / expert-parallel
+    axis."""
     mesh: Optional[object] = None
+    dp: Tuple[str, ...] = ("data",)
+    tp: str = "model"
 
     @staticmethod
     def local() -> "DistCtx":
         return DistCtx()
+
+    @property
+    def tp_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[self.tp]
+
+    @property
+    def dp_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        return math.prod(self.mesh.shape[a] for a in self.dp)
 
 
 def tree_map(fn: Callable, *trees):
@@ -33,6 +50,42 @@ def tree_map(fn: Callable, *trees):
     return fn(*trees)
 
 
+@dataclass(frozen=True)
+class Part:
+    """This rank's part of a sharded leaf: rows ``lo:hi`` of dim ``axis``
+    (negative, counted from the last, so that a layer's leaf and its
+    layer-stacked segment leaf share one part), cut over the mesh axes
+    ``axes`` in shard order. Rows past the leaf's extent are zeros (the
+    padded experts of ``models/moe.py``)."""
+    axis: int
+    lo: int
+    hi: int
+    axes: Tuple[str, ...]
+
+    def shape(self, full: Sequence[int]) -> Tuple[int, ...]:
+        out = list(full)
+        out[self.axis] = self.hi - self.lo
+        return tuple(out)
+
+    def take(self, w):
+        """This part of ``w`` (a tensor or a numpy array holding the
+        whole leaf), as a copy that keeps nothing else of ``w`` alive."""
+        ext = w.shape[self.axis]
+        idx = [slice(None)] * w.ndim
+        idx[self.axis] = slice(min(self.lo, ext), min(self.hi, ext))
+        got = w[tuple(idx)]
+        pad = list(got.shape)
+        pad[self.axis] = self.hi - self.lo - got.shape[self.axis]
+        if isinstance(w, torch.Tensor):
+            if pad[self.axis] == 0:
+                return got.clone()
+            return torch.cat([got, got.new_zeros(pad)], dim=self.axis)
+        if pad[self.axis] == 0:
+            return got.copy()
+        return np.concatenate([got, np.zeros(pad, got.dtype)],
+                              axis=self.axis)
+
+
 # A tensor of more elements than DRAW_WHOLE is drawn in pieces of at
 # most DRAW_PIECE elements along its first axis (DeepSeek-V3's stacked
 # experts, 3.8e9 elements, would take 15 GB in f32 at once).
@@ -40,25 +93,42 @@ DRAW_WHOLE, DRAW_PIECE = 1 << 30, 1 << 28
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
-               scale: float = 0.02) -> torch.Tensor:
+               scale: float = 0.02, part: Optional[Part] = None
+               ) -> torch.Tensor:
     """Normal(0, 1) * ``scale`` drawn in f32 from ``gen`` on the
     generator's device, stored in ``dtype``: a CPU generator draws on
     the CPU, a CUDA generator on the card (the full-width models have
     billions of parameters). Above ``DRAW_WHOLE`` elements the draw
-    goes piece by piece into the stored tensor."""
+    goes piece by piece into the stored tensor. With ``part`` only that
+    :class:`Part` of the draw is kept, cut from each piece as it is
+    drawn: the generator advances as for the whole tensor, so the part
+    holds the bits of the same part of an uncut draw."""
     shape = tuple(shape)
     n = math.prod(shape)
     if n <= DRAW_WHOLE:
         w = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device)
+        if part is not None:
+            w = part.take(w)
         return (w * scale).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
     rows = max(1, DRAW_PIECE // (n // shape[0]))
+    if part is None:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+    else:
+        out = torch.zeros(part.shape(shape), dtype=dtype, device=gen.device)
     for lo in range(0, shape[0], rows):
-        piece = out[lo:lo + rows]
-        w = torch.randn(piece.shape, generator=gen, dtype=torch.float32,
-                        device=gen.device)
-        piece.copy_((w * scale).to(dtype))
+        hi = min(lo + rows, shape[0])
+        w = torch.randn((hi - lo,) + shape[1:], generator=gen,
+                        dtype=torch.float32, device=gen.device)
+        w = (w * scale).to(dtype)
+        if part is None:
+            out[lo:hi].copy_(w)
+        elif part.axis % len(shape) == 0:      # the part cuts the pieces' axis
+            a, b = max(lo, part.lo), min(hi, part.hi)
+            if a < b:
+                out[a - part.lo:b - part.lo].copy_(w[a - lo:b - lo])
+        else:
+            out[lo:hi].copy_(part.take(w))
     return out
 
 

@@ -77,14 +77,19 @@ class Model:
         self.decode_room = 1
 
     # ------------------------------------------------------------- init --
-    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+    def init(self, gen: torch.Generator,
+             ctx: DistCtx = None) -> Dict[str, Any]:
         """Parameters drawn from ``gen`` on its device (a CUDA generator
-        draws a full-width model on the card)."""
+        draws a full-width model on the card). Under a mesh ``ctx`` each
+        MoE layer keeps only this rank's part of its experts, cut as it
+        is drawn (``models/moe.expert_part``); the generator advances
+        as for the whole model, so every rank's parts are those of one
+        uncut draw."""
         cfg, dtype = self.cfg, self.dtype
         p: Dict[str, Any] = {
             "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
             "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
-            "segments": tuple(init_segment(gen, cfg, spec, dtype)
+            "segments": tuple(init_segment(gen, cfg, spec, dtype, ctx)
                               for spec in self.segments),
         }
         if not cfg.tie_embeddings:

@@ -1,5 +1,5 @@
 """Mixture-of-experts layer with top-k token-choice routing (counterpart
-of ``repro/models/moe.py``), the single-device path.
+of ``repro/models/moe.py``).
 
 Dispatch is sort-based and of fixed capacity, as in the reference:
 tokens are gathered into per-expert queues of C = ceil(T * k / E * cf)
@@ -10,29 +10,58 @@ dropped and contributes zero. The only scatter is the int32 rank of
 each (token, choice) entry, an index assignment: no float scatter-add
 (DESIGN.md §15).
 
-The expert-parallel paths (``impl="alltoall"`` under a mesh, and the
-shard_map expert tensor parallelism) need a device mesh; the port runs
-on one device and refuses a sharded context (ROADMAP item 5b).
+Under a ``DistCtx`` with a ``utils.mesh.Mesh`` the layer takes the path
+the reference's ``apply_moe`` takes for that mesh and shape, with the
+layout of its ``shard_map`` at the layer's boundary: every rank holds
+the whole batch (replicated activations), takes its rows over the
+``dp`` axes, runs the path, and all-gathers the output over ``dp``.
+
+  * expert tensor parallelism (``_dense_shard_map``; Mixtral): each
+    data shard dispatches its own tokens to every expert, whose FFN
+    hidden dim is cut over ``tp``; one psum of the bf16 partials, added
+    in shard order;
+  * expert parallelism (``impl="alltoall"``; DeepSeek-V3): the data
+    shard's tokens are cut over ``tp``, packed, exchanged by one tiled
+    all_to_all so that each shard holds only its resident experts'
+    queues, processed, and sent back by the reverse all_to_all; the
+    experts are cut over ``tp`` (``ep="tp"``) or over the axes of
+    ``_ep_axes_for`` (``ep="2d"``), padded to a multiple of the shards;
+  * otherwise ``_local_moe`` on the whole batch.
+
+Each rank holds only its part of the expert stacks (:func:`expert_part`,
+cut as they are drawn or converted: ``launch/sharding.py``). Where the
+path needs another layout than the one held (an ``alltoall`` layer whose
+batch falls back to the tensor-parallel or the local path), the leaves
+are gathered and cut again, as ``shard_map``'s ``in_specs`` reshard a
+GSPMD array.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import DistCtx, dense_init
+from repro_torch.models.common import DistCtx, Part, dense_init
+
+EXPERT_LEAVES = ("w1", "w3", "w2")
 
 
-def init_moe(gen: torch.Generator, cfg, dtype) -> Dict[str, object]:
+def init_moe(gen: torch.Generator, cfg, dtype,
+             ctx: DistCtx = None) -> Dict[str, object]:
+    """The layer's parameters; under a mesh ``ctx`` each expert leaf
+    keeps only this rank's :func:`expert_part` of its draw."""
     m = cfg.moe
     d, E, dff = cfg.d_model, m.n_experts, m.d_expert
+
+    def part(name):
+        return None if ctx is None else expert_part(m, ctx, name)
     p = {"router": dense_init(gen, (d, E), dtype, scale=0.006),
-         "w1": dense_init(gen, (E, d, dff), dtype),
-         "w3": dense_init(gen, (E, d, dff), dtype),
-         "w2": dense_init(gen, (E, dff, d), dtype)}
+         "w1": dense_init(gen, (E, d, dff), dtype, part=part("w1")),
+         "w3": dense_init(gen, (E, d, dff), dtype, part=part("w3")),
+         "w2": dense_init(gen, (E, dff, d), dtype, part=part("w2"))}
     if m.n_shared:
         from repro_torch.models.ffn import init_ffn
         p["shared"] = init_ffn(gen, d, m.n_shared * dff, "swiglu", dtype)
@@ -140,17 +169,224 @@ def _local_moe(p, x2d: torch.Tensor, m):
     return y.to(x2d.dtype), aux
 
 
+def _pad_to(E: int, nsh: int) -> int:
+    return ((E + nsh - 1) // nsh) * nsh
+
+
+def _ep_axes_for(E: int, ctx: DistCtx) -> Tuple[str, ...]:
+    """The largest minor-first mesh-axis prefix (``tp``, then the
+    ``dp`` axes inward) whose size product divides E; always holds
+    ``tp``. Listed major to minor, as a ``PartitionSpec`` lists them."""
+    axes = [ctx.tp]
+    nsh = ctx.mesh.shape[ctx.tp]
+    for a in reversed(tuple(ctx.dp)):
+        s = ctx.mesh.shape[a]
+        if nsh * s <= E and E % (nsh * s) == 0:
+            axes.append(a)
+            nsh *= s
+        else:
+            break
+    return tuple(reversed(axes))
+
+
+def _ep_axes(m, ctx: DistCtx) -> Tuple[str, ...]:
+    """The axes the ``alltoall`` path's experts are cut over."""
+    return (ctx.tp,) if m.ep == "tp" else _ep_axes_for(m.n_experts, ctx)
+
+
+def _ep_part(m, ctx: DistCtx) -> Part:
+    """This rank's experts on the ``alltoall`` path: its E_pad / nsh of
+    the stack padded to E_pad (the padded experts are zeros)."""
+    axes = _ep_axes(m, ctx)
+    nsh = ctx.mesh.size(axes)
+    e_loc = _pad_to(m.n_experts, nsh) // nsh
+    s = ctx.mesh.index(axes)
+    return Part(-3, s * e_loc, (s + 1) * e_loc, axes)
+
+
+def _etp_part(m, ctx: DistCtx, name: str) -> Optional[Part]:
+    """This rank's slice of every expert's FFN hidden dim on the tensor-
+    parallel path (w1 / w3: (E, d, ff), w2: (E, ff, d)); None (whole)
+    where the hidden dim does not divide over ``tp``."""
+    tp = ctx.tp_size
+    if m.d_expert % tp:
+        return None
+    f = m.d_expert // tp
+    s = ctx.mesh.index((ctx.tp,))
+    return Part(-1 if name in ("w1", "w3") else -2, s * f, (s + 1) * f,
+                (ctx.tp,))
+
+
+def expert_part(m, ctx: DistCtx, name: str) -> Optional[Part]:
+    """The part of expert leaf ``name`` (w1, w3, w2) that this rank
+    holds under ``ctx``'s mesh: the experts over the ``alltoall`` path's
+    axes, else the hidden dim over ``tp`` (the JAX package's
+    ``launch/sharding.param_specs`` for these leaves, with the padding
+    of its ``apply_moe``); None for the whole leaf."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    if m.impl == "alltoall":
+        return _ep_part(m, ctx)
+    return _etp_part(m, ctx, name)
+
+
+def _full_shape(m, d: int, name: str) -> Tuple[int, int, int]:
+    if name == "w2":
+        return (m.n_experts, m.d_expert, d)
+    return (m.n_experts, d, m.d_expert)
+
+
+def _check_parts(p, m, ctx: DistCtx, d: int) -> None:
+    """Refuse expert leaves that are not this rank's parts (a whole
+    stack converted or drawn without the mesh), by name."""
+    for name in EXPERT_LEAVES:
+        part = expert_part(m, ctx, name)
+        full = _full_shape(m, d, name)
+        want = full if part is None else part.shape(full)
+        got = tuple(p[name].shape)
+        if got != want:
+            raise ValueError(
+                f"apply_moe: expert leaf moe.{name} has shape {got}, but "
+                f"under the mesh {dict(ctx.mesh.shape)} (impl="
+                f"{m.impl!r}, ep={m.ep!r}) this rank holds {want} of the "
+                f"whole {full}; draw the parameters with init_params(..., "
+                f"ctx=ctx) or convert them with convert.model_params(..., "
+                f"cfg=cfg, ctx=ctx)")
+
+
+def _relaid(p, m, ctx: DistCtx, want) -> dict:
+    """``p`` with its expert leaves in the layout ``want(name)`` (a
+    :class:`Part` or None for the whole leaf): gathered over the axes of
+    the part this rank holds and cut again where the two differ (never
+    without a mesh, where every leaf is whole)."""
+    out = dict(p)
+    for name in EXPERT_LEAVES:
+        have, need = expert_part(m, ctx, name), want(name)
+        if have == need:
+            continue
+        w = p[name]
+        if have is not None:
+            w = ctx.mesh.group(have.axes).all_gather(
+                w.movedim(have.axis, 0)).movedim(0, have.axis)
+            if have.axis == -3:
+                w = w[:m.n_experts]
+        out[name] = w if need is None else need.take(w)
+    return out
+
+
+def _pmean(aux: torch.Tensor, ctx: DistCtx) -> torch.Tensor:
+    """``lax.pmean`` of a scalar over the ``dp`` and ``tp`` axes."""
+    g = ctx.mesh.group(tuple(ctx.dp) + (ctx.tp,))
+    return g.psum(aux.reshape(1))[0] / g.size
+
+
+def _dp_rows(x: torch.Tensor, ctx: DistCtx) -> torch.Tensor:
+    """This rank's rows of the batch over the ``dp`` axes
+    (``P(dp)`` in)."""
+    b = x.shape[0] // ctx.dp_size
+    i = ctx.mesh.index(ctx.dp)
+    return x[i * b:(i + 1) * b]
+
+
+def _dense_shard_map(p, x: torch.Tensor, m, ctx: DistCtx):
+    """Expert tensor parallelism for small E (Mixtral-class): every data
+    shard dispatches only its own tokens into a local (E, C_loc, d)
+    queue, each expert's FFN hidden dim cut over ``tp`` like a dense
+    FFN, and the one collective of the layer is the psum of the bf16
+    layer output over ``tp`` (in shard order). Capacity is per data
+    shard. The output is gathered over ``dp``."""
+    xb = _dp_rows(x, ctx)
+    x2 = xb.reshape(-1, x.shape[-1])
+    ids, gates, aux = _route(p["router"], x2, m)
+    C = _capacity(x2.shape[0], m)
+    buf, plan = _pack(x2, ids, m, C)
+    ye = _expert_ffn(p["w1"], p["w3"], p["w2"], buf)    # partial (ff)
+    y = _unpack(ye, plan, gates, m.top_k)
+    y = ctx.mesh.group(ctx.tp).psum(y.to(x.dtype))
+    aux = _pmean(aux, ctx)
+    y = ctx.mesh.group(ctx.dp).all_gather(y.reshape(xb.shape))
+    return y, aux
+
+
+def _alltoall_local(p, x_my: torch.Tensor, m, group):
+    """One shard's body: route and pack its T_my tokens into every
+    expert's queue, send each queue to the shard that holds its expert
+    (``group``: the experts' axes, in shard order), run the resident
+    E_pad / nsh experts over the queues of every shard, and send the
+    outputs back. ``p`` holds this shard's experts."""
+    T, d = x_my.shape
+    E = m.n_experts
+    nsh = group.size
+    E_pad = _pad_to(E, nsh)
+    E_loc = E_pad // nsh
+    C = _capacity(T, m)
+    ids, gates, aux = _route(p["router"], x_my, m)
+    buf, plan = _pack(x_my, ids, m, C)                  # (E, C, d)
+    if E_pad > E:
+        buf = F.pad(buf, (0, 0, 0, 0, 0, E_pad - E))
+    recv = group.all_to_all(buf.reshape(nsh, E_loc * C, d))
+    xe = recv.reshape(nsh, E_loc, C, d).transpose(0, 1)
+    xe = xe.reshape(E_loc, nsh * C, d)
+    ye = _expert_ffn(p["w1"], p["w3"], p["w2"], xe)
+    ye = ye.reshape(E_loc, nsh, C, d).transpose(0, 1)
+    back = group.all_to_all(ye.reshape(nsh, E_loc * C, d).to(x_my.dtype))
+    ybuf = back.reshape(E_pad, C, d)[:E]
+    y = _unpack(ybuf, plan, gates, m.top_k)
+    return y.to(x_my.dtype), aux
+
+
+def _alltoall(p, x: torch.Tensor, m, ctx: DistCtx):
+    """Expert parallelism: this data shard's tokens cut over ``tp``
+    (token resharding dp -> dp x tp), :func:`_alltoall_local` over the
+    experts' axes, and the output gathered over dp x tp. The reference's
+    per-axis exchanges (``_grid_a2a``) compose to the one flat exchange
+    over the experts' axes, and its gather over ``tp`` then over ``dp``
+    to one gather over (dp, tp)."""
+    B, S, d = x.shape
+    xb = _dp_rows(x, ctx)
+    Tb = xb.shape[0] * S
+    T_my = Tb // ctx.tp_size
+    j = ctx.mesh.index((ctx.tp,))
+    x_my = xb.reshape(Tb, d)[j * T_my:(j + 1) * T_my]
+    y_my, aux = _alltoall_local(p, x_my, m,
+                                ctx.mesh.group(_ep_axes(m, ctx)))
+    aux = _pmean(aux, ctx)
+    y = ctx.mesh.group(tuple(ctx.dp) + (ctx.tp,)).all_gather(y_my)
+    return y.reshape(B, S, d), aux
+
+
+def moe_path(m, B: int, S: int, ctx: DistCtx) -> str:
+    """The path the reference's ``apply_moe`` takes: ``"alltoall"``,
+    ``"etp"`` (expert tensor parallelism) or ``"local"``."""
+    if ctx is None or ctx.mesh is None:
+        return "local"
+    tp, dp = ctx.tp_size, ctx.dp_size
+    T_shard = (B * S) // dp
+    if (m.impl == "alltoall" and B % dp == 0 and T_shard % tp == 0
+            and T_shard >= tp):
+        return "alltoall"
+    if B % dp == 0 and m.d_expert % tp == 0:
+        return "etp"
+    return "local"
+
+
 def apply_moe(p, x: torch.Tensor, cfg, ctx: DistCtx = None):
-    """x: (B, S, d) -> (y (B, S, d), weighted aux loss)."""
-    if ctx is not None and ctx.mesh is not None:
-        raise NotImplementedError(
-            "apply_moe: the expert-parallel paths (alltoall, shard_map "
-            "expert tensor parallelism) need a device mesh and are not "
-            "ported yet (ROADMAP item 5b); use DistCtx.local()")
+    """x: (B, S, d) -> (y (B, S, d), weighted aux loss). Under a mesh
+    ``p`` holds this rank's :func:`expert_part` of each expert leaf."""
     m = cfg.moe
     B, S, d = x.shape
-    y, aux = _local_moe(p, x.reshape(-1, d), m)
-    y = y.reshape(B, S, d)
+    if ctx is not None and ctx.mesh is not None:
+        _check_parts(p, m, ctx, d)
+    path = moe_path(m, B, S, ctx)
+    if path == "etp":
+        y, aux = _dense_shard_map(
+            _relaid(p, m, ctx, lambda n: _etp_part(m, ctx, n)), x, m, ctx)
+    elif path == "alltoall":
+        y, aux = _alltoall(p, x, m, ctx)
+    else:
+        y, aux = _local_moe(_relaid(p, m, ctx, lambda n: None),
+                            x.reshape(-1, d), m)
+        y = y.reshape(B, S, d)
     if m.n_shared:
         from repro_torch.models.ffn import apply_ffn
         y = y + apply_ffn(p["shared"], x, "swiglu", ctx)

@@ -71,9 +71,11 @@ def plan_segments(cfg) -> List[SegmentSpec]:
     return [SegmentSpec("attn_ffn", cfg.n_layers)]
 
 
-def init_layer(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
+def init_layer(gen: torch.Generator, cfg, spec: SegmentSpec, dtype,
+               ctx: DistCtx = None):
     """One layer's parameters; a cross segment's layer adds ``ln_x`` and
-    ``xattn`` (a GQA parameter set) to the attn_ffn layer's."""
+    ``xattn`` (a GQA parameter set) to the attn_ffn layer's. Under a
+    mesh ``ctx`` a MoE layer keeps this rank's part of its experts."""
     d = cfg.d_model
     dev = gen.device
     if spec.kind == "rwkv":
@@ -89,7 +91,7 @@ def init_layer(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
                   else A.init_gqa(gen, cfg, dtype)),
          "ln2": init_norm(cfg.norm, d, dtype, dev)}
     if spec.moe:
-        p["moe"] = MoE.init_moe(gen, cfg, dtype)
+        p["moe"] = MoE.init_moe(gen, cfg, dtype, ctx)
     else:
         p["ffn"] = F.init_ffn(gen, d, cfg.d_ff, cfg.activation, dtype)
     if spec.cross:
@@ -104,17 +106,18 @@ def layer_params(seg_params, i: int):
     return tree_map(lambda a: a[i], seg_params)
 
 
-def init_segment(gen: torch.Generator, cfg, spec: SegmentSpec, dtype):
+def init_segment(gen: torch.Generator, cfg, spec: SegmentSpec, dtype,
+                 ctx: DistCtx = None):
     """The segment's layers, each drawn on its own and stacked on a
     leading layer axis; the stack is allocated once and filled layer by
     layer, so a full-width segment never holds two copies. A segment of
     one layer is that layer's tensors with a leading axis of 1 (views)."""
     if spec.n_layers == 1:
         return tree_map(lambda a: a.unsqueeze(0),
-                        init_layer(gen, cfg, spec, dtype))
+                        init_layer(gen, cfg, spec, dtype, ctx))
     stacked = None
     for i in range(spec.n_layers):
-        lp = init_layer(gen, cfg, spec, dtype)
+        lp = init_layer(gen, cfg, spec, dtype, ctx)
         if stacked is None:
             stacked = tree_map(lambda a: a.new_empty(
                 (spec.n_layers,) + tuple(a.shape)), lp)

@@ -12,12 +12,14 @@ on every other axis, in shard order: the flat index over ``axes``,
 listed from major to minor, as a ``PartitionSpec((*axes,))`` sharding
 and a tiled ``all_gather`` order them.
 
-Every collective is built on one all-gather, so that a replicated
-result is the same bits on every rank whatever the backend: ``psum`` is
-an all-gather followed by a sum in shard order (``all_reduce(SUM)``
-would add in the backend's own order, a ring's for gloo and another for
-NCCL), and ``pmax`` / ``pmin`` take the maximum / minimum of the
-gathered values.
+Every collective that reduces is built on one all-gather, so that a
+replicated result is the same bits on every rank whatever the backend:
+``psum`` is an all-gather followed by a sum in shard order
+(``all_reduce(SUM)`` would add in the backend's own order, a ring's for
+gloo and another for NCCL), and ``pmax`` / ``pmin`` take the maximum /
+minimum of the gathered values. ``all_to_all`` (the expert-parallel MoE
+dispatch) only moves blocks, so no order of additions is at stake: it
+is one ``all_to_all_single`` of the blocks' bytes.
 
 The backend is chosen by the caller and never switched:
 
@@ -71,6 +73,7 @@ class ShardGroup:
         pg_ranks = (list(self.ranks) if pg is None
                     else dist.get_process_group_ranks(pg))
         self._order = [pg_ranks.index(r) for r in self.ranks]
+        self._inverse = sorted(range(self.size), key=self._order.__getitem__)
 
     @property
     def transport(self) -> str:
@@ -132,6 +135,36 @@ class ShardGroup:
                 (packed.shape[0],) + tuple(t.shape[1:])))
         it = iter(out)
         return [None if t is None else next(it) for t in tensors]
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The tiled exchange of ``jax.lax.all_to_all(x, split_axis=0,
+        concat_axis=0, tiled=True)``: dim 0 of ``x`` (the same shape on
+        every rank) is cut into ``size`` blocks, and block j of shard i
+        lands as block i of shard j, in shard order. The blocks travel
+        as bytes, so every dtype keeps its bits. A group of one returns
+        ``x``."""
+        if self.size == 1:
+            return x
+        if x.shape[0] % self.size:
+            raise MeshError(f"all_to_all: dim 0 of a tensor of shape "
+                            f"{tuple(x.shape)} does not split into "
+                            f"{self.size} blocks")
+        dev = x.device
+        t = x.contiguous().reshape(self.size, -1).view(torch.uint8)
+        if self.backend == "gloo":
+            t = t.cpu()
+        elif t.device.type != "cuda":
+            raise MeshError(f"backend='nccl' exchanges CUDA tensors; got a "
+                            f"tensor on {t.device}")
+        # all_to_all_single cuts its input in process-group rank order:
+        # shard i's block goes to, and comes from, group rank _order[i].
+        identity = self._order == list(range(self.size))
+        send = t if identity else t[self._inverse]
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self.pg)
+        if not identity:
+            recv = recv[self._order]
+        return recv.to(dev).view(x.dtype).reshape(x.shape)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the shards, added in shard order: the same bits on

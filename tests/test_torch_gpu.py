@@ -2194,3 +2194,72 @@ def test_gpu_family_gradient_reaches_encoder_and_projection(cuda_device,
              if cfg.family == "encdec" else [g1["vis_proj"]])
     assert reach and all(a.is_cuda and bool(a.abs().max() > 0)
                          for a in reach)
+
+
+# ------------------------------------------ expert-parallel MoE (mesh) --
+
+
+@pytest.fixture
+def nccl_one_rank(cuda_device, tmp_path):
+    """A one-rank NCCL world in the test's process and its (data=1,
+    model=1) mesh's context; the world is torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.sharding import make_ctx
+    from repro_torch.utils.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_ctx(make_mesh((1, 1), ("data", "model"),
+                                 backend="nccl"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.bool])
+def test_gpu_all_to_all_one_rank_nccl(nccl_one_rank, dtype):
+    """Every group of a one-rank NCCL mesh is a group of one: the
+    exchange returns the tensor itself, with its dtype and bits."""
+    mesh = nccl_one_rank.mesh
+    x = torch.arange(24, device="cuda").reshape(4, 6) % 5
+    x = x == 0 if dtype == torch.bool else x.to(dtype)
+    for axes in (("data",), ("model",), ("data", "model"),
+                 ("model", "data")):
+        got = mesh.group(axes).all_to_all(x)
+        assert got.dtype == dtype and torch.equal(got, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,ep", [("dense", "tp"), ("alltoall", "tp"),
+                                     ("alltoall", "2d")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [0, 1])
+def test_gpu_moe_paths_one_rank_equal_local(nccl_one_rank, impl, ep, dtype,
+                                            shared):
+    """At one shard every path of apply_moe under a mesh (expert tensor
+    parallelism for impl="dense", all_to_all expert parallelism for
+    "alltoall") is the local path: output and aux bit for bit against
+    apply_moe without a mesh on the card (d=64, 8 experts top-2 of 96,
+    capacity 1.25: tokens drop), through the port's kernels."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    ctx = nccl_one_rank
+    m = MoEConfig(n_experts=8, top_k=2, d_expert=96, n_shared=shared,
+                  capacity_factor=1.25, impl=impl, ep=ep)
+    cfg = SimpleNamespace(moe=m, d_model=64)
+    p = moe.init_moe(torch.Generator(device="cuda").manual_seed(0), cfg,
+                     dtype)
+    x = torch.randn((3, 40, 64), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda").to(dtype)
+    assert moe.moe_path(m, 3, 40, ctx) == ("etp" if impl == "dense"
+                                          else "alltoall")
+    ops.reset_launch_counts()
+    got, gaux = moe.apply_moe(p, x, cfg, ctx)
+    counts = ops.launch_counts()
+    want, waux = moe.apply_moe(p, x, cfg)
+    assert counts["moe_dispatch"] == 1 and counts["moe_combine"] == 1
+    assert torch.equal(got, want) and torch.equal(gaux, waux)

@@ -18,6 +18,7 @@ equals the JAX package there too; a test pins that both then differ
 from a fresh prefill.
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -352,14 +353,22 @@ def test_ring_decode_after_aligned_prefill_equals_fresh_prefill():
 
 
 def test_sharded_moe_context_is_refused():
-    """The expert-parallel MoE paths (a context with a mesh) stay refused
-    by name."""
+    """A mesh context given a layer's whole expert stacks (parameters
+    converted or drawn without the mesh) is refused, naming the leaf and
+    the shape this rank should hold; no collective is reached."""
+    from types import SimpleNamespace
+
     from repro_torch.models.common import DistCtx
     pr = pair("mixtral-8x7b", "float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        moe.apply_moe(pr.p["segments"][0]["moe"],
-                      torch.zeros((1, 2, pr.cfg.d_model)), pr.cfg,
-                      DistCtx(mesh=object()))
+    m = pr.cfg.moe
+    stub = SimpleNamespace(shape={"data": 1, "model": 2},
+                           index=lambda axes: 0, size=lambda axes: 2)
+    lp = {k: v[0] for k, v in pr.p["segments"][0]["moe"].items()}
+    want = (m.n_experts, pr.cfg.d_model, m.d_expert // 2)
+    with pytest.raises(ValueError, match=r"moe\.w1 .*" + re.escape(
+            str(want))):
+        moe.apply_moe(lp, torch.zeros((1, 2, pr.cfg.d_model)), pr.cfg,
+                      DistCtx(mesh=stub))
 
 
 def ring_fault_report():
