@@ -210,6 +210,26 @@ rank, dropless against the single-device layer, at 1.25 for its wall.
 Each prints its walls and the share of its all_to_all, psum and
 all_gather calls.
 
+After the train legs come the legs that train under a mesh (ROADMAP 5b's
+training half: launch/train.py under a DistCtx whose mesh cuts the MoE
+layers' experts, the gradient carried by the mesh's collectives): ept1,
+a one-rank NCCL world in this process, mesh (1, 1), where Mixtral-8x7B at
+the train full leg's width, depth and tokens takes EPT_STEPS steps, bit
+for bit (loss, grad norm, every parameter) the local make_train_step's,
+and one DeepSeek-V3 MoE layer at its published widths takes a forward
+and backward bit for bit the local layer's gradient; ept2, two gloo
+ranks on cuda:0, mesh (1, 2): Mixtral at EPT2_LAYERS layers, its
+experts' hidden dim cut in two, the ranks' replicated leaves the same
+bits after every step, each rank's expert half within the bf16
+tolerance of the same half of ept1's local run, and a reduced f32 twin
+equal to the CPU's sharded run; ept4, four gloo ranks on cuda:0, mesh
+(2, 2): the DeepSeek-V3 layer's forward and backward with 64 experts a
+rank, every gradient within the bf16 tolerance of the single-device
+layer's at a dropless factor (that reference computed once the ranks
+have exited, so the card never holds both), and reduced f32 DeepSeek-V3
+twins (adafactor, MTP, ep="2d" and "tp") equal to the CPU's sharded
+run. Each prints its walls, device time, collective share and peaks.
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -298,6 +318,17 @@ MX_LAYERS, MX_BATCH, MX_PROMPT, MX_STEPS, MX_SEED = 8, 4, 4096, 32, 0
 # CPU's sharded run.
 EP_AXES = ("data", "model")
 EP_DS_DROPLESS, EP_DS_WALL, EP_DS_SEED = (4, 256), (4, 4096), 3
+# The legs that train under a mesh (ept1, ept2, ept4), EPT_STEPS steps
+# each. ept2 runs Mixtral-8x7B at EPT2_LAYERS layers on two ranks sharing
+# the card: a layer is about 1.41 GB of bf16 experts a rank (half of
+# every expert's hidden dim), as much again in gradients (and once more
+# while a microbatch's gradients are added), 5.6 GB of adamw state, 0.5
+# GB for the replicated attention with its gradient and state; the
+# embeddings with theirs 3.1 GB and the activations of a 4096-token
+# microbatch about 6 GB: 2 layers about 31 GB a rank, 3 layers about 41
+# GB, which two ranks on an 80 GB card do not hold. The reduced f32
+# twins within EPT_TWIN_TOL (relative) of the CPU's sharded run.
+EPT_STEPS, EPT2_LAYERS, EPT_TWIN_TOL = 3, 2, 1e-5
 EP_BF16_TOL, EP_LOGIT_TOL, EP_TWIN_TOL = 2e-2, 1e-1, 1e-6
 # swa_decode at the InternVL2 ring leg's shape (b, h, kvh, dh, W): 48
 # query heads over 8 KV heads, groups of 6.
@@ -3344,6 +3375,589 @@ def ep_legs(device, run, smi: str):
     print(f"legs: ep1, ep2, ep4 in {time.perf_counter() - t_legs:.1f} s of "
           f"wall ({smi})", flush=True)
     return {"ep1": ep1_counts, "ep2": ep2_counts, "ep4": ep4_counts}
+
+
+# ------------------------------------------- training under a mesh (ept) --
+
+def bits_digest(t: torch.Tensor, chunk: int = 1 << 26) -> tuple:
+    """Two position-weighted sums of ``t``'s bits (its bytes as int32
+    words where they fill them, else bytes), modulo 2^64: equal bits
+    give equal digests, and tensors that differ anywhere differ in them
+    but by chance. Computed on ``t``'s device, ``chunk`` words at a
+    time (a 7.5 GB expert gradient would need 60 GB of int64 at once)."""
+    b = t.detach().contiguous().view(-1).view(torch.uint8)
+    words = b.view(torch.int32) if b.numel() % 4 == 0 else b
+    h1 = h2 = 0
+    for lo in range(0, words.numel(), chunk):
+        v = words[lo:lo + chunk].to(torch.int64)
+        i = torch.arange(lo + 1, lo + 1 + v.numel(), device=v.device,
+                         dtype=torch.int64)
+        h1 += int((v * (i * 2654435761 + 97)).sum())
+        h2 += int((v * (i * 40503 + (i >> 7) * 7919 + 1)).sum())
+    return h1 % (1 << 64), h2 % (1 << 64)
+
+
+def replicated_digests(params, shards) -> list:
+    """:func:`bits_digest` of every leaf held whole (not a part)."""
+    from repro_torch.utils.tree import leaves
+    return [bits_digest(a) for a, sh in zip(leaves(params), shards)
+            if sh is None]
+
+
+def ept_steps(step, state, batches, digests=None):
+    """The EPT_STEPS steps of a train step over ``batches``: the first a
+    warm-up, the second timed alone, the third under the collective
+    clock and the profiler (its device time: its kernels' own times).
+    With ``digests`` (a function of the parameters) it is called after
+    every step. Returns (state, record)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    rec = {"walls": [], "loss": [], "grad_norm": [], "digests": []}
+    clock = CollectiveClock()
+    for i, b in enumerate(batches):
+        sync()
+        t0 = time.perf_counter()
+        if i == 2:
+            with clock, torch_profile(
+                    activities=[ProfilerActivity.CUDA]) as prof:
+                state, met = step(state, b)
+                sync()
+        else:
+            state, met = step(state, b)
+            sync()
+        rec["walls"].append(time.perf_counter() - t0)
+        rec["loss"].append(float(met["loss"]))
+        rec["grad_norm"].append(float(met["grad_norm"]))
+        if digests is not None:
+            rec["digests"].append(digests(state.params))
+    t = sum(e.self_device_time_total for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA"))
+    rec["device_s"] = t / 1e6 if t else None
+    rec["clock"] = (clock.s, clock.n)
+    return state, rec
+
+
+def ept_line(rec) -> str:
+    """A run's walls, device time, collective share, losses and norms."""
+    clock = CollectiveClock()
+    clock.s, clock.n = rec["clock"]
+    dev = ("not measured (the profiler recorded no device time)"
+           if rec["device_s"] is None else f"{rec['device_s']:.3f} s")
+    w = rec["walls"]
+    return (f"steps {w[0]:.3f} (warm-up), {w[1]:.3f}, {w[2]:.3f} s (under "
+            f"the clock and the profiler: device time {dev}, "
+            f"{clock.share(w[2]) or 'no collectives'}); loss "
+            + ", ".join(f"{v:.6f}" for v in rec["loss"]) + "; grad norm "
+            + ", ".join(f"{v:.6f}" for v in rec["grad_norm"]))
+
+
+def max_gap(got: torch.Tensor, want: torch.Tensor, device,
+            rows: int = 16) -> float:
+    """The largest |got - want| over want's largest magnitude, taken on
+    ``device`` in blocks of ``rows`` along dim 0 (the tensors on any
+    device, of one shape)."""
+    num = den = 0.0
+    for i in range(0, got.shape[0], rows):
+        a = got[i:i + rows].to(device).float()
+        b = want[i:i + rows].to(device).float()
+        num = max(num, float((a - b).abs().max()))
+        den = max(den, float(b.abs().max()))
+    return num / den
+
+
+def ept_mixtral(device, layers: int, ctx=None):
+    """Mixtral-8x7B at its published widths cut to ``layers`` layers,
+    its remat, microbatch 4 and adamw at TF_LR, drawn from TF_SEED on
+    ``device`` (under a mesh ``ctx``, this rank's parts as drawn): (model,
+    optimizer, state, the batches of the train full leg's size)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainState
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    cfg = get_config("mixtral-8x7b").replace(n_layers=layers)
+    model = build_model(cfg)
+    opt = build_optimizer(cfg.optimizer, TF_LR)
+    params = init_params(model, seed=TF_SEED, device=device, ctx=ctx)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=device))
+    batches = train_batches(TF_SEED, cfg.vocab_size, TF_BATCH, TF_SEQ + 1,
+                            EPT_STEPS, device)
+    return model, opt, state, batches
+
+
+def ept_layer_grads(p, x, dy, cfg, ctx):
+    """The gradient of sum(y * dy) + aux of one MoE layer (``p``, this
+    rank's parts under a mesh) at ``x``: {leaf: grad} for the router,
+    the expert leaves, the shared expert's and x."""
+    from repro_torch.models import moe
+    names = ["router", *moe.EXPERT_LEAVES]
+    req = {k: p[k].detach().requires_grad_(True) for k in names}
+    shared = {k: v.detach().requires_grad_(True)
+              for k, v in p["shared"].items()}
+    xr = x.detach().requires_grad_(True)
+    y, aux = moe.apply_moe(dict(p, **req, shared=shared), xr, cfg, ctx)
+    loss = (y.float() * dy.float()).sum() + aux
+    got = torch.autograd.grad(loss, [*req.values(), *shared.values(), xr])
+    keys = names + [f"shared.{k}" for k in shared] + ["x"]
+    return dict(zip(keys, got))
+
+
+def ept_twin(ctx, name: str, over: dict, opt_name: str, **kw):
+    """Reduced ``name`` (f32, ``over`` its MoE fields) under ``ctx``'s
+    mesh, EPT_STEPS steps of ``opt_name`` (options ``kw``) at lr 1e-3 on
+    the card and on the CPU from one draw: the largest relative gap of
+    the losses and grad norms, and of the parameters (each leaf's
+    largest |difference| over its largest magnitude)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainState, make_train_step
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import leaves
+    cfg = get_config(name, reduced=True).replace(dtype="float32")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **over))
+    model = build_model(cfg)
+    params = init_params(model, seed=0, device="cpu", ctx=ctx)
+    rng = np.random.default_rng(1)
+    batches = [{k: torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, size=(4, 32)).astype(np.int32))
+        for k in ("tokens", "labels")} for _ in range(EPT_STEPS)]
+    runs = []
+    for dev in ("cuda", "cpu"):
+        opt = build_optimizer(opt_name, 1e-3, **kw)
+        p = tree_map(lambda a: a.to(dev, copy=True), params)
+        state = TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=dev))
+        step = make_train_step(model, ctx, opt)
+        mets = []
+        for b in batches:
+            state, met = step(state, {k: v.to(dev) for k, v in b.items()})
+            mets += [float(met["loss"]), float(met["grad_norm"])]
+        runs.append((np.array(mets), [a.cpu() for a in leaves(
+            state.params)]))
+    (m1, p1), (m0, p0) = runs
+    met_gap = float(np.max(np.abs(m1 - m0) / np.abs(m0)))
+    par_gap = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                  for a, b in zip(p1, p0))
+    return met_gap, par_gap
+
+
+def ept1_leg(device, smi: str, tmp: Path):
+    """A one-rank NCCL world in this process, mesh (data=1, model=1).
+    Mixtral-8x7B at the train full leg's width, depth and tokens: EPT_STEPS
+    steps of the local make_train_step, then of the mesh's from the same
+    draw, whose loss, grad norm and every parameter must be the local
+    run's bits (by :func:`bits_digest`; launches counted on the mesh's).
+    The local run's parameters stay on the host for ept2. Then one
+    DeepSeek-V3 MoE layer at its published widths on EP_DS_DROPLESS
+    tokens: its gradient (the router's, every expert leaf's, the shared
+    expert's and x's) by the local path, then under the mesh, the same
+    bits. Returns (counts, the Mixtral reference)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import param_shards
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.utils.tree import leaves
+    t_leg = time.perf_counter()
+    ctx = nccl_one_rank(tmp, "ept1")
+    try:
+        model, opt, state, batches = ept_mixtral(device, TF_LAYERS)
+        state, local = ept_steps(make_train_step(model, None, opt), state,
+                                 batches)
+        want = [bits_digest(a) for a in leaves(state.params)]
+        mx_ref = [a.cpu() for a in leaves(state.params)]
+        del state
+        torch.cuda.empty_cache()
+        model, opt, state, batches = ept_mixtral(device, TF_LAYERS, ctx)
+        shards = param_shards(state.params, model.cfg, ctx)
+        require(all(sh is None for sh in shards),
+                "ept1: a part at mesh (1, 1) is not the whole leaf")
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launch_counts()
+        state, mesh = ept_steps(make_train_step(model, ctx, opt), state,
+                                batches)
+        counts = ops.launch_counts()
+        mx_peak = torch.cuda.max_memory_allocated(device) / 1e9
+        require(mesh["loss"] == local["loss"]
+                and mesh["grad_norm"] == local["grad_norm"],
+                f"ept1: the mesh's losses {mesh['loss']} / grad norms "
+                f"{mesh['grad_norm']} are not the local step's "
+                f"{local['loss']} / {local['grad_norm']}")
+        same = [bits_digest(a) == w for a, w in zip(leaves(state.params),
+                                                    want)]
+        require(all(same), f"ept1: {same.count(False)} of {len(same)} "
+                f"parameters differ from the local step's")
+        mb, L = model.cfg.microbatch, TF_LAYERS
+        launches = {"moe_dispatch": 2 * L * mb * EPT_STEPS,
+                    "moe_combine": 3 * L * mb * EPT_STEPS,
+                    "moe_combine_bwd": L * mb * EPT_STEPS}
+        require(all(counts[k] == n for k, n in launches.items()),
+                f"ept1: launches {counts}, expected {launches}")
+        nparam = sum(a.numel() for a in mx_ref)
+        del state, batches
+        torch.cuda.empty_cache()
+
+        # One DeepSeek-V3 MoE layer, forward and backward.
+        cfg_ds = ep_ds_cfg()
+        torch.cuda.reset_peak_memory_stats(device)
+        p = ep_ds_layer(device)
+        x = ep_ds_x(device, EP_DS_DROPLESS)
+        dy = ep_x(device, EP_DS_DROPLESS, cfg_ds.d_model)
+        ept_layer_grads(p, x, dy, cfg_ds, None)              # warm-up
+        walls, digests = {}, {}
+        for name, c in (("local", None), ("mesh", ctx)):
+            if name == "mesh":
+                ops.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            g = ept_layer_grads(p, x, dy, cfg_ds, c)
+            sync()
+            walls[name] = time.perf_counter() - t0
+            require(all(v.abs().max() > 0 for v in g.values()),
+                    f"ept1: a DeepSeek-V3 layer gradient is zero ({name})")
+            digests[name] = {k: bits_digest(v) for k, v in g.items()}
+            del g
+        ds_counts = ops.launch_counts()
+        diff = [k for k, v in digests["mesh"].items()
+                if v != digests["local"][k]]
+        require(not diff, f"ept1: the DeepSeek-V3 layer's gradient under "
+                f"the mesh differs from the local path's at {diff}")
+        ds_peak = torch.cuda.max_memory_allocated(device) / 1e9
+        held = expert_bytes(p)
+        del p, x, dy
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for k, v in ds_counts.items():
+        counts[k] += v
+    print(f"ept1: one-rank NCCL world, mesh (data=1, model=1) ({smi}): "
+          f"Mixtral-8x7B ({TF_LAYERS} of 32 layers, {nparam / 1e9:.3f} B "
+          f"parameters, remat, microbatch {model.cfg.microbatch}, adamw lr "
+          f"{TF_LR}, batches of {TF_BATCH} x {TF_SEQ} tokens), "
+          f"{EPT_STEPS} steps: loss, grad norm and all {len(mx_ref)} "
+          f"parameters bit for bit the local make_train_step's | mesh "
+          + ept_line(mesh) + " | local " + ept_line(local)
+          + f" | peak {mx_peak:.2f} GB | launches {json.dumps(counts)} | "
+          f"DeepSeek-V3 MoE layer ({cfg_ds.moe.n_experts} experts top-"
+          f"{cfg_ds.moe.top_k} of {cfg_ds.moe.d_expert}, d={cfg_ds.d_model},"
+          f" bf16, {held / 1e9:.2f} GB of experts; {EP_DS_DROPLESS[0]} x "
+          f"{EP_DS_DROPLESS[1]} tokens, capacity "
+          f"{cfg_ds.moe.capacity_factor}): forward and backward under the "
+          f"mesh {walls['mesh'] * 1e3:.1f} ms, local "
+          f"{walls['local'] * 1e3:.1f} ms, every gradient bit for bit the "
+          f"local path's; peak {ds_peak:.2f} GB; launches "
+          f"{json.dumps(ds_counts)} | leg wall "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    return counts, mx_ref
+
+
+def ept2_rank(rank: int, tmp: str) -> None:
+    """One rank of the ept2 leg (spawned): Mixtral-8x7B at full width,
+    EPT2_LAYERS layers, under the (1, 2) mesh, its experts' hidden dim
+    cut in two as drawn; EPT_STEPS steps with the digests of the
+    replicated leaves after each, launches counted; its final expert
+    parts saved; then the reduced f32 twin."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import param_shards
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.utils.tree import leaves
+    ctx = gloo_rank(tmp, "ept2", rank, (1, 2))
+    try:
+        model, opt, state, batches = ept_mixtral("cuda", EPT2_LAYERS, ctx)
+        shards = param_shards(state.params, model.cfg, ctx)
+        held = sum(a.numel() * a.element_size()
+                   for a in leaves(state.params))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        state, rec = ept_steps(
+            make_train_step(model, ctx, opt), state, batches,
+            digests=lambda p: replicated_digests(p, shards))
+        rec["counts"] = ops.launch_counts()
+        rec["microbatch"] = model.cfg.microbatch
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["held_gb"] = held / 1e9
+        rec["describe"] = ctx.mesh.describe()
+        rec["parts"] = {i: (sh.axis, sh.lo, sh.hi, a.cpu()) for i, (a, sh)
+                        in enumerate(zip(leaves(state.params), shards))
+                        if sh is not None}
+        del state, batches
+        torch.cuda.empty_cache()
+        # adamw at eps 1e-4, as the CPU train tests: at 1e-8 a weight
+        # whose gradient is near 0 moves by lr * g / (|g| + eps), which
+        # turns a gradient's last-bit difference into a step of lr.
+        rec["twin"] = ept_twin(ctx, "mixtral-8x7b", {}, "adamw", eps=1e-4)
+        torch.save(rec, os.path.join(tmp, f"ept2_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ept2_leg(mx_ref, smi: str, tmp: Path):
+    """Two gloo ranks on cuda:0, mesh (1, 2): Mixtral-8x7B training with
+    its experts' hidden dim cut in two. The ranks' replicated leaves the
+    same bits after every step; each rank's expert parts within
+    EP_BF16_TOL of each leaf's largest magnitude of the same part of the
+    local run of ept1 (``mx_ref``, the same depth, draw and batches);
+    each rank's reduced f32 twin within EPT_TWIN_TOL of the CPU's sharded
+    run. Returns the launch counts of both ranks."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    mp.spawn(ept2_rank, args=(str(tmp),), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"ept2_rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    a, b = ranks
+    faults = []
+    if a["digests"] != b["digests"]:
+        steps = [i + 1 for i, (x, y) in enumerate(zip(a["digests"],
+                                                      b["digests"]))
+                 if x != y]
+        faults.append(f"the ranks' replicated leaves differ after steps "
+                      f"{steps}")
+    if a["loss"] != b["loss"] or a["grad_norm"] != b["grad_norm"]:
+        faults.append("the ranks' losses or grad norms differ")
+    err = 0.0
+    for r, got in enumerate(ranks):
+        for i, (axis, lo, hi, part) in got["parts"].items():
+            err = max(err, max_gap(part, mx_ref[i].narrow(axis, lo, hi - lo),
+                                   "cuda"))
+        mg, pg = got["twin"]
+        if not (mg <= EPT_TWIN_TOL and pg <= EPT_TWIN_TOL):
+            faults.append(f"rank {r}: the reduced f32 twin on the card is "
+                          f"{mg:.3e} / {pg:.3e} off the CPU's sharded run")
+    if err > EP_BF16_TOL:
+        faults.append(f"an expert part is {err:.4g} of its leaf's largest "
+                      f"magnitude off the local step's (tolerance "
+                      f"{EP_BF16_TOL})")
+    mb, L = a["microbatch"], EPT2_LAYERS
+    want = {"moe_dispatch": 2 * L * mb * EPT_STEPS,
+            "moe_combine": 3 * L * mb * EPT_STEPS,
+            "moe_combine_bwd": L * mb * EPT_STEPS}
+    for r, got in enumerate(ranks):
+        if any(got["counts"][k] != n for k, n in want.items()):
+            faults.append(f"rank {r}: launches {got['counts']}, expected "
+                          f"{want}")
+    counts = {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
+    print(f"ept2: {a['describe']} (two processes on cuda:0) ({smi}): "
+          f"Mixtral-8x7B cut to {EPT2_LAYERS} of 32 layers (each rank "
+          f"holds {a['held_gb']:.2f} GB of parameters: half of every "
+          f"expert's hidden dim), the train full leg's batches, remat, "
+          f"microbatch 4, adamw: rank 0 " + ept_line(a)
+          + f"; every rank's replicated leaves the same bits after each "
+          f"step: {a['digests'] == b['digests']}; the expert parts within "
+          f"{err:.3e} of each leaf's largest magnitude of ept1's local run "
+          f"(tolerance {EP_BF16_TOL}); peak by rank {a['peak_gb']:.2f} + "
+          f"{b['peak_gb']:.2f} GB; reduced f32 twin against the CPU's "
+          f"sharded run: metrics within "
+          f"{max(r['twin'][0] for r in ranks):.3e}, parameters within "
+          f"{max(r['twin'][1] for r in ranks):.3e} (tolerance "
+          f"{EPT_TWIN_TOL}); {spawn_s:.1f} s from spawn to join; launches "
+          f"by rank {json.dumps(a['counts'])} {json.dumps(b['counts'])}",
+          flush=True)
+    require(not faults, "ept2: " + "; ".join(faults))
+    return counts
+
+
+def ept4_rank(rank: int, tmp: str) -> None:
+    """One rank of the ept4 leg (spawned): the DeepSeek-V3 MoE layer
+    under the (2, 2) mesh, 64 of its 256 experts drawn on this rank:
+    forward and backward at a dropless capacity factor on EP_DS_DROPLESS
+    tokens, timed (launches counted), then again under the collective
+    clock and the profiler; its gradient saved (and the digests of its
+    replicated ones); then the reduced f32 DeepSeek-V3 twins (adafactor,
+    MTP; ep="2d" and "tp")."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    ctx = gloo_rank(tmp, "ept4", rank, (2, 2))
+    try:
+        cfg = ep_ds_cfg()
+        dropless = ep_ds_cfg(cfg.moe.n_experts / cfg.moe.top_k)
+        p = ep_ds_layer("cuda", ctx)
+        x = ep_ds_x("cuda", EP_DS_DROPLESS)
+        dy = ep_x("cuda", EP_DS_DROPLESS, cfg.d_model)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        grads = ept_layer_grads(p, x, dy, dropless, ctx)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        torch.save({k: v.cpu() for k, v in grads.items()},
+                   os.path.join(tmp, f"ept4_grads{rank}.pt"))
+        replicated = {k: bits_digest(v) for k, v in grads.items()
+                      if k not in moe.EXPERT_LEAVES}
+        del grads
+        with CollectiveClock() as clock, torch_profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            sync()
+            t0 = time.perf_counter()
+            ept_layer_grads(p, x, dy, dropless, ctx)
+            sync()
+            cwall = time.perf_counter() - t0
+        dev = sum(e.self_device_time_total for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA"))
+        out = {"describe": ctx.mesh.describe(), "wall": wall,
+               "device_s": dev / 1e6 if dev else None, "cwall": cwall,
+               "clock": (clock.s, clock.n), "counts": counts,
+               "replicated": replicated,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "held_gb": expert_bytes(p) / 1e9,
+               "part": moe.expert_part(cfg.moe, ctx, "w1"),
+               "path": moe.moe_path(dropless.moe, *EP_DS_DROPLESS, ctx)}
+        del p, x, dy
+        torch.cuda.empty_cache()
+        out["twins"] = {ep: ept_twin(ctx, "deepseek-v3-671b",
+                                     {"impl": "alltoall", "ep": ep},
+                                     "adafactor") for ep in ("2d", "tp")}
+        torch.save(out, os.path.join(tmp, f"ept4_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ept4_leg(device, smi: str, tmp: Path):
+    """Four gloo ranks on cuda:0, mesh (2, 2): the DeepSeek-V3 MoE layer
+    at full width under ep="2d", 64 experts a rank, forward and backward
+    at a dropless capacity factor; the replicated gradients (the
+    router's, the shared expert's, dx) the same bits on every rank. Once
+    the ranks have exited, the single-device layer's gradient on the
+    same inputs is computed here (so the card never holds it beside the
+    ranks' layers), and each rank's expert-part gradient and the
+    replicated ones are held to it within EP_BF16_TOL of each leaf's
+    largest magnitude. The reduced f32 DeepSeek-V3 twins (2d and tp)
+    within EPT_TWIN_TOL of the CPU's sharded run. Returns the launch
+    counts of all ranks."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.models import moe
+    t0 = time.perf_counter()
+    mp.spawn(ept4_rank, args=(str(tmp),), nprocs=4, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"ept4_rank{r}.pt", weights_only=False)
+             for r in range(4)]
+    faults = []
+    for r, got in enumerate(ranks):
+        if got["path"] != "alltoall":
+            faults.append(f"rank {r}: path {got['path']}")
+        if got["replicated"] != ranks[0]["replicated"]:
+            faults.append(f"rank {r}: a replicated gradient differs from "
+                          f"rank 0's")
+        for ep, (mg, pg) in got["twins"].items():
+            if not (mg <= EPT_TWIN_TOL and pg <= EPT_TWIN_TOL):
+                faults.append(f"rank {r}: the reduced f32 twin (ep={ep}) "
+                              f"on the card is {mg:.3e} / {pg:.3e} off the "
+                              f"CPU's sharded run")
+        if got["counts"]["moe_dispatch"] == 0 or \
+                got["counts"]["moe_combine_bwd"] == 0:
+            faults.append(f"rank {r}: launches {got['counts']}")
+    t1 = time.perf_counter()
+    cfg = ep_ds_cfg()
+    dropless = ep_ds_cfg(cfg.moe.n_experts / cfg.moe.top_k)
+    p = ep_ds_layer(device)
+    ref = ept_layer_grads(p, ep_ds_x(device, EP_DS_DROPLESS),
+                          ep_x(device, EP_DS_DROPLESS, cfg.d_model),
+                          dropless, None)
+    del p
+    torch.cuda.empty_cache()
+    err = {}
+    for r, got in enumerate(ranks):
+        grads = torch.load(tmp / f"ept4_grads{r}.pt", mmap=True)
+        part = got["part"]
+        for k, g in grads.items():
+            want = ref[k]
+            if k in moe.EXPERT_LEAVES:
+                want = want.narrow(part.axis, part.lo, part.hi - part.lo)
+            err[k] = max(err.get(k, 0.0), max_gap(g, want, device))
+        del grads
+    del ref
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t1
+    bad = {k: e for k, e in err.items() if e > EP_BF16_TOL}
+    if bad:
+        faults.append(f"gradients off the single-device layer's beyond "
+                      f"{EP_BF16_TOL}: {bad}")
+    a = ranks[0]
+    clock = CollectiveClock()
+    clock.s, clock.n = a["clock"]
+    dev = ("not measured" if a["device_s"] is None
+           else f"{a['device_s']:.3f} s")
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in a["counts"]}
+    print(f"ept4: {a['describe']} (four processes on cuda:0) ({smi}): "
+          f"DeepSeek-V3 MoE layer, ep=2d over (data, model), each rank "
+          f"{a['held_gb']:.2f} GB of the layer's {4 * a['held_gb']:.2f} GB "
+          f"of experts (w1 part {a['part'].lo}:{a['part'].hi} of rank 0); "
+          f"forward and backward dropless on {EP_DS_DROPLESS[0]} x "
+          f"{EP_DS_DROPLESS[1]} tokens: wall {a['wall']:.3f} s, under the "
+          f"clock and the profiler {a['cwall']:.3f} s (device time {dev}): "
+          f"{clock.share(a['cwall'])}; the replicated gradients the same "
+          f"bits on every rank; every gradient against the single-device "
+          f"layer's (largest |diff| over the leaf's largest magnitude, "
+          f"tolerance {EP_BF16_TOL}): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in err.items())
+          + f" (reference and checks {check_s:.1f} s); peak by rank "
+          + " + ".join(f"{r['peak_gb']:.2f}" for r in ranks)
+          + " GB; reduced f32 DeepSeek-V3 twins (adafactor, MTP) against "
+          "the CPU's sharded run: " + ", ".join(
+              f"ep={ep} metrics {mg:.3e} parameters {pg:.3e}"
+              for ep, (mg, pg) in a["twins"].items())
+          + f" (tolerance {EPT_TWIN_TOL}); {spawn_s:.1f} s from spawn to "
+          f"join; launches by rank "
+          + " ".join(json.dumps(r["counts"]) for r in ranks), flush=True)
+    require(not faults, "ept4: " + "; ".join(faults))
+    return counts
+
+
+def card_memory() -> str:
+    """What this process holds on the card: allocated and reserved."""
+    return (f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+
+
+def ept_release() -> str:
+    """Free what this process caches on the card before ranks that share
+    it start (the ept4 ranks need about 15 GB each); returns what it
+    still holds."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return card_memory()
+
+
+def ept_legs(device, smi: str):
+    """The legs that train under a mesh: ept1, ept2 and ept4. Returns
+    their launch counts, by leg. The spawned ranks allocate with
+    expandable segments, so that four of them leave little reserved and
+    unused."""
+    t_legs = time.perf_counter()
+    print(f"card memory before the ept legs: {ept_release()}", flush=True)
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            ept1_counts, mx_ref = ept1_leg(device, smi, tmp)
+            print(f"card memory before ept2: {ept_release()}", flush=True)
+            ept2_counts = ept2_leg(mx_ref, smi, tmp)
+            del mx_ref
+            print(f"card memory before ept4: {ept_release()}", flush=True)
+            ept4_counts = ept4_leg(device, smi, tmp)
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    print(f"legs: ept1, ept2, ept4 in {time.perf_counter() - t_legs:.1f} s "
+          f"of wall ({smi})", flush=True)
+    return {"ept1": ept1_counts, "ept2": ept2_counts, "ept4": ept4_counts}
 
 
 def drift_stats(sess):
@@ -6569,6 +7183,14 @@ def main() -> int:
     del (tallies, pers_tallies, attach_tallies, et_tallies, er_tallies,
          more, want_more, attach, taus, enc_rr, renc_rr)
     torch.cuda.empty_cache()
+    ept_counts = ept_legs(torch.device("cuda"), smi)
+    for leg, c in ept_counts.items():
+        require(all(c[k] > 0 for k in ("moe_dispatch", "moe_combine",
+                                       "moe_combine_bwd")),
+                f"moe_dispatch, moe_combine or moe_combine_bwd was not "
+                f"launched on the {leg} leg")
+    new_counts += tuple(ept_counts.values())
+    torch.cuda.empty_cache()
     ds_serve_counts, ds_train_counts = deepseek_legs(torch.device("cuda"),
                                                      rounds=20)
     for name in ("moe_dispatch", "moe_combine"):
@@ -6640,7 +7262,8 @@ def main() -> int:
           + json.dumps(example_counts) + " deepseek_serve "
           + json.dumps(ds_serve_counts) + " deepseek_train "
           + json.dumps(ds_train_counts) + "".join(
-              f" {leg} " + json.dumps(c) for leg, c in ep_counts.items())
+              f" {leg} " + json.dumps(c) for leg, c in
+              list(ep_counts.items()) + list(ept_counts.items()))
           + "".join(
               f" {leg} " + json.dumps(c) for leg, c in
               list(state_counts.items()) + list(family_counts.items()))

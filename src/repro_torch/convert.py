@@ -111,15 +111,23 @@ def model_params(np_tree, device="cuda", *, cfg=None, ctx=None):
     return tree_map(lambda a: _tensor(a, device), np_tree)
 
 
-def train_state(np_state, device="cuda"):
+def train_state(np_state, device="cuda", *, cfg=None, ctx=None):
     """A JAX ``launch.train.TrainState`` (``params``, ``opt``, ``step``;
     leaves as numpy) as the port's ``TrainState``: parameters as
     :func:`model_params`, the optimizer's tree (adamw's ``{"m", "v"}``,
     sgd's ``{}`` or ``{"m"}``, adafactor's ``{"f": ...}``) leaf for leaf
-    in its own dtypes, the step as a 0-dim int32 tensor."""
+    in its own dtypes, the step as a 0-dim int32 tensor. Under a mesh
+    ``ctx`` (with the model's ``cfg``) each expert leaf and its optimizer
+    state are cut to this rank's part on the host, as the reference's
+    ``opt_specs`` lays a sharded run's state out: adamw's moments as the
+    parameter, adafactor's ``r`` without the last dim's cut, ``c``
+    without the second to last's (``launch.sharding.shard_params``)."""
     from repro_torch.launch.train import TrainState
     params, opt, step = np_state
-    return TrainState(model_params(params, device),
+    if ctx is not None and ctx.mesh is not None:
+        from repro_torch.launch.sharding import shard_params
+        opt = shard_params(opt, cfg, ctx)
+    return TrainState(model_params(params, device, cfg=cfg, ctx=ctx),
                       tree_map(lambda a: _tensor(a, device), opt),
                       torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                                    device=device))

@@ -1,6 +1,6 @@
 """Training (counterpart of ``repro/launch/train.py``): the train step
 with microbatched gradient accumulation, global-norm clipping and the
-optimizer, and a single-device training loop.
+optimizer, and a training loop, on one device or under a mesh.
 
     model = build_model(get_config("granite-3-2b", reduced=True))
     state, history = train_loop(model, batches, steps=200, lr=3e-3)
@@ -17,6 +17,22 @@ losses summed in f32 (and ``metrics`` is then empty); the gradients are
 clipped to a global norm and the optimizer applied. The optimizer and
 the clip write into the state's tensors (``optim.optimizers``), so the
 returned state holds the same tensors as the one given.
+
+Under a ``DistCtx`` with a ``utils.mesh.Mesh`` (``launch/sharding.
+make_ctx``) every rank runs the step on the whole batch, as the
+reference's ``train_step`` jitted with ``batch_specs`` lays it out: each
+microbatch keeps the replicated layout, and each MoE layer takes its
+``dp`` rows of it. The parameters hold this rank's part of each expert
+leaf (``init_params(..., ctx=)``, ``convert.train_state(..., cfg=,
+ctx=)``); the MoE layers' collectives carry the gradient
+(``models/moe.py``), so every replicated leaf's gradient is whole and
+the same bits on every rank, and each expert part's is that part of the
+whole leaf's. The clip and the optimizer see the whole leaves
+(``launch/sharding.param_shards``): the loss, the grad norm and every
+replicated leaf are the same bits on every rank.
+
+    ctx = make_ctx(make_mesh((2, 2), ("data", "model"), backend="nccl"))
+    state, history = train_loop(model, batches, steps=200, ctx=ctx)
 """
 from __future__ import annotations
 
@@ -26,6 +42,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.launch.serve import init_params
+from repro_torch.launch.sharding import param_shards
 from repro_torch.models.common import DistCtx
 from repro_torch.models.model import Model
 from repro_torch.optim import build_optimizer, clip_by_global_norm
@@ -45,11 +62,12 @@ def _state(params, optimizer: Optimizer) -> TrainState:
                                   device=params["embed"].device))
 
 
-def init_state(model: Model, gen: torch.Generator,
-               optimizer: Optimizer) -> TrainState:
-    """Parameters drawn from ``gen`` (on its device), the optimizer's
+def init_state(model: Model, gen: torch.Generator, optimizer: Optimizer,
+               ctx: Optional[DistCtx] = None) -> TrainState:
+    """Parameters drawn from ``gen`` (on its device; under a mesh
+    ``ctx``, this rank's part of each expert leaf), the optimizer's
     initial state and step 0."""
-    return _state(model.init(gen), optimizer)
+    return _state(model.init(gen, ctx), optimizer)
 
 
 def _split_microbatches(batch, n: int):
@@ -76,12 +94,14 @@ def _value_and_grad(model: Model, ctx: DistCtx, params, batch):
 def make_train_step(model: Model, ctx: Optional[DistCtx],
                     optimizer: Optimizer, *, clip_norm: float = 1.0):
     """``train_step(state, batch) -> (state, {"loss", "grad_norm",
-    ...})``; batch leaves are tensors on the parameters' device. Nothing
-    in the step waits for the device."""
+    ...})``; batch leaves are tensors on the parameters' device (the
+    whole batch on every rank under a mesh ``ctx``). Nothing in the step
+    waits for the device, but a collective staged through the host."""
     ctx = ctx or DistCtx.local()
     mb = max(1, model.cfg.microbatch)
 
     def train_step(state: TrainState, batch):
+        shards = param_shards(state.params, model.cfg, ctx)
         if mb == 1:
             loss, metrics, grads = _value_and_grad(model, ctx, state.params,
                                                    batch)
@@ -106,10 +126,10 @@ def make_train_step(model: Model, ctx: Optional[DistCtx],
         # Named ranges for torch.profiler (the clip's and the
         # optimizer's share of a step's device time).
         with record_function("train_step/clip"):
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, shards)
         with record_function("train_step/optimizer"):
             params, opt = optimizer.update(grads, state.opt, state.params,
-                                           state.step)
+                                           state.step, shards)
         del grads
         return (TrainState(params, opt, state.step + 1),
                 {"loss": loss, "grad_norm": gnorm, **metrics})
@@ -120,14 +140,17 @@ def make_train_step(model: Model, ctx: Optional[DistCtx],
 def train_loop(model: Model, batches, *, seed: int = 0, lr: float = 3e-4,
                steps: int = 100, ctx: Optional[DistCtx] = None,
                log_every: int = 10, device="cuda"):
-    """A single-device loop (the reference's ``train_loop``): parameters
-    drawn from ``seed`` on ``device``, ``cfg.optimizer`` at a constant
-    ``lr``, at most ``steps`` steps over ``batches`` (dicts of arrays or
-    tensors). The host reads the loss, and so waits for the device, only
-    on the log cadence. Returns (state, [(step, loss), ...])."""
+    """The reference's ``train_loop``: parameters drawn from ``seed`` on
+    ``device`` (under a mesh ``ctx``, this rank's part of each expert
+    leaf, cut as drawn), ``cfg.optimizer`` at a constant ``lr``, at most
+    ``steps`` steps over ``batches`` (dicts of arrays or tensors: the
+    whole batch on every rank). The host reads the loss, and so waits
+    for the device, only on the log cadence. Returns (state, [(step,
+    loss), ...])."""
     ctx = ctx or DistCtx.local()
     optimizer = build_optimizer(model.cfg.optimizer, lr)
-    state = _state(init_params(model, seed=seed, device=device), optimizer)
+    state = _state(init_params(model, seed=seed, device=device, ctx=ctx),
+                   optimizer)
     dev = state.step.device
     step_fn = make_train_step(model, ctx, optimizer)
     history = []

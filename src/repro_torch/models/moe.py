@@ -34,6 +34,16 @@ path needs another layout than the one held (an ``alltoall`` layer whose
 batch falls back to the tensor-parallel or the local path), the leaves
 are gathered and cut again, as ``shard_map``'s ``in_specs`` reshard a
 GSPMD array.
+
+The gradient through a sharded path is the exact gradient of the loss,
+whole on every rank for every replicated value, through the
+differentiable collectives of ``utils/mesh.py``: the output's gather
+backs off to this rank's rows and the ``tp`` psum passes its cotangent
+through; what enters the shard-local work sums its cotangent over the
+ranks whose work it feeds: ``x``'s over ``tp`` (``_dp_rows`` then
+all-gathers it over ``dp``), the router's over ``dp`` and ``tp``, an
+expert part's over the axes the part is replicated on, and a part
+gathered into another layout by a reduce-scatter onto the part held.
 """
 from __future__ import annotations
 
@@ -254,38 +264,57 @@ def _check_parts(p, m, ctx: DistCtx, d: int) -> None:
                 f"cfg=cfg, ctx=ctx)")
 
 
-def _relaid(p, m, ctx: DistCtx, want) -> dict:
+def _relaid(p, m, ctx: DistCtx, want, local: bool) -> dict:
     """``p`` with its expert leaves in the layout ``want(name)`` (a
     :class:`Part` or None for the whole leaf): gathered over the axes of
     the part this rank holds and cut again where the two differ (never
-    without a mesh, where every leaf is whole)."""
+    without a mesh, where every leaf is whole).
+
+    ``local``: the leaves feed shard-local work (the tensor-parallel
+    and alltoall paths), so each leaf's cotangent is summed over every
+    rank whose work it feeds: the router's over the whole mesh, an
+    expert leaf's over the axes its held part is replicated on and, when
+    gathered, reduce-scattered onto that part. Otherwise (the local
+    path, every rank on the whole batch) the gathered leaf's replicated
+    cotangent backs off to this rank's rows."""
     out = dict(p)
+    if local:
+        out["router"] = ctx.mesh.group(ctx.mesh.axis_names).psum_grad(
+            p["router"])
     for name in EXPERT_LEAVES:
         have, need = expert_part(m, ctx, name), want(name)
-        if have == need:
-            continue
         w = p[name]
-        if have is not None:
-            w = ctx.mesh.group(have.axes).all_gather(
-                w.movedim(have.axis, 0)).movedim(0, have.axis)
+        held = () if have is None else have.axes
+        if have != need and have is not None:
+            w = ctx.mesh.group(held).all_gather(
+                w.movedim(have.axis, 0),
+                grad="reduce_scatter" if local else "rows"
+            ).movedim(0, have.axis)
             if have.axis == -3:
                 w = w[:m.n_experts]
-        out[name] = w if need is None else need.take(w)
+        if local:
+            # Summed over the ranks that hold the same part.
+            w = ctx.mesh.group(tuple(a for a in ctx.mesh.axis_names
+                                     if a not in held)).psum_grad(w)
+        if have != need and need is not None:
+            w = need.take(w)
+        out[name] = w
     return out
 
 
 def _pmean(aux: torch.Tensor, ctx: DistCtx) -> torch.Tensor:
-    """``lax.pmean`` of a scalar over the ``dp`` and ``tp`` axes."""
+    """``lax.pmean`` of a scalar over the ``dp`` and ``tp`` axes (its
+    cotangent passes through the psum)."""
     g = ctx.mesh.group(tuple(ctx.dp) + (ctx.tp,))
     return g.psum(aux.reshape(1))[0] / g.size
 
 
 def _dp_rows(x: torch.Tensor, ctx: DistCtx) -> torch.Tensor:
-    """This rank's rows of the batch over the ``dp`` axes
-    (``P(dp)`` in)."""
-    b = x.shape[0] // ctx.dp_size
-    i = ctx.mesh.index(ctx.dp)
-    return x[i * b:(i + 1) * b]
+    """This rank's rows of the batch over the ``dp`` axes (``P(dp)``
+    in), as they enter the ``tp``-partial work: the backward sums the
+    rows' cotangent over ``tp`` and all-gathers it over ``dp``."""
+    return ctx.mesh.group(ctx.tp).psum_grad(
+        ctx.mesh.group(ctx.dp).shard_rows(x))
 
 
 def _dense_shard_map(p, x: torch.Tensor, m, ctx: DistCtx):
@@ -337,22 +366,20 @@ def _alltoall_local(p, x_my: torch.Tensor, m, group):
 
 def _alltoall(p, x: torch.Tensor, m, ctx: DistCtx):
     """Expert parallelism: this data shard's tokens cut over ``tp``
-    (token resharding dp -> dp x tp), :func:`_alltoall_local` over the
-    experts' axes, and the output gathered over dp x tp. The reference's
-    per-axis exchanges (``_grid_a2a``) compose to the one flat exchange
-    over the experts' axes, and its gather over ``tp`` then over ``dp``
-    to one gather over (dp, tp)."""
+    (token resharding dp -> dp x tp: this rank's rows of the flat batch
+    over (dp, tp)), :func:`_alltoall_local` over the experts' axes, and
+    the output gathered over dp x tp. The reference's per-axis exchanges
+    (``_grid_a2a``) compose to the one flat exchange over the experts'
+    axes, and its gather over ``tp`` then over ``dp`` to one gather over
+    (dp, tp). The rows' cotangent is gathered over (dp, tp) in the
+    backward: each rank's tokens come back whole from the experts."""
     B, S, d = x.shape
-    xb = _dp_rows(x, ctx)
-    Tb = xb.shape[0] * S
-    T_my = Tb // ctx.tp_size
-    j = ctx.mesh.index((ctx.tp,))
-    x_my = xb.reshape(Tb, d)[j * T_my:(j + 1) * T_my]
+    grid = ctx.mesh.group(tuple(ctx.dp) + (ctx.tp,))
+    x_my = grid.shard_rows(x.reshape(B * S, d))
     y_my, aux = _alltoall_local(p, x_my, m,
                                 ctx.mesh.group(_ep_axes(m, ctx)))
     aux = _pmean(aux, ctx)
-    y = ctx.mesh.group(tuple(ctx.dp) + (ctx.tp,)).all_gather(y_my)
-    return y.reshape(B, S, d), aux
+    return grid.all_gather(y_my).reshape(B, S, d), aux
 
 
 def moe_path(m, B: int, S: int, ctx: DistCtx) -> str:
@@ -380,11 +407,13 @@ def apply_moe(p, x: torch.Tensor, cfg, ctx: DistCtx = None):
     path = moe_path(m, B, S, ctx)
     if path == "etp":
         y, aux = _dense_shard_map(
-            _relaid(p, m, ctx, lambda n: _etp_part(m, ctx, n)), x, m, ctx)
+            _relaid(p, m, ctx, lambda n: _etp_part(m, ctx, n), True), x, m,
+            ctx)
     elif path == "alltoall":
-        y, aux = _alltoall(p, x, m, ctx)
+        y, aux = _alltoall(
+            _relaid(p, m, ctx, lambda n: _ep_part(m, ctx), True), x, m, ctx)
     else:
-        y, aux = _local_moe(_relaid(p, m, ctx, lambda n: None),
+        y, aux = _local_moe(_relaid(p, m, ctx, lambda n: None, False),
                             x.reshape(-1, d), m)
         y = y.reshape(B, S, d)
     if m.n_shared:

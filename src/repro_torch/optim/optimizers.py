@@ -20,6 +20,17 @@ adafactor over whole matrices or blocks of rows (its statistics and its
 update's RMS are sums over slices, taken in a fixed order, then the
 update applied slice by slice); the clip's norm a sum of per-slice sums
 in order.
+
+Under a mesh a leaf may be this rank's part of a larger one (an expert
+stack: ``launch/sharding.param_shards`` gives each leaf's :class:`Shard`
+or None). ``clip_by_global_norm(..., shards=)`` and ``update(...,
+shards=)`` then see the whole leaf: the part's sum of squares (its
+padding excluded) is summed over the ranks that hold the other parts,
+in shard order, so the norm is the same bits on every rank; adafactor's
+statistics that run along the cut dim (the row mean over a cut last
+dim, the column sum and the row statistics' mean over a cut row dim)
+and its update's RMS are summed likewise, over the whole leaf's size.
+adamw and sgd are elementwise and take the part as it is.
 """
 from __future__ import annotations
 
@@ -37,7 +48,33 @@ CHUNK = 1 << 26
 
 class Optimizer(NamedTuple):
     init: Callable
-    update: Callable   # (grads, state, params, step) -> (params, state)
+    # (grads, state, params, step, shards=None) -> (params, state)
+    update: Callable
+
+
+class Shard(NamedTuple):
+    """A leaf held as this rank's part of a larger one: rows ``lo:hi``
+    of dim ``axis`` (negative) of a leaf whose dim holds ``whole`` rows;
+    rows past ``whole`` are padding (zeros that take no gradient).
+    ``group`` (a ``utils.mesh.ShardGroup`` of more than one rank) holds
+    the ranks whose parts tile the leaf, in shard order."""
+    axis: int
+    lo: int
+    hi: int
+    whole: int
+    group: object
+
+    @property
+    def valid(self) -> int:
+        """The part's rows that are not padding."""
+        return max(0, min(self.hi, self.whole) - self.lo)
+
+    def numel(self, part_shape) -> int:
+        """The whole leaf's element count (its padding excluded)."""
+        n = 1
+        for s in part_shape:
+            n *= s
+        return n // (self.hi - self.lo) * self.whole
 
 
 def _lr_at(lr: Schedule, step) -> torch.Tensor:
@@ -65,13 +102,29 @@ def _sum_of_squares(g: torch.Tensor) -> torch.Tensor:
     return sum(torch.sum(piece.float() ** 2) for (piece,) in _slices(g))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _leaf_sum_of_squares(g: torch.Tensor, shard) -> torch.Tensor:
+    """:func:`_sum_of_squares` of a whole leaf, or of a part's rows that
+    are not padding summed over the parts' ranks."""
+    if shard is None:
+        return _sum_of_squares(g)
+    if shard.valid < shard.hi - shard.lo:
+        g = g.narrow(shard.axis, 0, shard.valid).contiguous()
+    s = _sum_of_squares(g) if g.numel() else torch.zeros(
+        (), dtype=torch.float32, device=g.device)
+    return shard.group.psum(s.reshape(1))[0]
+
+
+def clip_by_global_norm(grads, max_norm: float, shards=None):
     """Scale every gradient by ``min(1, max_norm / max(gn, 1e-9))``, in
     f32 and cast back, in place; gn is the global norm of the leaves'
     f32 squares (each leaf's summed slice by slice), added in sorted-key
-    order. Returns (grads, gn)."""
+    order. ``shards`` (one :class:`Shard` or None a leaf, in
+    :func:`leaves` order) counts a part as its whole leaf. Returns
+    (grads, gn)."""
     gs = leaves(grads)
-    gn = torch.sqrt(sum(_sum_of_squares(g) for g in gs))
+    shards = shards or [None] * len(gs)
+    gn = torch.sqrt(sum(_leaf_sum_of_squares(g, sh)
+                        for g, sh in zip(gs, shards)))
     scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0)
     for g in gs:
         for (piece,) in _slices(g):
@@ -85,7 +138,7 @@ def sgd(lr: Schedule, momentum: float = 0.0) -> Optimizer:
             return {}
         return {"m": map_sorted(torch.zeros_like, params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shards=None):
         lrt = _lr_at(lr, step)
         if momentum == 0.0:
             for p, g in zip(leaves(params), leaves(grads)):
@@ -110,7 +163,7 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95,
         return {"m": map_sorted(zeros, params),
                 "v": map_sorted(zeros, params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shards=None):
         lrt = _lr_at(lr, step)
         t = torch.as_tensor(step).float() + 1.0
         c1 = 1.0 - b1 ** t
@@ -169,11 +222,14 @@ def adafactor(lr: Schedule, eps: float = 1e-30, decay: float = 0.8,
                                      device=p.device)}
         return {"f": map_sorted(per, params)}
 
-    def factored(p, g, s, beta):
+    def factored(p, g, s, beta, shard):
         """(the slices' (p, g, 1 / sqrt(vhat)) getter, count) of a
-        factored leaf, after the new r and c are written into s."""
+        factored leaf, after the new r and c are written into s. A part
+        cut on the last dim (C) sums its row means over the parts; one
+        cut on the row dim (R) its column sums and the mean of r."""
         R, C = p.shape[-2:]
         L = p.numel() // (R * C)
+        cut = None if shard is None or shard.axis == -3 else shard.axis
         pv, gv = p.view(L, R, C), g.view(L, R, C)
         r_new = torch.empty((L, R), dtype=torch.float32, device=p.device)
         csum = torch.zeros((L, C), dtype=torch.float32, device=p.device)
@@ -181,17 +237,26 @@ def adafactor(lr: Schedule, eps: float = 1e-30, decay: float = 0.8,
         for l0, l1, r0, r1 in blocks:
             gf = gv[l0:l1, r0:r1].float()
             g2 = gf * gf + eps
-            r_new[l0:l1, r0:r1] = torch.mean(g2, dim=-1)
+            r_new[l0:l1, r0:r1] = (torch.sum(g2, dim=-1) if cut == -1
+                                   else torch.mean(g2, dim=-1))
             if r1 - r0 == R:
                 csum[l0:l1] = torch.sum(g2, dim=-2)
             else:
                 csum[l0:l1] += torch.sum(g2, dim=-2)
-        sr, sc = s["r"].view(L, R), s["c"].view(L, C)
+        if cut == -1:
+            r_new = shard.group.psum(r_new) / shard.whole
+        if cut == -2:
+            csum, R = shard.group.psum(csum), shard.whole
+        sr, sc = s["r"].view(L, -1), s["c"].view(L, C)
         r = beta * sr + (1 - beta) * r_new
         c = beta * sc + (1 - beta) * (csum / R)
         sr.copy_(r)
         sc.copy_(c)
-        rc = r / torch.clamp_min(torch.mean(r, dim=-1, keepdim=True), eps)
+        if cut == -2:
+            rmean = shard.group.psum(torch.sum(r, dim=-1, keepdim=True)) / R
+        else:
+            rmean = torch.mean(r, dim=-1, keepdim=True)
+        rc = r / torch.clamp_min(rmean, eps)
 
         def piece(b):
             l0, l1, r0, r1 = b
@@ -212,23 +277,28 @@ def adafactor(lr: Schedule, eps: float = 1e-30, decay: float = 0.8,
             return pp, gg.float(), torch.rsqrt(torch.clamp_min(vv, eps))
         return blocks, piece
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shards=None):
         lrt = _lr_at(lr, step)
         t = torch.as_tensor(step).float() + 1.0
         beta = 1.0 - t ** (-decay)
-        for p, g, s in zip(leaves(params), leaves(grads),
-                           _states(params, state["f"])):
+        ps = leaves(params)
+        for p, g, s, sh in zip(ps, leaves(grads), _states(params, state["f"]),
+                               shards or [None] * len(ps)):
             if not (p.is_contiguous() and g.is_contiguous()):
                 raise ValueError("optimizer: the parameters and gradients "
                                  "must be contiguous")
-            blocks, piece = (factored if _factored(p) else unfactored)(
-                p, g, s, beta)
+            blocks, piece = (factored(p, g, s, beta, sh) if _factored(p)
+                             else unfactored(p, g, s, beta))
             sq = 0
             for b in blocks:
                 _, gf, inv = piece(b)
                 u = gf * inv
                 sq = sq + torch.sum(u * u)
-            rms = torch.sqrt(sq / p.numel() + 1e-30)
+            numel = p.numel()
+            if sh is not None:
+                # The padded experts' u is 0 (their gradient is 0).
+                sq, numel = sh.group.psum(sq.reshape(1))[0], sh.numel(p.shape)
+            rms = torch.sqrt(sq / numel + 1e-30)
             div = torch.clamp_min(rms / clip_threshold, 1.0)
             for b in blocks:
                 pp, gf, inv = piece(b)

@@ -31,6 +31,31 @@ The backend is chosen by the caller and never switched:
 Process groups are created when the mesh is made, by every rank in the
 same order (``dist.new_group`` is collective), never lazily inside one
 rank's branch.
+
+Gradients follow the layout of the port's sharded work: every rank holds
+the replicated values (the whole batch, the loss) and runs shard-local
+work on its part between two collectives, as a ``shard_map`` body. The
+differentiable collectives transpose as ``shard_map`` transposes the
+``jax.lax`` ops:
+
+  * ``psum`` of shard-local partials into a replicated result passes the
+    (replicated) cotangent through to each partial (Megatron's g);
+  * ``all_gather`` into a replicated result takes this shard's rows of
+    the cotangent; with ``grad="reduce_scatter"`` (a gathered value
+    feeding shard-local work, whose cotangents differ by rank) it sums
+    the cotangents over the group, in shard order, and takes this
+    shard's rows;
+  * ``all_to_all``'s backward is the reverse exchange: the same tiled
+    exchange of the cotangent;
+  * ``psum_grad`` marks a replicated value entering shard-local work:
+    the identity forward, a psum of the cotangent backward (Megatron's
+    f); ``shard_rows`` takes this shard's rows of a replicated value,
+    and all-gathers the cotangent backward.
+
+A group of one is a no-op both ways. ``all_gather_many``,
+``all_gather(..., active=)``, ``pmax`` and ``pmin`` are forward-only (the
+serve plane's and the server's): they refuse a tensor that requires a
+gradient, by name, instead of dropping the gradient.
 """
 from __future__ import annotations
 
@@ -103,22 +128,38 @@ class ShardGroup:
             out = [b.view(torch.bool) for b in out]
         return [b.to(dev) for b in out]
 
-    def all_gather(self, x: torch.Tensor, *,
-                   active: Optional[int] = None) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, *, active: Optional[int] = None,
+                   grad: str = "rows") -> torch.Tensor:
         """Tiled all-gather along dim 0, in shard order. With ``active``
         only the first ``active`` shards hold rows: the others send a
-        placeholder of the same shape, which is dropped."""
-        parts = self._exchange(x)
-        return torch.cat(parts[:self.size if active is None else active],
-                         dim=0)
+        placeholder of the same shape, which is dropped (forward-only).
+
+        The backward takes this shard's rows of the cotangent
+        (``grad="rows"``: the gathered value is replicated, and so is its
+        cotangent), or sums the cotangents over the group in shard order
+        first (``grad="reduce_scatter"``: the gathered value feeds
+        shard-local work)."""
+        if active is not None:
+            _forward_only("all_gather(..., active=)", x)
+            return torch.cat(self._exchange(x)[:active], dim=0)
+        if grad not in _GATHER_GRADS:
+            raise MeshError(f"all_gather grad={grad!r} is invalid: accepted "
+                            f"values are {list(_GATHER_GRADS)}")
+        if self.pg is not None and _needs_grad(x):
+            return _Gather.apply(x, self, grad == "reduce_scatter")
+        return self._gather(x)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat(self._exchange(x), dim=0)
 
     def all_gather_many(self, tensors: Sequence[Optional[torch.Tensor]],
                         *, active: Optional[int] = None):
         """:meth:`all_gather` of several tensors with the same leading
         dim in one collective: their rows are packed as bytes side by
         side, gathered once and unpacked bit for bit. ``None`` entries
-        pass through."""
+        pass through. Forward-only."""
         real = [t for t in tensors if t is not None]
+        _forward_only("all_gather_many", *real)
         rows = real[0].shape[0]
         flat = [t.contiguous().reshape(rows, -1) for t in real]
         byte = [t.view(torch.uint8) for t in flat]
@@ -142,13 +183,18 @@ class ShardGroup:
         every rank) is cut into ``size`` blocks, and block j of shard i
         lands as block i of shard j, in shard order. The blocks travel
         as bytes, so every dtype keeps its bits. A group of one returns
-        ``x``."""
+        ``x``. The backward is the same exchange of the cotangent."""
         if self.size == 1:
             return x
         if x.shape[0] % self.size:
             raise MeshError(f"all_to_all: dim 0 of a tensor of shape "
                             f"{tuple(x.shape)} does not split into "
                             f"{self.size} blocks")
+        if _needs_grad(x):
+            return _AllToAll.apply(x, self)
+        return self._a2a(x)
+
+    def _a2a(self, x: torch.Tensor) -> torch.Tensor:
         dev = x.device
         t = x.contiguous().reshape(self.size, -1).view(torch.uint8)
         if self.backend == "gloo":
@@ -168,18 +214,120 @@ class ShardGroup:
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the shards, added in shard order: the same bits on
-        every rank on every backend."""
+        every rank on every backend. The result is replicated: the
+        backward passes its cotangent through to ``x``."""
+        if self.pg is not None and _needs_grad(x):
+            return _Psum.apply(x, self)
+        return self._sum(x)
+
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
         parts = self._exchange(x)
         acc = parts[0]
         for p in parts[1:]:
             acc = acc + p
         return acc
 
+    def psum_grad(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (replicated over the group) as it enters shard-local
+        work: the identity, whose backward is the :meth:`psum` of the
+        cotangent (every shard's contribution to ``x``'s gradient)."""
+        if self.size == 1 or not _needs_grad(x):
+            return x
+        return _PsumGrad.apply(x, self)
+
+    def shard_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This shard's rows of ``x`` (replicated over the group): dim 0
+        cut into ``size`` blocks in shard order (``P(axes)`` in). The
+        backward all-gathers the cotangent, so that ``x``'s gradient is
+        whole on every rank."""
+        n, rem = divmod(x.shape[0], self.size)
+        if rem:
+            raise MeshError(f"shard_rows: dim 0 of a tensor of shape "
+                            f"{tuple(x.shape)} does not split into "
+                            f"{self.size} blocks")
+        if self.size > 1 and _needs_grad(x):
+            return _ShardRows.apply(x, self)
+        return x[self.index * n:(self.index + 1) * n]
+
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        _forward_only("pmax", x)
         return torch.amax(torch.stack(self._exchange(x)), dim=0)
 
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        _forward_only("pmin", x)
         return torch.amin(torch.stack(self._exchange(x)), dim=0)
+
+
+_GATHER_GRADS = ("rows", "reduce_scatter")
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _forward_only(name: str, *tensors) -> None:
+    if _needs_grad(*tensors):
+        raise MeshError(f"ShardGroup.{name} is forward-only: it carries no "
+                        f"gradient, and this tensor requires one; detach it "
+                        f"or run under torch.no_grad()")
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, reduce):
+        ctx.group, ctx.reduce, ctx.rows = group, reduce, x.shape[0]
+        return group._gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            g = ctx.group.psum(g)
+        i = ctx.group.index * ctx.rows
+        return g[i:i + ctx.rows], None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group._a2a(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_to_all(g), None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group._sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _PsumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.psum(g), None
+
+
+class _ShardRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = x.shape[0] // group.size
+        return x[group.index * n:(group.index + 1) * n].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g), None
 
 
 class Mesh:
@@ -249,8 +397,11 @@ class Mesh:
         return idx
 
     def group(self, axes) -> ShardGroup:
-        """The :class:`ShardGroup` of this rank over ``axes``."""
+        """The :class:`ShardGroup` of this rank over ``axes`` (over no
+        axes: this rank alone)."""
         axes = _axes(axes)
+        if not axes:
+            return ShardGroup((self.rank,), None, self.backend)
         missing = [a for a in axes if a not in self.shape]
         if missing or len(set(axes)) != len(axes):
             raise MeshError(f"axes {axes!r} are invalid: each must be one "

@@ -17,21 +17,26 @@ import torch.distributed as dist
 NAMES = ("data", "model")
 
 
-def spawn(world: int, tmp: str, cases: dict) -> list:
-    """Run ``cases`` on every rank of a gloo world of ``world`` ranks;
-    returns each rank's results, in rank order."""
+def spawn(world: int, tmp: str, cases: dict, handlers=None) -> list:
+    """Run ``cases`` (``{kind: {key: spec}}``, each spec given to
+    ``handlers[kind]``; this module's ``CASES`` by default) on every rank
+    of a gloo world of ``world`` ranks; returns each rank's results, in
+    rank order."""
     import torch.multiprocessing as mp
-    mp.spawn(_rank_main, args=(world, tmp, cases), nprocs=world, join=True)
+    mp.spawn(_rank_main, args=(world, tmp, cases, handlers or CASES),
+             nprocs=world, join=True)
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 
 
-def _rank_main(rank: int, world: int, tmp: str, cases: dict) -> None:
+def _rank_main(rank: int, world: int, tmp: str, cases: dict,
+               handlers: dict) -> None:
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(tmp, "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
-        out = {kind: {key: CASES[kind](spec) for key, spec in specs.items()}
+        out = {kind: {key: handlers[kind](spec)
+                      for key, spec in specs.items()}
                for kind, specs in cases.items()}
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:

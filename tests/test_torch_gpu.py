@@ -2263,3 +2263,102 @@ def test_gpu_moe_paths_one_rank_equal_local(nccl_one_rank, impl, ep, dtype,
     want, waux = moe.apply_moe(p, x, cfg)
     assert counts["moe_dispatch"] == 1 and counts["moe_combine"] == 1
     assert torch.equal(got, want) and torch.equal(gaux, waux)
+
+
+@pytest.mark.gpu
+def test_gpu_collectives_backward_one_rank_nccl(nccl_one_rank):
+    """Every differentiable collective of a one-rank NCCL mesh's groups
+    (the whole mesh's group crosses NCCL's world of one), forward and
+    backward on CUDA tensors: each is the identity both ways (a group of
+    one), the gradient the cotangent's bits."""
+    mesh = nccl_one_rank.mesh
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for axes in (("data",), ("model",), ("data", "model"),
+                 ("model", "data")):
+        g = mesh.group(axes)
+        ops_ = {"psum": g.psum, "all_gather": g.all_gather,
+                "all_gather_rs": lambda t: g.all_gather(
+                    t, grad="reduce_scatter"),
+                "all_to_all": g.all_to_all, "psum_grad": g.psum_grad,
+                "shard_rows": g.shard_rows}
+        for name, fn in ops_.items():
+            x = torch.randn((4, 6), generator=gen, device="cuda",
+                            requires_grad=True)
+            ct = torch.randn((4, 6), generator=gen, device="cuda")
+            y = fn(x)
+            (grad,) = torch.autograd.grad(y, x, ct)
+            assert torch.equal(y, x) and torch.equal(grad, ct), (axes, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,ep", [("dense", "tp"), ("alltoall", "tp"),
+                                     ("alltoall", "2d")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_moe_grads_one_rank_equal_local(nccl_one_rank, impl, ep, dtype):
+    """At one shard the gradient through every path of apply_moe under a
+    mesh (the router's, each expert leaf's and x's) is the local path's,
+    bit for bit, through the port's kernels and their backward."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    m = MoEConfig(n_experts=8, top_k=2, d_expert=96, n_shared=1,
+                  capacity_factor=1.25, impl=impl, ep=ep)
+    cfg = SimpleNamespace(moe=m, d_model=64)
+    p = moe.init_moe(torch.Generator(device="cuda").manual_seed(0), cfg,
+                     dtype)
+    x = torch.randn((3, 40, 64), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda").to(dtype)
+    dy = torch.randn((3, 40, 64), generator=torch.Generator(
+        device="cuda").manual_seed(2), device="cuda").to(dtype)
+    grads = []
+    for ctx in (nccl_one_rank, None):
+        leaves_ = [p["router"], p["w1"], p["w3"], p["w2"], x]
+        req = [t.detach().requires_grad_(True) for t in leaves_]
+        pp = dict(p, router=req[0], w1=req[1], w3=req[2], w2=req[3])
+        y, aux = moe.apply_moe(pp, req[4], cfg, ctx)
+        grads.append(torch.autograd.grad((y.float() * dy.float()).sum()
+                                         + aux, req))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gpu_train_step_one_rank_nccl_equals_local(nccl_one_rank):
+    """Two steps of make_train_step under the one-rank NCCL mesh: reduced
+    Mixtral (adamw, the etp path) and reduced DeepSeek-V3 (adafactor,
+    alltoall over ("data", "model"), MTP) give the single-device step's
+    loss, grad norm, parameters and optimizer state bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import init_state, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import leaves
+    for name, over, opt_name in (
+            ("mixtral-8x7b", {}, "adamw"),
+            ("deepseek-v3-671b", {"impl": "alltoall", "ep": "2d"},
+             "adafactor")):
+        cfg = get_config(name, reduced=True).replace(dtype="float32")
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **over))
+        model = build_model(cfg)
+        rng = np.random.default_rng(0)
+        batches = [{k: torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, size=(2, 32)).astype(np.int32),
+            device="cuda") for k in ("tokens", "labels")}
+            for _ in range(2)]
+        runs = []
+        for ctx in (nccl_one_rank, None):
+            opt = build_optimizer(opt_name, 1e-3)
+            state = init_state(model, torch.Generator(
+                device="cuda").manual_seed(0), opt, ctx=ctx)
+            step = make_train_step(model, ctx, opt)
+            mets = []
+            for b in batches:
+                state, met = step(state, b)
+                mets.append((met["loss"].item(), met["grad_norm"].item()))
+            runs.append((mets, leaves(state.params) + leaves(state.opt)))
+        (m1, t1), (m0, t0) = runs
+        assert m1 == m0, name
+        assert all(torch.equal(a, b) for a, b in zip(t1, t0)), name
