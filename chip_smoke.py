@@ -131,11 +131,13 @@ bit against one process.
 
 Last come the train legs (LM training through repro_torch.launch.train,
 Model.loss and the optimizers): the MoE layer's backward on the card
-(moe_dispatch's gradient through the moe_combine kernel with 0/1 gates,
+(moe_dispatch's gradient through the moe_dispatch_bwd kernel,
 moe_combine's through the moe_combine_bwd kernel) at the full-width
-leg's routing and at small shapes (top_k 1, 2 and 4, dropped entries,
-f32 and bf16, d not a multiple of 8), against the plain versions'
-autograd and f64, timed beside index_add_ and gather + mul + sum; 3
+leg's routing and at small shapes (top_k 1, 2, 3 and 4, dropped
+entries, a token all dropped, f32 and bf16, d not a multiple of 8),
+against the plain versions' autograd and f64, timed beside index_add_,
+gather + mul + sum and the dispatch backward's old route (moe_combine
+with 0/1 gates, then a cast); 3
 steps of reduced Mixtral-8x7B and granite-3-2b (f32, microbatch 2) on
 the card against the CPU from one state; Mixtral-8x7B at its published
 widths cut to 2 of its 32 layers, with its remat, microbatch 4 and
@@ -422,14 +424,16 @@ MESH_E_DEVICES = 8
 # The train legs. The backward kernels at the full-width leg's routing
 # (a microbatch of 4096 tokens of d=4096 bf16, 8 experts top-2, C=1280:
 # 10240 slots) and at small shapes: (T, d, E, top_k, capacity factor,
-# dtype), top_k 1, 2 and 4, dropped entries, f32 and bf16, d of 12 and
-# 13 (not multiples of 8).
+# dtype), top_k 1, 2, 3 and 4, dropped entries, f32 and bf16, d of 12,
+# 13 and 20 (not multiples of 8).
 TK_SHAPES = [(64, 128, 4, 1, 1.0, torch.float32),
              (100, 12, 8, 2, 0.5, torch.bfloat16),
              (100, 12, 8, 2, 0.5, torch.float32),
              (70, 36, 6, 4, 0.75, torch.bfloat16),
              (70, 36, 6, 4, 0.75, torch.float32),
-             (33, 13, 4, 2, 0.6, torch.bfloat16)]
+             (33, 13, 4, 2, 0.6, torch.bfloat16),
+             (50, 20, 6, 3, 0.5, torch.bfloat16),
+             (50, 20, 6, 3, 0.5, torch.float32)]
 # Train small: reduced Mixtral-8x7B and granite-3-2b in f32, microbatch
 # 2, 3 steps of make_train_step (adamw, lr 1e-3, eps 1e-4) on the card
 # against the CPU from one state; batches of 4 x 32 tokens.
@@ -3594,8 +3598,9 @@ def ept1_leg(device, smi: str, tmp: Path):
                 f"parameters differ from the local step's")
         mb, L = model.cfg.microbatch, TF_LAYERS
         launches = {"moe_dispatch": 2 * L * mb * EPT_STEPS,
-                    "moe_combine": 3 * L * mb * EPT_STEPS,
-                    "moe_combine_bwd": L * mb * EPT_STEPS}
+                    "moe_combine": 2 * L * mb * EPT_STEPS,
+                    "moe_combine_bwd": L * mb * EPT_STEPS,
+                    "moe_dispatch_bwd": L * mb * EPT_STEPS}
         require(all(counts[k] == n for k, n in launches.items()),
                 f"ept1: launches {counts}, expected {launches}")
         nparam = sum(a.numel() for a in mx_ref)
@@ -3736,8 +3741,9 @@ def ept2_leg(mx_ref, smi: str, tmp: Path):
                       f"{EP_BF16_TOL})")
     mb, L = a["microbatch"], EPT2_LAYERS
     want = {"moe_dispatch": 2 * L * mb * EPT_STEPS,
-            "moe_combine": 3 * L * mb * EPT_STEPS,
-            "moe_combine_bwd": L * mb * EPT_STEPS}
+            "moe_combine": 2 * L * mb * EPT_STEPS,
+            "moe_combine_bwd": L * mb * EPT_STEPS,
+            "moe_dispatch_bwd": L * mb * EPT_STEPS}
     for r, got in enumerate(ranks):
         if any(got["counts"][k] != n for k, n in want.items()):
             faults.append(f"rank {r}: launches {got['counts']}, expected "
@@ -3856,8 +3862,8 @@ def ept4_leg(device, smi: str, tmp: Path):
                 faults.append(f"rank {r}: the reduced f32 twin (ep={ep}) "
                               f"on the card is {mg:.3e} / {pg:.3e} off the "
                               f"CPU's sharded run")
-        if got["counts"]["moe_dispatch"] == 0 or \
-                got["counts"]["moe_combine_bwd"] == 0:
+        if any(got["counts"][k] == 0 for k in (
+                "moe_dispatch", "moe_combine_bwd", "moe_dispatch_bwd")):
             faults.append(f"rank {r}: launches {got['counts']}")
     t1 = time.perf_counter()
     cfg = ep_ds_cfg()
@@ -5218,8 +5224,9 @@ def check_moe_grads(inp) -> dict:
     the plain autograd for top_k <= 2, and within one rounding to x's
     type (plus the f32 sum's own error) of the f64 sum; dybuf bit for bit
     with the plain autograd; dgates within 1e-6 of sum_c |dout * ybuf|
-    of the f64 sum; two calls bit for bit; launches (1, 2, 1). Returns
-    the errors."""
+    of the f64 sum; two calls bit for bit; launches (1, 1, 1, 1): the
+    dispatch's backward is the moe_dispatch_bwd kernel, no moe_combine.
+    Returns the errors."""
     from repro_torch.kernels import ref
     T, top_k, dtype = inp["T"], inp["top_k"], inp["dtype"]
     dx, dy, dg, counts = kernel_moe_grads(inp)
@@ -5227,8 +5234,8 @@ def check_moe_grads(inp) -> dict:
     label = (f"({inp['S']},{inp['d']}) {str(dtype).replace('torch.', '')} "
              f"top_k={top_k}")
     require((counts["moe_dispatch"], counts["moe_combine"],
-             counts["moe_combine_bwd"]) == (1, 2, 1),
-            f"train kernels {label}: launches {counts}")
+             counts["moe_combine_bwd"], counts["moe_dispatch_bwd"])
+            == (1, 1, 1, 1), f"train kernels {label}: launches {counts}")
     require(same_bits((dx.float(), dy.float(), dg),
                       (dx2.float(), dy2.float(), dg2)),
             f"train kernels {label}: two calls differ")
@@ -5272,19 +5279,60 @@ def check_moe_grads(inp) -> dict:
                 dg_err=float((dg - want_dg).abs().max()), dg_ratio=ratio)
 
 
+def check_dispatch_bwd(inp) -> None:
+    """The moe_dispatch_bwd kernel alone on the routing ``inp``: bit for
+    bit to the plain version (ref.moe_dispatch_bwd), two calls the same
+    bits, and the old route's bits (moe_combine with the keep mask as
+    0/1 gates, then the cast) on these finite inputs; then with token
+    0's every entry dropped and a row of +-inf at its first entry's
+    clamped slot (another token's): the plain version's bits again,
+    token 0's dx exactly 0."""
+    from repro_torch.kernels import moe_combine as mc
+    from repro_torch.kernels import moe_dispatch_bwd as mdb
+    from repro_torch.kernels import ref
+    T, top_k, dtype = inp["T"], inp["top_k"], inp["dtype"]
+    dbuf, slot, keep = inp["dbuf"], inp["slot"], inp["keep"]
+    label = (f"({inp['S']},{inp['d']}) {str(dtype).replace('torch.', '')} "
+             f"top_k={top_k}")
+    got = mdb.moe_dispatch_bwd(dbuf, slot, keep, top_k)
+    again = mdb.moe_dispatch_bwd(dbuf, slot, keep, top_k)
+    want = ref.moe_dispatch_bwd(dbuf, slot, keep, T, top_k, dtype)
+    old = mc.moe_combine(dbuf, slot, keep.float(), top_k).to(dtype)
+    sync()
+    require(all(same_bits((got.float(),), (o.float(),))
+                for o in (want, again, old)),
+            f"dispatch backward {label}: the kernel differs from the plain "
+            f"version, from itself or from the old route")
+    del got, again, want, old
+    drop = keep.clone()
+    drop[:top_k] = False
+    dinf = dbuf.clone()
+    dinf[int(slot[0])] = float("inf")
+    dinf[int(slot[0]), ::2] = -float("inf")
+    got = mdb.moe_dispatch_bwd(dinf, slot, drop, top_k)
+    want = ref.moe_dispatch_bwd(dinf, slot, drop, T, top_k, dtype)
+    sync()
+    require(same_bits((got.float(),), (want.float(),))
+            and bool((got[0] == 0).all()),
+            f"dispatch backward {label}: a token all dropped beside a row "
+            f"of inf differs from the plain version")
+
+
 def train_kernels(dev, rounds: int):
     """The MoE layer's backward on the card: moe_dispatch's (the
-    moe_combine kernel with 0/1 gates, then the cast to x's dtype) and
-    moe_combine's (the moe_combine_bwd kernel), at the full-width train
-    leg's routing and at TK_SHAPES, checked by check_moe_grads; at the
-    full width each timed (CUDA events over ``rounds`` calls; device
-    time by graph replay) beside the plain formulas (kernels/ref.py),
-    one library call each (index_add_ for dx; torch.gather + mul + sum
-    for the combine's) and the bounds. Returns the kernels line's row
-    of moe_combine_bwd."""
+    moe_dispatch_bwd kernel) and moe_combine's (the moe_combine_bwd
+    kernel), at the full-width train leg's routing and at TK_SHAPES,
+    checked by check_moe_grads and check_dispatch_bwd; at the full width
+    each timed (CUDA events over ``rounds`` calls; device time by graph
+    replay) beside the plain formulas (kernels/ref.py), one library call
+    each (index_add_ for dx; torch.gather + mul + sum for the
+    combine's), the bounds and, for dx, the old route (moe_combine with
+    0/1 gates, then the cast), timed as a yardstick only. Returns the
+    kernels line's rows of moe_combine_bwd and moe_dispatch_bwd."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import moe_combine as mc
     from repro_torch.kernels import moe_combine_bwd as mcb
+    from repro_torch.kernels import moe_dispatch_bwd as mdb
     from repro_torch.kernels import ops, ref
     from repro_torch.models import moe
     cfg = get_config("mixtral-8x7b")
@@ -5295,12 +5343,17 @@ def train_kernels(dev, rounds: int):
     require(full["S"] == m.n_experts * moe._capacity(T, m),
             "train kernels: the full-width routing's slots")
     checks = [check_moe_grads(full)]
+    check_dispatch_bwd(full)
     for T_, d_, E_, k_, cf_, dt_ in TK_SHAPES:
-        checks.append(check_moe_grads(moe_bwd_inputs(dev, T_, d_, E_, k_,
-                                                     cf_, dt_)))
+        small = moe_bwd_inputs(dev, T_, d_, E_, k_, cf_, dt_)
+        checks.append(check_moe_grads(small))
+        check_dispatch_bwd(small)
     for c in checks:
         print(f"train kernels {c['label']}: two calls bitwise equal, "
-              f"launches 1/2/1; dx max_abs_err={c['dx_err']:.3e} against "
+              f"launches 1/1/1/1, moe_dispatch_bwd alone bitwise equal to "
+              f"the plain version and the old route (and beside a token "
+              f"all dropped and a row of inf); dx max_abs_err="
+              f"{c['dx_err']:.3e} against "
               f"the plain autograd, dybuf bitwise, dgates "
               f"max_abs_err={c['dg_err']:.3e} (x{c['dg_ratio']:.4f} of the "
               f"1e-6 tolerance against f64)", flush=True)
@@ -5311,12 +5364,18 @@ def train_kernels(dev, rounds: int):
     valid, keep = f["valid"], f["keep"]
     nvalid = int(valid.sum())
     N = T * top_k
-    # Dispatch backward: dx = the combine of dbuf with keep as 0/1 gates.
+    # Dispatch backward: the moe_dispatch_bwd kernel; the old route (the
+    # combine of dbuf with keep as 0/1 gates, then the cast) is timed in
+    # turns with it, as a yardstick only.
     keepf = keep.float()
 
     def dx_fn():
         return ops._dispatch_bwd(f["dbuf"], f["slot"], keep, T, top_k, dtype)
+
+    def old_fn():
+        return mc.moe_combine(f["dbuf"], f["slot"], keepf, top_k).to(dtype)
     ms = time_ms(dx_fn, rounds)
+    old_ms = time_ms(old_fn, rounds)
     plain = time_ms(lambda: ref.moe_dispatch_bwd(f["dbuf"], f["slot"], keep,
                                                  T, top_k, dtype), rounds)
     # The library's dx: index_add_ of every slot's row into its token's,
@@ -5327,19 +5386,31 @@ def train_kernels(dev, rounds: int):
         return torch.zeros((T + 1, d), dtype=dtype, device=dev).index_add_(
             0, idx, f["dbuf"])
     lib = time_ms(lib_fn, rounds)
-    dev_ms = graph_ms(dx_fn)
-    kern_ms = graph_ms(lambda: mc.moe_combine(f["dbuf"], f["slot"], keepf,
-                                              top_k))
+    dev_ms, dev_old, dev_old2, dev_ms2 = (graph_ms(fn) for fn in (
+        dx_fn, old_fn, old_fn, dx_fn))
+    kern_old = graph_ms(lambda: mc.moe_combine(f["dbuf"], f["slot"], keepf,
+                                               top_k))
     dev_lib = graph_ms(lib_fn)
+    got = dx_fn()
+    want = ref.moe_dispatch_bwd(f["dbuf"], f["slot"], keep, T, top_k, dtype)
+    sync()
+    err_x = float((got.float() - want.float()).abs().max())
+    del got, want
     nbytes = esz * (nvalid * d + T * d) + 5 * N
     bms, by = bound(nbytes, nvalid * d)
     print(f"train kernels dispatch backward ({S},{d}) bf16 -> ({T},{d}) "
           f"top_k={top_k}, {nvalid} valid slots, {int(keep.sum())} of {N} "
-          f"entries kept: ms={ms:.4f} plain_ms={plain:.4f} "
-          f"index_add_ms={lib:.4f} bound_ms={bms:.5f} ({by}, {nbytes} "
-          f"bytes) | device time by CUDA graph replay: ms={dev_ms:.4f} "
-          f"(moe_combine kernel {kern_ms:.4f}, the rest the cast) "
-          f"index_add_ms={dev_lib:.4f}", flush=True)
+          f"entries kept, moe_dispatch_bwd ("
+          f"{mdb.plan(T, d, top_k, dtype, dev).describe()}): "
+          f"max_abs_err={err_x:.3e} | ms={ms:.4f} old_route_ms={old_ms:.4f} "
+          f"plain_ms={plain:.4f} index_add_ms={lib:.4f} bound_ms={bms:.5f} "
+          f"({by}, {nbytes} bytes) | device time by CUDA graph replay, in "
+          f"turns: ms={dev_ms:.4f} / {dev_ms2:.4f}, old route "
+          f"{dev_old:.4f} / {dev_old2:.4f} (its moe_combine kernel "
+          f"{kern_old:.4f}, the rest the cast), index_add_ms={dev_lib:.4f}",
+          flush=True)
+    row_x = dict(max_abs_err=err_x, ms=ms, plain_ms=plain, bound_ms=bms,
+                 bound_by=by, library_ms=lib, device_ms=dev_ms)
     # Combine backward: the moe_combine_bwd kernel.
     def bwd_fn():
         return mcb.moe_combine_bwd(f["dout"], f["ybuf"], f["src_entry"],
@@ -5375,9 +5446,10 @@ def train_kernels(dev, rounds: int):
           f"gather_mul_sum_ms={lib_ms_c:.4f} bound_ms={bms_c:.5f} ({by_c}, "
           f"{nbytes_c} bytes) | device time by CUDA graph replay: "
           f"ms={dev_c:.4f} gather_mul_sum_ms={dev_lib_c:.4f}", flush=True)
-    return dict(max_abs_err=max([err] + [c["dg_err"] for c in checks]),
-                ms=ms_c, plain_ms=plain_c, bound_ms=bms_c, bound_by=by_c,
-                library_ms=lib_ms_c, device_ms=dev_c)
+    return {"moe_combine_bwd": dict(
+        max_abs_err=max([err] + [c["dg_err"] for c in checks]), ms=ms_c,
+        plain_ms=plain_c, bound_ms=bms_c, bound_by=by_c, library_ms=lib_ms_c,
+        device_ms=dev_c), "moe_dispatch_bwd": row_x}
 
 
 def train_batches(seed: int, vocab: int, B: int, S: int, steps: int,
@@ -5446,8 +5518,7 @@ def train_profile(label: str, fn, wall_s: float) -> None:
     its device time split: bf16 GEMMs (projections, experts, unembed),
     f32 GEMMs (the attention's scores and weighted sums), the port's MoE
     kernels by name and split into forward (moe_dispatch, moe_combine)
-    and backward (moe_combine_bwd, and the moe_combine launches of the
-    dispatch's backward, by their share of the combine's launches), the
+    and backward (moe_combine_bwd, moe_dispatch_bwd), the
     optimizer and the clip (the kernels inside the device-side spans of
     their record_function ranges in launch/train.py; "not measured"
     without those spans), and the rest (elementwise work, softmax,
@@ -5494,7 +5565,8 @@ def train_profile(label: str, fn, wall_s: float) -> None:
               if gemm.search(e.key) and simt.search(e.key)) / 1e3
     port = {}
     for e in dev:
-        hit = re.search(r"moe_(dispatch|combine|combine_bwd)_kernel", e.key)
+        hit = re.search(r"moe_(dispatch_bwd|dispatch|combine_bwd|combine)"
+                        r"_kernel", e.key)
         if hit and "repro_torch" in e.key:
             ms, n = port.get(hit.group(0), (0.0, 0))
             port[hit.group(0)] = (ms + e.self_device_time_total / 1e3,
@@ -5508,15 +5580,13 @@ def train_profile(label: str, fn, wall_s: float) -> None:
     rest = total - bf16 - f32 - ours - opt - clip
     parts = "; ".join(f"{k} {ms:.3f} ms x{n} ({1e3 * ms / n:.1f} us each)"
                       for k, (ms, n) in sorted(port.items()))
-    # Forward and backward: each forward (and remat) dispatch pairs with
-    # a forward combine; the combine's other launches are the dispatch's
-    # backward, at the same shape, so its time is split by launches.
-    d_ms, d_n = port.get("moe_dispatch_kernel", (0.0, 0))
-    c_ms, c_n = port.get("moe_combine_kernel", (0.0, 0))
-    b_ms, _ = port.get("moe_combine_bwd_kernel", (0.0, 0))
-    c_fwd = c_ms * min(d_n, c_n) / c_n if c_n else 0.0
-    parts += (f"; forward {d_ms + c_fwd:.3f} ms, backward "
-              f"{b_ms + c_ms - c_fwd:.3f} ms")
+    # Forward (and remat): the dispatch and the combine; backward: the
+    # two backward kernels.
+    fwd = sum(port.get(f"moe_{k}_kernel", (0.0, 0))[0]
+              for k in ("dispatch", "combine"))
+    bwd = sum(port.get(f"moe_{k}_kernel", (0.0, 0))[0]
+              for k in ("dispatch_bwd", "combine_bwd"))
+    parts += f"; forward {fwd:.3f} ms, backward {bwd:.3f} ms"
 
     def pct(v):
         return f"{v:.2f} ms ({100 * v / total:.1f}%)"
@@ -5583,10 +5653,11 @@ def train_full_leg(device):
     mb, L = cfg.microbatch, TF_LAYERS
     # Per step and MoE layer, per microbatch: the forward and its remat
     # recompute each dispatch and combine once; the backward launches
-    # the combine (dispatch's gradient) and moe_combine_bwd once.
+    # moe_dispatch_bwd and moe_combine_bwd once.
     want = {"moe_dispatch": 2 * L * mb * TF_STEPS,
-            "moe_combine": 3 * L * mb * TF_STEPS,
-            "moe_combine_bwd": L * mb * TF_STEPS}
+            "moe_combine": 2 * L * mb * TF_STEPS,
+            "moe_combine_bwd": L * mb * TF_STEPS,
+            "moe_dispatch_bwd": L * mb * TF_STEPS}
     require(all(counts[k] == n for k, n in want.items()),
             f"train full: launches {counts}, expected {want}")
     wall = float(np.median(walls))
@@ -5669,10 +5740,10 @@ def train_example_leg(device):
 def train_legs(device, rounds: int):
     """The train legs in order: the backward kernels, the small
     agreement, the full-width leg and the example. Returns (the
-    moe_combine_bwd row of the kernels line, the full leg's counts, the
-    example's counts)."""
+    moe_combine_bwd and moe_dispatch_bwd rows of the kernels line by
+    name, the full leg's counts, the example's counts)."""
     t_legs = time.perf_counter()
-    row = train_kernels(device, rounds)
+    rows = train_kernels(device, rounds)
     errs = small_train_agreement(device)
     print("reference: reduced " + " and ".join(errs) + f" (f32, microbatch "
           f"{TS_MB}), {TS_STEPS} steps of make_train_step on the card equal "
@@ -5685,7 +5756,7 @@ def train_legs(device, rounds: int):
     example_counts = train_example_leg(device)
     print(f"legs: train kernels, train small, train full, train example in "
           f"{time.perf_counter() - t_legs:.1f} s of wall", flush=True)
-    return row, full_counts, example_counts
+    return rows, full_counts, example_counts
 
 
 def ds_config(layers: int, dense: int, **kw):
@@ -5738,10 +5809,12 @@ def deepseek_kernels(dev, rounds: int) -> None:
     sequential sum (ref.sequential_combine, choices in order) and within
     1e-6 of the terms' magnitudes of the plain version (torch.sum over
     the 8 choices); at the train routing both backward paths by
-    check_moe_grads. Device times by graph replay beside the plain
+    check_moe_grads and the dispatch's backward kernel alone by
+    check_dispatch_bwd. Device times by graph replay beside the plain
     versions (event time), one library call each (embedding_bag;
-    index_add_ for dx; gather + mul + sum for the combine's backward)
-    and the bounds."""
+    index_add_ for dx; gather + mul + sum for the combine's backward),
+    the bounds and, for dx, the old route (moe_combine with 0/1 gates,
+    then the cast), timed in turns with the kernel as a yardstick."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -5821,10 +5894,21 @@ def deepseek_kernels(dev, rounds: int) -> None:
             del f
             continue
         c = check_moe_grads(f)
+        check_dispatch_bwd(f)
         keep = f["keep"]
         dbuf = f["dbuf"]
-        dx_dev = graph_ms(lambda: ops._dispatch_bwd(dbuf, slot, keep, T,
-                                                    top_k, torch.bfloat16))
+        keepf = keep.float()
+
+        def dx_fn():
+            return ops._dispatch_bwd(dbuf, slot, keep, T, top_k,
+                                     torch.bfloat16)
+
+        def dx_old():
+            return moe_combine(dbuf, slot, keepf, top_k).to(torch.bfloat16)
+        dx_dev, dx_old_dev, dx_old_dev2, dx_dev2 = (graph_ms(fn) for fn in (
+            dx_fn, dx_old, dx_old, dx_fn))
+        dx_ev = time_ms(dx_fn, rounds)
+        dx_old_ev = time_ms(dx_old, rounds)
         dx_plain = time_ms(lambda: ref.moe_dispatch_bwd(
             dbuf, slot, keep, T, top_k, torch.bfloat16), rounds)
         aidx = torch.where(valid, src, T).long()
@@ -5834,11 +5918,14 @@ def deepseek_kernels(dev, rounds: int) -> None:
         nbytes_x = esz * (nvalid * d + T * d) + 5 * N
         bms_x, by_x = bound(nbytes_x, nvalid * d)
         print(f"deepseek kernels dispatch backward {c['label']}: dbuf "
-              f"({S},{d}) -> dx ({T},{d}), dx bitwise equal to the plain "
-              f"formula, max_abs_err={c['dx_err']:.3e} against the plain "
-              f"autograd | device ms={dx_dev:.4f} plain_ms={dx_plain:.4f} "
-              f"index_add_ device ms={dx_lib:.4f} bound_ms={bms_x:.5f} "
-              f"({by_x}, {nbytes_x} bytes)", flush=True)
+              f"({S},{d}) -> dx ({T},{d}), moe_dispatch_bwd bitwise equal "
+              f"to the plain formula and the old route, "
+              f"max_abs_err={c['dx_err']:.3e} against the plain autograd | "
+              f"device ms={dx_dev:.4f} / {dx_dev2:.4f} (event "
+              f"{dx_ev:.4f}), old route device ms={dx_old_dev:.4f} / "
+              f"{dx_old_dev2:.4f} (event {dx_old_ev:.4f}), "
+              f"plain_ms={dx_plain:.4f} index_add_ device ms={dx_lib:.4f} "
+              f"bound_ms={bms_x:.5f} ({by_x}, {nbytes_x} bytes)", flush=True)
         bw = (f["dout"], ybuf, f["src_entry"], valid, w, top_k)
         cb_dev = graph_ms(lambda: moe_combine_bwd(*bw))
         cb_plain = time_ms(lambda: ref.moe_combine_bwd(*bw), rounds)
@@ -6098,8 +6185,9 @@ def deepseek_train_leg(device):
     require(int(state.step) == DST_WARM + DST_STEPS, "deepseek train: step")
     n_moe = DST_LAYERS - DST_DENSE
     want = {"moe_dispatch": 2 * n_moe * DST_STEPS,
-            "moe_combine": 3 * n_moe * DST_STEPS,
-            "moe_combine_bwd": n_moe * DST_STEPS}
+            "moe_combine": 2 * n_moe * DST_STEPS,
+            "moe_combine_bwd": n_moe * DST_STEPS,
+            "moe_dispatch_bwd": n_moe * DST_STEPS}
     require(all(counts[k] == n for k, n in want.items()),
             f"deepseek train: launches {counts}, expected {want}")
     wall = float(np.median(walls))
@@ -7176,8 +7264,9 @@ def main() -> int:
         require(leg == "ep4" or c["swa_decode"] > 0,
                 f"swa_decode was not launched on the {leg} leg")
     new_counts += tuple(ep_counts.values())
-    rows["moe_combine_bwd"], train_counts, example_counts = train_legs(
+    train_rows, train_counts, example_counts = train_legs(
         torch.device("cuda"), rounds=20)
+    rows.update(train_rows)
     # What the earlier legs kept on the card (tallied inputs, the mesh
     # legs' serves) is not needed past here: the DeepSeek legs fill it.
     del (tallies, pers_tallies, attach_tallies, et_tallies, er_tallies,
@@ -7186,9 +7275,10 @@ def main() -> int:
     ept_counts = ept_legs(torch.device("cuda"), smi)
     for leg, c in ept_counts.items():
         require(all(c[k] > 0 for k in ("moe_dispatch", "moe_combine",
-                                       "moe_combine_bwd")),
-                f"moe_dispatch, moe_combine or moe_combine_bwd was not "
-                f"launched on the {leg} leg")
+                                       "moe_combine_bwd",
+                                       "moe_dispatch_bwd")),
+                f"moe_dispatch, moe_combine, moe_combine_bwd or "
+                f"moe_dispatch_bwd was not launched on the {leg} leg")
     new_counts += tuple(ept_counts.values())
     torch.cuda.empty_cache()
     ds_serve_counts, ds_train_counts = deepseek_legs(torch.device("cuda"),
@@ -7197,8 +7287,9 @@ def main() -> int:
         require(ds_serve_counts[name] > 0 and ds_train_counts[name] > 0,
                 f"{name} was not launched on the deepseek serve and train "
                 f"legs")
-    require(ds_train_counts["moe_combine_bwd"] > 0,
-            "moe_combine_bwd was not launched on the deepseek train leg")
+    for name in ("moe_combine_bwd", "moe_dispatch_bwd"):
+        require(ds_train_counts[name] > 0,
+                f"{name} was not launched on the deepseek train leg")
     new_counts += (ds_serve_counts, ds_train_counts)
     # The DeepSeek legs freed what they drew; the state legs start from a
     # card holding little else.
@@ -7224,6 +7315,8 @@ def main() -> int:
         # No Pallas kernel: the JAX package differentiates ref.py's
         # moe_combine, whose gradient this kernel computes.
         "moe_combine_bwd": "src/repro/kernels/ref.py:142",
+        # Nor here: the JAX package differentiates ref.py's moe_dispatch.
+        "moe_dispatch_bwd": "src/repro/kernels/ref.py:135",
     }
     kernels = []
     for name in _build.KERNELS:

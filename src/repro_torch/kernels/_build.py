@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 KERNELS = ("pdist_argmin", "kmeans_update", "solve_attach", "moe_dispatch",
-           "moe_combine", "swa_decode", "moe_combine_bwd")
+           "moe_combine", "swa_decode", "moe_combine_bwd",
+           "moe_dispatch_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -12,7 +12,7 @@ shares them by shuffles, every choice's load is in flight before the first
 multiply, and the sum over the choices stays in registers in j order,
 each product and sum rounded on its own (no FMA contraction). The CUDA
 source plans the launch from the shape and the card (``make_plan``
-there; :func:`plan` reports it)."""
+in ``csrc/moe_plan.cuh``; :func:`plan` reports it)."""
 from __future__ import annotations
 
 import ctypes
@@ -68,7 +68,7 @@ def plan(T: int, d: int, top_k: int, dtype, device) -> Plan:
     top_k from a 16-byte aligned ybuf of ``dtype`` on CUDA ``device``."""
     index = torch.device(device).index
     esize = torch.empty((), dtype=dtype).element_size()
-    return _plan(T, d, top_k, esize, _vector(d, esize, True),
+    return _plan(NAME, T, d, top_k, esize, _vector(d, esize, True),
                  torch.cuda.current_device() if index is None else index)
 
 
@@ -78,8 +78,10 @@ def _vector(d: int, esize: int, aligned: bool) -> bool:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(T, d, top_k, esize, vec, index) -> Plan:
-    fn = _build.load(NAME).moe_combine_plan
+def _plan(name, T, d, top_k, esize, vec, index) -> Plan:
+    """The plan that kernel ``name`` (this one, or another that shares
+    its launch: ``csrc/moe_plan.cuh``) makes on card ``index``."""
+    fn = getattr(_build.load(name), f"{name}_plan")
     fn.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [
         ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
@@ -87,7 +89,7 @@ def _plan(T, d, top_k, esize, vec, index) -> Plan:
     with torch.cuda.device(index):
         err = fn(T, d, top_k, esize, int(vec), out)
     if err != 0:
-        raise RuntimeError(f"{NAME}: planning the launch of {T} tokens of "
+        raise RuntimeError(f"{name}: planning the launch of {T} tokens of "
                            f"{d} columns at top_k={top_k} failed with "
                            f"cudaError_t {err} (too many blocks)")
     return Plan(*out)

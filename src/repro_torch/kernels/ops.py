@@ -21,6 +21,7 @@ from repro_torch.kernels import kmeans_update as _ku
 from repro_torch.kernels import moe_combine as _mc
 from repro_torch.kernels import moe_combine_bwd as _mcb
 from repro_torch.kernels import moe_dispatch as _md
+from repro_torch.kernels import moe_dispatch_bwd as _mdb
 from repro_torch.kernels import pdist_argmin as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import solve_attach as _sa
@@ -30,7 +31,7 @@ from repro_torch.kernels import swa_decode as _sw
 # the kernel instead of one monolithic call (repro/kernels/ops.py).
 CHUNK_ROWS = 1 << 18
 
-_WRAPPERS = (_pa, _ku, _sa, _md, _mc, _sw, _mcb)
+_WRAPPERS = (_pa, _ku, _sa, _md, _mc, _sw, _mcb, _mdb)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -122,13 +123,17 @@ def _combine(ybuf, slot, gates, top_k):
 
 
 def _dispatch_bwd(dbuf, slot, keep, T: int, top_k: int, dtype):
-    """dx of the dispatch: on the card the combine kernel with the keep
-    mask as 0/1 gates (its f32 sum in j order), cast to x's dtype."""
+    """dx of the dispatch: each token's kept slot rows of dbuf summed in
+    f32 in j order and rounded once to x's dtype (on the card the
+    moe_dispatch_bwd kernel, one launch; dbuf, the gradient of the
+    dispatch's output, is in x's dtype)."""
     if dbuf.device.type == "cpu":
         return _ref.moe_dispatch_bwd(dbuf, slot, keep, T, top_k, dtype)
-    gates = keep.to(torch.float32).contiguous()
-    return _mc.moe_combine(dbuf.contiguous(), slot.contiguous(), gates,
-                           top_k).to(dtype)
+    if dbuf.dtype != dtype:
+        raise ValueError(f"moe_dispatch_bwd: dbuf is {dbuf.dtype}, x is "
+                         f"{dtype}")
+    return _mdb.moe_dispatch_bwd(dbuf.contiguous(), slot.contiguous(),
+                                 keep.contiguous(), top_k)
 
 
 def _combine_bwd(dout, ybuf, src_entry, valid, w, top_k: int):

@@ -167,14 +167,23 @@ def moe_dispatch_bwd(dbuf: torch.Tensor, slot: torch.Tensor,
                      dtype=None) -> torch.Tensor:
     """The gradient of :func:`moe_dispatch`'s x, for the queues of a
     routing: ``dx[t] = sum over the kept j of dbuf[slot[t*top_k+j]]``,
-    summed in f32 in j order and cast to ``dtype`` (x's; dbuf's by
-    default). A valid slot is owned by exactly one kept entry, so this is
-    the combine of dbuf with the keep mask as 0/1 gates. dbuf: (S, d);
-    slot, keep: (T*top_k,). Returns (T, d)."""
+    summed in f32 (f64 for f64 inputs) from 0 in j order and cast to
+    ``dtype`` (x's; dbuf's by default). A valid slot is owned by exactly
+    one kept entry. A dropped entry's term is selected away
+    (``where(keep, row, 0)``), as JAX's gradient of ``where(valid, rows,
+    0)`` selects, so a non-finite row at its clamped slot (another
+    token's) does not reach it. dbuf: (S, d); slot, keep: (T*top_k,).
+    Returns (T, d)."""
     if slot.shape[0] != T * top_k:
         raise ValueError(f"moe_dispatch_bwd: {slot.shape[0]} entries for "
                          f"T={T} at top_k={top_k}")
-    dx = sequential_combine(dbuf, slot, keep.float(), top_k)
+    S, d = dbuf.shape
+    acc = _acc(dbuf)
+    rows = dbuf[torch.clamp(slot.long(), 0, S - 1)].to(acc)
+    rows = torch.where(keep.bool()[:, None], rows, 0).view(T, top_k, d)
+    dx = torch.zeros((T, d), dtype=acc, device=dbuf.device)
+    for j in range(top_k):
+        dx = dx + rows[:, j]
     return dx.to(dbuf.dtype if dtype is None else dtype)
 
 

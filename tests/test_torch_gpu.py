@@ -1623,11 +1623,12 @@ def test_gpu_moe_backward_matches_plain(cuda_device, T, d, E, top_k, cf,
     (ops.moe_dispatch / ops.moe_combine given the routing) against the
     plain formulas (ref.moe_dispatch_bwd / moe_combine_bwd) and against
     autograd of the plain forward, on the card: dx bit for bit with the
-    formula (the kernel's f32 sum in j order, cast) and, at top_k <= 2,
-    with autograd; above 2 autograd within (top_k - 1) roundings of the
+    formula (the f32 sum of the kept rows in j order, rounded once) and,
+    at top_k <= 2, with autograd; above 2 autograd within (top_k - 1) roundings of the
     terms' magnitudes in x's type; dybuf bit for bit with both; dgates
     within 1e-6 of sum_c |dout * ybuf| of the f64 sum. Two calls give
-    the same bits; one launch of each kernel a call."""
+    the same bits; one launch of each kernel a call (the dispatch's
+    backward is moe_dispatch_bwd: no moe_combine launch)."""
     x, plan, gates, C, m = moe_routing(cuda_device, T, d, E, top_k, cf,
                                        dtype)
     src, valid, flat_e, pos_c, keep, src_entry = plan
@@ -1652,7 +1653,8 @@ def test_gpu_moe_backward_matches_plain(cuda_device, T, d, E, top_k, cf,
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         assert (counts["moe_dispatch"], counts["moe_combine"],
-                counts["moe_combine_bwd"]) == (1, 2, 1), counts
+                counts["moe_combine_bwd"],
+                counts["moe_dispatch_bwd"]) == (1, 1, 1, 1), counts
         return dx, dy, dg
 
     dx, dy, dg = kernel_grads()
@@ -1695,6 +1697,57 @@ def test_gpu_moe_backward_matches_plain(cuda_device, T, d, E, top_k, cf,
         assert bool(((got.double() - exact_dg).abs()
                      <= 1e-6 * terms + 1e-30).all())
     assert bool((dg[~keep] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,d,E,top_k,cf", BWD_SHAPES + [
+    (4096, 7168, 256, 8, 1.25)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["routed", "dropped_token", "unaligned"])
+def test_gpu_moe_dispatch_bwd_kernel(cuda_device, T, d, E, top_k, cf, dtype,
+                                     case):
+    """The dispatch's backward kernel alone against ref.moe_dispatch_bwd,
+    bit for bit, at BWD_SHAPES and DeepSeek-V3's train routing (4096
+    tokens of 7168, top-8 of 256): the vector path and the scalar one
+    (d = 12 in bf16, d = 13; dbuf off a 16-byte boundary), a token whose
+    every entry is dropped beside a row of inf at a dropped entry's
+    clamped slot (the dropped token's dx 0, inf only where a kept entry
+    reads it); on the model's routing also the old route's bits (moe_combine with 0/1 gates, then the cast). Two
+    calls give the same bits and count two launches."""
+    from repro_torch.kernels import moe_combine as mc
+    from repro_torch.kernels import moe_dispatch_bwd as mdb
+    _, plan, _, C, _ = moe_routing(cuda_device, T, d, E, top_k, cf, dtype)
+    _, _, flat_e, pos_c, keep, _ = plan
+    slot = (flat_e * C + pos_c).to(torch.int32)
+    S = E * C
+    dbuf = torch.randn(S, d, generator=torch.Generator().manual_seed(
+        T + d + top_k)).to(cuda_device, dtype)
+    if case == "dropped_token":
+        keep = keep.clone()
+        keep[:top_k] = False                  # token 0
+        dbuf[int(slot[0])] = float("inf")
+        dbuf[int(slot[0]), ::2] = -float("inf")
+    elif case == "unaligned":
+        buf = torch.zeros(S * d + 1, dtype=dtype, device=cuda_device)
+        buf[1:] = dbuf.reshape(-1)
+        dbuf = buf[1:].view(S, d)
+    before = mdb.LAUNCHES
+    got = mdb.moe_dispatch_bwd(dbuf, slot, keep, top_k)
+    again = mdb.moe_dispatch_bwd(dbuf, slot, keep, top_k)
+    assert mdb.LAUNCHES == before + 2
+    want = ref.moe_dispatch_bwd(dbuf, slot, keep, T, top_k)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (T, d)
+    assert_same_bits(got.float(), want.float())
+    assert_same_bits(got.float(), again.float())
+    if case == "dropped_token":
+        assert bool((got[0] == 0).all())
+        inf_rows = torch.isinf(want.float()).any(dim=1)
+        assert int(inf_rows.sum()) <= 1 and not bool(inf_rows[0])
+    if case == "routed":
+        old = mc.moe_combine(dbuf, slot, keep.float(), top_k).to(dtype)
+        torch.cuda.synchronize()
+        assert_same_bits(got.float(), old.float())
 
 
 # (T, d, capacity factor) of DeepSeek-V3's forward routing at top-8 of
@@ -1809,7 +1862,8 @@ def test_gpu_mla_loss_and_grads_match_cpu(cuda_device):
                                         "labels": labels.to(dev)})
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert ops.launch_counts()["moe_combine_bwd"] == 1
+            counts = ops.launch_counts()
+            assert counts["moe_combine_bwd"] == counts["moe_dispatch_bwd"] == 1
         outs.append((loss, met, g))
     (l1, m1, g1), (l0, m0, g0) = outs
     assert sorted(m1) == ["aux", "ce", "mtp_ce"]
@@ -1886,7 +1940,8 @@ def test_gpu_train_step_matches_cpu(cuda_device):
     and on the CPU from the same state. Loss and grad norm within 1e-5
     relative, parameters within 1e-5 of each leaf's largest magnitude
     plus 1e-6 (adamw at eps 1e-4, as tests/test_torch_train.py states);
-    every MoE layer launches the backward kernels once a microbatch."""
+    every MoE layer launches the backward kernels once a microbatch and
+    the combine only in the forward."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1911,7 +1966,9 @@ def test_gpu_train_step_matches_cpu(cuda_device):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         assert counts["moe_combine_bwd"] == 2 * cfg.n_layers, counts
+        assert counts["moe_dispatch_bwd"] == 2 * cfg.n_layers, counts
         assert counts["moe_dispatch"] == 2 * cfg.n_layers, counts
+        assert counts["moe_combine"] == 2 * cfg.n_layers, counts
         cpu, want = step(cpu, {"tokens": T(toks), "labels": T(labels)})
         for key in ("loss", "grad_norm"):
             assert abs(float(got[key]) - float(want[key])) <= 1e-5 * abs(
@@ -1951,7 +2008,9 @@ def test_gpu_moe_loss_gradient_reaches_router_and_experts(cuda_device,
                                    "labels": labels.to(dev)})
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert ops.launch_counts()["moe_combine_bwd"] == cfg.n_layers
+            counts = ops.launch_counts()
+            assert counts["moe_combine_bwd"] == cfg.n_layers
+            assert counts["moe_dispatch_bwd"] == cfg.n_layers
         grads.append(g)
     for seg_card, seg_cpu in zip(grads[0]["segments"], grads[1]["segments"]):
         for name in ("router", "w1", "w2", "w3"):

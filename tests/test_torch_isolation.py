@@ -19,6 +19,8 @@ from repro_torch.kernels.kmeans_update import kmeans_update  # noqa: E402
 from repro_torch.kernels.moe_combine import moe_combine  # noqa: E402
 from repro_torch.kernels.moe_combine_bwd import moe_combine_bwd  # noqa: E402
 from repro_torch.kernels.moe_dispatch import moe_dispatch  # noqa: E402
+from repro_torch.kernels.moe_dispatch_bwd import (  # noqa: E402
+    moe_dispatch_bwd)
 from repro_torch.kernels.pdist_argmin import pdist_argmin  # noqa: E402
 from repro_torch.kernels.solve_attach import solve_attach  # noqa: E402
 from repro_torch.kernels.swa_decode import swa_decode_attention  # noqa: E402
@@ -87,6 +89,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         moe_combine_bwd(torch.zeros((4, 3)), x[0], idx,
                         torch.ones((5,), dtype=torch.bool), torch.ones((4,)),
                         1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        moe_dispatch_bwd(x[0], idx, torch.ones((4,), dtype=torch.bool), 1)
 
 
 def test_cpu_dispatch_launches_no_kernel():
@@ -114,7 +118,8 @@ def test_cpu_dispatch_launches_no_kernel():
     assert ops.launch_counts() == {"pdist_argmin": 0, "kmeans_update": 0,
                                    "solve_attach": 0, "moe_dispatch": 0,
                                    "moe_combine": 0, "swa_decode": 0,
-                                   "moe_combine_bwd": 0}
+                                   "moe_combine_bwd": 0,
+                                   "moe_dispatch_bwd": 0}
 
 
 def test_serve_path_imports_no_jax():

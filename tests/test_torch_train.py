@@ -43,6 +43,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.models.moe as jmoe  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 import repro.optim as joptim  # noqa: E402
 from repro.configs.base import get_config as jax_config  # noqa: E402
 from repro.launch.train import TrainState as JaxTrainState  # noqa: E402
@@ -330,6 +331,54 @@ def test_moe_backward_formulas_match_autograd(top_k, cf, dtype):
     terms = ref.moe_combine_bwd(dout.abs(), ybuf.abs(), src_entry, valid,
                                 w.detach(), top_k)[1]
     assert bool(((got_dg - want_dg).abs() <= 1e-6 * terms + 1e-30).all())
+
+
+@pytest.mark.parametrize("top_k", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dispatch_backward_selects_dropped_entries_as_jax(top_k, dtype):
+    """A dropped entry's clamped slot is a valid slot of another token;
+    with inf in that slot's gradient row, the plain formula's dx equals
+    jax.vjp of the JAX package's ref.moe_dispatch (a where, so a
+    dropped entry reads nothing): bit for bit at top_k <= 2, within
+    (top_k - 1) roundings of the terms' magnitudes above that, the same
+    infinities in the same places, and the dropped token's dx finite."""
+    T, d, E = 24, 16, 12
+    x, plan, _, C, _ = routing(top_k + 200, T, d, E, top_k, 0.5,
+                               torch.float32)
+    src, valid, flat_e, pos_c, keep, _ = plan
+    slot = (flat_e * C + pos_c).to(torch.int32)
+    dropped = int(torch.nonzero(~keep)[0])
+    inf_slot = int(slot[dropped])
+    assert bool(valid[inf_slot])            # another token's slot
+    rng = np.random.default_rng(top_k)
+    dbuf = rng.normal(size=(E * C, d)).astype(np.float32)
+    dbuf[inf_slot] = np.inf
+    dbuf[inf_slot, ::2] = -np.inf
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    _, vjp = jax.vjp(lambda a: jref.moe_dispatch(
+        a, jnp.asarray(src.numpy()), jnp.asarray(valid.numpy())),
+        jnp.asarray(x.numpy(), jdt))
+    want = torch.as_tensor(np.array(
+        vjp(jnp.asarray(dbuf, jdt))[0].astype(jnp.float32)))
+    tdbuf = torch.as_tensor(dbuf).to(dtype)
+    got = ref.moe_dispatch_bwd(tdbuf, slot, keep, T, top_k, dtype)
+    assert got.dtype == dtype
+    got = got.float()
+    assert bool(torch.isfinite(got[dropped // top_k]).all())
+    assert not bool(torch.isfinite(got).all())   # the slot's owner
+    if top_k <= 2:
+        assert torch.equal(got, want)
+        return
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    assert torch.equal(got[~finite], want[~finite])
+    exact = ref.moe_dispatch_bwd(tdbuf.double(), slot, keep, T, top_k)
+    terms = ref.moe_dispatch_bwd(tdbuf.double().abs().nan_to_num(0, 0, 0),
+                                 slot, keep, T, top_k)
+    unit = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+    for a in (got, want):
+        assert bool(((a.double() - exact).abs()[finite]
+                     <= (top_k - 1) * unit * terms[finite]).all())
 
 
 @pytest.mark.parametrize("top_k,cf", BWD_CASES)
