@@ -241,6 +241,7 @@ file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -249,6 +250,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -302,6 +304,9 @@ MIN_TABLE2_CLUSTER_ACC = 0.9
 # in bf16, more than the card's 80 GB); 4 prompts of its own window,
 # 4096 tokens, then 32 greedy steps: every step decodes over the ring.
 MX_LAYERS, MX_BATCH, MX_PROMPT, MX_STEPS, MX_SEED = 8, 4, 4096, 32, 0
+# ep2's depth: cut from the decode leg's 8 layers, so that the script
+# stays within its time limit with the tp2 leg (ep2_leg).
+EP2_LAYERS = 2
 # The expert-parallel legs (ROADMAP 5b): Mixtral as the decode leg runs
 # it under a (1, 1) NCCL mesh (ep1) and a (1, 2) gloo mesh of two ranks
 # on cuda:0 (ep2), and one DeepSeek-V3 MoE layer at its published widths
@@ -313,12 +318,15 @@ MX_LAYERS, MX_BATCH, MX_PROMPT, MX_STEPS, MX_SEED = 8, 4, 4096, 32, 0
 # largest magnitude: one bf16 MoE layer sharded (ep2's first layer,
 # ep4's layer) within EP_BF16_TOL, the CPU tests' bf16 tolerance (the
 # tensor-parallel path rounds each output twice more: its partials and
-# their sum); the logits of 8 bf16 layers within EP_LOGIT_TOL (at the
-# reduced widths on the CPU the bf16 model's own logits sit 4.0% from
-# its f32 twin's after 8 layers, and the two-rank run 4.3% from the
-# single-device one); the reduced f32 twin within EP_TWIN_TOL of the
-# CPU's sharded run.
+# their sum); the reduced f32 twin within EP_TWIN_TOL of the CPU's
+# sharded run; ep2's prefill logits at a dropless capacity factor within
+# EP_LOGIT_TOL of a single-device dropless run of the same depth (with
+# the dense layers tensor-parallel too, 8 layers put them 4.359 off a
+# largest 5.469 on an H100 80GB HBM3 at 700.00 W: routing choices over
+# the near-uniform random router flip where a bf16 rounding step moves a
+# token's input, and at 8 layers such flips reach the last position).
 EP_AXES = ("data", "model")
+EP_LOGIT_TOL = 1e-1
 EP_DS_DROPLESS, EP_DS_WALL, EP_DS_SEED = (4, 256), (4, 4096), 3
 # The legs that train under a mesh (ept1, ept2, ept4), EPT_STEPS steps
 # each. ept2 runs Mixtral-8x7B at EPT2_LAYERS layers on two ranks sharing
@@ -331,7 +339,33 @@ EP_DS_DROPLESS, EP_DS_WALL, EP_DS_SEED = (4, 256), (4, 4096), 3
 # GB, which two ranks on an 80 GB card do not hold. The reduced f32
 # twins within EPT_TWIN_TOL (relative) of the CPU's sharded run.
 EPT_STEPS, EPT2_LAYERS, EPT_TWIN_TOL = 3, 2, 1e-5
-EP_BF16_TOL, EP_LOGIT_TOL, EP_TWIN_TOL = 2e-2, 1e-1, 1e-6
+# The tp2 leg: the dense layers' layouts on two gloo ranks sharing the
+# card, Mixtral-8x7B at EPT2_LAYERS layers: serving under (1, 2) (tensor
+# and sequence parallelism), one train step under (2, 1) (FSDP, the
+# batch cut over data) of TP2_BATCH rows, so that each of the config's 4
+# microbatches cuts its 2 rows over data. In bf16, within TP_TOL of the
+# single-device runs' largest magnitude (the tolerance of one sharded
+# bf16 MoE layer, EP_BF16_TOL): the prefill's logits, the first layer's
+# attention block as generate ran it, the loss and grad norm
+# (relative), and every parameter part after the step (of its leaf's
+# largest magnitude); the decode steps' logits are reported (`tp2_leg`).
+# The f32 twin of the serving run, TP_F32_STEPS steps after the same
+# prompts (which fill the 4096-slot ring, so that every step wraps it):
+# its tokens equal and its logits within TP_F32_TOL of the single-device
+# f32 run's largest (fixed before its first run on the card).
+TP2_BATCH, TP_TOL = 8, 2e-2
+TP_F32_STEPS, TP_F32_TOL = 8, 1e-3
+# The train step's gradient (adamw's first moment after the step) part by
+# part, of each slice's largest magnitude: a bf16 gradient goes through
+# the layer and back, rounding twice as often as one layer's output (at
+# the reduced width in bf16 on the CPU 1.6e-2; with the gradient summed
+# over the wrong ranks or rows it is off by O(1)).
+TP_GRAD_TOL = 5e-2
+# tp2's train step depth: 1 of 32 layers (at 2 its FSDP gathers through
+# the host took 126-150 s of the script's limit on an H100 80GB HBM3 at
+# 700.00 W).
+TP2_TRAIN_LAYERS = 1
+EP_BF16_TOL, EP_TWIN_TOL = 2e-2, 1e-6
 # swa_decode at the InternVL2 ring leg's shape (b, h, kvh, dh, W): 48
 # query heads over 8 KV heads, groups of 6.
 IV_SWA = (4, 48, 8, 128, 4096)
@@ -650,21 +684,24 @@ def pdist_work(x, c, cm):
 
 class Tally:
     """Counts the launches of one kernel's wrapper function
-    (``repro_torch.kernels.<name>.<name>``) over one pass of a path by
+    (``repro_torch.kernels.<name>.<fn>``, ``fn`` the name unless given)
+    over one pass of a path by
     the shape key that ``key`` gives its arguments, by wrapping the
     function for the length of a ``with`` block, and (unless ``keep`` is
     False) keeps a copy of the first inputs of each shape, so that they
     can be checked and timed."""
 
-    def __init__(self, name: str, key, keep: bool = True):
+    def __init__(self, name: str, key, keep: bool = True,
+                 fn: Optional[str] = None):
         self.name, self.key, self.keep = name, key, keep
+        self.fn = fn or name
         self.shapes = {}
 
     def __enter__(self):
         import importlib
         self._module = importlib.import_module(
             f"repro_torch.kernels.{self.name}")
-        self._fn = getattr(self._module, self.name)
+        self._fn = getattr(self._module, self.fn)
 
         def counted(*args, **kw):
             key = self.key(*args)
@@ -676,11 +713,11 @@ class Tally:
             self.shapes[key][0] += 1
             return self._fn(*args, **kw)
 
-        setattr(self._module, self.name, counted)
+        setattr(self._module, self.fn, counted)
         return self
 
     def __exit__(self, *exc):
-        setattr(self._module, self.name, self._fn)
+        setattr(self._module, self.fn, self._fn)
         return False
 
 
@@ -2780,25 +2817,34 @@ def mx_prompts(cfg) -> torch.Tensor:
 
 class CollectiveClock:
     """While entered: the seconds and calls of ``ShardGroup.all_to_all``,
-    ``psum`` and ``all_gather``, each call between two device syncs (on
-    gloo a collective waits for the card anyway: it stages through the
-    host)."""
+    ``psum``, ``all_gather`` and ``reduce_scatter``, each call between
+    two device syncs (on gloo a collective waits for the card anyway: it
+    stages through the host); a call made inside another (a gather along
+    another dim goes through one along dim 0) counts once, as the
+    outer."""
 
-    KINDS = ("all_to_all", "psum", "all_gather")
+    KINDS = ("all_to_all", "psum", "all_gather", "reduce_scatter")
 
     def __init__(self):
         self.s = dict.fromkeys(self.KINDS, 0.0)
         self.n = dict.fromkeys(self.KINDS, 0)
+        self._depth = 0
 
     def __enter__(self):
         from repro_torch.utils.mesh import ShardGroup
         self._saved = {k: getattr(ShardGroup, k) for k in self.KINDS}
         for kind, fn in self._saved.items():
             def timed(group, *a, _fn=fn, _kind=kind, **kw):
-                sync()
-                t0 = time.perf_counter()
-                out = _fn(group, *a, **kw)
-                sync()
+                if self._depth:
+                    return _fn(group, *a, **kw)
+                self._depth += 1
+                try:
+                    sync()
+                    t0 = time.perf_counter()
+                    out = _fn(group, *a, **kw)
+                    sync()
+                finally:
+                    self._depth -= 1
                 self.s[_kind] += time.perf_counter() - t0
                 self.n[_kind] += 1
                 return out
@@ -2867,6 +2913,24 @@ def mx_dropless(model):
     m = model.cfg.moe
     return build_model(model.cfg.replace(moe=dataclasses.replace(
         m, capacity_factor=m.n_experts / m.top_k)))
+
+
+def mx_dropless_prefill(layers: int) -> torch.Tensor:
+    """The prefill logits (on the host) of Mixtral-8x7B at ``layers``
+    layers drawn whole from MX_SEED on the card, at a dropless capacity
+    factor, over the decode leg's prompts (one generate of a step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models.model import build_model
+    model = mx_dropless(build_model(get_config("mixtral-8x7b").replace(
+        n_layers=layers)))
+    params = init_params(model, seed=MX_SEED, device="cuda")
+    _, stats, _ = timed_generate(model, params, {
+        "tokens": mx_prompts(model.cfg)}, None, steps=1)
+    out = stats["logits"][0].cpu()
+    del params, stats
+    torch.cuda.empty_cache()
+    return out
 
 
 def logit_gap(toks, logits, want_toks, want_logits):
@@ -2955,8 +3019,8 @@ def ep1_leg(device, run, smi: str, tmp: Path):
     counted; then local and mesh runs in turns for the (1, 1) path's
     overhead, and one more under the collective clock; and, for ep2
     (saved to ``tmp``), its first MoE layer by the local path on
-    MX_BATCH x MX_PROMPT random tokens and one more local generate at a
-    dropless capacity factor. Then one
+    MX_BATCH x MX_PROMPT random tokens and a few entries of the draw.
+    Then one
     DeepSeek-V3 MoE layer at full width (impl="alltoall", ep="2d") on
     EP_DS_WALL tokens, bit for bit the local path's, and its dropless
     output on EP_DS_DROPLESS tokens by the local path, for ep4. Returns
@@ -2988,6 +3052,7 @@ def ep1_leg(device, run, smi: str, tmp: Path):
                 "moe_combine": MX_LAYERS * (MX_STEPS + 1)}
         require(all(counts[k] == n for k, n in want.items()),
                 f"ep1: launches {counts}, expected {want}")
+        tp1_line = tp1_check(model, params, ctx, stats, run, counts)
         walls = {"mesh": [stats], "local": []}
         for name in ("local", "mesh", "local"):
             _, st, _ = timed_generate(model, params, batch,
@@ -2995,19 +3060,18 @@ def ep1_leg(device, run, smi: str, tmp: Path):
             walls[name].append(st)
         with CollectiveClock() as clock:
             _, _, cwall = timed_generate(model, params, batch, ctx)
-        dl_toks, dl_stats, _ = timed_generate(mx_dropless(model), params,
-                                              batch, None)
         mx_peak = torch.cuda.max_memory_allocated(device) / 1e9
         y0, _ = moe.apply_moe(mx_layer0(params), ep_x(
             device, (MX_BATCH, MX_PROMPT), cfg.d_model), cfg)
         half = cfg.moe.d_expert // 2
+        vhalf = cfg.vocab_size // 2
         torch.save({"layer0": y0.cpu(), "draw": mx_draw_heads(params),
                     "w1": {f: mx_draw_heads(params, f)[1]
                            for f in (0, half)},
-                    "dropless": (dl_toks.cpu(), [lg.cpu() for lg in
-                                                 dl_stats["logits"]])},
+                    "embed": {v: params["embed"][v:v + 2, :8].cpu()
+                              for v in (0, vhalf)}},
                    tmp / "ep2_want.pt")
-        del params, stats, y0, dl_stats
+        del params, stats, y0
         torch.cuda.empty_cache()
 
         def span(name, key):
@@ -3083,7 +3147,42 @@ def ep1_leg(device, run, smi: str, tmp: Path):
           f"{ds_cwall * 1e3:.1f} ms: {clock.share(ds_cwall)}; peak "
           f"{ds_peak:.2f} GB; launches {ds_counts} | leg wall "
           f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    print(f"tp1: ({smi}) " + tp1_line, flush=True)
     return counts, y_ref
+
+
+def tp1_check(model, params, ctx, stats, run, counts) -> str:
+    """The ep1 run read as the tp1 leg: Mixtral-8x7B (fsdp, seq_shard)
+    under the (1, 1) mesh takes every dense layout's code path
+    (launch/sharding.leaf_parts resolves each leaf; at one rank every
+    part is the whole leaf, and every collective a group of one), and
+    its tokens and logits are the decode leg's bits (checked by ep1).
+    Returns the tp1 line."""
+    from repro_torch.launch.sharding import (leaf_parts, lays_out,
+                                             param_paths, param_spec)
+    from repro_torch.models.transformer import seq_parallel
+    from repro_torch.utils.tree import leaves
+    cfg = model.cfg
+    shapes = model.param_shapes()
+    paths = param_paths(params)
+    require(lays_out(cfg) and cfg.fsdp and cfg.seq_shard,
+            "tp1: Mixtral's dense layouts are not on")
+    cut = sum(any(a is not None for a in param_spec(cfg, ctx, p, shapes[p]))
+              for p in paths)
+    require(all(not leaf_parts(cfg, ctx, p, shapes[p]) for p in paths),
+            "tp1: a leaf at mesh (1, 1) is not held whole")
+    held = sum(a.numel() * a.element_size() for a in leaves(params))
+    return (f"Mixtral-8x7B ({MX_LAYERS} of 32 layers, fsdp and seq_shard "
+            f"as configured) under the one-rank NCCL mesh (data=1, "
+            f"model=1), the ep1 run: param_spec cuts {cut} of its "
+            f"{len(paths)} leaves (FSDP over data, heads / FFN hidden / "
+            f"vocab over model), each held as its whole leaf at one rank "
+            f"({held / 1e9:.2f} GB, the decode leg's); sequence-parallel "
+            f"residual at {MX_PROMPT} tokens: "
+            f"{seq_parallel(cfg, ctx, MX_PROMPT)} (tp = 1); "
+            f"{MX_BATCH} x {MX_PROMPT} prefill and {MX_STEPS} steps: tokens "
+            f"and all {len(stats['logits'])} logits bit for bit the decode "
+            f"leg's; launches {json.dumps(counts)}")
 
 
 def ep_twin(ctx):
@@ -3114,11 +3213,12 @@ def ep_twin(ctx):
 
 def ep2_rank(rank: int, tmp: str) -> None:
     """One rank of the ep2 leg (spawned): Mixtral-8x7B at the decode
-    leg's width, depth, prompts and steps under the (1, 2) mesh, its
-    experts' hidden dim cut in two as drawn; a warm-up, then one
-    generate between a reset and a read of the launch counts, under the
-    collective clock, and one at a dropless capacity factor; then the
-    reduced f32 twin."""
+    leg's width, prompts and steps, EP2_LAYERS layers, under the (1, 2)
+    mesh, its experts' hidden dim (and its dense layers) cut in
+    two as drawn; a warm-up, then one generate between a reset and a
+    read of the launch counts, under the collective clock; then the
+    reduced f32 twin. Then one generate of a step at a dropless capacity
+    factor, for its prefill's logits."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -3128,7 +3228,7 @@ def ep2_rank(rank: int, tmp: str) -> None:
     from repro_torch.utils.tree import leaves
     ctx = gloo_rank(tmp, "ep2", rank, (1, 2))
     try:
-        cfg = get_config("mixtral-8x7b").replace(n_layers=MX_LAYERS)
+        cfg = get_config("mixtral-8x7b").replace(n_layers=EP2_LAYERS)
         model = build_model(cfg)
         t0 = time.perf_counter()
         params = init_params(model, seed=MX_SEED, device="cuda", ctx=ctx)
@@ -3148,11 +3248,14 @@ def ep2_rank(rank: int, tmp: str) -> None:
         with CollectiveClock() as clock:
             toks, stats, wall = timed_generate(model, params, batch, ctx)
         counts = ops.launch_counts()
-        dl_toks, dl_stats, _ = timed_generate(mx_dropless(model), params,
-                                              batch, ctx)
+        _, dl_stats, _ = timed_generate(mx_dropless(model), params, batch,
+                                        ctx, steps=1)
+        from repro_torch.launch.sharding import leaf_parts
+        emb = leaf_parts(cfg, ctx, ("embed",), (cfg.vocab_size,
+                                                cfg.d_model))
         out = {"describe": ctx.mesh.describe(), "toks": toks.cpu(),
-               "dropless": (dl_toks.cpu(),
-                            [lg.cpu() for lg in dl_stats["logits"]]),
+               "dropless": dl_stats["logits"][0].cpu(),
+               "embed_lo": emb[0].lo if emb else 0,
                "logits": [lg.cpu() for lg in stats["logits"]],
                "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
                "wall": wall, "clock": (clock.s, clock.n), "counts": counts,
@@ -3160,7 +3263,7 @@ def ep2_rank(rank: int, tmp: str) -> None:
                "init_s": init_s, "held_gb": held / 1e9, "w1": w1,
                "path": path, "layer0": y0, "draw": draw,
                "part": moe.expert_part(cfg.moe, ctx, "w1")}
-        del params, stats
+        del params, stats, dl_stats
         torch.cuda.empty_cache()
         out["twin"] = ep_twin(ctx)
         torch.save(out, os.path.join(tmp, f"ep2_rank{rank}.pt"))
@@ -3168,25 +3271,25 @@ def ep2_rank(rank: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def ep2_leg(run, smi: str, tmp: Path):
-    """Two gloo ranks on cuda:0, mesh (1, 2): Mixtral-8x7B's experts'
-    FFN hidden dim cut in two (each rank about 12 GB), the psum of the
+def ep2_leg(smi: str, tmp: Path):
+    """Two gloo ranks on cuda:0, mesh (1, 2): Mixtral-8x7B at EP2_LAYERS
+    layers, its experts' FFN hidden dim cut in two (and its attention
+    heads and vocab: the dense layouts), the psum of the
     bf16 partials in shard order. Each rank's draw holds the entries of
     ep1's whole draw at its part's offset; every rank holds the same
     tokens and logits. The first MoE layer on ep1's random input within
     EP_BF16_TOL of the local path's largest magnitude. At a dropless
     capacity factor the prefill's logits within EP_LOGIT_TOL of the
-    largest magnitude of ep1's local dropless run's. Reported only: the
-    tokens equal to the reference's and the step logits' distance while
-    the tokens fed so far agree, dropless and at the config's 1.25
-    against the decode leg. The randomly drawn router's logits are near
-    uniform, and in bf16 a token's choice of expert flips at a tie when
-    its input moves by one step of bf16; at 1.25 a flipped token also
-    moves which later tokens its expert drops (chip call 2, PR 29: the
-    prefill logits 5.2 off of 6.5 at 1.25, 0.16 dropless). The reduced
-    f32 twin equal to the CPU's sharded run within EP_TWIN_TOL (tokens
-    exact). The line is printed before the checks fail."""
+    largest magnitude of a single-device dropless run of the same depth
+    (:func:`mx_dropless_prefill`, drawn here before the ranks start).
+    The run at the config's 1.25 is held to no single-device run (the
+    decode leg's has 8 layers, and at 1.25 a token whose top-2 choice
+    flips at a bf16 step also moves which later tokens its expert
+    drops). The reduced f32 twin equal to the CPU's
+    sharded run within EP_TWIN_TOL (tokens exact). The line is printed
+    before the checks fail."""
     import torch.multiprocessing as mp
+    want_dl = mx_dropless_prefill(EP2_LAYERS)
     t0 = time.perf_counter()
     mp.spawn(ep2_rank, args=(str(tmp),), nprocs=2, join=True)
     spawn_s = time.perf_counter() - t0
@@ -3197,32 +3300,32 @@ def ep2_leg(run, smi: str, tmp: Path):
     faults = []
     for r, got in enumerate(ranks):
         emb, w1 = got["draw"]
-        if not (torch.equal(emb, want["draw"][0])
+        if not (torch.equal(emb, want["embed"][got["embed_lo"]])
                 and torch.equal(w1, want["w1"][got["part"].lo])):
             faults.append(f"rank {r}: its draw differs from ep1's whole "
                           f"draw at its part")
     same_bits = all(torch.equal(x, y) for x, y in zip(
-        [a["toks"], a["layer0"], *a["logits"], *a["dropless"][1]],
-        [b["toks"], b["layer0"], *b["logits"], *b["dropless"][1]]))
+        [a["toks"], a["layer0"], a["dropless"], *a["logits"]],
+        [b["toks"], b["layer0"], b["dropless"], *b["logits"]]))
     if not same_bits:
         faults.append("the ranks' tokens, logits or first layer differ")
     if a["path"] != "etp":
         faults.append(f"the path is {a['path']}")
-    gap = logit_gap(a["toks"], a["logits"], run["toks"], run["logits"])
-    dl = logit_gap(*a["dropless"], *want["dropless"])
-    if dl["pre"] > EP_LOGIT_TOL * dl["scale"]:
-        faults.append(f"dropless prefill logits {dl['pre']:.4g} off ep1's "
-                      f"local dropless run's (tolerance {EP_LOGIT_TOL} x "
-                      f"{dl['scale']:.4g})")
+    dscale = float(want_dl.float().abs().max())
+    derr = float((a["dropless"].float() - want_dl.float()).abs().max())
+    if derr > EP_LOGIT_TOL * dscale:
+        faults.append(f"dropless prefill logits {derr:.4g} off the single-"
+                      f"device dropless run's (tolerance {EP_LOGIT_TOL} x "
+                      f"{dscale:.4g})")
     y0 = want["layer0"]
     lscale = float(y0.float().abs().max())
     lerr = float((a["layer0"].float() - y0.float()).abs().max())
     if lerr > EP_BF16_TOL * lscale:
         faults.append(f"the first MoE layer is {lerr:.4g} off the local "
                       f"path's (tolerance {EP_BF16_TOL} x {lscale:.4g})")
-    launches = {"swa_decode": MX_LAYERS * MX_STEPS,
-                "moe_dispatch": MX_LAYERS * (MX_STEPS + 1),
-                "moe_combine": MX_LAYERS * (MX_STEPS + 1)}
+    launches = {"swa_decode": EP2_LAYERS * MX_STEPS,
+                "moe_dispatch": EP2_LAYERS * (MX_STEPS + 1),
+                "moe_combine": EP2_LAYERS * (MX_STEPS + 1)}
     for r, got in enumerate(ranks):
         equal, terr = got["twin"]
         if not (equal and terr <= EP_TWIN_TOL):
@@ -3236,15 +3339,15 @@ def ep2_leg(run, smi: str, tmp: Path):
     clock.s, clock.n = a["clock"]
     counts = {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
     print(f"ep2: {a['describe']} (two processes on cuda:0) ({smi}): "
-          f"Mixtral-8x7B ({MX_LAYERS} of 32 layers; each rank holds w1 "
+          f"Mixtral-8x7B ({EP2_LAYERS} of 32 layers; each rank holds w1 "
           f"{a['w1']} of every MoE segment, {a['held_gb']:.2f} GB, drawn in "
           f"{a['init_s']:.2f} s), {MX_BATCH} x {MX_PROMPT} tokens, "
           f"{MX_STEPS} steps; every rank the same bits: {same_bits}; the "
           f"first MoE layer on random tokens max |diff| {lerr:.4g} from "
-          f"the local path's (tolerance {EP_BF16_TOL} x {lscale:.4g}); at "
-          f"capacity 1.25 against the decode leg: " + gap_line(gap)
-          + "; dropless against ep1's local dropless"
-          f" run: " + gap_line(dl, EP_LOGIT_TOL) + f"; prefill "
+          f"the local path's (tolerance {EP_BF16_TOL} x {lscale:.4g}); "
+          f"dropless prefill logits max |diff| {derr:.4g} from a single-"
+          f"device dropless run's (tolerance {EP_LOGIT_TOL} x "
+          f"{dscale:.4g}); prefill "
           f"{a['prefill_s']:.3f} s, decode {a['decode_s']:.3f} s "
           f"({a['decode_s'] / MX_STEPS * 1e3:.2f} ms a step), wall "
           f"{a['wall']:.3f} s: {clock.share(a['wall'])}; peak "
@@ -3374,7 +3477,7 @@ def ep_legs(device, run, smi: str):
         tmp = Path(tmp)
         ep1_counts, y_ref = ep1_leg(device, run, smi, tmp)
         torch.cuda.empty_cache()
-        ep2_counts = ep2_leg(run, smi, tmp)
+        ep2_counts = ep2_leg(smi, tmp)
         ep4_counts = ep4_leg(y_ref, smi, tmp)
     print(f"legs: ep1, ep2, ep4 in {time.perf_counter() - t_legs:.1f} s of "
           f"wall ({smi})", flush=True)
@@ -3551,6 +3654,31 @@ def ept_twin(ctx, name: str, over: dict, opt_name: str, **kw):
     return met_gap, par_gap
 
 
+def ept_grad_parts(cfg, ctx, grads) -> dict:
+    """{leaf: [(axis, lo, hi), ...]} of :func:`ept_layer_grads`' leaves:
+    the parts of the MoE layer's leaves this rank holds
+    (launch/sharding.leaf_parts: the experts, the router's FSDP dim, the
+    shared experts' FSDP and tensor-parallel dims); x's none."""
+    from repro_torch.launch.sharding import leaf_parts
+    from repro_torch.models import moe
+    m, d = cfg.moe, cfg.d_model
+    shapes = {"router": (d, m.n_experts),
+              "shared.w1": (d, m.n_shared * m.d_expert),
+              "shared.w3": (d, m.n_shared * m.d_expert),
+              "shared.w2": (m.n_shared * m.d_expert, d)}
+    for name in moe.EXPERT_LEAVES:
+        shapes[name] = moe._full_shape(m, d, name)
+    out = {}
+    for k in grads:
+        if k == "x":
+            out[k] = []
+            continue
+        path = ("moe",) + tuple(k.split("."))
+        out[k] = [(p.axis, p.lo, p.hi)
+                  for p in leaf_parts(cfg, ctx, path, shapes[k])]
+    return out
+
+
 def ept1_leg(device, smi: str, tmp: Path):
     """A one-rank NCCL world in this process, mesh (data=1, model=1).
     Mixtral-8x7B at the train full leg's width, depth and tokens: EPT_STEPS
@@ -3658,7 +3786,7 @@ def ept1_leg(device, smi: str, tmp: Path):
           f"local path's; peak {ds_peak:.2f} GB; launches "
           f"{json.dumps(ds_counts)} | leg wall "
           f"{time.perf_counter() - t_leg:.1f} s", flush=True)
-    return counts, mx_ref
+    return counts, mx_ref, mx_peak
 
 
 def ept2_rank(rank: int, tmp: str) -> None:
@@ -3688,7 +3816,8 @@ def ept2_rank(rank: int, tmp: str) -> None:
         rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         rec["held_gb"] = held / 1e9
         rec["describe"] = ctx.mesh.describe()
-        rec["parts"] = {i: (sh.axis, sh.lo, sh.hi, a.cpu()) for i, (a, sh)
+        rec["parts"] = {i: ([(c.axis, c.lo, c.hi) for c in sh.cuts],
+                            a.cpu()) for i, (a, sh)
                         in enumerate(zip(leaves(state.params), shards))
                         if sh is not None}
         del state, batches
@@ -3728,9 +3857,11 @@ def ept2_leg(mx_ref, smi: str, tmp: Path):
         faults.append("the ranks' losses or grad norms differ")
     err = 0.0
     for r, got in enumerate(ranks):
-        for i, (axis, lo, hi, part) in got["parts"].items():
-            err = max(err, max_gap(part, mx_ref[i].narrow(axis, lo, hi - lo),
-                                   "cuda"))
+        for i, (cuts, part) in got["parts"].items():
+            want = mx_ref[i]
+            for axis, lo, hi in cuts:
+                want = want.narrow(axis, lo, hi - lo)
+            err = max(err, max_gap(part, want, "cuda"))
         mg, pg = got["twin"]
         if not (mg <= EPT_TWIN_TOL and pg <= EPT_TWIN_TOL):
             faults.append(f"rank {r}: the reduced f32 twin on the card is "
@@ -3752,7 +3883,9 @@ def ept2_leg(mx_ref, smi: str, tmp: Path):
     print(f"ept2: {a['describe']} (two processes on cuda:0) ({smi}): "
           f"Mixtral-8x7B cut to {EPT2_LAYERS} of 32 layers (each rank "
           f"holds {a['held_gb']:.2f} GB of parameters: half of every "
-          f"expert's hidden dim), the train full leg's batches, remat, "
+          f"expert's hidden dim, of the attention heads and of the vocab "
+          f"rows, as param_spec cuts them), the train full leg's "
+          f"batches, remat, "
           f"microbatch 4, adamw: rank 0 " + ept_line(a)
           + f"; every rank's replicated leaves the same bits after each "
           f"step: {a['digests'] == b['digests']}; the expert parts within "
@@ -3800,8 +3933,9 @@ def ept4_rank(rank: int, tmp: str) -> None:
         counts = ops.launch_counts()
         torch.save({k: v.cpu() for k, v in grads.items()},
                    os.path.join(tmp, f"ept4_grads{rank}.pt"))
+        parts = ept_grad_parts(cfg, ctx, grads)
         replicated = {k: bits_digest(v) for k, v in grads.items()
-                      if k not in moe.EXPERT_LEAVES}
+                      if not parts[k]}
         del grads
         with CollectiveClock() as clock, torch_profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
@@ -3819,6 +3953,7 @@ def ept4_rank(rank: int, tmp: str) -> None:
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                "held_gb": expert_bytes(p) / 1e9,
                "part": moe.expert_part(cfg.moe, ctx, "w1"),
+               "parts": parts,
                "path": moe.moe_path(dropless.moe, *EP_DS_DROPLESS, ctx)}
         del p, x, dy
         torch.cuda.empty_cache()
@@ -3877,11 +4012,10 @@ def ept4_leg(device, smi: str, tmp: Path):
     err = {}
     for r, got in enumerate(ranks):
         grads = torch.load(tmp / f"ept4_grads{r}.pt", mmap=True)
-        part = got["part"]
         for k, g in grads.items():
             want = ref[k]
-            if k in moe.EXPERT_LEAVES:
-                want = want.narrow(part.axis, part.lo, part.hi - part.lo)
+            for axis, lo, hi in got["parts"][k]:
+                want = want.narrow(axis, lo, hi - lo)
             err[k] = max(err.get(k, 0.0), max_gap(g, want, device))
         del grads
     del ref
@@ -3922,6 +4056,544 @@ def ept4_leg(device, smi: str, tmp: Path):
     return counts
 
 
+# ------------------------------- the dense layers' layouts (tp1, tp2) --
+
+def shape_key(*args):
+    """The shapes and dtypes of a call's tensors, its other arguments as
+    they are."""
+    return tuple((tuple(a.shape), str(a.dtype).replace("torch.", ""))
+                 if torch.is_tensor(a) else a for a in args)
+
+
+@contextlib.contextmanager
+def first_inputs(kernels, path: str, keep: bool):
+    """While entered: each kernel wrapper of ``kernels`` ((module,
+    function) pairs) tallied by :func:`shape_key`; on exit, where
+    ``keep``, the first inputs of each shape saved to ``path`` on the
+    host, keyed by (module, shape key)."""
+    with contextlib.ExitStack() as stack:
+        tallies = [stack.enter_context(Tally(mod, shape_key, fn=fn))
+                   for mod, fn in kernels]
+        yield
+    if keep:
+        torch.save({(t.name,) + key: tuple(a.cpu() if torch.is_tensor(a)
+                                           else a for a in inputs)
+                    for t in tallies
+                    for key, (_, inputs) in t.shapes.items()}, path)
+
+
+TP_SERVE_KERNELS = (("swa_decode", "swa_decode_attention"),
+                    ("moe_dispatch", "moe_dispatch"),
+                    ("moe_combine", "moe_combine"))
+TP_TRAIN_KERNELS = (("moe_dispatch", "moe_dispatch"),
+                    ("moe_combine", "moe_combine"),
+                    ("moe_dispatch_bwd", "moe_dispatch_bwd"),
+                    ("moe_combine_bwd", "moe_combine_bwd"))
+
+
+def tp2_cfgs():
+    """(the serving model: Mixtral-8x7B at EPT2_LAYERS layers at a
+    dropless capacity factor; the training model at TP2_TRAIN_LAYERS,
+    dropless and with the load-balance loss's weight 0), fsdp and
+    seq_shard as configured. With the batch cut over data each shard
+    fills its experts' queues and averages its load-balance loss over
+    its own rows, as the reference's sharded program does; dropless and
+    at weight 0 the step is the single-device step's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    full = get_config("mixtral-8x7b")
+    train = mx_dropless(build_model(full.replace(
+        n_layers=TP2_TRAIN_LAYERS))).cfg
+    return (mx_dropless(build_model(full.replace(n_layers=EPT2_LAYERS))),
+            build_model(train.replace(moe=dataclasses.replace(
+                train.moe, router_aux_weight=0.0))))
+
+
+def tp2_f32_serve(ctx):
+    """The f32 twin of tp2's serving run: its model in f32 drawn from
+    MX_SEED (this rank's parts under ``ctx``; whole where None), over the
+    decode leg's prompts, which fill its 4096-slot ring, and TP_F32_STEPS
+    greedy steps, each of which overwrites a slot: (tokens, logits, wall
+    s) on the host."""
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models.model import build_model
+    serve, _ = tp2_cfgs()
+    model = build_model(serve.cfg.replace(dtype="float32"))
+    params = init_params(model, seed=MX_SEED, device="cuda", ctx=ctx)
+    toks, stats, wall = timed_generate(model, params, {
+        "tokens": mx_prompts(model.cfg)}, ctx, steps=TP_F32_STEPS)
+    out = (toks.cpu(), [lg.cpu() for lg in stats["logits"]], wall)
+    del params, stats
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def first_attention():
+    """While entered: the first attention block's output as block_seq
+    adds it to the residual stream (the first call of models/
+    transformer's ``leave_region``: layer 0's attention in a prefill),
+    kept on the host with the call's ``seq`` (True: this rank's rows of
+    the sequence)."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import transformer
+    fn = transformer.leave_region
+    got = SimpleNamespace(out=None, seq=None)
+
+    def hook(y, ctx, *, seq, local, **kw):
+        out = fn(y, ctx, seq=seq, local=local, **kw)
+        if got.out is None:
+            got.out, got.seq = out.detach().cpu(), seq
+        return out
+    transformer.leave_region = hook
+    try:
+        yield got
+    finally:
+        transformer.leave_region = fn
+
+
+def tp2_rank(rank: int, tmp: str) -> None:
+    """One rank of the tp2 leg (spawned; two gloo ranks on cuda:0). Mesh
+    (1, 2): the serving model drawn from MX_SEED as this rank's parts,
+    a warm-up (its first attention block kept: :func:`first_attention`),
+    then generate over the decode leg's prompts and steps between a
+    reset and a read of the launch counts, under the collective clock,
+    its kernels' first inputs kept by shape (rank 0's,
+    :func:`first_inputs`); then its f32 twin (:func:`tp2_f32_serve`).
+    Mesh (2, 1) in the same world: the training model drawn from
+    TF_SEED (FSDP over data), one train step of TP2_BATCH x TF_SEQ
+    tokens (microbatch 4, each microbatch's rows cut over data), timed
+    under the clock, launches counted and kernel inputs kept; then every
+    parameter part this rank holds after the step and its part of
+    adamw's first moment (in bf16), with its cuts (rank 0 also the
+    whole leaves)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.sharding import make_ctx, param_shards
+    from repro_torch.launch.train import TrainState, make_train_step
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.mesh import make_mesh
+    from repro_torch.utils.tree import leaves
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "tp2_store"), 2), rank=rank, world_size=2)
+    try:
+        out = {}
+        serve, train = tp2_cfgs()
+        ctx = make_ctx(make_mesh((1, 2), EP_AXES, backend="gloo"))
+        params = init_params(serve, seed=MX_SEED, device="cuda", ctx=ctx)
+        held = sum(a.numel() * a.element_size() for a in leaves(params))
+        batch = {"tokens": mx_prompts(serve.cfg)}
+        with first_attention() as attn:                       # warm-up
+            timed_generate(serve, params, batch, ctx, steps=2)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with first_inputs(TP_SERVE_KERNELS, os.path.join(
+                tmp, "tp2_serve_inputs.pt"), rank == 0), \
+                CollectiveClock() as clock:
+            toks, stats, wall = timed_generate(serve, params, batch, ctx,
+                                               steps=MX_STEPS)
+        out["serve"] = {
+            "describe": ctx.mesh.describe(), "toks": toks.cpu(),
+            "attn": attn.out, "attn_seq": attn.seq,
+            "logits": [lg.cpu() for lg in stats["logits"]],
+            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+            "wall": wall, "clock": (clock.s, clock.n),
+            "counts": ops.launch_counts(), "held_gb": held / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del params, stats
+        torch.cuda.empty_cache()
+        out["serve"]["f32"] = tp2_f32_serve(ctx)
+
+        ctx = make_ctx(make_mesh((2, 1), EP_AXES, backend="gloo"))
+        cfg = train.cfg
+        opt = build_optimizer(cfg.optimizer, TF_LR)
+        params = init_params(train, seed=TF_SEED, device="cuda", ctx=ctx)
+        held = sum(a.numel() * a.element_size() for a in leaves(params))
+        shards = param_shards(params, cfg, ctx)
+        state = TrainState(params, opt.init(params),
+                           torch.zeros((), dtype=torch.int32, device="cuda"))
+        batch = train_batches(TF_SEED, cfg.vocab_size, TP2_BATCH,
+                              TF_SEQ + 1, 1, "cuda")[0]
+        step = make_train_step(train, ctx, opt)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with first_inputs(TP_TRAIN_KERNELS, os.path.join(
+                tmp, "tp2_train_inputs.pt"), rank == 0), \
+                CollectiveClock() as clock:
+            sync()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            sync()
+            wall = time.perf_counter() - t0
+        out["train"] = {
+            "describe": ctx.mesh.describe(), "loss": float(met["loss"]),
+            "grad_norm": float(met["grad_norm"]), "wall": wall,
+            "clock": (clock.s, clock.n), "counts": ops.launch_counts(),
+            "held_gb": held / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "digests": replicated_digests(state.params, shards),
+            "cut": sum(sh is not None for sh in shards),
+            "leaves": len(shards),
+            "parts": {i: ([(c.axis, c.lo, c.hi) for c in sh.cuts]
+                          if sh is not None else [], a.cpu(),
+                          m.to(torch.bfloat16).cpu())
+                      for i, (a, m, sh) in enumerate(zip(
+                          leaves(state.params), leaves(state.opt["m"]),
+                          shards))
+                      if sh is not None or rank == 0}}
+        del state, params
+        torch.cuda.empty_cache()
+        torch.save(out, os.path.join(tmp, f"tp2_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp2_reference(device):
+    """The single-device runs tp2 is held to, on the card: the serving
+    model drawn whole from MX_SEED through generate (a warm-up, whose
+    first attention block is kept, then tokens, logits, the parameters'
+    bytes, the peak), its f32 twin (:func:`tp2_f32_serve`), then the
+    training model's one step from TF_SEED's whole draw on tp2's batch
+    (loss, grad norm, the parameters after it and adamw's first moment,
+    the step's gradient scaled, in bf16 on the host, the parameters'
+    bytes, the peak)."""
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.train import TrainState, make_train_step
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import leaves
+    serve, train = tp2_cfgs()
+    params = init_params(serve, seed=MX_SEED, device=device)
+    held = sum(a.numel() * a.element_size() for a in leaves(params))
+    batch = {"tokens": mx_prompts(serve.cfg)}
+    with first_attention() as attn:                           # warm-up
+        timed_generate(serve, params, batch, None, steps=2)
+    sync()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    toks, stats, wall = timed_generate(serve, params, batch, None,
+                                       steps=MX_STEPS)
+    peak = torch.cuda.max_memory_allocated(device)
+    out = {"toks": toks.cpu(), "logits": [lg.cpu() for lg in
+                                          stats["logits"]],
+           "attn": attn.out, "held_gb": held / 1e9, "wall": wall,
+           "peak_gb": peak / 1e9, "over_gb": (peak - base) / 1e9}
+    del params, stats
+    torch.cuda.empty_cache()
+    out["f32"] = tp2_f32_serve(None)
+    cfg = train.cfg
+    opt = build_optimizer(cfg.optimizer, TF_LR)
+    params = init_params(train, seed=TF_SEED, device=device)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=device))
+    batch = train_batches(TF_SEED, cfg.vocab_size, TP2_BATCH, TF_SEQ + 1,
+                          1, device)[0]
+    torch.cuda.reset_peak_memory_stats(device)
+    sync()
+    t0 = time.perf_counter()
+    state, met = make_train_step(train, None, opt)(state, batch)
+    sync()
+    out.update(train_wall=time.perf_counter() - t0,
+               loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+               train_held_gb=sum(a.numel() * a.element_size()
+                                 for a in leaves(state.params)) / 1e9,
+               train_peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+               train_params=[a.cpu() for a in leaves(state.params)],
+               train_m=[m.to(torch.bfloat16).cpu()
+                        for m in leaves(state.opt["m"])])
+    del state, params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_kernel_checks(path: Path, rounds: int):
+    """Each kernel's first inputs at every shape the tp2 ranks gave it
+    (``path``, rank 0's): the kernel against its plain version on the
+    card (swa_decode within 2e-2 of the largest output in bf16, 2e-5 in
+    f32; moe_dispatch and moe_combine (top-2) and moe_dispatch_bwd bit
+    for bit; moe_combine_bwd's dybuf bit for bit, its dgates within 1e-5
+    of the largest), each timed (device time by graph replay, CUDA
+    events over ``rounds`` calls) beside the plain version and its
+    bound (:func:`tp_kernel_work`). Returns the lines' entries."""
+    from repro_torch.kernels import moe_combine as mc
+    from repro_torch.kernels import moe_combine_bwd as mcb
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import moe_dispatch_bwd as mdb
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_decode as sw
+    first = torch.load(path, weights_only=False)
+    out = []
+    for key, args in first.items():
+        name = key[0]
+        a = tuple(t.cuda() if torch.is_tensor(t) else t for t in args)
+        if name == "swa_decode":
+            kern = lambda: sw.swa_decode_attention(*a)   # noqa: E731
+            plain = lambda: ref.swa_decode_attention(*a)   # noqa: E731
+            tol = 2e-2 if a[0].dtype == torch.bfloat16 else 2e-5
+        elif name == "moe_dispatch":
+            kern = lambda: md.moe_dispatch(*a)   # noqa: E731
+            plain = lambda: ref.moe_dispatch(*a)   # noqa: E731
+            tol = 0.0
+        elif name == "moe_combine":
+            kern = lambda: mc.moe_combine(*a)   # noqa: E731
+            plain = lambda: ref.moe_combine(*a)   # noqa: E731
+            tol = 0.0
+        elif name == "moe_dispatch_bwd":
+            dbuf, slot, keep, top_k = a
+            kern = lambda: mdb.moe_dispatch_bwd(*a)   # noqa: E731
+            plain = lambda: ref.moe_dispatch_bwd(   # noqa: E731
+                dbuf, slot, keep, slot.numel() // top_k, top_k, dbuf.dtype)
+            tol = 0.0
+        else:
+            kern = lambda: mcb.moe_combine_bwd(*a)   # noqa: E731
+            plain = lambda: ref.moe_combine_bwd(*a)   # noqa: E731
+            tol = None
+        got, want = kern(), plain()
+        sync()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want)]
+        scale = [float(w.float().abs().max()) for w in want]
+        if tol is None:       # dybuf exact, dgates within 1e-5
+            ok = errs[0] == 0.0 and errs[1] <= 1e-5 * max(scale[1], 1e-30)
+        else:
+            ok = all(e <= tol * max(sc, 1e-30) for e, sc in zip(errs, scale))
+        shape = ", ".join(f"{tuple(t.shape)}" for t in a
+                          if torch.is_tensor(t))
+        require(ok, f"tp kernels: {name} at ({shape}) differs from its "
+                    f"plain version by {errs}")
+        bms, by = bound(*tp_kernel_work(name, a))
+        out.append(f"{name} ({shape}; {str(a[0].dtype).replace('torch.', '')})"
+                   f": max |diff| {max(errs):.3e} from the plain version, "
+                   f"device ms={graph_ms(kern):.4f} (graph replay), "
+                   f"ms={time_ms(kern, rounds):.4f} "
+                   f"plain_ms={time_ms(plain, rounds):.4f} "
+                   f"bound_ms={bms:.5f} ({by})")
+        del a, got, want
+    return out
+
+
+def tp_kernel_work(name: str, a) -> tuple:
+    """(bytes, f32 operations) the call of kernel ``name`` on ``a`` needs,
+    counted as the kernel lines of the other legs count them: each row
+    a call reads once (only the rows its routing names), its small
+    inputs and its outputs once."""
+    if name == "swa_decode":
+        q, kw, vw, bias = a[:4]
+        b, h, dh = q.shape
+        return (q.element_size() * (2 * q.numel() + kw.numel() + vw.numel())
+                + 4 * bias.numel(), 4 * b * h * kw.shape[1] * dh)
+    if name == "moe_dispatch":
+        x, src, valid = a
+        S, d = src.shape[0], x.shape[1]
+        rows = int(torch.unique(src[valid]).numel())
+        return x.element_size() * (rows + S) * d + 5 * S, 0
+    if name == "moe_combine":
+        return combine_work(a[0], a[1], a[3])
+    if name == "moe_dispatch_bwd":
+        dbuf, slot, keep, top_k = a
+        N, d = slot.shape[0], dbuf.shape[1]
+        kept = int(keep.sum())
+        return (dbuf.element_size() * (kept + N // top_k) * d + 5 * N,
+                kept * d)
+    dout, ybuf, src_entry, valid, w, top_k = a
+    S, d = ybuf.shape
+    N, kept = w.shape[0], int(valid.sum())
+    tokens = int(torch.unique(src_entry[valid] // top_k).numel())
+    esz = ybuf.element_size()
+    return (4 * tokens * d + esz * kept * d + 5 * S + 8 * N + esz * S * d,
+            3 * kept * d)
+
+
+def tp2_leg(device, smi: str, tmp: Path, train_peak: float):
+    """Two gloo ranks on cuda:0 (collectives staged through the host),
+    Mixtral-8x7B with its fsdp and seq_shard. Mesh (1, 2), at
+    EPT2_LAYERS layers: tensor and sequence parallelism, the decode
+    leg's prompts and steps at a dropless capacity factor; mesh (2, 1),
+    at TP2_TRAIN_LAYERS (dropless, load-balance weight 0:
+    :func:`tp2_cfgs`): FSDP and the batch cut over data, one train step.
+    Held to the single-device runs of :func:`tp2_reference`: both
+    ranks the same tokens and logits (bf16 and f32), and the same loss,
+    grad norm and replicated leaves' bits; within TP_TOL of the
+    single-device run's largest magnitude: the prefill's logits, the
+    first layer's attention block as generate's prefill ran it (its
+    rows put together from the ranks' sequence parts), the loss and the
+    grad norm (relative) and every parameter part after the step (of the
+    same slice of the single-device step's leaf); within TP_GRAD_TOL
+    each part of adamw's first moment, (1 - b1) times the step's clipped
+    gradient (after one step a parameter differs by at most about 2 lr
+    where a gradient's sign flips, so the moment carries the check of
+    the gradient's reductions); the f32 twin's tokens equal and its
+    logits at every step within TP_F32_TOL of the largest; each rank's
+    parameters below the single-device draw's bytes. The bf16 decode
+    steps' logits against the single-device run are reported only:
+    top-2 routing over the random router flips a token's experts where
+    a bf16 rounding step moves its input, which then feeds other tokens
+    back. The kernels at the ranks' shapes are held to their plain
+    versions (:func:`tp_kernel_checks`). ``train_peak``: the one-rank
+    train full leg's peak (ept1), for the line. Returns both ranks'
+    launch counts."""
+    import torch.multiprocessing as mp
+    t_leg = time.perf_counter()
+    ref = tp2_reference(device)
+    print(f"card memory before the tp2 ranks: {ept_release()}", flush=True)
+    t0 = time.perf_counter()
+    mp.spawn(tp2_rank, args=(str(tmp),), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"tp2_rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    a, b = ranks
+    faults = []
+    sa, sb = a["serve"], b["serve"]
+    if not (torch.equal(sa["toks"], sb["toks"]) and all(
+            torch.equal(x, y) for x, y in zip(sa["logits"], sb["logits"]))):
+        faults.append("the ranks' tokens or logits differ")
+    ta, tb = a["train"], b["train"]
+    if (ta["loss"], ta["grad_norm"], ta["digests"]) != (
+            tb["loss"], tb["grad_norm"], tb["digests"]):
+        faults.append("the ranks' loss, grad norm or replicated leaves "
+                      "differ")
+    gap = logit_gap(sa["toks"], sa["logits"], ref["toks"], ref["logits"])
+    if gap["pre"] > TP_TOL * gap["scale"]:
+        faults.append(f"the prefill logits are {gap['pre']:.4g} off the "
+                      f"single-device run's (tolerance {TP_TOL} x "
+                      f"{gap['scale']:.4g})")
+    if sa["attn_seq"]:
+        attn = torch.cat([sa["attn"], sb["attn"]], dim=1)
+    else:
+        attn = sa["attn"]
+        if not torch.equal(sa["attn"], sb["attn"]):
+            faults.append("the ranks' attention blocks differ")
+    ascale = float(ref["attn"].float().abs().max())
+    aerr = (float((attn.float() - ref["attn"].float()).abs().max())
+            if attn.shape == ref["attn"].shape else float("inf"))
+    if aerr > TP_TOL * ascale:
+        faults.append(f"the attention block {tuple(attn.shape)} is "
+                      f"{aerr:.4g} off the single-device block's "
+                      f"{tuple(ref['attn'].shape)} (tolerance {TP_TOL} x "
+                      f"{ascale:.4g})")
+    (ft, fl, fwall), (mt, ml, mwall) = ref["f32"], sa["f32"]
+    if not (torch.equal(mt, sb["f32"][0]) and all(
+            torch.equal(x, y) for x, y in zip(ml, sb["f32"][1]))):
+        faults.append("the ranks' f32 tokens or logits differ")
+    fscale = max(float(lg.abs().max()) for lg in fl)
+    ferr = max(float((x - y).abs().max()) for x, y in zip(ml, fl))
+    fequal = int((mt == ft).sum())
+    if not (fequal == ft.numel() and ferr <= TP_F32_TOL * fscale):
+        faults.append(f"the f32 twin: {fequal} of {ft.numel()} tokens "
+                      f"equal, logits {ferr:.4g} off (tolerance "
+                      f"{TP_F32_TOL} x {fscale:.4g})")
+    perr = merr = 0.0
+    for got in (ta, tb):
+        for i, (cuts, part, m) in got["parts"].items():
+            want, want_m = ref["train_params"][i], ref["train_m"][i]
+            for axis, lo, hi in cuts:
+                want = want.narrow(axis, lo, hi - lo)
+                want_m = want_m.narrow(axis, lo, hi - lo)
+            perr = max(perr, max_gap(part, want, device))
+            merr = max(merr, max_gap(m, want_m, device))
+    if perr > TP_TOL or merr > TP_GRAD_TOL:
+        faults.append(f"a parameter part after the step is {perr:.4g}, and "
+                      f"a part of adamw's first moment {merr:.4g}, of its "
+                      f"slice's largest magnitude off the single-device "
+                      f"step's (tolerances {TP_TOL}, {TP_GRAD_TOL})")
+    lerr = abs(ta["loss"] - ref["loss"]) / abs(ref["loss"])
+    gerr = abs(ta["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+    if max(lerr, gerr) > TP_TOL:
+        faults.append(f"the loss {ta['loss']:.6f} / grad norm "
+                      f"{ta['grad_norm']:.6f} are {lerr:.3e} / {gerr:.3e} "
+                      f"off the single-device {ref['loss']:.6f} / "
+                      f"{ref['grad_norm']:.6f}")
+    for r, got in enumerate(ranks):
+        for part, whole in (("serve", ref["held_gb"]),
+                            ("train", ref["train_held_gb"])):
+            if not got[part]["held_gb"] < whole:
+                faults.append(f"rank {r} {part}: {got[part]['held_gb']:.2f}"
+                              f" GB held, not below {whole:.2f}")
+    L, T, mb = EPT2_LAYERS, TP2_TRAIN_LAYERS, 4
+    want = {"serve": {"swa_decode": L * MX_STEPS,
+                      "moe_dispatch": L * (MX_STEPS + 1),
+                      "moe_combine": L * (MX_STEPS + 1)},
+            "train": {"moe_dispatch": 2 * T * mb, "moe_combine": 2 * T * mb,
+                      "moe_combine_bwd": T * mb,
+                      "moe_dispatch_bwd": T * mb}}
+    for r, got in enumerate(ranks):
+        for part, w in want.items():
+            if any(got[part]["counts"][k] != n for k, n in w.items()):
+                faults.append(f"rank {r} {part}: launches "
+                              f"{got[part]['counts']}, expected {w}")
+    clocks = {}
+    for part in ("serve", "train"):
+        clocks[part] = CollectiveClock()
+        clocks[part].s, clocks[part].n = a[part]["clock"]
+    t1 = time.perf_counter()
+    kern = tp_kernel_checks(tmp / "tp2_serve_inputs.pt", 20) \
+        + tp_kernel_checks(tmp / "tp2_train_inputs.pt", 20)
+    check_s = time.perf_counter() - t1
+    counts = {k: sum(r[part]["counts"][k] for r in ranks
+                     for part in ("serve", "train")) for k in
+              sa["counts"]}
+    print(f"tp2 serve: {sa['describe']} (two processes on cuda:0) ({smi}): "
+          f"Mixtral-8x7B cut to {EPT2_LAYERS} of 32 layers, tensor and "
+          f"sequence parallel (heads, expert hidden dim and vocab over "
+          f"model, the residual cut on the sequence), dropless, "
+          f"{MX_BATCH} x {MX_PROMPT} tokens and {MX_STEPS} steps; both "
+          f"ranks the same tokens and logits; the first layer's attention "
+          f"block in the prefill max |diff| {aerr:.4g} from the single-"
+          f"device block's (tolerance {TP_TOL} x {ascale:.4g}); against "
+          f"the single-device run (prefill held, steps reported): "
+          + gap_line(gap, TP_TOL) + f"; f32 twin ({TP_F32_STEPS} steps "
+          f"over the full ring): {fequal} of {ft.numel()} tokens equal, "
+          f"logits max |diff| {ferr:.4g} (tolerance {TP_F32_TOL} x "
+          f"{fscale:.4g}), wall {mwall:.3f} s (single device "
+          f"{fwall:.3f} s); parameters "
+          f"{sa['held_gb']:.2f} + {sb['held_gb']:.2f} GB a rank (single "
+          f"device {ref['held_gb']:.2f} GB); peak {sa['peak_gb']:.2f} + "
+          f"{sb['peak_gb']:.2f} GB (single device {ref['peak_gb']:.2f} GB, "
+          f"{ref['over_gb']:.2f} GB over its parameters); prefill "
+          f"{sa['prefill_s']:.3f} s, decode {sa['decode_s']:.3f} s, wall "
+          f"{sa['wall']:.3f} s (single device {ref['wall']:.3f} s): "
+          f"{clocks['serve'].share(sa['wall'])}; launches by rank "
+          f"{json.dumps(sa['counts'])} {json.dumps(sb['counts'])}",
+          flush=True)
+    print(f"tp2 train: {ta['describe']} ({smi}): Mixtral-8x7B at "
+          f"{TP2_TRAIN_LAYERS} layer (dropless, load-balance weight 0), "
+          f"FSDP over data ({ta['cut']} of its "
+          f"{ta['leaves']} leaves cut), one step of {TP2_BATCH} x {TF_SEQ} "
+          f"tokens, microbatch 4 (each microbatch's 2 rows cut over data), "
+          f"remat, adamw lr {TF_LR}: loss {ta['loss']:.6f}, grad norm "
+          f"{ta['grad_norm']:.6f} (single device {ref['loss']:.6f}, "
+          f"{ref['grad_norm']:.6f}: {lerr:.3e}, {gerr:.3e} off; tolerance "
+          f"{TP_TOL}), both ranks the same bits and the same replicated "
+          f"leaves; every parameter part after the step within {perr:.3e} "
+          f"of its slice's largest magnitude of the single-device step's "
+          f"(tolerance {TP_TOL}), and of adamw's first moment (the step's "
+          f"gradient) within {merr:.3e} (tolerance {TP_GRAD_TOL}); "
+          f"parameters "
+          f"{ta['held_gb']:.2f} + "
+          f"{tb['held_gb']:.2f} GB "
+          f"a rank (single device {ref['train_held_gb']:.2f} GB); peak "
+          f"{ta['peak_gb']:.2f} + {tb['peak_gb']:.2f} GB (single device "
+          f"{ref['train_peak_gb']:.2f} GB, its step {ref['train_wall']:.3f}"
+          f" s; the one-rank train full leg at 2 layers {train_peak:.2f} "
+          f"GB); step wall {ta['wall']:.3f} s: "
+          f"{clocks['train'].share(ta['wall'])}; "
+          f"launches by rank {json.dumps(ta['counts'])} "
+          f"{json.dumps(tb['counts'])}", flush=True)
+    print(f"tp kernels ({smi}): at the tp2 ranks' shapes (rank 0's first "
+          f"inputs a shape, checked on the card after the ranks exit, "
+          f"{check_s:.1f} s): " + "; ".join(kern), flush=True)
+    print(f"tp2: {spawn_s:.1f} s from spawn to join, leg wall "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    require(not faults, "tp2: " + "; ".join(faults))
+    return counts
+
+
 def card_memory() -> str:
     """What this process holds on the card: allocated and reserved."""
     return (f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
@@ -3939,8 +4611,9 @@ def ept_release() -> str:
 
 
 def ept_legs(device, smi: str):
-    """The legs that train under a mesh: ept1, ept2 and ept4. Returns
-    their launch counts, by leg. The spawned ranks allocate with
+    """The legs that train under a mesh: ept1, ept2 and ept4, then tp2
+    (the dense layouts on two ranks). Returns their launch counts, by
+    leg. The spawned ranks allocate with
     expandable segments, so that four of them leave little reserved and
     unused."""
     t_legs = time.perf_counter()
@@ -3950,20 +4623,23 @@ def ept_legs(device, smi: str):
     try:
         with tempfile.TemporaryDirectory() as tmp:
             tmp = Path(tmp)
-            ept1_counts, mx_ref = ept1_leg(device, smi, tmp)
+            ept1_counts, mx_ref, mx_peak = ept1_leg(device, smi, tmp)
             print(f"card memory before ept2: {ept_release()}", flush=True)
             ept2_counts = ept2_leg(mx_ref, smi, tmp)
             del mx_ref
             print(f"card memory before ept4: {ept_release()}", flush=True)
             ept4_counts = ept4_leg(device, smi, tmp)
+            print(f"card memory before tp2: {ept_release()}", flush=True)
+            tp2_counts = tp2_leg(device, smi, tmp, mx_peak)
     finally:
         if saved is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
-    print(f"legs: ept1, ept2, ept4 in {time.perf_counter() - t_legs:.1f} s "
-          f"of wall ({smi})", flush=True)
-    return {"ept1": ept1_counts, "ept2": ept2_counts, "ept4": ept4_counts}
+    print(f"legs: ept1, ept2, ept4, tp2 in {time.perf_counter() - t_legs:.1f}"
+          f" s of wall ({smi})", flush=True)
+    return {"ept1": ept1_counts, "ept2": ept2_counts, "ept4": ept4_counts,
+            "tp2": tp2_counts}
 
 
 def drift_stats(sess):

@@ -102,9 +102,9 @@ def model_params(np_tree, device="cuda", *, cfg=None, ctx=None):
     """A JAX ``Model.init`` pytree (dicts, with ``segments`` a tuple of
     dicts of layer-stacked arrays; leaves as numpy) as the port's
     parameters: the same nesting, every leaf a tensor of its own dtype
-    on ``device``. Under a mesh ``ctx`` (with the model's ``cfg``) each
-    MoE layer's expert leaves are cut to this rank's part on the host,
-    before they reach ``device`` (``launch.sharding.shard_params``)."""
+    on ``device``. Under a mesh ``ctx`` (with the model's ``cfg``) every
+    leaf is cut to this rank's parts on the host, before it reaches
+    ``device`` (``launch.sharding.shard_params``)."""
     if ctx is not None and ctx.mesh is not None:
         from repro_torch.launch.sharding import shard_params
         np_tree = shard_params(np_tree, cfg, ctx)
@@ -117,16 +117,16 @@ def train_state(np_state, device="cuda", *, cfg=None, ctx=None):
     :func:`model_params`, the optimizer's tree (adamw's ``{"m", "v"}``,
     sgd's ``{}`` or ``{"m"}``, adafactor's ``{"f": ...}``) leaf for leaf
     in its own dtypes, the step as a 0-dim int32 tensor. Under a mesh
-    ``ctx`` (with the model's ``cfg``) each expert leaf and its optimizer
-    state are cut to this rank's part on the host, as the reference's
+    ``ctx`` (with the model's ``cfg``) every leaf and its optimizer state
+    are cut to this rank's parts on the host, as the reference's
     ``opt_specs`` lays a sharded run's state out: adamw's moments as the
     parameter, adafactor's ``r`` without the last dim's cut, ``c``
     without the second to last's (``launch.sharding.shard_params``)."""
     from repro_torch.launch.train import TrainState
     params, opt, step = np_state
     if ctx is not None and ctx.mesh is not None:
-        from repro_torch.launch.sharding import shard_params
-        opt = shard_params(opt, cfg, ctx)
+        from repro_torch.launch.sharding import leaf_shapes, shard_params
+        opt = shard_params(opt, cfg, ctx, shapes=leaf_shapes(params))
     return TrainState(model_params(params, device, cfg=cfg, ctx=ctx),
                       tree_map(lambda a: _tensor(a, device), opt),
                       torch.tensor(int(np.asarray(step)), dtype=torch.int32,

@@ -14,10 +14,15 @@ kernel; an MLA model (DeepSeek-V3) over its latent cache, in the
 absorbed form.
 
 Under a ``DistCtx`` with a ``utils.mesh.Mesh`` (``launch.sharding.
-make_ctx``) every rank runs ``generate`` on the whole batch, holding its
-part of each MoE layer's experts (``init_params(..., ctx=ctx)``), and
-every MoE layer takes the reference's expert-parallel path for the mesh
-(``models/moe.py``): every rank returns the same tokens.
+make_ctx``) every rank holds its parts of each leaf (``init_params(...,
+ctx=ctx)``: the dense layers tensor-parallel and FSDP-cut, the MoE
+layers' experts on the reference's expert-parallel paths), is given the
+same global batch and runs ``generate`` on its rows of it where they
+divide over the ``dp`` axes (``launch.sharding.cut_batch``; its decode
+cache holds those rows and the kv heads of ``launch.sharding.
+cache_spec``), else on the whole batch; the tokens (and ``stats``'
+logits) are gathered over ``dp`` at the end, so that every rank returns
+the same tokens.
 
 The batch holds ``tokens`` (B, S) and the family's inputs: for the
 encdec family (Whisper) ``enc_embeds`` (B, n_ctx, d), the frame
@@ -34,6 +39,7 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.launch.sharding import cut_batch
 from repro_torch.models.common import DistCtx
 from repro_torch.models.model import Model
 from repro_torch.utils.prng import StepGumbel
@@ -42,9 +48,9 @@ from repro_torch.utils.prng import StepGumbel
 def init_params(model: Model, seed: int = 0, device="cuda",
                 ctx: Optional[DistCtx] = None):
     """The model's parameters drawn from a generator seeded with
-    ``seed`` on ``device``; under a mesh ``ctx``, with this rank's part
-    of each MoE layer's experts (the same bits as that part of the
-    draw without a mesh)."""
+    ``seed`` on ``device``; under a mesh ``ctx``, this rank's parts of
+    each leaf (the same bits as those parts of the draw without a
+    mesh)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -98,7 +104,8 @@ def generate(model: Model, params, batch, *, steps: int,
     JAX package's ``key``). If ``stats`` is a dict, it receives the wall
     seconds of the prefill (``prefill_s``) and of the decode loop
     (``decode_s``), each ending in a device sync, the logits of the
-    prefill and of every step (``logits``) and the final ``cache``."""
+    prefill and of every step (``logits``, the whole batch's) and the
+    final ``cache`` (this rank's)."""
     ctx = ctx or DistCtx.local()
     device = params["embed"].device
     if not greedy and key is None:
@@ -106,16 +113,23 @@ def generate(model: Model, params, batch, *, steps: int,
                          "a key: an int seed or a noise source")
     noise = StepGumbel(key) if isinstance(key, int) else key
     model.decode_room = steps + 1
-    prefill = make_prefill(model, ctx)
-    step = make_serve_step(model, ctx)
     inputs = {name: torch.as_tensor(batch[name]).to(device)
               for name in _INPUTS if name in batch}
+    B = inputs["tokens"].shape[0]
+    ctx, inputs = cut_batch(model.cfg, ctx, inputs)
+    rows = slice(0, B)
+    if ctx.batch_cut:
+        n = B // ctx.dp_size
+        i = ctx.mesh.index(tuple(ctx.dp))
+        rows = slice(i * n, (i + 1) * n)
+    prefill = make_prefill(model, ctx)
+    step = make_serve_step(model, ctx)
     t0 = time.perf_counter()
     logits, cache = prefill(params, {**batch, **inputs})
+    seen = [logits]
     if stats is not None:
         _sync(device)
         stats["prefill_s"] = time.perf_counter() - t0
-        stats["logits"] = [logits]
         t0 = time.perf_counter()
     toks = []
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -123,13 +137,21 @@ def generate(model: Model, params, batch, *, steps: int,
         toks.append(tok)
         logits, cache = step(params, cache, tok)
         if stats is not None:
-            stats["logits"].append(logits)
+            seen.append(logits)
         if not greedy:
-            logits = noise.draw(i, logits.shape, logits.dtype,
-                                device) + logits
+            logits = noise.draw(i, (B,) + tuple(logits.shape[1:]),
+                                logits.dtype, device)[rows] + logits
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = torch.stack(toks, dim=1)
     if stats is not None:
         _sync(device)
         stats["decode_s"] = time.perf_counter() - t0
         stats["cache"] = cache
-    return torch.stack(toks, dim=1)
+    if ctx.batch_cut:
+        g = ctx.mesh.group(tuple(ctx.dp))
+        out = g.all_gather(out)
+        if stats is not None:
+            seen = list(g.all_gather(torch.stack(seen), dim=1).unbind(0))
+    if stats is not None:
+        stats["logits"] = seen
+    return out

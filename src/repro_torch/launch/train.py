@@ -19,17 +19,21 @@ the clip write into the state's tensors (``optim.optimizers``), so the
 returned state holds the same tensors as the one given.
 
 Under a ``DistCtx`` with a ``utils.mesh.Mesh`` (``launch/sharding.
-make_ctx``) every rank runs the step on the whole batch, as the
-reference's ``train_step`` jitted with ``batch_specs`` lays it out: each
-microbatch keeps the replicated layout, and each MoE layer takes its
-``dp`` rows of it. The parameters hold this rank's part of each expert
-leaf (``init_params(..., ctx=)``, ``convert.train_state(..., cfg=,
-ctx=)``); the MoE layers' collectives carry the gradient
-(``models/moe.py``), so every replicated leaf's gradient is whole and
-the same bits on every rank, and each expert part's is that part of the
-whole leaf's. The clip and the optimizer see the whole leaves
-(``launch/sharding.param_shards``): the loss, the grad norm and every
-replicated leaf are the same bits on every rank.
+make_ctx``) every rank is given the same global batch and takes its
+rows over the ``dp`` axes where they divide (``launch/sharding.
+cut_batch``, the reference's ``batch_specs``), microbatch by microbatch:
+microbatch i is rows i * B / mb to (i + 1) * B / mb of the global batch,
+as the reference's jitted step splits its global array, and this rank
+runs its ``dp`` rows of it (the whole microbatch where they do not
+divide). The parameters hold this rank's parts of every leaf
+(``init_params(..., ctx=)``, ``convert.train_state(..., cfg=, ctx=)``:
+``launch/sharding.leaf_parts``); the collectives inside the model carry
+the gradient (``utils/mesh.py``), so that each leaf's gradient is that
+part of the whole leaf's, summed over the ranks whose rows fed it (a
+leaf replicated over ``dp`` by a psum, an FSDP-cut one by the
+reduce-scatter of its gather). The clip and the optimizer see the whole
+leaves (``launch/sharding.param_shards``): the loss, the grad norm and
+every replicated leaf are the same bits on every rank.
 
     ctx = make_ctx(make_mesh((2, 2), ("data", "model"), backend="nccl"))
     state, history = train_loop(model, batches, steps=200, ctx=ctx)
@@ -42,7 +46,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.launch.serve import init_params
-from repro_torch.launch.sharding import param_shards
+from repro_torch.launch.sharding import cut_batch, param_shards
 from repro_torch.models.common import DistCtx
 from repro_torch.models.model import Model
 from repro_torch.optim import build_optimizer, clip_by_global_norm
@@ -65,14 +69,14 @@ def _state(params, optimizer: Optimizer) -> TrainState:
 def init_state(model: Model, gen: torch.Generator, optimizer: Optimizer,
                ctx: Optional[DistCtx] = None) -> TrainState:
     """Parameters drawn from ``gen`` (on its device; under a mesh
-    ``ctx``, this rank's part of each expert leaf), the optimizer's
-    initial state and step 0."""
+    ``ctx``, this rank's parts of each leaf), the optimizer's initial
+    state and step 0."""
     return _state(model.init(gen, ctx), optimizer)
 
 
 def _split_microbatches(batch, n: int):
     """Each leaf (B, ...) as (n, B // n, ...): microbatch i holds rows
-    i * B / n to (i + 1) * B / n."""
+    i * B / n to (i + 1) * B / n of the global batch."""
     return {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
             for k, v in batch.items()}
 
@@ -95,23 +99,26 @@ def make_train_step(model: Model, ctx: Optional[DistCtx],
                     optimizer: Optimizer, *, clip_norm: float = 1.0):
     """``train_step(state, batch) -> (state, {"loss", "grad_norm",
     ...})``; batch leaves are tensors on the parameters' device (the
-    whole batch on every rank under a mesh ``ctx``). Nothing in the step
-    waits for the device, but a collective staged through the host."""
+    global batch, the same on every rank, under a mesh ``ctx``: each
+    rank takes its rows). Nothing in the step waits for the device, but
+    a collective staged through the host."""
     ctx = ctx or DistCtx.local()
     mb = max(1, model.cfg.microbatch)
+    cfg = model.cfg
 
     def train_step(state: TrainState, batch):
-        shards = param_shards(state.params, model.cfg, ctx)
+        shards = param_shards(state.params, cfg, ctx)
         if mb == 1:
-            loss, metrics, grads = _value_and_grad(model, ctx, state.params,
-                                                   batch)
+            c, b = cut_batch(cfg, ctx, batch)
+            loss, metrics, grads = _value_and_grad(model, c, state.params,
+                                                   b)
         else:
             micro = _split_microbatches(batch, mb)
             grads, loss = None, torch.zeros(
                 (), dtype=torch.float32, device=state.step.device)
             for i in range(mb):
-                l, _, g = _value_and_grad(model, ctx, state.params,
-                                          {k: v[i] for k, v in micro.items()})
+                c, b = cut_batch(cfg, ctx, {k: v[i] for k, v in micro.items()})
+                l, _, g = _value_and_grad(model, c, state.params, b)
                 if grads is None:
                     grads = g      # 0 + g: the reference's first sum
                 else:
@@ -141,10 +148,10 @@ def train_loop(model: Model, batches, *, seed: int = 0, lr: float = 3e-4,
                steps: int = 100, ctx: Optional[DistCtx] = None,
                log_every: int = 10, device="cuda"):
     """The reference's ``train_loop``: parameters drawn from ``seed`` on
-    ``device`` (under a mesh ``ctx``, this rank's part of each expert
-    leaf, cut as drawn), ``cfg.optimizer`` at a constant ``lr``, at most
+    ``device`` (under a mesh ``ctx``, this rank's parts of each leaf,
+    cut as drawn), ``cfg.optimizer`` at a constant ``lr``, at most
     ``steps`` steps over ``batches`` (dicts of arrays or tensors: the
-    whole batch on every rank). The host reads the loss, and so waits
+    global batch on every rank). The host reads the loss, and so waits
     for the device, only on the log cadence. Returns (state, [(step,
     loss), ...])."""
     ctx = ctx or DistCtx.local()

@@ -22,6 +22,23 @@ write the new token's key, value (ring position, or latent and rope
 key) into the layer's cache tensors and return them. The reference
 returns new arrays; at full width a copy of every layer's cache per
 step would move as many bytes as the attention reads.
+
+Under a mesh (``ctx``, with the model's ``cfg`` laid out:
+``launch/sharding.py``) the attention is tensor-parallel where the
+heads divide over ``tp`` (:func:`tp_heads`): each rank runs its
+``n_heads / tp`` query heads (``wq``, ``bq``, MLA's ``wq_b``, ``wk_b``,
+``wv_b`` cut on heads, ``wo`` on its rows) and its output is the
+partial product of ``wo``, summed over ``tp`` by the caller
+(``models/transformer.py``). The kv heads are this rank's ``n_kv_heads /
+tp`` where they divide; where they do not, ``wk`` / ``wv`` are gathered
+over ``tp`` and every rank computes every kv head and attends with the
+ones its query heads read (the kv heads replicated over ``tp``, as
+Megatron does for fewer kv heads than ranks; the cache then holds them
+all, as the reference's ``cache_specs_tree`` lays it out). MLA keeps
+``wq_a`` and ``wkv_a`` whole over ``tp`` (FSDP-cut only) and its latent
+cache replicated. Where the heads do not divide the leaves are gathered
+whole and every rank runs every head. FSDP-cut dims are gathered over
+the ``dp`` axes at use (``launch/sharding.use``).
 """
 from __future__ import annotations
 
@@ -32,6 +49,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.kernels import ops
+from repro_torch.launch import sharding as SH
 from repro_torch.models.common import (DistCtx, apply_rope, dense_init,
                                        rms_norm)
 
@@ -179,48 +197,124 @@ def init_mla_cache(B: int, S: int, lora: int, rope: int, dtype, layers: int,
 
 # ---------------------------------------------------------- GQA block --
 
-def init_gqa(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
-    """``cfg`` has ``d_model``, ``n_heads``, ``n_kv_heads``, ``hd`` and
-    ``qkv_bias``."""
+def gqa_shapes(cfg, qkv_bias: bool) -> Dict[str, tuple]:
+    """The GQA leaves' whole shapes."""
     d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    p = {"wq": dense_init(gen, (d, H * hd), dtype),
-         "wk": dense_init(gen, (d, KVH * hd), dtype),
-         "wv": dense_init(gen, (d, KVH * hd), dtype),
-         "wo": dense_init(gen, (H * hd, d), dtype)}
+    out = {"wq": (d, H * hd), "wk": (d, KVH * hd), "wv": (d, KVH * hd),
+           "wo": (H * hd, d)}
+    if qkv_bias:
+        out.update(bq=(H * hd,), bk=(KVH * hd,), bv=(KVH * hd,))
+    return out
+
+
+def init_gqa(gen: torch.Generator, cfg, dtype,
+             cut=None) -> Dict[str, torch.Tensor]:
+    """``cfg`` has ``d_model``, ``n_heads``, ``n_kv_heads``, ``hd`` and
+    ``qkv_bias``. ``cut(name, shape)`` gives the parts of a leaf this
+    rank keeps (None: every leaf whole)."""
+    shapes = gqa_shapes(cfg, cfg.qkv_bias)
+
+    def part(name):
+        return None if cut is None else cut(name, shapes[name])
+    p = {name: dense_init(gen, shapes[name], dtype, part=part(name))
+         for name in ("wq", "wk", "wv", "wo")}
     if cfg.qkv_bias:
-        for name, width in (("bq", H * hd), ("bk", KVH * hd),
-                            ("bv", KVH * hd)):
-            p[name] = torch.zeros((width,), dtype=dtype, device=gen.device)
+        for name in ("bq", "bk", "bv"):
+            p[name] = torch.zeros(SH.parts_shape(part(name), shapes[name]),
+                                  dtype=dtype, device=gen.device)
     return p
+
+
+def tp_heads(cfg, ctx: Optional[DistCtx], H: int):
+    """This rank's query heads [h0, h1) where the attention runs
+    tensor-parallel under ``ctx`` (``cfg`` laid out, ``tp`` > 1 and H
+    dividing over it), else None (every rank runs every head)."""
+    if ctx is None or ctx.mesh is None or not SH.lays_out(cfg):
+        return None
+    tp = ctx.tp_size
+    if tp == 1 or H % tp:
+        return None
+    n = H // tp
+    r = ctx.mesh.index((ctx.tp,))
+    return r * n, (r + 1) * n
+
+
+def _gqa_use(p, cfg, ctx, heads):
+    """The GQA leaves as this rank's work uses them (``launch/sharding.
+    use``): on its heads where ``heads`` (tensor-parallel), else whole;
+    and the first kv head they hold (0 where every kv head is)."""
+    if ctx is None or ctx.mesh is None:
+        return p, 0
+    shapes = gqa_shapes(cfg, "bq" in p)
+    local = heads is not None
+    kv_local = local and cfg.n_kv_heads % ctx.tp_size == 0
+    out = {}
+    for name, shape in shapes.items():
+        keep = local and (kv_local or name in ("wq", "wo", "bq"))
+        out[name] = SH.use(p[name], cfg, ctx, ("attn", name), shape,
+                           keep_tp=keep, tp_partial=local)
+    kv_lo = 0
+    if kv_local:
+        n = cfg.n_kv_heads // ctx.tp_size
+        kv_lo = ctx.mesh.index((ctx.tp,)) * n
+    return out, kv_lo
 
 
 def _qkv(p, x: torch.Tensor, cfg):
     B, S, _ = x.shape
-    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KVH, hd),
-            v.reshape(B, S, KVH, hd))
+    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+            v.reshape(B, S, -1, hd))
+
+
+def _kv_for(k: torch.Tensor, v: torch.Tensor, heads, g: int, kv_lo: int):
+    """The keys and values (B, S, *, D) that query heads ``heads``
+    [h0, h1) read (every head where None), of ``k`` / ``v`` holding kv
+    heads from ``kv_lo``, and their group size: the contiguous kv heads
+    of whole groups, or one kv head per query head (group 1) where the
+    heads split a group."""
+    if heads is None:
+        return k, v, g
+    h0, h1 = heads
+    n = h1 - h0
+    if n % g == 0 and h0 % g == 0:
+        a = h0 // g - kv_lo
+        if a == 0 and n // g == k.shape[2]:
+            return k, v, g
+        return (k[:, :, a:a + n // g].contiguous(),
+                v[:, :, a:a + n // g].contiguous(), g)
+    idx = torch.arange(h0, h1, device=k.device) // g - kv_lo
+    return k[:, :, idx], v[:, :, idx], 1
 
 
 def gqa_self(p, x: torch.Tensor, cfg, ctx: DistCtx = None, *,
-             causal: bool = True):
+             causal: bool = True, want_cache: bool = False):
     """Prefill self-attention over positions 0..S-1, windowed by
-    ``cfg.sliding_window``. x: (B, S, d) -> (B, S, d)."""
+    ``cfg.sliding_window``. x: (B, S, d) -> (B, S, d); under a
+    tensor-parallel ``ctx`` (:func:`tp_heads`) x is replicated over
+    ``tp`` and the result this rank's partial product. With
+    ``want_cache`` returns (out, {"k", "v"}: the rotated keys and the
+    values of the kv heads this rank holds)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    heads = tp_heads(cfg, ctx, cfg.n_heads)
+    pu, kv_lo = _gqa_use(p, cfg, ctx, heads)
+    q, k, v = _qkv(pu, x, cfg)
     pos = torch.arange(S, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    ka, va, _ = _kv_for(k, v, heads, cfg.n_heads // cfg.n_kv_heads, kv_lo)
     # A named range for torch.profiler (the attention's device time).
     with record_function("flash_attention"):
-        o = flash_attention(q, k, v, causal=causal,
+        o = flash_attention(q, ka, va, causal=causal,
                             window=cfg.sliding_window, cq=cfg.attn_chunk,
                             ck=cfg.attn_chunk)
-    return o.reshape(B, S, -1) @ p["wo"]
+    o = o.reshape(B, S, -1) @ pu["wo"]
+    return (o, {"k": k, "v": v}) if want_cache else o
 
 
 def gqa_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
@@ -229,15 +323,20 @@ def gqa_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
     k / v (B, S, KVH, hd) (full) or ring buffers (B, W, KVH, hd) with
     their positions ``pos`` (B, W). Position ``lengths[b]`` goes to row
     ``lengths[b]`` of a full cache, or to slot ``lengths[b] % W`` of a
-    ring, in place. Returns (out (B, d), cache_layer)."""
+    ring, in place. Returns (out (B, d), cache_layer): under a
+    tensor-parallel ``ctx`` this rank's partial product, and the cache
+    of the kv heads it holds."""
     B, _ = x1.shape
-    q, k, v = _qkv(p, x1[:, None, :], cfg)
+    heads = tp_heads(cfg, ctx, cfg.n_heads)
+    pu, kv_lo = _gqa_use(p, cfg, ctx, heads)
+    q, k, v = _qkv(pu, x1[:, None, :], cfg)
     pos = lengths.long()                               # (B,)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)[:, 0]      # (B,H,hd)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)[:, 0]      # (B,KVH,hd)
     v = v[:, 0]
     bidx = torch.arange(B, device=x1.device)
     K, V = cache_layer["k"], cache_layer["v"]
+    g = cfg.n_heads // cfg.n_kv_heads
     if "pos" in cache_layer:   # ring (sliding-window) cache
         PS = cache_layer["pos"]
         slot = pos % K.shape[1]
@@ -245,48 +344,75 @@ def gqa_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
         V[bidx, slot] = v
         PS[bidx, slot] = pos.to(PS.dtype)
         bias = torch.where(PS >= 0, 0.0, MASKED_SCORE).float()
-        o = ops.swa_decode_attention(q, K, V, bias, 1.0 / math.sqrt(cfg.hd))
+        Ka, Va, _ = _kv_for(K, V, heads, g, kv_lo)
+        o = ops.swa_decode_attention(q, Ka, Va, bias,
+                                     1.0 / math.sqrt(cfg.hd))
         new_cache = {"k": K, "v": V, "pos": PS}
     else:
         K[bidx, pos] = k
         V[bidx, pos] = v
         valid = (torch.arange(K.shape[1], device=x1.device)[None, :]
                  <= pos[:, None])
+        Ka, Va, _ = _kv_for(K, V, heads, g, kv_lo)
         with record_function("decode_attention"):
-            o = decode_attention(q, K, V, kv_valid=valid)
+            o = decode_attention(q, Ka, Va, kv_valid=valid)
         new_cache = {"k": K, "v": V}
-    return o.reshape(B, -1) @ p["wo"], new_cache
+    return o.reshape(B, -1) @ pu["wo"], new_cache
 
 
 # ---------------------------------------------------------- MLA block --
 
-def init_mla(gen: torch.Generator, cfg, dtype) -> Dict[str, torch.Tensor]:
-    """``cfg`` has ``d_model``, ``n_heads`` and ``mla`` (q_lora_rank,
-    kv_lora_rank, qk_nope_dim, qk_rope_dim, v_dim); the reference's
-    names and shapes, the norms' weights as bare vectors."""
+def mla_shapes(cfg) -> Dict[str, tuple]:
+    """The MLA leaves' whole shapes."""
     m = cfg.mla
     d, H = cfg.d_model, cfg.n_heads
     qk = m.qk_nope_dim + m.qk_rope_dim
-    dev = gen.device
-    return {
-        "wq_a": dense_init(gen, (d, m.q_lora_rank), dtype),
-        "q_norm": torch.ones((m.q_lora_rank,), dtype=dtype, device=dev),
-        "wq_b": dense_init(gen, (m.q_lora_rank, H * qk), dtype),
-        "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_dim), dtype),
-        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dtype, device=dev),
-        "wk_b": dense_init(gen, (m.kv_lora_rank, H * m.qk_nope_dim), dtype),
-        "wv_b": dense_init(gen, (m.kv_lora_rank, H * m.v_dim), dtype),
-        "wo": dense_init(gen, (H * m.v_dim, d), dtype),
-    }
+    return {"wq_a": (d, m.q_lora_rank), "q_norm": (m.q_lora_rank,),
+            "wq_b": (m.q_lora_rank, H * qk),
+            "wkv_a": (d, m.kv_lora_rank + m.qk_rope_dim),
+            "kv_norm": (m.kv_lora_rank,),
+            "wk_b": (m.kv_lora_rank, H * m.qk_nope_dim),
+            "wv_b": (m.kv_lora_rank, H * m.v_dim),
+            "wo": (H * m.v_dim, d)}
+
+
+def init_mla(gen: torch.Generator, cfg, dtype,
+             cut=None) -> Dict[str, torch.Tensor]:
+    """``cfg`` has ``d_model``, ``n_heads`` and ``mla`` (q_lora_rank,
+    kv_lora_rank, qk_nope_dim, qk_rope_dim, v_dim); the reference's
+    names and shapes, the norms' weights as bare vectors. ``cut(name,
+    shape)`` gives the parts of a leaf this rank keeps."""
+    shapes = mla_shapes(cfg)
+    out = {}
+    for name, shape in shapes.items():     # the reference's draw order
+        if name.endswith("norm"):
+            out[name] = torch.ones(shape, dtype=dtype, device=gen.device)
+        else:
+            out[name] = dense_init(gen, shape, dtype, part=(
+                None if cut is None else cut(name, shape)))
+    return out
+
+
+def _mla_use(p, cfg, ctx, heads):
+    """The MLA leaves as this rank's work uses them: ``wq_b``, ``wk_b``,
+    ``wv_b`` and ``wo`` on its heads where ``heads`` (tensor-parallel),
+    the latent projections and norms whole (their cotangents summed over
+    ``tp`` there), FSDP dims gathered."""
+    if ctx is None or ctx.mesh is None:
+        return p
+    local = heads is not None
+    return {name: SH.use(p[name], cfg, ctx, ("attn", name), shape,
+                         keep_tp=local, tp_partial=local)
+            for name, shape in mla_shapes(cfg).items()}
 
 
 def _mla_q(p, x: torch.Tensor, cfg):
     """x (B, S, d) -> (qn (B, S, H, nope), qr (B, S, H, rope)), the
-    rope part not yet rotated."""
+    rope part not yet rotated (H: the heads ``wq_b`` holds)."""
     B, S, _ = x.shape
-    m, H = cfg.mla, cfg.n_heads
+    m = cfg.mla
     q = rms_norm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
-    q = q.reshape(B, S, H, m.qk_nope_dim + m.qk_rope_dim)
+    q = q.reshape(B, S, -1, m.qk_nope_dim + m.qk_rope_dim)
     return torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
 
 
@@ -299,25 +425,33 @@ def _mla_latent(p, x: torch.Tensor, cfg):
     return rms_norm(latent, p["kv_norm"]), krope
 
 
-def mla_self(p, x: torch.Tensor, cfg, ctx: DistCtx = None):
+def mla_self(p, x: torch.Tensor, cfg, ctx: DistCtx = None, *,
+             want_cache: bool = False):
     """Prefill / training MLA over positions 0..S-1: the latent
     up-projected to per-head keys (nope + the rope key shared by every
     head) and values, then the chunked attention with Dk = nope + rope
-    and Dv = v_dim. x: (B, S, d) -> (B, S, d)."""
+    and Dv = v_dim. x: (B, S, d) -> (B, S, d); under a tensor-parallel
+    ``ctx`` this rank's heads' partial product. With ``want_cache``
+    returns (out, :func:`mla_cache_entries`' entries)."""
     B, S, _ = x.shape
-    m, H = cfg.mla, cfg.n_heads
-    qn, qr = _mla_q(p, x, cfg)
-    latent, krope = _mla_latent(p, x, cfg)
+    m = cfg.mla
+    pu = _mla_use(p, cfg, ctx, tp_heads(cfg, ctx, cfg.n_heads))
+    qn, qr = _mla_q(pu, x, cfg)
+    H = qn.shape[2]
+    latent, krope = _mla_latent(pu, x, cfg)
     pos = torch.arange(S, device=x.device)
     qr = apply_rope(qr, pos, cfg.rope_theta)
     krope = apply_rope(krope[:, :, None, :], pos, cfg.rope_theta)
-    kn = (latent @ p["wk_b"]).reshape(B, S, H, m.qk_nope_dim)
-    v = (latent @ p["wv_b"]).reshape(B, S, H, m.v_dim)
+    kn = (latent @ pu["wk_b"]).reshape(B, S, H, m.qk_nope_dim)
+    v = (latent @ pu["wv_b"]).reshape(B, S, H, m.v_dim)
     q = torch.cat([qn, qr], dim=-1)
     k = torch.cat([kn, krope.expand(B, S, H, m.qk_rope_dim)], dim=-1)
     o = flash_attention(q, k, v, causal=True, cq=cfg.attn_chunk,
                         ck=cfg.attn_chunk)
-    return o.reshape(B, S, -1) @ p["wo"]
+    o = o.reshape(B, S, -1) @ pu["wo"]
+    if want_cache:
+        return o, {"latent": latent, "rope": krope[:, :, 0]}
+    return o
 
 
 def mla_cache_entries(p, x: torch.Tensor, cfg):
@@ -338,11 +472,15 @@ def mla_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
     scored against the latents plus the rope term, softmaxed over the
     rows <= lengths[b] (-1e30 elsewhere), the context taken in the
     latent space and up-projected by ``wv_b``: all in f32, as the
-    reference. Returns (out (B, d), cache_layer)."""
+    reference. Returns (out (B, d), cache_layer); under a
+    tensor-parallel ``ctx`` this rank's heads' partial product (the
+    latent cache is whole on every rank)."""
     B, _ = x1.shape
-    m, H = cfg.mla, cfg.n_heads
-    qn, qr = _mla_q(p, x1[:, None, :], cfg)
-    latent1, krope1 = _mla_latent(p, x1[:, None, :], cfg)
+    m = cfg.mla
+    pu = _mla_use(p, cfg, ctx, tp_heads(cfg, ctx, cfg.n_heads))
+    qn, qr = _mla_q(pu, x1[:, None, :], cfg)
+    H = qn.shape[2]
+    latent1, krope1 = _mla_latent(pu, x1[:, None, :], cfg)
     pos = lengths.long()
     qr = apply_rope(qr, pos[:, None], cfg.rope_theta)[:, 0]     # (B,H,rope)
     krope1 = apply_rope(krope1[:, :, None, :], pos[:, None],
@@ -354,8 +492,8 @@ def mla_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
     RC[bidx, pos] = krope1
     valid = (torch.arange(LC.shape[1], device=x1.device)[None, :]
              <= pos[:, None])
-    wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_dim)
-    wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_dim)
+    wk_b = pu["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_dim)
+    wv_b = pu["wv_b"].reshape(m.kv_lora_rank, H, m.v_dim)
     q_abs = torch.einsum("bhn,lhn->bhl", qn.float(), wk_b.float())
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     LCf = LC.float()
@@ -366,4 +504,4 @@ def mla_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
     ctx_l = torch.einsum("bhs,bsl->bhl", pr, LCf)
     o = torch.einsum("bhl,lhv->bhv", ctx_l, wv_b.float())
     o = o.reshape(B, -1).to(x1.dtype)
-    return o @ p["wo"], {"latent": LC, "rope": RC}
+    return o @ pu["wo"], {"latent": LC, "rope": RC}

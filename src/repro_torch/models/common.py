@@ -14,15 +14,21 @@ import torch
 @dataclass(frozen=True)
 class DistCtx:
     """The distribution context of the reference's signatures: ``mesh``
-    None runs on one device; a ``utils.mesh.Mesh`` runs every rank on
-    the whole batch (replicated activations, as every rank of
-    ``core/distributed.py`` runs on the same host inputs), with the MoE
-    layer's experts sharded over the mesh (``models/moe.py``). ``dp``
-    names the data-parallel axes, ``tp`` the tensor / expert-parallel
-    axis."""
+    None runs on one device; under a ``utils.mesh.Mesh`` each rank holds
+    its parts of the parameters as ``launch/sharding.param_spec`` lays
+    them out (FSDP over the ``dp`` axes, tensor parallelism over ``tp``,
+    the MoE layers' experts as ``models/moe.py`` cuts them) and runs on
+    its rows of the batch where the batch divides over ``dp``
+    (``batch_cut``: the activations' leading dim holds this rank's rows
+    of the global batch, ``launch/sharding.cut_batch``); where it does
+    not, every rank runs on the whole batch. The families whose layouts
+    are not ported (``launch/sharding.LAYOUT_FAMILIES``) hold every
+    dense leaf whole and run on the whole batch. ``dp`` names the
+    data-parallel axes, ``tp`` the tensor / expert-parallel axis."""
     mesh: Optional[object] = None
     dp: Tuple[str, ...] = ("data",)
     tp: str = "model"
+    batch_cut: bool = False
 
     @staticmethod
     def local() -> "DistCtx":
@@ -37,6 +43,13 @@ class DistCtx:
         if self.mesh is None:
             return 1
         return math.prod(self.mesh.shape[a] for a in self.dp)
+
+    def partial_axes(self, tp: bool = False) -> Tuple[str, ...]:
+        """The axes over which a value's cotangent is a partial sum when
+        it feeds work that differs by rank: the ``dp`` axes where the
+        batch is cut, and ``tp`` where the work is tensor-parallel."""
+        out = tuple(self.dp) if self.batch_cut else ()
+        return out + ((self.tp,) if tp else ())
 
 
 def tree_map(fn: Callable, *trees):
@@ -86,6 +99,112 @@ class Part:
                               axis=self.axis)
 
 
+def as_parts(part) -> Tuple["Part", ...]:
+    """A leaf's layout as a tuple of :class:`Part` s, one a cut dim
+    (``part``: None, one Part or a tuple of them)."""
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, Part) else tuple(part)
+
+
+def parts_shape(parts, full: Sequence[int]) -> Tuple[int, ...]:
+    """The shape this rank holds of a leaf of shape ``full``."""
+    out = tuple(full)
+    for p in as_parts(parts):
+        out = p.shape(out)
+    return out
+
+
+def take_parts(parts, w):
+    """This rank's parts of ``w`` (the whole leaf), cut on every dim of
+    ``parts`` (a copy; ``w`` itself where nothing is cut)."""
+    for p in as_parts(parts):
+        w = p.take(w)
+    return w
+
+
+def relay(w: torch.Tensor, have, need, mesh, partial=(),
+          extent: Optional[Dict[int, int]] = None) -> torch.Tensor:
+    """``w``, held as the parts ``have``, in the layout ``need`` (each a
+    tuple of :class:`Part` s; a cut over one rank counts as whole):
+    every held cut that ``need`` lacks is gathered over its axes (and,
+    where ``extent`` gives its dim's size, trimmed of padding), every
+    cut that ``need`` adds is taken.
+
+    ``partial``: the mesh axes over which the work ``w`` feeds differs by
+    rank, so that its cotangent there is a partial sum. The backward
+    sums it over those axes: for a gathered cut by a reduce-scatter onto
+    the part held, for the axes the leaf is replicated on by a psum
+    (``ShardGroup.psum_grad``); over the other axes the cotangent is
+    replicated, and a gather takes this rank's rows of it. Without a
+    mesh ``w`` itself."""
+    if mesh is None:
+        return w
+    have = tuple(p for p in as_parts(have) if mesh.size(p.axes) > 1)
+    need = tuple(p for p in as_parts(need) if mesh.size(p.axes) > 1)
+    held = {a for p in have for a in p.axes}
+    rep = tuple(a for a in mesh.axis_names if a in partial and a not in held)
+    w = mesh.group(rep).psum_grad(w)
+    for p in have:
+        if p in need:
+            continue
+        axes = tuple(p.axes)
+        grad = ("reduce_scatter" if all(a in partial for a in axes)
+                else "rows")
+        w = mesh.group(axes).all_gather(w, dim=p.axis, grad=grad)
+        some = tuple(a for a in axes if a in partial)
+        if some and grad == "rows":
+            w = mesh.group(some).psum_grad(w)
+        if extent and p.axis in extent:
+            w = w.narrow(p.axis, 0, extent[p.axis])
+    for p in need:
+        if p not in have:
+            w = p.take(w)
+    return w
+
+
+def enter_region(x: torch.Tensor, ctx: Optional[DistCtx], *, seq: bool,
+                 local: bool, dim: int = 1) -> torch.Tensor:
+    """The residual stream ``x`` as it enters a block's work: where
+    ``seq`` it is cut on dim ``dim`` over ``tp`` and is all-gathered
+    (the sequence-parallel layout), else it is replicated over ``tp``.
+    ``local``: the work is tensor-parallel (its cotangent differs by
+    rank), so the backward sums the cotangent over ``tp``
+    (reduce-scattered back to this rank's rows where ``seq``); otherwise
+    the work is the same on every rank and the backward takes this
+    rank's rows of it."""
+    if ctx is None or ctx.mesh is None:
+        return x
+    g = ctx.mesh.group(ctx.tp)
+    if seq:
+        return g.all_gather(x, dim=dim,
+                            grad="reduce_scatter" if local else "rows")
+    return g.psum_grad(x) if local else x
+
+
+def leave_region(y: torch.Tensor, ctx: Optional[DistCtx], *, seq: bool,
+                 local: bool, dim: int = 1) -> torch.Tensor:
+    """A block's result back into the residual's layout: a
+    tensor-parallel (``local``) partial product summed over ``tp``
+    (reduce-scattered on dim ``dim`` where ``seq``, psummed otherwise);
+    a result the same on every rank cut to this rank's rows where
+    ``seq``."""
+    if ctx is None or ctx.mesh is None:
+        return y
+    g = ctx.mesh.group(ctx.tp)
+    if seq:
+        return (g.reduce_scatter(y, dim=dim) if local
+                else g.shard_rows(y, dim=dim))
+    return g.psum(y) if local else y
+
+
+class ShapeOnly:
+    """A stand-in for a generator: :func:`dense_init` and the other
+    initializers make tensors on the ``meta`` device (shapes and dtypes,
+    no data): ``Model.param_shapes``."""
+    device = torch.device("meta")
+
+
 # A tensor of more elements than DRAW_WHOLE is drawn in pieces of at
 # most DRAW_PIECE elements along its first axis (DeepSeek-V3's stacked
 # experts, 3.8e9 elements, would take 15 GB in f32 at once).
@@ -93,42 +212,43 @@ DRAW_WHOLE, DRAW_PIECE = 1 << 30, 1 << 28
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
-               scale: float = 0.02, part: Optional[Part] = None
-               ) -> torch.Tensor:
+               scale: float = 0.02, part=None) -> torch.Tensor:
     """Normal(0, 1) * ``scale`` drawn in f32 from ``gen`` on the
     generator's device, stored in ``dtype``: a CPU generator draws on
     the CPU, a CUDA generator on the card (the full-width models have
     billions of parameters). Above ``DRAW_WHOLE`` elements the draw
-    goes piece by piece into the stored tensor. With ``part`` only that
-    :class:`Part` of the draw is kept, cut from each piece as it is
-    drawn: the generator advances as for the whole tensor, so the part
-    holds the bits of the same part of an uncut draw."""
+    goes piece by piece into the stored tensor. With ``part`` (a
+    :class:`Part` or a tuple of them, one a cut dim) only that part of
+    the draw is kept, cut from each piece as it is drawn: the generator
+    advances as for the whole tensor, so the part holds the bits of the
+    same part of an uncut draw."""
     shape = tuple(shape)
+    parts = as_parts(part)
+    if gen.device.type == "meta":
+        return torch.empty(parts_shape(parts, shape), dtype=dtype,
+                           device=gen.device)
     n = math.prod(shape)
     if n <= DRAW_WHOLE:
         w = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device)
-        if part is not None:
-            w = part.take(w)
-        return (w * scale).to(dtype)
+        return (take_parts(parts, w) * scale).to(dtype)
     rows = max(1, DRAW_PIECE // (n // shape[0]))
-    if part is None:
+    first = [p for p in parts if p.axis % len(shape) == 0]
+    rest = tuple(p for p in parts if p.axis % len(shape) != 0)
+    if not parts:
         out = torch.empty(shape, dtype=dtype, device=gen.device)
     else:
-        out = torch.zeros(part.shape(shape), dtype=dtype, device=gen.device)
+        out = torch.zeros(parts_shape(parts, shape), dtype=dtype,
+                          device=gen.device)
+    lo0, hi0 = (first[0].lo, first[0].hi) if first else (0, shape[0])
     for lo in range(0, shape[0], rows):
         hi = min(lo + rows, shape[0])
         w = torch.randn((hi - lo,) + shape[1:], generator=gen,
                         dtype=torch.float32, device=gen.device)
         w = (w * scale).to(dtype)
-        if part is None:
-            out[lo:hi].copy_(w)
-        elif part.axis % len(shape) == 0:      # the part cuts the pieces' axis
-            a, b = max(lo, part.lo), min(hi, part.hi)
-            if a < b:
-                out[a - part.lo:b - part.lo].copy_(w[a - lo:b - lo])
-        else:
-            out[lo:hi].copy_(part.take(w))
+        a, b = max(lo, lo0), min(hi, hi0)     # the rows the part keeps
+        if a < b:
+            out[a - lo0:b - lo0].copy_(take_parts(rest, w[a - lo:b - lo]))
     return out
 
 
@@ -200,3 +320,40 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return torch.mean(nll)
     mask = mask.float()
     return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def masked_mean(nll: torch.Tensor, mask: torch.Tensor,
+                ctx: Optional[DistCtx] = None) -> torch.Tensor:
+    """:func:`cross_entropy`'s mean of per-token values ``nll`` over the
+    bool ``mask``: the sum over the mask divided by max(count, 1); where
+    ``ctx.batch_cut`` both sums are over the global batch (psummed over
+    ``dp``, in shard order: the same bits on every rank)."""
+    m = mask.float()
+    num, den = torch.sum(nll * m), torch.sum(m)
+    if ctx is not None and ctx.mesh is not None and ctx.batch_cut:
+        g = ctx.mesh.group(ctx.dp)
+        num, den = g.psum(num.reshape(1))[0], g.psum(den.reshape(1))[0]
+    return num / torch.clamp_min(den, 1.0)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, lo: int,
+                       group) -> torch.Tensor:
+    """Per-token negative log-likelihood of logits cut on the vocab over
+    ``group`` (a ``utils.mesh.ShardGroup``): ``logits`` (..., V_loc)
+    holds vocab ids lo:lo + V_loc, ``labels`` (...) are global ids. In
+    f32: the max over the group (detached: a shift the result does not
+    depend on), the sum over the group of exp(logit - max), and the
+    label's logit from the rank that holds it (zeros elsewhere) summed
+    over the group; every sum in shard order, so the result is the same
+    bits on every rank. The backward passes the cotangent of those sums
+    through to each rank's columns (Megatron's vocab-parallel
+    cross-entropy)."""
+    lf = logits.float()
+    top = group.pmax(torch.amax(lf.detach(), dim=-1))
+    se = group.psum(torch.sum(torch.exp(lf - top[..., None]), dim=-1))
+    lse = top + torch.log(se)
+    ids = labels.long() - lo
+    mine = (ids >= 0) & (ids < lf.shape[-1])
+    gold = torch.gather(lf, -1, torch.where(mine, ids, 0)[..., None])[..., 0]
+    gold = group.psum(torch.where(mine, gold, torch.zeros_like(gold)))
+    return lse - gold

@@ -30,6 +30,23 @@ the encoder's keys and values ``ck`` / ``cv`` (L, B, Se, KVH, hd) and
 ``cvalid`` (L, B, Se); the hybrid family adds ``"shared"``, one
 {"k", "v"} of (1, B, room, KVH, hd) per group. ``serve_step`` updates it
 in place and returns it with ``len + 1``.
+
+Under a mesh (``ctx``; ``launch/sharding.py`` lays out the dense and moe
+families) each leaf is this rank's parts, the batch this rank's rows
+where ``ctx.batch_cut`` (the entry points cut it: ``launch/serve.
+generate``, ``launch/train.make_train_step``), and the cache its rows
+and kv heads (``launch/sharding.cache_spec``). The embedding is a
+vocab-parallel lookup where ``embed``'s vocab is cut over ``tp``: each
+rank looks up the ids in its rows, the others give zeros, and the sum
+over ``tp`` is the lookup (each entry is one rank's value plus zeros:
+the same bits). The logits are cut on the vocab there: the loss is a
+vocab-parallel cross-entropy (a max over ``tp``, then sums over ``tp``
+of the exponentials and of the label's logit), its mean over the
+global batch (sums over ``dp``), and ``prefill`` / ``serve_step``
+gather the logits over ``tp`` for the sampler. Where ``cfg.seq_shard``
+cuts the residual stream on the sequence (``models/transformer.
+seq_parallel``) the embedding is reduce-scattered onto it and the
+final hidden states gathered.
 """
 from __future__ import annotations
 
@@ -38,17 +55,19 @@ from typing import Any, Dict, List
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.launch import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
-from repro_torch.models.common import (DistCtx, apply_norm, cross_entropy,
-                                       dense_init, init_norm)
+from repro_torch.models.common import (DistCtx, ShapeOnly, apply_norm,
+                                       cross_entropy, dense_init, init_norm,
+                                       masked_mean, vocab_parallel_nll)
 from repro_torch.models.transformer import (SegmentSpec, block_decode,
                                             block_seq, cross_keys,
                                             init_layer, init_segment,
-                                            plan_segments, run_segment,
-                                            run_segment_decode,
-                                            unbind_layers)
+                                            layer_norm_of, plan_segments,
+                                            run_segment, run_segment_decode,
+                                            seq_parallel, unbind_layers)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -81,20 +100,25 @@ class Model:
              ctx: DistCtx = None) -> Dict[str, Any]:
         """Parameters drawn from ``gen`` on its device (a CUDA generator
         draws a full-width model on the card). Under a mesh ``ctx`` each
-        MoE layer keeps only this rank's part of its experts, cut as it
-        is drawn (``models/moe.expert_part``); the generator advances
-        as for the whole model, so every rank's parts are those of one
-        uncut draw."""
+        leaf keeps only this rank's parts, cut as it is drawn
+        (``launch/sharding.leaf_parts``); the generator advances as for
+        the whole model, so every rank's parts are those of one uncut
+        draw."""
         cfg, dtype = self.cfg, self.dtype
+
+        def part(name, shape):
+            return SH.leaf_parts(cfg, ctx, (name,), shape)
+        V, d = cfg.vocab_size, cfg.d_model
         p: Dict[str, Any] = {
-            "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
+            "embed": dense_init(gen, (V, d), dtype,
+                                part=part("embed", (V, d))),
             "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
             "segments": tuple(init_segment(gen, cfg, spec, dtype, ctx)
                               for spec in self.segments),
         }
         if not cfg.tie_embeddings:
-            p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
-                                      dtype)
+            p["unembed"] = dense_init(gen, (d, V), dtype,
+                                      part=part("unembed", (d, V)))
         if cfg.family == "hybrid":
             p["shared_block"] = init_layer(gen, cfg, _BLOCK_SPEC, dtype)
         if cfg.family == "encdec":
@@ -106,17 +130,86 @@ class Model:
             p["vis_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model),
                                        dtype)
         if cfg.mtp:
-            p["mtp_proj"] = dense_init(gen, (2 * cfg.d_model, cfg.d_model),
-                                       dtype)
-            p["mtp_block"] = init_layer(gen, cfg, _BLOCK_SPEC, dtype)
+            p["mtp_proj"] = dense_init(gen, (2 * d, d), dtype,
+                                       part=part("mtp_proj", (2 * d, d)))
+            p["mtp_block"] = init_layer(gen, cfg, _BLOCK_SPEC, dtype, ctx)
             p["mtp_norm"] = init_norm(cfg.norm, cfg.d_model, dtype,
                                       gen.device)
         return p
 
+    def param_shapes(self) -> Dict[tuple, tuple]:
+        """{path: whole shape} of every parameter (``launch/sharding.
+        param_paths``' paths), without drawing any."""
+        return SH.leaf_shapes(self.init(ShapeOnly()))
+
     # ------------------------------------------------------- common bits --
+    def _unembed_w(self, p, ctx: DistCtx):
+        """(the unembedding (d, V or this rank's vocab columns) as the
+        work uses it, the first vocab id of those columns or None where
+        every rank has the whole vocab)."""
+        cfg = self.cfg
+        V, d = cfg.vocab_size, cfg.d_model
+        if cfg.tie_embeddings:
+            path, shape, axis = ("embed",), (V, d), -2
+        else:
+            path, shape, axis = ("unembed",), (d, V), -1
+        w = SH.use(p[path[0]], cfg, ctx, path, shape, keep_tp=True)
+        vp = next((q for q in SH.leaf_parts(cfg, ctx, path, shape)
+                   if q.axis == axis and q.axes == (ctx.tp,)), None)
+        w = w.T if cfg.tie_embeddings else w
+        return w, None if vp is None else vp.lo
+
     def _unembed(self, p, x: torch.Tensor, ctx: DistCtx = None):
-        w = p["embed"].T if self.cfg.tie_embeddings else p["unembed"]
-        return x @ w
+        """Logits over the whole vocab (gathered over ``tp`` where it is
+        cut; forward only: the serving path's)."""
+        ctx = ctx or DistCtx.local()
+        w, lo = self._unembed_w(p, ctx)
+        logits = x @ w
+        if lo is not None:
+            logits = ctx.mesh.group(ctx.tp).all_gather(logits, dim=-1)
+        return logits
+
+    def _nll_mean(self, p, h: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor, ctx: DistCtx):
+        """The mean cross-entropy of the logits of ``h`` (B, S, d; whole
+        over ``tp``) at ``labels`` over ``mask``: vocab-parallel where the
+        vocab is cut over ``tp``, the mean over the global batch (the
+        sums over ``dp`` where the batch is cut)."""
+        w, lo = self._unembed_w(p, ctx)
+        if lo is None and not ctx.batch_cut:
+            return cross_entropy(h @ w, labels, mask)
+        if lo is None:
+            lf = (h @ w).float()
+            nll = torch.logsumexp(lf, dim=-1) - torch.gather(
+                lf, -1, labels.long()[..., None])[..., 0]
+        else:
+            g = ctx.mesh.group(ctx.tp)
+            nll = vocab_parallel_nll(g.psum_grad(h) @ w, labels, lo, g)
+        return masked_mean(nll, mask, ctx)
+
+    def _embed(self, p, tokens: torch.Tensor, ctx: DistCtx,
+               seq: bool = False) -> torch.Tensor:
+        """The embedding of ``tokens`` (B, S) as the residual stream
+        holds it: replicated over ``tp``, or this rank's rows of the
+        sequence where ``seq``. A vocab cut over ``tp`` is a
+        vocab-parallel lookup, summed (or reduce-scattered) over
+        ``tp``."""
+        cfg = self.cfg
+        shape = (cfg.vocab_size, cfg.d_model)
+        if ctx is None or ctx.mesh is None:
+            return p["embed"][tokens.long()]
+        w = SH.use(p["embed"], cfg, ctx, ("embed",), shape, keep_tp=True)
+        vp = next((q for q in SH.leaf_parts(cfg, ctx, ("embed",), shape)
+                   if q.axes == (ctx.tp,)), None)
+        g = ctx.mesh.group(ctx.tp)
+        if vp is None:
+            x = w[tokens.long()]
+            return g.shard_rows(x, dim=1) if seq else x
+        ids = tokens.long() - vp.lo
+        mine = (ids >= 0) & (ids < vp.hi - vp.lo)
+        x = torch.where(mine[..., None], w[torch.where(mine, ids, 0)],
+                        torch.zeros((), dtype=w.dtype, device=w.device))
+        return g.reduce_scatter(x, dim=1) if seq else g.psum(x)
 
     def _enc_spec(self) -> SegmentSpec:
         """The encdec family's encoder: one non-causal segment."""
@@ -136,12 +229,14 @@ class Model:
         return apply_norm(cfg.norm, p["enc_norm"], x)
 
     def _backbone(self, p, x: torch.Tensor, ctx: DistCtx, *,
-                  enc_out=None, want_cache: bool = False):
+                  enc_out=None, want_cache: bool = False, seq: bool = False):
         """All segments, each from fresh (zero) states, a cross segment's
         layers attending over ``enc_out``, the hybrid family's shared
         block after each (not recomputed under ``cfg.remat``, as in the
-        reference), then the final norm. Returns (x, aux, new states,
-        caches, the shared block's caches)."""
+        reference); x before the final norm (:meth:`_final`), in the
+        residual's layout (``seq``: cut on the sequence over ``tp``).
+        Returns (x, aux, new states, caches, the shared block's
+        caches)."""
         cfg = self.cfg
         states = self._fresh_states(x.shape[0], x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -150,7 +245,7 @@ class Model:
             x, a, ns, cache = run_segment(p["segments"][i], x, cfg, ctx,
                                           spec, state=states[i],
                                           enc_out=enc_out,
-                                          want_cache=want_cache)
+                                          want_cache=want_cache, seq=seq)
             aux = aux + a
             new_states.append(ns)
             caches.append(cache)
@@ -160,8 +255,11 @@ class Model:
                                              want_cache=want_cache)
                 aux = aux + a2
                 shared_caches.append(scache)
-        x = apply_norm(cfg.norm, p["final_norm"], x)
         return x, aux, new_states, caches, shared_caches
+
+    def _final(self, p, x: torch.Tensor, ctx: DistCtx) -> torch.Tensor:
+        """The final norm of x (whole over ``tp``)."""
+        return layer_norm_of(p, "final_norm", x, self.cfg, ctx)
 
     def _fresh_states(self, B: int, device=None) -> List[Any]:
         """Zero states of every rwkv and mamba segment (None for the
@@ -179,12 +277,14 @@ class Model:
             states.append(s)
         return states
 
-    def _embed_inputs(self, p, batch, ctx: DistCtx = None):
+    def _embed_inputs(self, p, batch, ctx: DistCtx = None,
+                      seq: bool = False):
         """Token embedding; for the vlm family the patch embeddings, cast
         to the model's dtype and projected by ``vis_proj``, in front.
         Returns (x, label_offset): the number of leading positions that
-        are not text (P, or 0)."""
-        tok = p["embed"][batch["tokens"].long()]
+        are not text (P, or 0). ``seq``: x is this rank's rows of the
+        sequence (:meth:`_embed`)."""
+        tok = self._embed(p, batch["tokens"], ctx, seq)
         if self.cfg.family == "vlm":
             vis = batch["patch_embeds"].to(self.dtype) @ p["vis_proj"]
             return torch.cat([vis, tok], dim=1), vis.shape[1]
@@ -196,17 +296,21 @@ class Model:
         with ``cfg.mtp`` 0.3 times the MTP head's cross-entropy, for
         training: ``batch["tokens"]`` (B, S) and ``batch["labels"]``
         (B, S), -1 masked, with the family's ``enc_embeds`` or
-        ``patch_embeds`` (the loss is taken on the text positions only).
-        Returns (total, {"ce", "aux"} and "mtp_ce" with the head), f32
-        scalars."""
+        ``patch_embeds`` (the loss is taken on the text positions only;
+        under a mesh with ``ctx.batch_cut`` this rank's rows, the means
+        over the global batch). Returns (total, {"ce", "aux"} and
+        "mtp_ce" with the head), f32 scalars, the same on every rank."""
         ctx = ctx or DistCtx.local()
-        x, n_prefix = self._embed_inputs(p, batch, ctx)
-        h, aux, _, _, _ = self._backbone(p, x, ctx,
+        seq = seq_parallel(self.cfg, ctx, batch["tokens"].shape[1])
+        x, n_prefix = self._embed_inputs(p, batch, ctx, seq)
+        h, aux, _, _, _ = self._backbone(p, x, ctx, seq=seq,
                                          enc_out=self._encode(p, batch, ctx))
-        h_text = h[:, n_prefix:]
-        logits = self._unembed(p, h_text, ctx)
+        if seq:
+            h = ctx.mesh.group(ctx.tp).all_gather(h, dim=1)
+        h_text = self._final(p, h, ctx)[:, n_prefix:]
         labels = batch["labels"].long()
-        ce = cross_entropy(logits, torch.clamp_min(labels, 0), labels >= 0)
+        ce = self._nll_mean(p, h_text, torch.clamp_min(labels, 0),
+                            labels >= 0, ctx)
         metrics = {"ce": ce, "aux": aux}
         total = ce + aux
         if self.cfg.mtp:
@@ -220,24 +324,42 @@ class Model:
         token t+2 from [h_t ; embed(token_{t+1})] (the tokens and labels
         rolled left by one, the last position masked). With
         ``cfg.remat`` and gradients on, the layer is recomputed in the
-        backward, as the segments' layers are (the same values)."""
+        backward, as the segments' layers are (the same values). Under a
+        mesh ``mtp_proj``'s output columns are cut over ``tp``: the
+        projection is gathered over ``tp``."""
         cfg = self.cfg
+        d = cfg.d_model
         tokens, labels = batch["tokens"].long(), batch["labels"].long()
-        nxt = p["embed"][torch.roll(tokens, -1, dims=1)]
-        z = torch.cat([h, nxt], dim=-1) @ p["mtp_proj"]
+        nxt = self._embed(p, torch.roll(tokens, -1, dims=1), ctx)
+        zin = torch.cat([h, nxt], dim=-1)
+        shape = (2 * d, d)
+        parts = SH.leaf_parts(cfg, ctx, ("mtp_proj",), shape)
+        local = any(q.axes == (ctx.tp,) for q in parts)
+        w = SH.use(p["mtp_proj"], cfg, ctx, ("mtp_proj",), shape,
+                   keep_tp=local, tp_partial=local)
+        if local:
+            g = ctx.mesh.group(ctx.tp)
+            z = g.all_gather(g.psum_grad(zin) @ w, dim=-1)
+        else:
+            z = zin @ w
+        seq = seq_parallel(cfg, ctx, z.shape[1])
+        if seq:
+            z = ctx.mesh.group(ctx.tp).shard_rows(z, dim=1)
         if cfg.remat and torch.is_grad_enabled():
             z, _, _, _ = torch.utils.checkpoint.checkpoint(
                 block_seq, p["mtp_block"], z, cfg, ctx, _BLOCK_SPEC,
-                use_reentrant=False)
+                seq=seq, use_reentrant=False)
         else:
-            z, _, _, _ = block_seq(p["mtp_block"], z, cfg, ctx, _BLOCK_SPEC)
-        z = apply_norm(cfg.norm, p["mtp_norm"], z)
-        logits = self._unembed(p, z, ctx)
+            z, _, _, _ = block_seq(p["mtp_block"], z, cfg, ctx, _BLOCK_SPEC,
+                                   seq=seq)
+        if seq:
+            z = ctx.mesh.group(ctx.tp).all_gather(z, dim=1)
+        z = layer_norm_of(p, "mtp_norm", z, cfg, ctx)
         lbl2 = torch.roll(labels, -1, dims=1)
         S = lbl2.shape[1]
         mask = (lbl2 >= 0) & (torch.arange(S, device=lbl2.device)
                               < S - 1)[None, :]
-        return cross_entropy(logits, torch.clamp_min(lbl2, 0), mask)
+        return self._nll_mean(p, z, torch.clamp_min(lbl2, 0), mask, ctx)
 
     # ----------------------------------------------------------- prefill --
     def prefill(self, p, batch, ctx: DistCtx = None):
@@ -246,13 +368,18 @@ class Model:
         ``enc_embeds``) from fresh states, building the decode cache.
         Returns (last-token logits (B, V), cache)."""
         ctx = ctx or DistCtx.local()
-        x, _ = self._embed_inputs(p, batch, ctx)
+        S = batch["tokens"].shape[1]
+        seq = seq_parallel(self.cfg, ctx, S)
+        x, n_prefix = self._embed_inputs(p, batch, ctx, seq)
         enc_out = self._encode(p, batch, ctx)
         h, _, new_states, caches, shared_caches = self._backbone(
-            p, x, ctx, enc_out=enc_out, want_cache=True)
-        logits = self._unembed(p, h[:, -1, :], ctx)
+            p, x, ctx, enc_out=enc_out, want_cache=True, seq=seq)
+        last = h[:, -1, :]
+        if seq:      # the last rank's last row
+            last = ctx.mesh.group(ctx.tp).all_gather(last[None])[-1]
+        logits = self._unembed(p, self._final(p, last, ctx), ctx)
         return logits, self._pack_cache(p, caches, new_states, shared_caches,
-                                        enc_out, x.shape[0], x.shape[1],
+                                        enc_out, x.shape[0], n_prefix + S,
                                         x.device)
 
     def _pack_cache(self, p, caches: List[Any], new_states: List[Any],
@@ -369,7 +496,7 @@ class Model:
         ctx = ctx or DistCtx.local()
         cfg = self.cfg
         lengths = cache["len"]
-        x1 = p["embed"][tokens.long()]
+        x1 = self._embed(p, tokens, ctx)
         segments = []
         for i, spec in enumerate(self.segments):
             held = cache["segments"][i]
@@ -388,8 +515,7 @@ class Model:
                                      _BLOCK_SPEC,
                                      cache={k: v[0] for k, v in sc.items()},
                                      lengths=lengths)
-        x1 = apply_norm(cfg.norm, p["final_norm"], x1)
-        logits = self._unembed(p, x1, ctx)
+        logits = self._unembed(p, self._final(p, x1, ctx), ctx)
         out = {"len": lengths + 1, "segments": segments}
         if cfg.family == "hybrid":
             out["shared"] = cache["shared"]

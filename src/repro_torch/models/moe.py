@@ -11,10 +11,14 @@ each (token, choice) entry, an index assignment: no float scatter-add
 (DESIGN.md §15).
 
 Under a ``DistCtx`` with a ``utils.mesh.Mesh`` the layer takes the path
-the reference's ``apply_moe`` takes for that mesh and shape, with the
-layout of its ``shard_map`` at the layer's boundary: every rank holds
-the whole batch (replicated activations), takes its rows over the
-``dp`` axes, runs the path, and all-gathers the output over ``dp``.
+the reference's ``apply_moe`` takes for that mesh and the global batch's
+shape, with the layout of its ``shard_map`` at the layer's boundary: the
+input is this rank's rows of the batch over the ``dp`` axes where the
+batch is cut (``DistCtx.batch_cut``, as the model's entry points lay it
+out), replicated over ``tp``; where the batch is whole on every rank
+(it does not divide over ``dp``, or the caller gives the whole batch)
+the layer takes its ``dp`` rows itself and all-gathers the output over
+``dp``.
 
   * expert tensor parallelism (``_dense_shard_map``; Mixtral): each
     data shard dispatches its own tokens to every expert, whose FFN
@@ -29,11 +33,16 @@ the whole batch (replicated activations), takes its rows over the
   * otherwise ``_local_moe`` on the whole batch.
 
 Each rank holds only its part of the expert stacks (:func:`expert_part`,
-cut as they are drawn or converted: ``launch/sharding.py``). Where the
-path needs another layout than the one held (an ``alltoall`` layer whose
-batch falls back to the tensor-parallel or the local path), the leaves
-are gathered and cut again, as ``shard_map``'s ``in_specs`` reshard a
-GSPMD array.
+and under ``cfg.fsdp`` the template's FSDP dim over ``dp``), of the
+router (FSDP-cut) and of the shared experts (``launch/sharding.
+held_spec``), cut as they are drawn or converted. Where the path needs
+another layout than the one held (an ``alltoall`` layer whose batch
+falls back to the tensor-parallel or the local path, an FSDP dim), the
+leaves are gathered and cut again, as ``shard_map``'s ``in_specs``
+reshard a GSPMD array. The local path on a batch cut over ``dp``
+gathers the batch and runs on the whole of it, as the reference's
+``_local_moe`` does on the global array (its capacity and its
+load-balance loss are the whole batch's).
 
 The gradient through a sharded path is the exact gradient of the loss,
 whole on every rank for every replicated value, through the
@@ -54,27 +63,35 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import DistCtx, Part, dense_init
+from repro_torch.launch import sharding as SH
+from repro_torch.models.common import (DistCtx, Part, dense_init,
+                                       parts_shape, relay)
 
 EXPERT_LEAVES = ("w1", "w3", "w2")
 
 
 def init_moe(gen: torch.Generator, cfg, dtype,
              ctx: DistCtx = None) -> Dict[str, object]:
-    """The layer's parameters; under a mesh ``ctx`` each expert leaf
-    keeps only this rank's :func:`expert_part` of its draw."""
+    """The layer's parameters; under a mesh ``ctx`` each leaf keeps only
+    this rank's parts of its draw (``launch/sharding.leaf_parts``: the
+    experts as :func:`expert_part` cuts them, FSDP dims, the shared
+    experts' tensor-parallel dims)."""
     m = cfg.moe
     d, E, dff = cfg.d_model, m.n_experts, m.d_expert
 
-    def part(name):
-        return None if ctx is None else expert_part(m, ctx, name)
-    p = {"router": dense_init(gen, (d, E), dtype, scale=0.006),
-         "w1": dense_init(gen, (E, d, dff), dtype, part=part("w1")),
-         "w3": dense_init(gen, (E, d, dff), dtype, part=part("w3")),
-         "w2": dense_init(gen, (E, dff, d), dtype, part=part("w2"))}
+    def cut(*path):
+        return lambda name, shape: SH.leaf_parts(cfg, ctx, path + (name,),
+                                                 shape)
+    c = cut("moe")
+    p = {"router": dense_init(gen, (d, E), dtype, scale=0.006,
+                              part=c("router", (d, E)))}
+    for name in EXPERT_LEAVES:
+        shape = _full_shape(m, d, name)
+        p[name] = dense_init(gen, shape, dtype, part=c(name, shape))
     if m.n_shared:
         from repro_torch.models.ffn import init_ffn
-        p["shared"] = init_ffn(gen, d, m.n_shared * dff, "swiglu", dtype)
+        p["shared"] = init_ffn(gen, d, m.n_shared * dff, "swiglu", dtype,
+                               cut=cut("moe", "shared"))
     return p
 
 
@@ -246,59 +263,51 @@ def _full_shape(m, d: int, name: str) -> Tuple[int, int, int]:
     return (m.n_experts, d, m.d_expert)
 
 
-def _check_parts(p, m, ctx: DistCtx, d: int) -> None:
-    """Refuse expert leaves that are not this rank's parts (a whole
-    stack converted or drawn without the mesh), by name."""
-    for name in EXPERT_LEAVES:
-        part = expert_part(m, ctx, name)
-        full = _full_shape(m, d, name)
-        want = full if part is None else part.shape(full)
+def _check_parts(p, cfg, ctx: DistCtx, d: int) -> None:
+    """Refuse a router or expert leaf that is not this rank's parts (a
+    whole stack converted or drawn without the mesh), by name."""
+    m = cfg.moe
+    for name in ("router",) + EXPERT_LEAVES:
+        full = (d, m.n_experts) if name == "router" else _full_shape(
+            m, d, name)
+        want = parts_shape(SH.leaf_parts(cfg, ctx, ("moe", name), full),
+                           full)
         got = tuple(p[name].shape)
         if got != want:
             raise ValueError(
-                f"apply_moe: expert leaf moe.{name} has shape {got}, but "
-                f"under the mesh {dict(ctx.mesh.shape)} (impl="
-                f"{m.impl!r}, ep={m.ep!r}) this rank holds {want} of the "
-                f"whole {full}; draw the parameters with init_params(..., "
-                f"ctx=ctx) or convert them with convert.model_params(..., "
-                f"cfg=cfg, ctx=ctx)")
+                f"apply_moe: leaf moe.{name} has shape {got}, but under "
+                f"the mesh {dict(ctx.mesh.shape)} (impl={m.impl!r}, ep="
+                f"{m.ep!r}) this rank holds {want} of the whole {full}; "
+                f"draw the parameters with init_params(..., ctx=ctx) or "
+                f"convert them with convert.model_params(..., cfg=cfg, "
+                f"ctx=ctx)")
 
 
-def _relaid(p, m, ctx: DistCtx, want, local: bool) -> dict:
-    """``p`` with its expert leaves in the layout ``want(name)`` (a
-    :class:`Part` or None for the whole leaf): gathered over the axes of
-    the part this rank holds and cut again where the two differ (never
+def _relaid(p, cfg, ctx: DistCtx, want, partial, d: int) -> dict:
+    """``p`` with its router and expert leaves in the layout the path
+    runs on: the router whole, each expert leaf as ``want(name)`` (a
+    :class:`Part` or None for the whole leaf), gathered over the axes of
+    the parts this rank holds and cut again where they differ (never
     without a mesh, where every leaf is whole).
 
-    ``local``: the leaves feed shard-local work (the tensor-parallel
-    and alltoall paths), so each leaf's cotangent is summed over every
-    rank whose work it feeds: the router's over the whole mesh, an
+    ``partial``: the mesh axes over which the path's work differs by
+    rank (every axis on the tensor-parallel and alltoall paths, none on
+    the local path, which runs the whole batch on every rank), so that
+    each leaf's cotangent is summed over the ranks whose work it feeds
+    (``models/common.relay``): the router's over the whole mesh, an
     expert leaf's over the axes its held part is replicated on and, when
-    gathered, reduce-scattered onto that part. Otherwise (the local
-    path, every rank on the whole batch) the gathered leaf's replicated
-    cotangent backs off to this rank's rows."""
+    gathered, reduce-scattered onto that part. Otherwise each gathered
+    leaf's replicated cotangent backs off to this rank's rows."""
+    m = cfg.moe
     out = dict(p)
-    if local:
-        out["router"] = ctx.mesh.group(ctx.mesh.axis_names).psum_grad(
-            p["router"])
+    out["router"] = relay(p["router"], SH.leaf_parts(
+        cfg, ctx, ("moe", "router"), (d, m.n_experts)), (), ctx.mesh,
+        partial)
     for name in EXPERT_LEAVES:
-        have, need = expert_part(m, ctx, name), want(name)
-        w = p[name]
-        held = () if have is None else have.axes
-        if have != need and have is not None:
-            w = ctx.mesh.group(held).all_gather(
-                w.movedim(have.axis, 0),
-                grad="reduce_scatter" if local else "rows"
-            ).movedim(0, have.axis)
-            if have.axis == -3:
-                w = w[:m.n_experts]
-        if local:
-            # Summed over the ranks that hold the same part.
-            w = ctx.mesh.group(tuple(a for a in ctx.mesh.axis_names
-                                     if a not in held)).psum_grad(w)
-        if have != need and need is not None:
-            w = need.take(w)
-        out[name] = w
+        have = SH.leaf_parts(cfg, ctx, ("moe", name), _full_shape(m, d, name))
+        need = want(name)
+        out[name] = relay(p[name], have, () if need is None else (need,),
+                          ctx.mesh, partial, extent={-3: m.n_experts})
     return out
 
 
@@ -312,9 +321,12 @@ def _pmean(aux: torch.Tensor, ctx: DistCtx) -> torch.Tensor:
 def _dp_rows(x: torch.Tensor, ctx: DistCtx) -> torch.Tensor:
     """This rank's rows of the batch over the ``dp`` axes (``P(dp)``
     in), as they enter the ``tp``-partial work: the backward sums the
-    rows' cotangent over ``tp`` and all-gathers it over ``dp``."""
-    return ctx.mesh.group(ctx.tp).psum_grad(
-        ctx.mesh.group(ctx.dp).shard_rows(x))
+    rows' cotangent over ``tp`` and, where the batch came whole, all-
+    gathers it over ``dp``. A batch already cut over ``dp`` is taken as
+    it is."""
+    if not ctx.batch_cut:
+        x = ctx.mesh.group(ctx.dp).shard_rows(x)
+    return ctx.mesh.group(ctx.tp).psum_grad(x)
 
 
 def _dense_shard_map(p, x: torch.Tensor, m, ctx: DistCtx):
@@ -323,7 +335,7 @@ def _dense_shard_map(p, x: torch.Tensor, m, ctx: DistCtx):
     queue, each expert's FFN hidden dim cut over ``tp`` like a dense
     FFN, and the one collective of the layer is the psum of the bf16
     layer output over ``tp`` (in shard order). Capacity is per data
-    shard. The output is gathered over ``dp``."""
+    shard. A whole batch's output is gathered over ``dp``."""
     xb = _dp_rows(x, ctx)
     x2 = xb.reshape(-1, x.shape[-1])
     ids, gates, aux = _route(p["router"], x2, m)
@@ -333,8 +345,9 @@ def _dense_shard_map(p, x: torch.Tensor, m, ctx: DistCtx):
     y = _unpack(ye, plan, gates, m.top_k)
     y = ctx.mesh.group(ctx.tp).psum(y.to(x.dtype))
     aux = _pmean(aux, ctx)
-    y = ctx.mesh.group(ctx.dp).all_gather(y.reshape(xb.shape))
-    return y, aux
+    if not ctx.batch_cut:
+        y = ctx.mesh.group(ctx.dp).all_gather(y.reshape(xb.shape))
+    return y.reshape(x.shape), aux
 
 
 def _alltoall_local(p, x_my: torch.Tensor, m, group):
@@ -372,9 +385,12 @@ def _alltoall(p, x: torch.Tensor, m, ctx: DistCtx):
     (``_grid_a2a``) compose to the one flat exchange over the experts'
     axes, and its gather over ``tp`` then over ``dp`` to one gather over
     (dp, tp). The rows' cotangent is gathered over (dp, tp) in the
-    backward: each rank's tokens come back whole from the experts."""
+    backward: each rank's tokens come back whole from the experts. A
+    batch already cut over ``dp`` is cut and gathered over ``tp``
+    alone."""
     B, S, d = x.shape
-    grid = ctx.mesh.group(tuple(ctx.dp) + (ctx.tp,))
+    grid = ctx.mesh.group((() if ctx.batch_cut else tuple(ctx.dp))
+                          + (ctx.tp,))
     x_my = grid.shard_rows(x.reshape(B * S, d))
     y_my, aux = _alltoall_local(p, x_my, m,
                                 ctx.mesh.group(_ep_axes(m, ctx)))
@@ -383,8 +399,9 @@ def _alltoall(p, x: torch.Tensor, m, ctx: DistCtx):
 
 
 def moe_path(m, B: int, S: int, ctx: DistCtx) -> str:
-    """The path the reference's ``apply_moe`` takes: ``"alltoall"``,
-    ``"etp"`` (expert tensor parallelism) or ``"local"``."""
+    """The path the reference's ``apply_moe`` takes for a global batch of
+    B rows of S tokens: ``"alltoall"``, ``"etp"`` (expert tensor
+    parallelism) or ``"local"``."""
     if ctx is None or ctx.mesh is None:
         return "local"
     tp, dp = ctx.tp_size, ctx.dp_size
@@ -399,24 +416,38 @@ def moe_path(m, B: int, S: int, ctx: DistCtx) -> str:
 
 def apply_moe(p, x: torch.Tensor, cfg, ctx: DistCtx = None):
     """x: (B, S, d) -> (y (B, S, d), weighted aux loss). Under a mesh
-    ``p`` holds this rank's :func:`expert_part` of each expert leaf."""
+    ``p`` holds this rank's parts of each leaf, and x is this rank's
+    rows where ``ctx.batch_cut`` (else the whole batch), replicated over
+    ``tp``; so is y."""
     m = cfg.moe
     B, S, d = x.shape
-    if ctx is not None and ctx.mesh is not None:
-        _check_parts(p, m, ctx, d)
-    path = moe_path(m, B, S, ctx)
+    mesh = None if ctx is None else ctx.mesh
+    if mesh is not None:
+        _check_parts(p, cfg, ctx, d)
+    Bg = B * ctx.dp_size if mesh is not None and ctx.batch_cut else B
+    path = moe_path(m, Bg, S, ctx)
+    every = () if mesh is None else tuple(mesh.axis_names)
     if path == "etp":
         y, aux = _dense_shard_map(
-            _relaid(p, m, ctx, lambda n: _etp_part(m, ctx, n), True), x, m,
-            ctx)
+            _relaid(p, cfg, ctx, lambda n: _etp_part(m, ctx, n), every, d),
+            x, m, ctx)
     elif path == "alltoall":
         y, aux = _alltoall(
-            _relaid(p, m, ctx, lambda n: _ep_part(m, ctx), True), x, m, ctx)
+            _relaid(p, cfg, ctx, lambda n: _ep_part(m, ctx), every, d), x,
+            m, ctx)
     else:
-        y, aux = _local_moe(_relaid(p, m, ctx, lambda n: None, False),
-                            x.reshape(-1, d), m)
-        y = y.reshape(B, S, d)
+        xl = x
+        if mesh is not None and ctx.batch_cut:
+            # The whole batch, as the reference's local path sees it.
+            xl = mesh.group(ctx.dp).all_gather(x)
+        y, aux = _local_moe(_relaid(p, cfg, ctx, lambda n: None, (), d)
+                            if mesh is not None else p,
+                            xl.reshape(-1, d), m)
+        y = y.reshape(xl.shape)
+        if xl is not x:
+            y = mesh.group(ctx.dp).shard_rows(y)
     if m.n_shared:
         from repro_torch.models.ffn import apply_ffn
-        y = y + apply_ffn(p["shared"], x, "swiglu", ctx)
+        y = y + apply_ffn(p["shared"], x, "swiglu", ctx, cfg=cfg,
+                          name="shared")
     return y, aux * m.router_aux_weight

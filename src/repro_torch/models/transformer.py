@@ -15,6 +15,19 @@ where the reference scans a segment with ``lax.scan``, the port loops
 over the layers in Python. The state-carrying kinds (rwkv, mamba) take
 and return a per-layer state, stacked on the layer axis as the
 reference stacks it.
+
+Under a mesh (``launch/sharding.py``; the attn_ffn kind of the families
+it lays out) the residual stream between blocks is this rank's rows of
+the batch (where it is cut over ``dp``), replicated over ``tp``, or,
+with ``cfg.seq_shard`` and the sequence dividing over ``tp``
+(:func:`seq_parallel`, the reference's ``block_seq`` constraint), cut on
+the sequence over ``tp`` as well: every norm, residual add and stash then
+runs on this rank's rows of the sequence, the attention and the FFN (or
+the MoE layer) all-gather the sequence on entry, and the tensor-parallel
+partial products of ``wo`` and ``w2`` are reduce-scattered back onto it
+(the MoE layer's output, summed over ``tp`` inside the layer, is cut).
+``block_decode`` never cuts the sequence: the partial products of ``wo``
+and ``w2`` are psummed.
 """
 from __future__ import annotations
 
@@ -25,13 +38,14 @@ import torch
 import torch.utils.checkpoint
 from torch.profiler import record_function
 
+from repro_torch.launch import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MoE
 from repro_torch.models import rwkv as R
-from repro_torch.models.common import (DistCtx, apply_norm, init_norm,
-                                       tree_map)
+from repro_torch.models.common import (DistCtx, apply_norm, enter_region,
+                                       init_norm, leave_region, tree_map)
 
 @dataclass(frozen=True)
 class SegmentSpec:
@@ -71,11 +85,41 @@ def plan_segments(cfg) -> List[SegmentSpec]:
     return [SegmentSpec("attn_ffn", cfg.n_layers)]
 
 
+def seq_parallel(cfg, ctx: Optional[DistCtx], S: int) -> bool:
+    """Whether the residual stream of a sequence of S tokens is cut on
+    the sequence over ``tp`` (``cfg.seq_shard``, ``cfg`` laid out,
+    ``tp`` > 1 and S dividing over it)."""
+    return (ctx is not None and ctx.mesh is not None and cfg.seq_shard
+            and SH.lays_out(cfg) and ctx.tp_size > 1
+            and S % ctx.tp_size == 0)
+
+
+def layer_norm_of(lp, name: str, x: torch.Tensor, cfg, ctx: DistCtx,
+                  seq: bool = False) -> torch.Tensor:
+    """Norm ``lp[name]`` of x; under a mesh its weights' cotangent is
+    summed over the ranks whose rows differ (``dp`` where the batch is
+    cut, ``tp`` where the sequence is)."""
+    p = lp[name]
+    if ctx is not None and ctx.mesh is not None:
+        p = {k: SH.use(v, cfg, ctx, (name, k), tuple(v.shape),
+                       tp_partial=seq) for k, v in p.items()}
+    return apply_norm(cfg.norm, p, x)
+
+
+def _cut(cfg, ctx, prefix):
+    """``init_*``'s ``cut``: the parts of a leaf under ``prefix`` this
+    rank keeps (None without a mesh)."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    return lambda name, shape: SH.leaf_parts(cfg, ctx, (prefix, name), shape)
+
+
 def init_layer(gen: torch.Generator, cfg, spec: SegmentSpec, dtype,
                ctx: DistCtx = None):
     """One layer's parameters; a cross segment's layer adds ``ln_x`` and
     ``xattn`` (a GQA parameter set) to the attn_ffn layer's. Under a
-    mesh ``ctx`` a MoE layer keeps this rank's part of its experts."""
+    mesh ``ctx`` each leaf keeps this rank's parts of its draw
+    (``launch/sharding.leaf_parts``)."""
     d = cfg.d_model
     dev = gen.device
     if spec.kind == "rwkv":
@@ -86,17 +130,19 @@ def init_layer(gen: torch.Generator, cfg, spec: SegmentSpec, dtype,
     if spec.kind == "mamba":
         return {"ln1": init_norm(cfg.norm, d, dtype, dev),
                 "mix": M.init_mamba2(gen, cfg, dtype)}
+    attn = _cut(cfg, ctx, "attn")
     p = {"ln1": init_norm(cfg.norm, d, dtype, dev),
-         "attn": (A.init_mla(gen, cfg, dtype) if cfg.attn == "mla"
-                  else A.init_gqa(gen, cfg, dtype)),
+         "attn": (A.init_mla(gen, cfg, dtype, attn) if cfg.attn == "mla"
+                  else A.init_gqa(gen, cfg, dtype, attn)),
          "ln2": init_norm(cfg.norm, d, dtype, dev)}
     if spec.moe:
         p["moe"] = MoE.init_moe(gen, cfg, dtype, ctx)
     else:
-        p["ffn"] = F.init_ffn(gen, d, cfg.d_ff, cfg.activation, dtype)
+        p["ffn"] = F.init_ffn(gen, d, cfg.d_ff, cfg.activation, dtype,
+                              _cut(cfg, ctx, "ffn"))
     if spec.cross:
         p["ln_x"] = init_norm(cfg.norm, d, dtype, dev)
-        p["xattn"] = A.init_gqa(gen, cfg, dtype)
+        p["xattn"] = A.init_gqa(gen, cfg, dtype, _cut(cfg, ctx, "xattn"))
     return p
 
 
@@ -130,15 +176,17 @@ def init_segment(gen: torch.Generator, cfg, spec: SegmentSpec, dtype,
 
 def block_seq(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec, *,
               state=None, enc_out: Optional[torch.Tensor] = None,
-              want_cache: bool = False):
+              want_cache: bool = False, seq: bool = False):
     """One layer over a full sequence. Returns (x, aux, new_state,
     cache): for the rwkv and mamba kinds the layer's new state from
     ``state`` (the layer's {"s", "shift", "shift2"} or {"h", "conv"})
     and no cache; for attn_ffn no state and, when ``want_cache``,
-    {"k", "v"} (rotated keys, values) for GQA, {"latent", "rope"} (the
-    latent and the rotated rope key) for MLA. A cross segment's layer
-    given ``enc_out`` (B, Se, d) attends over it after the
-    self-attention."""
+    {"k", "v"} (rotated keys, values; under a tensor-parallel mesh the
+    kv heads this rank holds) for GQA, {"latent", "rope"} (the latent
+    and the rotated rope key) for MLA. A cross segment's layer given
+    ``enc_out`` (B, Se, d) attends over it after the self-attention.
+    ``seq``: x (and the result) is this rank's rows of the sequence
+    (:func:`seq_parallel`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == "rwkv":
         h = apply_norm(cfg.norm, lp["ln1"], x)
@@ -155,26 +203,27 @@ def block_seq(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec, *,
         o, new_state = M.mamba2_block(lp["mix"], h, state, cfg, ctx)
         return x + o, aux, new_state, None
     cache = None
-    h = apply_norm(cfg.norm, lp["ln1"], x)
+    h = layer_norm_of(lp, "ln1", x, cfg, ctx, seq)
+    local = A.tp_heads(cfg, ctx, cfg.n_heads) is not None
+    h = enter_region(h, ctx, seq=seq, local=local)
     if cfg.attn == "mla":
-        o = A.mla_self(lp["attn"], h, cfg, ctx)
-        if want_cache:
-            cache = A.mla_cache_entries(lp["attn"], h, cfg)
+        o = A.mla_self(lp["attn"], h, cfg, ctx, want_cache=want_cache)
     else:
-        o = A.gqa_self(lp["attn"], h, cfg, ctx, causal=spec.causal)
-        if want_cache:
-            _, k, v = A._qkv(lp["attn"], h, cfg)
-            pos = torch.arange(h.shape[1], device=h.device)
-            k = A.apply_rope(k, pos, cfg.rope_theta)
-            cache = {"k": k, "v": v}
-    x = x + o
+        o = A.gqa_self(lp["attn"], h, cfg, ctx, causal=spec.causal,
+                       want_cache=want_cache)
+    if want_cache:
+        o, cache = o
+    x = x + leave_region(o, ctx, seq=seq, local=local)
     if spec.cross and enc_out is not None:
         x = x + cross_attention(lp, x, enc_out, cfg)
-    h = apply_norm(cfg.norm, lp["ln2"], x)
+    h = layer_norm_of(lp, "ln2", x, cfg, ctx, seq)
     if spec.moe:
+        # The layer takes the sequence whole and returns its sum.
+        h = enter_region(h, ctx, seq=seq, local=False)
         y, aux = MoE.apply_moe(lp["moe"], h, cfg, ctx)
+        y = leave_region(y, ctx, seq=seq, local=False)
     else:
-        y = F.apply_ffn(lp["ffn"], h, cfg.activation, ctx)
+        y = F.apply_ffn(lp["ffn"], h, cfg.activation, ctx, cfg=cfg, seq=seq)
     return x + y, aux, None, cache
 
 
@@ -224,7 +273,7 @@ def unbind_layers(seg_params, n_layers: int) -> List[dict]:
 def run_segment(seg_params, x: torch.Tensor, cfg, ctx: DistCtx,
                 spec: SegmentSpec, *, state=None,
                 enc_out: Optional[torch.Tensor] = None,
-                want_cache: bool = False):
+                want_cache: bool = False, seq: bool = False):
     """The segment's layers in order, layer i from ``state``'s slice i
     (the stacked states of a rwkv or mamba segment), a cross segment's
     each attending over ``enc_out``. Returns (x, aux summed over the
@@ -234,7 +283,8 @@ def run_segment(seg_params, x: torch.Tensor, cfg, ctx: DistCtx,
     reference's ``jax.checkpoint`` of the scanned body), the
     state-carrying kinds too: its activations are recomputed in the
     backward instead of kept, ``enc_out`` an argument of the recomputed
-    layer, so that its gradient reaches the encoder."""
+    layer, so that its gradient reaches the encoder. ``seq``: x is
+    cut on the sequence over ``tp`` (:func:`block_seq`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     states, caches = [], []
     remat = cfg.remat and torch.is_grad_enabled() and not want_cache
@@ -243,11 +293,11 @@ def run_segment(seg_params, x: torch.Tensor, cfg, ctx: DistCtx,
         if remat:
             x, a, ns, cache = torch.utils.checkpoint.checkpoint(
                 block_seq, lp, x, cfg, ctx, spec, state=st, enc_out=enc_out,
-                use_reentrant=False)
+                seq=seq, use_reentrant=False)
         else:
             x, a, ns, cache = block_seq(lp, x, cfg, ctx, spec, state=st,
                                         enc_out=enc_out,
-                                        want_cache=want_cache)
+                                        want_cache=want_cache, seq=seq)
         aux = aux + a
         states.append(ns)
         caches.append(cache)
@@ -286,18 +336,19 @@ def block_decode(lp, x1: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec,
         o, ns = M.mamba2_block(lp["mix"], h, state, cfg, ctx,
                                use_chunked=False)
         return x1 + o[:, 0], ns
-    h = apply_norm(cfg.norm, lp["ln1"], x1)
+    h = layer_norm_of(lp, "ln1", x1, cfg, ctx)
     decode = A.mla_decode if cfg.attn == "mla" else A.gqa_decode
     o, _ = decode(lp["attn"], h, cache, cfg, ctx, lengths=lengths)
-    x1 = x1 + o
+    x1 = x1 + leave_region(o, ctx, seq=False, local=A.tp_heads(
+        cfg, ctx, cfg.n_heads) is not None)
     if spec.cross and "ck" in cache:
         x1 = x1 + cross_decode(lp, x1, cache, cfg)
-    h = apply_norm(cfg.norm, lp["ln2"], x1)
+    h = layer_norm_of(lp, "ln2", x1, cfg, ctx)
     if spec.moe:
         y, _ = MoE.apply_moe(lp["moe"], h[:, None, :], cfg, ctx)
         y = y[:, 0]
     else:
-        y = F.apply_ffn(lp["ffn"], h, cfg.activation, ctx)
+        y = F.apply_ffn(lp["ffn"], h, cfg.activation, ctx, cfg=cfg)
     return x1 + y, cache
 
 

@@ -21,15 +21,17 @@ update's RMS are sums over slices, taken in a fixed order, then the
 update applied slice by slice); the clip's norm a sum of per-slice sums
 in order.
 
-Under a mesh a leaf may be this rank's part of a larger one (an expert
-stack: ``launch/sharding.param_shards`` gives each leaf's :class:`Shard`
-or None). ``clip_by_global_norm(..., shards=)`` and ``update(...,
-shards=)`` then see the whole leaf: the part's sum of squares (its
-padding excluded) is summed over the ranks that hold the other parts,
-in shard order, so the norm is the same bits on every rank; adafactor's
-statistics that run along the cut dim (the row mean over a cut last
-dim, the column sum and the row statistics' mean over a cut row dim)
-and its update's RMS are summed likewise, over the whole leaf's size.
+Under a mesh a leaf may be this rank's part of a larger one, cut on one
+dim or on two (an FSDP dim and a tensor-parallel one, or an expert
+stack's: ``launch/sharding.param_shards`` gives each leaf's
+:class:`Shard` or None). ``clip_by_global_norm(..., shards=)`` and
+``update(..., shards=)`` then see the whole leaf: the part's sum of
+squares (its padding excluded) is summed over the ranks that hold the
+other parts, in shard order, so the norm is the same bits on every
+rank; adafactor's statistics that run along a cut dim (the row mean
+over a cut last dim, the column sum and the row statistics' mean over a
+cut row dim) are summed over that dim's ranks, and its update's RMS
+over every part's, over the whole leaf's size.
 adamw and sgd are elementwise and take the part as it is.
 """
 from __future__ import annotations
@@ -52,12 +54,12 @@ class Optimizer(NamedTuple):
     update: Callable
 
 
-class Shard(NamedTuple):
-    """A leaf held as this rank's part of a larger one: rows ``lo:hi``
-    of dim ``axis`` (negative) of a leaf whose dim holds ``whole`` rows;
-    rows past ``whole`` are padding (zeros that take no gradient).
-    ``group`` (a ``utils.mesh.ShardGroup`` of more than one rank) holds
-    the ranks whose parts tile the leaf, in shard order."""
+class Cut(NamedTuple):
+    """One cut dim of a leaf held as this rank's part of a larger one:
+    rows ``lo:hi`` of dim ``axis`` (negative), of a dim of ``whole``
+    rows; rows past ``whole`` are padding (zeros that take no
+    gradient). ``group`` (a ``utils.mesh.ShardGroup``) holds the ranks
+    whose rows tile the dim, in shard order."""
     axis: int
     lo: int
     hi: int
@@ -69,12 +71,27 @@ class Shard(NamedTuple):
         """The part's rows that are not padding."""
         return max(0, min(self.hi, self.whole) - self.lo)
 
+
+class Shard(NamedTuple):
+    """A leaf held as this rank's part of a larger one, cut on the dims
+    of ``cuts`` (one :class:`Cut` each: an FSDP dim and a tensor-parallel
+    one, or an expert stack's); ``group`` holds every rank whose part is
+    another piece of the leaf (the cuts' axes together), in shard
+    order."""
+    cuts: tuple
+    group: object
+
+    def on(self, axis: int):
+        """The :class:`Cut` of dim ``axis`` (negative), or None."""
+        return next((c for c in self.cuts if c.axis == axis), None)
+
     def numel(self, part_shape) -> int:
         """The whole leaf's element count (its padding excluded)."""
         n = 1
-        for s in part_shape:
-            n *= s
-        return n // (self.hi - self.lo) * self.whole
+        for i, s in enumerate(part_shape):
+            c = self.on(i - len(part_shape))
+            n *= s if c is None else c.whole
+        return n
 
 
 def _lr_at(lr: Schedule, step) -> torch.Tensor:
@@ -107,8 +124,9 @@ def _leaf_sum_of_squares(g: torch.Tensor, shard) -> torch.Tensor:
     are not padding summed over the parts' ranks."""
     if shard is None:
         return _sum_of_squares(g)
-    if shard.valid < shard.hi - shard.lo:
-        g = g.narrow(shard.axis, 0, shard.valid).contiguous()
+    for c in shard.cuts:
+        if c.valid < c.hi - c.lo:
+            g = g.narrow(c.axis, 0, c.valid).contiguous()
     s = _sum_of_squares(g) if g.numel() else torch.zeros(
         (), dtype=torch.float32, device=g.device)
     return shard.group.psum(s.reshape(1))[0]
@@ -225,11 +243,13 @@ def adafactor(lr: Schedule, eps: float = 1e-30, decay: float = 0.8,
     def factored(p, g, s, beta, shard):
         """(the slices' (p, g, 1 / sqrt(vhat)) getter, count) of a
         factored leaf, after the new r and c are written into s. A part
-        cut on the last dim (C) sums its row means over the parts; one
-        cut on the row dim (R) its column sums and the mean of r."""
+        cut on the last dim (C) sums its row means over that cut's
+        ranks; one cut on the row dim (R) its column sums and the mean
+        of r."""
         R, C = p.shape[-2:]
         L = p.numel() // (R * C)
-        cut = None if shard is None or shard.axis == -3 else shard.axis
+        cut_c = None if shard is None else shard.on(-1)
+        cut_r = None if shard is None else shard.on(-2)
         pv, gv = p.view(L, R, C), g.view(L, R, C)
         r_new = torch.empty((L, R), dtype=torch.float32, device=p.device)
         csum = torch.zeros((L, C), dtype=torch.float32, device=p.device)
@@ -237,23 +257,23 @@ def adafactor(lr: Schedule, eps: float = 1e-30, decay: float = 0.8,
         for l0, l1, r0, r1 in blocks:
             gf = gv[l0:l1, r0:r1].float()
             g2 = gf * gf + eps
-            r_new[l0:l1, r0:r1] = (torch.sum(g2, dim=-1) if cut == -1
+            r_new[l0:l1, r0:r1] = (torch.sum(g2, dim=-1) if cut_c
                                    else torch.mean(g2, dim=-1))
             if r1 - r0 == R:
                 csum[l0:l1] = torch.sum(g2, dim=-2)
             else:
                 csum[l0:l1] += torch.sum(g2, dim=-2)
-        if cut == -1:
-            r_new = shard.group.psum(r_new) / shard.whole
-        if cut == -2:
-            csum, R = shard.group.psum(csum), shard.whole
+        if cut_c:
+            r_new = cut_c.group.psum(r_new) / cut_c.whole
+        if cut_r:
+            csum, R = cut_r.group.psum(csum), cut_r.whole
         sr, sc = s["r"].view(L, -1), s["c"].view(L, C)
         r = beta * sr + (1 - beta) * r_new
         c = beta * sc + (1 - beta) * (csum / R)
         sr.copy_(r)
         sc.copy_(c)
-        if cut == -2:
-            rmean = shard.group.psum(torch.sum(r, dim=-1, keepdim=True)) / R
+        if cut_r:
+            rmean = cut_r.group.psum(torch.sum(r, dim=-1, keepdim=True)) / R
         else:
             rmean = torch.mean(r, dim=-1, keepdim=True)
         rc = r / torch.clamp_min(rmean, eps)

@@ -47,6 +47,9 @@ differentiable collectives transpose as ``shard_map`` transposes the
     shard's rows;
   * ``all_to_all``'s backward is the reverse exchange: the same tiled
     exchange of the cotangent;
+  * ``reduce_scatter`` of shard-local partials into this shard's rows of
+    their sum (the sequence-parallel residual after a tensor-parallel
+    product) all-gathers the cotangent back (Megatron-SP's g-bar);
   * ``psum_grad`` marks a replicated value entering shard-local work:
     the identity forward, a psum of the cotangent backward (Megatron's
     f); ``shard_rows`` takes this shard's rows of a replicated value,
@@ -129,10 +132,11 @@ class ShardGroup:
         return [b.to(dev) for b in out]
 
     def all_gather(self, x: torch.Tensor, *, active: Optional[int] = None,
-                   grad: str = "rows") -> torch.Tensor:
-        """Tiled all-gather along dim 0, in shard order. With ``active``
-        only the first ``active`` shards hold rows: the others send a
-        placeholder of the same shape, which is dropped (forward-only).
+                   grad: str = "rows", dim: int = 0) -> torch.Tensor:
+        """Tiled all-gather along dim ``dim`` (0 unless given), in shard
+        order. With ``active`` only the first ``active`` shards hold
+        rows: the others send a placeholder of the same shape, which is
+        dropped (forward-only).
 
         The backward takes this shard's rows of the cotangent
         (``grad="rows"``: the gathered value is replicated, and so is its
@@ -142,6 +146,9 @@ class ShardGroup:
         if active is not None:
             _forward_only("all_gather(..., active=)", x)
             return torch.cat(self._exchange(x)[:active], dim=0)
+        if dim % x.dim():
+            return self.all_gather(x.movedim(dim, 0), grad=grad).movedim(
+                0, dim)
         if grad not in _GATHER_GRADS:
             raise MeshError(f"all_gather grad={grad!r} is invalid: accepted "
                             f"values are {list(_GATHER_GRADS)}")
@@ -212,6 +219,34 @@ class ShardGroup:
             recv = recv[self._order]
         return recv.to(dev).view(x.dtype).reshape(x.shape)
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This shard's rows of the sum over the shards (``psum_scatter``
+        along dim ``dim``, tiled): dim ``dim`` of ``x`` (the same shape
+        on every rank) is cut into ``size`` blocks, block i of every
+        shard is sent to shard i (one ``all_to_all``) and added there in
+        shard order, so that each shard holds the bits of its rows of
+        :meth:`psum`. The backward all-gathers the cotangent (each
+        shard's partial feeds every row of the sum)."""
+        if self.size == 1:
+            return x
+        if dim % x.dim():
+            return self.reduce_scatter(x.movedim(dim, 0)).movedim(0, dim)
+        if x.shape[0] % self.size:
+            raise MeshError(f"reduce_scatter: dim 0 of a tensor of shape "
+                            f"{tuple(x.shape)} does not split into "
+                            f"{self.size} blocks")
+        if _needs_grad(x):
+            return _ReduceScatter.apply(x, self)
+        return self._scatter_sum(x)
+
+    def _scatter_sum(self, x: torch.Tensor) -> torch.Tensor:
+        blocks = self._a2a(x).reshape((self.size, x.shape[0] // self.size)
+                                      + tuple(x.shape[1:]))
+        acc = blocks[0]
+        for b in blocks[1:]:
+            acc = acc + b
+        return acc
+
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the shards, added in shard order: the same bits on
         every rank on every backend. The result is replicated: the
@@ -235,11 +270,13 @@ class ShardGroup:
             return x
         return _PsumGrad.apply(x, self)
 
-    def shard_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """This shard's rows of ``x`` (replicated over the group): dim 0
-        cut into ``size`` blocks in shard order (``P(axes)`` in). The
-        backward all-gathers the cotangent, so that ``x``'s gradient is
-        whole on every rank."""
+    def shard_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This shard's rows of ``x`` (replicated over the group): dim
+        ``dim`` (0 unless given) cut into ``size`` blocks in shard order
+        (``P(axes)`` in). The backward all-gathers the cotangent, so
+        that ``x``'s gradient is whole on every rank."""
+        if dim % x.dim():
+            return self.shard_rows(x.movedim(dim, 0)).movedim(0, dim)
         n, rem = divmod(x.shape[0], self.size)
         if rem:
             raise MeshError(f"shard_rows: dim 0 of a tensor of shape "
@@ -281,9 +318,20 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if ctx.reduce:
-            g = ctx.group.psum(g)
+            return ctx.group.reduce_scatter(g), None, None
         i = ctx.group.index * ctx.rows
         return g[i:i + ctx.rows], None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group._scatter_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g), None
 
 
 class _AllToAll(torch.autograd.Function):

@@ -92,11 +92,14 @@ def _run(model, ctx, opt, state, batches):
 
 def _params_out(params, cfg, ctx):
     """The parameters' leaves (numpy) and each leaf's part (axis, lo, hi),
-    None for a whole leaf."""
+    None for a whole leaf (these configs cut a leaf on one dim at
+    most: no FSDP)."""
     from repro_torch.launch.sharding import param_shards
     from repro_torch.utils.tree import leaves
-    parts = [None if sh is None else (sh.axis, sh.lo, sh.hi)
-             for sh in param_shards(params, cfg, ctx)]
+    shards = param_shards(params, cfg, ctx)
+    assert all(sh is None or len(sh.cuts) == 1 for sh in shards)
+    parts = [None if sh is None else (sh.cuts[0].axis, sh.cuts[0].lo,
+                                      sh.cuts[0].hi) for sh in shards]
     return [_np(a) for a in leaves(params)], parts
 
 
@@ -136,12 +139,13 @@ def case_train(spec):
 
 def case_dense(spec):
     """A dense-family model (no expert leaf) under the mesh and on one
-    device from one draw: the parameters and metrics of each."""
+    device from one draw: the parameters (this rank's parts under the
+    mesh) and metrics of each."""
     from repro_torch.launch.train import init_state
     from repro_torch.optim import build_optimizer
     from repro_torch.utils.tree import leaves
     ctx = _ctx(spec["mesh"])
-    _, model = _model(spec)
+    cfg, model = _model(spec)
     name, kw = spec["optimizer"]
     out = {}
     for run, c in (("mesh", ctx), ("single", None)):
@@ -149,8 +153,9 @@ def case_dense(spec):
         state = init_state(model, torch.Generator().manual_seed(
             spec["seed"]), opt, ctx=c)
         state, loss, norm, _ = _run(model, c, opt, state, spec["batches"])
-        out[run] = {"loss": loss, "grad_norm": norm,
-                    "params": [_np(a) for a in leaves(state.params)]}
+        out[run] = {"loss": loss, "grad_norm": norm}
+        out[run]["params"], out[run]["parts"] = _params_out(state.params,
+                                                            cfg, c)
     return out
 
 

@@ -57,7 +57,7 @@ from repro.launch.sharding import opt_specs, param_specs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import MoEConfig  # noqa: E402
 from repro_torch.launch.serve import init_params  # noqa: E402
-from repro_torch.launch.sharding import opt_spec  # noqa: E402
+from repro_torch.launch.sharding import held_spec, opt_spec  # noqa: E402
 from repro_torch.models.common import DistCtx  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.utils.tree import leaves  # noqa: E402
@@ -379,14 +379,20 @@ def test_dropless_mesh_step_equals_single_device(runs, world, key):
 
 
 def test_dense_model_under_mesh_is_the_single_device_step(runs):
-    """Reduced granite (no expert leaf) under (2, 2): every rank's loss,
-    grad norm and parameters the single-device step's bits."""
-    for r, out in enumerate(runs.ranks[4]):
-        got = out["dense"]["granite"]
-        assert got["mesh"]["loss"] == got["single"]["loss"], r
-        assert got["mesh"]["grad_norm"] == got["single"]["grad_norm"], r
-        for a, b in zip(got["mesh"]["params"], got["single"]["params"]):
-            assert np.array_equal(a, b), r
+    """Reduced granite (no expert leaf) under (2, 2), where its dense
+    layers are tensor-parallel and its batch cut over data
+    (``launch/sharding.py``): every rank's loss and grad norm the same
+    bits, and the single-device step's within 1e-5; every parameter,
+    its parts put together, within 1e-5 of the single-device step's
+    largest magnitude (replicated leaves and each part the same bits on
+    every rank that holds it)."""
+    outs = [out["dense"]["granite"] for out in runs.ranks[4]]
+    for r, got in enumerate(outs):
+        assert got["mesh"]["loss"] == outs[0]["mesh"]["loss"], r
+        assert got["mesh"]["grad_norm"] == outs[0]["mesh"]["grad_norm"], r
+    _check_metrics(outs[0]["mesh"], outs[0]["single"], "granite")
+    _check_params([o["mesh"] for o in outs], outs[0]["single"]["params"],
+                  "granite")
 
 
 @pytest.mark.parametrize("key", RESTORE)
@@ -491,7 +497,8 @@ def test_opt_spec_matches_opt_specs(shape, names, impl, ep):
                     spec = specs["f"]["segments"][0]["moe"][name][key]
                 want = tuple(None if a is None else (a,) if isinstance(
                     a, str) else tuple(a) for a in spec)
-                got = opt_spec(cfg, ctx, name, key, 4)
+                got = opt_spec(held_spec(cfg, ctx, (
+                    "segments", "0", "moe", name), shapes[name]), key)
                 assert got == want, (opt_name, key, name, got, want)
 
 
@@ -499,8 +506,8 @@ def test_state_parts_tile_jax_state():
     """convert.train_state's cut of an adafactor state: each rank's r and
     c of every expert leaf, put together over a (2, 2) mesh, are the
     whole state's (the state cut as opt_spec lays it out)."""
-    from repro_torch.launch.sharding import shard_params, state_part
-    from repro_torch.models import moe
+    from repro_torch.launch.sharding import shard_params, state_parts
+    from repro_torch.models.common import take_parts
     for impl, ep in IMPLS:
         m = MoEConfig(n_experts=4, top_k=2, d_expert=8, impl=impl, ep=ep)
         cfg = SimpleNamespace(moe=m)
@@ -517,17 +524,19 @@ def test_state_parts_tile_jax_state():
                     [c[a] for a in axes], [2] * len(axes))))(
                         {"data": data, "model": model})
                 ctx = DistCtx(mesh=stub)
-                cut = shard_params(state, cfg, ctx)["f"]["moe"]
+                shapes = {("moe", "w1"): (4, 6, 8), ("moe", "w2"): (4, 8, 6)}
+                cut = shard_params(state, cfg, ctx, shapes=shapes)["f"]["moe"]
                 for name in ("w1", "w2"):
-                    part = moe.expert_part(m, ctx, name)
+                    path = ("moe", name)
                     for key in ("r", "c"):
-                        sp = state_part(part, key)
+                        sps = state_parts(cfg, ctx, path, shapes[path], key)
                         whole = state["f"]["moe"][name][key]
-                        want = whole if sp is None else sp.take(whole)
+                        want = take_parts(sps, whole)
                         assert np.array_equal(cut[name][key], want)
-                        spec = opt_spec(cfg, ctx, name, key, 3)
+                        spec = opt_spec(held_spec(cfg, ctx, path,
+                                                  shapes[path]), key)
                         cut_dims = [i for i, a in enumerate(spec) if a]
-                        assert ([sp.axis % 2] if sp else []) == cut_dims
+                        assert [p.axis % 2 for p in sps] == cut_dims
 
 
 def test_forward_only_collectives_refuse_a_gradient():

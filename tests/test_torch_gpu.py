@@ -2421,3 +2421,96 @@ def test_gpu_train_step_one_rank_nccl_equals_local(nccl_one_rank):
         (m1, t1), (m0, t0) = runs
         assert m1 == m0, name
         assert all(torch.equal(a, b) for a, b in zip(t1, t0)), name
+
+
+@pytest.mark.gpu
+def test_gpu_reduce_scatter_one_rank_nccl(nccl_one_rank):
+    """reduce_scatter over every group of a one-rank NCCL mesh (a group of
+    one), along dims 0 and 1: the identity both ways, the gradient the
+    cotangent's bits."""
+    mesh = nccl_one_rank.mesh
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for axes in (("data",), ("model",), ("data", "model"),
+                 ("model", "data")):
+        g = mesh.group(axes)
+        for dim in (0, 1):
+            x = torch.randn((4, 6), generator=gen, device="cuda",
+                            requires_grad=True)
+            ct = torch.randn((4, 6), generator=gen, device="cuda")
+            y = g.reduce_scatter(x, dim=dim)
+            (grad,) = torch.autograd.grad(y, x, ct)
+            assert torch.equal(y, x) and torch.equal(grad, ct), (axes, dim)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_vocab_parallel_cross_entropy_one_rank(nccl_one_rank, dtype):
+    """The vocab-parallel cross-entropy (models/common.vocab_parallel_nll
+    and masked_mean) over the one-rank NCCL mesh's model group against
+    cross_entropy on the card: the loss and the logits' gradient within
+    1e-6 relative (both in f32; the max, the sum of exponentials and the
+    label's logit taken in another order than logsumexp's)."""
+    from repro_torch.models.common import (cross_entropy, masked_mean,
+                                           vocab_parallel_nll)
+    ctx = nccl_one_rank
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    logits = (torch.randn((2, 24, 1000), generator=gen, device="cuda")
+              * 4).to(dtype)
+    labels = torch.randint(0, 1000, (2, 24), generator=gen, device="cuda")
+    mask = torch.rand((2, 24), generator=gen, device="cuda") < 0.8
+    got, want = [], []
+    for fn, out in ((lambda lg: masked_mean(vocab_parallel_nll(
+            lg, labels, 0, ctx.mesh.group("model")), mask, ctx), got),
+            (lambda lg: cross_entropy(lg, labels, mask), want)):
+        lg = logits.detach().requires_grad_(True)
+        loss = fn(lg)
+        out += [loss, torch.autograd.grad(loss, lg)[0].float()]
+    assert abs(float(got[0].detach() - want[0].detach())) <= 1e-6 * abs(
+        float(want[0].detach()))
+    err = float((got[1] - want[1]).abs().max())
+    assert err <= 1e-6 * float(want[1].abs().max()) + 1e-12, err
+
+
+@pytest.mark.gpu
+def test_gpu_tp1_reduced_mixtral_equals_local(nccl_one_rank):
+    """tp1's claim at reduced width: Mixtral with fsdp and seq_shard on
+    (every dense layout's code path; at one rank every part is the whole
+    leaf and every collective a group of one) under the one-rank NCCL
+    mesh gives the single-device run's bits: generate's tokens and every
+    logit (bf16, through swa_decode, moe_dispatch and moe_combine), and
+    two train steps' loss, grad norm and parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, init_params
+    from repro_torch.launch.train import init_state, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import leaves
+    cfg = get_config("mixtral-8x7b", reduced=True).replace(
+        fsdp=True, seq_shard=True, microbatch=2)
+    model = build_model(cfg)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 96)),
+                              dtype=torch.int32)
+    batches = [{k: torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, size=(4, 32)).astype(np.int32), device="cuda")
+        for k in ("tokens", "labels")} for _ in range(2)]
+    runs = []
+    for ctx in (nccl_one_rank, None):
+        params = init_params(model, seed=0, device="cuda", ctx=ctx)
+        stats = {}
+        toks = generate(model, params, {"tokens": prompts}, steps=8,
+                        ctx=ctx, stats=stats)
+        opt = build_optimizer("adamw", 1e-3)
+        state = init_state(model, torch.Generator(
+            device="cuda").manual_seed(0), opt, ctx=ctx)
+        step = make_train_step(model, ctx, opt)
+        mets = []
+        for b in batches:
+            state, met = step(state, b)
+            mets.append((met["loss"].item(), met["grad_norm"].item()))
+        runs.append((toks, stats["logits"], mets, leaves(state.params)))
+    (t1, l1, m1, p1), (t0, l0, m0, p0) = runs
+    assert torch.equal(t1, t0)
+    assert all(torch.equal(a, b) for a, b in zip(l1, l0))
+    assert m1 == m0
+    assert all(torch.equal(a, b) for a, b in zip(p1, p0))
