@@ -366,6 +366,30 @@ TP_GRAD_TOL = 5e-2
 # 700.00 W).
 TP2_TRAIN_LAYERS = 1
 EP_BF16_TOL, EP_TWIN_TOL = 2e-2, 1e-6
+# The tpf leg: the ssm, hybrid, encdec and vlm families' layouts on two
+# gloo ranks sharing the card. Serving under (1, 2) (tensor parallel) at
+# the published widths, cut in depth: RWKV6-7B at 1 layer, Zamba2-1.2B at
+# one group of 6 Mamba2 layers and the shared block after it, Whisper-base
+# at 2 + 2 layers (16 clips of 1500 frames, 224 tokens), InternVL2-26B's
+# ring (with_sliding_window(4096)) at 2 layers over 4 x (256 patches +
+# 3840 tokens), whose decode runs swa_decode on 24 query heads over 4 kv
+# heads a rank; TPF_STEPS greedy steps each, the prefill's logits held to
+# one device's within TP_TOL. One train step under (2, 1) (FSDP, the
+# batch cut over data) of RWKV6-7B and InternVL2-26B at 1 layer
+# (tpf_train_cfg) on TPF_BATCH x TF_SEQ positions, held as tp2's. The
+# reduced f32 twins of all four (TPF_TWIN: the CPU tests' options) on the
+# card against the CPU under the same mesh, within EPT_TWIN_TOL.
+# name -> (depth and variant, batch, positions)
+TPF_SERVE = {"rwkv6-7b": (dict(n_layers=1), 4, 4096),
+             "zamba2-1.2b": (dict(n_layers=6), 4, 4096),
+             "whisper-base": (dict(n_layers=2, enc_layers=2), 16, 224),
+             "internvl2-26b": (dict(n_layers=2, window=4096), 4, 4096)}
+TPF_TRAIN = ("rwkv6-7b", "internvl2-26b")
+TPF_TWIN = {"rwkv6-7b": dict(fsdp=True, seq_shard=True),
+            "zamba2-1.2b": dict(fsdp=True, seq_shard=True),
+            "whisper-base": dict(fsdp=True),
+            "internvl2-26b": dict(fsdp=True)}
+TPF_STEPS, TPF_BATCH = 8, 2
 # swa_decode at the InternVL2 ring leg's shape (b, h, kvh, dh, W): 48
 # query heads over 8 KV heads, groups of 6.
 IV_SWA = (4, 48, 8, 128, 4096)
@@ -3158,15 +3182,15 @@ def tp1_check(model, params, ctx, stats, run, counts) -> str:
     part is the whole leaf, and every collective a group of one), and
     its tokens and logits are the decode leg's bits (checked by ep1).
     Returns the tp1 line."""
-    from repro_torch.launch.sharding import (leaf_parts, lays_out,
-                                             param_paths, param_spec)
+    from repro_torch.launch.sharding import (leaf_parts, param_paths,
+                                             param_spec)
     from repro_torch.models.transformer import seq_parallel
     from repro_torch.utils.tree import leaves
     cfg = model.cfg
     shapes = model.param_shapes()
     paths = param_paths(params)
-    require(lays_out(cfg) and cfg.fsdp and cfg.seq_shard,
-            "tp1: Mixtral's dense layouts are not on")
+    require(cfg.fsdp and cfg.seq_shard,
+            "tp1: Mixtral's fsdp and seq_shard are not on")
     cut = sum(any(a is not None for a in param_spec(cfg, ctx, p, shapes[p]))
               for p in paths)
     require(all(not leaf_parts(cfg, ctx, p, shapes[p]) for p in paths),
@@ -7712,6 +7736,398 @@ def family_legs(device):
     return counts
 
 
+# ---------------------------------- the other families under a mesh --
+
+def tpf_cfg(name: str, f32: bool = False):
+    """``name`` as the tpf leg runs it: at its published widths cut to
+    TPF_SERVE's depth (InternVL2 with its 4096-token sliding window), or
+    reduced in f32 with TPF_TWIN's options (``f32``); microbatch 1."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    if f32:
+        return get_config(name, reduced=True).replace(
+            dtype="float32", microbatch=1, **TPF_TWIN[name])
+    cfg = get_config(name)
+    over, _, _ = TPF_SERVE[name]
+    over = dict(over)
+    if "enc_layers" in over:
+        over["encoder"] = dataclasses.replace(cfg.encoder,
+                                              n_layers=over.pop("enc_layers"))
+    window = over.pop("window", None)
+    if window:
+        cfg = cfg.with_sliding_window(window)
+    return cfg.replace(microbatch=1, **over)
+
+
+def tpf_train_cfg(name: str):
+    """``name`` at its published widths cut to 1 layer, with its
+    config's fsdp, at microbatch 1 (each of the 2 rows a rank)."""
+    from repro_torch.configs import get_config
+    return get_config(name).replace(n_layers=1, microbatch=1)
+
+
+def tpf_batch(cfg, B: int, S: int, seed: int, device, labels=False):
+    """B prompts (or a train batch, ``labels``) of S positions in all
+    (InternVL2's patches in front of S - n_prefix tokens) with the
+    family's inputs (:func:`family_inputs`), on ``device``."""
+    text = S - (cfg.encoder.n_prefix if cfg.family == "vlm" else 0)
+    if labels:
+        out = train_batches(seed, cfg.vocab_size, B, text + 1, 1, device)[0]
+    else:
+        out = {"tokens": torch.as_tensor(np.random.default_rng(
+            seed).integers(0, cfg.vocab_size, size=(B, text)),
+            dtype=torch.int32).to(device)}
+    if cfg.family in ("encdec", "vlm"):
+        out.update(family_inputs(cfg, B, seed, device))
+    return out
+
+
+def tpf_train_state(model, ctx, device):
+    """adamw (lr TF_LR) from TF_SEED's draw (this rank's parts under
+    ``ctx``): (state, the parameters' bytes)."""
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.train import TrainState
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import leaves
+    opt = build_optimizer(model.cfg.optimizer, TF_LR)
+    params = init_params(model, seed=TF_SEED, device=device, ctx=ctx)
+    held = sum(a.numel() * a.element_size() for a in leaves(params))
+    return TrainState(params, opt.init(params), torch.zeros(
+        (), dtype=torch.int32, device=device)), opt, held
+
+
+def tpf_reference(device):
+    """The single-device runs the tpf ranks are held to, on the card:
+    each TPF_SERVE model drawn whole from FS_SEED through generate
+    (tokens, logits, the parameters' bytes, wall), and one train step of
+    each TPF_TRAIN model from TF_SEED (loss, grad norm, the parameters
+    after it and adamw's first moment in bf16 on the host, bytes)."""
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import leaves
+    out = {}
+    for name, (_, B, S) in TPF_SERVE.items():
+        model = build_model(tpf_cfg(name))
+        params = init_params(model, seed=FS_SEED, device=device)
+        held = sum(a.numel() * a.element_size() for a in leaves(params))
+        toks, stats, wall = timed_generate(
+            model, params, tpf_batch(model.cfg, B, S, FS_SEED, device),
+            None, steps=TPF_STEPS)
+        out[name] = {"toks": toks.cpu(), "held_gb": held / 1e9,
+                     "logits": [lg.cpu() for lg in stats["logits"]],
+                     "wall": wall}
+        del params, stats
+        torch.cuda.empty_cache()
+    for name in TPF_TRAIN:
+        model = build_model(tpf_train_cfg(name))
+        state, opt, held = tpf_train_state(model, None, device)
+        batch = tpf_batch(model.cfg, TPF_BATCH, TF_SEQ, TF_SEED, device,
+                          labels=True)
+        sync()
+        t0 = time.perf_counter()
+        state, met = make_train_step(model, None, opt)(state, batch)
+        sync()
+        out[name + " train"] = {
+            "wall": time.perf_counter() - t0, "loss": float(met["loss"]),
+            "grad_norm": float(met["grad_norm"]), "held_gb": held / 1e9,
+            "params": [a.cpu() for a in leaves(state.params)],
+            "m": [m.to(torch.bfloat16).cpu() for m in leaves(
+                state.opt["m"])]}
+        del state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def tpf_twin(ctx, name: str) -> dict:
+    """Reduced ``name`` (f32, :func:`tpf_cfg`) under ``ctx``'s mesh on
+    the card and on the CPU from one draw: greedy generate over 4
+    prompts of 32 positions and 4 steps, then 2 adamw steps (lr 1e-3,
+    eps 1e-3) on 4 x 32 positions: the tokens equal, and the largest
+    relative gaps of the logits, the losses and grad norms, and the
+    parameters (each leaf's largest |difference| over its largest
+    magnitude)."""
+    from repro_torch.launch.serve import generate, init_params
+    from repro_torch.launch.train import TrainState, make_train_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.utils.tree import leaves
+    model = build_model(tpf_cfg(name, f32=True))
+    cfg = model.cfg
+    params = init_params(model, seed=0, device="cpu", ctx=ctx)
+    prompt = tpf_batch(cfg, 4, 32, 5, "cpu")
+    batches = [tpf_batch(cfg, 4, 32, 6 + i, "cpu", labels=True)
+               for i in range(2)]
+    runs = []
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda a: a.to(dev, copy=True), params)
+        stats = {}
+        toks = generate(model, p, {k: v.to(dev) for k, v in prompt.items()},
+                        steps=4, ctx=ctx, stats=stats)
+        opt = build_optimizer("adamw", 1e-3, eps=1e-3)
+        state = TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=dev))
+        step = make_train_step(model, ctx, opt)
+        mets = []
+        for b in batches:
+            state, met = step(state, {k: v.to(dev) for k, v in b.items()})
+            mets += [float(met["loss"]), float(met["grad_norm"])]
+        runs.append((toks.cpu(), torch.stack([lg.cpu() for lg in
+                                              stats["logits"]]),
+                     np.array(mets), [a.cpu() for a in leaves(
+                         state.params)]))
+    (t1, l1, m1, p1), (t0, l0, m0, p0) = runs
+    return {"toks": bool(torch.equal(t1, t0)),
+            "logits": float((l1 - l0).abs().max() / l0.abs().max()),
+            "met": float(np.max(np.abs(m1 - m0) / np.abs(m0))),
+            "params": max(float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30) for a, b in zip(p1, p0))}
+
+
+def tpf_rank(rank: int, tmp: str) -> None:
+    """One rank of the tpf leg (spawned; two gloo ranks on cuda:0). Mesh
+    (1, 2): each TPF_SERVE model drawn from FS_SEED as this rank's parts,
+    then generate over its prompts and TPF_STEPS steps between a reset
+    and a read of the launch counts and the peak, under the collective
+    clock (InternVL2's swa_decode first inputs kept, rank 0's:
+    :func:`first_inputs`); then each model's f32 twin
+    (:func:`tpf_twin`). Mesh (2, 1) in the same world: each TPF_TRAIN
+    model at 1 layer, one train step of TPF_BATCH x TF_SEQ positions
+    (each rank its row), timed under the clock: loss, grad norm, the
+    replicated leaves' digests and every part this rank holds after the
+    step with adamw's first moment (rank 0 also the whole leaves)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.sharding import make_ctx, param_shards
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.mesh import make_mesh
+    from repro_torch.utils.tree import leaves
+    ctx = gloo_rank(tmp, "tpf", rank, (1, 2))
+    try:
+        out = {}
+        for name, (_, B, S) in TPF_SERVE.items():
+            model = build_model(tpf_cfg(name))
+            params = init_params(model, seed=FS_SEED, device="cuda",
+                                 ctx=ctx)
+            held = sum(a.numel() * a.element_size() for a in leaves(params))
+            batch = tpf_batch(model.cfg, B, S, FS_SEED, "cuda")
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            with first_inputs(TP_SERVE_KERNELS[:1], os.path.join(
+                    tmp, "tpf_serve_inputs.pt"), rank == 0
+                    and model.cfg.sliding_window is not None), \
+                    CollectiveClock() as clock:
+                toks, stats, wall = timed_generate(model, params, batch,
+                                                   ctx, steps=TPF_STEPS)
+            out[name] = {
+                "describe": ctx.mesh.describe(), "toks": toks.cpu(),
+                "logits": [lg.cpu() for lg in stats["logits"]],
+                "prefill_s": stats["prefill_s"],
+                "decode_s": stats["decode_s"], "wall": wall,
+                "clock": (clock.s, clock.n), "counts": ops.launch_counts(),
+                "held_gb": held / 1e9,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del params, stats, batch
+            torch.cuda.empty_cache()
+        out["twins"] = {name: tpf_twin(ctx, name) for name in TPF_TWIN}
+        ctx = make_ctx(make_mesh((2, 1), EP_AXES, backend="gloo"))
+        for name in TPF_TRAIN:
+            model = build_model(tpf_train_cfg(name))
+            state, opt, held = tpf_train_state(model, ctx, "cuda")
+            shards = param_shards(state.params, model.cfg, ctx)
+            batch = tpf_batch(model.cfg, TPF_BATCH, TF_SEQ, TF_SEED, "cuda",
+                              labels=True)
+            step = make_train_step(model, ctx, opt)
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            with CollectiveClock() as clock:
+                sync()
+                t0 = time.perf_counter()
+                state, met = step(state, batch)
+                sync()
+                wall = time.perf_counter() - t0
+            out[name + " train"] = {
+                "describe": ctx.mesh.describe(), "loss": float(met["loss"]),
+                "grad_norm": float(met["grad_norm"]), "wall": wall,
+                "clock": (clock.s, clock.n), "counts": ops.launch_counts(),
+                "held_gb": held / 1e9,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "digests": replicated_digests(state.params, shards),
+                "cut": sum(sh is not None for sh in shards),
+                "leaves": len(shards),
+                "parts": {i: ([(c.axis, c.lo, c.hi) for c in sh.cuts]
+                              if sh is not None else [], a.cpu(),
+                              m.to(torch.bfloat16).cpu())
+                          for i, (a, m, sh) in enumerate(zip(
+                              leaves(state.params), leaves(state.opt["m"]),
+                              shards))
+                          if sh is not None or rank == 0}}
+            del state, batch
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(tmp, f"tpf_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tpf_leg(device, smi: str):
+    """Two gloo ranks on cuda:0 (collectives staged through the host):
+    the ssm, hybrid, encdec and vlm families' layouts. Serving under
+    (1, 2), tensor parallel at the published widths (TPF_SERVE): both
+    ranks the same tokens and logits, the prefill's logits within TP_TOL
+    of the single-device run's largest magnitude (:func:`tpf_reference`;
+    the bf16 steps' logits reported), each rank's parameters below the
+    single-device draw's bytes, swa_decode launched on every layer and
+    step of the InternVL2 ring and held to its plain version at the
+    ranks' shape (:func:`tp_kernel_checks`). The f32 reduced twins on the
+    card against the CPU under the same mesh (:func:`tpf_twin`): tokens
+    equal, logits, loss, grad norm and parameters within EPT_TWIN_TOL.
+    One train step under (2, 1) (FSDP, the batch cut over data) of each
+    TPF_TRAIN model at 1 layer: both ranks the same loss, grad norm and
+    replicated leaves; loss, grad norm and every parameter part within
+    TP_TOL, each part of adamw's first moment within TP_GRAD_TOL, of the
+    single-device step's. Returns both ranks' launch counts."""
+    import torch.multiprocessing as mp
+    t_leg = time.perf_counter()
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ref = tpf_reference(device)
+        print(f"card memory before the tpf ranks: {ept_release()}",
+              flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            t0 = time.perf_counter()
+            mp.spawn(tpf_rank, args=(str(tmp),), nprocs=2, join=True)
+            spawn_s = time.perf_counter() - t0
+            ranks = [torch.load(tmp / f"tpf_rank{r}.pt", weights_only=False)
+                     for r in range(2)]
+            t1 = time.perf_counter()
+            kern = tp_kernel_checks(tmp / "tpf_serve_inputs.pt", 20)
+            check_s = time.perf_counter() - t1
+            require(kern, "tpf: no swa_decode inputs were kept on the "
+                          "ring")
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    a, b = ranks
+    faults = []
+    for name, (over, B, S) in TPF_SERVE.items():
+        sa, sb, want = a[name], b[name], ref[name]
+        if not (torch.equal(sa["toks"], sb["toks"]) and all(
+                torch.equal(x, y) for x, y in zip(sa["logits"],
+                                                  sb["logits"]))):
+            faults.append(f"{name}: the ranks' tokens or logits differ")
+        gap = logit_gap(sa["toks"], sa["logits"], want["toks"],
+                        want["logits"])
+        if gap["pre"] > TP_TOL * gap["scale"]:
+            faults.append(f"{name}: the prefill logits are {gap['pre']:.4g}"
+                          f" off the single-device run's (tolerance "
+                          f"{TP_TOL} x {gap['scale']:.4g})")
+        for r, got in enumerate((sa, sb)):
+            if not got["held_gb"] < want["held_gb"]:
+                faults.append(f"{name}: rank {r} holds {got['held_gb']:.2f}"
+                              f" GB, not below {want['held_gb']:.2f}")
+        clock = CollectiveClock()
+        clock.s, clock.n = sa["clock"]
+        swa = sa["counts"]["swa_decode"]
+        print(f"tpf serve {name}: {sa['describe']} (two processes on cuda:0)"
+              f" ({smi}): published widths at {json.dumps(over)}, tensor "
+              f"parallel over model, {B} x {S} positions and {TPF_STEPS} "
+              f"steps; both ranks the same tokens and logits; against the "
+              f"single-device run (prefill held, steps reported): "
+              + gap_line(gap, TP_TOL) + f"; parameters {sa['held_gb']:.3f} "
+              f"+ {sb['held_gb']:.3f} GB a rank (single device "
+              f"{want['held_gb']:.3f} GB); peak {sa['peak_gb']:.2f} + "
+              f"{sb['peak_gb']:.2f} GB; prefill {sa['prefill_s']:.3f} s, "
+              f"decode {sa['decode_s']:.3f} s, wall {sa['wall']:.3f} s "
+              f"(single device {want['wall']:.3f} s): "
+              f"{clock.share(sa['wall'])}; swa_decode launches {swa} + "
+              f"{sb['counts']['swa_decode']}", flush=True)
+    for name in TPF_TWIN:
+        tw = (a["twins"][name], b["twins"][name])
+        if not all(t["toks"] and max(t["logits"], t["met"], t["params"])
+                   <= EPT_TWIN_TOL for t in tw):
+            faults.append(f"{name}: the f32 twin on the card is off the "
+                          f"CPU's sharded run: {tw}")
+        print(f"tpf twin {name} (reduced, f32, {json.dumps(TPF_TWIN[name])},"
+              f" mesh (1, 2), {smi}): the card against the CPU under the "
+              f"same mesh: tokens equal {tw[0]['toks']} {tw[1]['toks']}; "
+              f"logits {max(t['logits'] for t in tw):.3e}, loss and grad "
+              f"norm {max(t['met'] for t in tw):.3e}, parameters after 2 "
+              f"adamw steps {max(t['params'] for t in tw):.3e} of their "
+              f"largest magnitude (tolerance {EPT_TWIN_TOL})", flush=True)
+    for name in TPF_TRAIN:
+        key = name + " train"
+        ta, tb, want = a[key], b[key], ref[key]
+        if (ta["loss"], ta["grad_norm"], ta["digests"]) != (
+                tb["loss"], tb["grad_norm"], tb["digests"]):
+            faults.append(f"{key}: the ranks' loss, grad norm or replicated"
+                          f" leaves differ")
+        perr = merr = 0.0
+        for got in (ta, tb):
+            for i, (cuts, part, m) in got["parts"].items():
+                wp, wm = want["params"][i], want["m"][i]
+                for axis, lo, hi in cuts:
+                    wp = wp.narrow(axis, lo, hi - lo)
+                    wm = wm.narrow(axis, lo, hi - lo)
+                perr = max(perr, max_gap(part, wp, device))
+                merr = max(merr, max_gap(m, wm, device))
+        lerr = abs(ta["loss"] - want["loss"]) / abs(want["loss"])
+        gerr = abs(ta["grad_norm"] - want["grad_norm"]) / abs(
+            want["grad_norm"])
+        if max(lerr, gerr, perr) > TP_TOL or merr > TP_GRAD_TOL:
+            faults.append(f"{key}: loss {lerr:.3e}, grad norm {gerr:.3e}, "
+                          f"parameter parts {perr:.3e}, first moment "
+                          f"{merr:.3e} off the single-device step "
+                          f"(tolerances {TP_TOL}, {TP_GRAD_TOL})")
+        if not (ta["held_gb"] < want["held_gb"]
+                and tb["held_gb"] < want["held_gb"]):
+            faults.append(f"{key}: a rank holds {ta['held_gb']:.2f} / "
+                          f"{tb['held_gb']:.2f} GB, not below "
+                          f"{want['held_gb']:.2f}")
+        clock = CollectiveClock()
+        clock.s, clock.n = ta["clock"]
+        print(f"tpf train {name}: {ta['describe']} ({smi}): 1 layer at the "
+              f"published widths, FSDP over data ({ta['cut']} of its "
+              f"{ta['leaves']} leaves cut), one step of {TPF_BATCH} x "
+              f"{TF_SEQ} positions (a row a rank), adamw lr {TF_LR}: loss "
+              f"{ta['loss']:.6f}, grad norm {ta['grad_norm']:.6f} (single "
+              f"device {want['loss']:.6f}, {want['grad_norm']:.6f}: "
+              f"{lerr:.3e}, {gerr:.3e} off); both ranks the same bits and "
+              f"replicated leaves; parameter parts within {perr:.3e}, the "
+              f"first moment's within {merr:.3e} (tolerances {TP_TOL}, "
+              f"{TP_GRAD_TOL}); parameters {ta['held_gb']:.2f} + "
+              f"{tb['held_gb']:.2f} GB a rank (single device "
+              f"{want['held_gb']:.2f} GB); peak {ta['peak_gb']:.2f} + "
+              f"{tb['peak_gb']:.2f} GB; step wall {ta['wall']:.3f} s "
+              f"(single device {want['wall']:.3f} s): "
+              f"{clock.share(ta['wall'])}", flush=True)
+    ring = next(n for n, (over, _, _) in TPF_SERVE.items()
+                if over.get("window"))
+    layers = TPF_SERVE[ring][0]["n_layers"]
+    for r, got in enumerate(ranks):
+        if got[ring]["counts"]["swa_decode"] != layers * TPF_STEPS:
+            faults.append(f"rank {r}: swa_decode launched "
+                          f"{got[ring]['counts']['swa_decode']} times on the "
+                          f"{ring} ring, expected {layers * TPF_STEPS}")
+    print(f"tpf kernels ({smi}): at the tpf ranks' shapes (rank 0's first "
+          f"inputs, checked on the card after the ranks exit, {check_s:.1f}"
+          f" s): " + "; ".join(kern), flush=True)
+    print(f"tpf: {spawn_s:.1f} s from spawn to join, leg wall "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    require(not faults, "tpf: " + "; ".join(faults))
+    return {k: sum(r[n]["counts"][k] for r in ranks
+                   for n in list(TPF_SERVE) + [t + " train"
+                                               for t in TPF_TRAIN])
+            for k in a[ring]["counts"]}
+
+
 def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -7980,6 +8396,11 @@ def main() -> int:
             == 48 * FS_STEPS, "swa_decode was not launched on every layer "
             "and step of the internvl ring leg")
     new_counts += tuple(family_counts.values())
+    torch.cuda.empty_cache()
+    tpf_counts = tpf_leg(torch.device("cuda"), smi)
+    require(tpf_counts["swa_decode"] > 0,
+            "swa_decode was not launched on the tpf leg")
+    new_counts += (tpf_counts,)
 
     replaces = {
         "pdist_argmin": "src/repro/kernels/pdist_argmin.py:101",
@@ -8036,10 +8457,11 @@ def main() -> int:
           + "".join(
               f" {leg} " + json.dumps(c) for leg, c in
               list(state_counts.items()) + list(family_counts.items()))
+          + " tpf " + json.dumps(tpf_counts)
           + "; every kernel matched its plain version; the rwkv, zamba2, "
           "whisper and internvl legs launched none of the port's kernels "
           "(those paths have none: their scans and attention are plain "
-          "PyTorch) but the internvl ring leg's swa_decode", flush=True)
+          "PyTorch) but the internvl ring legs' swa_decode", flush=True)
     print(f"card: {smi}; chip_smoke wall {time.perf_counter() - t_all:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,14 +15,14 @@ absorbed form.
 
 Under a ``DistCtx`` with a ``utils.mesh.Mesh`` (``launch.sharding.
 make_ctx``) every rank holds its parts of each leaf (``init_params(...,
-ctx=ctx)``: the dense layers tensor-parallel and FSDP-cut, the MoE
+ctx=ctx)``: every family's layers tensor-parallel and FSDP-cut, the MoE
 layers' experts on the reference's expert-parallel paths), is given the
-same global batch and runs ``generate`` on its rows of it where they
-divide over the ``dp`` axes (``launch.sharding.cut_batch``; its decode
-cache holds those rows and the kv heads of ``launch.sharding.
-cache_spec``), else on the whole batch; the tokens (and ``stats``'
-logits) are gathered over ``dp`` at the end, so that every rank returns
-the same tokens.
+same global batch and runs ``generate`` on its rows of it (the family's
+inputs too) where they divide over the ``dp`` axes (``launch.sharding.
+cut_batch``; its decode cache holds those rows and the kv and state
+heads of ``launch.sharding.cache_spec``), else on the whole batch; the
+tokens (and ``stats``' logits) are gathered over ``dp`` at the end, so
+that every rank returns the same tokens.
 
 The batch holds ``tokens`` (B, S) and the family's inputs: for the
 encdec family (Whisper) ``enc_embeds`` (B, n_ctx, d), the frame
@@ -116,7 +116,7 @@ def generate(model: Model, params, batch, *, steps: int,
     inputs = {name: torch.as_tensor(batch[name]).to(device)
               for name in _INPUTS if name in batch}
     B = inputs["tokens"].shape[0]
-    ctx, inputs = cut_batch(model.cfg, ctx, inputs)
+    ctx, inputs = cut_batch(ctx, inputs)
     rows = slice(0, B)
     if ctx.batch_cut:
         n = B // ctx.dp_size

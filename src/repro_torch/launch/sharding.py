@@ -30,9 +30,11 @@ the reference's ``_RULES`` and ``_resolve`` state them:
     last dim's cut and ``c`` without the second to last's
     (:func:`opt_spec`).
 
-Only the families of ``LAYOUT_FAMILIES`` are held so: the others (rwkv,
-hybrid, encdec, vlm) hold every leaf whole and run every rank on the
-whole batch under a mesh (:func:`held_spec`, :func:`cut_batch`).
+Every family is held so: dense and moe; ssm (RWKV-6's ``tm`` / ``cm``
+leaves, its state ``s`` on heads); hybrid (Zamba2's FSDP-only ``mix``
+projections, its shared attention block, the Mamba2 state ``h`` on
+heads); encdec (Whisper's encoder stack and ``xattn``, the cross cache
+``ck`` / ``cv`` on kv heads); vlm (InternVL2's ``vis_proj``).
 
     mesh = make_mesh((2, 2), ("data", "model"), backend="nccl")
     ctx = make_ctx(mesh)
@@ -53,12 +55,6 @@ from repro_torch.utils.tree import leaves
 
 TP = "tp"
 FSDP = "fsdp"
-
-# The families whose dense leaves the port holds as param_spec cuts them,
-# and whose batch it cuts over dp. The rwkv (tm, cm), hybrid (mix),
-# encdec (xattn) and vlm (vis_proj) layouts are not ported: those
-# families keep every leaf whole and the whole batch on every rank.
-LAYOUT_FAMILIES = ("dense", "moe")
 
 # (path-suffix match) -> per-dim template over the leaf's LAST dims: the
 # reference's _RULES.
@@ -100,12 +96,6 @@ def make_ctx(mesh) -> DistCtx:
     expert-parallel axis, every other axis a data-parallel one."""
     dp = tuple(a for a in mesh.axis_names if a != "model")
     return DistCtx(mesh=mesh, dp=dp, tp="model")
-
-
-def lays_out(cfg) -> bool:
-    """Whether the port holds ``cfg``'s dense leaves and batch cut
-    (``LAYOUT_FAMILIES``)."""
-    return getattr(cfg, "family", None) in LAYOUT_FAMILIES
 
 
 def _mesh_size(ctx: DistCtx, axes) -> int:
@@ -240,19 +230,16 @@ def _rule_spec(cfg, ctx: DistCtx, names, shape) -> Spec:
 def held_spec(cfg, ctx: DistCtx, path: Sequence[str],
               shape: Sequence[int]) -> Spec:
     """How the port holds the leaf at ``path`` (whole shape ``shape``):
-    :func:`param_spec`, but for three cases. An MoE layer's expert stack
+    :func:`param_spec`, but for two cases. An MoE layer's expert stack
     as :func:`expert_spec` (the reference's spec where E divides its
     axes; where it does not, the padded part the port runs on, for
     :func:`held_shape`'s extent); the shared experts of an MoE layer by
     their own ``shared`` rule, (FSDP, TP) on (d, ff) and (TP, FSDP) on
-    (ff, d), where the reference's expert branch takes them; every other
-    leaf of a family outside ``LAYOUT_FAMILIES`` whole."""
+    (ff, d), where the reference's expert branch takes them."""
     names = tuple(str(n) for n in path)
     shape = tuple(shape)
     if _is_expert(names):
         return expert_spec(cfg, ctx, names[-1], len(shape), shape)
-    if not lays_out(cfg):
-        return (None,) * len(shape)
     if "moe" in names and names[-1] in EXPERT_LEAVES:     # shared experts
         return _rule_spec(cfg, ctx, names, shape)
     return param_spec(cfg, ctx, names, shape)
@@ -343,13 +330,14 @@ def batch_spec(ctx: DistCtx, shape: Sequence[int]) -> Spec:
     return (None,) * len(shape)
 
 
-def cut_batch(cfg, ctx: Optional[DistCtx], batch):
+def cut_batch(ctx: Optional[DistCtx], batch):
     """(ctx, batch) for a step on the global ``batch`` (a dict of
-    tensors, every rank the same): where ``cfg``'s family is laid out
-    and the batch divides over more than one ``dp`` shard
+    tensors, every rank the same: the tokens and labels, the encdec
+    family's ``enc_embeds``, the vlm family's ``patch_embeds``): where
+    the batch divides over more than one ``dp`` shard
     (:func:`batch_spec`), each leaf's rows of this rank and the context
     marked ``batch_cut``; else both as given."""
-    if ctx is None or ctx.mesh is None or not lays_out(cfg):
+    if ctx is None or ctx.mesh is None:
         return ctx, batch
     B = next(iter(batch.values())).shape[0]
     if ctx.dp_size == 1 or batch_spec(ctx, (B,))[0] is None:
@@ -383,6 +371,16 @@ def cache_spec(ctx: DistCtx, path: Sequence[str],
     if key in ("s", "h") and shape[2] % tp == 0:
         spec[2] = (ctx.tp,)
     return tuple(spec)
+
+
+def shard_cache(cache, ctx: Optional[DistCtx]):
+    """``cache`` (a decode cache, every leaf whole) with every leaf cut
+    to this rank's part of :func:`cache_spec`; without a mesh the cache
+    itself."""
+    if ctx is None or ctx.mesh is None:
+        return cache
+    return _walk_leaves(cache, lambda path, a: take_parts(spec_parts(
+        cache_spec(ctx, path, a.shape), a.shape, ctx), a))
 
 
 def opt_spec(spec: Spec, key: str, ndim: Optional[int] = None) -> Spec:

@@ -109,7 +109,7 @@ def make_train_step(model: Model, ctx: Optional[DistCtx],
     def train_step(state: TrainState, batch):
         shards = param_shards(state.params, cfg, ctx)
         if mb == 1:
-            c, b = cut_batch(cfg, ctx, batch)
+            c, b = cut_batch(ctx, batch)
             loss, metrics, grads = _value_and_grad(model, c, state.params,
                                                    b)
         else:
@@ -117,7 +117,7 @@ def make_train_step(model: Model, ctx: Optional[DistCtx],
             grads, loss = None, torch.zeros(
                 (), dtype=torch.float32, device=state.step.device)
             for i in range(mb):
-                c, b = cut_batch(cfg, ctx, {k: v[i] for k, v in micro.items()})
+                c, b = cut_batch(ctx, {k: v[i] for k, v in micro.items()})
                 l, _, g = _value_and_grad(model, c, state.params, b)
                 if grads is None:
                     grads = g      # 0 + g: the reference's first sum

@@ -23,9 +23,9 @@ key) into the layer's cache tensors and return them. The reference
 returns new arrays; at full width a copy of every layer's cache per
 step would move as many bytes as the attention reads.
 
-Under a mesh (``ctx``, with the model's ``cfg`` laid out:
-``launch/sharding.py``) the attention is tensor-parallel where the
-heads divide over ``tp`` (:func:`tp_heads`): each rank runs its
+Under a mesh (``ctx``; ``launch/sharding.py`` lays the leaves out) the
+attention is tensor-parallel where the heads divide over ``tp``
+(:func:`tp_heads`): each rank runs its
 ``n_heads / tp`` query heads (``wq``, ``bq``, MLA's ``wq_b``, ``wk_b``,
 ``wv_b`` cut on heads, ``wo`` on its rows) and its output is the
 partial product of ``wo``, summed over ``tp`` by the caller
@@ -51,7 +51,7 @@ from torch.profiler import record_function
 from repro_torch.kernels import ops
 from repro_torch.launch import sharding as SH
 from repro_torch.models.common import (DistCtx, apply_rope, dense_init,
-                                       rms_norm)
+                                       rms_norm, tp_heads)
 
 MASKED_SCORE = -1e30  # the reference's additive mask value
 
@@ -225,24 +225,12 @@ def init_gqa(gen: torch.Generator, cfg, dtype,
     return p
 
 
-def tp_heads(cfg, ctx: Optional[DistCtx], H: int):
-    """This rank's query heads [h0, h1) where the attention runs
-    tensor-parallel under ``ctx`` (``cfg`` laid out, ``tp`` > 1 and H
-    dividing over it), else None (every rank runs every head)."""
-    if ctx is None or ctx.mesh is None or not SH.lays_out(cfg):
-        return None
-    tp = ctx.tp_size
-    if tp == 1 or H % tp:
-        return None
-    n = H // tp
-    r = ctx.mesh.index((ctx.tp,))
-    return r * n, (r + 1) * n
-
-
-def _gqa_use(p, cfg, ctx, heads):
-    """The GQA leaves as this rank's work uses them (``launch/sharding.
-    use``): on its heads where ``heads`` (tensor-parallel), else whole;
-    and the first kv head they hold (0 where every kv head is)."""
+def _gqa_use(p, cfg, ctx, heads, prefix: str = "attn"):
+    """The GQA leaves (under ``prefix``: ``attn``, or a decoder layer's
+    cross-attention ``xattn``) as this rank's work uses them
+    (``launch/sharding.use``): on its heads where ``heads``
+    (tensor-parallel), else whole; and the first kv head they hold (0
+    where every kv head is)."""
     if ctx is None or ctx.mesh is None:
         return p, 0
     shapes = gqa_shapes(cfg, "bq" in p)
@@ -251,7 +239,7 @@ def _gqa_use(p, cfg, ctx, heads):
     out = {}
     for name, shape in shapes.items():
         keep = local and (kv_local or name in ("wq", "wo", "bq"))
-        out[name] = SH.use(p[name], cfg, ctx, ("attn", name), shape,
+        out[name] = SH.use(p[name], cfg, ctx, (prefix, name), shape,
                            keep_tp=keep, tp_partial=local)
     kv_lo = 0
     if kv_local:
@@ -301,7 +289,7 @@ def gqa_self(p, x: torch.Tensor, cfg, ctx: DistCtx = None, *,
     ``want_cache`` returns (out, {"k", "v"}: the rotated keys and the
     values of the kv heads this rank holds)."""
     B, S, _ = x.shape
-    heads = tp_heads(cfg, ctx, cfg.n_heads)
+    heads = tp_heads(ctx, cfg.n_heads)
     pu, kv_lo = _gqa_use(p, cfg, ctx, heads)
     q, k, v = _qkv(pu, x, cfg)
     pos = torch.arange(S, device=x.device)
@@ -327,7 +315,7 @@ def gqa_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
     tensor-parallel ``ctx`` this rank's partial product, and the cache
     of the kv heads it holds."""
     B, _ = x1.shape
-    heads = tp_heads(cfg, ctx, cfg.n_heads)
+    heads = tp_heads(ctx, cfg.n_heads)
     pu, kv_lo = _gqa_use(p, cfg, ctx, heads)
     q, k, v = _qkv(pu, x1[:, None, :], cfg)
     pos = lengths.long()                               # (B,)
@@ -435,7 +423,7 @@ def mla_self(p, x: torch.Tensor, cfg, ctx: DistCtx = None, *,
     returns (out, :func:`mla_cache_entries`' entries)."""
     B, S, _ = x.shape
     m = cfg.mla
-    pu = _mla_use(p, cfg, ctx, tp_heads(cfg, ctx, cfg.n_heads))
+    pu = _mla_use(p, cfg, ctx, tp_heads(ctx, cfg.n_heads))
     qn, qr = _mla_q(pu, x, cfg)
     H = qn.shape[2]
     latent, krope = _mla_latent(pu, x, cfg)
@@ -477,7 +465,7 @@ def mla_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
     latent cache is whole on every rank)."""
     B, _ = x1.shape
     m = cfg.mla
-    pu = _mla_use(p, cfg, ctx, tp_heads(cfg, ctx, cfg.n_heads))
+    pu = _mla_use(p, cfg, ctx, tp_heads(ctx, cfg.n_heads))
     qn, qr = _mla_q(pu, x1[:, None, :], cfg)
     H = qn.shape[2]
     latent1, krope1 = _mla_latent(pu, x1[:, None, :], cfg)

@@ -21,9 +21,7 @@ class DistCtx:
     its rows of the batch where the batch divides over ``dp``
     (``batch_cut``: the activations' leading dim holds this rank's rows
     of the global batch, ``launch/sharding.cut_batch``); where it does
-    not, every rank runs on the whole batch. The families whose layouts
-    are not ported (``launch/sharding.LAYOUT_FAMILIES``) hold every
-    dense leaf whole and run on the whole batch. ``dp`` names the
+    not, every rank runs on the whole batch. ``dp`` names the
     data-parallel axes, ``tp`` the tensor / expert-parallel axis."""
     mesh: Optional[object] = None
     dp: Tuple[str, ...] = ("data",)
@@ -50,6 +48,21 @@ class DistCtx:
         batch is cut, and ``tp`` where the work is tensor-parallel."""
         out = tuple(self.dp) if self.batch_cut else ()
         return out + ((self.tp,) if tp else ())
+
+
+def tp_heads(ctx: Optional[DistCtx], H: int):
+    """This rank's heads [h0, h1) of H (attention heads, an RWKV-6 or
+    Mamba2 layer's state heads, an FFN's hidden columns) where the work
+    runs tensor-parallel under ``ctx`` (``tp`` > 1 and H dividing over
+    it), else None (every rank runs every head)."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    tp = ctx.tp_size
+    if tp == 1 or H % tp:
+        return None
+    n = H // tp
+    r = ctx.mesh.index((ctx.tp,))
+    return r * n, (r + 1) * n
 
 
 def tree_map(fn: Callable, *trees):

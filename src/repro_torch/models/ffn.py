@@ -2,13 +2,13 @@
 (``w1, w3, w2``), or GeLU / squared ReLU with biases
 (``w1, b1, w2, b2``).
 
-Under a mesh (``ctx``, the model's ``cfg`` laid out:
-``launch/sharding.py``) the block is tensor-parallel where its hidden
-dim divides over ``tp``: ``w1`` / ``w3`` (and ``b1``) hold this rank's
-columns, ``w2`` its rows, and the partial product of ``w2`` is summed
-over ``tp`` (``b2`` added once, after the sum); FSDP-cut dims are
-gathered over the ``dp`` axes at use. Where the hidden dim does not
-divide, every rank runs the whole block.
+Under a mesh (``ctx``; ``launch/sharding.py`` lays the leaves out) the
+block is tensor-parallel where its hidden dim divides over ``tp``:
+``w1`` / ``w3`` (and ``b1``) hold this rank's columns, ``w2`` its rows,
+and the partial product of ``w2`` is summed over ``tp`` (``b2`` added
+once, after the sum); FSDP-cut dims are gathered over the ``dp`` axes
+at use. Where the hidden dim does not divide, every rank runs the whole
+block.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.launch import sharding as SH
 from repro_torch.models.common import (DistCtx, dense_init, enter_region,
-                                       leave_region)
+                                       leave_region, tp_heads)
 
 
 def ffn_shapes(d: int, d_ff: int, activation: str) -> Dict[str, tuple]:
@@ -44,13 +44,6 @@ def init_ffn(gen: torch.Generator, d: int, d_ff: int, activation: str,
     return out
 
 
-def tp_hidden(cfg, ctx, d_ff: int) -> bool:
-    """Whether the block runs tensor-parallel under ``ctx``: ``cfg``
-    laid out, ``tp`` > 1 and the hidden dim dividing over it."""
-    return (ctx is not None and ctx.mesh is not None and SH.lays_out(cfg)
-            and ctx.tp_size > 1 and d_ff % ctx.tp_size == 0)
-
-
 def apply_ffn(p, x: torch.Tensor, activation: str, ctx: DistCtx = None, *,
               cfg=None, name: str = "ffn", seq: bool = False
               ) -> torch.Tensor:
@@ -63,11 +56,9 @@ def apply_ffn(p, x: torch.Tensor, activation: str, ctx: DistCtx = None, *,
     if cfg is None or ctx is None or ctx.mesh is None:
         return _ffn(p, x, activation)
     d = x.shape[-1]
-    d_ff = p["w1"].shape[-1]
-    if SH.lays_out(cfg):
-        d_ff = (cfg.moe.n_shared * cfg.moe.d_expert if name == "shared"
-                else cfg.d_ff)
-    local = tp_hidden(cfg, ctx, d_ff)
+    d_ff = (cfg.moe.n_shared * cfg.moe.d_expert if name == "shared"
+            else cfg.d_ff)
+    local = tp_heads(ctx, d_ff) is not None   # d_ff divides over tp
     pu = {}
     for leaf, shape in ffn_shapes(d, d_ff, activation).items():
         if leaf == "b2":     # added after the sum over tp

@@ -24,13 +24,25 @@ State per layer: {"h": (B, H, P, N) f32, "conv": (B, conv_width - 1,
 conv_dim)}, stacked on a leading layer axis by :func:`init_mamba_state`.
 The functions return new tensors; the conv state they return is a view
 of the last K - 1 rows of their padded input.
+
+Under a mesh (``ctx``; ``launch/sharding.py`` lays the leaves out)
+``in_proj`` and ``out_proj`` are FSDP-cut only: they are gathered over
+the ``dp`` axes at use, and the projections, the convolution and the
+gates run the same on every rank of ``tp``. Where the heads divide over
+``tp`` (:func:`ssd_heads`) the scan runs on this rank's heads (its
+channels of x, its ``dt``, decay and ``D``; ``B`` and ``C`` are shared
+by every head, their cotangents summed over ``tp``), the state ``h``
+holds those heads, and y is all-gathered over ``tp`` before the gated
+RMSNorm, so that the block's result is the same on every rank of
+``tp``. The conv state is whole.
 """
 from __future__ import annotations
 
 import torch
 from torch.profiler import record_function
 
-from repro_torch.models.common import DistCtx, dense_init, rms_norm
+from repro_torch.launch import sharding as SH
+from repro_torch.models.common import DistCtx, dense_init, rms_norm, tp_heads
 
 
 def _dims(cfg):
@@ -42,23 +54,46 @@ def _dims(cfg):
     return d, d_inner, H, P, N
 
 
-def init_mamba2(gen: torch.Generator, cfg, dtype):
+def mamba_shapes(cfg):
+    """The Mamba2 leaves' whole shapes, in the draw order."""
     d, d_inner, H, P, N = _dims(cfg)
     # xBC projection: x (d_inner) + B (N) + C (N); B / C shared across
     # heads (mamba2's default n_groups = 1).
     conv_dim = d_inner + 2 * N
+    return {"in_proj": (d, 2 * d_inner + 2 * N + H),
+            "conv_w": (cfg.ssm.conv_width, conv_dim), "conv_b": (conv_dim,),
+            "A_log": (H,), "D": (H,), "dt_bias": (H,), "norm_w": (d_inner,),
+            "out_proj": (d_inner, d)}
+
+
+def init_mamba2(gen: torch.Generator, cfg, dtype, cut=None):
+    """``cut(name, shape)`` gives the parts of a leaf this rank keeps
+    (None: every leaf whole)."""
+    shapes = mamba_shapes(cfg)
     dev = gen.device
+
+    def w(name, scale=0.02):
+        return dense_init(gen, shapes[name], dtype, scale, part=(
+            None if cut is None else cut(name, shapes[name])))
+
+    def full(name, v, dt=torch.float32):
+        return torch.full(shapes[name], v, dtype=dt, device=dev)
     return {
-        "in_proj": dense_init(gen, (d, 2 * d_inner + 2 * N + H), dtype),
-        "conv_w": dense_init(gen, (cfg.ssm.conv_width, conv_dim), dtype,
-                             scale=0.1),
-        "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=dev),
-        "A_log": torch.zeros((H,), dtype=torch.float32, device=dev),
-        "D": torch.ones((H,), dtype=torch.float32, device=dev),
-        "dt_bias": torch.full((H,), -1.0, dtype=torch.float32, device=dev),
-        "norm_w": torch.ones((d_inner,), dtype=dtype, device=dev),
-        "out_proj": dense_init(gen, (d_inner, d), dtype),
+        "in_proj": w("in_proj"),
+        "conv_w": w("conv_w", scale=0.1),
+        "conv_b": full("conv_b", 0.0, dtype),
+        "A_log": full("A_log", 0.0),
+        "D": full("D", 1.0),
+        "dt_bias": full("dt_bias", -1.0),
+        "norm_w": full("norm_w", 1.0, dtype),
+        "out_proj": w("out_proj"),
     }
+
+
+def ssd_heads(cfg, ctx: DistCtx = None):
+    """This rank's heads [h0, h1) where the scan runs on a part of the
+    heads under ``ctx``, else None."""
+    return tp_heads(ctx, _dims(cfg)[2])
 
 
 def _split_in(p, x: torch.Tensor, cfg):
@@ -159,30 +194,53 @@ def ssd_chunked(xh, Bv, Cv, dt, loga, D, h0, chunk: int):
         return y + D[None, None, :, None] * xh.float(), h
 
 
-def mamba2_block(p, x: torch.Tensor, state, cfg, ctx: DistCtx = None, *,
-                 use_chunked: bool = True):
+def mamba2_block(p, x: torch.Tensor, state, cfg, ctx: DistCtx = None):
     """x: (B, S, d); state {"h": (B, H, P, N), "conv": (B, K-1,
-    conv_dim)}. Returns (out (B, S, d), {"h", "conv"})."""
+    conv_dim)}. Returns (out (B, S, d), {"h", "conv"}). Under a mesh x
+    and ``out`` are replicated over ``tp``, and ``h`` holds this rank's
+    heads (:func:`ssd_heads`)."""
     B, S, d = x.shape
     _, d_inner, H, P, N = _dims(cfg)
+    if ctx is not None and ctx.mesh is not None:
+        p = {name: SH.use(p[name], cfg, ctx, ("mix", name), shape)
+             for name, shape in mamba_shapes(cfg).items()}
     z, xbc, dt_raw = _split_in(p, x, cfg)
     xbc, conv_state = _causal_conv(xbc, state["conv"], p["conv_w"],
                                    p["conv_b"])
     xin, Bv, Cv = torch.split(xbc, [d_inner, N, N], dim=-1)
     xh = xin.reshape(B, S, H, P)
     dt, loga = _gates(p, dt_raw)
-    if use_chunked and S % cfg.ssm_chunk == 0 and S > 1:
-        y, h = ssd_chunked(xh, Bv, Cv, dt, loga, p["D"], state["h"],
+    D = p["D"]
+    heads = ssd_heads(cfg, ctx)
+    if heads is not None:
+        # Replicated values entering this rank's heads: a head's own
+        # inputs are its rows (the backward gathers every rank's), the
+        # shared B and C sum their cotangents over tp.
+        g = ctx.mesh.group(ctx.tp)
+        xh = g.shard_rows(xh, dim=2)
+        dt, loga = g.shard_rows(dt, dim=-1), g.shard_rows(loga, dim=-1)
+        D = g.shard_rows(D)
+        Bv, Cv = g.psum_grad(Bv), g.psum_grad(Cv)
+    if S % cfg.ssm_chunk == 0 and S > 1:
+        y, h = ssd_chunked(xh, Bv, Cv, dt, loga, D, state["h"],
                            cfg.ssm_chunk)
     else:
-        y, h = ssd_scan(xh, Bv, Cv, dt, loga, p["D"], state["h"])
-    y = y.reshape(B, S, d_inner).to(x.dtype)
+        y, h = ssd_scan(xh, Bv, Cv, dt, loga, D, state["h"])
+    y = y.reshape(B, S, -1).to(x.dtype)
+    if heads is not None:
+        y = g.all_gather(y, dim=-1)
     y = rms_norm(y * torch.nn.functional.silu(z), p["norm_w"])
     return y @ p["out_proj"], {"h": h, "conv": conv_state}
 
 
-def init_mamba_state(B: int, cfg, dtype, layers: int, device=None):
+def init_mamba_state(B: int, cfg, dtype, layers: int, device=None,
+                     ctx: DistCtx = None):
+    """Zero states; under a mesh ``h`` holds this rank's heads
+    (:func:`ssd_heads`)."""
     d, d_inner, H, P, N = _dims(cfg)
+    heads = ssd_heads(cfg, ctx)
+    if heads is not None:
+        H = heads[1] - heads[0]
     conv_dim = d_inner + 2 * N
     return {"h": torch.zeros((layers, B, H, P, N), dtype=torch.float32,
                              device=device),

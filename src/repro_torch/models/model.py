@@ -31,11 +31,13 @@ the encoder's keys and values ``ck`` / ``cv`` (L, B, Se, KVH, hd) and
 {"k", "v"} of (1, B, room, KVH, hd) per group. ``serve_step`` updates it
 in place and returns it with ``len + 1``.
 
-Under a mesh (``ctx``; ``launch/sharding.py`` lays out the dense and moe
-families) each leaf is this rank's parts, the batch this rank's rows
-where ``ctx.batch_cut`` (the entry points cut it: ``launch/serve.
-generate``, ``launch/train.make_train_step``), and the cache its rows
-and kv heads (``launch/sharding.cache_spec``). The embedding is a
+Under a mesh (``ctx``; ``launch/sharding.py`` lays out every family)
+each leaf is this rank's parts, the batch this rank's rows where
+``ctx.batch_cut`` (the entry points cut it: ``launch/serve.generate``,
+``launch/train.make_train_step``), and the cache its rows, kv heads
+(``k`` / ``v``, the hybrid family's shared caches, the encdec family's
+``ck`` / ``cv``) and state heads (``s``, ``h``) as
+``launch/sharding.cache_spec`` lays them out. The embedding is a
 vocab-parallel lookup where ``embed``'s vocab is cut over ``tp``: each
 rank looks up the ids in its rows, the others give zeros, and the sum
 over ``tp`` is the lookup (each entry is one rank's value plus zeros:
@@ -43,10 +45,13 @@ the same bits). The logits are cut on the vocab there: the loss is a
 vocab-parallel cross-entropy (a max over ``tp``, then sums over ``tp``
 of the exponentials and of the label's logit), its mean over the
 global batch (sums over ``dp``), and ``prefill`` / ``serve_step``
-gather the logits over ``tp`` for the sampler. Where ``cfg.seq_shard``
-cuts the residual stream on the sequence (``models/transformer.
-seq_parallel``) the embedding is reduce-scattered onto it and the
-final hidden states gathered.
+gather the logits over ``tp`` for the sampler. ``vis_proj`` and
+``mtp_proj`` hold their columns over ``tp``: the products are gathered
+over ``tp``. Where ``cfg.seq_shard`` cuts the residual stream on the
+sequence (``models/transformer.seq_parallel``; the encoder's own
+sequence likewise) the embedding is reduce-scattered onto it (the vlm
+family's patches and tokens cut together) and the final hidden states
+gathered.
 """
 from __future__ import annotations
 
@@ -59,11 +64,11 @@ from repro_torch.launch import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
-from repro_torch.models.common import (DistCtx, ShapeOnly, apply_norm,
+from repro_torch.models.common import (DistCtx, ShapeOnly,
                                        cross_entropy, dense_init, init_norm,
                                        masked_mean, vocab_parallel_nll)
 from repro_torch.models.transformer import (SegmentSpec, block_decode,
-                                            block_seq, cross_keys,
+                                            block_seq, cross_keys, cross_use,
                                             init_layer, init_segment,
                                             layer_norm_of, plan_segments,
                                             run_segment, run_segment_decode,
@@ -120,15 +125,15 @@ class Model:
             p["unembed"] = dense_init(gen, (d, V), dtype,
                                       part=part("unembed", (d, V)))
         if cfg.family == "hybrid":
-            p["shared_block"] = init_layer(gen, cfg, _BLOCK_SPEC, dtype)
+            p["shared_block"] = init_layer(gen, cfg, _BLOCK_SPEC, dtype, ctx)
         if cfg.family == "encdec":
             p["enc_segments"] = (init_segment(gen, cfg, self._enc_spec(),
-                                              dtype),)
+                                              dtype, ctx),)
             p["enc_norm"] = init_norm(cfg.norm, cfg.d_model, dtype,
                                       gen.device)
         if cfg.family == "vlm":
-            p["vis_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model),
-                                       dtype)
+            p["vis_proj"] = dense_init(gen, (d, d), dtype,
+                                       part=part("vis_proj", (d, d)))
         if cfg.mtp:
             p["mtp_proj"] = dense_init(gen, (2 * d, d), dtype,
                                        part=part("mtp_proj", (2 * d, d)))
@@ -219,14 +224,21 @@ class Model:
     def _encode(self, p, batch, ctx: DistCtx):
         """The encdec family's encoder over ``batch["enc_embeds"]``
         (B, Se, d), cast to the model's dtype, then ``enc_norm``; None
-        for the other families."""
+        for the other families. The result is whole over ``tp``; the
+        encoder's residual is cut on its own sequence where
+        ``seq_parallel`` cuts Se."""
         cfg = self.cfg
         if cfg.family != "encdec":
             return None
-        x, _, _, _ = run_segment(p["enc_segments"][0],
-                                 batch["enc_embeds"].to(self.dtype), cfg, ctx,
-                                 self._enc_spec())
-        return apply_norm(cfg.norm, p["enc_norm"], x)
+        x = batch["enc_embeds"].to(self.dtype)
+        seq = seq_parallel(cfg, ctx, x.shape[1])
+        if seq:
+            x = ctx.mesh.group(ctx.tp).shard_rows(x, dim=1)
+        x, _, _, _ = run_segment(p["enc_segments"][0], x, cfg, ctx,
+                                 self._enc_spec(), seq=seq)
+        if seq:
+            x = ctx.mesh.group(ctx.tp).all_gather(x, dim=1)
+        return layer_norm_of(p, "enc_norm", x, cfg, ctx)
 
     def _backbone(self, p, x: torch.Tensor, ctx: DistCtx, *,
                   enc_out=None, want_cache: bool = False, seq: bool = False):
@@ -238,7 +250,7 @@ class Model:
         Returns (x, aux, new states, caches, the shared block's
         caches)."""
         cfg = self.cfg
-        states = self._fresh_states(x.shape[0], x.device)
+        states = self._fresh_states(x.shape[0], x.device, ctx)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_states, caches, shared_caches = [], [], []
         for i, spec in enumerate(self.segments):
@@ -252,7 +264,7 @@ class Model:
             if cfg.family == "hybrid":
                 x, a2, _, scache = block_seq(p["shared_block"], x, cfg, ctx,
                                              _BLOCK_SPEC,
-                                             want_cache=want_cache)
+                                             want_cache=want_cache, seq=seq)
                 aux = aux + a2
                 shared_caches.append(scache)
         return x, aux, new_states, caches, shared_caches
@@ -261,21 +273,47 @@ class Model:
         """The final norm of x (whole over ``tp``)."""
         return layer_norm_of(p, "final_norm", x, self.cfg, ctx)
 
-    def _fresh_states(self, B: int, device=None) -> List[Any]:
+    def _fresh_states(self, B: int, device=None,
+                      ctx: DistCtx = None) -> List[Any]:
         """Zero states of every rwkv and mamba segment (None for the
-        others), stacked on the layer axis."""
+        others), stacked on the layer axis; under a mesh the state heads
+        this rank holds."""
         cfg, states = self.cfg, []
         for spec in self.segments:
             if spec.kind == "rwkv":
                 s = R.init_rwkv_state(B, cfg, self.dtype, spec.n_layers,
-                                      device)
+                                      device, ctx)
             elif spec.kind == "mamba":
                 s = M.init_mamba_state(B, cfg, self.dtype, spec.n_layers,
-                                       device)
+                                       device, ctx)
             else:
                 s = None
             states.append(s)
         return states
+
+    def _proj(self, p, name: str, x: torch.Tensor, ctx: DistCtx):
+        """x (..., n) times the (n, d) leaf ``name`` (``vis_proj``,
+        ``mtp_proj``), whole over ``tp``: where the leaf's columns are
+        cut over ``tp`` each rank takes its columns of the product and
+        they are gathered over ``tp``."""
+        cfg = self.cfg
+        shape = (x.shape[-1], cfg.d_model)
+        parts = SH.leaf_parts(cfg, ctx, (name,), shape)
+        local = any(q.axes == (ctx.tp,) for q in parts)
+        w = SH.use(p[name], cfg, ctx, (name,), shape, keep_tp=local,
+                   tp_partial=local)
+        if not local:
+            return x @ w
+        g = ctx.mesh.group(ctx.tp)
+        return g.all_gather(g.psum_grad(x) @ w, dim=-1)
+
+    def _seq_len(self, batch) -> int:
+        """The residual stream's sequence length: the tokens', after the
+        vlm family's patches."""
+        S = batch["tokens"].shape[1]
+        if self.cfg.family == "vlm":
+            S += batch["patch_embeds"].shape[1]
+        return S
 
     def _embed_inputs(self, p, batch, ctx: DistCtx = None,
                       seq: bool = False):
@@ -283,12 +321,17 @@ class Model:
         to the model's dtype and projected by ``vis_proj``, in front.
         Returns (x, label_offset): the number of leading positions that
         are not text (P, or 0). ``seq``: x is this rank's rows of the
-        sequence (:meth:`_embed`)."""
-        tok = self._embed(p, batch["tokens"], ctx, seq)
-        if self.cfg.family == "vlm":
-            vis = batch["patch_embeds"].to(self.dtype) @ p["vis_proj"]
-            return torch.cat([vis, tok], dim=1), vis.shape[1]
-        return tok, 0
+        sequence (:meth:`_embed`; the vlm family's patches and tokens
+        cut together)."""
+        if self.cfg.family != "vlm":
+            return self._embed(p, batch["tokens"], ctx, seq), 0
+        tok = self._embed(p, batch["tokens"], ctx)
+        vis = self._proj(p, "vis_proj",
+                         batch["patch_embeds"].to(self.dtype), ctx)
+        x = torch.cat([vis, tok], dim=1)
+        if seq:
+            x = ctx.mesh.group(ctx.tp).shard_rows(x, dim=1)
+        return x, vis.shape[1]
 
     # -------------------------------------------------------------- loss --
     def loss(self, p, batch, ctx: DistCtx = None):
@@ -301,7 +344,7 @@ class Model:
         over the global batch). Returns (total, {"ce", "aux"} and
         "mtp_ce" with the head), f32 scalars, the same on every rank."""
         ctx = ctx or DistCtx.local()
-        seq = seq_parallel(self.cfg, ctx, batch["tokens"].shape[1])
+        seq = seq_parallel(self.cfg, ctx, self._seq_len(batch))
         x, n_prefix = self._embed_inputs(p, batch, ctx, seq)
         h, aux, _, _, _ = self._backbone(p, x, ctx, seq=seq,
                                          enc_out=self._encode(p, batch, ctx))
@@ -328,20 +371,9 @@ class Model:
         mesh ``mtp_proj``'s output columns are cut over ``tp``: the
         projection is gathered over ``tp``."""
         cfg = self.cfg
-        d = cfg.d_model
         tokens, labels = batch["tokens"].long(), batch["labels"].long()
         nxt = self._embed(p, torch.roll(tokens, -1, dims=1), ctx)
-        zin = torch.cat([h, nxt], dim=-1)
-        shape = (2 * d, d)
-        parts = SH.leaf_parts(cfg, ctx, ("mtp_proj",), shape)
-        local = any(q.axes == (ctx.tp,) for q in parts)
-        w = SH.use(p["mtp_proj"], cfg, ctx, ("mtp_proj",), shape,
-                   keep_tp=local, tp_partial=local)
-        if local:
-            g = ctx.mesh.group(ctx.tp)
-            z = g.all_gather(g.psum_grad(zin) @ w, dim=-1)
-        else:
-            z = zin @ w
+        z = self._proj(p, "mtp_proj", torch.cat([h, nxt], dim=-1), ctx)
         seq = seq_parallel(cfg, ctx, z.shape[1])
         if seq:
             z = ctx.mesh.group(ctx.tp).shard_rows(z, dim=1)
@@ -369,7 +401,7 @@ class Model:
         Returns (last-token logits (B, V), cache)."""
         ctx = ctx or DistCtx.local()
         S = batch["tokens"].shape[1]
-        seq = seq_parallel(self.cfg, ctx, S)
+        seq = seq_parallel(self.cfg, ctx, self._seq_len(batch))
         x, n_prefix = self._embed_inputs(p, batch, ctx, seq)
         enc_out = self._encode(p, batch, ctx)
         h, _, new_states, caches, shared_caches = self._backbone(
@@ -380,11 +412,11 @@ class Model:
         logits = self._unembed(p, self._final(p, last, ctx), ctx)
         return logits, self._pack_cache(p, caches, new_states, shared_caches,
                                         enc_out, x.shape[0], n_prefix + S,
-                                        x.device)
+                                        x.device, ctx)
 
     def _pack_cache(self, p, caches: List[Any], new_states: List[Any],
                     shared_caches: List[Dict[str, torch.Tensor]], enc_out,
-                    B: int, S: int, dev):
+                    B: int, S: int, dev, ctx: DistCtx):
         """Prefill caches -> the decode layout. A rwkv or mamba
         segment's final state goes in as it stands (stacked: no view of
         an activation). A sliding-window model whose room exceeds its
@@ -420,7 +452,7 @@ class Model:
                 entry = {name: torch.nn.functional.pad(
                     cache[name], (0, 0, 0, 0, 0, pad)) for name in ("k", "v")}
                 if spec.cross:
-                    entry.update(self._cross_cache(p, enc_out, spec))
+                    entry.update(self._cross_cache(p, enc_out, spec, ctx))
             out["segments"].append(entry)
         if cfg.family == "hybrid":
             out["shared"] = [{name: torch.nn.functional.pad(
@@ -428,12 +460,13 @@ class Model:
                 for name in ("k", "v")} for c in shared_caches]
         return out
 
-    def _cross_cache(self, p, enc_out: torch.Tensor, spec: SegmentSpec):
+    def _cross_cache(self, p, enc_out: torch.Tensor, spec: SegmentSpec,
+                     ctx: DistCtx):
         """A cross segment's decode entries: per layer the encoder's keys
-        and values, ``ck`` / ``cv`` (L, B, Se, KVH, hd), and ``cvalid``
-        (L, B, Se), all True."""
+        and values, ``ck`` / ``cv`` (L, B, Se, KVH, hd; the kv heads this
+        rank holds), and ``cvalid`` (L, B, Se), all True."""
         seg = p["segments"][self.segments.index(spec)]
-        kv = [cross_keys(lp["xattn"], enc_out, self.cfg)
+        kv = [cross_keys(cross_use(lp, self.cfg, ctx)[0], enc_out, self.cfg)
               for lp in unbind_layers(seg, spec.n_layers)]
         B, Se = enc_out.shape[0], enc_out.shape[1]
         return {"ck": torch.stack([k for k, _ in kv]),
@@ -442,10 +475,12 @@ class Model:
                                      device=enc_out.device)}
 
     # -------------------------------------------------------- init_cache --
-    def init_cache(self, B: int, S: int, device=None):
+    def init_cache(self, B: int, S: int, device=None, ctx: DistCtx = None):
         """Zeroed decode cache with room for S (+1) tokens (zero states
         for the rwkv and mamba segments; a cross segment's encoder keys
-        and values zero for ``encoder.n_ctx`` frames, all valid)."""
+        and values zero for ``encoder.n_ctx`` frames, all valid); under
+        a mesh ``ctx`` this rank's part of each leaf
+        (``launch/sharding.cache_spec``)."""
         cfg, dtype = self.cfg, self.dtype
         room = S + 1
         out = {"len": torch.zeros((B,), dtype=torch.int32, device=device),
@@ -484,7 +519,7 @@ class Model:
                 {name: torch.zeros((1, B, room, cfg.n_kv_heads, cfg.hd),
                                    dtype=dtype, device=device)
                  for name in ("k", "v")} for _ in self.segments]
-        return out
+        return SH.shard_cache(out, ctx)
 
     # --------------------------------------------------------- serve_step --
     def serve_step(self, p, cache, tokens: torch.Tensor,

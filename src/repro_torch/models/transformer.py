@@ -16,18 +16,20 @@ over the layers in Python. The state-carrying kinds (rwkv, mamba) take
 and return a per-layer state, stacked on the layer axis as the
 reference stacks it.
 
-Under a mesh (``launch/sharding.py``; the attn_ffn kind of the families
-it lays out) the residual stream between blocks is this rank's rows of
-the batch (where it is cut over ``dp``), replicated over ``tp``, or,
-with ``cfg.seq_shard`` and the sequence dividing over ``tp``
-(:func:`seq_parallel`, the reference's ``block_seq`` constraint), cut on
-the sequence over ``tp`` as well: every norm, residual add and stash then
-runs on this rank's rows of the sequence, the attention and the FFN (or
-the MoE layer) all-gather the sequence on entry, and the tensor-parallel
-partial products of ``wo`` and ``w2`` are reduce-scattered back onto it
-(the MoE layer's output, summed over ``tp`` inside the layer, is cut).
-``block_decode`` never cuts the sequence: the partial products of ``wo``
-and ``w2`` are psummed.
+Under a mesh (``launch/sharding.py``; every kind) the residual stream
+between blocks is this rank's rows of the batch (where it is cut over
+``dp``), replicated over ``tp``, or, with ``cfg.seq_shard`` and the
+sequence dividing over ``tp`` (:func:`seq_parallel`, the reference's
+``block_seq`` constraint), cut on the sequence over ``tp`` as well:
+every norm, residual add and stash then runs on this rank's rows of the
+sequence, each block's work (the attention, the cross-attention, the
+FFN or the MoE layer, the RWKV-6 time-mix and channel-mix, the Mamba2
+mixer) all-gathers the sequence on entry, and its tensor-parallel
+partial products (of ``wo``, ``w2``, the RWKV-6 ``wo`` and channel-mix
+``wv``) are reduce-scattered back onto it; a result the same on every
+rank of ``tp`` (the MoE layer's, summed over ``tp`` inside the layer;
+the Mamba2 mixer's) is cut. ``block_decode`` never cuts the sequence:
+the partial products are psummed.
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ from repro_torch.models import mamba as M
 from repro_torch.models import moe as MoE
 from repro_torch.models import rwkv as R
 from repro_torch.models.common import (DistCtx, apply_norm, enter_region,
-                                       init_norm, leave_region, tree_map)
+                                       init_norm, leave_region, tp_heads,
+                                       tree_map)
 
 @dataclass(frozen=True)
 class SegmentSpec:
@@ -86,12 +89,11 @@ def plan_segments(cfg) -> List[SegmentSpec]:
 
 
 def seq_parallel(cfg, ctx: Optional[DistCtx], S: int) -> bool:
-    """Whether the residual stream of a sequence of S tokens is cut on
-    the sequence over ``tp`` (``cfg.seq_shard``, ``cfg`` laid out,
-    ``tp`` > 1 and S dividing over it)."""
+    """Whether the residual stream of a sequence of S tokens (the vlm
+    family's patches included) is cut on the sequence over ``tp``
+    (``cfg.seq_shard``, ``tp`` > 1 and S dividing over it)."""
     return (ctx is not None and ctx.mesh is not None and cfg.seq_shard
-            and SH.lays_out(cfg) and ctx.tp_size > 1
-            and S % ctx.tp_size == 0)
+            and ctx.tp_size > 1 and S % ctx.tp_size == 0)
 
 
 def layer_norm_of(lp, name: str, x: torch.Tensor, cfg, ctx: DistCtx,
@@ -124,12 +126,13 @@ def init_layer(gen: torch.Generator, cfg, spec: SegmentSpec, dtype,
     dev = gen.device
     if spec.kind == "rwkv":
         return {"ln1": init_norm(cfg.norm, d, dtype, dev),
-                "tm": R.init_rwkv6(gen, cfg, dtype),
+                "tm": R.init_rwkv6(gen, cfg, dtype, _cut(cfg, ctx, "tm")),
                 "ln2": init_norm(cfg.norm, d, dtype, dev),
-                "cm": R.init_rwkv_channel_mix(gen, cfg, dtype)}
+                "cm": R.init_rwkv_channel_mix(gen, cfg, dtype,
+                                              _cut(cfg, ctx, "cm"))}
     if spec.kind == "mamba":
         return {"ln1": init_norm(cfg.norm, d, dtype, dev),
-                "mix": M.init_mamba2(gen, cfg, dtype)}
+                "mix": M.init_mamba2(gen, cfg, dtype, _cut(cfg, ctx, "mix"))}
     attn = _cut(cfg, ctx, "attn")
     p = {"ln1": init_norm(cfg.norm, d, dtype, dev),
          "attn": (A.init_mla(gen, cfg, dtype, attn) if cfg.attn == "mla"
@@ -188,23 +191,12 @@ def block_seq(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec, *,
     ``seq``: x (and the result) is this rank's rows of the sequence
     (:func:`seq_parallel`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if spec.kind == "rwkv":
-        h = apply_norm(cfg.norm, lp["ln1"], x)
-        o, s_tm = R.rwkv6_time_mix(lp["tm"], h, {"s": state["s"],
-                                                 "shift": state["shift"]},
-                                   cfg, ctx)
-        x = x + o
-        h = apply_norm(cfg.norm, lp["ln2"], x)
-        o, shift2 = R.rwkv_channel_mix(lp["cm"], h, state["shift2"], cfg)
-        return (x + o, aux, {"s": s_tm["s"], "shift": s_tm["shift"],
-                             "shift2": shift2}, None)
-    if spec.kind == "mamba":
-        h = apply_norm(cfg.norm, lp["ln1"], x)
-        o, new_state = M.mamba2_block(lp["mix"], h, state, cfg, ctx)
-        return x + o, aux, new_state, None
+    if spec.kind in ("rwkv", "mamba"):
+        x, new_state = _mixers(lp, x, cfg, ctx, spec, state, seq)
+        return x, aux, new_state, None
     cache = None
     h = layer_norm_of(lp, "ln1", x, cfg, ctx, seq)
-    local = A.tp_heads(cfg, ctx, cfg.n_heads) is not None
+    local = A.tp_heads(ctx, cfg.n_heads) is not None
     h = enter_region(h, ctx, seq=seq, local=local)
     if cfg.attn == "mla":
         o = A.mla_self(lp["attn"], h, cfg, ctx, want_cache=want_cache)
@@ -215,7 +207,7 @@ def block_seq(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec, *,
         o, cache = o
     x = x + leave_region(o, ctx, seq=seq, local=local)
     if spec.cross and enc_out is not None:
-        x = x + cross_attention(lp, x, enc_out, cfg)
+        x = x + cross_attention(lp, x, enc_out, cfg, ctx, seq)
     h = layer_norm_of(lp, "ln2", x, cfg, ctx, seq)
     if spec.moe:
         # The layer takes the sequence whole and returns its sum.
@@ -227,29 +219,76 @@ def block_seq(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec, *,
     return x + y, aux, None, cache
 
 
+def _mixers(lp, x: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec,
+            state, seq: bool):
+    """A rwkv or mamba layer over x (B, S, d: the residual's layout,
+    ``seq`` as :func:`block_seq`'s) from the layer's ``state``: each
+    mixer's work takes its input whole over ``tp`` and leaves as its
+    result is laid out (a partial product summed, or reduce-scattered,
+    over ``tp`` where the work is tensor-parallel; else replicated, and
+    cut where ``seq``). Returns (x, the new state)."""
+    h = layer_norm_of(lp, "ln1", x, cfg, ctx, seq)
+    if spec.kind == "mamba":
+        h = enter_region(h, ctx, seq=seq, local=False)
+        o, new_state = M.mamba2_block(lp["mix"], h, state, cfg, ctx)
+        return x + leave_region(o, ctx, seq=seq, local=False), new_state
+    local = R.time_mix_heads(cfg, ctx) is not None
+    h = enter_region(h, ctx, seq=seq, local=local)
+    o, s_tm = R.rwkv6_time_mix(lp["tm"], h, {"s": state["s"],
+                                             "shift": state["shift"]},
+                               cfg, ctx)
+    x = x + leave_region(o, ctx, seq=seq, local=local)
+    h = layer_norm_of(lp, "ln2", x, cfg, ctx, seq)
+    local = R.channel_mix_local(cfg, ctx)
+    h = enter_region(h, ctx, seq=seq, local=local)
+    o, shift2 = R.rwkv_channel_mix(lp["cm"], h, state["shift2"], cfg, ctx)
+    x = x + leave_region(o, ctx, seq=seq, local=local)
+    return x, {"s": s_tm["s"], "shift": s_tm["shift"], "shift2": shift2}
+
+
 def cross_keys(xattn, enc_out: torch.Tensor, cfg):
     """The keys and values (B, Se, KVH, hd) of the encoder's output
-    ``enc_out`` (B, Se, d): its products with ``wk`` and ``wv``, with no
-    bias and no rotary positions."""
+    ``enc_out`` (B, Se, d): its products with ``wk`` and ``wv`` (KVH:
+    the kv heads they hold), with no bias and no rotary positions."""
     B, Se, _ = enc_out.shape
-    return ((enc_out @ xattn["wk"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd),
-            (enc_out @ xattn["wv"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd))
+    return ((enc_out @ xattn["wk"]).reshape(B, Se, -1, cfg.hd),
+            (enc_out @ xattn["wv"]).reshape(B, Se, -1, cfg.hd))
 
 
-def cross_attention(lp, x: torch.Tensor, enc_out: torch.Tensor, cfg):
+def cross_use(lp, cfg, ctx: DistCtx):
+    """A decoder layer's ``xattn`` leaves as this rank's work uses them:
+    (leaves, this rank's query heads or None, the first kv head they
+    hold), tensor-parallel where the heads divide over ``tp``, as the
+    self-attention (``models/attention._gqa_use``)."""
+    heads = tp_heads(ctx, cfg.n_heads)
+    pu, kv_lo = A._gqa_use(lp["xattn"], cfg, ctx, heads, "xattn")
+    return pu, heads, kv_lo
+
+
+def cross_attention(lp, x: torch.Tensor, enc_out: torch.Tensor, cfg,
+                    ctx: DistCtx = None, seq: bool = False):
     """Cross-attention of a decoder layer over a full sequence x
-    (B, S, d): the query from ``ln_x``-normed x (with the bias, if the
-    set has one), the keys and values of ``cross_keys``, unmasked
-    attention, then ``wo``. Returns the residual's addend (B, S, d)."""
-    xattn = lp["xattn"]
+    (B, S, d; ``seq`` as :func:`block_seq`'s): the query from
+    ``ln_x``-normed x (with the bias, if the set has one), the keys and
+    values of ``cross_keys``, unmasked attention, then ``wo``. Returns
+    the residual's addend, in x's layout. Under a tensor-parallel ``ctx``
+    each rank runs its heads over ``enc_out`` (replicated over ``tp``:
+    its cotangent is summed there) and ``wo``'s partial product is summed
+    over ``tp``."""
+    pu, heads, kv_lo = cross_use(lp, cfg, ctx)
+    local = heads is not None
     # A named range for torch.profiler (the cross-attention's device
     # time, its projections included).
     with record_function("cross_attention"):
-        h = apply_norm(cfg.norm, lp["ln_x"], x)
-        q, _, _ = A._qkv(xattn, h, cfg)
-        ek, ev = cross_keys(xattn, enc_out, cfg)
-        o = A.plain_attention(q, ek, ev).reshape(x.shape[0], x.shape[1], -1)
-        return o @ xattn["wo"]
+        h = layer_norm_of(lp, "ln_x", x, cfg, ctx, seq)
+        h = enter_region(h, ctx, seq=seq, local=local)
+        q, _, _ = A._qkv(pu, h, cfg)
+        ek, ev = cross_keys(pu, enter_region(enc_out, ctx, seq=False,
+                                             local=local), cfg)
+        ek, ev, _ = A._kv_for(ek, ev, heads, cfg.n_heads // cfg.n_kv_heads,
+                              kv_lo)
+        o = A.plain_attention(q, ek, ev).reshape(h.shape[0], h.shape[1], -1)
+        return leave_region(o @ pu["wo"], ctx, seq=seq, local=local)
 
 
 def unbind_layers(seg_params, n_layers: int) -> List[dict]:
@@ -321,28 +360,16 @@ def block_decode(lp, x1: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec,
     leaves as they are. For rwkv and mamba, ``state`` is the
     layer's; returns (x1, the new state), new tensors (the shifts and
     the conv state views of this step's activations)."""
-    if spec.kind == "rwkv":
-        h = apply_norm(cfg.norm, lp["ln1"], x1[:, None, :])
-        o, s_tm = R.rwkv6_time_mix(lp["tm"], h, {"s": state["s"],
-                                                 "shift": state["shift"]},
-                                   cfg, ctx, use_chunked=False)
-        x1 = x1 + o[:, 0]
-        h = apply_norm(cfg.norm, lp["ln2"], x1[:, None, :])
-        o, shift2 = R.rwkv_channel_mix(lp["cm"], h, state["shift2"], cfg)
-        return x1 + o[:, 0], {"s": s_tm["s"], "shift": s_tm["shift"],
-                              "shift2": shift2}
-    if spec.kind == "mamba":
-        h = apply_norm(cfg.norm, lp["ln1"], x1[:, None, :])
-        o, ns = M.mamba2_block(lp["mix"], h, state, cfg, ctx,
-                               use_chunked=False)
-        return x1 + o[:, 0], ns
+    if spec.kind in ("rwkv", "mamba"):
+        x, ns = _mixers(lp, x1[:, None, :], cfg, ctx, spec, state, False)
+        return x[:, 0], ns
     h = layer_norm_of(lp, "ln1", x1, cfg, ctx)
     decode = A.mla_decode if cfg.attn == "mla" else A.gqa_decode
     o, _ = decode(lp["attn"], h, cache, cfg, ctx, lengths=lengths)
-    x1 = x1 + leave_region(o, ctx, seq=False, local=A.tp_heads(
-        cfg, ctx, cfg.n_heads) is not None)
+    x1 = x1 + leave_region(o, ctx, seq=False,
+                           local=tp_heads(ctx, cfg.n_heads) is not None)
     if spec.cross and "ck" in cache:
-        x1 = x1 + cross_decode(lp, x1, cache, cfg)
+        x1 = x1 + cross_decode(lp, x1, cache, cfg, ctx)
     h = layer_norm_of(lp, "ln2", x1, cfg, ctx)
     if spec.moe:
         y, _ = MoE.apply_moe(lp["moe"], h[:, None, :], cfg, ctx)
@@ -352,18 +379,23 @@ def block_decode(lp, x1: torch.Tensor, cfg, ctx: DistCtx, spec: SegmentSpec,
     return x1 + y, cache
 
 
-def cross_decode(lp, x1: torch.Tensor, cache: Dict[str, torch.Tensor], cfg):
+def cross_decode(lp, x1: torch.Tensor, cache: Dict[str, torch.Tensor], cfg,
+                 ctx: DistCtx = None):
     """One token's cross-attention: the query ``ln_x``-normed x1 (B, d)
     times ``wq`` (no bias, as the reference's decode), the plain
-    ``decode_attention`` over the cached ``ck`` / ``cv`` where
-    ``cvalid``, then ``wo``. Returns the residual's addend (B, d)."""
-    xattn = lp["xattn"]
+    ``decode_attention`` over the cached ``ck`` / ``cv`` (the kv heads
+    this rank holds) where ``cvalid``, then ``wo``. Returns the
+    residual's addend (B, d), summed over ``tp`` where the heads are
+    cut."""
+    pu, heads, kv_lo = cross_use(lp, cfg, ctx)
     with record_function("cross_attention"):
-        h = apply_norm(cfg.norm, lp["ln_x"], x1)
-        q = (h @ xattn["wq"]).reshape(x1.shape[0], cfg.n_heads, cfg.hd)
-        o = A.decode_attention(q, cache["ck"], cache["cv"],
-                               kv_valid=cache["cvalid"])
-        return o.reshape(x1.shape[0], -1) @ xattn["wo"]
+        h = layer_norm_of(lp, "ln_x", x1, cfg, ctx)
+        q = (h @ pu["wq"]).reshape(x1.shape[0], -1, cfg.hd)
+        ck, cv, _ = A._kv_for(cache["ck"], cache["cv"], heads,
+                              cfg.n_heads // cfg.n_kv_heads, kv_lo)
+        o = A.decode_attention(q, ck, cv, kv_valid=cache["cvalid"])
+        return leave_region(o.reshape(x1.shape[0], -1) @ pu["wo"], ctx,
+                            seq=False, local=heads is not None)
 
 
 def run_segment_decode(seg_params, x1: torch.Tensor, cfg, ctx: DistCtx,

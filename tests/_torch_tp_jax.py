@@ -8,9 +8,12 @@ process of its own, which forces 8 host devices before it imports jax
 
 * ``models``: reduced model cases (config name and overrides, mesh
   shape, optimizer, the parameters' leaves in ``jax.tree_util`` order,
-  the train batches, the serving prompt and its decode steps). Each runs
-  the reference's prefill and greedy ``serve_step`` s as one program,
-  and ``make_train_step`` (unless ``train`` is False), jitted with the
+  the train batches and the serving prompt, each a dict of arrays (the
+  tokens, and the family's ``enc_embeds`` or ``patch_embeds``), and the
+  decode steps). Each runs
+  the reference's prefill and its greedy ``serve_step`` s (one program
+  for the prefill, one for a step), and ``make_train_step`` (unless
+  ``train`` is False), jitted with the
   shardings ``launch/dryrun.py`` gives them (``param_specs``,
   ``batch_specs``, ``cache_specs_tree`` for the cache it returns,
   ``opt_specs``), and records the prefill's and every decode step's
@@ -83,29 +86,31 @@ def model_case(case):
     out = {}
     with mesh:
         # serving: the prefill, then greedy decode steps, as one program
-        prompt = jnp.asarray(case["prompt"])
         steps = case["steps"]
         model.decode_room = steps + 1
-        batch = {"tokens": prompt}
+        batch = {k: jnp.asarray(v) for k, v in case["prompt"].items()}
         bsh = to_shardings(batch_specs(batch, mesh, ctx.dp), mesh)
 
-        def serve(p, b):
-            logits, cache = model.prefill(p, b, ctx)
-            seen, toks = [logits], []
-            tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
-            for _ in range(steps):
-                toks.append(tok)
-                logits, cache = model.serve_step(p, cache, tok, ctx)
-                seen.append(logits)
-                tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
-            return jnp.stack(seen), jnp.stack(toks, axis=1), cache
-        cache_shape = jax.eval_shape(serve, params, batch)[2]
+        def prefill(p, b):
+            return model.prefill(p, b, ctx)
+
+        def step(p, c, tok):
+            return model.serve_step(p, c, tok, ctx)
+        cache_shape = jax.eval_shape(prefill, params, batch)[1]
         csh = to_shardings(cache_specs_tree(cache_shape, mesh, ctx.dp), mesh)
-        logits, toks, cache = jax.jit(
-            serve, in_shardings=(psh, bsh),
-            out_shardings=(None, None, csh))(params, batch)
-        out["logits"] = np.asarray(logits)
-        out["tokens"] = np.asarray(toks)
+        logits, cache = jax.jit(prefill, in_shardings=(psh, bsh),
+                                out_shardings=(None, csh))(params, batch)
+        # one program a decode step, compiled once
+        step = jax.jit(step, in_shardings=(psh, csh, None),
+                       out_shardings=(None, csh))
+        seen, toks = [logits], []
+        for _ in range(steps):
+            tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            toks.append(tok)
+            logits, cache = step(params, cache, tok)
+            seen.append(logits)
+        out["logits"] = np.stack([np.asarray(lg) for lg in seen])
+        out["tokens"] = np.stack([np.asarray(t) for t in toks], axis=1)
         out["cache"] = as_np(cache)
         if not case["train"]:
             return out
@@ -118,8 +123,8 @@ def model_case(case):
                               to_shardings(opt_specs(state.opt, pspecs),
                                            mesh),
                               NamedSharding(mesh, P()))
-        batches = [{"tokens": jnp.asarray(t), "labels": jnp.asarray(lb)}
-                   for t, lb in case["batches"]]
+        batches = [{k: jnp.asarray(v) for k, v in b.items()}
+                   for b in case["batches"]]
         bsh = to_shardings(batch_specs(batches[0], mesh, ctx.dp), mesh)
         train = jax.jit(make_train_step(model, ctx, opt),
                         in_shardings=(state_sh, bsh),

@@ -1,13 +1,26 @@
-"""Rank workers of tests/test_torch_tp.py, spawned by
-``_torch_ep_ranks.spawn`` with this module's ``CASES``. Like that module
-it imports neither jax nor the JAX package: the parent hands the inputs
-over as numpy and checks what each rank saved.
+"""Rank workers of tests/test_torch_tp.py and tests/test_torch_tp_
+families.py, spawned by ``_torch_ep_ranks.spawn`` with this module's
+``CASES``, and the parent's side: :func:`run` starts the JAX process
+(``_torch_tp_jax.py``) and the worlds side by side, and
+:func:`check_parts` holds what each rank saved against JAX's global
+arrays. Like ``_torch_ep_ranks`` it imports neither jax nor the JAX
+package: the parent hands the inputs over as numpy (a batch, or a
+prompt, is a dict of arrays: ``tokens``, ``labels`` for training, and
+the family's ``enc_embeds`` or ``patch_embeds``).
 """
+import os
+import pickle
+import subprocess
+import sys
+
 import numpy as np
 import torch
 import torch.distributed as dist
 
+import _torch_ep_ranks as R
 from _torch_ep_ranks import _ctx
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def _np(t) -> np.ndarray:
@@ -29,7 +42,7 @@ def _parts(parts_list):
 
 
 def _batch(b):
-    return {"tokens": torch.as_tensor(b[0]), "labels": torch.as_tensor(b[1])}
+    return {k: torch.as_tensor(v) for k, v in b.items()}
 
 
 def _train(model, ctx, spec):
@@ -55,13 +68,14 @@ def case_model(spec):
     (cut as drawn) over the prompt, its tokens, logits and final cache
     (this rank's part, with the leaves' parts of ``launch/sharding.
     cache_spec``); then the train steps, the parameters' and the
-    optimizer state's leaves with their parts, and each parameter's
-    held shape against the parts of ``param_spec`` (the train steps only
-    where ``spec["train"]``)."""
+    optimizer state's leaves with their parts and paths, each
+    parameter's held shape against the parts of ``param_spec`` (the
+    train steps only where ``spec["train"]``), and the shape of the
+    logits of a step from this rank's zeroed ``init_cache``."""
     from repro_torch.launch.serve import generate, init_params
-    from repro_torch.launch.sharding import (cache_spec, param_paths,
-                                             param_spec, spec_parts,
-                                             tree_parts)
+    from repro_torch.launch.sharding import (cache_spec, cut_batch,
+                                             param_paths, param_spec,
+                                             spec_parts, tree_parts)
     from repro_torch.models.common import parts_shape
     from repro_torch.models.model import build_model
     from repro_torch.utils.tree import leaves
@@ -71,8 +85,8 @@ def case_model(spec):
     out = {}
     params = init_params(model, seed=spec["seed"], device="cpu", ctx=ctx)
     stats = {}
-    toks = generate(model, params, {"tokens": torch.as_tensor(
-        spec["prompt"])}, steps=spec["steps"], ctx=ctx, stats=stats)
+    toks = generate(model, params, _batch(spec["prompt"]),
+                    steps=spec["steps"], ctx=ctx, stats=stats)
     out["tokens"] = _np(toks)
     out["logits"] = np.stack([_np(lg) for lg in stats["logits"]])
     cache = stats["cache"]
@@ -87,12 +101,19 @@ def case_model(spec):
         tuple(a.shape) == parts_shape(spec_parts(param_spec(
             cfg, ctx, path, shapes[path]), shapes[path], ctx), shapes[path])
         for path, a in zip(param_paths(params), leaves(params))]
+    B, S = spec["prompt"]["tokens"].shape
+    c, first = cut_batch(ctx, {"tokens": torch.zeros((B,), dtype=torch.int32)})
+    with torch.no_grad():
+        lg, _ = model.serve_step(params, model.init_cache(B, S, ctx=ctx),
+                                 first["tokens"], c)
+    out["init_cache_logits"] = tuple(lg.shape)
     del params
     if not spec["train"]:
         return out
     state, out["loss"], out["grad_norm"] = _train(model, ctx, spec)
     out["params"] = [_np(a) for a in leaves(state.params)]
     out["params_parts"] = _parts(tree_parts(state.params, cfg, ctx))
+    out["params_paths"] = param_paths(state.params)
     out["opt"] = [_np(a) for a in leaves(state.opt)]
     out["opt_parts"] = _parts(tree_parts(state.opt, cfg, ctx,
                                          shapes=shapes))
@@ -100,23 +121,6 @@ def case_model(spec):
         local, loss, norm = _train(model, None, spec)
         out["single"] = {"loss": loss, "grad_norm": norm,
                          "params": [_np(a) for a in leaves(local.params)]}
-    return out
-
-
-def case_pinned(spec):
-    """A family whose layout is not ported (rwkv, hybrid) under the mesh
-    and on one device from one draw: every leaf whole, and the losses,
-    grad norms and parameters of both runs."""
-    from repro_torch.utils.tree import leaves
-    ctx = _ctx(spec["mesh"])
-    cfg = _cfg(spec)
-    from repro_torch.models.model import build_model
-    model = build_model(cfg)
-    out = {}
-    for run, c in (("mesh", ctx), ("single", None)):
-        state, loss, norm = _train(model, c, spec)
-        out[run] = {"loss": loss, "grad_norm": norm,
-                    "params": [_np(a) for a in leaves(state.params)]}
     return out
 
 
@@ -159,5 +163,72 @@ def case_refusal(spec):
     return None
 
 
-CASES = {"models": case_model, "pinned": case_pinned,
-         "collectives": case_collectives, "refusal": case_refusal}
+CASES = {"models": case_model, "collectives": case_collectives,
+         "refusal": case_refusal}
+
+
+def run(jax_in: dict, worlds: dict, tmp: str):
+    """(each world's rank outputs by world size, the JAX side's output):
+    ``jax_in`` pickled for ``_torch_tp_jax.py``, which runs in a process
+    of its own while each world of ``worlds`` ({size: cases}) is spawned
+    in turn."""
+    src, dst = os.path.join(tmp, "jax_in.pkl"), os.path.join(tmp,
+                                                            "jax_out.pkl")
+    with open(src, "wb") as f:
+        pickle.dump(jax_in, f)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "..", "src"), os.environ.get("PYTHONPATH", "")]))
+    child = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "_torch_tp_jax.py"), src, dst],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    ranks = {}
+    try:
+        for world, cases in worlds.items():
+            wdir = os.path.join(tmp, f"world{world}")
+            os.mkdir(wdir)
+            ranks[world] = R.spawn(world, wdir, cases, CASES)
+    finally:
+        _, err = child.communicate(timeout=1200)
+    assert child.returncode == 0, err[-4000:]
+    with open(dst, "rb") as f:
+        return ranks, pickle.load(f)
+
+
+def slice_of(a, parts):
+    """``a`` cut to ``parts`` ((axis, lo, hi) a cut dim)."""
+    idx = [slice(None)] * a.ndim
+    for axis, lo, hi in parts:
+        idx[axis] = slice(lo, hi)
+    return a[tuple(idx)]
+
+
+def rel(got, want):
+    """The largest gap over the largest magnitude of ``want`` (a bool
+    leaf, the cross cache's ``cvalid``, as 0 / 1)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want), initial=0.0)) / max(
+        float(np.max(np.abs(want), initial=0.0)), 1e-30)
+
+
+def check_parts(outs, key, field, want_leaves, bar=1e-5):
+    """Each rank's part of every leaf (``field`` and its ``<field>_parts``
+    of the rank outputs) against the same slice of the whole leaf,
+    within ``bar`` (one for every leaf, or a list of one a leaf); ranks
+    holding the same part the same bits."""
+    n = len(want_leaves)
+    assert all(len(o[field]) == n for o in outs), (key, field)
+    bars = [bar] * n if isinstance(bar, float) else bar
+    for i, want in enumerate(want_leaves):
+        held = {}
+        for r, o in enumerate(outs):
+            parts = o[f"{field}_parts"][i]
+            got = o[field][i]
+            ref = slice_of(want, parts)
+            assert got.shape == ref.shape, (key, field, i, got.shape,
+                                            ref.shape)
+            assert rel(got, ref) <= bars[i], (key, field, i, rel(got, ref))
+            if parts in held:
+                assert np.array_equal(held[parts], got), (
+                    key, field, i, f"rank {r} differs from another rank "
+                    f"holding the same part")
+            held[parts] = got

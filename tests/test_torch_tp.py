@@ -30,8 +30,6 @@ every case's prefill, decode step and ``train_step`` jitted with
   whole, and its train steps are held to the port's single-device steps
   (the JAX side's sharded step has a wrong embed gradient there,
   ROADMAP.md section 3);
-- rwkv and hybrid (layouts not ported) under (2, 2) equal the
-  single-device step bit for bit;
 - ``ShardGroup.reduce_scatter`` against ``jax.vjp`` of
   ``psum_scatter``.
 
@@ -39,14 +37,11 @@ The spec-parity tests need no ranks: for every config in ``configs/`` at
 its full shapes, on five meshes given as shape maps, the port's
 ``param_spec``, ``opt_spec``, ``batch_spec`` and ``cache_spec`` against
 the reference's ``param_specs``, ``opt_specs``, ``batch_specs`` and
-``cache_specs_tree``.
+``cache_specs_tree``. The ssm, hybrid, encdec and vlm families' cases
+are in ``test_torch_tp_families.py``.
 """
 import dataclasses
 import functools
-import os
-import pickle
-import subprocess
-import sys
 import tempfile
 import zlib
 from types import SimpleNamespace
@@ -72,7 +67,6 @@ from repro_torch.models.common import DistCtx  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.utils.tree import leaves  # noqa: E402
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 ADAMW = ("adamw", {"lr": 1e-3, "eps": 1e-4})
 ADAFACTOR = ("adafactor", {"lr": 1e-3})
@@ -120,7 +114,6 @@ CASES = [(2, (1, 2), "granite", 1, 4), (2, (1, 2), "qwen", 1, 4),
 S, STEPS, DECODE = 16, 2, 3
 WORLDS = {2: ((1, 2), (2, 1)), 4: ((2, 2), (1, 4))}
 GROUP_AXES = (("model",), ("data",), ("data", "model"), ("model", "data"))
-PINNED = {"rwkv": "rwkv6-7b", "hybrid": "zamba2-1.2b"}
 
 
 def _key(mesh, model, mb, b):
@@ -148,8 +141,8 @@ def _draws(key, vocab, b):
         toks = rng.integers(0, vocab, size=(b, S)).astype(np.int32)
         labels = rng.integers(0, vocab, size=(b, S)).astype(np.int32)
         labels[:, ::5] = -1
-        batches.append((toks, labels))
-    prompt = rng.integers(0, vocab, size=(b, S)).astype(np.int32)
+        batches.append({"tokens": toks, "labels": labels})
+    prompt = {"tokens": rng.integers(0, vocab, size=(b, S)).astype(np.int32)}
     return batches, prompt
 
 
@@ -207,79 +200,17 @@ def runs():
     colls = {m: _coll_specs(m) for ms in WORLDS.values() for m in ms}
     jax_colls = {m: {axes: dict(spec, mesh=m) for axes, spec in by.items()}
                  for m, by in colls.items()}
+    worlds = {world: {
+        "models": {k: port[k] for w, k, _ in CASE_KEYS if w == world},
+        "collectives": {m: {"mesh": m, "groups": colls[m]} for m in meshes},
+        "refusal": ({"mixtral": {"name": "mixtral-8x7b",
+                                 "over": _over("mixtral", 1), "mesh": (1, 2)}}
+                    if world == 2 else {})}
+        for world, meshes in WORLDS.items()}
     with tempfile.TemporaryDirectory() as tmp:
-        src, dst = (os.path.join(tmp, "jax_in.pkl"),
-                    os.path.join(tmp, "jax_out.pkl"))
-        with open(src, "wb") as f:
-            pickle.dump({"models": jx, "collectives": jax_colls}, f)
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [os.path.join(HERE, "..", "src"), os.environ.get(
-                "PYTHONPATH", "")]))
-        child = subprocess.Popen(
-            [sys.executable, os.path.join(HERE, "_torch_tp_jax.py"), src,
-             dst], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
-        ranks = {}
-        try:
-            for world, meshes in WORLDS.items():
-                cases = {
-                    "models": {k: port[k] for w, k, _ in CASE_KEYS
-                               if w == world},
-                    "collectives": {m: {"mesh": m, "groups": colls[m]}
-                                    for m in meshes},
-                    "pinned": ({name: {"name": cfg, "over": {
-                        "dtype": "float32", "microbatch": 1},
-                        "mesh": (2, 2), "seed": SEED, "optimizer": ADAMW,
-                        "batches": _draws(name, 64, 4)[0]}
-                        for name, cfg in PINNED.items()}
-                        if world == 4 else {}),
-                    "refusal": ({"mixtral": {"name": "mixtral-8x7b",
-                                             "over": _over("mixtral", 1),
-                                             "mesh": (1, 2)}}
-                                if world == 2 else {})}
-                wdir = os.path.join(tmp, f"world{world}")
-                os.mkdir(wdir)
-                ranks[world] = R.spawn(world, wdir, cases, TR.CASES)
-        finally:
-            _, err = child.communicate(timeout=1200)
-        assert child.returncode == 0, err[-4000:]
-        with open(dst, "rb") as f:
-            jax_out = pickle.load(f)
+        ranks, jax_out = TR.run({"models": jx, "collectives": jax_colls},
+                                worlds, tmp)
     return SimpleNamespace(ranks=ranks, jax=jax_out, colls=colls)
-
-
-def _slice(a, parts):
-    idx = [slice(None)] * a.ndim
-    for axis, lo, hi in parts:
-        idx[axis] = slice(lo, hi)
-    return a[tuple(idx)]
-
-
-def _rel(got, want):
-    return float(np.max(np.abs(got - want), initial=0.0)) / max(
-        float(np.max(np.abs(want), initial=0.0)), 1e-30)
-
-
-def _check_parts(outs, key, field, want_leaves, bar=1e-5):
-    """Each rank's part of every leaf (``field`` and its ``<field>_parts``
-    of the rank outputs) against the same slice of the whole leaf;
-    ranks holding the same part the same bits."""
-    n = len(want_leaves)
-    assert all(len(o[field]) == n for o in outs), (key, field)
-    for i, want in enumerate(want_leaves):
-        held = {}
-        for r, o in enumerate(outs):
-            parts = o[f"{field}_parts"][i]
-            got = o[field][i]
-            ref = _slice(want, parts)
-            assert got.shape == ref.shape, (key, field, i, got.shape,
-                                            ref.shape)
-            assert _rel(got, ref) <= bar, (key, field, i, _rel(got, ref))
-            if parts in held:
-                assert np.array_equal(held[parts], got), (
-                    key, field, i, f"rank {r} differs from another rank "
-                    f"holding the same part")
-            held[parts] = got
 
 
 MODEL_CASES = [(w, k) for w, k, _ in CASE_KEYS]
@@ -302,9 +233,9 @@ def test_serving_under_mesh_matches_jax(runs, world, key):
         assert np.array_equal(o["tokens"], outs[0]["tokens"]), (key, r)
         assert np.array_equal(o["logits"], outs[0]["logits"]), (key, r)
     assert np.array_equal(outs[0]["tokens"], want["tokens"]), key
-    assert _rel(outs[0]["logits"], want["logits"]) <= 1e-5, key
+    assert TR.rel(outs[0]["logits"], want["logits"]) <= 1e-5, key
     wc = jax.tree_util.tree_leaves(want["cache"])
-    _check_parts([{"cache": o["cache"], "cache_parts": o["cache_parts"]}
+    TR.check_parts([{"cache": o["cache"], "cache_parts": o["cache_parts"]}
                   for o in outs], key, "cache", [np.asarray(a) for a in wc])
 
 
@@ -326,9 +257,9 @@ def test_train_under_mesh_matches_jax(runs, world, key):
     for name in ("loss", "grad_norm"):
         for s, (a, b) in enumerate(zip(outs[0][name], want[name])):
             assert abs(a - b) <= 1e-5 * abs(b), (key, name, s, a, b)
-    _check_parts(outs, key, "params", want["params"])
+    TR.check_parts(outs, key, "params", want["params"])
     if key not in NOT_JAX:
-        _check_parts(outs, key, "opt", want["opt"])
+        TR.check_parts(outs, key, "opt", want["opt"])
 
 
 @pytest.mark.parametrize("world,key", MODEL_CASES)
@@ -339,18 +270,6 @@ def test_each_rank_holds_its_param_spec_part(runs, world, key):
     cache and logits; here the shapes)."""
     for r, o in enumerate(_outs(runs, world, key)):
         assert all(o["spec_ok"]), (key, r, o["spec_ok"].index(False))
-
-
-def test_pinned_families_equal_the_single_device_step(runs):
-    """rwkv and hybrid (layouts not ported): under (2, 2) every leaf
-    whole and the whole batch on every rank, the single-device step's
-    bits."""
-    for r, out in enumerate(runs.ranks[4]):
-        for name, got in out["pinned"].items():
-            assert got["mesh"]["loss"] == got["single"]["loss"], (name, r)
-            assert got["mesh"]["grad_norm"] == got["single"]["grad_norm"]
-            for a, b in zip(got["mesh"]["params"], got["single"]["params"]):
-                assert np.array_equal(a, b), (name, r)
 
 
 COLL_CASES = [(w, m, axes) for w, ms in WORLDS.items() for m in ms
@@ -478,25 +397,23 @@ def test_batch_and_cache_specs_match_the_reference(name, mesh):
 
 
 def test_held_spec_is_param_spec_but_for_the_waiting_families():
-    """held_spec is param_spec for the laid-out families, but for the
-    shared experts of an alltoall MoE (the reference's expert branch
-    takes them), and whole for the families whose layouts wait."""
-    stub = _stub((2, 4))
-    ctx = DistCtx(mesh=stub, dp=("data",))
+    """held_spec is param_spec for every leaf of every family on every
+    parity mesh, but for the shared experts of an alltoall MoE (the
+    reference's expert branch takes them, the port holds them by their
+    own rule)."""
     seen = set()
-    for name in CONFIGS:
+    for name, mesh in ((n, m) for n in CONFIGS for m in PARITY_MESHES):
+        ctx = DistCtx(mesh=_stub(mesh), dp=("data",))
         cfg = get_config(name)
         _, _, params = _full(name)
         for path, leaf in _paths(params):
             held = SH.held_spec(cfg, ctx, path, leaf.shape)
             spec = SH.param_spec(cfg, ctx, path, leaf.shape)
-            if cfg.family not in SH.LAYOUT_FAMILIES:
-                assert held == (None,) * leaf.ndim, (name, path)
-            elif "shared" in path and cfg.moe.impl == "alltoall":
+            if "shared" in path and cfg.moe and cfg.moe.impl == "alltoall":
                 seen.add(name)
                 assert held == SH.param_spec(
                     dataclasses.replace(cfg, moe=dataclasses.replace(
                         cfg.moe, impl="dense")), ctx, path, leaf.shape)
             else:
-                assert held == spec, (name, path, held, spec)
+                assert held == spec, (name, mesh, path, held, spec)
     assert seen == {"deepseek-v3-671b"}
