@@ -232,6 +232,21 @@ have exited, so the card never holds both), and reduced f32 DeepSeek-V3
 twins (adafactor, MTP, ep="2d" and "tp") equal to the CPU's sharded
 run. Each prints its walls, device time, collective share and peaks.
 
+Last of all comes the cp2 leg (the context-parallel decode cache: one
+sequence under a (data=2, model=1) mesh of two gloo ranks on cuda:0,
+whose batch does not divide over data, so each rank holds a block of the
+sequence of every key, value and latent leaf and the ranks' softmax
+states are merged): Mistral-NeMo-12B's with_sliding_window(4096) ring
+(2048 slots a rank; every step through swa_decode's partial and combine
+entry points), the same model over its full cache of 5128 positions and
+DeepSeek-V3's MLA latent cache of 4104, at the published widths cut to
+2 layers with the weights whole on each rank, 7 greedy steps each:
+the prefill's logits within TP_TOL of one device's, each rank's cache
+its block of one device's, both ranks the same bits, the partial and
+combine held to their plain versions at the ranks' inputs and timed
+beside SDPA over the rank's keys, and reduced f32 twins on the card
+equal to the CPU under the same mesh within CP_TWIN_TOL.
+
 The second to last line is one JSON object with each kernel's launches,
 error against its plain version, times (device_ms by CUDA graph replay)
 and bound; the last line is
@@ -342,8 +357,9 @@ EPT_STEPS, EPT2_LAYERS, EPT_TWIN_TOL = 3, 2, 1e-5
 # The tp2 leg: the dense layers' layouts on two gloo ranks sharing the
 # card, Mixtral-8x7B at EPT2_LAYERS layers: serving under (1, 2) (tensor
 # and sequence parallelism), one train step under (2, 1) (FSDP, the
-# batch cut over data) of TP2_BATCH rows, so that each of the config's 4
-# microbatches cuts its 2 rows over data. In bf16, within TP_TOL of the
+# batch cut over data) of TP2_BATCH rows in TP2_MICROBATCH microbatches
+# (the config's 4 cut to 2: see TP2_TRAIN_LAYERS), so that each
+# microbatch cuts its 2 rows over data. In bf16, within TP_TOL of the
 # single-device runs' largest magnitude (the tolerance of one sharded
 # bf16 MoE layer, EP_BF16_TOL): the prefill's logits, the first layer's
 # attention block as generate ran it, the loss and grad norm
@@ -353,7 +369,7 @@ EPT_STEPS, EPT2_LAYERS, EPT_TWIN_TOL = 3, 2, 1e-5
 # prompts (which fill the 4096-slot ring, so that every step wraps it):
 # its tokens equal and its logits within TP_F32_TOL of the single-device
 # f32 run's largest (fixed before its first run on the card).
-TP2_BATCH, TP_TOL = 8, 2e-2
+TP2_BATCH, TP2_MICROBATCH, TP_TOL = 4, 2, 2e-2
 TP_F32_STEPS, TP_F32_TOL = 8, 1e-3
 # The train step's gradient (adamw's first moment after the step) part by
 # part, of each slice's largest magnitude: a bf16 gradient goes through
@@ -363,7 +379,9 @@ TP_F32_STEPS, TP_F32_TOL = 8, 1e-3
 TP_GRAD_TOL = 5e-2
 # tp2's train step depth: 1 of 32 layers (at 2 its FSDP gathers through
 # the host took 126-150 s of the script's limit on an H100 80GB HBM3 at
-# 700.00 W).
+# 700.00 W). Its gathers run once a microbatch (81.2 s at 4 microbatches
+# of 8 rows): 2 microbatches of 4 rows halve them, so that the script,
+# with the cp2 leg, stays near 1000 s.
 TP2_TRAIN_LAYERS = 1
 EP_BF16_TOL, EP_TWIN_TOL = 2e-2, 1e-6
 # The tpf leg: the ssm, hybrid, encdec and vlm families' layouts on two
@@ -393,6 +411,45 @@ TPF_STEPS, TPF_BATCH = 8, 2
 # swa_decode at the InternVL2 ring leg's shape (b, h, kvh, dh, W): 48
 # query heads over 8 KV heads, groups of 6.
 IV_SWA = (4, 48, 8, 128, 4096)
+# The cp2 leg: the context-parallel decode cache on two gloo ranks sharing
+# the card, mesh (2, 1): one sequence (B = 1, the reference's long_500k
+# shape, repro/configs/base.py, which launch/dryrun.py runs for the dense
+# archs as their with_sliding_window(4096) variant) does not divide over
+# data = 2, so each rank holds its block of the sequence of every key,
+# value and latent leaf and the ranks' softmax states are merged. At the
+# published widths, cut to 2 layers, with the weights whole on each rank
+# (fsdp off: at (2, 1) FSDP would gather every weight through the host on
+# every step, which the tp2 and tpf legs already drive): Mistral-NeMo-12B's
+# sliding-window variant (the ring of 4096 slots, 2048 a rank; the prompt
+# of CP_PROMPT tokens wraps it; every step through the partial swa_decode
+# entry point and the combine), the same model over its full cache
+# (CP_PROMPT + CP_STEPS + 1 = 5128 positions, 2564 a rank), and
+# DeepSeek-V3's MLA latent cache at its first 2 layers (CP_DS_DENSE) over
+# a prompt of CP_DS_PROMPT (4104 positions). CP_STEPS greedy steps each;
+# the prefill's logits within TP_TOL of one device's; the reduced f32
+# twins (CP_TWIN: window 16 over 43 + 4 + 1 positions) on the card
+# against the CPU under the same mesh within CP_TWIN_TOL (fixed before the
+# leg's first run on the card; 1e-6 expected).
+# DeepSeek-V3's first 2 layers are dense (of its 3): the config's plan
+# puts the MoE segment after them, which at 2 layers would be empty (and
+# neither package builds an empty segment), so they run as a model of the
+# dense family: MLA, the dense FFN of d_ff 18432, the MTP head drawn.
+# label -> (config, published widths cut as given, window, prompt)
+CP_PROMPT, CP_DS_PROMPT, CP_STEPS, CP_SEED = 5120, 4096, 7, 11
+CP_DS_DENSE = dict(family="dense", moe=None, n_layers=2, n_dense_layers=0)
+CP_SERVE = {
+    "nemo ring": ("mistral-nemo-12b", dict(n_layers=2, fsdp=False), 4096,
+                  CP_PROMPT),
+    "nemo full": ("mistral-nemo-12b", dict(n_layers=2, fsdp=False), None,
+                  CP_PROMPT),
+    "deepseek mla": ("deepseek-v3-671b", dict(CP_DS_DENSE, fsdp=False),
+                     None, CP_DS_PROMPT)}
+CP_TWIN = {"nemo ring": ("mistral-nemo-12b", {}, 16, 43),
+           "nemo full": ("mistral-nemo-12b", {}, None, 43),
+           "deepseek mla": ("deepseek-v3-671b", CP_DS_DENSE, None, 43)}
+CP_TWIN_STEPS, CP_TWIN_TOL = 4, 1e-5
+CP_KERNELS = (("swa_decode", "swa_decode_partial"),
+              ("swa_decode", "swa_combine"))
 
 # The attachment server's leg: Table 1's serve plan with 64 fold slots
 # (fewer than the round's 50 devices and the 96 late ones, so LRU
@@ -4129,7 +4186,7 @@ def tp2_cfgs():
     from repro_torch.models.model import build_model
     full = get_config("mixtral-8x7b")
     train = mx_dropless(build_model(full.replace(
-        n_layers=TP2_TRAIN_LAYERS))).cfg
+        n_layers=TP2_TRAIN_LAYERS, microbatch=TP2_MICROBATCH))).cfg
     return (mx_dropless(build_model(full.replace(n_layers=EPT2_LAYERS))),
             build_model(train.replace(moe=dataclasses.replace(
                 train.moe, router_aux_weight=0.0))))
@@ -4189,8 +4246,8 @@ def tp2_rank(rank: int, tmp: str) -> None:
     :func:`first_inputs`); then its f32 twin (:func:`tp2_f32_serve`).
     Mesh (2, 1) in the same world: the training model drawn from
     TF_SEED (FSDP over data), one train step of TP2_BATCH x TF_SEQ
-    tokens (microbatch 4, each microbatch's rows cut over data), timed
-    under the clock, launches counted and kernel inputs kept; then every
+    tokens (TP2_MICROBATCH microbatches, each one's rows cut over data),
+    timed under the clock, launches counted and kernel inputs kept; then every
     parameter part this rank holds after the step and its part of
     adamw's first moment (in bf16), with its cuts (rank 0 also the
     whole leaves)."""
@@ -4539,7 +4596,7 @@ def tp2_leg(device, smi: str, tmp: Path, train_peak: float):
             if not got[part]["held_gb"] < whole:
                 faults.append(f"rank {r} {part}: {got[part]['held_gb']:.2f}"
                               f" GB held, not below {whole:.2f}")
-    L, T, mb = EPT2_LAYERS, TP2_TRAIN_LAYERS, 4
+    L, T, mb = EPT2_LAYERS, TP2_TRAIN_LAYERS, TP2_MICROBATCH
     want = {"serve": {"swa_decode": L * MX_STEPS,
                       "moe_dispatch": L * (MX_STEPS + 1),
                       "moe_combine": L * (MX_STEPS + 1)},
@@ -4589,7 +4646,8 @@ def tp2_leg(device, smi: str, tmp: Path, train_peak: float):
           f"{TP2_TRAIN_LAYERS} layer (dropless, load-balance weight 0), "
           f"FSDP over data ({ta['cut']} of its "
           f"{ta['leaves']} leaves cut), one step of {TP2_BATCH} x {TF_SEQ} "
-          f"tokens, microbatch 4 (each microbatch's 2 rows cut over data), "
+          f"tokens, microbatch {TP2_MICROBATCH} (each microbatch's "
+          f"{TP2_BATCH // TP2_MICROBATCH} rows cut over data), "
           f"remat, adamw lr {TF_LR}: loss {ta['loss']:.6f}, grad norm "
           f"{ta['grad_norm']:.6f} (single device {ref['loss']:.6f}, "
           f"{ref['grad_norm']:.6f}: {lerr:.3e}, {gerr:.3e} off; tolerance "
@@ -8128,6 +8186,350 @@ def tpf_leg(device, smi: str):
             for k in a[ring]["counts"]}
 
 
+def cp_cfg(label: str, twin: bool = False):
+    """``label``'s model as the cp2 leg runs it (CP_SERVE: published
+    widths cut as given; ``twin``: CP_TWIN's reduced f32 one), its
+    window applied; microbatch 1."""
+    from repro_torch.configs import get_config
+    name, over, window, _ = (CP_TWIN if twin else CP_SERVE)[label]
+    cfg = get_config(name, reduced=twin).replace(microbatch=1, **over)
+    if twin:
+        cfg = cfg.replace(dtype="float32")
+    return cfg.with_sliding_window(window) if window else cfg
+
+
+def cp_prompt(cfg, S: int, seed: int, device):
+    return {"tokens": torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(1, S)), dtype=torch.int32).to(device)}
+
+
+def cp_prefill(model, params, batch, ctx):
+    """launch.serve's prefill of ``batch`` with room for CP_STEPS steps
+    (the batch cut as generate cuts it): (logits, the cache's leaves
+    by path, on the host)."""
+    from repro_torch.launch.serve import make_prefill
+    from repro_torch.launch.sharding import cut_batch, param_paths
+    from repro_torch.utils.tree import leaves
+    model.decode_room = CP_STEPS + 1
+    ctx, batch = cut_batch(ctx, batch)
+    logits, cache = make_prefill(model, ctx)(params, batch)
+    return logits.cpu(), dict(zip(param_paths(cache),
+                                  (a.cpu() for a in leaves(cache))))
+
+
+def cp_reference(device):
+    """The single-device runs the cp2 ranks are held to, on the card:
+    each CP_SERVE model drawn whole from CP_SEED, its prefill (logits and
+    the whole cache) and generate over CP_STEPS steps (tokens, logits,
+    wall)."""
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models.model import build_model
+    out = {}
+    for label, (_, _, _, S) in CP_SERVE.items():
+        model = build_model(cp_cfg(label))
+        params = init_params(model, seed=CP_SEED, device=device)
+        batch = cp_prompt(model.cfg, S, CP_SEED, device)
+        logits, cache = cp_prefill(model, params, batch, None)
+        toks, stats, wall = timed_generate(model, params, batch, None,
+                                           steps=CP_STEPS)
+        out[label] = {"prefill": logits, "cache": cache, "toks": toks.cpu(),
+                      "logits": [lg.cpu() for lg in stats["logits"]],
+                      "wall": wall, "decode_s": stats["decode_s"]}
+        del params, stats
+        torch.cuda.empty_cache()
+    return out
+
+
+def cp_twin(ctx, label: str) -> dict:
+    """Reduced ``label`` (f32, :func:`cp_cfg`) under ``ctx``'s mesh on the
+    card and on the CPU from one draw: greedy generate over one prompt of
+    CP_TWIN's length and CP_TWIN_STEPS steps: the tokens equal and the
+    logits' largest relative gap."""
+    from repro_torch.launch.serve import generate, init_params
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    model = build_model(cp_cfg(label, twin=True))
+    params = init_params(model, seed=0, device="cpu", ctx=ctx)
+    prompt = cp_prompt(model.cfg, CP_TWIN[label][3], 5, "cpu")
+    runs = []
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda a: a.to(dev, copy=True), params)
+        stats = {}
+        toks = generate(model, p, {k: v.to(dev) for k, v in prompt.items()},
+                        steps=CP_TWIN_STEPS, ctx=ctx, stats=stats)
+        runs.append((toks.cpu(), torch.stack([lg.cpu() for lg in
+                                              stats["logits"]])))
+    (t1, l1), (t0, l0) = runs
+    return {"toks": bool(torch.equal(t1, t0)),
+            "logits": float((l1 - l0).abs().max() / l0.abs().max())}
+
+
+def cp2_rank(rank: int, tmp: str) -> None:
+    """One rank of the cp2 leg (spawned; two gloo ranks on cuda:0), mesh
+    (2, 1): each CP_SERVE model drawn from CP_SEED (whole: fsdp off, no
+    model axis), its prefill (the cache this rank holds kept on the
+    host), then generate over its prompt and CP_STEPS steps between a
+    reset and a read of the launch counts and the peak, under the
+    collective clock (the ring's swa_decode_partial and swa_combine first
+    inputs kept, rank 0's: :func:`first_inputs`); then each model's f32
+    twin (:func:`cp_twin`)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import leaves
+    ctx = gloo_rank(tmp, "cp2", rank, (2, 1))
+    try:
+        out = {}
+        for label, (_, _, window, S) in CP_SERVE.items():
+            model = build_model(cp_cfg(label))
+            params = init_params(model, seed=CP_SEED, device="cuda",
+                                 ctx=ctx)
+            batch = cp_prompt(model.cfg, S, CP_SEED, "cuda")
+            logits, cache = cp_prefill(model, params, batch, ctx)
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            with first_inputs(CP_KERNELS, os.path.join(
+                    tmp, "cp2_inputs.pt"), rank == 0 and window is not None), \
+                    CollectiveClock() as clock:
+                toks, stats, wall = timed_generate(model, params, batch,
+                                                   ctx, steps=CP_STEPS)
+            out[label] = {
+                "describe": ctx.mesh.describe(), "prefill": logits,
+                "cache": cache, "toks": toks.cpu(),
+                "logits": [lg.cpu() for lg in stats["logits"]],
+                "held": [tuple(a.shape) for a in leaves(stats["cache"])],
+                "prefill_s": stats["prefill_s"],
+                "decode_s": stats["decode_s"], "wall": wall,
+                "clock": (clock.s, clock.n), "counts": ops.launch_counts(),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del params, stats, cache
+            torch.cuda.empty_cache()
+        out["twins"] = {label: cp_twin(ctx, label) for label in CP_TWIN}
+        torch.save(out, os.path.join(tmp, f"cp2_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def cp_block(path, whole: torch.Tensor, rank: int, dp: int = 2):
+    """Rank ``rank``'s block of a whole decode-cache leaf of one sequence
+    over ``dp`` ranks: the contiguous block [r n / dp, (r + 1) n / dp) of
+    the sequence of a key, value or latent leaf whose n positions divide,
+    any other leaf whole."""
+    if (path[-1] in ("k", "v", "ck", "cv", "latent", "rope")
+            and whole.shape[2] % dp == 0):
+        n = whole.shape[2] // dp
+        return whole[:, :, rank * n:(rank + 1) * n]
+    return whole
+
+
+def cp_kernel_checks(path: Path, rounds: int) -> dict:
+    """swa_decode's partial and combine entry points at rank 0's first
+    inputs of the cp2 ring (q (1, 32, 128) over its 2048 of the 4096
+    slots, bf16; the gathered states of both ranks): the partial's chunk
+    states within 2e-5 of ref.swa_decode_partial's at the same chunks
+    (m exact where a chunk holds no key), the combine within 2e-2 of
+    ref.merge_states's largest output (bf16); each timed beside its
+    plain version (the partial also beside SDPA over the rank's keys)
+    with its bound. Returns the two kernels' rows."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_decode as sw
+    first = torch.load(path, weights_only=False)
+    rows = {}
+    for args in first.values():
+        a = tuple(t.cuda() if torch.is_tensor(t) else t for t in args)
+        if len(a) == 6:     # the partial's (q, kw, vw, bias, scale, ranks)
+            name = "swa_decode_partial"
+            q, kw, vw, bias, scale, ranks = a
+            got = sw.swa_decode_partial(q, kw, vw, bias, scale, ranks=ranks)
+            S = got.shape[1]
+            want = ref.swa_decode_partial(q, kw, vw, bias, scale, splits=S)
+            live = want[..., 0] > -1e29
+            errs = [float((x - y).abs().max()) / float(y.abs().max())
+                    for x, y in ((got[..., 0][live], want[..., 0][live]),
+                                 (got[..., 1], want[..., 1]),
+                                 (got[..., 2:], want[..., 2:]))]
+            require(torch.equal(got[..., 0][~live], want[..., 0][~live])
+                    and max(errs) <= 2e-5,
+                    f"cp kernels: swa_decode_partial's states are {errs} "
+                    f"off the plain version's (tolerance 2e-5)")
+            kern = lambda: sw.swa_decode_partial(  # noqa: E731
+                q, kw, vw, bias, scale, ranks=ranks)
+            plain = lambda: ref.swa_decode_partial(  # noqa: E731
+                q, kw, vw, bias, scale, splits=S)
+            qs, ks, vs = q[:, :, None, :], kw.transpose(1, 2), \
+                vw.transpose(1, 2)
+            mask = bias[:, None, None, :].to(q.dtype)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)
+            b, h, dh = q.shape
+            nbytes = (q.element_size() * (q.numel() + kw.numel()
+                                          + vw.numel())
+                      + 4 * (bias.numel() + got.numel()))
+            work = (nbytes, 4 * b * h * kw.shape[1] * dh)
+            err, shape = max(errs), (f"q {tuple(q.shape)} kw/vw "
+                                     f"{tuple(kw.shape)}, S={S}")
+        else:
+            name = "swa_combine"
+            part, dtype = a
+            got = sw.swa_combine(part, dtype)
+            want = ref.merge_states(part)
+            err = float((got.float() - want).abs().max())
+            require(err <= 2e-2 * float(want.abs().max()),
+                    f"cp kernels: swa_combine is {err} off the plain "
+                    f"version (tolerance 2e-2 of {float(want.abs().max())})")
+            kern = lambda: sw.swa_combine(part, dtype)  # noqa: E731
+            plain = lambda: ref.merge_states(part).to(dtype)  # noqa: E731
+            lib = None
+            rows_, S, width = part.shape
+            work = (4 * part.numel() + got.numel() * got.element_size(),
+                    4 * rows_ * S * (width - 2))
+            shape = f"part {tuple(part.shape)} -> {tuple(got.shape)}"
+        sync()
+        bms, by = bound(*work)
+        rows[name] = dict(
+            max_abs_err=err, ms=time_ms(kern, rounds),
+            plain_ms=time_ms(plain, rounds), bound_ms=bms, bound_by=by,
+            library_ms=None if lib is None else time_ms(lib, rounds),
+            device_ms=graph_ms(kern),
+            device_lib=None if lib is None else graph_ms(lib), shape=shape)
+        del a, got, want
+    require(set(rows) == {"swa_decode_partial", "swa_combine"},
+            f"cp kernels: first inputs kept for {sorted(rows)}")
+    return rows
+
+
+def cp2_leg(device, smi: str):
+    """Two gloo ranks on cuda:0 (collectives staged through the host),
+    mesh (2, 1), one sequence: the context-parallel decode cache
+    (CP_SERVE). Each model's prefill logits within TP_TOL of the
+    single-device run's largest (:func:`cp_reference`), the decode steps'
+    reported; each rank's cache after the prefill exactly its block
+    (:func:`cp_block`) of the single-device cache, within TP_TOL of its
+    largest; both ranks the same tokens and logits; the ring's steps
+    through swa_decode_partial and swa_combine on every layer and step
+    (and never the whole-window swa_decode), the full and latent caches'
+    through no kernel (the reference's plain decode); the partial and
+    combine held to their plain versions at the ranks' inputs and timed
+    (:func:`cp_kernel_checks`); the f32 twins on the card against the CPU
+    under the same mesh (:func:`cp_twin`) within CP_TWIN_TOL. Returns
+    (both ranks' launch counts, the two kernels' rows)."""
+    import torch.multiprocessing as mp
+    t_leg = time.perf_counter()
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ref = cp_reference(device)
+        print(f"card memory before the cp2 ranks: {ept_release()}",
+              flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            t0 = time.perf_counter()
+            mp.spawn(cp2_rank, args=(str(tmp),), nprocs=2, join=True)
+            spawn_s = time.perf_counter() - t0
+            ranks = [torch.load(tmp / f"cp2_rank{r}.pt", weights_only=False)
+                     for r in range(2)]
+            rows = cp_kernel_checks(tmp / "cp2_inputs.pt", 20)
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    a, b = ranks
+    faults = []
+    for label, (name, over, window, S) in CP_SERVE.items():
+        sa, sb, want = a[label], b[label], ref[label]
+        if not (torch.equal(sa["toks"], sb["toks"]) and all(
+                torch.equal(x, y) for x, y in zip(sa["logits"],
+                                                  sb["logits"]))):
+            faults.append(f"{label}: the ranks' tokens or logits differ")
+        gap = logit_gap(sa["toks"], sa["logits"], want["toks"],
+                        want["logits"])
+        if gap["pre"] > TP_TOL * gap["scale"]:
+            faults.append(f"{label}: the prefill logits are {gap['pre']:.4g}"
+                          f" off the single-device run's (tolerance "
+                          f"{TP_TOL} x {gap['scale']:.4g})")
+        blocks, cut = [], 0
+        for r, got in enumerate((sa, sb)):
+            for path, whole in want["cache"].items():
+                mine = cp_block(path, whole, r)
+                held = got["cache"][path]
+                cut += mine.shape != whole.shape
+                if held.shape != mine.shape:
+                    faults.append(f"{label}: rank {r} holds {'.'.join(path)}"
+                                  f" as {tuple(held.shape)}, its block is "
+                                  f"{tuple(mine.shape)} of "
+                                  f"{tuple(whole.shape)}")
+                    continue
+                err = float((held.float() - mine.float()).abs().max())
+                if err > TP_TOL * max(float(mine.float().abs().max()), 1e-30):
+                    faults.append(f"{label}: rank {r}'s {'.'.join(path)} is "
+                                  f"{err:.3e} off its block of the "
+                                  f"single-device cache")
+                blocks.append(f"{'.'.join(path)} {tuple(held.shape)}")
+        layers = cp_cfg(label).n_layers
+        for r, got in enumerate((sa, sb)):
+            c = got["counts"]
+            want_n = layers * CP_STEPS if window else 0
+            if (c["swa_decode_partial"], c["swa_combine"],
+                    c["swa_decode"]) != (want_n, want_n, 0):
+                faults.append(f"{label}: rank {r} launched "
+                              f"swa_decode_partial {c['swa_decode_partial']}"
+                              f", swa_combine {c['swa_combine']} and "
+                              f"swa_decode {c['swa_decode']} times, "
+                              f"expected {want_n}, {want_n}, 0")
+        clock = CollectiveClock()
+        clock.s, clock.n = sa["clock"]
+        print(f"cp2 serve {label}: {sa['describe']} (two processes on "
+              f"cuda:0) ({smi}): {name} at its published widths, "
+              f"{json.dumps(over)}, window {window}, 1 x {S} tokens and "
+              f"{CP_STEPS} steps; each rank's cache its block of the "
+              f"single-device prefill's ({cut // 2} leaves cut on the "
+              f"sequence; rank 0: {'; '.join(blocks[:len(blocks) // 2])}); "
+              f"both ranks the same tokens and logits; against the "
+              f"single-device run (prefill held, steps reported): "
+              + gap_line(gap, TP_TOL) + f"; peak {sa['peak_gb']:.2f} + "
+              f"{sb['peak_gb']:.2f} GB; prefill {sa['prefill_s']:.3f} s, "
+              f"decode {sa['decode_s']:.3f} s "
+              f"({1e3 * sa['decode_s'] / CP_STEPS:.2f} ms a step; single "
+              f"device {1e3 * want['decode_s'] / CP_STEPS:.2f} ms), wall "
+              f"{sa['wall']:.3f} s (single device "
+              f"{want['wall']:.3f} s): {clock.share(sa['wall'])}; launches "
+              f"{json.dumps(sa['counts'])}", flush=True)
+    for label in CP_TWIN:
+        tw = (a["twins"][label], b["twins"][label])
+        if not all(t["toks"] and t["logits"] <= CP_TWIN_TOL for t in tw):
+            faults.append(f"{label}: the f32 twin on the card is off the "
+                          f"CPU's run under the mesh: {tw}")
+        name, over, window, S = CP_TWIN[label]
+        print(f"cp2 twin {label} (reduced {name}, f32, window {window}, 1 x "
+              f"{S} tokens and {CP_TWIN_STEPS} steps, mesh (2, 1), {smi}): "
+              f"the card against the CPU under the same mesh: tokens equal "
+              f"{tw[0]['toks']} {tw[1]['toks']}; logits "
+              f"{max(t['logits'] for t in tw):.3e} of their largest "
+              f"magnitude (tolerance {CP_TWIN_TOL})", flush=True)
+    for name, r in rows.items():
+        lib = ("" if r["library_ms"] is None else
+               f" sdpa_ms={r['library_ms']:.4f} (graph replay "
+               f"{r['device_lib']:.4f}; SDPA over the rank's keys)")
+        print(f"cp kernels {name} ({r['shape']}; {smi}): max error "
+              f"{r['max_abs_err']:.3e} against the plain version, "
+              f"ms={r['ms']:.4f} device ms={r['device_ms']:.4f} (graph "
+              f"replay) plain_ms={r['plain_ms']:.4f}{lib} "
+              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+    print(f"cp2: {spawn_s:.1f} s from spawn to join, leg wall "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    require(not faults, "cp2: " + "; ".join(faults))
+    counts = {k: sum(r[label]["counts"][k] for r in ranks
+                     for label in CP_SERVE)
+              for k in a[next(iter(CP_SERVE))]["counts"]}
+    return counts, rows
+
+
 def profile(label: str, fn, wall_s: float, top: int = 8) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -8401,6 +8803,13 @@ def main() -> int:
     require(tpf_counts["swa_decode"] > 0,
             "swa_decode was not launched on the tpf leg")
     new_counts += (tpf_counts,)
+    torch.cuda.empty_cache()
+    cp2_counts, cp_rows = cp2_leg(torch.device("cuda"), smi)
+    require(cp2_counts["swa_decode_partial"] > 0
+            and cp2_counts["swa_combine"] > 0,
+            "swa_decode_partial or swa_combine was not launched on the cp2 "
+            "leg")
+    new_counts += (cp2_counts,)
 
     replaces = {
         "pdist_argmin": "src/repro/kernels/pdist_argmin.py:101",
@@ -8426,6 +8835,20 @@ def main() -> int:
                          + route_counts[name] + decode_counts[name]
                          + train_counts[name] + example_counts[name]
                          + sum(c[name] for c in new_counts)),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"]})
+    # swa_decode's two more entry points (the context-parallel ring): its
+    # split kernel alone and its combine alone, from the same source.
+    for name, r in cp_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/swa_decode.cu",
+            "replaces": replaces["swa_decode"],
+            "launches": sum(c.get(name, 0) for c in (
+                run_counts, serve_counts, route_counts, decode_counts,
+                train_counts, example_counts) + new_counts),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -8458,6 +8881,7 @@ def main() -> int:
               f" {leg} " + json.dumps(c) for leg, c in
               list(state_counts.items()) + list(family_counts.items()))
           + " tpf " + json.dumps(tpf_counts)
+          + " cp2 " + json.dumps(cp2_counts)
           + "; every kernel matched its plain version; the rwkv, zamba2, "
           "whisper and internvl legs launched none of the port's kernels "
           "(those paths have none: their scans and attention are plain "

@@ -46,13 +46,23 @@
 //    -inf and adds nothing. At the end the key groups of a warp merge by
 //    shuffles and the warps once through shared memory, and the block writes
 //    its chunk's partial state (m, l, acc) in f32 to a scratch buffer the
-//    wrapper allocates, or, when S = 1, the output itself.
+//    wrapper allocates, or, when S = 1, the output itself. The partial
+//    entry point (swa_decode_partial_*) stops here and hands the chunk
+//    states back, S = 1 included: a rank of a context-parallel cache
+//    computes the state of its block of the keys.
 // 2. swa_combine_kernel, one block per query row, its S chunk states read
 //    into shared memory with every load in flight at once: M = max_s m_s,
 //    w_s = exp(m_s - M), out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30),
 //    summed in chunk order. A chunk of masked keys only has m_s = -1e30 and
 //    weight 0 as soon as another chunk holds a key; if none does, every
-//    weight is 1 and the result is the average over the W keys.
+//    weight is 1 and the result is the average over the W keys. Its own
+//    entry point (swa_combine_*) merges the chunk states that the ranks of
+//    a context-parallel cache gathered, rank after rank: rank r's chunk j
+//    of S_r over W_r keys spans the keys that chunk r S_r + j of one launch
+//    with S = R S_r over the R W_r keys spans, so the merge gives that
+//    launch's bits. The combine stages S states in shared memory, so S is
+//    at most kMaxSplits over all ranks: the wrapper caps each rank's S at
+//    kMaxSplits / R.
 //
 // A head width that is not a multiple of the 16-byte vector (8 bf16, 4
 // f32), or a key or value pointer that is not 16-byte aligned, takes the
@@ -322,7 +332,7 @@ __global__ void __launch_bounds__(kThreads) swa_split_kernel(
       a = __fadd_rn(a, __fmul_rn(st[2 + d], ww));
     }
     const int64_t row = qrow0 + r;
-    if (S == 1) {
+    if (S == 1 && out != nullptr) {
       out[row * dh + d] = store_cast(a / fmaxf(lsum, 1e-30f), out);
     } else {
       float* pr = part + (row * S + s) * ps;
@@ -378,6 +388,22 @@ int64_t plan_splits(int64_t b, int64_t h, int64_t W, int64_t kvh,
   return want < most ? want : most;
 }
 
+// The combine of `rows` query rows' S chunk states each (part: rows x S x
+// (dh + 2) f32) into out (rows x dh).
+template <typename E>
+cudaError_t combine(const void* part, void* out, int64_t rows, int64_t dh,
+                    int64_t S, cudaStream_t stream) {
+  if (rows < 1 || dh < 1 || dh > 256 || S < 1 || S > kMaxSplits ||
+      rows > 0x7fffffff) {
+    return cudaErrorInvalidValue;
+  }
+  swa_combine_kernel<E><<<(unsigned)rows, kCombineThreads,
+                          sizeof(float) * S * (dh + 2), stream>>>(
+      static_cast<const float*>(part), static_cast<E*>(out), (int)dh,
+      (int)S);
+  return cudaGetLastError();
+}
+
 struct Args {
   const void *q, *kw, *vw, *bias;
   void *part, *out;
@@ -404,12 +430,8 @@ cudaError_t run(const Args& a) {
       static_cast<float*>(a.part), static_cast<E*>(a.out), a.W, (int)a.kvh,
       (int)a.g, (int)a.dh, a.L, (int)a.S, (int)RC, a.scale);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.S == 1) return err;
-  swa_combine_kernel<E><<<(unsigned)(a.b * a.h), kCombineThreads,
-                          sizeof(float) * a.S * (a.dh + 2), a.stream>>>(static_cast<const float*>(a.part),
-                                      static_cast<E*>(a.out), (int)a.dh,
-                                      (int)a.S);
-  return cudaGetLastError();
+  if (err != cudaSuccess || a.S == 1 || a.out == nullptr) return err;
+  return combine<E>(a.part, a.out, a.b * a.h, a.dh, a.S, a.stream);
 }
 
 template <typename E, int N, int VPL>
@@ -429,7 +451,7 @@ cudaError_t launch(Args a) {
   }
   a.g = a.h / a.kvh;
   if (a.g * a.dh > 8192 || a.dh > 256 || a.S < 1 || a.S > kMaxSplits ||
-      a.S > a.W || (a.S > 1 && a.part == nullptr)) {
+      a.S > a.W || ((a.S > 1 || a.out == nullptr) && a.part == nullptr)) {
     return cudaErrorInvalidValue;
   }
   constexpr int N = Pack<E>::N;
@@ -494,4 +516,40 @@ extern "C" int swa_decode_bf16(const void* q, const void* kw, const void* vw,
                                void* stream) {
   return (int)repro_torch::call(q, kw, vw, bias, part, out, b, h, W, kvh,
                                 dh, S, scale, stream, true);
+}
+
+// swa_decode_partial_f32 / _bf16: the split kernel alone, for S >= 1 chunks:
+// each query row's S chunk states (m, l, acc[dh]) in f32 written to part
+// (b * h x S x (dh + 2)); no output. Returns the cudaError_t.
+extern "C" int swa_decode_partial_f32(const void* q, const void* kw,
+                                      const void* vw, const void* bias,
+                                      void* part, int64_t b, int64_t h,
+                                      int64_t W, int64_t kvh, int64_t dh,
+                                      int64_t S, float scale, void* stream) {
+  return (int)repro_torch::call(q, kw, vw, bias, part, nullptr, b, h, W, kvh,
+                                dh, S, scale, stream, false);
+}
+
+extern "C" int swa_decode_partial_bf16(const void* q, const void* kw,
+                                       const void* vw, const void* bias,
+                                       void* part, int64_t b, int64_t h,
+                                       int64_t W, int64_t kvh, int64_t dh,
+                                       int64_t S, float scale, void* stream) {
+  return (int)repro_torch::call(q, kw, vw, bias, part, nullptr, b, h, W, kvh,
+                                dh, S, scale, stream, true);
+}
+
+// swa_combine_f32 / _bf16: rows x S chunk states (part, f32, as the partial
+// entry point writes them, or several ranks' side by side) merged in chunk
+// order into out (rows x dh, f32 or bf16); S <= 32. Returns the cudaError_t.
+extern "C" int swa_combine_f32(const void* part, void* out, int64_t rows,
+                               int64_t dh, int64_t S, void* stream) {
+  return (int)repro_torch::combine<float>(
+      part, out, rows, dh, S, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int swa_combine_bf16(const void* part, void* out, int64_t rows,
+                                int64_t dh, int64_t S, void* stream) {
+  return (int)repro_torch::combine<__nv_bfloat16>(
+      part, out, rows, dh, S, static_cast<cudaStream_t>(stream));
 }

@@ -31,7 +31,8 @@ from repro_torch.kernels import swa_decode as _sw
 # the kernel instead of one monolithic call (repro/kernels/ops.py).
 CHUNK_ROWS = 1 << 18
 
-_WRAPPERS = (_pa, _ku, _sa, _md, _mc, _sw, _mcb, _mdb)
+_WRAPPERS = (_pa, _ku, _sa, _md, _mc, _sw, _mcb, _mdb, _sw.PARTIAL,
+             _sw.COMBINE)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -222,3 +223,26 @@ def swa_decode_attention(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     return _sw.swa_decode_attention(q.contiguous(), kw.contiguous(),
                                     vw.contiguous(),
                                     bias.float().contiguous(), float(scale))
+
+
+def swa_decode_partial(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
+                       bias: torch.Tensor, scale: float, *,
+                       ranks: int = 1) -> torch.Tensor:
+    """The softmax state of :func:`swa_decode_attention` over chunks of
+    the window (a rank's block of a context-parallel ring): (b * h, S,
+    dh + 2) f32, each chunk's m, l and acc. One chunk on the CPU; on the
+    card the split kernel's chunks, at most 32 over the ``ranks`` whose
+    states one :func:`swa_combine` merges."""
+    if q.device.type == "cpu":
+        return _ref.swa_decode_partial(q, kw, vw, bias, scale)
+    return _sw.swa_decode_partial(q.contiguous(), kw.contiguous(),
+                                  vw.contiguous(), bias.float().contiguous(),
+                                  float(scale), ranks=ranks)
+
+
+def swa_combine(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Chunk states (rows, S, D + 2) f32 merged in order over S
+    (``ref.merge_states``): (rows, D) in ``dtype``."""
+    if part.device.type == "cpu":
+        return _ref.merge_states(part).to(dtype)
+    return _sw.swa_combine(part.contiguous(), dtype)

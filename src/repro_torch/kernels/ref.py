@@ -233,3 +233,47 @@ def swa_decode_attention(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgw,bwkd->bkgd", p, vw.float())
     return o.reshape(b, h, dh).to(q.dtype)
+
+
+def swa_decode_partial(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
+                       bias: torch.Tensor, scale: float,
+                       splits: int = 1) -> torch.Tensor:
+    """The softmax state of :func:`swa_decode_attention` over each of
+    ``splits`` chunks of the window (chunk c the keys [c W / S,
+    (c + 1) W / S), the split kernel's chunks): (b * h, splits, dh + 2)
+    f32, each chunk's m (the row max of the biased, scaled scores, at
+    least -1e30), l = sum exp(s - m) and acc = sum exp(s - m) v. Merged
+    by :func:`merge_states`, the chunks give :func:`swa_decode_attention`
+    (up to the order of the sums)."""
+    b, h, dh = q.shape
+    W, kvh = kw.shape[1], kw.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, dh).float()
+    s = torch.einsum("bkgd,bwkd->bkgw", qg, kw.float()) * scale
+    s = s + bias.float()[:, None, None, :]
+    out = []
+    for c in range(splits):
+        lo, hi = c * W // splits, (c + 1) * W // splits
+        sc = s[..., lo:hi]
+        m = torch.clamp_min(torch.amax(sc, dim=-1), -1e30)
+        p = torch.exp(sc - m[..., None])
+        acc = torch.einsum("bkgw,bwkd->bkgd", p, vw[:, lo:hi].float())
+        out.append(torch.cat([m[..., None], torch.sum(p, dim=-1)[..., None],
+                              acc], dim=-1).reshape(b * h, 1, dh + 2))
+    return torch.cat(out, dim=1)
+
+
+def merge_states(part: torch.Tensor) -> torch.Tensor:
+    """Softmax states (..., S, D + 2) f32 (m, l, acc over disjoint key
+    sets, as :func:`swa_decode_partial` lays them out) merged in order
+    over S: M = max m_s, w_s = exp(m_s - M), sum w_s acc_s / max(sum w_s
+    l_s, 1e-30) -> (..., D) f32. A state of masked keys only (m = -1e30)
+    weighs 0 beside one that holds a key; where none does, every weight
+    is 1 and the result averages V over every key."""
+    m, l, acc = part[..., 0], part[..., 1], part[..., 2:]
+    w = torch.exp(m - torch.amax(m, dim=-1, keepdim=True))
+    lsum = l[..., 0] * w[..., 0]
+    a = acc[..., 0, :] * w[..., 0, None]
+    for s in range(1, part.shape[-2]):
+        lsum = lsum + l[..., s] * w[..., s]
+        a = a + acc[..., s, :] * w[..., s, None]
+    return a / torch.clamp_min(lsum, 1e-30)[..., None]

@@ -20,9 +20,13 @@ layers' experts on the reference's expert-parallel paths), is given the
 same global batch and runs ``generate`` on its rows of it (the family's
 inputs too) where they divide over the ``dp`` axes (``launch.sharding.
 cut_batch``; its decode cache holds those rows and the kv and state
-heads of ``launch.sharding.cache_spec``), else on the whole batch; the
-tokens (and ``stats``' logits) are gathered over ``dp`` at the end, so
-that every rank returns the same tokens.
+heads of ``launch.sharding.cache_spec``), else on the whole batch, its
+decode cache then context-parallel (one sequence at a long context:
+each rank holds a block of the sequence of every key, value and latent
+leaf, attends over it, and the ranks' softmax states are merged, so
+that every rank gets the same logits); the tokens (and ``stats``'
+logits) are gathered over ``dp`` at the end where the batch was cut,
+so that every rank returns the same tokens.
 
 The batch holds ``tokens`` (B, S) and the family's inputs: for the
 encdec family (Whisper) ``enc_embeds`` (B, n_ctx, d), the frame

@@ -23,9 +23,12 @@ the reference's ``_RULES`` and ``_resolve`` state them:
     dim over ``model``), plus the template's FSDP dim (:func:`expert_spec`);
   * the batch on the ``dp`` axes where it divides (:func:`batch_spec`),
     else whole on every rank; the decode cache's batch likewise and its
-    kv heads on ``model`` where they divide (:func:`cache_spec`; the
-    reference's context-parallel branch, the sequence over ``dp`` where
-    the batch does not divide, is not ported: such a cache is whole);
+    kv heads on ``model`` where they divide (:func:`cache_spec`); where
+    the batch does not divide (the reference's ``long_500k`` shape, B =
+    1), the cache's keys, values and latents are cut on the sequence
+    over ``dp`` instead (its context-parallel cache, :func:`seq_block`):
+    each rank attends over its block of the keys and the ranks' partial
+    softmax states are merged (``models/attention.py``);
   * an optimizer state as its parameter, adafactor's ``r`` without the
     last dim's cut and ``c`` without the second to last's
     (:func:`opt_spec`).
@@ -351,10 +354,13 @@ def cut_batch(ctx: Optional[DistCtx], batch):
 def cache_spec(ctx: DistCtx, path: Sequence[str],
                shape: Sequence[int]) -> Spec:
     """The reference's ``cache_specs_tree`` for one decode-cache leaf
-    (keyed by its last name), without the context-parallel branch: the
-    batch on the ``dp`` axes where it divides, kv heads (``k``, ``v``,
-    ``ck``, ``cv``) and rwkv / mamba state heads (``s``, ``h``) on
-    ``model`` where they divide."""
+    (keyed by its last name): the batch on the ``dp`` axes where it
+    divides; where it does not, a key, value or latent leaf (``k``,
+    ``v``, ``ck``, ``cv``, ``latent``, ``rope``: (L, B, S, ...)) cut on
+    its sequence dim over ``dp`` where that divides (the context-parallel
+    cache), the ring's ``pos``, the cross mask ``cvalid`` and the state
+    leaves whole; kv heads (``k``, ``v``, ``ck``, ``cv``) and rwkv /
+    mamba state heads (``s``, ``h``) on ``model`` where they divide."""
     dp, tp = ctx.dp_size, ctx.tp_size
     dpa = tuple(ctx.dp)
     key = str(tuple(path)[-1])
@@ -362,15 +368,56 @@ def cache_spec(ctx: DistCtx, path: Sequence[str],
     if key == "len":
         return (dpa,) if shape[0] % dp == 0 else (None,)
     spec: List[Optional[Tuple[str, ...]]] = [None] * len(shape)
-    if key in ("k", "v", "ck", "cv", "latent", "rope", "pos", "cvalid",
-               "shift", "shift2", "conv", "s", "h"):
+    if key in _SEQ_LEAVES + ("pos", "cvalid", "shift", "shift2", "conv",
+                             "s", "h"):
         if shape[1] % dp == 0:
             spec[1] = dpa
+        elif key in _SEQ_LEAVES and shape[2] % dp == 0:
+            spec[2] = dpa
     if key in ("k", "v", "ck", "cv") and shape[3] % tp == 0:
         spec[3] = (ctx.tp,)
     if key in ("s", "h") and shape[2] % tp == 0:
         spec[2] = (ctx.tp,)
     return tuple(spec)
+
+
+# The decode-cache leaves with a sequence dim (dim 2 of (L, B, S, ...)).
+_SEQ_LEAVES = ("k", "v", "ck", "cv", "latent", "rope")
+
+
+def seq_block(ctx: Optional[DistCtx], B: int,
+              n: int) -> Optional[Tuple[int, int]]:
+    """This rank's block [lo, hi) of the n positions of a decode-cache
+    leaf's sequence dim where :func:`cache_spec` cuts it over ``dp``
+    (the context-parallel cache: the blocks contiguous and equal, in
+    shard order), B being the global batch. None where the leaf holds
+    every position: no mesh, one ``dp`` shard, the batch cut over ``dp``
+    (``ctx.batch_cut``: the leaf holds this rank's rows), or n not
+    dividing."""
+    if (ctx is None or ctx.mesh is None or ctx.dp_size == 1
+            or ctx.batch_cut):
+        return None
+    if cache_spec(ctx, ("k",), (1, B, n, 1, 1))[2] is None:
+        return None
+    m = n // ctx.dp_size
+    i = ctx.mesh.index(tuple(ctx.dp))
+    return i * m, (i + 1) * m
+
+
+def cut_cache_seq(cache, ctx: Optional[DistCtx]):
+    """``cache`` (a decode cache whose sequence leaves are whole, their
+    batch and kv heads already this rank's) with each key, value and
+    latent leaf cut to this rank's :func:`seq_block` of its sequence;
+    the cache itself where nothing is cut."""
+    if ctx is None or ctx.mesh is None:
+        return cache
+
+    def cut(path, a):
+        if str(path[-1]) not in _SEQ_LEAVES:
+            return a
+        block = seq_block(ctx, a.shape[1], a.shape[2])
+        return a if block is None else a[:, :, block[0]:block[1]].clone()
+    return _walk_leaves(cache, cut)
 
 
 def shard_cache(cache, ctx: Optional[DistCtx]):

@@ -36,9 +36,22 @@ ones its query heads read (the kv heads replicated over ``tp``, as
 Megatron does for fewer kv heads than ranks; the cache then holds them
 all, as the reference's ``cache_specs_tree`` lays it out). MLA keeps
 ``wq_a`` and ``wkv_a`` whole over ``tp`` (FSDP-cut only) and its latent
-cache replicated. Where the heads do not divide the leaves are gathered
-whole and every rank runs every head. FSDP-cut dims are gathered over
-the ``dp`` axes at use (``launch/sharding.use``).
+cache replicated over ``tp``. Where the heads do not divide the leaves
+are gathered whole and every rank runs every head. FSDP-cut dims are
+gathered over the ``dp`` axes at use (``launch/sharding.use``).
+
+The decode cache holds this rank's rows of the batch where the batch
+divides over ``dp``. Where it does not (B = 1 at a long context), the
+cache is context-parallel (``launch/sharding.seq_block``): each rank
+holds a contiguous block of the sequence of every key, value and latent
+leaf (of the full cache, the ring's slots, MLA's latents, the encoder's
+frames), the rank that holds the new token's row writes it (masked
+index arithmetic on the device, no host sync), every rank attends over
+its block only and returns its softmax state (m, l, acc), and the
+states of the ``dp`` ranks are gathered and merged in shard order
+(:func:`merge_partial`), the same arithmetic, so the same bits, on
+every rank. The ring decode's state comes from the ``swa_decode``
+kernel's split kernel and is merged by its combine kernel.
 """
 from __future__ import annotations
 
@@ -49,6 +62,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as _ref
 from repro_torch.launch import sharding as SH
 from repro_torch.models.common import (DistCtx, apply_rope, dense_init,
                                        rms_norm, tp_heads)
@@ -160,6 +174,104 @@ def decode_attention(q1: torch.Tensor, K: torch.Tensor, V: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p, V.float())
     return o.reshape(B, H, V.shape[-1]).to(q1.dtype)
+
+
+def _state(s: torch.Tensor, weigh) -> torch.Tensor:
+    """The softmax state of masked scores s (..., n) f32: (..., D + 2),
+    the row max m, l = sum exp(s - m) and ``weigh(exp(s - m))`` (...,
+    D)."""
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    return torch.cat([m, torch.sum(p, dim=-1, keepdim=True), weigh(p)],
+                     dim=-1)
+
+
+def decode_partial(q1: torch.Tensor, K: torch.Tensor, V: torch.Tensor, *,
+                   kv_valid: torch.Tensor) -> torch.Tensor:
+    """:func:`decode_attention`'s softmax state over the keys given (a
+    rank's block of a context-parallel cache): (B, H, Dv + 2) f32, m the
+    row max of the masked, scaled scores (-1e30 where every key is
+    masked), l = sum exp(s - m), acc = sum exp(s - m) V."""
+    B, H, Dk = q1.shape
+    KVH = K.shape[2]
+    qg = q1.reshape(B, KVH, H // KVH, Dk).float() * (1.0 / math.sqrt(Dk))
+    s = torch.einsum("bhgd,bshd->bhgs", qg, K.float())
+    s = torch.where(kv_valid[:, None, None, :], s,
+                    torch.full_like(s, MASKED_SCORE))
+    return _state(s, lambda p: torch.einsum(
+        "bhgs,bshd->bhgd", p, V.float())).reshape(B, H, -1)
+
+
+def gather_states(ctx: DistCtx, part: torch.Tensor) -> torch.Tensor:
+    """Chunk states (rows, S, D + 2) of this rank's block of the keys ->
+    every ``dp`` rank's, rank after rank: (rows, R S, D + 2)."""
+    g = ctx.mesh.group(tuple(ctx.dp))
+    rows, S, width = part.shape
+    return g.all_gather(part[None]).transpose(0, 1).reshape(
+        rows, g.size * S, width)
+
+
+def merge_partial(ctx: DistCtx, state: torch.Tensor) -> torch.Tensor:
+    """Softmax states (..., D + 2) f32 of this rank's block of the keys,
+    gathered over ``dp`` and merged in shard order (``kernels/ref.
+    merge_states``): M = max_r m_r, w_r = exp(m_r - M), out = sum_r w_r
+    acc_r / max(sum_r w_r l_r, 1e-30) -> (..., D) f32, the same bits on
+    every rank. A rank whose keys are all masked weighs 0; a row with no
+    valid key anywhere averages V over every slot, as the softmax over
+    -1e30 scores does."""
+    lead = state.shape[:-1]
+    part = gather_states(ctx, state.reshape(-1, 1, state.shape[-1]))
+    return _ref.merge_states(part).reshape(lead + (-1,))
+
+
+def split_decode_attention(q1: torch.Tensor, K: torch.Tensor,
+                           V: torch.Tensor, *, kv_valid: torch.Tensor,
+                           ctx: DistCtx) -> torch.Tensor:
+    """:func:`decode_attention` over a context-parallel cache: this
+    rank's block of the keys (``kv_valid`` its block of the mask), the
+    ``dp`` ranks' states merged (:func:`merge_partial`). (B, H, Dv) in
+    q1's dtype, the same on every rank."""
+    return merge_partial(ctx, decode_partial(q1, K, V, kv_valid=kv_valid)
+                         ).to(q1.dtype)
+
+
+def cache_block(ctx: DistCtx, B: int, held: int,
+                whole: int) -> Optional[tuple]:
+    """This rank's block [lo, hi) of a cache leaf's ``whole`` positions
+    (``launch/sharding.seq_block``), or None where it holds them all;
+    a leaf holding ``held`` positions otherwise is refused."""
+    block = SH.seq_block(ctx, B, whole)
+    want = whole if block is None else block[1] - block[0]
+    if held != want:
+        raise ValueError(
+            f"a decode-cache leaf holds {held} of its {whole} positions, "
+            f"but this rank's part is {want} (launch/sharding.cache_spec); "
+            f"make the cache with Model.prefill or Model.init_cache under "
+            f"this mesh, and decode it through Model.serve_step")
+    return block
+
+
+def _room(ctx: Optional[DistCtx], held: int) -> int:
+    """The whole length of a full or latent cache holding ``held``
+    positions on this rank: ``ctx.cache_room`` where set, else
+    ``held``."""
+    if ctx is None or ctx.cache_room is None:
+        return held
+    return ctx.cache_room
+
+
+def write_rows(C: torch.Tensor, rows: torch.Tensor, val: torch.Tensor,
+               lo: int) -> None:
+    """``val`` (B, ...) written into ``C`` (B, n, ...) at row ``rows[b]
+    - lo`` of each batch entry that holds it (0 <= rows[b] - lo < n),
+    in place: masked index arithmetic on the device (no host sync), so
+    that only the rank holding the row changes it."""
+    B, n = C.shape[0], C.shape[1]
+    r = rows.long() - lo
+    own = ((r >= 0) & (r < n)).reshape((B,) + (1,) * (val.dim() - 1))
+    r = torch.clamp(r, 0, n - 1)
+    bidx = torch.arange(B, device=C.device)
+    C[bidx, r] = torch.where(own, val.to(C.dtype), C[bidx, r])
 
 
 # ------------------------------------------------------------ KV caches --
@@ -313,7 +425,13 @@ def gqa_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
     ``lengths[b]`` of a full cache, or to slot ``lengths[b] % W`` of a
     ring, in place. Returns (out (B, d), cache_layer): under a
     tensor-parallel ``ctx`` this rank's partial product, and the cache
-    of the kv heads it holds."""
+    of the kv heads it holds. Under a context-parallel ``ctx`` the k / v
+    hold this rank's block of the rows (the full cache's room is
+    ``ctx.cache_room``) or of the ring's slots (``pos`` whole on every
+    rank, every rank writing it): the rank holding the new token's row
+    or slot writes its key and value, and the ranks' softmax states
+    are merged (the ring's through ``swa_decode``'s partial and combine
+    kernels)."""
     B, _ = x1.shape
     heads = tp_heads(ctx, cfg.n_heads)
     pu, kv_lo = _gqa_use(p, cfg, ctx, heads)
@@ -325,25 +443,47 @@ def gqa_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
     bidx = torch.arange(B, device=x1.device)
     K, V = cache_layer["k"], cache_layer["v"]
     g = cfg.n_heads // cfg.n_kv_heads
+    scale = 1.0 / math.sqrt(cfg.hd)
     if "pos" in cache_layer:   # ring (sliding-window) cache
         PS = cache_layer["pos"]
-        slot = pos % K.shape[1]
-        K[bidx, slot] = k
-        V[bidx, slot] = v
+        slot = pos % PS.shape[1]
+        block = cache_block(ctx, B, K.shape[1], PS.shape[1])
         PS[bidx, slot] = pos.to(PS.dtype)
-        bias = torch.where(PS >= 0, 0.0, MASKED_SCORE).float()
-        Ka, Va, _ = _kv_for(K, V, heads, g, kv_lo)
-        o = ops.swa_decode_attention(q, Ka, Va, bias,
-                                     1.0 / math.sqrt(cfg.hd))
+        if block is None:
+            K[bidx, slot] = k
+            V[bidx, slot] = v
+            bias = torch.where(PS >= 0, 0.0, MASKED_SCORE).float()
+            Ka, Va, _ = _kv_for(K, V, heads, g, kv_lo)
+            o = ops.swa_decode_attention(q, Ka, Va, bias, scale)
+        else:
+            lo, hi = block
+            write_rows(K, slot, k, lo)
+            write_rows(V, slot, v, lo)
+            bias = torch.where(PS[:, lo:hi] >= 0, 0.0, MASKED_SCORE).float()
+            Ka, Va, _ = _kv_for(K, V, heads, g, kv_lo)
+            part = ops.swa_decode_partial(q, Ka, Va, bias, scale,
+                                          ranks=ctx.dp_size)
+            o = ops.swa_combine(gather_states(ctx, part),
+                                q.dtype).reshape(q.shape)
         new_cache = {"k": K, "v": V, "pos": PS}
     else:
-        K[bidx, pos] = k
-        V[bidx, pos] = v
-        valid = (torch.arange(K.shape[1], device=x1.device)[None, :]
+        block = cache_block(ctx, B, K.shape[1], _room(ctx, K.shape[1]))
+        lo = 0 if block is None else block[0]
+        if block is None:
+            K[bidx, pos] = k
+            V[bidx, pos] = v
+        else:
+            write_rows(K, pos, k, lo)
+            write_rows(V, pos, v, lo)
+        valid = (lo + torch.arange(K.shape[1], device=x1.device)[None, :]
                  <= pos[:, None])
         Ka, Va, _ = _kv_for(K, V, heads, g, kv_lo)
         with record_function("decode_attention"):
-            o = decode_attention(q, Ka, Va, kv_valid=valid)
+            if block is None:
+                o = decode_attention(q, Ka, Va, kv_valid=valid)
+            else:
+                o = split_decode_attention(q, Ka, Va, kv_valid=valid,
+                                           ctx=ctx)
         new_cache = {"k": K, "v": V}
     return o.reshape(B, -1) @ pu["wo"], new_cache
 
@@ -462,7 +602,11 @@ def mla_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
     latent space and up-projected by ``wv_b``: all in f32, as the
     reference. Returns (out (B, d), cache_layer); under a
     tensor-parallel ``ctx`` this rank's heads' partial product (the
-    latent cache is whole on every rank)."""
+    latent cache replicated over ``tp``). Under a context-parallel
+    ``ctx`` the latent cache holds this rank's block of the rows (of
+    ``ctx.cache_room``): the rank holding row ``lengths[b]`` writes it,
+    and the ranks' states of the latent context (B, H, lora) are merged
+    before the ``wv_b`` up-projection."""
     B, _ = x1.shape
     m = cfg.mla
     pu = _mla_use(p, cfg, ctx, tp_heads(ctx, cfg.n_heads))
@@ -476,9 +620,15 @@ def mla_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
     qn = qn[:, 0]                                               # (B,H,nope)
     bidx = torch.arange(B, device=x1.device)
     LC, RC = cache_layer["latent"], cache_layer["rope"]
-    LC[bidx, pos] = latent1[:, 0]
-    RC[bidx, pos] = krope1
-    valid = (torch.arange(LC.shape[1], device=x1.device)[None, :]
+    block = cache_block(ctx, B, LC.shape[1], _room(ctx, LC.shape[1]))
+    lo = 0 if block is None else block[0]
+    if block is None:
+        LC[bidx, pos] = latent1[:, 0]
+        RC[bidx, pos] = krope1
+    else:
+        write_rows(LC, pos, latent1[:, 0], lo)
+        write_rows(RC, pos, krope1, lo)
+    valid = (lo + torch.arange(LC.shape[1], device=x1.device)[None, :]
              <= pos[:, None])
     wk_b = pu["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_dim)
     wv_b = pu["wv_b"].reshape(m.kv_lora_rank, H, m.v_dim)
@@ -488,8 +638,12 @@ def mla_decode(p, x1: torch.Tensor, cache_layer: Dict[str, torch.Tensor],
     s = (torch.einsum("bhl,bsl->bhs", q_abs, LCf)
          + torch.einsum("bhr,bsr->bhs", qr.float(), RC.float())) * scale
     s = torch.where(valid[:, None, :], s, torch.full_like(s, MASKED_SCORE))
-    pr = torch.softmax(s, dim=-1)
-    ctx_l = torch.einsum("bhs,bsl->bhl", pr, LCf)
+    if block is None:
+        pr = torch.softmax(s, dim=-1)
+        ctx_l = torch.einsum("bhs,bsl->bhl", pr, LCf)
+    else:
+        ctx_l = merge_partial(ctx, _state(s, lambda pr: torch.einsum(
+            "bhs,bsl->bhl", pr, LCf)))
     o = torch.einsum("bhl,lhv->bhv", ctx_l, wv_b.float())
     o = o.reshape(B, -1).to(x1.dtype)
     return o @ pu["wo"], {"latent": LC, "rope": RC}

@@ -22,11 +22,17 @@ class DistCtx:
     (``batch_cut``: the activations' leading dim holds this rank's rows
     of the global batch, ``launch/sharding.cut_batch``); where it does
     not, every rank runs on the whole batch. ``dp`` names the
-    data-parallel axes, ``tp`` the tensor / expert-parallel axis."""
+    data-parallel axes, ``tp`` the tensor / expert-parallel axis.
+    ``cache_room``: the whole sequence length of a decode step's full
+    and latent caches (the room the cache was made with), which a rank
+    holding a block of them (the context-parallel cache,
+    ``launch/sharding.seq_block``) cannot read off its part;
+    ``Model.serve_step`` sets it."""
     mesh: Optional[object] = None
     dp: Tuple[str, ...] = ("data",)
     tp: str = "model"
     batch_cut: bool = False
+    cache_room: Optional[int] = None
 
     @staticmethod
     def local() -> "DistCtx":

@@ -37,7 +37,9 @@ each leaf is this rank's parts, the batch this rank's rows where
 ``launch/train.make_train_step``), and the cache its rows, kv heads
 (``k`` / ``v``, the hybrid family's shared caches, the encdec family's
 ``ck`` / ``cv``) and state heads (``s``, ``h``) as
-``launch/sharding.cache_spec`` lays them out. The embedding is a
+``launch/sharding.cache_spec`` lays them out (where B does not divide
+over ``dp``, a block of the sequence of each key, value and latent
+leaf: the context-parallel cache). The embedding is a
 vocab-parallel lookup where ``embed``'s vocab is cut over ``tp``: each
 rank looks up the ids in its rows, the others give zeros, and the sum
 over ``tp`` is the lookup (each entry is one rank's value plus zeros:
@@ -55,6 +57,7 @@ gathered.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List
 
 import torch
@@ -99,6 +102,9 @@ class Model:
         self.dtype = _DTYPES[cfg.dtype]
         # Decode steps the prefill cache makes room for (generate sets it).
         self.decode_room = 1
+        # The whole length of the last cache made (prefill, init_cache):
+        # a rank of a context-parallel cache holds a block of it.
+        self.cache_room = None
 
     # ------------------------------------------------------------- init --
     def init(self, gen: torch.Generator,
@@ -426,11 +432,18 @@ class Model:
         cache (or MLA's latent cache) is padded to the room, a cross
         segment's with the encoder's keys and values (``_cross_cache``),
         and the hybrid family's shared-block caches likewise, each as
-        (1, B, room, KVH, hd)."""
+        (1, B, room, KVH, hd). Under a mesh whose ``dp`` does not divide
+        B the prefill ran on the whole batch, as the reference's does;
+        each key, value and latent leaf (the ring's slots, the encoder's
+        frames and the shared block's too, not ``pos`` nor ``cvalid``)
+        is then cut to this rank's block of its sequence where that
+        divides (``launch/sharding.cut_cache_seq``: the context-parallel
+        cache)."""
         cfg = self.cfg
         out = {"len": torch.full((B,), S, dtype=torch.int32, device=dev),
                "segments": []}
         room = S + self.decode_room
+        self.cache_room = room
         for spec, cache, st in zip(self.segments, caches, new_states):
             if spec.kind in ("rwkv", "mamba"):
                 entry = st
@@ -458,7 +471,7 @@ class Model:
             out["shared"] = [{name: torch.nn.functional.pad(
                 c[name], (0, 0, 0, 0, 0, room - S))[None]
                 for name in ("k", "v")} for c in shared_caches]
-        return out
+        return SH.cut_cache_seq(out, ctx)
 
     def _cross_cache(self, p, enc_out: torch.Tensor, spec: SegmentSpec,
                      ctx: DistCtx):
@@ -480,9 +493,11 @@ class Model:
         for the rwkv and mamba segments; a cross segment's encoder keys
         and values zero for ``encoder.n_ctx`` frames, all valid); under
         a mesh ``ctx`` this rank's part of each leaf
-        (``launch/sharding.cache_spec``)."""
+        (``launch/sharding.cache_spec``: a block of the sequence of each
+        key, value and latent leaf where B does not divide over ``dp``)."""
         cfg, dtype = self.cfg, self.dtype
         room = S + 1
+        self.cache_room = room
         out = {"len": torch.zeros((B,), dtype=torch.int32, device=device),
                "segments": []}
         for spec in self.segments:
@@ -527,8 +542,12 @@ class Model:
         """One decode step. tokens: (B,). Returns (logits (B, V), cache),
         the cache (states, KV caches and the shared block's) updated in
         place with ``len`` advanced by one (a cross segment's encoder
-        keys and values kept as they are)."""
-        ctx = ctx or DistCtx.local()
+        keys and values kept as they are). ``cache`` is the last one
+        this model made (:meth:`prefill`, :meth:`init_cache`): its room,
+        which a rank of a context-parallel cache cannot read off its
+        block, is the one recorded then."""
+        ctx = dataclasses.replace(ctx or DistCtx.local(),
+                                  cache_room=self.cache_room)
         cfg = self.cfg
         lengths = cache["len"]
         x1 = self._embed(p, tokens, ctx)

@@ -29,7 +29,8 @@ partial products (of ``wo``, ``w2``, the RWKV-6 ``wo`` and channel-mix
 ``wv``) are reduce-scattered back onto it; a result the same on every
 rank of ``tp`` (the MoE layer's, summed over ``tp`` inside the layer;
 the Mamba2 mixer's) is cut. ``block_decode`` never cuts the sequence:
-the partial products are psummed.
+the partial products are psummed (its cache's sequence may be cut over
+``dp``, the context-parallel cache of ``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -384,16 +385,27 @@ def cross_decode(lp, x1: torch.Tensor, cache: Dict[str, torch.Tensor], cfg,
     """One token's cross-attention: the query ``ln_x``-normed x1 (B, d)
     times ``wq`` (no bias, as the reference's decode), the plain
     ``decode_attention`` over the cached ``ck`` / ``cv`` (the kv heads
-    this rank holds) where ``cvalid``, then ``wo``. Returns the
-    residual's addend (B, d), summed over ``tp`` where the heads are
+    this rank holds) where ``cvalid``, then ``wo``. Under a
+    context-parallel ``ctx`` ``ck`` / ``cv`` hold this rank's block of
+    the encoder's frames (``cvalid`` whole): the rank attends over its
+    block, masked by its block of ``cvalid``, and the ranks' softmax
+    states are merged (``attention.split_decode_attention``). Returns
+    the residual's addend (B, d), summed over ``tp`` where the heads are
     cut."""
     pu, heads, kv_lo = cross_use(lp, cfg, ctx)
     with record_function("cross_attention"):
         h = layer_norm_of(lp, "ln_x", x1, cfg, ctx)
-        q = (h @ pu["wq"]).reshape(x1.shape[0], -1, cfg.hd)
+        B = x1.shape[0]
+        q = (h @ pu["wq"]).reshape(B, -1, cfg.hd)
         ck, cv, _ = A._kv_for(cache["ck"], cache["cv"], heads,
                               cfg.n_heads // cfg.n_kv_heads, kv_lo)
-        o = A.decode_attention(q, ck, cv, kv_valid=cache["cvalid"])
+        cvalid = cache["cvalid"]
+        block = A.cache_block(ctx, B, ck.shape[1], cvalid.shape[1])
+        if block is None:
+            o = A.decode_attention(q, ck, cv, kv_valid=cvalid)
+        else:
+            o = A.split_decode_attention(
+                q, ck, cv, kv_valid=cvalid[:, block[0]:block[1]], ctx=ctx)
         return leave_region(o.reshape(x1.shape[0], -1) @ pu["wo"], ctx,
                             seq=False, local=heads is not None)
 

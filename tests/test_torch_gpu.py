@@ -20,7 +20,10 @@ votes and keep mask exactly, its predictions within 1e-5 of their
 largest magnitude (f32 products summed in another order).
 swa_decode within 2e-5 (f32) or 2e-2 (bf16, one rounding of the output)
 of the plain version's largest magnitude: an online softmax over tiles
-sums in another order than one softmax over the window.
+sums in another order than one softmax over the window; its partial
+entry point's states within 2e-5, and the ranks' blocks of a
+context-parallel ring merged by its combine entry point bit for bit one
+launch over the whole window with the same chunks.
 The helpers here are shared with test_torch_kernels.py. The topologies
 run here too: a one-rank NCCL round in the test's own process, and a
 two-rank gloo world of processes sharing the card
@@ -1105,6 +1108,127 @@ def test_gpu_swa_decode_split_shapes(cuda_device, b, h, kvh, dh, W, dtype):
     want = ref.swa_decode_attention(q, kw, vw, bias, 0.3)
     torch.cuda.synchronize()
     assert_swa_close(got, want, dtype)
+
+
+# The context-parallel ring decode (b, h, kvh, dh, W, ranks): each rank's
+# block of W / ranks slots through the partial entry point, the ranks'
+# chunk states merged by the combine entry point. The cp2 leg's rank
+# shape (Mistral-NeMo's 32 heads over 8 kv heads of 128, 2048 slots a
+# rank), 4 ranks, a ragged chunking and the scalar load path (dh = 33).
+CP_SHAPES = [(1, 32, 8, 128, 4096, 2), (1, 32, 8, 128, 4096, 4),
+             (3, 8, 2, 64, 600, 2), (2, 6, 3, 33, 78, 2),
+             (2, 12, 2, 128, 300, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kvh,dh,W,R", CP_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_swa_cp_blocks_merge_to_one_launch(cuda_device, b, h, kvh, dh,
+                                               W, R, dtype):
+    """R ranks' blocks of the window, each through swa_decode_partial
+    (``ranks=R``: at most 32 / R chunks), the states side by side rank
+    after rank and merged by swa_combine: the bits of one partial launch
+    over the whole window with R x that many chunks and its combine (rank
+    r's chunk j spans that launch's chunk r S + j), and of
+    swa_decode_attention where the launcher picks that split; within
+    the plain version's tolerance; each rank's states within 2e-5 of
+    ref.swa_decode_partial's at the same chunks (row 0's first block
+    all masked: m = -1e30 on every chunk); one launch counted a call."""
+    from repro_torch.kernels import swa_decode as sw
+    q, kw, vw, bias = swa_inputs(W * R + dh, b, h, kvh, dh, W, "scattered")
+    n = W // R
+    bias[0, :n] = -1e30
+    bias[0, n] = 0.0
+    q, kw, vw = (torch.as_tensor(a).to(cuda_device, dtype)
+                 for a in (q, kw, vw))
+    bias = torch.as_tensor(bias).to(cuda_device)
+    scale = 1.0 / np.sqrt(dh)
+    p0, c0 = sw.PARTIAL.LAUNCHES, sw.COMBINE.LAUNCHES
+    blocks = [(kw[:, r * n:(r + 1) * n].contiguous(),
+               vw[:, r * n:(r + 1) * n].contiguous(),
+               bias[:, r * n:(r + 1) * n].contiguous()) for r in range(R)]
+    parts = [sw.swa_decode_partial(q, k, v, bb, scale, ranks=R)
+             for k, v, bb in blocks]
+    S = parts[0].shape[1]
+    assert 1 <= S <= 32 // R and all(p.shape == (b * h, S, dh + 2)
+                                     for p in parts)
+    got = sw.swa_combine(torch.cat(parts, dim=1), dtype).reshape(b, h, dh)
+    assert (sw.PARTIAL.LAUNCHES, sw.COMBINE.LAUNCHES) == (p0 + R, c0 + 1)
+    one = sw.swa_combine(sw.swa_decode_partial(q, kw, vw, bias, scale,
+                                               chunks=R * S), dtype)
+    assert torch.equal(got, one.reshape(b, h, dh))
+    if sw.splits(b, h, W, kvh, cuda_device) == R * S:
+        assert torch.equal(got, sw.swa_decode_attention(q, kw, vw, bias,
+                                                        scale))
+    want = ref.swa_decode_attention(q, kw, vw, bias, scale)
+    torch.cuda.synchronize()
+    assert_swa_close(got, want, dtype)
+    for r, (k, v, bb) in enumerate(blocks):
+        a = parts[r].cpu()
+        e = ref.swa_decode_partial(q, k, v, bb, scale, splits=S).cpu()
+        live = e[..., 0] > -1e29           # chunks that hold a key
+        assert torch.equal(a[..., 0][~live], e[..., 0][~live]), r
+        for x, y in ((a[..., 0][live], e[..., 0][live]),
+                     (a[..., 1], e[..., 1]), (a[..., 2:], e[..., 2:])):
+            assert x.numel() == 0 or float((x - y).abs().max()) <= (
+                2e-5 * float(y.abs().max())), r
+    assert (parts[0].reshape(b, h, S, -1)[0, :, :, 0] == -1e30).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,S,dh", [(64, 2, 128), (7, 32, 33),
+                                       (5, 1, 256), (32, 4, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_swa_combine_matches_merge_states(cuda_device, rows, S, dh,
+                                              dtype):
+    """swa_combine over gathered chunk states against ref.merge_states:
+    states of masked keys only (m = -1e30) beside ones that hold keys,
+    a row whose every state is masked (the average of V over every
+    slot), within 2e-5 (f32) or 2e-2 (bf16) of the largest output."""
+    from repro_torch.kernels import swa_decode as sw
+    rng = np.random.default_rng(rows * S + dh)
+    m = (rng.normal(size=(rows, S)) * 4).astype(np.float32)
+    ln = rng.integers(1, 50, size=(rows, S)).astype(np.float32)
+    l = ln * rng.random((rows, S)).astype(np.float32) + 1
+    acc = rng.normal(size=(rows, S, dh)).astype(np.float32) * l[..., None]
+    masked = rng.random((rows, S)) < 0.3
+    masked[-1] = True
+    m[masked] = -1e30
+    l[masked] = ln[masked]
+    part = torch.as_tensor(np.concatenate([m[..., None], l[..., None], acc],
+                                          axis=-1)).to(cuda_device)
+    got = sw.swa_combine(part, dtype)
+    want = ref.merge_states(part)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (rows, dh)
+    assert_swa_close(got, want, dtype)
+    mean = part[-1, :, 2:].sum(0) / part[-1, :, 1].sum()
+    assert_swa_close(got[-1], mean, dtype)
+
+
+@pytest.mark.gpu
+def test_gpu_swa_cp_refusals(cuda_device):
+    """What the partial and combine entry points refuse: more chunks
+    than 32 over the ranks or than keys, a combine of more than 32
+    states, a state wider than 256, a CPU tensor."""
+    from repro_torch.kernels import swa_decode as sw
+    q = torch.zeros((1, 4, 64), device=cuda_device)
+    kw = torch.zeros((1, 64, 2, 64), device=cuda_device)
+    bias = torch.zeros((1, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="chunks"):
+        sw.swa_decode_partial(q, kw, kw, bias, 1.0, ranks=4, chunks=9)
+    with pytest.raises(ValueError, match="chunks"):
+        sw.swa_decode_partial(q, kw, kw, bias, 1.0, chunks=65)
+    with pytest.raises(ValueError, match="ranks"):
+        sw.swa_decode_partial(q, kw, kw, bias, 1.0, ranks=33)
+    with pytest.raises(ValueError, match="chunk states"):
+        sw.swa_combine(torch.zeros((2, 33, 66), device=cuda_device),
+                       torch.float32)
+    with pytest.raises(ValueError, match="chunk states"):
+        sw.swa_combine(torch.zeros((2, 2, 259), device=cuda_device),
+                       torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sw.swa_combine(torch.zeros((2, 2, 66)), torch.float32)
 
 
 @pytest.mark.gpu

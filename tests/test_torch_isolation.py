@@ -23,7 +23,9 @@ from repro_torch.kernels.moe_dispatch_bwd import (  # noqa: E402
     moe_dispatch_bwd)
 from repro_torch.kernels.pdist_argmin import pdist_argmin  # noqa: E402
 from repro_torch.kernels.solve_attach import solve_attach  # noqa: E402
-from repro_torch.kernels.swa_decode import swa_decode_attention  # noqa: E402
+from repro_torch.kernels.swa_decode import (swa_combine,  # noqa: E402
+                                          swa_decode_attention,
+                                          swa_decode_partial)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -86,6 +88,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         swa_decode_attention(x[:, :2], kv, kv, torch.zeros((2, 6)), 1.0)
     with pytest.raises(ValueError, match="CUDA tensor"):
+        swa_decode_partial(x[:, :2], kv, kv, torch.zeros((2, 6)), 1.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        swa_combine(torch.zeros((4, 2, 5)), torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         moe_combine_bwd(torch.zeros((4, 3)), x[0], idx,
                         torch.ones((5,), dtype=torch.bool), torch.ones((4,)),
                         1)
@@ -106,6 +112,9 @@ def test_cpu_dispatch_launches_no_kernel():
     ops.moe_combine(x[0], idx, torch.ones((4,)), 1)
     kv = torch.zeros((2, 6, 1, 4))
     ops.swa_decode_attention(x[:, :2], kv, kv, torch.zeros((2, 6)), 0.5)
+    part = ops.swa_decode_partial(x[:, :2], kv, kv, torch.zeros((2, 6)),
+                                  0.5, ranks=2)
+    ops.swa_combine(torch.cat([part, part], dim=1), torch.float32)
     # The MoE layer's dispatch and combine with their gradients.
     xg = x[0, :4].clone().requires_grad_(True)
     keep = torch.ones((4,), dtype=torch.bool)
@@ -119,7 +128,9 @@ def test_cpu_dispatch_launches_no_kernel():
                                    "solve_attach": 0, "moe_dispatch": 0,
                                    "moe_combine": 0, "swa_decode": 0,
                                    "moe_combine_bwd": 0,
-                                   "moe_dispatch_bwd": 0}
+                                   "moe_dispatch_bwd": 0,
+                                   "swa_decode_partial": 0,
+                                   "swa_combine": 0}
 
 
 def test_serve_path_imports_no_jax():

@@ -29,7 +29,15 @@ every case's prefill, decode step and ``train_step`` jitted with
 - a batch of 3 rows on (2, 2) does not divide ``data``: the batch stays
   whole, and its train steps are held to the port's single-device steps
   (the JAX side's sharded step has a wrong embed gradient there,
-  ROADMAP.md section 3);
+  ROADMAP.md section 3); its decode cache of 20 positions is cut on the
+  sequence over ``data`` (the context-parallel cache);
+- serving only, a batch of 1 row (the reference's ``long_500k`` shape)
+  on (2, 1) and (2, 2), whose decode cache is context-parallel: each
+  rank holds its block of the sequence (granite's full cache of 20
+  positions, DeepSeek-V3's latent cache, the Mixtral rings of 8 and 16
+  slots, wrapped and filled) and the ranks' softmax states are merged;
+  and qwen with a prompt of 15, whose cache of 19 positions does not
+  divide and stays whole;
 - ``ShardGroup.reduce_scatter`` against ``jax.vjp`` of
   ``psum_scatter``.
 
@@ -37,7 +45,8 @@ The spec-parity tests need no ranks: for every config in ``configs/`` at
 its full shapes, on five meshes given as shape maps, the port's
 ``param_spec``, ``opt_spec``, ``batch_spec`` and ``cache_spec`` against
 the reference's ``param_specs``, ``opt_specs``, ``batch_specs`` and
-``cache_specs_tree``. The ssm, hybrid, encdec and vlm families' cases
+``cache_specs_tree``, leaf for leaf (the context-parallel branch
+included). The ssm, hybrid, encdec and vlm families' cases
 are in ``test_torch_tp_families.py``.
 """
 import dataclasses
@@ -92,10 +101,11 @@ MODELS = {
     "mixtral_ring16": ("mixtral-8x7b", {"fsdp": True, "seq_shard": True,
                                         "sliding_window": 16}, ADAMW),
 }
-# models whose cases serve only (no train step)
+# models whose cases serve only (no train step); so do the cases of B = 1
 SERVE_ONLY = ("mixtral_ring8", "mixtral_ring16")
-# (world, mesh, model, microbatch, B): 2 train steps of B x 16 tokens, a
-# prefill of B x 16 and 3 decode steps.
+# (world, mesh, model, microbatch, B[, prompt length]): 2 train steps of
+# B x 16 tokens, a prefill of B x 16 (or the prompt length) and 3 decode
+# steps.
 CASES = [(2, (1, 2), "granite", 1, 4), (2, (1, 2), "qwen", 1, 4),
          (2, (1, 2), "mixtral", 1, 4), (2, (1, 2), "deepseek", 1, 4),
          (2, (2, 1), "granite", 2, 4), (2, (2, 1), "qwen", 1, 4),
@@ -105,23 +115,40 @@ CASES = [(2, (1, 2), "granite", 1, 4), (2, (1, 2), "qwen", 1, 4),
          (4, (2, 2), "deepseek", 2, 4), (4, (1, 4), "granite", 1, 4),
          (4, (1, 4), "qwen", 1, 4), (4, (1, 4), "mixtral", 1, 4),
          (4, (1, 4), "deepseek", 1, 4),
-         # 3 rows do not divide data = 2: the batch stays whole.
+         # 3 rows do not divide data = 2: the batch stays whole and the
+         # decode cache's 20 positions are cut over data.
          (4, (2, 2), "granite", 1, 3),
          (2, (1, 2), "mixtral_ring8", 1, 4),
          (2, (1, 2), "mixtral_ring16", 1, 4),
          (4, (1, 4), "mixtral_ring8", 1, 4),
-         (4, (1, 4), "mixtral_ring16", 1, 4)]
+         (4, (1, 4), "mixtral_ring16", 1, 4),
+         # One row: the context-parallel cache (S + DECODE + 1 = 20
+         # positions, or the ring's 8 and 16 slots, over data = 2); with a
+         # prompt of 15 the 19 positions do not divide and stay whole.
+         (2, (2, 1), "granite", 1, 1), (2, (2, 1), "qwen", 1, 1, 15),
+         (2, (2, 1), "mixtral_ring8", 1, 1),
+         (2, (2, 1), "mixtral_ring16", 1, 1),
+         (4, (2, 2), "mixtral_ring8", 1, 1),
+         (4, (2, 2), "mixtral_ring16", 1, 1),
+         (4, (2, 2), "deepseek", 1, 1)]
 S, STEPS, DECODE = 16, 2, 3
 WORLDS = {2: ((1, 2), (2, 1)), 4: ((2, 2), (1, 4))}
 GROUP_AXES = (("model",), ("data",), ("data", "model"), ("model", "data"))
 
 
-def _key(mesh, model, mb, b):
-    return f"{model}-{mesh[0]}x{mesh[1]}-mb{mb}-b{b}"
+def _key(mesh, model, mb, b, s=S):
+    return f"{model}-{mesh[0]}x{mesh[1]}-mb{mb}-b{b}" + (
+        f"-s{s}" if s != S else "")
+
+
+def _serves_only(model, b):
+    return model in SERVE_ONLY or b == 1
 
 
 CASE_KEYS = [(c[0], _key(*c[1:]), c) for c in CASES]
-NOT_JAX = {k for _, k, c in CASE_KEYS if c[4] % c[1][0]}   # held to one device
+# held to one device
+NOT_JAX = {k for _, k, c in CASE_KEYS if c[4] % c[1][0]
+           and not _serves_only(c[2], c[4])}
 
 
 def _over(model, mb):
@@ -134,7 +161,7 @@ def _cfg(model, mb=1):
     return get_config(name, reduced=True).replace(**_over(model, mb))
 
 
-def _draws(key, vocab, b):
+def _draws(key, vocab, b, s=S):
     rng = np.random.default_rng(zlib.crc32(key.encode()))
     batches = []
     for _ in range(STEPS):
@@ -142,7 +169,7 @@ def _draws(key, vocab, b):
         labels = rng.integers(0, vocab, size=(b, S)).astype(np.int32)
         labels[:, ::5] = -1
         batches.append({"tokens": toks, "labels": labels})
-    prompt = {"tokens": rng.integers(0, vocab, size=(b, S)).astype(np.int32)}
+    prompt = {"tokens": rng.integers(0, vocab, size=(b, s)).astype(np.int32)}
     return batches, prompt
 
 
@@ -152,29 +179,30 @@ def _whole_draw(model):
         build_model(_cfg(model)), seed=SEED, device="cpu"))]
 
 
-def _cache_shapes(model, b):
-    """The whole decode cache's leaf shapes after the prefill of b x S
+def _cache_shapes(model, b, s=S):
+    """The whole decode cache's leaf shapes after the prefill of b x s
     (room for DECODE steps), from a single-device prefill of the port."""
     m = build_model(_cfg(model))
     m.decode_room = DECODE + 1
     params = init_params(m, seed=SEED, device="cpu")
     with torch.no_grad():
         _, cache = m.prefill(params, {"tokens": torch.zeros(
-            (b, S), dtype=torch.int32)})
+            (b, s), dtype=torch.int32)})
     return [tuple(a.shape) for a in leaves(cache)]
 
 
 def _specs():
     port, jx = {}, {}
-    for _, key, (_, mesh, model, mb, b) in CASE_KEYS:
+    for _, key, (_, mesh, model, mb, b, *s) in CASE_KEYS:
         cfg = _cfg(model, mb)
-        batches, prompt = _draws(key, cfg.vocab_size, b)
+        batches, prompt = _draws(key, cfg.vocab_size, b, *s)
         common = {"name": MODELS[model][0], "over": _over(model, mb),
                   "mesh": mesh, "batches": batches, "prompt": prompt,
                   "steps": DECODE, "optimizer": MODELS[model][2]}
-        train = model not in SERVE_ONLY
+        train = not _serves_only(model, b)
         port[key] = dict(common, seed=SEED, single=key in NOT_JAX,
-                         cache_shapes=_cache_shapes(model, b), train=train)
+                         cache_shapes=_cache_shapes(model, b, *s),
+                         train=train)
         # (the NOT_JAX cases' serving is held to JAX all the same)
         jx[key] = dict(common, leaves=_whole_draw(model),
                        train=train and key not in NOT_JAX)
@@ -214,7 +242,8 @@ def runs():
 
 
 MODEL_CASES = [(w, k) for w, k, _ in CASE_KEYS]
-TRAIN_CASES = [(w, k) for w, k, c in CASE_KEYS if c[2] not in SERVE_ONLY]
+TRAIN_CASES = [(w, k) for w, k, c in CASE_KEYS
+               if not _serves_only(c[2], c[4])]
 
 
 def _outs(runs, world, key):
@@ -226,7 +255,8 @@ def test_serving_under_mesh_matches_jax(runs, world, key):
     """Greedy generate under the mesh: every rank the same tokens and
     logits, JAX's sharded prefill and decode steps' (tokens equal, logits
     within 1e-5), and each rank's final cache its cache_spec part of
-    JAX's."""
+    JAX's (a block of the sequence where the batch does not divide:
+    the context-parallel cache)."""
     outs = _outs(runs, world, key)
     want = runs.jax["models"][key]
     for r, o in enumerate(outs):
@@ -371,10 +401,9 @@ def test_param_and_opt_specs_match_the_reference(name, mesh):
 @pytest.mark.parametrize("mesh", PARITY_MESHES)
 def test_batch_and_cache_specs_match_the_reference(name, mesh):
     """batch_spec and cache_spec against batch_specs and
-    cache_specs_tree, for a batch that divides the data axes and one
-    that does not: where the reference cuts the sequence over data (its
-    context-parallel cache) the port's spec leaves that dim whole, and
-    is the reference's otherwise."""
+    cache_specs_tree, leaf for leaf, for a batch that divides the data
+    axes and one that does not (the reference's context-parallel cache:
+    the sequence over data)."""
     jcfg, model, _ = _full(name)
     stub = _stub(mesh)
     ctx = DistCtx(mesh=stub, dp=("data",))
@@ -388,12 +417,8 @@ def test_batch_and_cache_specs_match_the_reference(name, mesh):
         for (path, leaf), (_, spec) in zip(
                 _paths(cache), _paths(cache_specs_tree(cache, stub,
                                                        ("data",)))):
-            want = list(_norm(spec))
-            if (path[-1] in ("k", "v", "ck", "cv", "latent", "rope")
-                    and want[2] is not None and want[1] is None):
-                want[2] = None          # the context-parallel branch
             got = SH.cache_spec(ctx, path, leaf.shape)
-            assert got == tuple(want), (name, B, path, got, spec)
+            assert got == _norm(spec), (name, B, path, got, spec)
 
 
 def test_held_spec_is_param_spec_but_for_the_waiting_families():

@@ -22,7 +22,14 @@ with the harness and the bars of ``test_torch_tp.py``:
   ``seq_shard``, Whisper and InternVL2 with ``fsdp``; the prefill is
   B x 16 tokens (after InternVL2's 16 patches; Whisper's encoder reads 8
   frames), 3 decode steps and 2 train steps. At (1, 4) InternVL2's 2 kv
-  heads split over the ranks (the kv-head fallback).
+  heads split over the ranks (the kv-head fallback);
+- serving only, a batch of 1 row on (2, 2), whose decode cache is
+  context-parallel: each rank holds its block of the sequence of
+  Whisper's self-attention cache (20 positions) and cross cache
+  (``ck`` / ``cv``: 4 of the 8 frames, ``cvalid`` whole), of Zamba2's
+  shared block's cache (its Mamba2 states as before), and of InternVL2's
+  ring of 16 slots (``with_sliding_window(16)``: the 32 prefill
+  positions wrap it), and the ranks' softmax states are merged.
 """
 import tempfile
 import zlib
@@ -56,21 +63,30 @@ M_BAR, V_BAR = 1e-5, 2e-5
 MODELS = {"rwkv": ("rwkv6-7b", {"fsdp": True, "seq_shard": True}),
           "zamba": ("zamba2-1.2b", {"fsdp": True, "seq_shard": True}),
           "whisper": ("whisper-base", {"fsdp": True}),
-          "internvl": ("internvl2-26b", {"fsdp": True})}
-# (world, mesh, model): batches of B rows
+          "internvl": ("internvl2-26b", {"fsdp": True}),
+          "internvl_ring": ("internvl2-26b", {"fsdp": True,
+                                              "sliding_window": 16})}
+# (world, mesh, model[, batch]): batches of B rows, or of the batch given
+# (1: serving only, over the context-parallel cache)
 CASES = [(2, (1, 2), "rwkv"), (4, (2, 2), "rwkv"), (4, (1, 4), "rwkv"),
          (2, (1, 2), "zamba"), (4, (2, 2), "zamba"),
          (2, (1, 2), "whisper"), (4, (2, 2), "whisper"),
          (2, (1, 2), "internvl"), (4, (2, 2), "internvl"),
-         (4, (1, 4), "internvl")]
+         (4, (1, 4), "internvl"),
+         (4, (2, 2), "whisper", 1), (4, (2, 2), "zamba", 1),
+         (4, (2, 2), "internvl_ring", 1)]
 B, S, STEPS, DECODE = 4, 16, 2, 3
 # Leaves every rank holds whole whose work each rank runs on a part
 # (their cotangent summed over tp): they must stay the same bits.
 SLICED = {"rwkv": ("w0", "ln_x"), "zamba": ("A_log", "D", "dt_bias")}
 
 
-def _key(mesh, model):
-    return f"{model}-{mesh[0]}x{mesh[1]}"
+def _key(mesh, model, b=B):
+    return f"{model}-{mesh[0]}x{mesh[1]}" + (f"-b{b}" if b != B else "")
+
+
+def _batch(case):
+    return case[3] if len(case) > 3 else B
 
 
 CASE_KEYS = [(c[0], _key(*c[1:]), c) for c in CASES]
@@ -95,7 +111,7 @@ def _inputs(rng, cfg, b):
     return {}
 
 
-def _draws(key, cfg):
+def _draws(key, cfg, b):
     rng = np.random.default_rng(zlib.crc32(key.encode()))
     batches = []
     for _ in range(STEPS):
@@ -105,8 +121,8 @@ def _draws(key, cfg):
         labels[:, ::5] = -1
         batches.append(dict(tokens=toks, labels=labels,
                             **_inputs(rng, cfg, B)))
-    prompt = dict(tokens=rng.integers(0, cfg.vocab_size, size=(B, S)).astype(
-        np.int32), **_inputs(rng, cfg, B))
+    prompt = dict(tokens=rng.integers(0, cfg.vocab_size, size=(b, S)).astype(
+        np.int32), **_inputs(rng, cfg, b))
     return batches, prompt
 
 
@@ -126,12 +142,14 @@ def _whole(model, prompt):
 
 def _specs():
     port, jx = {}, {}
-    for _, key, (_, mesh, model) in CASE_KEYS:
-        batches, prompt = _draws(key, _cfg(model))
+    for _, key, case in CASE_KEYS:
+        _, mesh, model = case[:3]
+        b = _batch(case)
+        batches, prompt = _draws(key, _cfg(model), b)
         whole, cache_shapes = _whole(model, prompt)
         common = {"name": MODELS[model][0], "over": _over(model),
                   "mesh": mesh, "batches": batches, "prompt": prompt,
-                  "steps": DECODE, "optimizer": ADAMW, "train": True}
+                  "steps": DECODE, "optimizer": ADAMW, "train": b == B}
         port[key] = dict(common, seed=SEED, single=False,
                          cache_shapes=cache_shapes)
         jx[key] = dict(common, leaves=whole)
@@ -155,6 +173,7 @@ def _outs(runs, world, key):
 
 
 MODEL_CASES = [(w, k) for w, k, _ in CASE_KEYS]
+TRAIN_CASES = [(w, k) for w, k, c in CASE_KEYS if _batch(c) == B]
 
 
 @pytest.mark.parametrize("world,key", MODEL_CASES)
@@ -175,7 +194,7 @@ def test_serving_under_mesh_matches_jax(runs, world, key):
                     for o in outs], key, "cache", [np.asarray(a) for a in wc])
 
 
-@pytest.mark.parametrize("world,key", MODEL_CASES)
+@pytest.mark.parametrize("world,key", TRAIN_CASES)
 def test_train_under_mesh_matches_jax(runs, world, key):
     """The train steps under the mesh: the loss and grad norm the same
     bits on every rank and JAX's within 1e-5; every parameter and
@@ -203,11 +222,16 @@ def test_each_rank_holds_its_param_spec_part(runs, world, key):
     whole and, after training, the same bits on every rank; and a step
     from ``init_cache(..., ctx=)`` gives this rank's logits."""
     outs = _outs(runs, world, key)
-    _, mesh, model = dict((k, c) for _, k, c in CASE_KEYS)[key]
+    case = dict((k, c) for _, k, c in CASE_KEYS)[key]
+    _, mesh, model = case[:3]
+    b = _batch(case)
+    rows = b // mesh[0] if b % mesh[0] == 0 else b
     for r, o in enumerate(outs):
         assert all(o["spec_ok"]), (key, r, o["spec_ok"].index(False))
-        assert o["init_cache_logits"] == (B // mesh[0],
+        assert o["init_cache_logits"] == (rows,
                                           _cfg(model).vocab_size), (key, r)
+    if b != B:         # serving only: no train step to read
+        return
     for name in SLICED.get(model, ()):
         idx = [i for i, p in enumerate(outs[0]["params_paths"])
                if p[-1] == name]
