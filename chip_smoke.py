@@ -272,11 +272,9 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
-# f32 outside the tensor cores, and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
+# Every bound's peaks: launch/roofline.py's profile of one H100 SXM
+# (NVIDIA's data sheet, dense, 700 W), through compute_s and memory_s.
+HW_PROFILE = "h100"
 
 # The paper's Table 1 at its largest setting
 # (benchmarks/bench_table1_gaussian.py): d, k, m0, k' = sqrt(k).
@@ -292,6 +290,11 @@ R_K, R_KP, R_D, R_M0, R_NPER, R_SEP = 16, 4, 128, 4, 25, 60.0
 R_PLAN = dict(capacity=256, batch_size=64, bucket_sizes=(64,),
               heads="qwen1.5-0.5b", head_arch="transformer")
 R_WAVES, R_N_RANGE = 5, (20, 60)
+# The route allk line: the seed of its inputs and heads, and the timed
+# calls of each step.
+RA_SEED, RA_REPS = 0, 7
+# The perf_probe line: the ops it lists.
+PP_TOP = 8
 
 # The checkpoint legs: the serve path cut after RESTORE_HALF requests,
 # the routed leg after its first wave.
@@ -715,10 +718,94 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
+def compute_s(bf16: float = 0.0, f32: float = 0.0) -> float:
+    """The least seconds the card takes for ``bf16`` flops on the tensor
+    cores and ``f32`` flops outside them (``HW_PROFILE``'s peaks)."""
+    from repro_torch.launch.flops import effective_flops
+    from repro_torch.launch.roofline import roofline_terms
+    fl = effective_flops({"bf16": bf16, "f32": f32}, HW_PROFILE)
+    return roofline_terms(fl, 0.0, 0.0, HW_PROFILE)["compute_s"]
+
+
+def memory_s(nbytes: float) -> float:
+    """The least seconds the card takes to move ``nbytes`` through HBM
+    (``HW_PROFILE``'s bandwidth)."""
+    from repro_torch.launch.roofline import roofline_terms
+    return roofline_terms(0.0, nbytes, 0.0, HW_PROFILE)["memory_s"]
+
+
+def meta_count(cfg, shapes, train: bool):
+    """``launch.flops.flops_by_dtype`` of a step on the meta device
+    (shapes only, nothing runs): the prefill of a batch of ``shapes``
+    ({name: (shape, dtype)}), or with ``train`` one train step on it.
+    Returns (the count, seconds). Runs in MetaCounts' worker process."""
+    sys.path.insert(0, str(HERE / "src"))
+    torch.set_num_threads(1)
+    from repro_torch.launch.flops import flops_by_dtype
+    from repro_torch.launch.train import init_state, make_train_step
+    from repro_torch.models.common import ShapeOnly
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    meta = {k: torch.empty(shape, dtype=dtype, device="meta")
+            for k, (shape, dtype) in shapes.items()}
+    if train:
+        opt = build_optimizer(cfg.optimizer, 1e-4)
+        fl = flops_by_dtype(make_train_step(model, None, opt),
+                            init_state(model, ShapeOnly(), opt), meta)
+    else:
+        with torch.no_grad():
+            fl = flops_by_dtype(model.prefill, model.init(ShapeOnly()), meta)
+    return fl, time.perf_counter() - t0
+
+
+class MetaCounts:
+    """The legs' steps counted on the meta device (:func:`meta_count`)
+    in one CPU worker process while the card runs the later legs (the
+    counts take about a minute of one core at the legs' depths), each
+    printed by :meth:`report` beside the leg's hand count of the same
+    step and their difference."""
+
+    def __init__(self):
+        self.pool = None
+        self.jobs = []
+
+    def submit(self, label: str, cfg, batch, bf16: float, f32: float, *,
+               train: bool = False) -> None:
+        if self.pool is None:
+            import concurrent.futures
+            import multiprocessing
+            self.pool = concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn"))
+        shapes = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+        self.jobs.append((label, bf16, f32, self.pool.submit(
+            meta_count, cfg, shapes, train)))
+
+    def report(self) -> None:
+        for label, bf16, f32, job in self.jobs:
+            fl, secs = job.result()
+            print(f"{label} flops: hand count {bf16:.3e} bf16 + {f32:.3e} "
+                  f"f32 | flops_by_dtype on meta {fl['bf16']:.3e} bf16 + "
+                  f"{fl['f32']:.3e} f32 | difference (meta - hand) "
+                  f"{fl['bf16'] - bf16:+.3e} bf16, {fl['f32'] - f32:+.3e} "
+                  f"f32 | counted in {secs:.1f} s of the worker",
+                  flush=True)
+        self.jobs = []
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+            self.pool = None
+
+
+META = MetaCounts()
+
+
 def bound(nbytes: float, flops: float):
     """The least time the card could take (ms) and what sets it."""
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = memory_s(nbytes) * 1e3
+    t_ops = compute_s(f32=flops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2039,7 +2126,107 @@ def route_path(device):
     prof = warm_session(plan)
     profile("route", lambda: [prof.serve_predict(*w) for w in waves],
             route_s)
+    route_allk(device)
     return counts, tally
+
+
+def route_allk(device) -> None:
+    """benchmarks/bench_route_serve.py's step comparison at its
+    configuration (k=16, k'=4, d=128, B=64, n=64, qwen1.5-0.5b
+    transformer heads; requests spread over the tau rows): the routed
+    step and plane._make_allk_step (every cluster's head over the whole
+    batch, then the vote's) on the same inputs. Votes and labels must
+    be equal, and the predictions of the routed step's kept requests
+    within rtol / atol 1e-6 (tests/test_route_serve.py holds the JAX
+    pair so). Prints each step's median device ms (the profiler's
+    kernel time, RA_REPS calls) and wall ms, the ratio, and each step's
+    launches. The reference's bench asserts a ratio of 5 on its own
+    chip; the card's is printed, not asserted."""
+    from repro_torch.fed.plane import (_make_allk_step, _make_routed_step,
+                                       route_capacity)
+    from repro_torch.fed.stream import StreamConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.heads import init_heads
+    from repro_torch.utils.prng import GumbelSource
+    k, kp, d, B, n = 16, 4, 128, 64, 64
+    cfg = StreamConfig(k=k, k_prime=kp, d=d, capacity=64, batch_size=B,
+                       bucket_sizes=(n,), heads="qwen1.5-0.5b",
+                       head_arch="transformer")
+    gen = torch.Generator(device=device).manual_seed(RA_SEED)
+    tau = torch.randn((k, d), generator=gen, device=device) * 8.0
+    owner = torch.arange(B, device=device) % k
+    data = (torch.randn((B, n, d), generator=gen, device=device)
+            + tau[owner][:, None, :])
+    pmask = torch.ones((B, n), dtype=torch.bool, device=device)
+    kv = torch.full((B,), k, dtype=torch.int32, device=device)
+    heads = init_heads(torch.Generator().manual_seed(RA_SEED), k,
+                       cfg.head_spec(), device=device)
+    gumbel = GumbelSource(RA_SEED).draw(range(B), kp, n, device)
+    args = (tau, heads, gumbel, data, pmask, kv)
+    steps = {"routed": _make_routed_step(cfg), "allk": _make_allk_step(cfg)}
+    outs, launches, dev, wall = {}, {}, {}, {}
+    for name, fn in steps.items():
+        fn(*args)
+        sync()
+        ops.reset_launch_counts()
+        outs[name] = fn(*args)
+        sync()
+        launches[name] = {kname: c for kname, c in
+                          ops.launch_counts().items() if c}
+        walls = []
+        for _ in range(RA_REPS):
+            t0 = time.perf_counter()
+            fn(*args)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall[name] = float(np.median(walls))
+        dev[name] = float(np.median([device_ms(lambda: fn(*args))
+                                     for _ in range(3)]))
+    r, a = outs["routed"], outs["allk"]
+    require(torch.equal(r[5], a[5]), "route allk: the votes differ")
+    for i in range(4):
+        require(torch.equal(r[i], a[i]),
+                f"route allk: output {i} of the label body differs")
+    kept = r[6]
+    require(bool(kept.any()) and bool(a[6].all()),
+            "route allk: no kept request, or the baseline dropped one")
+    err = float((a[4][kept] - r[4][kept]).abs().max())
+    scale = float(r[4][kept].abs().max())
+    require(torch.allclose(a[4][kept], r[4][kept], rtol=1e-6, atol=1e-6),
+            f"route allk: kept predictions differ by {err} (largest "
+            f"{scale})")
+    C = route_capacity(B, k, cfg.head_capacity)
+    print(f"route allk: bench_route_serve.py's steps (k={k}, k'={kp}, "
+          f"d={d}, B={B}, n={n}, qwen1.5-0.5b transformer heads; routed "
+          f"queues of C={C}, {k * C} slots against allk's {k * B} head "
+          f"forwards) on the same inputs: votes and labels equal, "
+          f"{int(kept.sum())} of {B} kept, their predictions within rtol / "
+          f"atol 1e-6 (max error {err:.3e}, largest {scale:.3e}) | routed "
+          f"{dev['routed']:.4f} ms device, {wall['routed']:.3f} ms wall | "
+          f"allk {dev['allk']:.4f} ms device, {wall['allk']:.3f} ms wall | "
+          f"allk / routed {dev['allk'] / dev['routed']:.2f}x device, "
+          f"{wall['allk'] / wall['routed']:.2f}x wall (medians of "
+          f"{RA_REPS} wall and 3 device calls) | launches routed "
+          f"{json.dumps(launches['routed'])}, allk "
+          f"{json.dumps(launches['allk'])}", flush=True)
+
+
+def probe_leg(smi: str) -> None:
+    """launch/perf_probe.py on Mixtral-8x7B's decode_32k step at 2 of 32
+    layers (full width, the shape's 128 sequences over a 32768-token
+    context, the ring of W=4096): one line of the top PP_TOP ops by
+    device time and the collective schedule (one rank, no mesh)."""
+    from repro_torch.launch.perf_probe import probe
+    res = probe("mixtral-8x7b", "decode_32k", layers=2, n=PP_TOP,
+                device="cuda", verbose=False)
+    require(res["op_ms"] > 0,
+            "perf_probe: the profiler recorded no device time")
+    print(f"perf_probe: {res['config']} on {res['device']} ({smi}): one "
+          f"step {res['wall_ms']:.3f} ms wall, {res['op_ms']:.4f} ms of "
+          f"device time | top ops: " + "; ".join(
+              f"{name[:70]} x{c} {ms:.4f} ms ({100 * share:.1f}%)"
+              for name, c, ms, share in res["top"])
+          + " | collectives: none (one rank, no mesh)", flush=True)
 
 
 def restore_path(fm, device, tmp: Path):
@@ -2823,7 +3010,7 @@ def decode_leg(device):
                    for seg in cache["segments"] for n in ("k", "v"))
     step_bytes = (pbytes - emb.numel() * emb.element_size()
                   + B * cfg.d_model * emb.element_size() + kv_bytes)
-    step_bound_ms = step_bytes / PEAK_HBM_BYTES * 1e3
+    step_bound_ms = memory_s(step_bytes) * 1e3
     T, d, H, KVH, hd = B * MX_PROMPT, cfg.d_model, cfg.n_heads, \
         cfg.n_kv_heads, cfg.hd
     m = cfg.moe
@@ -2833,7 +3020,8 @@ def decode_leg(device):
                               + 2 * T * m.top_k * 3 * d * m.d_expert) \
         + 2 * B * d * V
     f32_flops = MX_LAYERS * 4 * B * H * hd * pairs
-    prefill_bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    prefill_bound_s = compute_s(bf16_flops, f32_flops)
+    META.submit("decode prefill", cfg, batch, bf16_flops, f32_flops)
     prefill_s, decode_s = stats["prefill_s"], stats["decode_s"]
     step_ms = decode_s / MX_STEPS * 1e3
     print(f"decode: Mixtral-8x7B (d={d}, {H} heads / {KVH} kv heads of {hd}, "
@@ -6436,7 +6624,9 @@ def train_full_leg(device):
     layer_f32 = 4 * (Tm // TF_SEQ) * H * hd * pairs
     bf16_flops = mb * (4 * L * layer_bf16 + 3 * 2 * Tm * d * V)
     f32_flops = mb * 4 * L * layer_f32
-    bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    bound_s = compute_s(bf16_flops, f32_flops)
+    META.submit("train full", cfg, batches[0], bf16_flops, f32_flops,
+               train=True)
     per_step = {k: counts[k] // TF_STEPS for k in want}
     print(f"train full: Mixtral-8x7B (d={d}, {H} heads / {KVH} kv heads of "
           f"{hd}, {m.n_experts} experts top-{m.top_k} of {m.d_expert}, "
@@ -6844,14 +7034,15 @@ def deepseek_serve_leg(device):
                       for seg in cache["segments"] for n in seg)
     step_bytes = (pbytes - mtp_bytes - emb.numel() * emb.element_size()
                   + B * cfg.d_model * emb.element_size() + cache_bytes)
-    step_bound_ms = step_bytes / PEAK_HBM_BYTES * 1e3
+    step_bound_ms = memory_s(step_bytes) * 1e3
     T = B * S
     bf16_flops = (DS_LAYERS * mla_layer_flops(cfg, T)
                   + DS_DENSE * ffn_flops(cfg, T, False)
                   + n_moe * ffn_flops(cfg, T, True, T * cfg.moe.top_k)
                   + 2 * B * cfg.d_model * V)
     f32_flops = DS_LAYERS * attention_f32_flops(cfg, B, S)
-    prefill_bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    prefill_bound_s = compute_s(bf16_flops, f32_flops)
+    META.submit("deepseek serve prefill", cfg, batch, bf16_flops, f32_flops)
     prefill_s, decode_s = stats["prefill_s"], stats["decode_s"]
     step_ms = decode_s / DS_STEPS * 1e3
     tally = "; ".join(
@@ -6962,7 +7153,9 @@ def deepseek_train_leg(device):
     bf16_flops = 4 * layers + 3 * (2 * 2 * T * d * V + 2 * T * 2 * d * d)
     f32_flops = 4 * (DST_LAYERS + 1) * attention_f32_flops(cfg, DST_BATCH,
                                                             DST_SEQ)
-    bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    bound_s = compute_s(bf16_flops, f32_flops)
+    META.submit("deepseek train full", cfg, batches[0], bf16_flops,
+               f32_flops, train=True)
     per_step = {k: counts[k] // DST_STEPS for k in want}
 
     def series(key):
@@ -7277,12 +7470,14 @@ def state_serve_leg(device, name):
     bf16_flops = 2 * n_mm * T + 2 * d * V * B
     loop_flops, attn_flops = recurrence_f32_flops(cfg, B, S)
     f32_flops = loop_flops + attn_flops
-    prefill_bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    prefill_bound_s = compute_s(bf16_flops, f32_flops)
+    META.submit(f"{STATE_LEGS[name]} serve prefill", cfg, batch, bf16_flops,
+               f32_flops)
     seg_bytes = tree_bytes(cache["segments"])
     kv_bytes = tree_bytes(cache.get("shared", []))
     step_bytes = (pbytes - emb.numel() * emb.element_size()
                   + B * d * emb.element_size() + 2 * seg_bytes + kv_bytes)
-    step_bound_ms = step_bytes / PEAK_HBM_BYTES * 1e3
+    step_bound_ms = memory_s(step_bytes) * 1e3
     prefill_s, decode_s = stats["prefill_s"], stats["decode_s"]
     step_ms = decode_s / SM_STEPS * 1e3
     groups = (f"{len(model.segments)} groups of "
@@ -7300,10 +7495,10 @@ def state_serve_leg(device, name):
           + f") | prefill {prefill_s:.3f} s, {T / prefill_s:.1f} tokens/s "
           f"(bound {prefill_bound_s:.4f} s: {bf16_flops:.3e} bf16 + "
           f"{f32_flops:.3e} f32 flops, of which the chunk loop "
-          f"{loop_flops:.3e}, bound {loop_flops / PEAK_F32_FLOPS * 1e3:.2f}"
+          f"{loop_flops:.3e}, bound {compute_s(f32=loop_flops) * 1e3:.2f}"
           f" ms"
           + (f", and the shared attention {attn_flops:.3e}, bound "
-             f"{attn_flops / PEAK_F32_FLOPS * 1e3:.2f} ms" if attn_flops
+             f"{compute_s(f32=attn_flops) * 1e3:.2f} ms" if attn_flops
              else "")
           + f") | decode {decode_s:.3f} s, "
           f"{B * SM_STEPS / decode_s:.1f} tokens/s, {step_ms:.3f} ms a step "
@@ -7394,7 +7589,9 @@ def state_train_leg(device, name, layers: int):
     bf16_flops = 6 * n_mm * T
     f32_flops = 3 * cfg.microbatch * sum(recurrence_f32_flops(
         cfg, SMT_BATCH // cfg.microbatch, SMT_SEQ))
-    bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    bound_s = compute_s(bf16_flops, f32_flops)
+    META.submit(f"{STATE_LEGS[name]} train full", cfg, batches[0], bf16_flops,
+               f32_flops, train=True)
 
     def series(key):
         return ", ".join(f"{mt[key]:.4f}" for mt in mets)
@@ -7606,7 +7803,8 @@ def family_serve_leg(device, label, params=None):
     # of its rows otherwise), the caches read (Whisper's encoder keys and
     # values too).
     bf16_flops, f32_flops = family_flops(cfg, B, S, cfg.n_layers, True)
-    prefill_bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    prefill_bound_s = compute_s(bf16_flops, f32_flops)
+    META.submit(f"{label} serve prefill", cfg, batch, bf16_flops, f32_flops)
     emb = params["embed"]
     enc_bytes = (tree_bytes(params["enc_segments"])
                  + tree_bytes(params["enc_norm"])
@@ -7617,7 +7815,7 @@ def family_serve_leg(device, label, params=None):
                   - (0 if cfg.tie_embeddings
                      else emb.numel() * emb.element_size())
                   + B * d * emb.element_size() + cache_bytes)
-    step_bound_ms = step_bytes / PEAK_HBM_BYTES * 1e3
+    step_bound_ms = memory_s(step_bytes) * 1e3
     prefill_s, decode_s = stats["prefill_s"], stats["decode_s"]
     step_ms = decode_s / FS_STEPS * 1e3
     what = (f"{cfg.encoder.n_layers} encoder and {cfg.n_layers} decoder "
@@ -7636,8 +7834,8 @@ def family_serve_leg(device, label, params=None):
           f"({cache_bytes / 1e9:.3f} GB) | prefill {prefill_s:.3f} s, "
           f"{B * S / prefill_s:.1f} tokens/s (bound {prefill_bound_s:.4f} s: "
           f"{bf16_flops:.3e} bf16 flops, bound "
-          f"{bf16_flops / PEAK_BF16_FLOPS:.4f} s, + {f32_flops:.3e} f32 "
-          f"attention flops, bound {f32_flops / PEAK_F32_FLOPS:.4f} s) | "
+          f"{compute_s(bf16_flops):.4f} s, + {f32_flops:.3e} f32 "
+          f"attention flops, bound {compute_s(f32=f32_flops):.4f} s) | "
           f"decode {decode_s:.3f} s, {B * FS_STEPS / decode_s:.1f} tokens/s, "
           f"{step_ms:.3f} ms a step (bound {step_bound_ms:.3f} ms, bytes: "
           f"{step_bytes / 1e9:.3f} GB a step) | peak memory {peak_gb:.2f} GB "
@@ -7726,7 +7924,9 @@ def family_train_leg(device, label, layers: int):
     # token unembedded, and of the attention's f32 products.
     bf16_flops, f32_flops = (3 * f for f in family_flops(cfg, B, S, layers,
                                                          False))
-    bound_s = bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    bound_s = compute_s(bf16_flops, f32_flops)
+    META.submit(f"{label} train full", cfg, batches[0], bf16_flops, f32_flops,
+               train=True)
 
     def series(key):
         return ", ".join(f"{mt[key]:.4f}" for mt in mets)
@@ -8739,6 +8939,7 @@ def main() -> int:
     decode_counts, tallies["decode"], run = decode_leg(torch.device("cuda"))
     ep_counts = ep_legs(torch.device("cuda"), run, smi)
     del run
+    probe_leg(smi)
     combine_shapes(tallies)
     for name in ("pdist_argmin", "kmeans_update", "solve_attach"):
         require(run_counts[name] + serve_counts[name] > 0,
@@ -8810,6 +9011,8 @@ def main() -> int:
             "swa_decode_partial or swa_combine was not launched on the cp2 "
             "leg")
     new_counts += (cp2_counts,)
+
+    META.report()
 
     replaces = {
         "pdist_argmin": "src/repro/kernels/pdist_argmin.py:101",
@@ -8896,4 +9099,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        META.close()
+    sys.exit(rc)

@@ -1,5 +1,5 @@
-"""Model configuration dataclasses and the architecture registry
-(counterpart of ``repro/configs/base.py``, without its input shapes).
+"""Model configuration dataclasses, the four input shapes and the
+architecture registry (counterpart of ``repro/configs/base.py``).
 
 Every architecture has one module in this package defining its exact
 full-size config (cited) plus a REDUCED variant (<= 2 layers,
@@ -106,6 +106,21 @@ class ModelConfig:
 
     def with_sliding_window(self, window: int = 4096) -> "ModelConfig":
         return self.replace(sliding_window=window)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                     # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524288, 1, "decode")
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 _REGISTRY: dict = {}

@@ -202,6 +202,37 @@ def _make_routed_step(cfg):
     return routed
 
 
+def _make_allk_step(cfg):
+    """The IFCA-shaped baseline the routed step is benchmarked against:
+    the label body of :func:`_make_step`, then every cluster's head over
+    the whole batch (k forwards a request, ``(k, B, n_pad, d)``) and the
+    vote's head selected afterwards. Same labels, and on the routed
+    step's kept requests the same predictions, for k / ``head_capacity``
+    times the head flops; every request is kept. The batch enters the
+    heads as a broadcast view of k copies: the first per-cluster product
+    makes the k-fold activations. Benchmark-only: no part of the plane
+    or of `Session` calls it."""
+    spec = cfg.head_spec()
+    base = _make_step(cfg)
+    k = cfg.k
+
+    def allk(tau, head_params, gumbel, data, point_mask, k_valid):
+        labels, centers, cmask, weights = base(tau, gumbel, data,
+                                               point_mask, k_valid)
+        B = data.shape[0]
+        cluster = majority_vote(
+            torch.where(point_mask, labels, torch.full_like(labels, -1)), k)
+        qdata = data.unsqueeze(0).expand((k,) + tuple(data.shape))
+        qmask = point_mask.unsqueeze(0).expand((k,) + tuple(point_mask.shape))
+        yb = apply_heads(head_params, qdata, qmask, spec,
+                         serve_dtype=cfg.serve_dtype)
+        preds = yb[cluster.long(), torch.arange(B, device=data.device)]
+        kept = torch.ones((B,), dtype=torch.bool, device=data.device)
+        return labels, centers, cmask, weights, preds, cluster, kept
+
+    return allk
+
+
 def _make_encode_step(cfg):
     """The encoder (raw (B, n, S, d) token sequences and (B, n, S) token
     masks -> (B, n, d) f32 embeddings at the plan's ``encode_dtype``) in

@@ -2,14 +2,15 @@
 ``repro/kernels/ops.py``).
 
 The device of the data decides, and nothing else: a CPU tensor goes to
-the plain version in ``kernels/ref.py``; a CUDA tensor goes to the
-hand-written kernel, which launches or raises. There is no fallback
-from one to the other and no switch that routes CUDA tensors to the
-plain version. Operands are made contiguous here, because the kernel
-wrappers refuse strided tensors. The MoE layer's dispatch and combine
-carry their gradients (``_Dispatch``, ``_Combine``), whose backward
-follows the same rule: the plain formulas on the CPU, kernels on the
-card.
+the plain version in ``kernels/ref.py``; so does a ``meta`` tensor (a
+dry run's: the plain version then computes shapes only, and nothing
+runs); a CUDA tensor goes to the hand-written kernel, which launches or
+raises. There is no fallback from one to the other and no switch that
+routes CUDA tensors to the plain version. Operands are made contiguous
+here, because the kernel wrappers refuse strided tensors. The MoE
+layer's dispatch and combine carry their gradients (``_Dispatch``,
+``_Combine``), whose backward follows the same rule: the plain formulas
+on the CPU (and on meta), kernels on the card.
 """
 from __future__ import annotations
 
@@ -31,6 +32,9 @@ from repro_torch.kernels import swa_decode as _sw
 # the kernel instead of one monolithic call (repro/kernels/ops.py).
 CHUNK_ROWS = 1 << 18
 
+# Devices whose tensors take the plain version.
+_PLAIN = ("cpu", "meta")
+
 _WRAPPERS = (_pa, _ku, _sa, _md, _mc, _sw, _mcb, _mdb, _sw.PARTIAL,
              _sw.COMBINE)
 
@@ -51,7 +55,7 @@ def pairwise_sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def _assign_argmin_one(x, c, c_mask):
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN:
         return _ref.assign_argmin(x, c, c_mask)
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.float()
@@ -77,7 +81,7 @@ def kmeans_update(x: torch.Tensor, assign: torch.Tensor, k: int,
                   weights: Optional[torch.Tensor] = None):
     """Per-cluster sums and counts: (sums (..., k, d) f32,
     counts (..., k) f32)."""
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN:
         return _ref.kmeans_update(x, assign, k, weights)
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.float()
@@ -93,7 +97,7 @@ def solve_attach(x: torch.Tensor, centers0: torch.Tensor, tau: torch.Tensor,
     """The fused serve step (bounded Lloyd, Theorem 3.2 attach,
     Definition 3.3 labels) for a (B, n, d) request batch. ``dtype``:
     "f32" or "bf16" storage, f32 accumulation either way."""
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN:
         return _ref.solve_attach(x, centers0, tau, center_mask, point_mask,
                                  max_iters=max_iters, dtype=dtype)
     store = _ref.store_dtype(dtype)
@@ -110,14 +114,14 @@ def solve_attach(x: torch.Tensor, centers0: torch.Tensor, tau: torch.Tensor,
 
 
 def _dispatch(x, src, valid):
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN:
         return _ref.moe_dispatch(x, src, valid)
     return _md.moe_dispatch(x.contiguous(), src.contiguous(),
                             valid.contiguous())
 
 
 def _combine(ybuf, slot, gates, top_k):
-    if ybuf.device.type == "cpu":
+    if ybuf.device.type in _PLAIN:
         return _ref.moe_combine(ybuf, slot, gates, top_k)
     return _mc.moe_combine(ybuf.contiguous(), slot.contiguous(),
                            gates.contiguous(), top_k)
@@ -128,7 +132,7 @@ def _dispatch_bwd(dbuf, slot, keep, T: int, top_k: int, dtype):
     f32 in j order and rounded once to x's dtype (on the card the
     moe_dispatch_bwd kernel, one launch; dbuf, the gradient of the
     dispatch's output, is in x's dtype)."""
-    if dbuf.device.type == "cpu":
+    if dbuf.device.type in _PLAIN:
         return _ref.moe_dispatch_bwd(dbuf, slot, keep, T, top_k, dtype)
     if dbuf.dtype != dtype:
         raise ValueError(f"moe_dispatch_bwd: dbuf is {dbuf.dtype}, x is "
@@ -138,7 +142,7 @@ def _dispatch_bwd(dbuf, slot, keep, T: int, top_k: int, dtype):
 
 
 def _combine_bwd(dout, ybuf, src_entry, valid, w, top_k: int):
-    if ybuf.device.type == "cpu":
+    if ybuf.device.type in _PLAIN:
         return _ref.moe_combine_bwd(dout, ybuf, src_entry, valid, w, top_k)
     return _mcb.moe_combine_bwd(dout.float().contiguous(), ybuf.contiguous(),
                                 src_entry.contiguous(), valid.contiguous(),
@@ -218,7 +222,7 @@ def swa_decode_attention(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     decode of a sliding-window model): (b, h, dh) in q's dtype. bias
     (b, W) is added to the scaled scores: 0 where a slot holds a key,
     -1e30 where it does not."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN:
         return _ref.swa_decode_attention(q, kw, vw, bias, scale)
     return _sw.swa_decode_attention(q.contiguous(), kw.contiguous(),
                                     vw.contiguous(),
@@ -233,7 +237,7 @@ def swa_decode_partial(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     dh + 2) f32, each chunk's m, l and acc. One chunk on the CPU; on the
     card the split kernel's chunks, at most 32 over the ``ranks`` whose
     states one :func:`swa_combine` merges."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN:
         return _ref.swa_decode_partial(q, kw, vw, bias, scale)
     return _sw.swa_decode_partial(q.contiguous(), kw.contiguous(),
                                   vw.contiguous(), bias.float().contiguous(),
@@ -243,6 +247,6 @@ def swa_decode_partial(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
 def swa_combine(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Chunk states (rows, S, D + 2) f32 merged in order over S
     (``ref.merge_states``): (rows, D) in ``dtype``."""
-    if part.device.type == "cpu":
+    if part.device.type in _PLAIN:
         return _ref.merge_states(part).to(dtype)
     return _sw.swa_combine(part.contiguous(), dtype)

@@ -214,9 +214,13 @@ def moe_combine_bwd(dout: torch.Tensor, ybuf: torch.Tensor,
     dybuf = torch.where(valid[:, None], rows * we[:, None],
                         torch.zeros_like(rows)).to(ybuf.dtype)
     dots = torch.sum(rows * ybuf.to(acc), dim=-1)
-    dgates = torch.zeros((T * top_k,), dtype=acc, device=ybuf.device)
-    dgates[e[valid]] = dots[valid]
-    return dybuf, dgates
+    # Each valid slot writes its owner's entry (unique); the others write
+    # a sentinel entry past the end, sliced off: no data-dependent shape,
+    # so a dry run on the meta device passes through.
+    n = T * top_k
+    dgates = torch.zeros((n + 1,), dtype=acc, device=ybuf.device)
+    dgates[torch.where(valid, e, n)] = dots
+    return dybuf, dgates[:n]
 
 
 def swa_decode_attention(q: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,

@@ -987,6 +987,74 @@ def test_gpu_routed_step_matches_cpu(cuda_device, heads, arch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads,arch", [("qwen1.5-0.5b", "transformer"),
+                                        ("linear", "ffn")])
+def test_gpu_allk_step_matches_routed_on_kept(cuda_device, heads, arch):
+    """The routed bench's baseline (every cluster's head over the whole
+    batch) on the card against the routed step on the same inputs: the
+    label body and the votes equal, every request kept, and the routed
+    step's kept requests' predictions within rtol / atol 1e-6; the
+    baseline launches no routing kernel."""
+    from repro_torch.fed.plane import _make_allk_step, _make_routed_step
+    from repro_torch.fed.stream import StreamConfig
+    from repro_torch.models.heads import init_heads
+    from repro_torch.utils.prng import GumbelSource
+    k, d, B, n = 8, 32, 16, 48
+    cfg = StreamConfig(k=k, k_prime=2, d=d, capacity=64, batch_size=B,
+                       bucket_sizes=(n,), heads=heads, head_arch=arch)
+    rng = np.random.default_rng(1)
+    tau = (rng.normal(size=(k, d)) * 20).astype(np.float32)
+    owner = np.where(np.arange(B) < B // 2, np.arange(B) % k, 0)
+    data = (rng.normal(size=(B, n, d)) + tau[owner][:, None]).astype(
+        np.float32)
+    pmask = np.ones((B, n), bool)
+    pmask[3, n // 2:] = False
+    kv = np.full((B,), 2, np.int32)
+    params = init_heads(torch.Generator().manual_seed(1), k,
+                        cfg.head_spec(), device=cuda_device)
+    g = GumbelSource(3).draw(range(B), 2, n, cuda_device)
+    args = [torch.as_tensor(a).to(cuda_device)
+            for a in (tau, data, pmask, kv)]
+    args = (args[0], params, g, *args[1:])
+    routed = _make_routed_step(cfg)(*args)
+    ops.reset_launch_counts()
+    allk = _make_allk_step(cfg)(*args)
+    counts = ops.launch_counts()
+    assert counts["moe_dispatch"] == counts["moe_combine"] == 0
+    assert counts["solve_attach"] == 1
+    for i in range(4):
+        assert torch.equal(allk[i], routed[i]), i
+    assert torch.equal(allk[5], routed[5]) and bool(allk[6].all())
+    kept = routed[6]
+    assert bool(kept.any()) and not bool(kept.all())
+    torch.testing.assert_close(allk[4][kept], routed[4][kept], rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b"])
+def test_gpu_flops_by_dtype_equals_meta(cuda_device, arch, mode):
+    """launch.flops counts a step run on the card (its kernels, the
+    backward's on autograd's device thread included) as the same step on
+    the meta device: the same matmul flops by dtype."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.launch.flops import Counter
+    cfg = get_config(arch, reduced=True).replace(remat=True, microbatch=2)
+    shape = InputShape(mode, 32, 4, mode)
+    counts = []
+    for gen in (torch.Generator(device=cuda_device).manual_seed(0), None):
+        step, args, _ = build_step(cfg, shape, None, gen)
+        with Counter() as c:
+            step(*args)
+        counts.append(c)
+    card, meta = counts
+    assert card.flops == meta.flops and card.flops["bf16"] > 0
+    assert card.calls == meta.calls
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("W", [64, 200, 4096])
 @pytest.mark.parametrize("g", [1, 4, 8])
 @pytest.mark.parametrize("dh", [64, 128])
